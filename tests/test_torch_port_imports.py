@@ -1,0 +1,44 @@
+"""Import hygiene of the port: no module under `damc_tpu_torch/` imports JAX,
+Flax, Optax or the JAX package. Parsed with `ast`, not read from
+`sys.modules`, because the interpreter may import JAX at start-up."""
+
+from __future__ import annotations
+
+import ast
+from pathlib import Path
+
+import pytest
+
+PORT = Path(__file__).resolve().parents[1] / "damc_tpu_torch"
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "damc_tpu")
+
+
+def _imports(tree):
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module
+
+
+FILES = sorted(PORT.rglob("*.py"))
+
+
+def test_port_has_modules():
+    assert len(FILES) >= 15
+
+
+@pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(PORT)))
+def test_no_jax_import(path):
+    bad = [
+        name for name in _imports(ast.parse(path.read_text(), str(path)))
+        if name.split(".")[0] in FORBIDDEN
+    ]
+    assert not bad, f"{path} imports {bad}"
+
+
+def test_chip_smoke_imports_no_jax():
+    path = PORT.parent / "chip_smoke.py"
+    bad = [n for n in _imports(ast.parse(path.read_text())) if n.split(".")[0] in FORBIDDEN]
+    assert not bad
