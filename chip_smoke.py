@@ -5,24 +5,36 @@
 
 Phases, each of which raises on failure (the script then exits non-zero):
   1. prints the card's name and power limit (nvidia-smi); needs CUDA;
-  2. builds every CUDA kernel of the serving path from `damc_tpu_torch/csrc`;
+  2. builds every CUDA kernel from `damc_tpu_torch/csrc`, one nvcc each, all
+     at once;
   3. holds each kernel against its plain PyTorch version on the card, at the
-     serving shape B=16 and the FID shape B=500 (ragged row tiles), and
-     times both;
+     serving shape B=16 and the FID shape B=500 (ragged row tiles) in
+     counter and noiseless mode, and in stream mode at the training shapes
+     (K1 over 2B=256 chains, K2 over B=128 rows), and times both;
   4. serves the full-width `cifar10` preset (random weights from a seed) over
      HTTP: /sample damc and ebm and /reconstruct, some requests concurrent;
      checks shapes, range, that an item served alone equals the same item
      served coalesced, that the EBM path agrees with the CPU plain versions,
      and that each path launched its kernels;
-  5. profiles one B=16 dispatch of each path (device busy and idle time,
-     top kernels);
-  6. prints one JSON line {"kernels": [...]} with launches, errors and times;
-  7. prints {"ok": true, "device": {...}} as the last line.
+  5. profiles one B=16 dispatch of each serving path (device busy and idle
+     time, top kernels);
+  6. trains the full-width `cifar10` preset at B=128 for 10 iterations
+     through `train_gen_recon` on images made from a seed; checks finite
+     metrics, that every network changed, that Q_ema changed only at the
+     10th iteration and that K1 and K2 launched once an iteration; then two
+     fresh 2-iteration runs must be bit-identical, and one B=8 iteration on
+     the card must agree with the CPU plain path on the same draws;
+  7. profiles one training iteration (device busy and idle time, the seven
+     phases, top kernels);
+  8. prints one JSON line {"kernels": [...]} with launches, errors and times
+     of each kernel on each path;
+  9. prints {"ok": true, "device": {...}} as the last line.
 """
 
 from __future__ import annotations
 
 import base64
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -183,6 +195,121 @@ def kernel_phase(models, cfg):
             r = res[name][b]
             print(f"  {name} B={b}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
                   f"{r['flops']:.4g} FLOP, {r['bytes']:.4g} B")
+    return res
+
+
+def _int32(u):
+    """uint32 values held in int64 -> int32 with the same bits."""
+    import torch
+
+    return torch.where(u >= 2**31, u - 2**32, u).to(torch.int32)
+
+
+def stream_kernel_phase(models, cfg):
+    """Stream mode (one int32 seed a launch) at the training shapes: K1 over
+    the 2B=256 prior chains, K2 over the B=128 Q_ema rows."""
+    import torch
+
+    from damc_tpu_torch.ops.cuda.fused_langevin import (
+        ebm_params_to_dense_weights, fused_prior_langevin, prior_langevin_plain,
+    )
+    from damc_tpu_torch.ops.cuda.fused_qsweep import (
+        denoiser_layer_params, fused_reverse_sweep, reverse_sweep_plain,
+    )
+    from damc_tpu_torch.ops.diffusion import step_coefficients, sweep_logsnr_grid
+    from damc_tpu_torch.ops.noise import counter_normal, stream_row_seeds
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device="cpu").manual_seed(SEED + 1)
+    m, d, mc = cfg.model, cfg.diffusion, cfg.mcmc
+    b1 = 2 * cfg.train.batch_size if cfg.train.prior_chains == "double" else cfg.train.batch_size
+    b2 = cfg.train.batch_size
+    seed = -1234567891  # any int32
+    res = {}
+
+    # K1. With zero weights and z = 0 one step of size 1 returns the step-0
+    # noise itself: the kernel's against counter_normal of the plain row
+    # seeds (the bits are equal; logf/cosf may differ by an ulp).
+    print(f"[kernels] stream mode, K1 B={b1}")
+    ebm_w = ebm_params_to_dense_weights(models.ebm)
+    zeros = [torch.zeros_like(t) for t in ebm_w]
+    noise = fused_prior_langevin(torch.zeros(b1, m.nz, device=dev), *zeros, seed=seed, steps=1, step_size=1.0)
+    check_close("K1 stream noise, step 0", noise, counter_normal(stream_row_seeds(seed, b1, dev), 0, m.nz), atol=1e-5)
+    z = torch.randn(b1, m.nz, generator=gen).to(dev)
+    kw = dict(steps=mc.e_l_steps, step_size=mc.e_l_step_size)
+    got = fused_prior_langevin(z, *ebm_w, seed=seed, **kw)
+    # The row seeds the kernel derives equal the plain ones: stream mode is
+    # counter mode fed stream_row_seeds, bit for bit.
+    if not torch.equal(got, fused_prior_langevin(z, *ebm_w, row_seeds=_int32(stream_row_seeds(seed, b1, dev)), **kw)):
+        raise AssertionError("K1: stream mode differs from counter mode on stream_row_seeds")
+    want = prior_langevin_plain(z, *ebm_w, seed=seed, **kw)
+    err1 = check_close(f"K1 stream {mc.e_l_steps} steps", got, want, atol=1e-4)
+    flops, nbytes = langevin_cost(b1, m.nz, m.ndf, mc.e_l_steps)
+    k_ms = time_ms(lambda: fused_prior_langevin(z, *ebm_w, seed=seed, **kw), 20)
+    p_ms = time_ms(lambda: prior_langevin_plain(z, *ebm_w, seed=seed, **kw), 5)
+    res["K1"] = dict(b=b1, max_abs_err=err1, ms=k_ms, plain_ms=p_ms, flops=flops, bytes=nbytes)
+
+    # K2, tables from the Q encoder of random images as the training step
+    # builds them.
+    print(f"[kernels] stream mode, K2 B={b2}")
+    fourier, layers = denoiser_layer_params(models.amortizer.p)
+    zl = [tuple(torch.zeros_like(t) for t in lt) for lt in layers]
+    coeffs2 = step_coefficients(2, d.logsnr_min, d.logsnr_max, d.var_type).to(dev)
+    px = [torch.zeros(b2, lt[0].shape[1], device=dev) for lt in layers]
+    pt = [torch.zeros(2, lt[0].shape[1], device=dev) for lt in layers]
+    noise = fused_reverse_sweep(torch.zeros(b2, m.nz, device=dev), torch.zeros_like(fourier), zl, px, pt, coeffs2,
+                                seed=seed, steps=1)
+    want = coeffs2[0, 4] * counter_normal(stream_row_seeds(seed, b2, dev), 0, m.nz)
+    check_close("K2 stream noise, step 0", noise, want, atol=1e-5)
+    x = torch.rand(b2, 32, 32, 3, generator=gen).to(dev) * 2 - 1
+    z = torch.randn(b2, m.nz, generator=gen).to(dev)
+    with torch.no_grad():
+        xemb = models.amortizer.encode(x)
+    res_k2 = {}
+    for n in (6, d.n_interval):
+        grid, _ = sweep_logsnr_grid(n, d.logsnr_min, d.logsnr_max)
+        coeffs = step_coefficients(n, d.logsnr_min, d.logsnr_max, d.var_type).to(dev)
+        with torch.no_grad():
+            tables = models.amortizer.p.sample_tables(grid.to(dev), xemb)
+        args = (z, fourier, layers, tables["pre_x"], tables["pre_t"], coeffs)
+        kw2 = dict(steps=n, residual=d.residual)
+        got = fused_reverse_sweep(*args, seed=seed, **kw2)
+        if not torch.equal(got, fused_reverse_sweep(*args, row_seeds=_int32(stream_row_seeds(seed, b2, dev)), **kw2)):
+            raise AssertionError("K2: stream mode differs from counter mode on stream_row_seeds")
+        want = reverse_sweep_plain(*args, seed=seed, **kw2)
+        if n == 6:
+            # As in counter mode: against the fp64 plain version, at most
+            # twice as far as the fp32 plain version, plus 2e-4.
+            args64 = (z.double(), fourier.double(), [tuple(t.double() for t in lt) for lt in layers],
+                      [t.double() for t in tables["pre_x"]], [t.double() for t in tables["pre_t"]],
+                      coeffs.double())
+            ref = reverse_sweep_plain(*args64, seed=seed, **kw2)
+            err_plain = float((want.double() - ref).abs().max())
+            err_k = float((got.double() - ref).abs().max())
+            res_k2["max_abs_err"] = float((got - want).abs().max())
+            print(f"  K2 stream 6 steps: kernel-plain {res_k2['max_abs_err']:.3e}; against fp64: kernel "
+                  f"{err_k:.3e}, plain fp32 {err_plain:.3e} (limit 2 x plain + 2e-4)")
+            if err_k > 2 * err_plain + 2e-4:
+                raise AssertionError("K2 stream: kernel further from fp64 than fp32 allows")
+            continue
+        if not bool(torch.isfinite(got).all()):
+            raise AssertionError("K2 stream 100 steps: non-finite output")
+        scale = float(want.std(0).mean())
+        d_mean = float((got.mean(0) - want.mean(0)).abs().max())
+        d_std = float((got.std(0) - want.std(0)).abs().max())
+        print(f"  K2 stream {n} steps: max |d mean|={d_mean:.3e}, max |d std|={d_std:.3e}, "
+              f"mean std={scale:.3e} (limit 0.1 x mean std each)")
+        if d_mean > 0.1 * scale or d_std > 0.1 * scale:
+            raise AssertionError("K2 stream 100 steps: moments disagree with the plain version")
+        flops, nbytes = sweep_cost(b2, fourier, layers, n)
+        k_ms = time_ms(lambda: fused_reverse_sweep(*args, seed=seed, **kw2), 10)
+        p_ms = time_ms(lambda: reverse_sweep_plain(*args, seed=seed, **kw2), 3, warmup=1)
+        res_k2.update(b=b2, ms=k_ms, plain_ms=p_ms, flops=flops, bytes=nbytes)
+    res["K2"] = res_k2
+    for name, r in res.items():
+        b_ms, by = bound(r["flops"], r["bytes"])
+        print(f"  {name} stream B={r['b']}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+              f"bound {b_ms:.5g} ms ({by}), {r['flops']:.4g} FLOP, {r['bytes']:.4g} B")
     return res
 
 
@@ -348,6 +475,256 @@ def profile_phase(models, cfg):
         }))
 
 
+def train_images(n: int) -> np.ndarray:
+    """CIFAR-shaped uint8 images (n, 32, 32, 3) made from the seed."""
+    return np.random.default_rng(SEED).integers(0, 256, (n, 32, 32, 3), dtype=np.uint8)
+
+
+def _snapshot(module):
+    return [p.detach().clone() for p in module.parameters()]
+
+
+def _changed(module, snap) -> bool:
+    return any(not bool((p == s).all()) for p, s in zip(module.parameters(), snap))
+
+
+def _state_modules(state):
+    m = state.models
+    return {"G": m.generator, "E": m.ebm, "Q": m.amortizer, "Q_ema": state.amortizer_ema}
+
+
+def training_phase(cfg, counters, iterations: int = 10):
+    """`iterations` full-width iterations through `train_gen_recon`; returns
+    (final state, per-iteration ms, launches over the run)."""
+    import torch
+
+    from damc_tpu_torch.train.gen_recon import train_gen_recon
+    from damc_tpu_torch.train.state import create_state
+
+    b = cfg.train.batch_size
+    cfg = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, print_every=1))
+    images = train_images(iterations * b)
+    start = {k: _snapshot(v) for k, v in _state_modules(create_state(cfg, SEED, "cuda")).items()}
+    ema_prev = list(start["Q_ema"])
+    log = {"ms": [], "launches": [], "ema_changed": []}
+    clock = [0.0]
+
+    def on_step(it, state, metrics):
+        nonlocal ema_prev
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        log["ms"].append((now - clock[0]) * 1e3)
+        log["launches"].append({name: k.launches for name, k in counters.items()})
+        log["ema_changed"].append(_changed(state.amortizer_ema, ema_prev))
+        ema_prev = _snapshot(state.amortizer_ema)
+        bad = [k for k, v in metrics.items() if not bool(torch.isfinite(v))]
+        if bad:
+            raise AssertionError(f"iteration {it}: non-finite metrics {bad}")
+        clock[0] = time.perf_counter()
+
+    for k in counters.values():
+        k.launches = 0
+    clock[0] = time.perf_counter()
+    state = train_gen_recon(cfg, images, iterations=iterations, seed=SEED, on_step=on_step)
+    total = {name: k.launches for name, k in counters.items()}
+
+    per_iter = [log["launches"][0]] + [
+        {n: cur[n] - prev[n] for n in cur} for prev, cur in zip(log["launches"], log["launches"][1:])
+    ]
+    print(f"[train] launches per iteration {per_iter}")
+    if any(l != {"K1": 1, "K2": 1} for l in per_iter):
+        raise AssertionError("K1 and K2 must each launch exactly once per iteration")
+    for name, module in _state_modules(state).items():
+        if not _changed(module, start[name]):
+            raise AssertionError(f"{name} did not change in {iterations} iterations")
+    want = [i == cfg.train.ema_every - 1 for i in range(iterations)]
+    print(f"[train] Q_ema changed at iterations {[i + 1 for i, c in enumerate(log['ema_changed']) if c]}")
+    if log["ema_changed"] != want:
+        raise AssertionError(f"Q_ema must change only at iteration {cfg.train.ema_every}")
+    steady = log["ms"][2:]
+    print("[train] " + json.dumps({
+        "ms_per_iteration": log["ms"], "median_ms_iterations_3_to_10": statistics.median(steady),
+        "peak_memory_gb": torch.cuda.max_memory_allocated() / 2**30,
+    }))
+    return state, log["ms"], total
+
+
+def rerun_phase(cfg):
+    """Two fresh 2-iteration runs from one seed: every metric of every
+    iteration and every parameter at the end, bit for bit."""
+    import torch
+
+    from damc_tpu_torch.train.gen_recon import train_gen_recon
+
+    images = train_images(2 * cfg.train.batch_size)
+    runs = []
+    for _ in range(2):
+        metrics = []
+        state = train_gen_recon(
+            cfg, images, iterations=2, seed=SEED,
+            on_step=lambda it, st, m: metrics.append({k: v.clone() for k, v in m.items()}),
+        )
+        runs.append((metrics, _state_modules(state)))
+    (m_a, s_a), (m_b, s_b) = runs
+    same = all(torch.equal(a[k], b[k]) for a, b in zip(m_a, m_b) for k in a) and all(
+        torch.equal(p, q) for name in s_a for p, q in zip(s_a[name].parameters(), s_b[name].parameters())
+    )
+    print(f"[train] two fresh 2-iteration runs bit-identical: {same}")
+    if not same:
+        raise AssertionError("two runs from one seed differ")
+
+
+def adam_cap(lr: float, updates: int, betas) -> float:
+    """The most two runs of `updates` Adam steps from one start can differ
+    in one element: 2 lr sum_t c_t, where c_t = sqrt(sum_i w_i^2 / u_i)
+    bounds |m_hat / sqrt(v_hat)| at update t (Cauchy-Schwarz), with w_i and
+    u_i the bias-corrected weights of gradient i in m_hat and v_hat."""
+    b1, b2 = betas
+    total = 0.0
+    for t in range(1, updates + 1):
+        w = [(1 - b1) * b1 ** (t - i) / (1 - b1**t) for i in range(1, t + 1)]
+        u = [(1 - b2) * b2 ** (t - i) / (1 - b2**t) for i in range(1, t + 1)]
+        total += sum(wi * wi / ui for wi, ui in zip(w, u)) ** 0.5
+    return 2 * lr * total
+
+
+def gpu_cpu_phase(cfg, n_gap: int = 4):
+    """One iteration at B=8 with 5 posterior steps and noiseless kernels on
+    the card and on the CPU plain path, from the same weights and draws.
+
+    Both sides are float32 (no TF32, deterministic cuDNN) and differ in
+    rounding only. But the noiseless 100-step sweep that draws z0 is
+    chaotic at full width with random weights (the kernel phase shows six
+    steps amplify fp32 rounding to ~1e-2), so the card's z0 is not the CPU's to
+    within rounding, and everything after it moves with it. The tolerance
+    is therefore the fp32 gap, measured: the largest change of the CPU
+    iteration over `n_gap` copies of x, each perturbed by one float32
+    rounding (relative 2^-24, random signs). Each metric must be within 5
+    gaps of the CPU's plus 1e-4 relative (the rounding floor where nothing
+    is chaotic); each network's largest parameter difference within 5 of
+    its gap and within `adam_cap`, plus 1e-5."""
+    import torch
+
+    from damc_tpu_torch.models import sample_q
+    from damc_tpu_torch.train.state import create_state
+    from damc_tpu_torch.train.step import draw_step, make_train_step
+
+    b = 8
+    small = dataclasses.replace(
+        cfg,
+        train=dataclasses.replace(cfg.train, batch_size=b),
+        mcmc=dataclasses.replace(cfg.mcmc, g_l_steps=5, e_l_with_noise=False),
+        diffusion=dataclasses.replace(cfg.diffusion, with_noise=False),
+    )
+    x = torch.from_numpy(train_images(b)).float() / 255.0 * 2.0 - 1.0
+    rng = np.random.default_rng(SEED)
+    runs = [("cpu", "cpu", x)]
+    for k in range(n_gap):
+        sign = torch.from_numpy(rng.choice([-1.0, 1.0], x.shape).astype(np.float32))
+        runs.append((f"cpu_ulp{k}", "cpu", x * (1.0 + sign * 2.0**-24)))
+    runs.append(("cuda", "cuda", x))
+    draws = draw_step(small, b, create_state(small, SEED, "cpu"))
+
+    def to(dev, t):
+        return None if t is None else t.to(dev)
+
+    out, z0 = {}, {}
+    for run, dev, xx in runs:
+        d = dataclasses.replace(
+            draws, mask_u=to(dev, draws.mask_u), z0_init=to(dev, draws.z0_init),
+            neg_init=to(dev, draws.neg_init), post_noise=to(dev, draws.post_noise),
+            q=[tuple(None if qd is None else dataclasses.replace(
+                qd, prior_noise=to(dev, qd.prior_noise), u=to(dev, qd.u), eps=to(dev, qd.eps))
+                for qd in pair) for pair in draws.q],
+        )
+        state = create_state(small, SEED, dev)
+        z0[run] = sample_q(state.amortizer_ema, xx.to(dev), d.z0_init, d.sweep_seed).cpu()
+        state, metrics = make_train_step(state.models, state.opts, small)(state, xx.to(dev), d)
+        out[run] = ({k: float(v) for k, v in metrics.items()},
+                    {k: [p.detach().cpu() for p in v.parameters()] for k, v in _state_modules(state).items()})
+    gaps = [r for r, _, _ in runs if r.startswith("cpu_ulp")]
+    zd = lambda r: float((z0[r] - z0["cpu"]).abs().max())
+    print(f"[train] B={b} z0 after the noiseless 100-step sweep, max abs diff from the CPU's: card "
+          f"{zd('cuda'):.3e}; CPU on x one rounding apart {[float(f'{zd(r):.3e}') for r in gaps]}")
+    m_c, p_c = out["cpu"]
+    m_g, p_g = out["cuda"]
+    failed = []
+    for k in m_c:
+        diff = abs(m_g[k] - m_c[k])
+        gap = max(abs(out[r][0][k] - m_c[k]) for r in gaps)
+        limit = 5 * gap + 1e-4 * abs(m_c[k]) + 1e-6
+        print(f"[train]   {k}: card {m_g[k]:.7g}, CPU {m_c[k]:.7g}, diff {diff:.3e}, fp32 gap {gap:.3e}, "
+              f"limit {limit:.3e}")
+        if diff > limit:
+            failed.append(k)
+    o, tc = small.optim, small.train
+    caps = {"G": adam_cap(o.g_lr, 1, o.betas), "E": adam_cap(o.e_lr, 1, o.betas),
+            "Q": adam_cap(o.q_lr, tc.q_updates, o.betas), "Q_ema": 0.0}
+    for name in p_c:
+        diff = max(float((g - c).abs().max()) for g, c in zip(p_g[name], p_c[name]))
+        gap = max(float((u - c).abs().max()) for r in gaps for u, c in zip(out[r][1][name], p_c[name]))
+        limit = min(5 * gap, caps[name]) + 1e-5
+        print(f"[train]   {name}: max abs diff {diff:.3e}, fp32 gap {gap:.3e}, Adam cap {caps[name]:.3e}, "
+              f"limit {limit:.3e}")
+        if diff > limit:
+            failed.append(name)
+    if failed:
+        raise AssertionError(f"card and CPU disagree beyond the fp32 gap: {failed}")
+
+
+def train_profile_phase(cfg, state):
+    """One training iteration under torch.profiler: host wall time, device
+    busy time (sum of kernel times), idle share, and for each of the seven
+    labelled phases its host time, its span on the device (first to last
+    kernel, from the profiler's GPU-side annotation) and the kernel time
+    inside that span; then the top kernels. Kernels are attributed by time
+    stamp, since autograd launches the backward from another thread than
+    the phase's host range."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from damc_tpu_torch.train.step import PHASES, make_train_step
+
+    step = make_train_step(state.models, state.opts, cfg)
+    x = torch.from_numpy(train_images(cfg.train.batch_size)).cuda().float() / 255.0 * 2.0 - 1.0
+    step(state, x)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(state, x)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    cuda = torch.autograd.DeviceType.CUDA
+    events = prof.events()
+    annotation = lambda e: getattr(e, "is_user_annotation", False) or "/" in e.name or "#" in e.name
+    kernels = [e for e in events if e.device_type == cuda and not annotation(e)]
+    dur = lambda e: (e.time_range.end - e.time_range.start) / 1e3
+    busy_ms = sum(dur(k) for k in kernels)
+    phases = {}
+    for name in PHASES:
+        label = f"train/{name}"
+        host = [e for e in events if e.name == label and e.device_type != cuda]
+        spans = [e for e in events if e.name == label and e.device_type == cuda]
+        inside = [k for k in kernels for sp in spans
+                  if sp.time_range.start <= k.time_range.start < sp.time_range.end]
+        phases[name] = {
+            "host_ms": sum(dur(e) for e in host),
+            "device_span_ms": sum(dur(e) for e in spans),
+            "device_busy_ms": sum(dur(k) for k in inside),
+            "kernels": len(inside),
+        }
+    by_name = {}
+    for k in kernels:
+        ms, calls = by_name.get(k.name, (0.0, 0))
+        by_name[k.name] = (ms + dur(k), calls + 1)
+    top = sorted(by_name.items(), key=lambda kv: kv[1][0], reverse=True)[:10]
+    print("[profile] " + json.dumps({
+        "path": "train", "wall_ms": wall_ms, "device_busy_ms": busy_ms,
+        "device_idle_share": 1.0 - busy_ms / wall_ms, "phases": phases,
+        "top": [{"name": n[:60], "ms": ms, "calls": c} for n, (ms, c) in top],
+    }))
+
+
 def main() -> int:
     import torch
 
@@ -375,9 +752,15 @@ def main() -> int:
     cfg = preset("cifar10")
     models = build_models(cfg, seed=SEED, device="cuda")
     res = kernel_phase(models, cfg)
+    res_stream = stream_kernel_phase(models, cfg)
     counters = {"K1": fused_prior_langevin, "K2": fused_reverse_sweep}
     total, _ = serving_phase(models, cfg, counters)
     profile_phase(models, cfg)
+    del models
+    state, _, total_train = training_phase(cfg, counters)
+    rerun_phase(cfg)
+    gpu_cpu_phase(cfg)
+    train_profile_phase(cfg, state)
 
     meta = {
         "K1": ("fused_prior_langevin", "damc_tpu_torch/csrc/fused_langevin.cu",
@@ -386,15 +769,20 @@ def main() -> int:
                "damc_tpu/ops/pallas/fused_qsweep.py:344"),
     }
     kernels = []
-    for key, (name, source, replaces) in meta.items():
-        r = res[key][16]  # the serving shape
-        bound_ms, bound_by = bound(r["flops"], r["bytes"])
-        kernels.append({
-            "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": total[key], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-            "plain_ms": r["plain_ms"], "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": None,
-        })
+    for path, mode, results, launches in (
+        ("serve", "counter", {k: res[k][16] for k in meta}, total),  # the serving shape B=16
+        ("train", "stream", res_stream, total_train),
+    ):
+        for key, (name, source, replaces) in meta.items():
+            r = results[key]
+            bound_ms, bound_by = bound(r["flops"], r["bytes"])
+            kernels.append({
+                "name": name, "route": "cuda", "source": source, "replaces": replaces,
+                "launches": launches[key], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                "plain_ms": r["plain_ms"], "bound_ms": bound_ms, "bound_by": bound_by,
+                "library_ms": None, "path": path, "noise": mode, "batch": r.get("b", 16),
+            })
+    for key, (name, _, _) in meta.items():
         r5 = res[key][500]
         b5, by5 = bound(r5["flops"], r5["bytes"])
         print(f"[kernels] {name} B=500: ms={r5['ms']} plain_ms={r5['plain_ms']} "

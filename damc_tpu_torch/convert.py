@@ -8,7 +8,10 @@ The port's modules keep the reference torch key layout, so
     exports them (the port keeps its own copy of those maps);
   * `load_reference_checkpoint(models, path)`: a reference-format checkpoint
     (`G_state_dict`, `E_state_dict`, `Q_state_dict`), such as the one
-    `damc_tpu.cli.export_checkpoint` writes.
+    `damc_tpu.cli.export_checkpoint` writes;
+  * `train_state_from_jax(state, cfg)`: a whole JAX training state (weights,
+    Q_ema, step and the optax Adam moments) as a port `TrainState`, so a
+    port step can continue a JAX run.
 
 Maps: Dense kernel (in, out) -> Linear weight (out, in); Conv HWIO -> OIHW;
 ConvTranspose (kh, kw, in, out) -> (in, out, kh, kw) with a spatial flip;
@@ -17,10 +20,12 @@ GroupNorm(group_size=1) scale/bias -> InstanceNorm2d weight/bias.
 
 from __future__ import annotations
 
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Optional, Union
 
 import numpy as np
 import torch
+
+from .config import Config
 
 StateDict = Dict[str, np.ndarray]
 
@@ -127,3 +132,59 @@ def load_reference_checkpoint(models, path: str) -> int:
          "ebm": ckpt.get("E_state_dict")},
     )
     return int(ckpt.get("iter", 0))
+
+
+def _adam_state(opt_state):
+    """The optax `ScaleByAdamState` (count, mu, nu) inside a chained state."""
+    if hasattr(opt_state, "mu") and hasattr(opt_state, "nu"):
+        return opt_state
+    if isinstance(opt_state, (tuple, list)):
+        for sub in opt_state:
+            found = _adam_state(sub)
+            if found is not None:
+                return found
+    return None
+
+
+def _load_adam(opt, module: torch.nn.Module, sd_fn, opt_state) -> None:
+    """Moments of one optax Adam state into `opt` (a `ClippedAdam` over
+    `module.parameters()`), through the weights' own key map and layouts."""
+    adam = _adam_state(opt_state)
+    if adam is None:
+        raise ValueError("no optax Adam state (mu, nu, count) found")
+    mu, nu = _torch(sd_fn(adam.mu)), _torch(sd_fn(adam.nu))
+    count = int(np.asarray(adam.count))
+    for name, p in module.named_parameters():
+        opt.opt.state[p] = {
+            "step": torch.tensor(float(count), dtype=torch.float32),
+            "exp_avg": mu[name].to(p.device),
+            "exp_avg_sq": nu[name].to(p.device),
+        }
+    opt.count = count
+
+
+def train_state_from_jax(
+    state, cfg: Config, seed: int = 0, device: Optional[Union[str, torch.device]] = None
+):
+    """A JAX `DAMCState` with numpy leaves (params_g/e/q, params_q_ema,
+    step, opt_g/e/q) -> a port `TrainState` on `device` (default CUDA)
+    that continues it: the weights, Q_ema, the iteration count and each
+    optimizer's Adam moments and update count. The JAX PRNG key has no
+    torch counterpart: the port's generator is seeded with `seed`."""
+    from .train.state import create_state
+
+    port = create_state(cfg, seed, device)
+    m = port.models
+    params_q = state.params_q
+    nxemb = int(np.shape(params_q["params"]["prior_emb"]["Dense_1"]["kernel"])[1])
+    load_state_dicts(m, state_dicts_from_jax(
+        {"params_g": state.params_g, "params_e": state.params_e, "params_q": params_q}
+    ))
+    ema = _torch(amortizer_state(state.params_q_ema, nxemb))
+    port.amortizer_ema.load_state_dict(ema, strict=True)
+    amort_sd = lambda tree: {k: v for k, v in amortizer_state(tree, nxemb).items() if k != "xemb"}
+    _load_adam(port.opts.g, m.generator, generator_state, state.opt_g)
+    _load_adam(port.opts.e, m.ebm, ebm_state, state.opt_e)
+    _load_adam(port.opts.q, m.amortizer, amort_sd, state.opt_q)
+    port.step = int(np.asarray(state.step))
+    return port

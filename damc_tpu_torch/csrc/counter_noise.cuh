@@ -8,6 +8,14 @@
 // c = 2s for u1 and 2s + 1 for u2, all in uint32 arithmetic. The bits equal
 // the JAX kernel's and damc_tpu_torch/ops/noise.py's bit for bit; logf,
 // sqrtf and cosf (full precision, no fast-math) may differ by an ulp.
+//
+// Stream mode (one scalar seed for a whole launch) draws from the same
+// counter stream, with row i's seed fmix32(seed ^ i * 0x27D4EB2F)
+// (`stream_row_seed`, equal to ops/noise.py::stream_row_seeds). The TPU
+// kernels instead seed the on-core PRNG once per grid block
+// (pltpu.prng_seed(seed + program_id)), whose bits no GPU can give: here a
+// row's noise depends on (seed, row) and not on how rows are cut into
+// blocks. The distribution is the same; the draws are not.
 #pragma once
 
 #include <stdint.h>
@@ -26,6 +34,14 @@ __device__ __forceinline__ uint32_t mix32(uint32_t x) {
 __device__ __forceinline__ uint32_t counter_bits(uint32_t seed, uint32_t counter, uint32_t col) {
   const uint32_t base = mix32(seed ^ (counter * 0x9E3779B9u));
   return mix32(base ^ (col * 0x85EBCA77u));
+}
+
+// Odd Weyl multiplier of the row index in stream mode, distinct from the
+// draw-counter (0x9E3779B9) and column (0x85EBCA77) multipliers.
+constexpr uint32_t kStreamRowMul = 0x27D4EB2Fu;
+
+__device__ __forceinline__ uint32_t stream_row_seed(uint32_t seed, uint32_t row) {
+  return mix32(seed ^ (row * kStreamRowMul));
 }
 
 __device__ __forceinline__ float uniform_from_bits(uint32_t bits) {

@@ -1,7 +1,10 @@
 // K1: the whole K-step prior-Langevin chain in one launch.
 //
 // Replaces the TPU kernel damc_tpu/ops/pallas/fused_langevin.py::_kernel
-// (pallas_call in fused_prior_langevin, :311), counter-noise mode. Each step
+// (pallas_call in fused_prior_langevin, :311), in its three noise modes:
+// counter (per-row int32 seeds, serving), stream (one int32 seed for the
+// launch, training; row seeds from counter_noise.cuh::stream_row_seed) and
+// noiseless. Each step
 //   z <- z - 0.5 eps^2 (dE/dz + z) + eps * N,
 // for the energy MLP E(z) = k3 . lrelu(lrelu(z K1 + b1) K2 + b2) (slope
 // 0.2), with the gradient derived by hand (no autodiff residuals):
@@ -11,8 +14,9 @@
 // Bound on an H100: operations. Per chain and step the four products are
 // 2 nz ndf + 2 ndf^2 multiply-adds (131,200 at nz=128, ndf=200), while the
 // bytes the chain must move are z in and out plus the 262 KB of weights,
-// once. At B=16, 60 steps that is 0.25 GFLOP against 0.3 MB: the fp32
-// CUDA-core rate bounds it.
+// once. At B=16, 60 steps that is 0.25 GFLOP against 0.3 MB, and at the
+// training shape (B=256) 4.0 GFLOP against 0.5 MB: the fp32 CUDA-core rate
+// bounds it.
 //
 // Design: the TPU kernel kept every weight on chip for the whole chain. The
 // fp32 weights (262 KB) exceed a block's 227 KB of shared memory, so K2
@@ -51,9 +55,10 @@ __device__ __forceinline__ float warp_sum(float v) {
 __global__ void __launch_bounds__(kThreads) prior_langevin_kernel(
     const float* __restrict__ z_in, const float* __restrict__ k1, const float* __restrict__ b1,
     const float* __restrict__ k2, const float* __restrict__ b2, const float* __restrict__ k3,
-    const int* __restrict__ seeds, float* __restrict__ z_out, int B, int nz, int ndf, int steps,
-    float step_size, float coeff) {
+    const int* __restrict__ seeds, int seed, int stream_noise, float* __restrict__ z_out, int B,
+    int nz, int ndf, int steps, float step_size, float coeff) {
   extern __shared__ float smem[];
+  __shared__ uint32_t row_seed[kRows];
   float* k2s = smem;              // ndf * ndf
   float* zs = k2s + ndf * ndf;    // kRows * nz
   float* gs = zs + kRows * nz;    // kRows * nz: dU/dz
@@ -67,6 +72,11 @@ __global__ void __launch_bounds__(kThreads) prior_langevin_kernel(
   const int row0 = blockIdx.x * kRows;
   const int nrows = min(kRows, B - row0);
 
+  const bool noisy = seeds != nullptr || stream_noise;
+  if (tid < nrows)
+    row_seed[tid] = seeds != nullptr
+                        ? (uint32_t)seeds[row0 + tid]
+                        : damc::stream_row_seed((uint32_t)seed, (uint32_t)(row0 + tid));
   for (int i = tid; i < ndf * ndf; i += blockDim.x) k2s[i] = k2[i];
   for (int e = tid; e < kRows * nz; e += blockDim.x) {
     const int r = e / nz;
@@ -139,8 +149,7 @@ __global__ void __launch_bounds__(kThreads) prior_langevin_kernel(
     for (int e = tid; e < kRows * nz; e += blockDim.x) {
       const int r = e / nz, c = e - r * nz;
       float z = zs[e] - coeff * gs[e];
-      if (seeds != nullptr && r < nrows)
-        z += step_size * damc::counter_normal((uint32_t)seeds[row0 + r], s, c);
+      if (noisy && r < nrows) z += step_size * damc::counter_normal(row_seed[r], s, c);
       zs[e] = z;
     }
   }
@@ -158,17 +167,19 @@ extern "C" int damc_fused_langevin_smem_bytes(int nz, int ndf) {
   return (int)sizeof(float) * (ndf * ndf + kRows * (2 * nz + 4 * ndf));
 }
 
-// seeds: per-chain int32 counter seeds, or NULL for a noiseless chain.
+// Noise: seeds = per-chain int32 counter seeds (counter mode); else
+// stream_noise != 0 draws stream mode from the scalar `seed`; else the
+// chain is noiseless.
 extern "C" int damc_fused_langevin(const float* z, const float* k1, const float* b1, const float* k2,
-                                   const float* b2, const float* k3, const int* seeds, float* out,
-                                   int B, int nz, int ndf, int steps, float step_size, float coeff,
-                                   void* stream) {
+                                   const float* b2, const float* k3, const int* seeds, int seed,
+                                   int stream_noise, float* out, int B, int nz, int ndf, int steps,
+                                   float step_size, float coeff, void* stream) {
   const int smem = damc_fused_langevin_smem_bytes(nz, ndf);
   cudaError_t err = cudaFuncSetAttribute(prior_langevin_kernel,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   const int blocks = (B + kRows - 1) / kRows;
   prior_langevin_kernel<<<blocks, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      z, k1, b1, k2, b2, k3, seeds, out, B, nz, ndf, steps, step_size, coeff);
+      z, k1, b1, k2, b2, k3, seeds, seed, stream_noise, out, B, nz, ndf, steps, step_size, coeff);
   return (int)cudaGetLastError();
 }

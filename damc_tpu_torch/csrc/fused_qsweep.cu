@@ -1,7 +1,10 @@
 // K2: the whole n-step DAMC reverse-diffusion sweep in one launch.
 //
 // Replaces the TPU kernel damc_tpu/ops/pallas/fused_qsweep.py::_kernel
-// (pallas_call in fused_reverse_sweep, :344), counter-noise mode. Each step
+// (pallas_call in fused_reverse_sweep, :344), in its three noise modes:
+// counter (per-row int32 seeds, serving), stream (one int32 seed for the
+// launch, training; row seeds from counter_noise.cuh::stream_row_seed) and
+// noiseless. Each step
 // evaluates the 7-layer FiLM U-Net denoiser of models/denoiser.py from the
 // hoisted tables, then takes one ancestral step:
 //   emb  = [sin 2pi t, cos 2pi t, z], t = zB - rint(zB)   (exact reduction)
@@ -14,8 +17,9 @@
 //
 // Bound on an H100: operations. At the CIFAR-10 widths a step costs
 // 1.48 M multiply-adds per row against 5.9 MB of weights read once per
-// call; at B=16 and 100 steps that is 4.7 GFLOP against about 6.5 MB, so
-// the fp32 CUDA-core rate bounds it.
+// call; at B=16 and 100 steps that is 4.7 GFLOP against about 6.5 MB (at
+// the training shape B=128, 38 GFLOP against 8 MB), so the fp32 CUDA-core
+// rate bounds it.
 //
 // Design: the TPU kernel kept all 5.9 MB of weights in VMEM. A Hopper block
 // has 227 KB of shared memory, so here each block owns kRows rows for every
@@ -84,9 +88,11 @@ __device__ __forceinline__ void dot_col(const float* __restrict__ w, int ld, int
 __global__ void __launch_bounds__(kThreads) reverse_sweep_kernel(
     const float* __restrict__ z_in, const float* __restrict__ fourier,
     const float* __restrict__ pre_x, const float* __restrict__ pre_t,
-    const float* __restrict__ coeffs, const int* __restrict__ seeds, float* __restrict__ z_out,
-    const SweepArgs a, int B, int nz, int nfour, int steps, int residual) {
+    const float* __restrict__ coeffs, const int* __restrict__ seeds, int seed, int stream_noise,
+    float* __restrict__ z_out, const SweepArgs a, int B, int nz, int nfour, int steps,
+    int residual) {
   extern __shared__ float4 smem4[];
+  __shared__ uint32_t row_seed[kRows];
   float* zs = reinterpret_cast<float*>(smem4);  // kRows x nz
   float* in = zs + kRows * nz;                  // kRows x in_max: layer input
   float* cb = in + kRows * a.in_max;            // kRows x d_max: context c
@@ -100,6 +106,11 @@ __global__ void __launch_bounds__(kThreads) reverse_sweep_kernel(
   const int row0 = blockIdx.x * kRows;
   const int nrows = min(kRows, B - row0);
 
+  const bool noisy = seeds != nullptr || stream_noise;
+  if (tid < nrows)
+    row_seed[tid] = seeds != nullptr
+                        ? (uint32_t)seeds[row0 + tid]
+                        : damc::stream_row_seed((uint32_t)seed, (uint32_t)(row0 + tid));
   for (int e = tid; e < kRows * nz; e += kThreads) {
     const int r = e / nz;
     zs[e] = r < nrows ? z_in[(size_t)row0 * nz + e] : 0.f;  // ragged tile: zero rows
@@ -182,8 +193,8 @@ __global__ void __launch_bounds__(kThreads) reverse_sweep_kernel(
       const float eps = residual ? z + ob[r * a.d_max + c] : ob[r * a.d_max + c];
       const float x_pred = c1 * z - c2 * eps;
       float z_next = m_z * z + m_x * x_pred;
-      if (!is_last && seeds != nullptr && r < nrows)
-        z_next += std_ * damc::counter_normal((uint32_t)seeds[row0 + r], step, c);
+      if (!is_last && noisy && r < nrows)
+        z_next += std_ * damc::counter_normal(row_seed[r], step, c);
       zs[e] = is_last ? x_pred : z_next;
     }
   }
@@ -202,11 +213,14 @@ extern "C" int damc_fused_qsweep_layers() { return kLayers; }
 // dims = [din[0..6], dout[0..6]]; layer_ptrs = per layer, in order:
 // lin_k, lin_b, skip_k, skip_b, gate_k, gate_b, hyper_k. pre_x (B, sum dout)
 // and pre_t (steps, sum dout) hold the layers' columns side by side.
-// seeds: per-row int32 counter seeds, or NULL for a noiseless sweep.
+// Noise: seeds = per-row int32 counter seeds (counter mode); else
+// stream_noise != 0 draws stream mode from the scalar `seed`; else the
+// sweep is noiseless.
 extern "C" int damc_fused_qsweep(const float* z, const float* fourier, const void* const* layer_ptrs,
                                  const int* dims, const float* pre_x, const float* pre_t,
-                                 const float* coeffs, const int* seeds, float* out, int B, int nz,
-                                 int nfour, int steps, int residual, int smem_bytes, void* stream) {
+                                 const float* coeffs, const int* seeds, int seed, int stream_noise,
+                                 float* out, int B, int nz, int nfour, int steps, int residual,
+                                 int smem_bytes, void* stream) {
   SweepArgs a;
   int off = 0;
   a.in_max = 0;
@@ -233,6 +247,7 @@ extern "C" int damc_fused_qsweep(const float* z, const float* fourier, const voi
   if (err != cudaSuccess) return (int)err;
   const int blocks = (B + kRows - 1) / kRows;
   reverse_sweep_kernel<<<blocks, kThreads, smem_bytes, static_cast<cudaStream_t>(stream)>>>(
-      z, fourier, pre_x, pre_t, coeffs, seeds, out, a, B, nz, nfour, steps, residual);
+      z, fourier, pre_x, pre_t, coeffs, seeds, seed, stream_noise, out, a, B, nz, nfour, steps,
+      residual);
   return (int)cudaGetLastError();
 }

@@ -9,7 +9,7 @@ import torch
 
 from ..config import Config
 from ..device import resolve_device
-from .amortizer import DAMCAmortizer, PriorEmbedder, sample_q_per_item
+from .amortizer import DAMCAmortizer, PriorEmbedder, sample_q, sample_q_per_item
 from .common import torch_default_init_
 from .denoiser import ConcatSquashLinear, LatentDenoiser, SinusoidalTimeEmbedding
 from .ebm import LatentEBM
@@ -28,12 +28,20 @@ class ModelBundle:
 
 
 def build_models(
-    cfg: Config, seed: int = 0, device: Optional[Union[str, torch.device]] = None
+    cfg: Config,
+    seed: int = 0,
+    device: Optional[Union[str, torch.device]] = None,
+    trainable: bool = False,
 ) -> ModelBundle:
     """Models of `cfg` with random torch-default weights drawn from a
     `torch.Generator` seeded with `seed`, on `device` (default CUDA; raises
     if it is missing). Weights are drawn on the CPU, so a seed gives the
-    same weights on every device."""
+    same weights on every device.
+
+    Frozen in eval mode by default (serving); `trainable=True` gives train
+    mode with parameters that require grad. No module here computes
+    differently in the two modes: there is no dropout, and InstanceNorm2d
+    keeps no running statistics (track_running_stats=False)."""
     dev = resolve_device(device)
     m, d = cfg.model, cfg.diffusion
     if m.dataset == "toy":
@@ -56,7 +64,7 @@ def build_models(
         amortizer.p.B.normal_(generator=gen)
         amortizer.xemb.zero_()
     for module in bundle.modules():
-        module.to(dev).eval().requires_grad_(False)
+        module.to(dev).train(trainable).requires_grad_(trainable)
     return bundle
 
 
@@ -65,6 +73,7 @@ __all__ = [
     "build_models",
     "DAMCAmortizer",
     "PriorEmbedder",
+    "sample_q",
     "sample_q_per_item",
     "ConcatSquashLinear",
     "LatentDenoiser",

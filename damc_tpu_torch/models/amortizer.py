@@ -1,7 +1,10 @@
 """DAMC amortizer Q (counterpart of `damc_tpu/models/amortizer.py`).
 
-Bundles the conv encoder, the prior embedder and the latent denoiser, and
-draws Q samples through the reverse-sweep kernel (`sample_q_per_item`).
+Bundles the conv encoder, the prior embedder and the latent denoiser, holds
+the denoising score-matching loss that trains Q (`DAMCAmortizer.loss`), and
+draws Q samples through the reverse-sweep kernel: `sample_q_per_item` with
+per-row counter noise (serving), `sample_q` with stream noise (training).
+Random draws come in as tensors, so a caller can feed the JAX package's.
 Keys keep the reference `_netQ_U` layout: `encoder.net.*`, `prior_emb.0`,
 `prior_emb.2`, `p.*`, and the reference's unused `xemb` (1, nxemb), held
 here as a buffer so a reference-format state dict loads strictly.
@@ -15,7 +18,7 @@ import torch
 from torch import nn
 
 from ..ops.cuda.fused_qsweep import denoiser_layer_params, fused_reverse_sweep
-from ..ops.diffusion import step_coefficients, sweep_logsnr_grid
+from ..ops.diffusion import diffusion_forward, logsnr_schedule, step_coefficients, sweep_logsnr_grid
 from .denoiser import LatentDenoiser
 from .encoders import make_encoder
 
@@ -68,6 +71,49 @@ class DAMCAmortizer(nn.Module):
     def denoise(self, z, logsnr, xemb):
         return self.p(z, logsnr, xemb)
 
+    def loss(
+        self,
+        z: torch.Tensor,
+        x: Optional[torch.Tensor] = None,
+        mask: Optional[torch.Tensor] = None,
+        xemb: Optional[torch.Tensor] = None,
+        *,
+        prior_noise: Optional[torch.Tensor],
+        u: torch.Tensor,
+        eps: torch.Tensor,
+    ) -> torch.Tensor:
+        """Masked denoising score-matching loss per sample, (B,), as
+        `damc_tpu/models/amortizer.py:128-164`: embed x (rows with mask 0
+        take the prior embedding of `prior_noise` (B, nz)), map u (B,) in
+        [0, 1] to a logsnr, diffuse z with the normals `eps` (B, nz) and
+        regress them: 0.5 ||eps - eps_hat||^2. Without x or xemb every row
+        takes the prior embedding."""
+        if x is not None or xemb is not None:
+            if xemb is None:
+                xemb = self.encode(x)
+            if mask is not None:
+                prior_emb = self.prior_embed(prior_noise)
+                xemb = xemb * mask + prior_emb * (1.0 - mask)
+        else:
+            if mask is not None:
+                raise ValueError("a mask needs x or xemb")
+            xemb = self.prior_embed(prior_noise)
+        logsnr = logsnr_schedule(u, self.logsnr_min, self.logsnr_max)
+        zt_dist = diffusion_forward(z, logsnr[:, None])
+        zt = zt_dist.mean + zt_dist.std.to(z.dtype) * eps
+        eps_pred = self.p(zt, logsnr, xemb)
+        return 0.5 * torch.sum((eps - eps_pred) ** 2, dim=-1)
+
+    def terminal_reg(self, z: torch.Tensor, eps: torch.Tensor) -> torch.Tensor:
+        """0.5 ||z_T||^2 of z diffused to logsnr_min with the normals `eps`,
+        per sample (`damc_tpu/models/amortizer.py:166-178`)."""
+        logsnr_t = logsnr_schedule(
+            torch.ones(z.shape[0], device=z.device), self.logsnr_min, self.logsnr_max
+        )
+        dist = diffusion_forward(z, logsnr_t[:, None])
+        z_t = dist.mean + dist.std.to(z.dtype) * eps
+        return 0.5 * torch.sum(z_t**2, dim=-1)
+
     def step_tables(self, device) -> Tuple[torch.Tensor, torch.Tensor]:
         """(logsnr grid (n,), step coefficients (n, 6)) on `device`, both
         computed on the CPU."""
@@ -98,11 +144,32 @@ def sample_q_per_item(
         xemb = amortizer.prior_embed(emb_noise)
     else:
         raise ValueError("sample_q_per_item needs x (posterior) or emb_noise (prior)")
+    return _sweep(amortizer, xemb, z_init, layers, row_seeds=row_seeds)
+
+
+@torch.no_grad()
+def sample_q(
+    amortizer: DAMCAmortizer,
+    x: torch.Tensor,
+    z_init: torch.Tensor,
+    seed: int,
+    layers: Optional[Tuple[torch.Tensor, Sequence[Tuple[torch.Tensor, ...]]]] = None,
+) -> torch.Tensor:
+    """z ~ Q(. | x), detached: the conditional, hoisted sweep of
+    `damc_tpu/models/amortizer.py:226-305` through the fused kernel in
+    stream mode (the int32 `seed` for the whole batch), from the normals
+    `z_init` (B, nz). The training step draws its chain inits with it."""
+    return _sweep(amortizer, amortizer.encode(x), z_init, layers, seed=seed)
+
+
+def _sweep(amortizer: DAMCAmortizer, xemb, z_init, layers, **noise) -> torch.Tensor:
+    """The hoisted n-step sweep from z_init under the embedding xemb, in
+    the fused kernel; `noise` is its seed or row_seeds."""
     grid, coeffs = amortizer.step_tables(z_init.device)
     tables = amortizer.p.sample_tables(grid, xemb)
     fourier, layer_tuples = layers if layers is not None else denoiser_layer_params(amortizer.p)
     return fused_reverse_sweep(
         z_init, fourier, layer_tuples, tables["pre_x"], tables["pre_t"], coeffs,
-        row_seeds=row_seeds, steps=amortizer.n_interval,
-        with_noise=amortizer.with_noise, residual=amortizer.p.residual,
+        steps=amortizer.n_interval, with_noise=amortizer.with_noise,
+        residual=amortizer.p.residual, **noise,
     )

@@ -9,9 +9,12 @@ and launches the kernel for tensors on a CUDA device; anything else, or a
 failed build or launch, raises. `fused_prior_langevin.launches` counts the
 kernel launches.
 
-Only counter-mode noise (`row_seeds`) and noiseless chains are ported; the
-TPU kernel's stream mode and its bf16 dot option come with the training
-slice.
+Noise modes, as the TPU kernel's: counter (`row_seeds`, per-chain int32
+seeds; serving), stream (`seed`, one int32 for the launch; training) and
+noiseless. Stream mode draws row i's noise from
+`ops/noise.py::stream_row_seeds(seed, B)[i]`, not from the TPU's on-core
+PRNG (see `ops/noise.py`). The TPU kernel's bf16 dot option is not ported
+(ROADMAP.md, queue 2, K1).
 """
 
 from __future__ import annotations
@@ -22,7 +25,7 @@ from typing import Tuple
 
 import torch
 
-from ..noise import counter_normal
+from ..noise import counter_normal, int32_seed, stream_row_seeds
 from . import build
 
 ROWS = 4  # chains per block, kRows in the kernel
@@ -59,14 +62,26 @@ def _dlrelu(x):
     return torch.where(x >= 0.0, 1.0, _SLOPE)
 
 
+def _check_noise(with_noise, seed, row_seeds, dots_dtype) -> None:
+    if dots_dtype != "float32":
+        raise NotImplementedError(
+            f"dots_dtype={dots_dtype!r} is not ported (ROADMAP.md, queue 2, K1); no preset sets it"
+        )
+    if with_noise and seed is None and row_seeds is None:
+        raise ValueError("a noisy chain needs seed (stream mode) or row_seeds (counter mode)")
+
+
 def prior_langevin_plain(
-    z, k1, b1, k2, b2, k3, row_seeds=None, steps: int = 1, step_size: float = 0.1,
-    with_noise: bool = True,
+    z, k1, b1, k2, b2, k3, seed=None, steps: int = 1, step_size: float = 0.1,
+    with_noise: bool = True, row_seeds=None,
 ) -> torch.Tensor:
-    """The kernel's function as a Python loop over steps (torch.matmul)."""
+    """The kernel's function as a Python loop over steps (torch.matmul).
+    `row_seeds` wins over `seed`."""
     coeff = 0.5 * step_size * step_size
     k3 = k3.reshape(1, -1)
     z = z.float()
+    if with_noise and row_seeds is None:
+        row_seeds = stream_row_seeds(seed, z.shape[0], z.device)
     for step in range(steps):
         h1p = z @ k1 + b1
         h2p = _lrelu(h1p) @ k2 + b2
@@ -80,19 +95,21 @@ def prior_langevin_plain(
 
 
 def fused_prior_langevin(
-    z, k1, b1, k2, b2, k3, row_seeds=None, steps: int = 1, step_size: float = 0.1,
-    with_noise: bool = True,
+    z, k1, b1, k2, b2, k3, seed=None, steps: int = 1, step_size: float = 0.1,
+    with_noise: bool = True, dots_dtype: str = "float32", row_seeds=None,
 ) -> torch.Tensor:
     """Run the whole K-step chain z (B, nz) -> z_K on the EBM weights
-    (k1, b1, k2, b2, k3) of `ebm_params_to_dense_weights`. `row_seeds` (B,)
-    int32 switches on the per-row counter noise: chain i depends only on
-    (row_seeds[i], z[i])."""
-    if with_noise and row_seeds is None:
-        raise ValueError("only counter-mode noise (row_seeds) is ported")
+    (k1, b1, k2, b2, k3) of `ebm_params_to_dense_weights`.
+
+    Noise: `row_seeds` (B,) int32 selects counter mode, chain i a function
+    of (row_seeds[i], z[i]) only; otherwise `seed` (int32) selects stream
+    mode, chain i a function of (seed, i, z[i]). `row_seeds` wins when both
+    are given."""
+    _check_noise(with_noise, seed, row_seeds, dots_dtype)
     if z.device.type == "cpu":
         return prior_langevin_plain(
-            z, k1, b1, k2, b2, k3, row_seeds=row_seeds, steps=steps,
-            step_size=step_size, with_noise=with_noise,
+            z, k1, b1, k2, b2, k3, seed=seed, steps=steps, step_size=step_size,
+            with_noise=with_noise, row_seeds=row_seeds,
         )
     if z.device.type != "cuda":
         raise ValueError(f"no prior-Langevin kernel for device {z.device}")
@@ -106,15 +123,17 @@ def fused_prior_langevin(
     f32 = lambda t: t.to(device=dev, dtype=torch.float32).contiguous()
     z32, w = f32(z), [f32(t) for t in (k1, b1, k2, b2, k3)]
     seeds = None
-    if with_noise:
+    if with_noise and row_seeds is not None:
         seeds = torch.as_tensor(row_seeds).to(device=dev, dtype=torch.int32).contiguous()
         if seeds.shape != (b,):
             raise ValueError(f"row_seeds must be ({b},), got {tuple(seeds.shape)}")
+    stream = with_noise and seeds is None
     out = torch.empty_like(z32)
     lib = _library()
     rc = lib.damc_fused_langevin(
         z32.data_ptr(), *[t.data_ptr() for t in w],
-        None if seeds is None else seeds.data_ptr(), out.data_ptr(),
+        None if seeds is None else seeds.data_ptr(), int32_seed(seed) if stream else 0,
+        int(stream), out.data_ptr(),
         b, nz, ndf, steps, float(step_size), 0.5 * step_size * step_size,
         torch.cuda.current_stream(dev).cuda_stream,
     )
@@ -132,7 +151,9 @@ def _library() -> ctypes.CDLL:
     fn = lib.damc_fused_langevin
     if fn.argtypes is None:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, f, f, p]
+        # z, k1, b1, k2, b2, k3, seeds, seed, stream_noise, out, B, nz, ndf,
+        # steps, step_size, coeff, stream
+        fn.argtypes = [p, p, p, p, p, p, p, i, i, p, i, i, i, i, f, f, p]
         fn.restype = ctypes.c_int
         if lib.damc_fused_langevin_rows() != ROWS:
             raise RuntimeError("fused_langevin.cu and fused_langevin.py disagree on the row tile")

@@ -9,9 +9,11 @@ and launches the kernel for tensors on a CUDA device; anything else, or a
 failed build or launch, raises. `fused_reverse_sweep.launches` counts the
 kernel launches.
 
-Only counter-mode noise (`row_seeds`) and noiseless sweeps are ported; the
-TPU kernel's stream mode (one scalar seed, on-core PRNG) comes with the
-training slice.
+Noise modes, as the TPU kernel's: counter (`row_seeds`, per-row int32
+seeds; serving), stream (`seed`, one int32 for the launch; the training
+step's Q_ema draw) and noiseless. Stream mode draws row i's noise from
+`ops/noise.py::stream_row_seeds(seed, B)[i]`, not from the TPU's on-core
+PRNG (see `ops/noise.py`).
 """
 
 from __future__ import annotations
@@ -24,7 +26,7 @@ from typing import List, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
-from ..noise import counter_normal
+from ..noise import counter_normal, int32_seed, stream_row_seeds
 from . import build
 
 N_COEF = 6  # c1, c2, m_z, m_x, std, is_last
@@ -98,16 +100,20 @@ def reverse_sweep_plain(
     pre_x: Sequence[torch.Tensor],
     pre_t: Sequence[torch.Tensor],
     coeffs: torch.Tensor,
-    row_seeds=None,
+    seed=None,
     steps: int = 1,
     with_noise: bool = True,
     residual: bool = True,
+    row_seeds=None,
 ) -> torch.Tensor:
     """The kernel's function as a Python loop over steps (torch.matmul), in
-    the dtype of its inputs (float32; float64 gives a reference)."""
+    the dtype of its inputs (float32; float64 gives a reference).
+    `row_seeds` wins over `seed`."""
     act = lambda h: torch.where(h >= 0.0, h, _LRELU * h)
     z = z_init
     nz = z.shape[1]
+    if with_noise and row_seeds is None:
+        row_seeds = stream_row_seeds(seed, z.shape[0], z.device)
     for step in range(steps):
         films = []
         for (_, _, _, _, gate_k, gate_b, hyper_k), px, pt in zip(layers, pre_x, pre_t):
@@ -153,23 +159,27 @@ def fused_reverse_sweep(
     pre_x: Sequence[torch.Tensor],
     pre_t: Sequence[torch.Tensor],
     coeffs: torch.Tensor,
-    row_seeds=None,
+    seed=None,
     steps: int = 1,
     with_noise: bool = True,
     residual: bool = True,
+    row_seeds=None,
 ) -> torch.Tensor:
     """Run the whole n-step reverse sweep: z_init (B, nz) -> x_hat (B, nz).
 
     `pre_x[l]` (B, dout_l) and `pre_t[l]` (n, dout_l) are the denoiser's
-    sample tables, `coeffs` (n, 6) the `step_coefficients` table and
-    `row_seeds` (B,) int32 the per-row counter seeds: row i depends only on
-    (row_seeds[i], z_init[i], pre_x[*][i])."""
-    if with_noise and row_seeds is None:
-        raise ValueError("only counter-mode noise (row_seeds) is ported")
+    sample tables and `coeffs` (n, 6) the `step_coefficients` table.
+    Noise: `row_seeds` (B,) int32 selects counter mode, row i a function of
+    (row_seeds[i], z_init[i], pre_x[*][i]) only; otherwise `seed` (int32)
+    selects stream mode, row i a function of (seed, i, z_init[i],
+    pre_x[*][i]). `row_seeds` wins when both are given."""
+    if with_noise and seed is None and row_seeds is None:
+        raise ValueError("a noisy sweep needs seed (stream mode) or row_seeds (counter mode)")
     args = (z_init, fourier, layers, pre_x, pre_t, coeffs)
     if z_init.device.type == "cpu":
         return reverse_sweep_plain(
-            *args, row_seeds=row_seeds, steps=steps, with_noise=with_noise, residual=residual
+            *args, seed=seed, steps=steps, with_noise=with_noise, residual=residual,
+            row_seeds=row_seeds,
         )
     if z_init.device.type != "cuda":
         raise ValueError(f"no reverse-sweep kernel for device {z_init.device}")
@@ -194,17 +204,19 @@ def fused_reverse_sweep(
     four = f32(fourier)
     flat = [f32(t) for lt in layers for t in lt]
     seeds = None
-    if with_noise:
+    if with_noise and row_seeds is not None:
         seeds = torch.as_tensor(row_seeds).to(device=dev, dtype=torch.int32).contiguous()
         if seeds.shape != (b,):
             raise ValueError(f"row_seeds must be ({b},), got {tuple(seeds.shape)}")
+    stream = with_noise and seeds is None
     out = torch.empty_like(z)
     lib = _library()
     ptrs = (ctypes.c_void_p * len(flat))(*[t.data_ptr() for t in flat])
     dims = (ctypes.c_int * 14)(*dins, *douts)
     rc = lib.damc_fused_qsweep(
         z.data_ptr(), four.data_ptr(), ptrs, dims, px.data_ptr(), pt.data_ptr(),
-        cf.data_ptr(), None if seeds is None else seeds.data_ptr(), out.data_ptr(),
+        cf.data_ptr(), None if seeds is None else seeds.data_ptr(),
+        int32_seed(seed) if stream else 0, int(stream), out.data_ptr(),
         b, nz, nfour, steps, int(residual), smem_bytes(nz, dins, douts),
         torch.cuda.current_stream(dev).cuda_stream,
     )
@@ -222,7 +234,9 @@ def _library() -> ctypes.CDLL:
     fn = lib.damc_fused_qsweep
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, p]
+        # z, fourier, layer_ptrs, dims, pre_x, pre_t, coeffs, seeds, seed,
+        # stream_noise, out, B, nz, nfour, steps, residual, smem_bytes, stream
+        fn.argtypes = [p, p, p, p, p, p, p, p, i, i, p, i, i, i, i, i, i, p]
         fn.restype = ctypes.c_int
         if lib.damc_fused_qsweep_rows() != ROWS:
             raise RuntimeError("fused_qsweep.cu and fused_qsweep.py disagree on the row tile")

@@ -63,6 +63,19 @@ class Gaussian(NamedTuple):
     logvar: torch.Tensor
 
 
+def diffusion_forward(x, logsnr) -> Gaussian:
+    """Marginal q(z_t | x) of the VP forward process: mean = x
+    sqrt(sigmoid(logsnr)), var = sigmoid(-logsnr)."""
+    logsnr = _f32(logsnr)
+    var = torch.sigmoid(-logsnr)
+    return Gaussian(
+        mean=x * torch.sqrt(torch.sigmoid(logsnr)).to(x.dtype),
+        std=torch.sqrt(var),
+        var=var,
+        logvar=torch.nn.functional.logsigmoid(-logsnr),
+    )
+
+
 def pred_x_from_eps(z, eps, logsnr):
     """x0-hat = (z - sigma eps) / alpha, 1/alpha = sqrt(1 + exp(-logsnr)),
     sigma = rsqrt(1 + exp(logsnr))."""

@@ -1,22 +1,34 @@
 """Short-run Langevin samplers (counterpart of `damc_tpu/ops/langevin.py`).
 
 `langevin_sample` runs unadjusted Langevin dynamics on any energy by
-autograd: the posterior refinement of the `recon` serving path goes through
-it (through G and E, on cuDNN), as the JAX package runs it through XLA.
-`prior_langevin_auto` sends the EBM prior chain to the fused kernel K1
-(`ops/cuda/fused_langevin.py`) when the EBM is the standard 2-hidden MLP.
+autograd: the posterior refinement of the `recon` serving path and of the
+training step goes through it (through G and E, on cuDNN), as the JAX
+package runs it through XLA. `prior_langevin_auto` sends the EBM prior chain
+to the fused kernel K1 (`ops/cuda/fused_langevin.py`) when the EBM is the
+standard 2-hidden MLP.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Optional, Tuple
+from typing import Callable, NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 
 from .cuda.fused_langevin import ebm_params_to_dense_weights, fused_prior_langevin
 
 # An energy maps a batch of latents (B, nz) to per-chain energies (B,).
 EnergyFn = Callable[[torch.Tensor], torch.Tensor]
+
+
+class LangevinDiagnostics(NamedTuple):
+    """Per-step chain statistics, shape (steps,), left on the device.
+
+    energy_sum[k] is the summed energy of the chain state *before* update k,
+    so energy_sum[-1] is the energy of z_{K-1}, not of the returned z_K."""
+
+    energy_sum: torch.Tensor
+    grad_mean: torch.Tensor  # mean of the energy gradient's entries
 
 
 def langevin_sample(
@@ -26,20 +38,39 @@ def langevin_sample(
     step_size: float,
     with_noise: bool = True,
     generator: Optional[torch.Generator] = None,
-) -> torch.Tensor:
-    """z <- z - 0.5 eps^2 dU/dz (+ eps N(0, I) with `with_noise`, drawn from
-    `generator`). Returns the final z, detached."""
+    noise: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, LangevinDiagnostics]:
+    """z <- z - 0.5 eps^2 dU/dz (+ eps N(0, I) with `with_noise`).
+
+    The per-step normals are `noise[k]` when `noise` (steps, B, nz) is
+    given, else drawn from `generator`. The gradient is taken with respect
+    to z only; parameters that require grad would record their graph too,
+    so callers freeze the networks first (`train/step.py`). Returns the
+    final z, detached, and the diagnostics."""
+    # 0.5 eps^2 in float32, as the JAX step computes it from a float32 eps.
+    eps32 = np.float32(step_size)
+    coeff = float(np.float32(0.5) * eps32 * eps32)
     z = z_init.detach()
-    for _ in range(steps):
-        z = z.detach().requires_grad_(True)
+    energy_sum, grad_mean = [], []
+    for k in range(steps):
+        z = z.requires_grad_(True)
         with torch.enable_grad():
-            (grad,) = torch.autograd.grad(energy_fn(z).sum(), z)
-        z = z.detach() - 0.5 * step_size * step_size * grad
+            energy = energy_fn(z)
+            (grad,) = torch.autograd.grad(energy.sum(), z)
+        energy_sum.append(energy.detach().sum())
+        grad_mean.append(grad.mean())
+        z = z.detach() - coeff * grad
         if with_noise:
-            z = z + step_size * torch.randn(
+            n = noise[k] if noise is not None else torch.randn(
                 z.shape, generator=generator, device=z.device, dtype=z.dtype
             )
-    return z.detach()
+            z = z + float(eps32) * n
+    if steps:
+        diag = LangevinDiagnostics(torch.stack(energy_sum), torch.stack(grad_mean))
+    else:
+        empty = z.new_zeros((0,))
+        diag = LangevinDiagnostics(empty, empty)
+    return z.detach(), diag
 
 
 def prior_energy(ebm_fn: Callable[[torch.Tensor], torch.Tensor]) -> EnergyFn:
@@ -72,23 +103,27 @@ def prior_langevin_auto(
     with_noise: bool = True,
     row_seeds: Optional[torch.Tensor] = None,
     generator: Optional[torch.Generator] = None,
+    seed: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Prior-Langevin chain; returns (z_final, final energy per chain).
 
-    The standard 2-hidden `LatentEBM` runs in the fused chain kernel, with
-    per-row counter noise when `row_seeds` is given. Another EBM (the
+    The standard 2-hidden `LatentEBM` runs in the fused chain kernel: with
+    per-row counter noise when `row_seeds` is given (serving), else with
+    stream noise from the int32 `seed` (training). Another EBM (the
     3-hidden StyleGAN head) runs `langevin_sample` by autograd, with noise
-    from `generator`, and cannot honour `row_seeds`."""
+    from `generator`, and honours neither."""
     if ebm.n_hidden == 2 and ebm.nez == 1:
         with torch.no_grad():
             z = fused_prior_langevin(
-                z_init, *ebm_params_to_dense_weights(ebm), row_seeds=row_seeds,
+                z_init, *ebm_params_to_dense_weights(ebm), seed=seed, row_seeds=row_seeds,
                 steps=steps, step_size=float(step_size), with_noise=with_noise,
             )
     else:
-        if row_seeds is not None:
-            raise ValueError("row_seeds (per-row counter noise) needs the fused 2-hidden EBM chain")
-        z = langevin_sample(z_init, prior_energy(ebm), steps, step_size, with_noise, generator)
+        if row_seeds is not None or seed is not None:
+            raise ValueError(
+                "row_seeds and seed (kernel noise) need the fused 2-hidden EBM chain"
+            )
+        z, _ = langevin_sample(z_init, prior_energy(ebm), steps, step_size, with_noise, generator)
     with torch.no_grad():
         final_energy = prior_energy(ebm)(z)
     return z, final_energy

@@ -13,6 +13,16 @@ noise is a pure function of its seed, whatever batch it sits in. The bits
 equal the JAX kernel's bit for bit; only log, sqrt and cos may differ by an
 ulp.
 
+Stream mode (one scalar seed for a whole batch, the training path) draws
+from the same counter stream: row i's seed is `stream_row_seeds(seed, B)[i]`
+= fmix32(seed ^ i * ROWC). The TPU kernels seed their on-core PRNG once per
+grid block instead (`pltpu.prng_seed(seed + program_id)`,
+`damc_tpu/ops/pallas/fused_langevin.py:178-180`), whose bits no GPU can
+give; here a row's noise depends on (seed, row) and not on the block
+layout, so it does not change when the batch grows. Both are standard
+normals; the JAX package documents the same kind of difference between
+its fused and scan sweeps (`damc_tpu/models/amortizer.py:211-214`).
+
 torch has no `>>` for uint32 on the CPU, so the hash runs on int64 tensors
 that hold uint32 values. A product of two uint32 values can pass 2^63, so
 `_mul32` multiplies by the constant's two 16-bit halves and masks, which
@@ -27,6 +37,7 @@ import torch
 
 GOLD = 0x9E3779B9  # 2^32 / phi: Weyl increment of the draw counter
 COLC = 0x85EBCA77  # odd column multiplier
+ROWC = 0x27D4EB2F  # odd row multiplier of stream mode (neither GOLD nor COLC)
 _M32 = 0xFFFFFFFF
 _TWO_PI = 2.0 * math.pi
 
@@ -59,6 +70,21 @@ def counter_bits(seeds: torch.Tensor, counter: int, cols: int) -> torch.Tensor:
     base = mix32(seeds ^ cnt.to(seeds.device))  # (rows,)
     col = _mul32(torch.arange(cols, dtype=torch.int64, device=seeds.device), COLC)
     return mix32(base[:, None] ^ col[None, :])
+
+
+def int32_seed(seed) -> int:
+    """An integer seed (Python int or one-element tensor) as the int32 with
+    the same low 32 bits, the value a kernel's C `int` argument carries."""
+    s = int(seed) & _M32
+    return s - (1 << 32) if s >= (1 << 31) else s
+
+
+def stream_row_seeds(seed: int, b: int, device=None) -> torch.Tensor:
+    """(b,) uint32 row seeds (as int64) of stream mode for the int32 `seed`:
+    row i gets fmix32(seed ^ i * ROWC), as `stream_row_seed` in
+    `csrc/counter_noise.cuh`. Row i's seed does not depend on b."""
+    rows = torch.arange(b, dtype=torch.int64, device=device)
+    return mix32((int(seed) & _M32) ^ _mul32(rows, ROWC))
 
 
 def uniform_from_bits(bits: torch.Tensor) -> torch.Tensor:

@@ -117,7 +117,7 @@ def build_serving_fns(models, cfg: Config, recon_langevin_steps: int = 10) -> Di
     def recon(d: RowDraws, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         z0 = sample_q_per_item(amort, d.z_init, d.sweep_seed, x=x, layers=q_layers)
         energy = posterior_energy(gen, ebm, x, mc.g_llhd_sigma)
-        z = langevin_sample(z0, energy, recon_langevin_steps, mc.g_l_step_size, with_noise=False)
+        z, _ = langevin_sample(z0, energy, recon_langevin_steps, mc.g_l_step_size, with_noise=False)
         return decode(z), z
 
     fns: Dict[str, Callable] = {"damc": damc, "recon": recon}

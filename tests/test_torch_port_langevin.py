@@ -1,7 +1,8 @@
 """K1 and the Langevin samplers: the plain version of the port's prior-chain
 kernel against the JAX Pallas kernel (plain interpreter) at the CIFAR-10
 EBM widths, `prior_langevin_auto` on the port's EBM module, the posterior
-refinement by autograd, and the wrapper's dispatch rules."""
+refinement by autograd, stream-mode noise against the JAX scan chain in
+distribution, and the wrapper's dispatch rules."""
 
 from __future__ import annotations
 
@@ -16,6 +17,7 @@ from damc_tpu.ops.pallas.fused_langevin import fused_prior_langevin as jax_chain
 from damc_tpu_torch.models import LatentEBM
 from damc_tpu_torch.ops import langevin as tl
 from damc_tpu_torch.ops.cuda import fused_langevin as k1
+from damc_tpu_torch.ops.noise import stream_row_seeds
 from torch_port_helpers import jax_and_port
 
 NZ, NDF = 128, 200
@@ -94,7 +96,7 @@ def test_posterior_langevin_matches_jax():
     )
     zj, _ = jl.langevin_sample(jax.random.PRNGKey(0), jnp.asarray(z0), energy_j, 5, 0.1, with_noise=False)
     energy_p = tl.posterior_energy(models_p.generator, models_p.ebm, torch.from_numpy(x), 0.1)
-    zp = tl.langevin_sample(torch.from_numpy(z0), energy_p, 5, 0.1, with_noise=False)
+    zp, _ = tl.langevin_sample(torch.from_numpy(z0), energy_p, 5, 0.1, with_noise=False)
     np.testing.assert_allclose(zp.numpy(), np.asarray(zj), atol=1e-4)
     assert not zp.requires_grad
 
@@ -106,7 +108,7 @@ def test_three_hidden_ebm_takes_autograd_and_refuses_row_seeds():
     with pytest.raises(ValueError, match="row_seeds"):
         tl.prior_langevin_auto(z, ebm, 3, 0.1, row_seeds=torch.zeros(4, dtype=torch.int32))
     zn, _ = tl.prior_langevin_auto(z, ebm, 3, 0.1, with_noise=False)
-    ref = tl.langevin_sample(z, tl.prior_energy(ebm), 3, 0.1, with_noise=False)
+    ref, _ = tl.langevin_sample(z, tl.prior_energy(ebm), 3, 0.1, with_noise=False)
     assert torch.equal(zn, ref)
 
 
@@ -114,8 +116,55 @@ def test_wrapper_dispatch_rules():
     w = [torch.from_numpy(a) for a in _weights()]
     z = torch.zeros(2, NZ)
     with pytest.raises(ValueError, match="row_seeds"):
-        k1.fused_prior_langevin(z, *w, steps=1)  # stream-mode noise is not ported
+        k1.fused_prior_langevin(z, *w, steps=1)  # noise needs seed or row_seeds
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        k1.fused_prior_langevin(z, *w, seed=1, steps=1, dots_dtype="bfloat16")
     with pytest.raises(ValueError, match="device"):
         k1.fused_prior_langevin(z.to("meta"), *w, steps=1, with_noise=False)
     assert k1.fits_smem(NZ, NDF) and not k1.fits_smem(NZ, 512)
     assert k1.smem_bytes(NZ, NDF) == 4 * (NDF * NDF + k1.ROWS * (2 * NZ + 4 * NDF))
+
+
+def _moments_close(got, want, n):
+    """Per-dimension mean within 5 sd of a difference of two means
+    (5 sigma sqrt(2 / n)) and std within 5 sd of a difference of two sample
+    stds (5 sigma sqrt(1 / n)), sigma the dimension's std."""
+    sigma = want.std(0)
+    d_mean = np.abs(got.mean(0) - want.mean(0))
+    d_std = np.abs(got.std(0) - sigma)
+    assert (d_mean <= 5 * sigma * np.sqrt(2 / n)).all(), (d_mean, sigma)
+    assert (d_std <= 5 * sigma * np.sqrt(1 / n)).all(), (d_std, sigma)
+
+
+def test_stream_mode_chain_matches_jax_scan_in_distribution():
+    """The port's stream-mode chain (plain version) against the JAX scan
+    chain with threefry noise, over 4096 chains from the same starts at
+    tiny widths (nz=8, ndf=16), 60 steps of 0.4: the noise differs, the
+    distribution of z_60 must not (bounds in `_moments_close`)."""
+    n, nz, ndf = 4096, 8, 16
+    r = np.random.default_rng(11)
+    u = lambda shape, fan: (r.uniform(-1, 1, shape) / np.sqrt(fan)).astype(np.float32)
+    w = (u((nz, ndf), nz), u((ndf,), nz), u((ndf, ndf), ndf), u((ndf,), ndf), u((ndf,), ndf))
+    z = r.normal(size=(n, nz)).astype(np.float32)
+    k1w, b1, k2w, b2, k3 = map(jnp.asarray, w)
+    lrelu = lambda h: jnp.where(h >= 0, h, 0.2 * h)
+    ebm_fn = lambda zz: lrelu(lrelu(zz @ k1w + b1) @ k2w + b2) @ k3
+    want, _ = jl.langevin_sample(jax.random.PRNGKey(5), jnp.asarray(z), jl.prior_energy(ebm_fn), 60, 0.4)
+    got = _port(z, w, seed=12345, steps=60, step_size=0.4)
+    _moments_close(got, np.asarray(want), n)
+    assert np.abs(got - np.asarray(want)).max() > 0.5  # other noise, pointwise apart
+
+
+def test_stream_and_counter_modes_of_the_plain_chain():
+    """Stream mode equals counter mode fed `stream_row_seeds(seed, B)`, and
+    `row_seeds` wins when both are given."""
+    r = np.random.default_rng(12)
+    z = r.normal(size=(6, NZ)).astype(np.float32)
+    w = _weights(12)
+    kw = dict(steps=3, step_size=0.4)
+    rows = stream_row_seeds(77, 6)
+    stream = _port(z, w, seed=77, **kw)
+    assert np.array_equal(stream, _port(z, w, row_seeds=rows, **kw))
+    counter = _port(z, w, row_seeds=torch.arange(6), **kw)
+    assert np.array_equal(_port(z, w, seed=77, row_seeds=torch.arange(6), **kw), counter)
+    assert not np.array_equal(stream, counter)

@@ -1,6 +1,6 @@
 """K0, the counter noise: the port's plain version (`damc_tpu_torch/ops/noise.py`)
 against numpy uint32 arithmetic bit for bit, and against the noise the JAX
-Pallas kernel draws (plain interpreter)."""
+Pallas kernel draws (plain interpreter); stream mode's row seeds."""
 
 from __future__ import annotations
 
@@ -12,7 +12,9 @@ import pytest
 import torch
 
 from damc_tpu.ops.pallas.fused_langevin import fused_prior_langevin
-from damc_tpu_torch.ops.noise import counter_bits, counter_normal, mix32, uniform_from_bits
+from damc_tpu_torch.ops.noise import (
+    counter_bits, counter_normal, mix32, stream_row_seeds, uniform_from_bits,
+)
 
 
 def _mix_np(x):
@@ -84,3 +86,31 @@ def test_counter_normal_moments():
     assert abs(x.mean().item()) < 5 / math.sqrt(n)
     assert abs(x.var().item() - 1.0) < 5 * math.sqrt(2 / n)
     assert not torch.equal(counter_normal(seeds, 3, 128), counter_normal(seeds, 4, 128))
+
+
+def _stream_np(seed, b):
+    with np.errstate(over="ignore"):
+        rows = np.arange(b, dtype=np.uint32) * np.uint32(0x27D4EB2F)
+        return _mix_np(np.uint32(seed & 0xFFFFFFFF) ^ rows)
+
+
+@pytest.mark.parametrize("seed", [0, 12345, -7, 2**31 - 1])
+def test_stream_row_seeds_bit_exact_and_independent_of_batch(seed):
+    """Stream mode's row seeds against numpy uint32 arithmetic, and row i's
+    seed (so its noise) the same whatever the batch size."""
+    big = stream_row_seeds(seed, 4096)
+    assert np.array_equal(big.numpy().astype(np.uint32), _stream_np(seed, 4096))
+    for b in (1, 7, 256):
+        assert torch.equal(stream_row_seeds(seed, b), big[:b])
+        assert torch.equal(counter_normal(stream_row_seeds(seed, b), 3, 16), counter_normal(big, 3, 16)[:b])
+    assert len(set(big.tolist())) == 4096  # distinct rows, distinct streams
+
+
+def test_stream_noise_moments_and_seed_dependence():
+    """Standard normal moments over 2^17 stream-mode draws (5-sigma bounds);
+    another seed gives other noise."""
+    x = counter_normal(stream_row_seeds(99, 1024), 0, 128).double()
+    n = x.numel()
+    assert abs(x.mean().item()) < 5 / math.sqrt(n)
+    assert abs(x.var().item() - 1.0) < 5 * math.sqrt(2 / n)
+    assert not torch.equal(stream_row_seeds(99, 8), stream_row_seeds(100, 8))

@@ -117,3 +117,62 @@ def test_wrapper_dispatch_rules():
     meta = (args[0].to("meta"),) + args[1:]
     with pytest.raises(ValueError, match="device"):
         k2.fused_reverse_sweep(*meta, steps=2, with_noise=False)
+
+
+def test_stream_mode_sweep_matches_jax_scan_in_distribution():
+    """The port's stream-mode sweep (plain version) against the JAX scan
+    sweep (hoisted tables, threefry noise) over 4096 rows at the tiny svhn
+    widths (nz=8), 10 steps, the same starts and embeddings on both sides:
+    per-dimension mean within 5 sigma sqrt(2 / n) and std within
+    5 sigma sqrt(1 / n) of the JAX output's."""
+    import jax
+
+    from damc_tpu.ops.diffusion import sweep_logsnr_grid
+    from damc_tpu.ops.reverse_diffusion import reverse_diffusion_sample
+    from damc_tpu_torch.ops.diffusion import step_coefficients
+    from torch_port_helpers import jax_and_port
+
+    cfg_j, state, models_j, cfg_p, models_p = jax_and_port(seed=4)
+    n, steps, nz, nxemb = 4096, 10, cfg_p.model.nz, cfg_p.model.nxemb
+    r = np.random.default_rng(21)
+    z = r.normal(size=(n, nz)).astype(np.float32)
+    xemb = r.normal(size=(n, nxemb)).astype(np.float32)
+    grid, _ = sweep_logsnr_grid(steps, -5.1, 9.8)
+    tab_j = models_j.amortizer.apply(
+        state.params_q, grid, jnp.asarray(xemb), method=lambda m, g, e: m.p.sample_tables(g, e)
+    )
+    denoise = lambda zz, _, t: models_j.amortizer.apply(
+        state.params_q, zz, t, tab_j["pre_x"], method=lambda m, a, b, c: m.p.denoise_from_tables(a, b, c)
+    )
+    want = np.asarray(reverse_diffusion_sample(
+        jax.random.PRNGKey(2), denoise, jnp.asarray(z), steps, -5.1, 9.8, "large",
+        step_xs=tab_j["pre_t"],
+    ))
+    p = models_p.amortizer.p
+    with torch.no_grad():
+        tab_p = p.sample_tables(torch.from_numpy(np.array(grid)), torch.from_numpy(xemb))
+        fourier, layers = k2.denoiser_layer_params(p)
+        got = k2.fused_reverse_sweep(
+            torch.from_numpy(z), fourier, layers, tab_p["pre_x"], tab_p["pre_t"],
+            step_coefficients(steps, -5.1, 9.8, "large"), seed=-42, steps=steps,
+        ).numpy()
+    sigma = want.std(0)
+    assert (np.abs(got.mean(0) - want.mean(0)) <= 5 * sigma * np.sqrt(2 / n)).all()
+    assert (np.abs(got.std(0) - sigma) <= 5 * sigma * np.sqrt(1 / n)).all()
+    assert np.abs(got - want).max() > 0.1  # other noise, pointwise apart
+
+
+def test_stream_mode_of_the_plain_sweep():
+    """Stream mode equals counter mode fed `stream_row_seeds(seed, B)`;
+    `row_seeds` wins when both are given."""
+    from damc_tpu_torch.ops.noise import stream_row_seeds
+
+    args = _inputs(5, 3, seed=14, scale=0.5)
+    t = torch.from_numpy
+    targs = (t(args[0]), t(args[1]), [tuple(map(t, lt)) for lt in args[2]], [t(a) for a in args[3]],
+             [t(a) for a in args[4]], t(args[5]))
+    stream = k2.fused_reverse_sweep(*targs, seed=9, steps=3)
+    assert torch.equal(stream, k2.reverse_sweep_plain(*targs, row_seeds=stream_row_seeds(9, 5), steps=3))
+    counter = k2.reverse_sweep_plain(*targs, row_seeds=t(args[6]), steps=3)
+    assert torch.equal(k2.fused_reverse_sweep(*targs, seed=9, row_seeds=t(args[6]), steps=3), counter)
+    assert not torch.equal(stream, counter)

@@ -48,3 +48,72 @@ def jax_and_port(seed: int = 0, preset_name: str = "svhn"):
         ),
     )
     return cfg_j, state, models_j, cfg_p, models_p
+
+
+def train_cfgs(preset_name: str = "svhn", **train_kw):
+    """(jax cfg, port cfg) of a tiny training run: the `tiny` widths, batch
+    4, two Q updates, `train_kw` on top of the preset's train section."""
+    from damc_tpu.utils.config import preset as jp
+
+    def one(cfg):
+        cfg = tiny(cfg)
+        return dataclasses.replace(
+            cfg, train=dataclasses.replace(cfg.train, batch_size=4, q_updates=2, **train_kw)
+        )
+
+    return one(jp(preset_name)), one(port_preset(preset_name))
+
+
+def loss_draws(key, b: int, nz: int):
+    """The (prior noise, u, eps) that `DAMCAmortizer.loss` draws from `key`."""
+    k_prior, k_u, k_eps = jax.random.split(key, 3)
+    return (
+        np.asarray(jax.random.normal(k_prior, (b, nz))),
+        np.asarray(jax.random.uniform(k_u, (b,))),
+        np.asarray(jax.random.normal(k_eps, (b, nz))),
+    )
+
+
+def jax_step_draws(rng, cfg, b: int):
+    """The port's `StepDraws` holding exactly the numbers the JAX train step
+    draws from the state key `rng` (`damc_tpu/train/step.py:70-72`). The
+    kernels' stream seeds are left at 0: the parity runs are noiseless
+    there."""
+    import torch
+
+    from damc_tpu_torch.train.step import QDraws, StepDraws
+
+    tc, nz = cfg.train, cfg.model.nz
+    _, k_mask, k_q0, k_post, k_neg, _, k_qloss = jax.random.split(rng, 7)
+    t = lambda a: torch.from_numpy(np.array(a, np.float32))
+    post = jax.vmap(lambda k: jax.random.normal(k, (b, nz)))(
+        jax.random.split(k_post, cfg.mcmc.g_l_steps)
+    )
+    q = []
+    for i in range(tc.q_updates):
+        k1, k2 = jax.random.split(jax.random.fold_in(k_qloss, i))
+        one = lambda k: QDraws(*map(t, loss_draws(k, b, nz)))
+        q.append((one(k1), one(k2) if tc.q_loss_both_branches else None))
+    return StepDraws(
+        mask_u=t(jax.random.uniform(k_mask, (b,))),
+        z0_init=t(jax.random.normal(jax.random.split(k_q0, 3)[0], (b, nz))),
+        neg_init=t(jax.random.normal(k_neg, (b, nz))) if tc.prior_chains == "double" else None,
+        post_noise=t(post),
+        q=q,
+        sweep_seed=0,
+        chain_seed=0,
+    )
+
+
+def adam_cap(lr: float, updates: int, betas) -> float:
+    """The most two runs of `updates` Adam steps from one start can differ
+    in one element: 2 lr sum_t c_t, where c_t = sqrt(sum_i w_i^2 / u_i)
+    bounds |m_hat / sqrt(v_hat)| at update t (Cauchy-Schwarz), with w_i and
+    u_i the bias-corrected weights of gradient i in m_hat and v_hat."""
+    b1, b2 = betas
+    total = 0.0
+    for t in range(1, updates + 1):
+        w = [(1 - b1) * b1 ** (t - i) / (1 - b1**t) for i in range(1, t + 1)]
+        u = [(1 - b2) * b2 ** (t - i) / (1 - b2**t) for i in range(1, t + 1)]
+        total += sum(wi * wi / ui for wi, ui in zip(w, u)) ** 0.5
+    return 2 * lr * total
