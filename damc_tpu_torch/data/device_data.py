@@ -7,8 +7,14 @@ batch is a gather from a fresh per-epoch permutation, drop-last (the
 `n % batch_size` tail of every epoch is skipped), a per-sample horizontal
 flip with probability 1/2, and uint8 -> [-1, 1] (x / 255 * 2 - 1, clamped),
 all on the device. Permutations and flips come from a `torch.Generator` on
-the device seeded with `seed`, in place of `jax.random`: the visit order
-differs from the JAX feed's for the same seed; the invariants do not.
+the device, in place of `jax.random`: the visit order differs from the JAX
+feed's for the same seed; the invariants do not. That generator is seeded
+with `data_seed(seed)`, a counter hash of the seed, and not with the seed
+itself: a training state made from the same seed seeds its own device
+generator with it (`train/state.py::create_state`), and two Philox
+generators with one seed give one stream, so the flips would share bits
+with the step's draws. The JAX package keeps the two apart the same way
+(`PRNGKey(seed)` with `fold_in` here, a split of it for the state).
 """
 
 from __future__ import annotations
@@ -17,6 +23,18 @@ from typing import Iterator, Optional, Tuple, Union
 
 import numpy as np
 import torch
+
+from ..ops.noise import counter_bits
+
+# Counter of the hash that gives the data seed: one no training iteration
+# reaches, so it is none of the kernels' stream seeds (`train/step.py::stream_seeds`).
+_DATA_COUNTER = 0xFFFFFFFF
+
+
+def data_seed(seed: int) -> int:
+    """The seed of a dataset's generator for the run seed `seed`:
+    fmix32 counter bits of (seed, `_DATA_COUNTER`), in [0, 2^32)."""
+    return int(counter_bits(torch.tensor([int(seed)]), _DATA_COUNTER, 1)[0, 0])
 
 
 class DeviceDataset:
@@ -44,7 +62,7 @@ class DeviceDataset:
         self.device = torch.device(device)
         self.data = torch.from_numpy(np.ascontiguousarray(images)).to(self.device)
         self.augment_flip = augment_flip
-        self.gen = torch.Generator(device=self.device).manual_seed(int(seed))
+        self.gen = torch.Generator(device=self.device).manual_seed(data_seed(seed))
 
     def __len__(self) -> int:
         return self.n_batches

@@ -46,6 +46,11 @@ def build_models(
     m, d = cfg.model, cfg.diffusion
     if m.dataset == "toy":
         raise ValueError("the toy workload is not ported yet")
+    if m.compute_dtype != "float32":
+        raise NotImplementedError(
+            f"compute_dtype={m.compute_dtype!r} is not ported (ROADMAP.md, queue 1, item 2): "
+            "the port's networks compute in float32"
+        )
     with torch.device("meta"):
         generator = make_generator(m.dataset, ngf=m.ngf, nc=m.nc, nz=m.nz)
         ebm = LatentEBM(m.nz, ndf=m.ndf)

@@ -62,11 +62,7 @@ def _dlrelu(x):
     return torch.where(x >= 0.0, 1.0, _SLOPE)
 
 
-def _check_noise(with_noise, seed, row_seeds, dots_dtype) -> None:
-    if dots_dtype != "float32":
-        raise NotImplementedError(
-            f"dots_dtype={dots_dtype!r} is not ported (ROADMAP.md, queue 2, K1); no preset sets it"
-        )
+def _check_noise(with_noise, seed, row_seeds) -> None:
     if with_noise and seed is None and row_seeds is None:
         raise ValueError("a noisy chain needs seed (stream mode) or row_seeds (counter mode)")
 
@@ -96,7 +92,7 @@ def prior_langevin_plain(
 
 def fused_prior_langevin(
     z, k1, b1, k2, b2, k3, seed=None, steps: int = 1, step_size: float = 0.1,
-    with_noise: bool = True, dots_dtype: str = "float32", row_seeds=None,
+    with_noise: bool = True, row_seeds=None,
 ) -> torch.Tensor:
     """Run the whole K-step chain z (B, nz) -> z_K on the EBM weights
     (k1, b1, k2, b2, k3) of `ebm_params_to_dense_weights`.
@@ -105,7 +101,7 @@ def fused_prior_langevin(
     of (row_seeds[i], z[i]) only; otherwise `seed` (int32) selects stream
     mode, chain i a function of (seed, i, z[i]). `row_seeds` wins when both
     are given."""
-    _check_noise(with_noise, seed, row_seeds, dots_dtype)
+    _check_noise(with_noise, seed, row_seeds)
     if z.device.type == "cpu":
         return prior_langevin_plain(
             z, k1, b1, k2, b2, k3, seed=seed, steps=steps, step_size=step_size,

@@ -131,6 +131,18 @@ def make_train_step(
     # Only the toy preset runs without an EBM, prior chains or G and E updates.
     if ebm is None or tc.prior_chains == "none" or not (tc.update_g and tc.update_e):
         raise NotImplementedError("the toy training step is not ported (ROADMAP.md, queue 1, item 5)")
+    # The JAX step's dtype and kernel switches; the port runs float32 and K1.
+    unported = {
+        "compute_dtype": cfg.model.compute_dtype != "float32",
+        "pallas_dots_dtype": tc.pallas_dots_dtype != "float32",
+        "use_pallas": not tc.use_pallas,
+    }
+    asked = [k for k, v in unported.items() if v]
+    if asked:
+        raise NotImplementedError(
+            f"{asked}: bfloat16 and the scan prior chain are not ported (ROADMAP.md, queue 1, "
+            "item 2); the port trains in float32 through K1"
+        )
 
     def train_step(state: TrainState, x: torch.Tensor, draws: Optional[StepDraws] = None):
         b = x.shape[0]

@@ -117,8 +117,6 @@ def test_wrapper_dispatch_rules():
     z = torch.zeros(2, NZ)
     with pytest.raises(ValueError, match="row_seeds"):
         k1.fused_prior_langevin(z, *w, steps=1)  # noise needs seed or row_seeds
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        k1.fused_prior_langevin(z, *w, seed=1, steps=1, dots_dtype="bfloat16")
     with pytest.raises(ValueError, match="device"):
         k1.fused_prior_langevin(z.to("meta"), *w, steps=1, with_noise=False)
     assert k1.fits_smem(NZ, NDF) and not k1.fits_smem(NZ, 512)

@@ -11,7 +11,7 @@ import pytest
 import torch
 
 from damc_tpu_torch.config import preset
-from damc_tpu_torch.data.device_data import DeviceDataset
+from damc_tpu_torch.data.device_data import DeviceDataset, data_seed
 from damc_tpu_torch.models import build_models, sample_q
 from damc_tpu_torch.train.gen_recon import train_gen_recon
 from damc_tpu_torch.train.state import create_state
@@ -71,6 +71,35 @@ def test_device_dataset_rejects_bad_stores():
         DeviceDataset(np.zeros((4, 8, 8), np.uint8), device="cpu")
 
 
+def _contains_run(stream, run):
+    n = len(run)
+    return any(torch.equal(stream[i:i + n], run) for i in range(len(stream) - n + 1))
+
+
+def test_device_dataset_draws_apart_from_the_step_draws():
+    """A dataset and a training state made from one seed draw unrelated
+    bits: the dataset's generator is seeded with `data_seed(seed)`. The
+    first batch's flip uniforms (replayed on a copy of its generator) do
+    not appear as a run anywhere in the first 4096 uniforms of the state's
+    generator, the stream `draw_step` takes mask_u, z0_init and the rest
+    from; seeded with the run seed itself, they do."""
+    cfg, seed, b = _tiny_cfg(), 11, 8
+    ds = DeviceDataset(_images(40), batch_size=b, augment_flip=True, seed=seed, device="cpu")
+    state = create_state(cfg, seed=seed, device="cpu")
+    assert ds.gen.initial_seed() == data_seed(seed) != state.rng.initial_seed() == seed
+
+    def flip_uniforms(gen_state):
+        g = torch.Generator().set_state(gen_state)
+        torch.randperm(ds.n, generator=g)
+        return torch.rand(b, generator=g)
+
+    step_stream = torch.rand(4096, generator=torch.Generator().set_state(state.rng.get_state()))
+    d = draw_step(cfg, b, state)
+    assert torch.equal(d.mask_u, step_stream[:b])
+    assert not _contains_run(step_stream, flip_uniforms(ds.gen.get_state()))
+    assert _contains_run(step_stream, flip_uniforms(torch.Generator().manual_seed(seed).get_state()))
+
+
 def _tiny_cfg(**train_kw):
     cfg = tiny(preset("svhn"))
     return dataclasses.replace(
@@ -112,6 +141,22 @@ def test_unported_options_raise():
     toy = preset("toy")
     with pytest.raises(NotImplementedError, match="toy"):
         train_gen_recon(toy, np.zeros((8, 2, 2, 2), np.float32), iterations=1, device="cpu")
+
+
+def test_unported_dtypes_and_scan_chain_raise():
+    """The JAX step's bfloat16 switches and its scan prior chain raise where
+    the port reads them, instead of training in float32 through K1 unasked."""
+    cfg = _tiny_cfg()
+    state = create_state(cfg, seed=0, device="cpu")
+    for section, kw in (("train", dict(pallas_dots_dtype="bfloat16")), ("train", dict(use_pallas=False)),
+                        ("model", dict(compute_dtype="bfloat16"))):
+        bad = dataclasses.replace(cfg, **{section: dataclasses.replace(getattr(cfg, section), **kw)})
+        with pytest.raises(NotImplementedError, match=next(iter(kw))):
+            make_train_step(state.models, state.opts, bad)
+    bf16 = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, compute_dtype="bfloat16"))
+    for build in (lambda: create_state(bf16, device="cpu"), lambda: build_models(bf16, device="cpu")):
+        with pytest.raises(NotImplementedError, match="compute_dtype"):
+            build()
 
 
 def test_entry_point_defaults_to_cuda():
