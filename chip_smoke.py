@@ -10,7 +10,10 @@ Phases, each of which raises on failure (the script then exits non-zero):
   3. holds each kernel against its plain PyTorch version on the card, at the
      serving shape B=16 and the FID shape B=500 (ragged row tiles) in
      counter and noiseless mode, and in stream mode at the training shapes
-     (K1 over 2B=256 chains, K2 over B=128 rows), and times both;
+     (K1 over 2B=256 chains, K2 over B=128 rows), and times both beside
+     their bounds; then, in counter mode, rows 0, 7, 250 and 499 of a B=500
+     launch of each kernel must equal, bit for bit, the same rows launched
+     alone and inside a B=16 batch;
   4. serves the full-width `cifar10` preset (random weights from a seed) over
      HTTP: /sample damc and ebm and /reconstruct, some requests concurrent;
      checks shapes, range, that an item served alone equals the same item
@@ -117,6 +120,7 @@ def kernel_phase(models, cfg):
     from damc_tpu_torch.ops.cuda.fused_qsweep import (
         denoiser_layer_params, fused_reverse_sweep, reverse_sweep_plain,
     )
+    from damc_tpu_torch.ops.cuda.fused_qsweep import max_active_clusters, row_tile
     from damc_tpu_torch.ops.diffusion import step_coefficients, sweep_logsnr_grid
 
     dev = torch.device("cuda")
@@ -125,6 +129,9 @@ def kernel_phase(models, cfg):
     ebm_w = ebm_params_to_dense_weights(models.ebm)
     fourier, layers = denoiser_layer_params(models.amortizer.p)
     res = {"K1": {}, "K2": {}}
+    k2_max = max_active_clusters(m.nz, [lt[0].shape[0] for lt in layers], [lt[0].shape[1] for lt in layers])
+    print(f"[kernels] K2 clusters the card runs at once: {k2_max}; row tiles: "
+          + ", ".join(f"B={b} {row_tile(b, k2_max)} rows" for b in (16, cfg.train.batch_size, 500)))
 
     for b in (16, 500):
         print(f"[kernels] B={b}")
@@ -195,9 +202,60 @@ def kernel_phase(models, cfg):
             res["K2"][b] = dict(max_abs_err=err2, ms=k_ms, plain_ms=p_ms, flops=flops, bytes=nbytes)
         for name in ("K1", "K2"):
             r = res[name][b]
+            b_ms, by = bound(r["flops"], r["bytes"])
             print(f"  {name} B={b}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
-                  f"{r['flops']:.4g} FLOP, {r['bytes']:.4g} B")
+                  f"bound {b_ms:.5g} ms ({by}), {r['flops']:.4g} FLOP, {r['bytes']:.4g} B")
     return res
+
+
+ROW_PICKS = (0, 7, 250, 499)
+
+
+def row_independence_phase(models, cfg):
+    """Counter mode, each kernel at its serving step count: rows 0, 7, 250
+    and 499 of a B=500 launch must equal, bit for bit, the same rows
+    launched alone (B=1) and inside a B=16 batch, where row i sits at slot
+    i % 16 among 15 other rows. The row tile, the cluster and the slot
+    differ between the three launches; the row's inputs do not."""
+    import torch
+
+    from damc_tpu_torch.ops.cuda.fused_langevin import ebm_params_to_dense_weights, fused_prior_langevin
+    from damc_tpu_torch.ops.cuda.fused_qsweep import denoiser_layer_params, fused_reverse_sweep
+    from damc_tpu_torch.ops.diffusion import step_coefficients, sweep_logsnr_grid
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device="cpu").manual_seed(SEED + 2)
+    m, d, mc = cfg.model, cfg.diffusion, cfg.mcmc
+    b = 500
+    z = torch.randn(b, m.nz, generator=gen).to(dev)
+    seeds = torch.randint(0, 2**31 - 1, (b,), generator=gen, dtype=torch.int32).to(dev)
+    ebm_w = ebm_params_to_dense_weights(models.ebm)
+    fourier, layers = denoiser_layer_params(models.amortizer.p)
+    grid, _ = sweep_logsnr_grid(d.n_interval, d.logsnr_min, d.logsnr_max)
+    coeffs = step_coefficients(d.n_interval, d.logsnr_min, d.logsnr_max, d.var_type).to(dev)
+    with torch.no_grad():
+        xemb = models.amortizer.prior_embed(torch.randn(b, m.nz, generator=gen).to(dev))
+        tables = models.amortizer.p.sample_tables(grid.to(dev), xemb)
+    runs = {
+        "K1": lambda idx: fused_prior_langevin(
+            z[idx], *ebm_w, row_seeds=seeds[idx], steps=mc.e_l_steps, step_size=mc.e_l_step_size),
+        "K2": lambda idx: fused_reverse_sweep(
+            z[idx], fourier, layers, [t[idx] for t in tables["pre_x"]], tables["pre_t"], coeffs,
+            row_seeds=seeds[idx], steps=d.n_interval, residual=d.residual),
+    }
+    for name, run in runs.items():
+        full = run(torch.arange(b, device=dev))
+        for i in ROW_PICKS:
+            alone = run(torch.tensor([i], device=dev))
+            idx = [(i + 1 + k) % b for k in range(16)]
+            idx[i % 16] = i
+            batch = run(torch.tensor(idx, device=dev))
+            same_alone = torch.equal(full[i], alone[0])
+            same_batch = torch.equal(full[i], batch[i % 16])
+            print(f"[rows] {name} row {i} of B={b}: == alone {same_alone}, == slot {i % 16} of B=16 "
+                  f"{same_batch}")
+            if not (same_alone and same_batch):
+                raise AssertionError(f"{name}: row {i} depends on the batch it is launched in")
 
 
 def _int32(u):
@@ -807,6 +865,7 @@ def main() -> int:
     models = build_models(cfg, seed=SEED, device="cuda")
     res = kernel_phase(models, cfg)
     res_stream = stream_kernel_phase(models, cfg)
+    row_independence_phase(models, cfg)
     counters = {"K1": fused_prior_langevin, "K2": fused_reverse_sweep}
     total, _ = serving_phase(models, cfg, counters)
     profile_phase(models, cfg)
@@ -837,10 +896,12 @@ def main() -> int:
                 "library_ms": None, "path": path, "noise": mode, "batch": r.get("b", 16),
             })
     for key, (name, _, _) in meta.items():
-        r5 = res[key][500]
-        b5, by5 = bound(r5["flops"], r5["bytes"])
-        print(f"[kernels] {name} B=500: ms={r5['ms']} plain_ms={r5['plain_ms']} "
-              f"bound_ms={b5} ({by5}) flops={r5['flops']} bytes={r5['bytes']}")
+        shapes = (("serving B=16 counter", res[key][16]), (f"training B={res_stream[key]['b']} stream",
+                  res_stream[key]), ("B=500 counter", res[key][500]))
+        for label, r in shapes:
+            b_ms, by = bound(r["flops"], r["bytes"])
+            print(f"[kernels] {name} {label}: ms={r['ms']} plain_ms={r['plain_ms']} "
+                  f"bound_ms={b_ms} ({by}) flops={r['flops']} bytes={r['bytes']}")
     print(card_line())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -16,60 +16,134 @@
 // bytes the chain must move are z in and out plus the 262 KB of weights,
 // once. At B=16, 60 steps that is 0.25 GFLOP against 0.3 MB, and at the
 // training shape (B=256) 4.0 GFLOP against 0.5 MB: the fp32 CUDA-core rate
-// bounds it.
+// bounds it (0.0038 and 0.060 ms).
 //
-// Design: the TPU kernel kept every weight on chip for the whole chain. The
-// fp32 weights (262 KB) exceed a block's 227 KB of shared memory, so K2
-// (ndf x ndf, 160 KB) lives in shared memory for the whole chain and K1
-// (nz x ndf) is read through L1/L2 each step (it stays L2-resident). One
-// block owns kRows chains for all steps and keeps their z, h1p, h1, d2, d1
-// and gradient in shared memory; blocks never talk to each other. Forward
-// products give each thread one output column and a sequential sum over
-// the input (coalesced weight rows, activations broadcast from shared
-// memory); the two transposed products give each warp one output and its
-// lanes the input, summed with a fixed shuffle tree. Every chain runs the
-// same instruction sequence whatever its position, so a chain's result
-// does not depend on the other chains in the launch. fp32 FMA on the CUDA
-// cores throughout; speed (tensor cores, more chains per weight read) is
-// later work.
+// What held the first kernel back (2.9 ms at every batch on an H100 80GB
+// HBM3 at 700 W, about 48 us a step for 4 chains a block): the fp32
+// weights (262 KB) exceed a block's 227 KB of shared memory, so it kept the
+// EBM's K2 there and read K1
+// (100 KB) through L2 twice a step, in loops whose every iteration waited on
+// an L2 round trip; the two transposed products gave each warp one output
+// at a time and reduced it through shuffle trees; and at 4 chains a block
+// only ceil(B / 4) SMs worked.
+//
+// Design: a thread-block cluster of kCluster = 4 blocks owns kRows = 8
+// chains for all steps and holds both weight matrices in shared memory,
+// split by the hidden column: block `rank` keeps K1[:, J] and K2[:, J] for
+// its J = ndf / 4 columns (67 KB at the CIFAR-10 widths, zero-padded to a
+// multiple of 4, at a row stride of 4 x odd floats so that both a walk down
+// a column and 128-bit reads along the rows of a warp's lanes hit distinct
+// banks). The forward products give its own columns of h1p and h2p, each a
+// sum over the input in order. The transposed products use the same column
+// slices: the block sums d2 K2^T and d1 K1^T over its own J only, for every
+// output, and the cluster adds the 4 partial sums in rank order. Three
+// cluster barriers a step: after lrelu(h1p) (every block then gathers all
+// of h1 through distributed shared memory), after the d1 partials, and
+// after the gradient partials; the z update and its noise run in every
+// block on the same values, so each block holds the whole z. Activations
+// are read as float4 along the input, 2 chains a thread. Every output
+// element is summed in an order fixed by (nz, ndf, kCluster), never by B or
+// by the chain's place in the cluster, so a chain's result is the same bit
+// for bit in any batch. No atomics, no global memory inside the step. fp32
+// FMA on the CUDA cores throughout.
+//
+// What set the first kernel's 48 us a step, from chip_smoke.py's kernel
+// phase on successive versions (H100 80GB HBM3, 700 W, B=16): keeping both
+// matrices on chip over a cluster, with no L2 access and no shuffle tree in
+// the step, took 2.86 ms to 1.01 ms; issuing a dot's loads eight at a time
+// to 0.96 ms; float4 activation and weight-row reads to 0.77 ms. The rest
+// is the three barriers and gathers a step and the dependent chains of the
+// sums (PERF.md, section 6).
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "counter_noise.cuh"
 
+namespace cg = cooperative_groups;
+
 namespace {
 
-constexpr int kRows = 4;  // chains per block
+constexpr int kRows = 8;     // chains per cluster
+constexpr int kCluster = 4;  // blocks per cluster, each holding ndf / kCluster hidden columns
 constexpr int kThreads = 256;
+constexpr int kRt = 2;  // chains per thread in the products
+constexpr int kGroups = kRows / kRt;
 constexpr float kSlope = 0.2f;
 
 __device__ __forceinline__ float lrelu(float x) { return x >= 0.f ? x : kSlope * x; }
 __device__ __forceinline__ float dlrelu(float x) { return x >= 0.f ? 1.f : kSlope; }
 
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
-  return v;  // complete in lane 0
+// J = ndf / kCluster hidden columns a block holds, padded with zeros to
+// j4 (a multiple of 4, for float4 reads); its weight slices have row stride
+// slice_ld: a multiple of 4 whose quarter is odd, so that 128-bit reads of
+// consecutive rows by the lanes of a warp hit distinct banks.
+__host__ __device__ inline int pad4(int J) { return (J + 3) / 4 * 4; }
+__host__ __device__ inline int slice_ld(int J) {
+  const int j4 = pad4(J);
+  return (j4 / 4) % 2 ? j4 : j4 + 4;
 }
 
-__global__ void __launch_bounds__(kThreads) prior_langevin_kernel(
+// acc[r] = sum_k x[r][k] w[k * ld], k < n (n % 4 == 0), in order of k: a
+// walk down a weight column, kRt chains at x (row stride x_ld).
+__device__ __forceinline__ void dot_col(const float* w, int ld, const float* x, int x_ld, int n,
+                                        float* acc) {
+#pragma unroll 4
+  for (int k = 0; k < n; k += 4) {
+    const float w0 = w[(k + 0) * ld], w1 = w[(k + 1) * ld], w2 = w[(k + 2) * ld];
+    const float w3 = w[(k + 3) * ld];
+#pragma unroll
+    for (int r = 0; r < kRt; ++r) {
+      const float4 v = *reinterpret_cast<const float4*>(x + r * x_ld + k);
+      acc[r] = fmaf(v.x, w0, acc[r]);
+      acc[r] = fmaf(v.y, w1, acc[r]);
+      acc[r] = fmaf(v.z, w2, acc[r]);
+      acc[r] = fmaf(v.w, w3, acc[r]);
+    }
+  }
+}
+
+// acc[r] = sum_k x[r][k] w[k], k < n (n % 4 == 0), in order of k: a walk
+// along a weight row.
+__device__ __forceinline__ void dot_row(const float* w, const float* x, int x_ld, int n,
+                                        float* acc) {
+#pragma unroll 4
+  for (int k = 0; k < n; k += 4) {
+    const float4 wk = *reinterpret_cast<const float4*>(w + k);
+#pragma unroll
+    for (int r = 0; r < kRt; ++r) {
+      const float4 v = *reinterpret_cast<const float4*>(x + r * x_ld + k);
+      acc[r] = fmaf(v.x, wk.x, acc[r]);
+      acc[r] = fmaf(v.y, wk.y, acc[r]);
+      acc[r] = fmaf(v.z, wk.z, acc[r]);
+      acc[r] = fmaf(v.w, wk.w, acc[r]);
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kThreads, 2) prior_langevin_kernel(
     const float* __restrict__ z_in, const float* __restrict__ k1, const float* __restrict__ b1,
     const float* __restrict__ k2, const float* __restrict__ b2, const float* __restrict__ k3,
     const int* __restrict__ seeds, int seed, int stream_noise, float* __restrict__ z_out, int B,
     int nz, int ndf, int steps, float step_size, float coeff) {
-  extern __shared__ float smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int J = ndf / kCluster, j4 = pad4(J), j0 = rank * J, ld = slice_ld(J);
+  extern __shared__ float4 smem4[];
   __shared__ uint32_t row_seed[kRows];
-  float* k2s = smem;              // ndf * ndf
-  float* zs = k2s + ndf * ndf;    // kRows * nz
-  float* gs = zs + kRows * nz;    // kRows * nz: dU/dz
-  float* h1p = gs + kRows * nz;   // kRows * ndf
-  float* h1 = h1p + kRows * ndf;  // kRows * ndf
-  float* d2 = h1 + kRows * ndf;   // kRows * ndf
-  float* d1 = d2 + kRows * ndf;   // kRows * ndf
+  float* k1s = reinterpret_cast<float*>(smem4);  // nz x ld: K1[:, j0:j0+J], zero past J
+  float* k2s = k1s + nz * ld;                    // ndf x ld: K2[:, j0:j0+J], zero past J
+  float* zs = k2s + ndf * ld;     // kRows x nz: the whole z, in every block
+  float* h1 = zs + kRows * nz;    // kRows x ndf: lrelu(h1p), gathered from the cluster
+  float* xd1 = h1 + kRows * ndf;  // kRows x ndf: d2 K2^T summed over own columns
+  float* xg = xd1 + kRows * ndf;  // kRows x nz: d1 K1^T summed over own columns
+  float* d2 = xg + kRows * nz;    // kRows x j4, own columns, zero past J
+  float* d1 = d2 + kRows * j4;    // kRows x j4, own columns, zero past J
+  float* h1p = d1 + kRows * j4;   // kRows x J, own columns
+  float* xh1 = h1p + kRows * J;   // kRows x J: own lrelu(h1p), read by the cluster
 
   const int tid = threadIdx.x;
-  const int lane = tid & 31, warp = tid >> 5, nwarps = blockDim.x >> 5;
-  const int row0 = blockIdx.x * kRows;
+  const int row0 = (int)(blockIdx.x / kCluster) * kRows;
   const int nrows = min(kRows, B - row0);
 
   const bool noisy = seeds != nullptr || stream_noise;
@@ -77,109 +151,148 @@ __global__ void __launch_bounds__(kThreads) prior_langevin_kernel(
     row_seed[tid] = seeds != nullptr
                         ? (uint32_t)seeds[row0 + tid]
                         : damc::stream_row_seed((uint32_t)seed, (uint32_t)(row0 + tid));
-  for (int i = tid; i < ndf * ndf; i += blockDim.x) k2s[i] = k2[i];
-  for (int e = tid; e < kRows * nz; e += blockDim.x) {
+  for (int e = tid; e < nz * ld; e += kThreads) {
+    const int k = e / ld, j = e - k * ld;
+    k1s[e] = j < J ? k1[(size_t)k * ndf + j0 + j] : 0.f;
+  }
+  for (int e = tid; e < ndf * ld; e += kThreads) {
+    const int i = e / ld, j = e - i * ld;
+    k2s[e] = j < J ? k2[(size_t)i * ndf + j0 + j] : 0.f;
+  }
+  for (int e = tid; e < 2 * kRows * j4; e += kThreads) d2[e] = 0.f;  // d2 and d1
+  for (int e = tid; e < kRows * nz; e += kThreads) {
     const int r = e / nz;
     zs[e] = r < nrows ? z_in[(size_t)row0 * nz + e] : 0.f;  // ragged tile: zero rows
   }
 
   for (int s = 0; s < steps; ++s) {
     __syncthreads();
-    // h1p = z K1 + b1
-    for (int j = tid; j < ndf; j += blockDim.x) {
-      float acc[kRows] = {};
-      for (int k = 0; k < nz; ++k) {
-        const float w = __ldg(&k1[k * ndf + j]);
+    // h1p = z K1 + b1, own columns.
+    for (int t = tid; t < J * kGroups; t += kThreads) {
+      const int j = t % J, r0 = (t / J) * kRt;
+      float acc[kRt] = {};
+      dot_col(k1s + j, ld, zs + r0 * nz, nz, nz, acc);
+      const float b = __ldg(b1 + j0 + j);
 #pragma unroll
-        for (int r = 0; r < kRows; ++r) acc[r] = fmaf(zs[r * nz + k], w, acc[r]);
-      }
-      const float b = b1[j];
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) {
+      for (int r = 0; r < kRt; ++r) {
         const float v = acc[r] + b;
-        h1p[r * ndf + j] = v;
-        h1[r * ndf + j] = lrelu(v);
+        h1p[(r0 + r) * J + j] = v;
+        xh1[(r0 + r) * J + j] = lrelu(v);
       }
     }
-    __syncthreads();
-    // h2p = h1 K2 + b2; d2 = lrelu'(h2p) * k3
-    for (int j = tid; j < ndf; j += blockDim.x) {
-      float acc[kRows] = {};
-      for (int k = 0; k < ndf; ++k) {
-        const float w = k2s[k * ndf + j];
-#pragma unroll
-        for (int r = 0; r < kRows; ++r) acc[r] = fmaf(h1[r * ndf + k], w, acc[r]);
-      }
-      const float b = b2[j], head = k3[j];
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) d2[r * ndf + j] = dlrelu(acc[r] + b) * head;
+    cluster.sync();
+    // All of lrelu(h1p), from the cluster.
+#pragma unroll 4
+    for (int e = tid; e < kRows * ndf; e += kThreads) {
+      const int r = e / ndf, i = e - r * ndf, c = i / J;
+      h1[e] = cluster.map_shared_rank(xh1, c)[r * J + (i - c * J)];
     }
     __syncthreads();
-    // d1 = lrelu'(h1p) * (d2 K2^T)
-    for (int i = warp; i < ndf; i += nwarps) {
-      float acc[kRows] = {};
-      for (int j = lane; j < ndf; j += 32) {
-        const float w = k2s[i * ndf + j];
+    // d2 = lrelu'(h1 K2 + b2) * k3, own columns.
+    for (int t = tid; t < J * kGroups; t += kThreads) {
+      const int j = t % J, r0 = (t / J) * kRt;
+      float acc[kRt] = {};
+      dot_col(k2s + j, ld, h1 + r0 * ndf, ndf, ndf, acc);
+      const float b = __ldg(b2 + j0 + j), head = __ldg(k3 + j0 + j);
 #pragma unroll
-        for (int r = 0; r < kRows; ++r) acc[r] = fmaf(d2[r * ndf + j], w, acc[r]);
-      }
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        const float v = warp_sum(acc[r]);
-        if (lane == 0) d1[r * ndf + i] = dlrelu(h1p[r * ndf + i]) * v;
-      }
+      for (int r = 0; r < kRt; ++r) d2[(r0 + r) * j4 + j] = dlrelu(acc[r] + b) * head;
     }
     __syncthreads();
-    // dU/dz = d1 K1^T + z
-    for (int i = warp; i < nz; i += nwarps) {
-      float acc[kRows] = {};
-      for (int j = lane; j < ndf; j += 32) {
-        const float w = __ldg(&k1[i * ndf + j]);
+    // d2 K2^T over own columns, every output.
+    for (int t = tid; t < ndf * kGroups; t += kThreads) {
+      const int i = t % ndf, r0 = (t / ndf) * kRt;
+      float acc[kRt] = {};
+      dot_row(k2s + i * ld, d2 + r0 * j4, j4, j4, acc);
 #pragma unroll
-        for (int r = 0; r < kRows; ++r) acc[r] = fmaf(d1[r * ndf + j], w, acc[r]);
-      }
+      for (int r = 0; r < kRt; ++r) xd1[(r0 + r) * ndf + i] = acc[r];
+    }
+    cluster.sync();
+    // d1 = lrelu'(h1p) * (d2 K2^T), own columns: the cluster's partials in rank order.
+    for (int e = tid; e < kRows * J; e += kThreads) {
+      const int r = e / J, j = e - r * J;
+      float v = 0.f;
 #pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        const float v = warp_sum(acc[r]);
-        if (lane == 0) gs[r * nz + i] = v + zs[r * nz + i];
-      }
+      for (int c = 0; c < kCluster; ++c) v += cluster.map_shared_rank(xd1, c)[r * ndf + j0 + j];
+      d1[r * j4 + j] = dlrelu(h1p[e]) * v;
     }
     __syncthreads();
-    // z <- z - coeff * grad (+ eps * N)
-    for (int e = tid; e < kRows * nz; e += blockDim.x) {
-      const int r = e / nz, c = e - r * nz;
-      float z = zs[e] - coeff * gs[e];
-      if (noisy && r < nrows) z += step_size * damc::counter_normal(row_seed[r], s, c);
+    // d1 K1^T over own columns, every output.
+    for (int t = tid; t < nz * kGroups; t += kThreads) {
+      const int m = t % nz, r0 = (t / nz) * kRt;
+      float acc[kRt] = {};
+      dot_row(k1s + m * ld, d1 + r0 * j4, j4, j4, acc);
+#pragma unroll
+      for (int r = 0; r < kRt; ++r) xg[(r0 + r) * nz + m] = acc[r];
+    }
+    cluster.sync();
+    // z <- z - coeff * (d1 K1^T + z) (+ eps * N), every column, in every block.
+    for (int e = tid; e < kRows * nz; e += kThreads) {
+      const int r = e / nz, m = e - r * nz;
+      float g = 0.f;
+#pragma unroll
+      for (int c = 0; c < kCluster; ++c) g += cluster.map_shared_rank(xg, c)[e];
+      float z = zs[e] - coeff * (g + zs[e]);
+      if (noisy && r < nrows) z += step_size * damc::counter_normal(row_seed[r], s, m);
       zs[e] = z;
     }
   }
-  __syncthreads();
-  for (int e = tid; e < nrows * nz; e += blockDim.x) z_out[(size_t)row0 * nz + e] = zs[e];
+  cluster.sync();  // no block leaves while another may still read its partials
+  if (rank == 0)
+    for (int e = tid; e < nrows * nz; e += kThreads) z_out[(size_t)row0 * nz + e] = zs[e];
+}
+
+int smem_bytes(int nz, int ndf) {
+  const int J = ndf / kCluster;
+  return (int)sizeof(float) *
+         ((nz + ndf) * slice_ld(J) + kRows * (2 * nz + 2 * ndf + 2 * pad4(J) + 2 * J));
+}
+
+cudaLaunchConfig_t launch_config(int clusters, int smem, cudaStream_t stream,
+                                 cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(clusters * kCluster);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = kCluster;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
 }
 
 }  // namespace
 
 DAMC_ERROR_STRING_EXPORT
 
-extern "C" int damc_fused_langevin_rows() { return kRows; }
-
-extern "C" int damc_fused_langevin_smem_bytes(int nz, int ndf) {
-  return (int)sizeof(float) * (ndf * ndf + kRows * (2 * nz + 4 * ndf));
+// [chains per cluster, blocks per cluster, threads per block]: the
+// wrapper's planner checks its constants against these.
+extern "C" void damc_fused_langevin_geometry(int* out) {
+  out[0] = kRows;
+  out[1] = kCluster;
+  out[2] = kThreads;
 }
+
+extern "C" int damc_fused_langevin_smem_bytes(int nz, int ndf) { return smem_bytes(nz, ndf); }
 
 // Noise: seeds = per-chain int32 counter seeds (counter mode); else
 // stream_noise != 0 draws stream mode from the scalar `seed`; else the
-// chain is noiseless.
+// chain is noiseless. ndf must be a multiple of kCluster.
 extern "C" int damc_fused_langevin(const float* z, const float* k1, const float* b1, const float* k2,
                                    const float* b2, const float* k3, const int* seeds, int seed,
                                    int stream_noise, float* out, int B, int nz, int ndf, int steps,
                                    float step_size, float coeff, void* stream) {
-  const int smem = damc_fused_langevin_smem_bytes(nz, ndf);
+  const int smem = smem_bytes(nz, ndf);
   cudaError_t err = cudaFuncSetAttribute(prior_langevin_kernel,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  const int blocks = (B + kRows - 1) / kRows;
-  prior_langevin_kernel<<<blocks, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      z, k1, b1, k2, b2, k3, seeds, seed, stream_noise, out, B, nz, ndf, steps, step_size, coeff);
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg =
+      launch_config((B + kRows - 1) / kRows, smem, static_cast<cudaStream_t>(stream), &attr);
+  err = cudaLaunchKernelEx(&cfg, prior_langevin_kernel, z, k1, b1, k2, b2, k3, seeds, seed,
+                           stream_noise, out, B, nz, ndf, steps, step_size, coeff);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

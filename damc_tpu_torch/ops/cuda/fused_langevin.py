@@ -21,14 +21,17 @@ from __future__ import annotations
 
 import ctypes
 import threading
-from typing import Tuple
+from typing import List, Tuple
 
 import torch
 
 from ..noise import counter_normal, int32_seed, stream_row_seeds
 from . import build
 
-ROWS = 4  # chains per block, kRows in the kernel
+# The kernel's geometry (csrc/fused_langevin.cu; `_library` checks it):
+ROWS = 8  # chains per cluster
+CLUSTER = 4  # blocks per cluster; each holds ndf / CLUSTER hidden columns of K1 and K2
+THREADS = 256
 SMEM_LIMIT = 232_448  # bytes of shared memory one Hopper block may use
 _SLOPE = 0.2
 _lock = threading.Lock()
@@ -45,13 +48,39 @@ def ebm_params_to_dense_weights(ebm) -> Tuple[torch.Tensor, ...]:
     return k(lin[0]), b(lin[0]), k(lin[1]), b(lin[1]), lin[2].weight.detach()[0].contiguous().float()
 
 
-def smem_bytes(nz: int, ndf: int, rows: int = ROWS) -> int:
-    """K2 of the EBM plus z, dU/dz, h1p, h1, d2 and d1 for each chain."""
-    return 4 * (ndf * ndf + rows * (2 * nz + 4 * ndf))
+def column_ranges(ndf: int) -> List[Tuple[int, int]]:
+    """[start, stop) of the hidden columns each block of a cluster holds
+    (its slices of K1 and K2). The transposed products sum over these
+    slices, and the cluster adds the partial sums in this order: the
+    summation order of every element, fixed by ndf alone."""
+    j = ndf // CLUSTER
+    return [(r * j, (r + 1) * j) for r in range(CLUSTER)]
+
+
+def slice_ld(j: int) -> int:
+    """Row stride of a block's weight slices with j columns: j padded to a
+    multiple of 4 whose quarter is odd (conflict-free 128-bit row reads)."""
+    j4 = -(-j // 4) * 4
+    return j4 if (j4 // 4) % 2 else j4 + 4
+
+
+def smem_bytes(nz: int, ndf: int) -> int:
+    """Shared memory of one block (the kernel's layout): its column slices
+    of K1 and K2; per chain the whole z, the gathered h1, its partial sums
+    of d2 K2^T (ndf) and d1 K1^T (nz), its own columns of d2 and d1 (padded
+    to a multiple of 4) and of h1p and lrelu(h1p)."""
+    j = ndf // CLUSTER
+    j4 = -(-j // 4) * 4
+    return 4 * ((nz + ndf) * slice_ld(j) + ROWS * (2 * nz + 2 * ndf + 2 * j4 + 2 * j))
 
 
 def fits_smem(nz: int, ndf: int) -> bool:
-    return smem_bytes(nz, ndf) <= SMEM_LIMIT
+    """The Hopper fit rule: nz a multiple of 4 (float4 reads), ndf a
+    multiple of CLUSTER (each block holds ndf / CLUSTER hidden columns,
+    zero-padded to a multiple of 4), and a block's share of the weights and
+    activations within 227 KB of shared memory. ndf=200 fits (94 KB a
+    block); ndf=512 does not."""
+    return nz % 4 == 0 and ndf % CLUSTER == 0 and smem_bytes(nz, ndf) <= SMEM_LIMIT
 
 
 def _lrelu(x):
@@ -114,7 +143,10 @@ def fused_prior_langevin(
     if k1.shape != (nz, ndf) or k2.shape != (ndf, ndf) or b1.numel() != ndf or b2.numel() != ndf or k3.numel() != ndf:
         raise ValueError("EBM weights do not match z's width")
     if not fits_smem(nz, ndf):
-        raise ValueError(f"EBM width ndf={ndf} does not fit the chain kernel's shared memory")
+        raise ValueError(
+            f"EBM width ndf={ndf} does not fit the chain kernel: ndf must be a multiple of "
+            f"{CLUSTER} and {smem_bytes(nz, ndf)} B of shared memory a block within {SMEM_LIMIT}"
+        )
     dev = z.device
     f32 = lambda t: t.to(device=dev, dtype=torch.float32).contiguous()
     z32, w = f32(z), [f32(t) for t in (k1, b1, k2, b2, k3)]
@@ -151,8 +183,10 @@ def _library() -> ctypes.CDLL:
         # steps, step_size, coeff, stream
         fn.argtypes = [p, p, p, p, p, p, p, i, i, p, i, i, i, i, f, f, p]
         fn.restype = ctypes.c_int
-        if lib.damc_fused_langevin_rows() != ROWS:
-            raise RuntimeError("fused_langevin.cu and fused_langevin.py disagree on the row tile")
+        geometry = (ctypes.c_int * 3)()
+        lib.damc_fused_langevin_geometry(geometry)
+        if tuple(geometry) != (ROWS, CLUSTER, THREADS):
+            raise RuntimeError("fused_langevin.cu and fused_langevin.py disagree on the geometry")
         if lib.damc_fused_langevin_smem_bytes(128, 200) != smem_bytes(128, 200):
             raise RuntimeError("fused_langevin.cu and fused_langevin.py disagree on shared memory")
     return lib

@@ -19,8 +19,10 @@ PRNG (see `ops/noise.py`).
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 import threading
+import weakref
 from typing import List, Sequence, Tuple
 
 import torch
@@ -30,7 +32,14 @@ from ..noise import counter_normal, int32_seed, stream_row_seeds
 from . import build
 
 N_COEF = 6  # c1, c2, m_z, m_x, std, is_last
-ROWS = 8  # rows per block, kRows in the kernel
+# The kernel's geometry (csrc/fused_qsweep.cu; `_library` checks it):
+TILE_ROWS = (4, 8, 12, 16)  # the row tiles (rows per cluster) a launch may take
+CLUSTER = 8  # blocks per cluster; each owns 1/CLUSTER of every layer's columns
+THREADS = 544  # 16 compute warps and the producer warp
+K_SPLIT = 8  # chunks of every weight stage's rows, one per warp of each half
+MAX_TILE = 32  # most columns a block may own in one layer
+STAGE_ROWS = 64  # input rows of a weight stage
+LAYERS = 7
 SMEM_LIMIT = 232_448  # bytes of shared memory one Hopper block may use
 _LRELU = 0.01
 _TWO_PI = 2.0 * math.pi
@@ -55,20 +64,122 @@ def denoiser_layer_params(denoiser) -> Tuple[torch.Tensor, List[LayerTuple]]:
     return denoiser.B.detach().contiguous().float(), layers
 
 
-def smem_bytes(nz: int, dins: Sequence[int], douts: Sequence[int], rows: int = ROWS) -> int:
-    """Shared memory of one block: per row z, the layer input, the context,
-    the output and the three in-layer skips (the kernel's layout)."""
-    per_row = nz + max(dins) + 2 * max(douts) + sum(douts[:3])
-    return 4 * rows * per_row
+def col_tile(dout: int) -> int:
+    """Columns a block owns in a layer of width `dout`: ceil(dout / CLUSTER)
+    rounded up to a multiple of 16 (the kernel's thread layouts)."""
+    t = -(-dout // CLUSTER)
+    return -(-t // 16) * 16
 
 
-def fits_smem(nz: int, dins: Sequence[int], douts: Sequence[int], rows: int = ROWS) -> bool:
-    """The Hopper fit rule in place of the TPU's `fits_vmem`: a block's rows
-    of activations must fit in 227 KB of shared memory, and every width must
-    be a multiple of 4 (float4 reads). The CIFAR-10 family fits (57 KB at
-    8 rows); the StyleGAN width (1024, nz=7168) does not."""
+def column_ranges(dout: int) -> List[Tuple[int, int]]:
+    """[start, stop) of the output columns of each block of a cluster; the
+    last blocks of a ragged layer own fewer columns or none."""
+    t = col_tile(dout)
+    return [(min(r * t, dout), min((r + 1) * t, dout)) for r in range(CLUSTER)]
+
+
+def chunk_rows(n: int) -> List[List[Tuple[int, int]]]:
+    """For each of the K_SPLIT chunks, the [start, stop) runs of an input
+    dimension of width n that it sums, in order: the weights stream through
+    shared memory in stages of STAGE_ROWS rows, and chunk q takes rows
+    [q * STAGE_ROWS // K_SPLIT, (q + 1) * STAGE_ROWS // K_SPLIT) of every
+    stage. The chunks' partial sums are then added in chunk order. This is
+    the summation order of every output element, fixed by n alone."""
+    per = STAGE_ROWS // K_SPLIT
+    return [
+        [(s + q * per, min(s + (q + 1) * per, n)) for s in range(0, n, STAGE_ROWS) if s + q * per < n]
+        for q in range(K_SPLIT)
+    ]
+
+
+def pack_weights(layers: Sequence[LayerTuple]) -> torch.Tensor:
+    """The layers' weights as the kernel streams them: layer by layer, the
+    (lin, skip) pair, then the (gate, hyper) pair, each pair of (n, dout)
+    matrices padded with zero columns to CLUSTER * col_tile(dout) and laid
+    out [rank][row][matrix][col_tile]: the rows of a block's column tile of
+    both matrices are contiguous, so a weight stage is one bulk copy."""
+    parts = []
+    for lt in layers:
+        dout = int(lt[0].shape[1])
+        t = col_tile(dout)
+        for m0, m1 in ((lt[0], lt[2]), (lt[4], lt[6])):
+            pair = torch.stack([F.pad(m, (0, CLUSTER * t - dout)) for m in (m0, m1)], dim=1)
+            parts.append(pair.reshape(pair.shape[0], 2, CLUSTER, t).permute(2, 0, 1, 3).reshape(-1))
+    return torch.cat(parts)
+
+
+# The last packing: (weak references to its source tensors, their version
+# counters, the packed tensor). Serving passes one set of layer tuples for
+# its lifetime, so it packs once; a caller that builds new tuples (the
+# training step) packs every call.
+_last_pack: Tuple[tuple, tuple, torch.Tensor] = ((), (), torch.empty(0))
+
+
+def _packed(flat: Sequence[torch.Tensor]) -> torch.Tensor:
+    """pack_weights of the flat layer tensors, reused while the very same
+    tensors, unmodified, come again."""
+    global _last_pack
+    versions = tuple(t._version for t in flat)
+    with _lock:
+        refs, seen, packed = _last_pack
+        if seen == versions and len(refs) == len(flat) and all(r() is t for r, t in zip(refs, flat)):
+            return packed
+    packed = pack_weights([flat[7 * l:7 * l + 7] for l in range(LAYERS)])
+    with _lock:
+        _last_pack = (tuple(weakref.ref(t) for t in flat), versions, packed)
+    return packed
+
+
+def ring_stages(rows: int) -> int:
+    """Weight stages in a block's shared-memory ring at a row tile, all but
+    one in flight: as many as the tile's other buffers leave room for."""
+    return 11 if rows <= 4 else 8 if rows <= 8 else 6 if rows <= 12 else 4
+
+
+def stages_per_step(dins: Sequence[int], douts: Sequence[int]) -> int:
+    """Weight stages one step streams: each layer's din rows, then its dout
+    rows, in stages of STAGE_ROWS."""
+    return sum(-(-n // STAGE_ROWS) for n in (*dins, *douts))
+
+
+def row_tile(b: int, max_clusters: int) -> int:
+    """The row tile of a launch of b rows: the smallest that puts every
+    cluster on the card at once (at most `max_clusters`), else the
+    largest. A small batch so spreads over more SMs, a large one reuses
+    each weight stage for more rows. The tile never changes a row's
+    arithmetic (`chunk_rows`), so a row's result does not depend on it."""
+    for rows in TILE_ROWS:
+        if -(-b // rows) <= max_clusters:
+            return rows
+    return TILE_ROWS[-1]
+
+
+def smem_bytes(nz: int, dins: Sequence[int], douts: Sequence[int], rows: int = TILE_ROWS[-1]) -> int:
+    """Shared memory of one block (the kernel's layout) at a row tile: the
+    ring of weight stages, the chunks' partial sums, per row the whole z,
+    the layer input and context, the block's output and context tiles of
+    every layer and its Fourier features, and the table of one step's
+    weight stages."""
+    ring = ring_stages(rows) * STAGE_ROWS * 2 * MAX_TILE
+    nfour = (dins[0] - nz) // 2
+    per_row = nz + max(dins) + max(douts) + 2 * LAYERS * MAX_TILE + 2 * -(-nfour // CLUSTER)
+    floats = ring + K_SPLIT * 4 * rows * MAX_TILE + rows * per_row
+    return 4 * floats + 8 * stages_per_step(dins, douts)
+
+
+def fits_smem(nz: int, dins: Sequence[int], douts: Sequence[int]) -> bool:
+    """The Hopper fit rule in place of the TPU's `fits_vmem`: every width a
+    multiple of 4 (float4 reads), no block owning more than MAX_TILE columns
+    of a layer (at most 256 columns a layer on a cluster of 8), and a
+    block's shared memory within 227 KB at every row tile. The CIFAR-10
+    family fits (at most 214 KB a block); the StyleGAN width (1024,
+    nz=7168) does not."""
     widths = [nz, *dins, *douts]
-    return all(w % 4 == 0 for w in widths) and smem_bytes(nz, dins, douts, rows) <= SMEM_LIMIT
+    return (
+        all(w % 4 == 0 for w in widths)
+        and all(col_tile(d) <= MAX_TILE for d in douts)
+        and max(smem_bytes(nz, dins, douts, r) for r in TILE_ROWS) <= SMEM_LIMIT
+    )
 
 
 def _dims(fourier, layers) -> Tuple[int, int, List[int], List[int]]:
@@ -187,8 +298,10 @@ def fused_reverse_sweep(
     _check_unet(nz, nfour, dins, douts)
     if not fits_smem(nz, dins, douts):
         raise ValueError(
-            f"denoiser widths din={dins}, dout={douts} do not fit the sweep "
-            f"kernel's {SMEM_LIMIT} B of shared memory at {ROWS} rows"
+            f"denoiser widths din={dins}, dout={douts} do not fit the sweep kernel: "
+            f"widths must be multiples of 4, at most {CLUSTER * MAX_TILE} columns a layer, "
+            f"and {max(smem_bytes(nz, dins, douts, r) for r in TILE_ROWS)} B of shared memory "
+            f"a block within {SMEM_LIMIT}"
         )
     b = z_init.shape[0]
     if z_init.shape != (b, nz) or coeffs.shape[0] < steps or coeffs.shape[1] != N_COEF:
@@ -211,14 +324,15 @@ def fused_reverse_sweep(
     stream = with_noise and seeds is None
     out = torch.empty_like(z)
     lib = _library()
+    packed = _packed(flat)
     ptrs = (ctypes.c_void_p * len(flat))(*[t.data_ptr() for t in flat])
     dims = (ctypes.c_int * 14)(*dins, *douts)
+    rows = row_tile(b, max_active_clusters(nz, dins, douts))
     rc = lib.damc_fused_qsweep(
-        z.data_ptr(), four.data_ptr(), ptrs, dims, px.data_ptr(), pt.data_ptr(),
+        z.data_ptr(), four.data_ptr(), packed.data_ptr(), ptrs, dims, px.data_ptr(), pt.data_ptr(),
         cf.data_ptr(), None if seeds is None else seeds.data_ptr(),
         int32_seed(seed) if stream else 0, int(stream), out.data_ptr(),
-        b, nz, nfour, steps, int(residual), smem_bytes(nz, dins, douts),
-        torch.cuda.current_stream(dev).cuda_stream,
+        b, nz, nfour, steps, int(residual), rows, torch.cuda.current_stream(dev).cuda_stream,
     )
     build.check(lib, rc, "fused_reverse_sweep")
     with _lock:
@@ -234,10 +348,38 @@ def _library() -> ctypes.CDLL:
     fn = lib.damc_fused_qsweep
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        # z, fourier, layer_ptrs, dims, pre_x, pre_t, coeffs, seeds, seed,
-        # stream_noise, out, B, nz, nfour, steps, residual, smem_bytes, stream
-        fn.argtypes = [p, p, p, p, p, p, p, p, i, i, p, i, i, i, i, i, i, p]
+        # z, fourier, packed, layer_ptrs, dims, pre_x, pre_t, coeffs, seeds,
+        # seed, stream_noise, out, B, nz, nfour, steps, residual, rows, stream
+        fn.argtypes = [p, p, p, p, p, p, p, p, p, i, i, p, i, i, i, i, i, i, p]
         fn.restype = ctypes.c_int
-        if lib.damc_fused_qsweep_rows() != ROWS:
-            raise RuntimeError("fused_qsweep.cu and fused_qsweep.py disagree on the row tile")
+        geometry = (ctypes.c_int * 9)()
+        lib.damc_fused_qsweep_geometry(geometry)
+        if tuple(geometry) != (CLUSTER, THREADS, K_SPLIT, MAX_TILE, STAGE_ROWS, *TILE_ROWS):
+            raise RuntimeError("fused_qsweep.cu and fused_qsweep.py disagree on the geometry")
+        dims = (ctypes.c_int * 14)(256, 128, 256, 256, 512, 512, 256, 128, 256, 256, 256, 256, 128, 128)
+        agree = all(lib.damc_fused_qsweep_smem_bytes(dims, 128, r) == smem_bytes(128, dims[:7], dims[7:], r)
+                    for r in TILE_ROWS)
+        agree &= lib.damc_fused_qsweep_packed_floats(dims) == sum(
+            2 * (n + d) * CLUSTER * col_tile(d) for n, d in zip(dims[:7], dims[7:]))
+        for n in (4, 100, 128, 256, 512):
+            agree &= lib.damc_fused_qsweep_col_tile(n) == col_tile(n)
+        if not agree:
+            raise RuntimeError("fused_qsweep.cu and fused_qsweep.py disagree on the plan")
     return lib
+
+
+def max_active_clusters(nz: int, dins: Sequence[int], douts: Sequence[int]) -> int:
+    """How many clusters of the sweep kernel the current card runs at once,
+    at the largest row tile (the smaller tiles use less shared memory, and
+    a block of theirs still fills an SM's registers)."""
+    return _max_active_clusters(torch.cuda.current_device(), nz, tuple(dins), tuple(douts))
+
+
+@functools.lru_cache(maxsize=None)
+def _max_active_clusters(device: int, nz: int, dins: Tuple[int, ...], douts: Tuple[int, ...]) -> int:
+    lib = _library()
+    out = ctypes.c_int(0)
+    dims = (ctypes.c_int * 14)(*dins, *douts)
+    build.check(lib, lib.damc_fused_qsweep_max_active_clusters(
+        dims, nz, TILE_ROWS[-1], ctypes.byref(out)), "max_active_clusters")
+    return out.value

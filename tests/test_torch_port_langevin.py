@@ -119,9 +119,26 @@ def test_wrapper_dispatch_rules():
         k1.fused_prior_langevin(z, *w, steps=1)  # noise needs seed or row_seeds
     with pytest.raises(ValueError, match="device"):
         k1.fused_prior_langevin(z.to("meta"), *w, steps=1, with_noise=False)
-    assert k1.fits_smem(NZ, NDF) and not k1.fits_smem(NZ, 512)
-    assert k1.smem_bytes(NZ, NDF) == 4 * (NDF * NDF + k1.ROWS * (2 * NZ + 4 * NDF))
+    # The fit rule: cifar10 fits; ndf=512 exceeds a block's shared memory;
+    # widths that do not split over the cluster, or break float4 reads, do not.
+    assert k1.fits_smem(NZ, NDF) and k1.smem_bytes(NZ, NDF) <= k1.SMEM_LIMIT
+    assert not k1.fits_smem(NZ, 512)
+    assert not k1.fits_smem(NZ, NDF + 2) and not k1.fits_smem(NZ + 2, NDF)
 
+
+@pytest.mark.parametrize("ndf", [8, 16, 200, 512])
+def test_blocks_hold_every_hidden_column_once(ndf):
+    """The cluster's blocks hold every hidden column exactly once, a split
+    that depends on ndf alone, so a chain's partial sums, added in rank
+    order, do not depend on B or on the chain's slot; the weight slices'
+    row stride is a multiple of 4 with an odd quarter and holds the
+    slice."""
+    ranges = k1.column_ranges(ndf)
+    assert len(ranges) == k1.CLUSTER
+    assert [j for a, e in ranges for j in range(a, e)] == list(range(ndf))
+    j = ndf // k1.CLUSTER
+    ld = k1.slice_ld(j)
+    assert ld >= j and ld % 4 == 0 and (ld // 4) % 2 == 1
 
 def _moments_close(got, want, n):
     """Per-dimension mean within 5 sd of a difference of two means

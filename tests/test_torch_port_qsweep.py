@@ -92,15 +92,94 @@ def test_denoiser_layer_params_follow_the_module():
 
 
 def test_fit_rule():
-    """CIFAR-10 widths fit a Hopper block at 8 rows; the StyleGAN width
-    (1024 hidden, nz=7168) does not and waits for its own slice."""
+    """The CIFAR-10 widths fit the cluster kernel at every row tile; the
+    StyleGAN width (1024 hidden, nz=7168) does not and waits for its own
+    slice; widths that are not multiples of 4 (float4 reads) and layers
+    wider than a cluster's 8 x 32 columns are refused."""
     assert k2.fits_smem(NZ, DINS, DOUTS)
-    assert k2.smem_bytes(NZ, DINS, DOUTS) == 4 * 8 * (NZ + 512 + 2 * 256 + 128 + 256 + 256)
+    assert max(k2.smem_bytes(NZ, DINS, DOUTS, r) for r in k2.TILE_ROWS) <= k2.SMEM_LIMIT
     nz, w = 7168, 1024
     s_dins = [2 * nz, w, w, w, 2 * w, 2 * w, 2 * w]
     s_douts = [w, w, w, w, w, w, nz]
     assert not k2.fits_smem(nz, s_dins, s_douts)
     assert not k2.fits_smem(NZ + 2, [d + 2 * (i == 0) for i, d in enumerate(DINS)], DOUTS)  # float4 rows
+    wide = [DOUTS[0], 264, *DOUTS[2:]]  # 264 columns: 8 tiles of 48
+    assert not k2.fits_smem(NZ, [DINS[0], DINS[1], 264, *DINS[3:]], wide)
+
+
+@pytest.mark.parametrize("b", [1, 16, 128, 500])
+def test_row_tile_fills_the_card_in_one_wave(b):
+    """Row i of a launch goes to cluster i // rows, slot i % rows. The row
+    tile is the smallest that puts every cluster on the card at once (15
+    clusters of 8 blocks on an H100), else the largest; it changes where a
+    row sits, never how it is summed (`chunk_rows`)."""
+    rows = k2.row_tile(b, max_clusters=15)
+    assert rows == {1: 4, 16: 4, 128: 12, 500: 16}[b]
+    clusters = -(-b // rows)
+    assert clusters <= 15 or rows == k2.TILE_ROWS[-1]
+    assert all(-(-b // r) > 15 for r in k2.TILE_ROWS if r < rows)
+    assert len({divmod(i, rows) for i in range(b)}) == b
+
+
+@pytest.mark.parametrize("n", sorted({*DINS, *DOUTS, 200, 100, 16, 8}))
+def test_columns_and_summation_chunks_cover_each_index_once(n):
+    """The blocks of a cluster own every output column of a layer exactly
+    once, and the chunks of the fixed summation order take every input row
+    exactly once; both depend on the width alone, so a row is summed in
+    the same order whatever B, the row tile or its slot."""
+    cols = [j for a, b in k2.column_ranges(n) for j in range(a, b)]
+    assert sorted(cols) == list(range(n)) and len(k2.column_ranges(n)) == k2.CLUSTER
+    assert all(b - a <= k2.col_tile(n) for a, b in k2.column_ranges(n))
+    runs = k2.chunk_rows(n)
+    assert len(runs) == k2.K_SPLIT
+    rows = sorted(k for chunk in runs for a, b in chunk for k in range(a, b))
+    assert rows == list(range(n))
+    for chunk in runs:  # each chunk walks its rows upward
+        starts = [a for a, _ in chunk]
+        assert starts == sorted(starts)
+
+
+def test_pack_weights_puts_each_block_rows_together():
+    """pack_weights lays each (lin, skip) and (gate, hyper) pair out as
+    [rank][row][matrix][col_tile], zero past dout: checked element by
+    element against the layers, for the cifar10 widths and a ragged last
+    layer (dout=100, tiles of 16 over 8 blocks)."""
+    r = np.random.default_rng(5)
+    dins, douts = DINS[:-1] + [DINS[-1]], DOUTS[:-1] + [100]
+    layers = [
+        tuple(torch.from_numpy(r.normal(size=s).astype(np.float32))
+              for s in ((i, o), (o,), (i, o), (o,), (o, o), (o,), (o, o)))
+        for i, o in zip(dins, douts)
+    ]
+    packed = k2.pack_weights(layers).numpy()
+    off = 0
+    for (lin, _, skip, _, gate, _, hyper), din, dout in zip(layers, dins, douts):
+        t = k2.col_tile(dout)
+        for m0, m1, n in ((lin, skip, din), (gate, hyper, dout)):
+            block = packed[off:off + n * k2.CLUSTER * 2 * t].reshape(k2.CLUSTER, n, 2, t)
+            full = np.zeros((2, n, k2.CLUSTER * t), np.float32)
+            full[0, :, :dout], full[1, :, :dout] = m0.numpy(), m1.numpy()
+            want = full.reshape(2, n, k2.CLUSTER, t).transpose(2, 1, 0, 3)
+            np.testing.assert_array_equal(block, want)
+            off += n * k2.CLUSTER * 2 * t
+    assert off == packed.size
+
+
+def test_packing_is_reused_only_for_the_same_unchanged_tensors():
+    """The wrapper packs the weights once for a caller that passes the same
+    layer tensors again (serving), and packs anew for new tensors or after
+    an in-place change, so no stale packing is ever launched."""
+    _, _, layers, *_ = _inputs(2, 2, seed=14)
+    flat = [torch.from_numpy(t) for lt in layers for t in lt]
+    first = k2._packed(flat)
+    np.testing.assert_array_equal(first.numpy(), k2.pack_weights([flat[7 * l:7 * l + 7] for l in range(7)]).numpy())
+    assert k2._packed(flat) is first
+    flat[0].add_(1.0)  # the lin kernel of layer 0, in place
+    changed = k2._packed(flat)
+    assert changed is not first and changed[0] == first[0] + 1.0
+    copies = [t.clone() for t in flat]
+    assert k2._packed(copies) is not changed
+    assert torch.equal(k2._packed(copies), changed)
 
 
 def test_wrapper_dispatch_rules():
