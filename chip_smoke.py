@@ -13,7 +13,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
      (K1 over 2B=256 chains, K2 over B=128 rows), and times both beside
      their bounds; then, in counter mode, rows 0, 7, 250 and 499 of a B=500
      launch of each kernel must equal, bit for bit, the same rows launched
-     alone and inside a B=16 batch;
+     alone and inside batches of 16, 64, 80 and 128 (every K2 row tile the
+     main path runs);
   4. serves the full-width `cifar10` preset (random weights from a seed) over
      HTTP: /sample damc and ebm and /reconstruct, some requests concurrent;
      checks shapes, range, that an item served alone equals the same item
@@ -31,9 +32,32 @@ Phases, each of which raises on failure (the script then exits non-zero):
      gradients and parameters;
   7. profiles one training iteration (device busy and idle time, the seven
      phases, top kernels);
-  8. prints one JSON line {"kernels": [...]} with launches, errors and times
-     of each kernel on each path;
-  9. prints {"ok": true, "device": {...}} as the last line.
+  8. holds each kernel against its plain version at the eval shapes in
+     stream mode: K1 at B=500 with the eval CLI's 100 steps at 1.6 and the
+     loop's 60 at 0.4; K2 at B=500 under the prior embedding (the FID
+     batch) and the encoder (the recon-MSE batch), and at B=64 (the plot
+     grids) and B=80 (the loop's recon-MSE tail), whose 100-step rows must
+     equal those of the B=500 launch bit for bit;
+  9. drives the gen_recon workload through its CLIs at full cifar10 width
+     in a temporary directory, on a CIFAR-10 pickle tree made from the seed
+     (50,000 train images; 2,000 test images, cut from 10,000): trains 6
+     iterations at B=128 with evals, grids and checkpoints every 3 and 1,000
+     FID samples (`frechet_rand`: no Inception weights here) and checks the
+     metrics rows, the checkpoints, the PNG grids and that K1 and K2
+     launched exactly as the protocol implies; resumes to 8 iterations with
+     --resume_path auto in the same run directory; restores ckpt/5 into a
+     fresh state, equal to the state in memory, and steps both, bit for
+     bit; scores ckpt/best twice through the eval CLI (K1 100 steps at 1.6,
+     K2 at B=500) and checks that both print the same numbers;
+ 10. runs pool3 InceptionV3 (random weights) on the card against the CPU on
+     2 images, then times it at B=500 with its peak memory;
+ 11. times the eval's parts (a FID batch of each prior: sampling, features,
+     stats; a recon-MSE batch at B=128 and B=500; sqrtm) and sets the eval
+     beside 100 training iterations, with a projection of the 50,000-sample
+     protocol, labelled as such;
+ 12. prints one JSON line {"kernels": [...]} with launches, errors and times
+     of each kernel on each path (serve, train, eval);
+ 13. prints {"ok": true, "device": {...}} as the last line.
 """
 
 from __future__ import annotations
@@ -110,28 +134,165 @@ def check_close(name, got, want, atol, rtol=0.0):
     return err
 
 
+def _int32(u):
+    """uint32 values held in int64 -> int32 with the same bits."""
+    import torch
+
+    return torch.where(u >= 2**31, u - 2**32, u).to(torch.int32)
+
+
+def _stream_as_counter(noise, b, dev):
+    """In stream mode, the counter-mode keywords that must give the same
+    bits (stream mode is counter mode fed stream_row_seeds); else None."""
+    from damc_tpu_torch.ops.noise import stream_row_seeds
+
+    return dict(row_seeds=_int32(stream_row_seeds(noise["seed"], b, dev))) if "seed" in noise else None
+
+
+def report(name, r):
+    b_ms, by = bound(r["flops"], r["bytes"])
+    print(f"  {name} B={r['b']}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+          f"bound {b_ms:.5g} ms ({by}), {r['flops']:.4g} FLOP, {r['bytes']:.4g} B")
+
+
+def chain_check(ebm_w, z, noise, steps, step_size, label):
+    """K1 against its plain version on z (B, nz) under `noise` (row_seeds
+    or seed), then both timed. The counter bits are exact; logf/cosf may
+    differ from torch by an ulp, so atol 1e-4. In stream mode the kernel
+    must also equal counter mode on stream_row_seeds, bit for bit."""
+    import torch
+
+    from damc_tpu_torch.ops.cuda.fused_langevin import fused_prior_langevin, prior_langevin_plain
+
+    b, nz = z.shape
+    kw = dict(steps=steps, step_size=step_size)
+    got = fused_prior_langevin(z, *ebm_w, **noise, **kw)
+    counter = _stream_as_counter(noise, b, z.device)
+    if counter is not None and not torch.equal(got, fused_prior_langevin(z, *ebm_w, **counter, **kw)):
+        raise AssertionError(f"{label}: stream mode differs from counter mode on stream_row_seeds")
+    want = prior_langevin_plain(z, *ebm_w, **noise, **kw)
+    err = check_close(f"{label} B={b}, {steps} steps at {step_size}", got, want, atol=1e-4)
+    flops, nbytes = langevin_cost(b, nz, ebm_w[0].shape[1], steps)
+    r = dict(b=b, max_abs_err=err, flops=flops, bytes=nbytes,
+             ms=time_ms(lambda: fused_prior_langevin(z, *ebm_w, **noise, **kw), 20),
+             plain_ms=time_ms(lambda: prior_langevin_plain(z, *ebm_w, **noise, **kw), 5))
+    report(label, r)
+    return r
+
+
+def sweep_check(models, cfg, z, xemb, noise, label, subs=(), full=True):
+    """K2 against its plain version on z (B, nz) with the tables of the
+    embedding `xemb`, under `noise` (with_noise=False, row_seeds or seed).
+
+    6 steps: at full width with random weights six steps amplify fp32
+    rounding to ~1e-2 (the plain version in fp32 against fp64), so no fp32
+    pair meets 2e-4 here: the kernel is held to the fp64 plain version, at
+    most twice as far as the fp32 plain version is, plus 2e-4.
+    The preset's 100 noisy steps are chaotic pointwise: the output must be
+    finite and, at B >= 128, each dimension's mean and std over the batch
+    within 0.1 x the mean std of the plain version's (both see the same
+    noise). In stream mode the kernel must equal counter mode on
+    stream_row_seeds, bit for bit.
+    Each b of `subs` launches the first b rows (the row tile of another
+    shape): 6 steps held as above, and 100 steps equal, bit for bit, to
+    those rows of the whole launch, since neither a row's noise nor its
+    summation order depends on the batch.
+    Returns {batch: row} with the 100-step times; `full=False` stops after
+    the 6-step check."""
+    import torch
+
+    from damc_tpu_torch.ops.cuda.fused_qsweep import denoiser_layer_params, fused_reverse_sweep
+    from damc_tpu_torch.ops.cuda.fused_qsweep import reverse_sweep_plain
+    from damc_tpu_torch.ops.diffusion import step_coefficients, sweep_logsnr_grid
+
+    dev, d = z.device, cfg.diffusion
+    fourier, layers = denoiser_layer_params(models.amortizer.p)
+    tables = {}
+    for n in (6, d.n_interval) if full else (6,):
+        grid, _ = sweep_logsnr_grid(n, d.logsnr_min, d.logsnr_max)
+        with torch.no_grad():
+            t = models.amortizer.p.sample_tables(grid.to(dev), xemb)
+        tables[n] = (t["pre_x"], t["pre_t"], step_coefficients(n, d.logsnr_min, d.logsnr_max, d.var_type).to(dev))
+
+    def args(n, b):
+        pre_x, pre_t, coeffs = tables[n]
+        return (z[:b], fourier, layers, [t[:b] for t in pre_x], pre_t, coeffs)
+
+    def launch(n, b, kw):
+        got = fused_reverse_sweep(*args(n, b), steps=n, residual=d.residual, **kw)
+        counter = _stream_as_counter(kw, b, dev)
+        if counter is not None and not torch.equal(
+                got, fused_reverse_sweep(*args(n, b), steps=n, residual=d.residual, **counter)):
+            raise AssertionError(f"{label} B={b}: stream mode differs from counter mode on stream_row_seeds")
+        return got
+
+    res, whole = {}, None
+    for b in (z.shape[0],) + tuple(subs):
+        kw = {k: v[:b] if k == "row_seeds" else v for k, v in noise.items()}
+        a6 = args(6, b)
+        a64 = (a6[0].double(), a6[1].double(), [tuple(t.double() for t in lt) for lt in a6[2]],
+               [t.double() for t in a6[3]], [t.double() for t in a6[4]], a6[5].double())
+        got = launch(6, b, kw)
+        want = reverse_sweep_plain(*a6, steps=6, residual=d.residual, **kw)
+        ref = reverse_sweep_plain(*a64, steps=6, residual=d.residual, **kw)
+        err_plain = float((want.double() - ref).abs().max())
+        err_k = float((got.double() - ref).abs().max())
+        res[b] = r = dict(b=b, max_abs_err=float((got - want).abs().max()))
+        print(f"  {label} B={b} 6 steps: kernel-plain {r['max_abs_err']:.3e}; against fp64: kernel "
+              f"{err_k:.3e}, plain fp32 {err_plain:.3e} (limit 2 x plain + 2e-4)")
+        if err_k > 2 * err_plain + 2e-4:
+            raise AssertionError(f"{label} B={b}: kernel further from fp64 than fp32 allows")
+        if not full:
+            continue
+        n = d.n_interval
+        a = args(n, b)
+        got = launch(n, b, kw)
+        want = reverse_sweep_plain(*a, steps=n, residual=d.residual, **kw)
+        if not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"{label} B={b} {n} steps: non-finite output")
+        if whole is None:
+            whole = got
+            if b >= 128:
+                scale = float(want.std(0).mean())
+                d_mean = float((got.mean(0) - want.mean(0)).abs().max())
+                d_std = float((got.std(0) - want.std(0)).abs().max())
+                print(f"  {label} B={b} {n} steps: max |d mean|={d_mean:.3e}, max |d std|={d_std:.3e}, "
+                      f"mean std={scale:.3e} (limit 0.1 x mean std each)")
+                if d_mean > 0.1 * scale or d_std > 0.1 * scale:
+                    raise AssertionError(f"{label} B={b} {n} steps: moments disagree with the plain version")
+        else:
+            same = torch.equal(got, whole[:b])
+            print(f"  {label} B={b} {n} steps == rows 0-{b - 1} of the B={whole.shape[0]} launch: {same}")
+            if not same:
+                raise AssertionError(f"{label} B={b}: rows differ from the same rows of the whole launch")
+        flops, nbytes = sweep_cost(b, fourier, layers, n)
+        r.update(flops=flops, bytes=nbytes,
+                 ms=time_ms(lambda: fused_reverse_sweep(*a, steps=n, residual=d.residual, **kw), 10),
+                 plain_ms=time_ms(lambda: reverse_sweep_plain(*a, steps=n, residual=d.residual, **kw), 3,
+                                  warmup=1))
+        report(label, r)
+    return res
+
+
 def kernel_phase(models, cfg):
-    """Each kernel against its plain version at B=16 and B=500."""
+    """Each kernel against its plain version at B=16 and B=500, counter mode
+    and (6-step K2, 60-step K1) noiseless."""
     import torch
 
     from damc_tpu_torch.ops.cuda.fused_langevin import (
         ebm_params_to_dense_weights, fused_prior_langevin, prior_langevin_plain,
     )
-    from damc_tpu_torch.ops.cuda.fused_qsweep import (
-        denoiser_layer_params, fused_reverse_sweep, reverse_sweep_plain,
-    )
-    from damc_tpu_torch.ops.cuda.fused_qsweep import max_active_clusters, row_tile
-    from damc_tpu_torch.ops.diffusion import step_coefficients, sweep_logsnr_grid
+    from damc_tpu_torch.ops.cuda.fused_qsweep import denoiser_layer_params, max_active_clusters, row_tile
 
     dev = torch.device("cuda")
     gen = torch.Generator(device="cpu").manual_seed(SEED)
-    m, d, mc = cfg.model, cfg.diffusion, cfg.mcmc
+    m, mc = cfg.model, cfg.mcmc
     ebm_w = ebm_params_to_dense_weights(models.ebm)
-    fourier, layers = denoiser_layer_params(models.amortizer.p)
+    _, layers = denoiser_layer_params(models.amortizer.p)
     res = {"K1": {}, "K2": {}}
     k2_max = max_active_clusters(m.nz, [lt[0].shape[0] for lt in layers], [lt[0].shape[1] for lt in layers])
     print(f"[kernels] K2 clusters the card runs at once: {k2_max}; row tiles: "
-          + ", ".join(f"B={b} {row_tile(b, k2_max)} rows" for b in (16, cfg.train.batch_size, 500)))
+          + ", ".join(f"B={b} {row_tile(b, k2_max)} rows" for b in (16, 64, 80, cfg.train.batch_size, 500)))
 
     for b in (16, 500):
         print(f"[kernels] B={b}")
@@ -142,85 +303,33 @@ def kernel_phase(models, cfg):
         got = fused_prior_langevin(z, *ebm_w, with_noise=False, **kw)
         want = prior_langevin_plain(z, *ebm_w, with_noise=False, **kw)
         check_close(f"K1 noiseless {mc.e_l_steps} steps", got, want, atol=1e-5)
-        got = fused_prior_langevin(z, *ebm_w, row_seeds=seeds, **kw)
-        want = prior_langevin_plain(z, *ebm_w, row_seeds=seeds, **kw)
-        # The counter bits are exact; logf/cosf may differ from torch by an ulp.
-        err1 = check_close(f"K1 counter noise {mc.e_l_steps} steps", got, want, atol=1e-4)
-        flops, nbytes = langevin_cost(b, m.nz, m.ndf, mc.e_l_steps)
-        k_ms = time_ms(lambda: fused_prior_langevin(z, *ebm_w, row_seeds=seeds, **kw), 20)
-        p_ms = time_ms(lambda: prior_langevin_plain(z, *ebm_w, row_seeds=seeds, **kw), 5)
-        res["K1"][b] = dict(max_abs_err=err1, ms=k_ms, plain_ms=p_ms, flops=flops, bytes=nbytes)
-
+        res["K1"][b] = chain_check(ebm_w, z, dict(row_seeds=seeds), mc.e_l_steps, mc.e_l_step_size,
+                                   "K1 counter noise")
         # K2: tables from the prior embedding of noise, as the damc path builds them.
         with torch.no_grad():
             xemb = models.amortizer.prior_embed(torch.randn(b, m.nz, generator=gen).to(dev))
-        for n in (6, d.n_interval):
-            grid, _ = sweep_logsnr_grid(n, d.logsnr_min, d.logsnr_max)
-            coeffs = step_coefficients(n, d.logsnr_min, d.logsnr_max, d.var_type).to(dev)
-            with torch.no_grad():
-                tables = models.amortizer.p.sample_tables(grid.to(dev), xemb)
-            args = (z, fourier, layers, tables["pre_x"], tables["pre_t"], coeffs)
-            kw2 = dict(steps=n, residual=d.residual)
-            if n == 6:
-                # At full width with random weights six steps amplify fp32
-                # rounding to ~1e-2 (the plain version in fp32 against fp64),
-                # so no fp32 pair meets 2e-4 here: hold the kernel to the fp64
-                # plain version, at most twice as far as the fp32 plain
-                # version is, plus 2e-4.
-                args64 = (z.double(), fourier.double(), [tuple(t.double() for t in lt) for lt in layers],
-                          [t.double() for t in tables["pre_x"]], [t.double() for t in tables["pre_t"]],
-                          coeffs.double())
-                for label, noise in (("noiseless", dict(with_noise=False)), ("counter noise", dict(row_seeds=seeds))):
-                    got = fused_reverse_sweep(*args, **noise, **kw2)
-                    want = reverse_sweep_plain(*args, **noise, **kw2)
-                    ref = reverse_sweep_plain(*args64, **noise, **kw2)
-                    err_plain = float((want.double() - ref).abs().max())
-                    err_k = float((got.double() - ref).abs().max())
-                    err2 = float((got - want).abs().max())
-                    print(f"  K2 {label} 6 steps: kernel-plain {err2:.3e}; against fp64: kernel "
-                          f"{err_k:.3e}, plain fp32 {err_plain:.3e} (limit 2 x plain + 2e-4)")
-                    if err_k > 2 * err_plain + 2e-4:
-                        raise AssertionError(f"K2 {label}: kernel further from fp64 than fp32 allows")
-                continue
-            # 100 noisy steps are chaotic pointwise: hold the per-dimension
-            # moments over the batch instead (both see the same noise).
-            got = fused_reverse_sweep(*args, row_seeds=seeds, **kw2)
-            want = reverse_sweep_plain(*args, row_seeds=seeds, **kw2)
-            if not bool(torch.isfinite(got).all()):
-                raise AssertionError("K2 100 steps: non-finite output")
-            if b >= 500:
-                scale = float(want.std(0).mean())
-                d_mean = float((got.mean(0) - want.mean(0)).abs().max())
-                d_std = float((got.std(0) - want.std(0)).abs().max())
-                print(f"  K2 {n} steps: max |d mean|={d_mean:.3e}, max |d std|={d_std:.3e}, "
-                      f"mean std={scale:.3e} (limit 0.1 x mean std each)")
-                if d_mean > 0.1 * scale or d_std > 0.1 * scale:
-                    raise AssertionError("K2 100 steps: moments disagree with the plain version")
-            flops, nbytes = sweep_cost(b, fourier, layers, n)
-            k_ms = time_ms(lambda: fused_reverse_sweep(*args, row_seeds=seeds, **kw2), 10)
-            p_ms = time_ms(lambda: reverse_sweep_plain(*args, row_seeds=seeds, **kw2), 3, warmup=1)
-            res["K2"][b] = dict(max_abs_err=err2, ms=k_ms, plain_ms=p_ms, flops=flops, bytes=nbytes)
-        for name in ("K1", "K2"):
-            r = res[name][b]
-            b_ms, by = bound(r["flops"], r["bytes"])
-            print(f"  {name} B={b}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
-                  f"bound {b_ms:.5g} ms ({by}), {r['flops']:.4g} FLOP, {r['bytes']:.4g} B")
+        sweep_check(models, cfg, z, xemb, dict(with_noise=False), "K2 noiseless", full=False)
+        res["K2"][b] = sweep_check(models, cfg, z, xemb, dict(row_seeds=seeds), "K2 counter noise")[b]
     return res
 
 
 ROW_PICKS = (0, 7, 250, 499)
+ROW_BATCHES = (16, 64, 80, 128)  # the serving, plot, recon-MSE tail and training shapes
 
 
 def row_independence_phase(models, cfg):
     """Counter mode, each kernel at its serving step count: rows 0, 7, 250
     and 499 of a B=500 launch must equal, bit for bit, the same rows
-    launched alone (B=1) and inside a B=16 batch, where row i sits at slot
-    i % 16 among 15 other rows. The row tile, the cluster and the slot
-    differ between the three launches; the row's inputs do not."""
+    launched alone (B=1) and inside batches of 16, 64, 80 and 128, where
+    row i sits at slot i % B among other rows. The row tile, the cluster
+    and the slot differ between the launches; the row's inputs do not.
+    Between them the launches take every K2 row tile the main path runs."""
     import torch
 
     from damc_tpu_torch.ops.cuda.fused_langevin import ebm_params_to_dense_weights, fused_prior_langevin
-    from damc_tpu_torch.ops.cuda.fused_qsweep import denoiser_layer_params, fused_reverse_sweep
+    from damc_tpu_torch.ops.cuda.fused_qsweep import (
+        denoiser_layer_params, fused_reverse_sweep, max_active_clusters, row_tile,
+    )
     from damc_tpu_torch.ops.diffusion import step_coefficients, sweep_logsnr_grid
 
     dev = torch.device("cuda")
@@ -236,6 +345,9 @@ def row_independence_phase(models, cfg):
     with torch.no_grad():
         xemb = models.amortizer.prior_embed(torch.randn(b, m.nz, generator=gen).to(dev))
         tables = models.amortizer.p.sample_tables(grid.to(dev), xemb)
+    k2_max = max_active_clusters(m.nz, [lt[0].shape[0] for lt in layers], [lt[0].shape[1] for lt in layers])
+    tiles = sorted({row_tile(n, k2_max) for n in (b, 1) + ROW_BATCHES})
+    print(f"[rows] K2 row tiles of these launches: {tiles}")
     runs = {
         "K1": lambda idx: fused_prior_langevin(
             z[idx], *ebm_w, row_seeds=seeds[idx], steps=mc.e_l_steps, step_size=mc.e_l_step_size),
@@ -246,23 +358,14 @@ def row_independence_phase(models, cfg):
     for name, run in runs.items():
         full = run(torch.arange(b, device=dev))
         for i in ROW_PICKS:
-            alone = run(torch.tensor([i], device=dev))
-            idx = [(i + 1 + k) % b for k in range(16)]
-            idx[i % 16] = i
-            batch = run(torch.tensor(idx, device=dev))
-            same_alone = torch.equal(full[i], alone[0])
-            same_batch = torch.equal(full[i], batch[i % 16])
-            print(f"[rows] {name} row {i} of B={b}: == alone {same_alone}, == slot {i % 16} of B=16 "
-                  f"{same_batch}")
-            if not (same_alone and same_batch):
+            same = {"alone": torch.equal(full[i], run(torch.tensor([i], device=dev))[0])}
+            for n in ROW_BATCHES:
+                idx = [(i + 1 + k) % b for k in range(n)]
+                idx[i % n] = i
+                same[f"slot {i % n} of B={n}"] = torch.equal(full[i], run(torch.tensor(idx, device=dev))[i % n])
+            print(f"[rows] {name} row {i} of B={b} equals itself " + ", ".join(f"{k}: {v}" for k, v in same.items()))
+            if not all(same.values()):
                 raise AssertionError(f"{name}: row {i} depends on the batch it is launched in")
-
-
-def _int32(u):
-    """uint32 values held in int64 -> int32 with the same bits."""
-    import torch
-
-    return torch.where(u >= 2**31, u - 2**32, u).to(torch.int32)
 
 
 def stream_kernel_phase(models, cfg):
@@ -270,13 +373,9 @@ def stream_kernel_phase(models, cfg):
     the 2B=256 prior chains, K2 over the B=128 Q_ema rows."""
     import torch
 
-    from damc_tpu_torch.ops.cuda.fused_langevin import (
-        ebm_params_to_dense_weights, fused_prior_langevin, prior_langevin_plain,
-    )
-    from damc_tpu_torch.ops.cuda.fused_qsweep import (
-        denoiser_layer_params, fused_reverse_sweep, reverse_sweep_plain,
-    )
-    from damc_tpu_torch.ops.diffusion import step_coefficients, sweep_logsnr_grid
+    from damc_tpu_torch.ops.cuda.fused_langevin import ebm_params_to_dense_weights, fused_prior_langevin
+    from damc_tpu_torch.ops.cuda.fused_qsweep import denoiser_layer_params, fused_reverse_sweep
+    from damc_tpu_torch.ops.diffusion import step_coefficients
     from damc_tpu_torch.ops.noise import counter_normal, stream_row_seeds
 
     dev = torch.device("cuda")
@@ -296,18 +395,7 @@ def stream_kernel_phase(models, cfg):
     noise = fused_prior_langevin(torch.zeros(b1, m.nz, device=dev), *zeros, seed=seed, steps=1, step_size=1.0)
     check_close("K1 stream noise, step 0", noise, counter_normal(stream_row_seeds(seed, b1, dev), 0, m.nz), atol=1e-5)
     z = torch.randn(b1, m.nz, generator=gen).to(dev)
-    kw = dict(steps=mc.e_l_steps, step_size=mc.e_l_step_size)
-    got = fused_prior_langevin(z, *ebm_w, seed=seed, **kw)
-    # The row seeds the kernel derives equal the plain ones: stream mode is
-    # counter mode fed stream_row_seeds, bit for bit.
-    if not torch.equal(got, fused_prior_langevin(z, *ebm_w, row_seeds=_int32(stream_row_seeds(seed, b1, dev)), **kw)):
-        raise AssertionError("K1: stream mode differs from counter mode on stream_row_seeds")
-    want = prior_langevin_plain(z, *ebm_w, seed=seed, **kw)
-    err1 = check_close(f"K1 stream {mc.e_l_steps} steps", got, want, atol=1e-4)
-    flops, nbytes = langevin_cost(b1, m.nz, m.ndf, mc.e_l_steps)
-    k_ms = time_ms(lambda: fused_prior_langevin(z, *ebm_w, seed=seed, **kw), 20)
-    p_ms = time_ms(lambda: prior_langevin_plain(z, *ebm_w, seed=seed, **kw), 5)
-    res["K1"] = dict(b=b1, max_abs_err=err1, ms=k_ms, plain_ms=p_ms, flops=flops, bytes=nbytes)
+    res["K1"] = chain_check(ebm_w, z, dict(seed=seed), mc.e_l_steps, mc.e_l_step_size, "K1 stream")
 
     # K2, tables from the Q encoder of random images as the training step
     # builds them.
@@ -325,51 +413,7 @@ def stream_kernel_phase(models, cfg):
     z = torch.randn(b2, m.nz, generator=gen).to(dev)
     with torch.no_grad():
         xemb = models.amortizer.encode(x)
-    res_k2 = {}
-    for n in (6, d.n_interval):
-        grid, _ = sweep_logsnr_grid(n, d.logsnr_min, d.logsnr_max)
-        coeffs = step_coefficients(n, d.logsnr_min, d.logsnr_max, d.var_type).to(dev)
-        with torch.no_grad():
-            tables = models.amortizer.p.sample_tables(grid.to(dev), xemb)
-        args = (z, fourier, layers, tables["pre_x"], tables["pre_t"], coeffs)
-        kw2 = dict(steps=n, residual=d.residual)
-        got = fused_reverse_sweep(*args, seed=seed, **kw2)
-        if not torch.equal(got, fused_reverse_sweep(*args, row_seeds=_int32(stream_row_seeds(seed, b2, dev)), **kw2)):
-            raise AssertionError("K2: stream mode differs from counter mode on stream_row_seeds")
-        want = reverse_sweep_plain(*args, seed=seed, **kw2)
-        if n == 6:
-            # As in counter mode: against the fp64 plain version, at most
-            # twice as far as the fp32 plain version, plus 2e-4.
-            args64 = (z.double(), fourier.double(), [tuple(t.double() for t in lt) for lt in layers],
-                      [t.double() for t in tables["pre_x"]], [t.double() for t in tables["pre_t"]],
-                      coeffs.double())
-            ref = reverse_sweep_plain(*args64, seed=seed, **kw2)
-            err_plain = float((want.double() - ref).abs().max())
-            err_k = float((got.double() - ref).abs().max())
-            res_k2["max_abs_err"] = float((got - want).abs().max())
-            print(f"  K2 stream 6 steps: kernel-plain {res_k2['max_abs_err']:.3e}; against fp64: kernel "
-                  f"{err_k:.3e}, plain fp32 {err_plain:.3e} (limit 2 x plain + 2e-4)")
-            if err_k > 2 * err_plain + 2e-4:
-                raise AssertionError("K2 stream: kernel further from fp64 than fp32 allows")
-            continue
-        if not bool(torch.isfinite(got).all()):
-            raise AssertionError("K2 stream 100 steps: non-finite output")
-        scale = float(want.std(0).mean())
-        d_mean = float((got.mean(0) - want.mean(0)).abs().max())
-        d_std = float((got.std(0) - want.std(0)).abs().max())
-        print(f"  K2 stream {n} steps: max |d mean|={d_mean:.3e}, max |d std|={d_std:.3e}, "
-              f"mean std={scale:.3e} (limit 0.1 x mean std each)")
-        if d_mean > 0.1 * scale or d_std > 0.1 * scale:
-            raise AssertionError("K2 stream 100 steps: moments disagree with the plain version")
-        flops, nbytes = sweep_cost(b2, fourier, layers, n)
-        k_ms = time_ms(lambda: fused_reverse_sweep(*args, seed=seed, **kw2), 10)
-        p_ms = time_ms(lambda: reverse_sweep_plain(*args, seed=seed, **kw2), 3, warmup=1)
-        res_k2.update(b=b2, ms=k_ms, plain_ms=p_ms, flops=flops, bytes=nbytes)
-    res["K2"] = res_k2
-    for name, r in res.items():
-        b_ms, by = bound(r["flops"], r["bytes"])
-        print(f"  {name} stream B={r['b']}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
-              f"bound {b_ms:.5g} ms ({by}), {r['flops']:.4g} FLOP, {r['bytes']:.4g} B")
+    res["K2"] = sweep_check(models, cfg, z, xemb, dict(seed=seed), "K2 stream")[b2]
     return res
 
 
@@ -615,7 +659,7 @@ def training_phase(cfg, counters, iterations: int = 10):
         "mean_ms_iterations_3_to_10": ev[1].elapsed_time(ev[-1]) / (iterations - 2),
         "wall_s_with_set_up": wall_s, "peak_memory_gb": torch.cuda.max_memory_allocated() / 2**30,
     }))
-    return state, total
+    return state, total, statistics.median(ms[1:])
 
 
 def rerun_phase(cfg):
@@ -837,6 +881,371 @@ def train_profile_phase(cfg, state):
     }))
 
 
+EVAL_TRAIN_IMAGES = 50_000  # CIFAR-10's train split
+EVAL_TEST_IMAGES = 2_000  # the test split holds 10,000: cut so that the MSE eval stays short
+EVAL_K1_STEPS, EVAL_K1_STEP_SIZE = 100, 1.6  # the eval CLI's prior chain on cifar10
+
+
+def eval_kernel_phase(models, cfg):
+    """Stream mode at the eval shapes. K1 at B=500 (the EBM-prior FID
+    batch) with the eval CLI's 100 steps at 1.6 and the loop's 60 at 0.4.
+    K2 at B=500 under the prior embedding (the DAMC-prior FID batch) and
+    the encoder (the eval CLI's recon-MSE batch), and, as the first rows of
+    those launches, B=64 under both (the plot grids) and B=80 under the
+    encoder (the loop's recon-MSE tail, 2,000 % 128)."""
+    import torch
+
+    from damc_tpu_torch.ops.cuda.fused_langevin import ebm_params_to_dense_weights
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device="cpu").manual_seed(SEED + 3)
+    m, mc = cfg.model, cfg.mcmc
+    b, seed = 500, 987654321
+    ebm_w = ebm_params_to_dense_weights(models.ebm)
+    z = torch.randn(b, m.nz, generator=gen).to(dev)
+    res = {}
+    print(f"[eval-kernels] K1 B={b} stream")
+    res["K1"] = chain_check(ebm_w, z, dict(seed=seed), EVAL_K1_STEPS, EVAL_K1_STEP_SIZE, "K1 eval CLI")
+    res["K1_loop"] = chain_check(ebm_w, z, dict(seed=seed), mc.e_l_steps, mc.e_l_step_size, "K1 loop eval")
+
+    x = torch.rand(b, 32, 32, 3, generator=gen).to(dev) * 2 - 1
+    with torch.no_grad():
+        prior = models.amortizer.prior_embed(torch.randn(b, m.nz, generator=gen).to(dev))
+        posterior = models.amortizer.encode(x)
+    print(f"[eval-kernels] K2 B={b} stream, prior tables")
+    r = sweep_check(models, cfg, z, prior, dict(seed=seed), "K2 eval prior", subs=(64,))
+    res["K2"], res["K2_plot_prior"] = r[b], r[64]
+    print(f"[eval-kernels] K2 B={b} stream, posterior tables")
+    r = sweep_check(models, cfg, z, posterior, dict(seed=seed), "K2 eval posterior", subs=(64, 80))
+    res["K2_posterior"], res["K2_plot_posterior"], res["K2_mse_tail"] = r[b], r[64], r[80]
+    return res
+
+
+def write_cifar_tree(root: str, n_train: int, n_test: int) -> None:
+    """CIFAR-10's python pickle layout (data_batch_1..5, test_batch: uint8
+    rows of 3072 in CHW order) with images made from the seed."""
+    import os
+    import pickle
+
+    base = os.path.join(root, "cifar-10-batches-py")
+    os.makedirs(base, exist_ok=True)
+    rng = np.random.default_rng(SEED + 4)
+
+    def write(name, n):
+        data = rng.integers(0, 256, (n, 3072), dtype=np.uint8)
+        with open(os.path.join(base, name), "wb") as f:
+            pickle.dump({"data": data, "labels": [0] * n}, f, protocol=4)
+
+    for i in range(1, 6):
+        write(f"data_batch_{i}", n_train // 5)
+    write("test_batch", n_test)
+
+
+def _instrument_evals(counters, log):
+    """Wrap the loop's `evaluate_fid` and `evaluate_mse` so that each call
+    records its wall time (synchronised) and the launches it made; returns
+    the function that undoes it."""
+    import torch
+
+    from damc_tpu_torch.train import gen_recon
+
+    originals = {name: getattr(gen_recon, name) for name in ("evaluate_fid", "evaluate_mse")}
+
+    def wrap(name, fn):
+        def call(*args, **kwargs):
+            torch.cuda.synchronize()
+            before = {k: c.launches for k, c in counters.items()}
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            what = f"fid_{args[7]}" if name == "evaluate_fid" else "mse"
+            log.append({"what": what, "s": time.perf_counter() - t0, "value": out,
+                        "launches": {k: c.launches - before[k] for k, c in counters.items()}})
+            return out
+        return call
+
+    for name, fn in originals.items():
+        setattr(gen_recon, name, wrap(name, fn))
+    return lambda: [setattr(gen_recon, n, f) for n, f in originals.items()]
+
+
+def _png_size(path):
+    """(width, height, color type) from a PNG's IHDR; checks the signature."""
+    import struct
+
+    with open(path, "rb") as f:
+        head = f.read(26)
+    if head[:8] != b"\x89PNG\r\n\x1a\n" or head[12:16] != b"IHDR":
+        raise AssertionError(f"{path}: not a PNG")
+    w, h = struct.unpack(">II", head[16:24])
+    return w, h, head[25]
+
+
+def _jsonl(path):
+    with open(path) as f:
+        return [json.loads(line) for line in f]
+
+
+def eval_phase(cfg, counters):
+    """The gen_recon workload through its CLIs at full cifar10 width, in a
+    temporary directory: train 6 iterations with evals, grids and
+    checkpoints every 3; resume to 8 with --resume_path auto; restore
+    ckpt/5 and step it against the state in memory; score ckpt/best twice
+    through the eval CLI. Returns what the timing and JSON lines need."""
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+
+    from damc_tpu_torch.cli import eval_gen_recon, train_gen_recon
+    from damc_tpu_torch.train.state import create_state
+    from damc_tpu_torch.train.step import make_train_step
+    from damc_tpu_torch.utils.checkpoint import restore_checkpoint
+
+    tmp = tempfile.mkdtemp(prefix="damc_eval_smoke_")
+    try:
+        t0 = time.perf_counter()
+        data, logs = os.path.join(tmp, "data"), os.path.join(tmp, "logs")
+        write_cifar_tree(data, EVAL_TRAIN_IMAGES, EVAL_TEST_IMAGES)
+        print(f"[eval] CIFAR-10 pickle tree made from the seed: {EVAL_TRAIN_IMAGES} train images (the real "
+              f"split), {EVAL_TEST_IMAGES} test images (the real split holds 10,000; cut so the MSE eval "
+              f"stays short), written in {time.perf_counter() - t0:.2f} s")
+        b, n_fid = cfg.train.batch_size, 1000
+        common = ["--dataset", "cifar10", "--data_path", data, "--log_path", logs, "--seed", str(SEED)]
+        train_args = common + ["--batch_size", str(b), "--eval_every", "3", "--ckpt_every", "3",
+                               "--plot_every", "3", "--print_every", "1", "--n_fid_samples", str(n_fid)]
+
+        # 1. Train 6 iterations.
+        calls = []
+        undo = _instrument_evals(counters, calls)
+        for k in counters.values():
+            k.launches = 0
+        t0 = time.perf_counter()
+        try:
+            state = train_gen_recon.main(train_args + ["--iterations", "6"])
+        finally:
+            undo()
+        torch.cuda.synchronize()
+        train_wall = time.perf_counter() - t0
+        total = {k: c.launches for k, c in counters.items()}
+        runs = os.listdir(os.path.join(logs, "cifar10"))
+        if len(runs) != 1:
+            raise AssertionError(f"expected one run directory, found {runs}")
+        run = os.path.join(logs, "cifar10", runs[0])
+        rows = _jsonl(os.path.join(run, "metrics.jsonl"))
+        train_steps = [r["step"] for r in rows if r["phase"] == "train"]
+        evals = [r for r in rows if r["phase"] == "eval"]
+        print(f"[eval] train rows {train_steps}; eval rows {[r['step'] for r in evals]}")
+        # The JAX loop evaluates at iteration 0 too (0 % eval_every == 0).
+        if train_steps != list(range(6)) or [r["step"] for r in evals] != [0, 3, 5]:
+            raise AssertionError("metrics.jsonl lacks a train or an eval row")
+        for r in evals:
+            vals = {k: r.get(k) for k in ("frechet_rand_damc", "frechet_rand_ebm", "recon_mse")}
+            print(f"[eval] iteration {r['step']}: " + json.dumps(vals))
+            if not all(v is not None and np.isfinite(v) for v in vals.values()):
+                raise AssertionError(f"eval row {r['step']}: a metric is missing or not finite")
+        ckpts = sorted(os.listdir(os.path.join(run, "ckpt")))
+        print(f"[eval] checkpoints {ckpts}")
+        if not {"3", "5", "best"} <= set(ckpts):
+            raise AssertionError("ckpt/3, ckpt/5 or ckpt/best is missing")
+        grids = sorted(os.listdir(os.path.join(run, "imgs")))
+        want_grids = sorted(f"{it}_{k}.png" for it in (0, 3) for k in ("obs", "post", "post_Q", "prior")) + sorted(
+            f"{it}_fid_{p}.png" for it in (0, 3, 5) for p in ("damc", "ebm"))
+        if sorted(grids) != sorted(want_grids):
+            raise AssertionError(f"grids {grids}, expected {want_grids}")
+        side = 8 * (32 + 2) + 2  # 64 images, 8 a row, 2-pixel borders
+        for g in grids:
+            if _png_size(os.path.join(run, "imgs", g)) != (side, side, 2):
+                raise AssertionError(f"{g}: not a {side}x{side} RGB grid")
+        print(f"[eval] {len(grids)} PNG grids, each {side}x{side} RGB")
+        # Launches: one K1 and one K2 a training step; per eval, one K2 a
+        # DAMC-prior FID batch, one K1 an EBM-prior FID batch and one K2 a
+        # recon-MSE batch; three K2 a plot (post, post_Q, prior).
+        n_fid_b = max(round(n_fid / min(cfg.train.fid_batch_size, n_fid)), 1)
+        n_mse_b = -(-EVAL_TEST_IMAGES // b)
+        want_call = {"fid_damc": {"K1": 0, "K2": n_fid_b}, "fid_ebm": {"K1": n_fid_b, "K2": 0},
+                     "mse": {"K1": 0, "K2": n_mse_b}}
+        for c in calls:
+            if c["launches"] != want_call[c["what"]]:
+                raise AssertionError(f"{c['what']}: launches {c['launches']}, expected {want_call[c['what']]}")
+        n_plots, n_evals = 2, 3
+        want_total = {"K1": 6 + n_evals * n_fid_b, "K2": 6 + n_evals * (n_fid_b + n_mse_b) + 3 * n_plots}
+        print(f"[eval] launches per eval {[(c['what'], c['launches']) for c in calls[:3]]}; "
+              f"whole run {total} (expected {want_total})")
+        if total != want_total:
+            raise AssertionError("the run's launches differ from the protocol's")
+        eval_walls = [sum(c["s"] for c in calls[i:i + 3]) for i in range(0, len(calls), 3)]
+        print("[eval] " + json.dumps({
+            "train_cli_wall_s": train_wall, "eval_wall_s_at_0_3_5": eval_walls,
+            "per_call": [{k: c[k] for k in ("what", "s")} for c in calls],
+        }))
+
+        # 2. Resume to 8 iterations in the same run directory.
+        for k in counters.values():
+            k.launches = 0
+        resumed = train_gen_recon.main(train_args + ["--iterations", "8", "--resume_path", "auto"])
+        runs_after = os.listdir(os.path.join(logs, "cifar10"))
+        rows = _jsonl(os.path.join(run, "metrics.jsonl"))
+        steps_after = [r["step"] for r in rows if r["phase"] == "train"]
+        print(f"[eval] resumed run: directories {runs_after}, train rows {steps_after}, step {resumed.step}, "
+              f"launches {dict((k, c.launches) for k, c in counters.items())}")
+        if runs_after != runs or steps_after != list(range(8)) or resumed.step != 8:
+            raise AssertionError("the resumed run did not continue at iteration 6 in the same directory")
+        del resumed
+
+        # 3. Restore ckpt/5 into a fresh state: equal to the state in memory,
+        # and one more step from each, bit for bit.
+        restored = restore_checkpoint(os.path.join(run, "ckpt"), "5", create_state(cfg, 123, "cuda"))
+        same = _states_equal(restored, state)
+        print(f"[eval] ckpt/5 restored into a fresh state equals the state in memory: {same}")
+        if not same:
+            raise AssertionError("a restored tensor, optimizer state or generator state differs")
+        x = torch.from_numpy(train_images(b)).cuda().float() / 255.0 * 2.0 - 1.0
+        s_a, m_a = make_train_step(state.models, state.opts, cfg)(state, x)
+        s_b, m_b = make_train_step(restored.models, restored.opts, cfg)(restored, x)
+        same = all(torch.equal(m_a[k], m_b[k]) for k in m_a) and _states_equal(s_a, s_b)
+        print(f"[eval] one more step from the restored state == from the state in memory: {same}")
+        if not same:
+            raise AssertionError("the step after a restore differs from the step before the save")
+        del state, restored, s_a, s_b
+
+        # 4. The eval CLI on ckpt/best, twice.
+        eval_args = common + ["--ckpt_dir", os.path.join(run, "ckpt"), "--n_fid_samples", "2000"]
+        for k in counters.values():
+            k.launches = 0
+        outs, walls = [], []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            outs.append(eval_gen_recon.main(eval_args))
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        cli_launches = {k: c.launches for k, c in counters.items()}
+        print(f"[eval] eval CLI: {json.dumps(outs[0])}; second run identical: {outs[0] == outs[1]}; "
+              f"launches over both {cli_launches}; wall s {walls}")
+        if outs[0] != outs[1]:
+            raise AssertionError("two eval CLI runs on one checkpoint printed different numbers")
+        # Per run: a K2 and a K1 launch per FID batch of 500, a K2 launch per
+        # recon-MSE batch of 500.
+        n_b, n_m = 2000 // cfg.train.fid_batch_size, -(-EVAL_TEST_IMAGES // cfg.train.fid_batch_size)
+        want = {"K1": 2 * n_b, "K2": 2 * (n_b + n_m)}
+        if cli_launches != want:
+            raise AssertionError(f"eval CLI launches {cli_launches}, expected {want}")
+        return {"calls": calls, "eval_walls": eval_walls, "cli_launches": cli_launches, "cli_walls": walls,
+                "n_mse_b": n_mse_b}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _states_equal(a, b) -> bool:
+    import torch
+
+    mods = lambda s: [s.models.generator, s.models.ebm, s.models.amortizer, s.amortizer_ema]
+    for ma, mb in zip(mods(a), mods(b)):
+        sa, sb = ma.state_dict(), mb.state_dict()
+        if sa.keys() != sb.keys() or not all(torch.equal(sa[k], sb[k]) for k in sa):
+            return False
+    for oa, ob in zip((a.opts.g, a.opts.e, a.opts.q), (b.opts.g, b.opts.e, b.opts.q)):
+        da, db = oa.opt.state_dict()["state"], ob.opt.state_dict()["state"]
+        if oa.count != ob.count or da.keys() != db.keys():
+            return False
+        if not all(torch.equal(v, db[i][k]) for i, st in da.items() for k, v in st.items()):
+            return False
+    return (a.step, a.seed) == (b.step, b.seed) and torch.equal(a.rng.get_state(), b.rng.get_state())
+
+
+def inception_phase():
+    """pool3 InceptionV3 with random weights: the card against the CPU on 2
+    images (relative L2 1e-4, as the CPU tests hold it to JAX's), then the
+    FID batch B=500 (32x32 -> 299x299) timed by CUDA events with its peak
+    memory."""
+    import torch
+
+    from damc_tpu_torch.models.inception import InceptionPool3, init_random_params
+
+    params = init_random_params(seed=0)
+    net = InceptionPool3(params).cuda().eval()
+    x = torch.rand(2, 32, 32, 3, generator=torch.Generator().manual_seed(SEED + 5))
+    with torch.no_grad():
+        got = net(x.cuda()).double().cpu()
+        want = InceptionPool3(params).eval()(x).double()
+    err = float((got - want).norm() / want.norm())
+    print(f"[inception] card against CPU, 2 images: relative L2 error {err:.3e} (limit 1e-4)")
+    if err > 1e-4:
+        raise AssertionError("Inception on the card disagrees with the CPU")
+    x500 = torch.rand(500, 32, 32, 3, device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    with torch.no_grad():
+        ms = time_ms(lambda: net(x500), 3, warmup=1)
+    peak = torch.cuda.max_memory_allocated() - base
+    print(f"[inception] B=500: {ms:.3f} ms a batch, peak memory above the inputs {peak / 2**30:.3f} GiB")
+    return net, ms, peak
+
+
+def eval_timing_phase(cfg, inception_ms, eval_info, train_ms_per_iteration):
+    """The eval's parts at its shapes, each timed by CUDA events on one
+    state (random weights from the seed): a FID batch of 500 for each prior
+    split into sampling (kernel + G decode), features and the stats update;
+    a recon-MSE batch at B=128 and B=500; the host's sqrtm; and the eval
+    next to the preset's eval interval of 100 iterations."""
+    import torch
+
+    from damc_tpu_torch.metrics.fid import RunningStats, frechet_distance, make_random_feature_fn
+    from damc_tpu_torch.train.gen_recon import make_fid_batch_fn, make_recon_fn
+    from damc_tpu_torch.train.sampling import eval_draws
+    from damc_tpu_torch.train.state import create_state
+
+    state = create_state(cfg, SEED, "cuda")
+    m, nz = state.models, cfg.model.nz
+    feat = make_random_feature_fn((32, 32, 3), device="cuda")
+    out = {}
+    for prior in ("damc", "ebm"):
+        d = eval_draws(SEED, f"fid_{prior}", 0, 0, 500, nz, "cuda")
+        fn = make_fid_batch_fn(m, cfg, prior)
+        imgs = fn(d)
+        feats = feat(imgs)
+        rs = RunningStats(feats.shape[1], "cuda")
+        out[f"fid_{prior}"] = {
+            "sampling_ms": time_ms(lambda: fn(d), 5),
+            "frechet_rand_features_ms": time_ms(lambda: feat(imgs), 5),
+            "stats_update_ms": time_ms(lambda: rs.update(feats), 5),
+        }
+    recon = make_recon_fn(m, cfg)
+    test = np.random.default_rng(SEED + 6).uniform(-1, 1, (500, 32, 32, 3)).astype(np.float32)
+    for b in (cfg.train.batch_size, 500):
+        x = torch.from_numpy(test[:b]).cuda()
+        d = eval_draws(SEED, "mse", 0, 0, b, nz, "cuda")
+        out[f"mse_batch_ms_b{b}"] = time_ms(lambda: recon(x, d), 3, warmup=1)
+    sq = {}
+    rng = np.random.default_rng(SEED + 7)
+    for dim in (192, 2048):
+        a = rng.normal(size=(dim, 2 * dim))
+        s1, s2 = a @ a.T / (2 * dim), np.cov(rng.normal(size=(dim, 2 * dim)))
+        t0 = time.perf_counter()
+        frechet_distance(np.zeros(dim), s1, np.zeros(dim), s2)
+        sq[dim] = (time.perf_counter() - t0) * 1e3
+    out["sqrtm_host_ms"] = {"frechet_rand_192": sq[192], "inception_2048": sq[2048]}
+    # The loop's eval at iteration 5 of the 6-iteration run (1,000 samples,
+    # 2,000 test images at B=128), next to 100 iterations.
+    window_ms = 100 * train_ms_per_iteration
+    last = eval_info["eval_walls"][-1] * 1e3
+    out["loop_eval_ms"] = last
+    out["train_100_iterations_ms"] = window_ms
+    out["loop_eval_share_of_window"] = last / (last + window_ms)
+    # A projection, not a measurement: the preset's 50,000-sample protocol
+    # (100 batches of 500 a prior, Inception features) and the full 10,000
+    # test images (79 batches of 128), from the parts above.
+    per_prior = {p: out[f"fid_{p}"]["sampling_ms"] + inception_ms + out[f"fid_{p}"]["stats_update_ms"]
+                 for p in ("damc", "ebm")}
+    proj = 100 * sum(per_prior.values()) + 79 * out[f"mse_batch_ms_b{cfg.train.batch_size}"] + 2 * sq[2048]
+    out["projection_50k_protocol_ms"] = proj
+    out["projection_share_of_window"] = proj / (proj + window_ms)
+    print("[eval-timing] " + json.dumps(out))
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -870,10 +1279,17 @@ def main() -> int:
     total, _ = serving_phase(models, cfg, counters)
     profile_phase(models, cfg)
     del models
-    state, total_train = training_phase(cfg, counters)
+    state, total_train, train_ms = training_phase(cfg, counters)
     rerun_phase(cfg)
     gpu_cpu_phase(cfg)
     train_profile_phase(cfg, state)
+    del state
+    models = build_models(cfg, seed=SEED, device="cuda")
+    res_eval = eval_kernel_phase(models, cfg)
+    del models
+    eval_info = eval_phase(cfg, counters)
+    _, inception_ms, _ = inception_phase()
+    eval_timing_phase(cfg, inception_ms, eval_info, train_ms)
 
     meta = {
         "K1": ("fused_prior_langevin", "damc_tpu_torch/csrc/fused_langevin.cu",
@@ -885,6 +1301,7 @@ def main() -> int:
     for path, mode, results, launches in (
         ("serve", "counter", {k: res[k][16] for k in meta}, total),  # the serving shape B=16
         ("train", "stream", res_stream, total_train),
+        ("eval", "stream", res_eval, eval_info["cli_launches"]),  # B=500: K1 100 steps, K2 prior
     ):
         for key, (name, source, replaces) in meta.items():
             r = results[key]
@@ -893,15 +1310,16 @@ def main() -> int:
                 "name": name, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": launches[key], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                 "plain_ms": r["plain_ms"], "bound_ms": bound_ms, "bound_by": bound_by,
-                "library_ms": None, "path": path, "noise": mode, "batch": r.get("b", 16),
+                "library_ms": None, "path": path, "noise": mode, "batch": r["b"],
             })
     for key, (name, _, _) in meta.items():
-        shapes = (("serving B=16 counter", res[key][16]), (f"training B={res_stream[key]['b']} stream",
-                  res_stream[key]), ("B=500 counter", res[key][500]))
+        shapes = [("serving counter", res[key][16]), ("training stream", res_stream[key]),
+                  ("counter", res[key][500])]
+        shapes += [(f"eval stream {k}", r) for k, r in res_eval.items() if k.startswith(key)]
         for label, r in shapes:
             b_ms, by = bound(r["flops"], r["bytes"])
-            print(f"[kernels] {name} {label}: ms={r['ms']} plain_ms={r['plain_ms']} "
-                  f"bound_ms={b_ms} ({by}) flops={r['flops']} bytes={r['bytes']}")
+            print(f"[kernels] {name} {label} B={r['b']}: ms={r['ms']} plain_ms={r['plain_ms']} "
+                  f"bound_ms={b_ms} ({by}) flops={r['flops']} bytes={r['bytes']} max_abs_err={r['max_abs_err']}")
     print(card_line())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -150,16 +150,25 @@ def sample_q_per_item(
 @torch.no_grad()
 def sample_q(
     amortizer: DAMCAmortizer,
-    x: torch.Tensor,
+    x: Optional[torch.Tensor],
     z_init: torch.Tensor,
     seed: int,
     layers: Optional[Tuple[torch.Tensor, Sequence[Tuple[torch.Tensor, ...]]]] = None,
+    emb_noise: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """z ~ Q(. | x), detached: the conditional, hoisted sweep of
-    `damc_tpu/models/amortizer.py:226-305` through the fused kernel in
-    stream mode (the int32 `seed` for the whole batch), from the normals
-    `z_init` (B, nz). The training step draws its chain inits with it."""
-    return _sweep(amortizer, amortizer.encode(x), z_init, layers, seed=seed)
+    """z ~ Q(. | x), or z ~ Q(.) when x is None, detached: the hoisted
+    sweep of `damc_tpu/models/amortizer.py:226-305` through the fused
+    kernel in stream mode (the int32 `seed` for the whole batch), from the
+    normals `z_init` (B, nz). The prior sweep runs under the prior
+    embedding of the normals `emb_noise` (B, nz). The training step draws
+    its chain inits with it, the evals their samples and reconstructions."""
+    if x is not None:
+        xemb = amortizer.encode(x)
+    elif emb_noise is not None:
+        xemb = amortizer.prior_embed(emb_noise)
+    else:
+        raise ValueError("sample_q needs x (posterior) or emb_noise (prior)")
+    return _sweep(amortizer, xemb, z_init, layers, seed=seed)
 
 
 def _sweep(amortizer: DAMCAmortizer, xemb, z_init, layers, **noise) -> torch.Tensor:

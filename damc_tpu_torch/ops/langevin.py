@@ -10,6 +10,7 @@ standard 2-hidden MLP.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Callable, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -31,6 +32,22 @@ class LangevinDiagnostics(NamedTuple):
     grad_mean: torch.Tensor  # mean of the energy gradient's entries
 
 
+@contextlib.contextmanager
+def frozen(*modules: Optional[torch.nn.Module]):
+    """No parameter of `modules` requires grad inside the block, so a
+    chain's autograd records the graph to z only; each parameter's flag
+    comes back after."""
+    params = [p for m in modules if m is not None for p in m.parameters()]
+    flags = [p.requires_grad for p in params]
+    for p in params:
+        p.requires_grad_(False)
+    try:
+        yield
+    finally:
+        for p, f in zip(params, flags):
+            p.requires_grad_(f)
+
+
 def langevin_sample(
     z_init: torch.Tensor,
     energy_fn: EnergyFn,
@@ -45,7 +62,7 @@ def langevin_sample(
     The per-step normals are `noise[k]` when `noise` (steps, B, nz) is
     given, else drawn from `generator`. The gradient is taken with respect
     to z only; parameters that require grad would record their graph too,
-    so callers freeze the networks first (`train/step.py`). Returns the
+    so callers freeze the networks first (`frozen`). Returns the
     final z, detached, and the diagnostics."""
     # 0.5 eps^2 in float32, as the JAX step computes it from a float32 eps.
     eps32 = np.float32(step_size)

@@ -63,10 +63,12 @@ def as_u32(seeds) -> torch.Tensor:
     return torch.as_tensor(seeds).to(torch.int64) & _M32
 
 
-def counter_bits(seeds: torch.Tensor, counter: int, cols: int) -> torch.Tensor:
-    """(rows, cols) uint32 bits (as int64) for per-row seeds (rows,)."""
+def counter_bits(seeds: torch.Tensor, counter, cols: int) -> torch.Tensor:
+    """(rows, cols) uint32 bits (as int64) for per-row seeds (rows,). The
+    counter is an int, or an int64 tensor that broadcasts against the seeds
+    (one counter a row)."""
     seeds = as_u32(seeds)
-    cnt = _mul32(torch.tensor(counter, dtype=torch.int64) & _M32, GOLD)
+    cnt = _mul32(torch.as_tensor(counter, dtype=torch.int64) & _M32, GOLD)
     base = mix32(seeds ^ cnt.to(seeds.device))  # (rows,)
     col = _mul32(torch.arange(cols, dtype=torch.int64, device=seeds.device), COLC)
     return mix32(base[:, None] ^ col[None, :])

@@ -29,7 +29,6 @@ not ported.
 
 from __future__ import annotations
 
-import contextlib
 from dataclasses import dataclass
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
@@ -38,7 +37,7 @@ import torch
 
 from ..config import Config
 from ..models import ModelBundle, sample_q
-from ..ops.langevin import langevin_sample, posterior_energy, prior_langevin_auto
+from ..ops.langevin import frozen, langevin_sample, posterior_energy, prior_langevin_auto
 from ..ops.noise import counter_bits, int32_seed
 from .state import Optimizers, TrainState
 
@@ -98,19 +97,6 @@ def draw_step(cfg: Config, b: int, state: TrainState) -> StepDraws:
     return StepDraws(mask_u, z0_init, neg_init, post_noise, q, sweep_seed, chain_seed)
 
 
-@contextlib.contextmanager
-def _frozen(*modules: torch.nn.Module):
-    """The trained networks' parameters stop requiring grad for the block,
-    so a chain's autograd records the graph to z only."""
-    for m in modules:
-        m.requires_grad_(False)
-    try:
-        yield
-    finally:
-        for m in modules:
-            m.requires_grad_(True)
-
-
 def _phase(name: str):
     return torch.profiler.record_function(f"train/{name}")
 
@@ -155,7 +141,7 @@ def make_train_step(
         with _phase("q_ema_init"):
             z0 = sample_q(state.amortizer_ema, x, d.z0_init, d.sweep_seed)
 
-        with _phase("posterior_langevin"), _frozen(gen, ebm):
+        with _phase("posterior_langevin"), frozen(gen, ebm):
             energy = posterior_energy(gen, ebm, x, mc.g_llhd_sigma)
             zk_pos, post_diag = langevin_sample(
                 z0, energy, mc.g_l_steps, mc.g_l_step_size, mc.g_l_with_noise,

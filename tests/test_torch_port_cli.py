@@ -1,0 +1,139 @@
+"""The port's CLIs (`damc_tpu_torch/cli/{common,train_gen_recon,
+eval_gen_recon}.py`) on the CPU: flags -> Config against the JAX package's
+`config_from_args` for the same argv lists, the run directory's `auto`
+adoption, and a train -> eval round trip through both CLIs with
+`--device cpu` over a fabricated CIFAR-10 pickle tree (as
+`tests/test_cli_integration.py` makes one)."""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import os
+
+import pytest
+import torch
+
+from damc_tpu.cli import common as jax_common
+from damc_tpu_torch.cli import common, eval_gen_recon, train_gen_recon
+from damc_tpu_torch.config import preset
+from test_cli_integration import fake_cifar
+import torch_port_helpers
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    yield from torch_port_helpers.one_torch_thread()
+
+
+ARGVS = [
+    [],
+    ["--dataset", "svhn", "--seed", "3", "--batch_size", "64", "--iterations", "10"],
+    ["--nz", "8", "--ngf", "8", "--nif", "8", "--nxemb", "16", "--ntemb", "16", "--n_interval_posterior", "2",
+     "--g_l_steps", "2", "--e_l_steps", "2", "--e_l_step_size", "1.6", "--e_l_with_noise", "false"],
+    ["--print_iter", "5", "--plot_iter", "6", "--ckpt_iter", "7", "--fid_iter", "8", "--n_fid_samples", "100",
+     "--fid_batch_size", "50"],
+    ["--eval_iter", "9", "--q_is_grad_clamp", "false", "--e_max_norm", "5", "--g_is_grad_clamp", "true",
+     "--Q_with_noise", "no", "--diffusion_residual", "0", "--var_type", "small"],
+    ["--dataset", "cifar10-stable", "--resume_path", "auto", "--log_path", "/tmp/x", "--data_path", "/d",
+     "--g_lr", "1e-3", "--e_lr", "2e-3", "--q_lr", "3e-3", "--e_energy_reg", "2e-4", "--p_mask", "0.3",
+     "--cond_w", "0.5", "--logsnr_min", "-4", "--logsnr_max", "9", "--g_llhd_sigma", "0.3", "--nc", "3",
+     "--data_placement", "device", "--data_device_budget_gb", "4", "--label", "2", "--compute_dtype", "float32"],
+    ["--n_interval", "5", "--n_interval_prior", "7", "--g_l_step_size", "0.05", "--g_l_with_noise", "f"],
+]
+
+
+def _parse(add_flags, argv):
+    p = argparse.ArgumentParser()
+    add_flags(p)
+    return p.parse_args(argv)
+
+
+@pytest.mark.parametrize("argv", ARGVS, ids=[str(i) for i in range(len(ARGVS))])
+def test_config_from_args_matches_jax(argv):
+    want = jax_common.config_from_args(_parse(jax_common.add_common_flags, argv))
+    got = common.config_from_args(_parse(common.add_common_flags, argv))
+    assert dataclasses.asdict(got) == dataclasses.asdict(want)
+
+
+def test_port_flags_are_the_jax_flags_plus_device():
+    def dests(add):
+        p = argparse.ArgumentParser()
+        add(p)
+        return {a.dest: sorted(a.option_strings) for a in p._actions}
+
+    port, jax_flags = dests(common.add_common_flags), dests(jax_common.add_common_flags)
+    assert port.pop("device") == ["--device"]
+    assert port == jax_flags
+    assert _parse(common.add_common_flags, []).device == "cuda"
+
+
+def test_unported_options_raise():
+    for flag in ("--use_mesh", "--multihost"):
+        with pytest.raises(NotImplementedError, match="queue 1, item 8"):
+            common.config_from_args(_parse(common.add_common_flags, [flag]))
+    cfg = preset("celeba64")
+    with pytest.raises(NotImplementedError, match="queue 1, item 4"):
+        common.load_dataset(cfg)
+
+
+def test_make_log_dir_adopts_the_newest_run_with_auto(tmp_path):
+    base = tmp_path / "cifar10"
+    for d in ("20240101_000000", "20250101_120000", "baseline_sweep1", "20991231_23595"):
+        (base / d).mkdir(parents=True)
+    (base / "20990101_000000").write_text("a file, not a run")
+    auto = preset("cifar10")
+    auto = dataclasses.replace(auto, train=dataclasses.replace(auto.train, log_path=str(tmp_path), resume_path="auto"))
+    got = common.make_log_dir(auto)
+    assert got == str(base / "20250101_120000")
+    with open(os.path.join(got, "config.json")) as f:
+        assert json.load(f)["train"]["resume_path"] == "auto"
+    changed = dataclasses.replace(auto, train=dataclasses.replace(auto.train, iterations=7))
+    assert common.make_log_dir(changed) == got
+    assert any(n.startswith("config.resume.") for n in os.listdir(got))
+    fresh = dataclasses.replace(auto, train=dataclasses.replace(auto.train, resume_path=None))
+    new = common.make_log_dir(fresh)
+    assert new != got and os.path.basename(new) not in ("20240101_000000", "20250101_120000")
+    assert common.make_log_dir(fresh) != new  # a second fresh run in the same second bumps its stamp
+    # With no run to adopt, `auto` starts one.
+    lone = dataclasses.replace(auto, train=dataclasses.replace(auto.train, log_path=str(tmp_path / "empty")))
+    assert os.path.isdir(common.make_log_dir(lone))
+
+
+TINY = ["--nz", "8", "--ngf", "8", "--nif", "8", "--nxemb", "16", "--ntemb", "16",
+        "--n_interval", "2", "--g_l_steps", "2", "--e_l_steps", "2", "--batch_size", "8",
+        "--n_fid_samples", "16"]
+
+
+def test_train_and_eval_cli_round_trip_on_cpu(tmp_path):
+    """Train 3 iterations (evals at 0 and 2, grids at 0), then score
+    ckpt/best twice through the eval CLI: the same numbers both times."""
+    data, logs = str(tmp_path / "data"), str(tmp_path / "logs")
+    fake_cifar(data, n_train=40, n_test=13)
+    common_args = ["--dataset", "cifar10", "--data_path", data, "--log_path", logs, "--device", "cpu", *TINY]
+    state = train_gen_recon.main(common_args + ["--iterations", "3", "--eval_every", "2", "--plot_every", "2"])
+    assert state.step == 3
+    runs = os.listdir(os.path.join(logs, "cifar10"))
+    assert len(runs) == 1
+    run = os.path.join(logs, "cifar10", runs[0])
+    assert {"config.json", "metrics.jsonl", "ckpt", "imgs"} <= set(os.listdir(run))
+    assert sorted(os.listdir(os.path.join(run, "ckpt"))) == ["2", "best"]
+    with open(os.path.join(run, "metrics.jsonl")) as f:
+        evals = [r for r in map(json.loads, f) if r["phase"] == "eval"]
+    assert [r["step"] for r in evals] == [0, 2] and "frechet_rand_damc" in evals[0]
+
+    ev = common_args + ["--ckpt_dir", os.path.join(run, "ckpt"), "--ckpt_name", "best", "--e_l_steps", "3"]
+    a, b = eval_gen_recon.main(ev), eval_gen_recon.main(ev)
+    assert a == b and set(a) == {"frechet_rand_damc", "frechet_rand_ebm", "recon_mse"}
+    assert all(v == v and v >= 0 for v in a.values())
+
+
+@pytest.mark.parametrize("cli", ["train", "eval"])
+def test_clis_need_cuda_without_device(tmp_path, cli):
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is usable")
+    argv = ["--data_path", str(tmp_path)] + (["--ckpt_dir", str(tmp_path)] if cli == "eval" else [])
+    main = train_gen_recon.main if cli == "train" else eval_gen_recon.main
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        main(argv)

@@ -132,12 +132,12 @@ def test_train_gen_recon_three_iterations_on_cpu(capsys):
 
 
 def test_unported_options_raise():
-    cfg = _tiny_cfg()
+    """The host data feed and the toy workload raise; the evals, logs and
+    checkpoints are ported (tests/test_torch_port_driver.py)."""
+    cfg = _tiny_cfg(data_placement="host")
     images = np.zeros((8, 32, 32, 3), np.uint8)
-    for kw in (dict(fid_images=images), dict(mse_images=images), dict(feature_fn=lambda x: x),
-               dict(log_dir="logs"), dict(resume_path="ckpt")):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            train_gen_recon(cfg, images, iterations=1, device="cpu", **kw)
+    with pytest.raises(NotImplementedError, match="not ported"):
+        train_gen_recon(cfg, images, iterations=1, device="cpu")
     toy = preset("toy")
     with pytest.raises(NotImplementedError, match="toy"):
         train_gen_recon(toy, np.zeros((8, 2, 2, 2), np.float32), iterations=1, device="cpu")

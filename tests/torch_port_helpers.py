@@ -30,11 +30,13 @@ def to_numpy(tree):
     return jax.tree_util.tree_map(np.asarray, tree)
 
 
-def jax_and_port(seed: int = 0, preset_name: str = "svhn"):
+def jax_and_port(seed: int = 0, preset_name: str = "svhn", edit=None):
     """(jax cfg, jax state, jax models, port cfg, port models) of one weight
-    set; the port's models run on the CPU."""
-    cfg_j = tiny(jax_preset(preset_name))
-    cfg_p = tiny(port_preset(preset_name))
+    set; the port's models run on the CPU. `edit` (cfg -> cfg) is applied
+    to both tiny configs before the models are built."""
+    edit = edit or (lambda c: c)
+    cfg_j = edit(tiny(jax_preset(preset_name)))
+    cfg_p = edit(tiny(port_preset(preset_name)))
     state, models_j, _ = create_state(jax.random.PRNGKey(seed), cfg_j)
     models_p = build_models(cfg_p, seed=seed, device="cpu")
     load_state_dicts(
@@ -117,3 +119,19 @@ def adam_cap(lr: float, updates: int, betas) -> float:
         u = [(1 - b2) * b2 ** (t - i) / (1 - b2**t) for i in range(1, t + 1)]
         total += sum(wi * wi / ui for wi, ui in zip(w, u)) ** 0.5
     return 2 * lr * total
+
+
+def one_torch_thread():
+    """Generator for a module-scoped fixture: torch's intra-op pool at one
+    thread for the module, then back. The suite runs several workers on
+    one machine, and their full-width thread pools oversubscribe it many
+    times over (a file measured 7x slower)."""
+    import torch
+
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(before)
+
