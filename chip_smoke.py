@@ -55,9 +55,29 @@ Phases, each of which raises on failure (the script then exits non-zero):
      stats; a recon-MSE batch at B=128 and B=500; sqrtm) and sets the eval
      beside 100 training iterations, with a projection of the 50,000-sample
      protocol, labelled as such;
- 12. prints one JSON line {"kernels": [...]} with launches, errors and times
-     of each kernel on each path (serve, train, eval);
- 13. prints {"ok": true, "device": {...}} as the last line.
+ 12. anomaly workload (`mnist_anomaly`, nz=8, full width): K1 over the
+     B=128 single prior chains and K2 at B=128 and at the AUPRC batch B=500,
+     stream mode, against their plain versions; then, on an MNIST-shaped
+     mnist.npz made from the seed (70,000 images; held-out digit 9; the
+     test split cut to 4,000 images through its cache file), trains 20
+     iterations through `cli.train_anomaly_det` with an AUPRC eval and
+     checkpoints every 10, resumes to 22 in the same directory, and scores
+     ckpt/best twice through `cli.eval_anomaly_det` (identical AUPRCs);
+     checks rows, checkpoints, K1 and K2 once an iteration and K2 once an
+     eval batch; profiles one iteration as phase 7 does;
+ 13. toy workload (`toy`, nz=2, B=500): K2 at the toy's widths in stream,
+     counter and noiseless mode against the plain version (6 steps held to
+     fp64; stream rows of B=500 equal to the same rows at B=16, bit for
+     bit); then 40 iterations through `cli.toy` with a parity eval (1,000
+     ground-truth steps, 2 batches of 500) every 20 and at the end; checks
+     finite g_loss_q, g_loss_l and mmd2, a 600x600 KDE PNG per cloud and
+     eval, K2 once an iteration and once an eval batch, K1 never; profiles
+     one iteration;
+ 14. prints one JSON line {"kernels": [...]} with launches, errors and times
+     of each kernel on each path (serve, train, eval, anomaly, anomaly_eval:
+     the train CLI's AUPRC evals, anomaly_eval_cli: the eval CLI's two
+     runs, toy);
+ 15. prints {"ok": true, "device": {...}} as the last line.
 """
 
 from __future__ import annotations
@@ -828,8 +848,9 @@ def gpu_cpu_phase(cfg):
         raise AssertionError(f"card and CPU disagree beyond float32 rounding: {failed}")
 
 
-def train_profile_phase(cfg, state):
-    """One training iteration under torch.profiler: host wall time, device
+def train_profile_phase(cfg, state, x=None, path="train"):
+    """One training iteration on the batch x (default: CIFAR-shaped images
+    made from the seed) under torch.profiler: host wall time, device
     busy time (sum of kernel times), idle share, and for each of the seven
     labelled phases its host time, its span on the device (first to last
     kernel, from the profiler's GPU-side annotation) and the kernel time
@@ -842,7 +863,8 @@ def train_profile_phase(cfg, state):
     from damc_tpu_torch.train.step import PHASES, make_train_step
 
     step = make_train_step(state.models, state.opts, cfg)
-    x = torch.from_numpy(train_images(cfg.train.batch_size)).cuda().float() / 255.0 * 2.0 - 1.0
+    if x is None:
+        x = torch.from_numpy(train_images(cfg.train.batch_size)).cuda().float() / 255.0 * 2.0 - 1.0
     step(state, x)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -875,7 +897,7 @@ def train_profile_phase(cfg, state):
         by_name[k.name] = (ms + dur(k), calls + 1)
     top = sorted(by_name.items(), key=lambda kv: kv[1][0], reverse=True)[:10]
     print("[profile] " + json.dumps({
-        "path": "train", "wall_ms": wall_ms, "device_busy_ms": busy_ms,
+        "path": path, "wall_ms": wall_ms, "device_busy_ms": busy_ms,
         "device_idle_share": 1.0 - busy_ms / wall_ms, "phases": phases,
         "top": [{"name": n[:60], "ms": ms, "calls": c} for n, (ms, c) in top],
     }))
@@ -941,32 +963,26 @@ def write_cifar_tree(root: str, n_train: int, n_test: int) -> None:
     write("test_batch", n_test)
 
 
-def _instrument_evals(counters, log):
-    """Wrap the loop's `evaluate_fid` and `evaluate_mse` so that each call
-    records its wall time (synchronised) and the launches it made; returns
-    the function that undoes it."""
+def _instrument(module, name, counters, log, what=None):
+    """Wrap `module.name` so that each call records its wall time
+    (synchronised), the launches it made and its label, `what(args)` or
+    else `name`; returns the undo."""
     import torch
 
-    from damc_tpu_torch.train import gen_recon
+    original = getattr(module, name)
 
-    originals = {name: getattr(gen_recon, name) for name in ("evaluate_fid", "evaluate_mse")}
+    def call(*args, **kwargs):
+        torch.cuda.synchronize()
+        before = {k: c.launches for k, c in counters.items()}
+        t0 = time.perf_counter()
+        out = original(*args, **kwargs)
+        torch.cuda.synchronize()
+        log.append({"what": name if what is None else what(args), "s": time.perf_counter() - t0, "value": out,
+                    "launches": {k: c.launches - before[k] for k, c in counters.items()}})
+        return out
 
-    def wrap(name, fn):
-        def call(*args, **kwargs):
-            torch.cuda.synchronize()
-            before = {k: c.launches for k, c in counters.items()}
-            t0 = time.perf_counter()
-            out = fn(*args, **kwargs)
-            torch.cuda.synchronize()
-            what = f"fid_{args[7]}" if name == "evaluate_fid" else "mse"
-            log.append({"what": what, "s": time.perf_counter() - t0, "value": out,
-                        "launches": {k: c.launches - before[k] for k, c in counters.items()}})
-            return out
-        return call
-
-    for name, fn in originals.items():
-        setattr(gen_recon, name, wrap(name, fn))
-    return lambda: [setattr(gen_recon, n, f) for n, f in originals.items()]
+    setattr(module, name, call)
+    return lambda: setattr(module, name, original)
 
 
 def _png_size(path):
@@ -999,6 +1015,7 @@ def eval_phase(cfg, counters):
     import torch
 
     from damc_tpu_torch.cli import eval_gen_recon, train_gen_recon
+    from damc_tpu_torch.train import gen_recon
     from damc_tpu_torch.train.state import create_state
     from damc_tpu_torch.train.step import make_train_step
     from damc_tpu_torch.utils.checkpoint import restore_checkpoint
@@ -1018,14 +1035,16 @@ def eval_phase(cfg, counters):
 
         # 1. Train 6 iterations.
         calls = []
-        undo = _instrument_evals(counters, calls)
+        undo = [_instrument(gen_recon, "evaluate_fid", counters, calls, what=lambda args: f"fid_{args[7]}"),
+                _instrument(gen_recon, "evaluate_mse", counters, calls)]
         for k in counters.values():
             k.launches = 0
         t0 = time.perf_counter()
         try:
             state = train_gen_recon.main(train_args + ["--iterations", "6"])
         finally:
-            undo()
+            for u in undo:
+                u()
         torch.cuda.synchronize()
         train_wall = time.perf_counter() - t0
         total = {k: c.launches for k, c in counters.items()}
@@ -1065,7 +1084,7 @@ def eval_phase(cfg, counters):
         n_fid_b = max(round(n_fid / min(cfg.train.fid_batch_size, n_fid)), 1)
         n_mse_b = -(-EVAL_TEST_IMAGES // b)
         want_call = {"fid_damc": {"K1": 0, "K2": n_fid_b}, "fid_ebm": {"K1": n_fid_b, "K2": 0},
-                     "mse": {"K1": 0, "K2": n_mse_b}}
+                     "evaluate_mse": {"K1": 0, "K2": n_mse_b}}
         for c in calls:
             if c["launches"] != want_call[c["what"]]:
                 raise AssertionError(f"{c['what']}: launches {c['launches']}, expected {want_call[c['what']]}")
@@ -1246,6 +1265,333 @@ def eval_timing_phase(cfg, inception_ms, eval_info, train_ms_per_iteration):
     return out
 
 
+ANOMALY_TEST_IMAGES = 4_000  # the digit-9 test split holds 19,567: cut so that each AUPRC eval stays short
+ANOMALY_ITERATIONS, ANOMALY_EVAL_EVERY, ANOMALY_RESUME_TO = 20, 10, 22
+TOY_ITERATIONS, TOY_VIZ_EVERY, TOY_VIZ_BATCHES, TOY_GT_STEPS = 40, 20, 2, 1000
+
+
+def anomaly_kernel_phase(cfg):
+    """The kernels at the anomaly workload's shapes (nz=8), stream mode: K1
+    over the B=128 single prior chains (60 steps at 0.4), K2 over B=128
+    rows under the encoder of MNIST-shaped images (the Q_ema draw of a
+    step) and over B=500 (the AUPRC eval's batch)."""
+    import torch
+
+    from damc_tpu_torch.models import build_models
+    from damc_tpu_torch.ops.cuda.fused_langevin import ebm_params_to_dense_weights
+
+    dev = torch.device("cuda")
+    models = build_models(cfg, seed=SEED, device=dev)
+    gen = torch.Generator(device="cpu").manual_seed(SEED + 8)
+    m, mc = cfg.model, cfg.mcmc
+    b, seed = cfg.train.batch_size, 192837465
+    res = {}
+    print(f"[anomaly-kernels] K1 B={b} stream, single chains")
+    z = torch.randn(500, m.nz, generator=gen).to(dev)
+    res["K1"] = chain_check(ebm_params_to_dense_weights(models.ebm), z[:b], dict(seed=seed), mc.e_l_steps,
+                            mc.e_l_step_size, "K1 anomaly")
+    x = torch.rand(500, m.image_size, m.image_size, m.nc, generator=gen).to(dev) * 2 - 1
+    with torch.no_grad():
+        xemb = models.amortizer.encode(x)
+    print(f"[anomaly-kernels] K2 B={b} stream")
+    res["K2"] = sweep_check(models, cfg, z[:b], xemb[:b], dict(seed=seed), "K2 anomaly step")[b]
+    print("[anomaly-kernels] K2 B=500 stream, the AUPRC batch")
+    res["K2_auprc"] = sweep_check(models, cfg, z, xemb, dict(seed=seed), "K2 anomaly AUPRC")[500]
+    return res
+
+
+def _timed_steps(module, events):
+    """Wrap `module.make_train_step` so that every step it builds records a
+    CUDA event after it (no sync); returns the undo."""
+    import torch
+
+    original = module.make_train_step
+
+    def make(*args, **kwargs):
+        step = original(*args, **kwargs)
+
+        def timed(*a, **k):
+            out = step(*a, **k)
+            event = torch.cuda.Event(enable_timing=True)
+            event.record()
+            events.append(event)
+            return out
+
+        return timed
+
+    module.make_train_step = make
+    return lambda: setattr(module, "make_train_step", original)
+
+
+def _step_ms(events, skip):
+    """ms between the events of consecutive iterations, leaving out the
+    intervals that follow an iteration in `skip` (an eval or a checkpoint
+    ran after its step) and the first (first use)."""
+    ms = [a.elapsed_time(b) for a, b in zip(events, events[1:])]
+    return [t for i, t in enumerate(ms) if i > 0 and i not in skip]
+
+
+def anomaly_phase(cfg, counters):
+    """The anomaly workload through its CLIs at full mnist_anomaly width, in
+    a temporary directory, on an MNIST-shaped mnist.npz made from the seed
+    (70,000 images: 50,000/10,000/10,000 in x_train/x_test/x_valid): train
+    20 iterations at B=128 with an AUPRC eval and checkpoints every 10 (the
+    test split cut to 4,000 images through its cache file), resume to 22
+    with --resume_path auto in the same directory, then score ckpt/best
+    twice through the eval CLI. Returns the times and launches."""
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+
+    from damc_tpu_torch.cli import eval_anomaly_det, train_anomaly_det
+    from damc_tpu_torch.data.datasets import load_mnist_anomaly, synthetic_mnist_npz
+    from damc_tpu_torch.train import anomaly
+
+    tmp = tempfile.mkdtemp(prefix="damc_anomaly_smoke_")
+    try:
+        data, logs = os.path.join(tmp, "data"), os.path.join(tmp, "logs")
+        os.makedirs(data)
+        t0 = time.perf_counter()
+        synthetic_mnist_npz(os.path.join(data, "mnist.npz"), (50_000, 10_000, 10_000), seed=SEED)
+        digit = cfg.train.heldout_digit
+        train_x, _ = load_mnist_anomaly(data, digit, "train")
+        test_x, test_y = load_mnist_anomaly(data, digit, "test")
+        n_test = len(test_x)
+        # The cut: the first 4,000 images of the split, through its own cache file.
+        cache = os.path.join(data, f"heldout_{digit}_test.npy")
+        split = np.load(cache, allow_pickle=True).item()
+        np.save(cache, {k: v[:ANOMALY_TEST_IMAGES] for k, v in split.items()})
+        cut_x, cut_y = load_mnist_anomaly(data, digit, "test")
+        if not (np.array_equal(cut_x, test_x[:ANOMALY_TEST_IMAGES]) and np.array_equal(cut_y, test_y[:len(cut_y)])
+                and len(cut_x) == ANOMALY_TEST_IMAGES):
+            raise AssertionError("the cut test split does not read back")
+        print(f"[anomaly] MNIST-shaped mnist.npz made from the seed (70,000 images), held-out digit {digit}: "
+              f"{len(train_x)} train images, {n_test} test images cut to {len(cut_x)} ({int(cut_y.sum())} "
+              f"anomalous; cut so each AUPRC eval stays short), in {time.perf_counter() - t0:.2f} s")
+        b = cfg.train.batch_size
+        common = ["--data_path", data, "--log_path", logs, "--seed", str(SEED), "--label", str(digit)]
+        train_args = common + ["--eval_every", str(ANOMALY_EVAL_EVERY), "--ckpt_every", str(ANOMALY_EVAL_EVERY),
+                               "--print_every", "5"]
+
+        # 1. Train 20 iterations.
+        evals, events = [], []
+        undo = [_instrument(anomaly, "evaluate_auprc", counters, evals), _timed_steps(anomaly, events)]
+        for k in counters.values():
+            k.launches = 0
+        t0 = time.perf_counter()
+        try:
+            state, best = train_anomaly_det.main(train_args + ["--iterations", str(ANOMALY_ITERATIONS)])
+        finally:
+            for u in undo:
+                u()
+        torch.cuda.synchronize()
+        train_wall = time.perf_counter() - t0
+        total = {k: c.launches for k, c in counters.items()}
+        (run,) = os.listdir(os.path.join(logs, "mnist"))
+        run = os.path.join(logs, "mnist", run)
+        rows = _jsonl(os.path.join(run, "metrics.jsonl"))
+        train_steps = [r["step"] for r in rows if r["phase"] == "train"]
+        eval_rows = [r for r in rows if r["phase"] == "eval"]
+        print(f"[anomaly] train rows {train_steps}; eval rows "
+              + json.dumps([{k: r[k] for k in ("step", "auprc", "auprc_best")} for r in eval_rows]))
+        want_evals = [0, 10, ANOMALY_ITERATIONS - 1]
+        if train_steps != list(range(0, ANOMALY_ITERATIONS, 5)) or [r["step"] for r in eval_rows] != want_evals:
+            raise AssertionError("metrics.jsonl lacks a train or an eval row")
+        for r in rows:
+            if not all(np.isfinite(v) for k, v in r.items() if k not in ("phase",)):
+                raise AssertionError(f"non-finite metric in row {r}")
+        if not all(0.0 < r["auprc"] <= 1.0 for r in eval_rows) or best != max(r["auprc"] for r in eval_rows):
+            raise AssertionError(f"AUPRC out of (0, 1] or best {best} is not the largest")
+        ckpts = sorted(os.listdir(os.path.join(run, "ckpt")))
+        print(f"[anomaly] checkpoints {ckpts}; best AUPRC {best}")
+        if ckpts != sorted(["10", str(ANOMALY_ITERATIONS - 1), "best"]):
+            raise AssertionError("ckpt/10, the terminal checkpoint or ckpt/best is missing")
+        n_batches = -(-ANOMALY_TEST_IMAGES // anomaly.EVAL_BATCH)
+        for e in evals:
+            if e["launches"] != {"K1": 0, "K2": n_batches}:
+                raise AssertionError(f"an AUPRC eval launched {e['launches']}, expected K2 {n_batches} times")
+        eval_launches = {k: sum(e["launches"][k] for e in evals) for k in counters}
+        train_launches = {k: total[k] - eval_launches[k] for k in counters}
+        per_iteration = {k: v / ANOMALY_ITERATIONS for k, v in train_launches.items()}
+        print(f"[anomaly] launches: whole run {total}, the {len(evals)} evals {eval_launches}, "
+              f"per training iteration {per_iteration}")
+        if train_launches != {"K1": ANOMALY_ITERATIONS, "K2": ANOMALY_ITERATIONS}:
+            raise AssertionError("K1 and K2 must each launch once a training iteration")
+        ms = _step_ms(events, skip={0, ANOMALY_EVAL_EVERY})
+        del state
+
+        # 2. Resume to 22 in the same directory (no eval on the way).
+        resumed, _ = train_anomaly_det.main(
+            common + ["--iterations", str(ANOMALY_RESUME_TO), "--resume_path", "auto", "--eval_every", "0",
+                      "--ckpt_every", str(ANOMALY_EVAL_EVERY), "--print_every", "1"])
+        rows = _jsonl(os.path.join(run, "metrics.jsonl"))
+        resumed_rows = [r["step"] for r in rows if r["phase"] == "train"][len(train_steps):]
+        print(f"[anomaly] resumed: directories {os.listdir(os.path.join(logs, 'mnist'))}, new train rows "
+              f"{resumed_rows}, step {resumed.step}")
+        if resumed.step != ANOMALY_RESUME_TO or resumed_rows != list(range(ANOMALY_ITERATIONS, ANOMALY_RESUME_TO)):
+            raise AssertionError("the resumed run did not continue at iteration 20 in the same directory")
+        del resumed
+
+        # 3. The eval CLI on ckpt/best, twice.
+        for k in counters.values():
+            k.launches = 0
+        scores, walls = [], []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            scores.append(eval_anomaly_det.main(common + ["--ckpt_dir", os.path.join(run, "ckpt")]))
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        cli_launches = {k: c.launches for k, c in counters.items()}
+        print(f"[anomaly] eval CLI AUPRC {scores}; identical: {scores[0] == scores[1]}; launches over both "
+              f"{cli_launches}; wall s {walls}")
+        if scores[0] != scores[1] or not 0.0 < scores[0] <= 1.0:
+            raise AssertionError("two eval CLI runs on one checkpoint printed different AUPRCs")
+        if cli_launches != {"K1": 0, "K2": 2 * n_batches}:
+            raise AssertionError(f"eval CLI launches {cli_launches}, expected K2 {2 * n_batches}")
+        out = {
+            "median_ms_per_iteration": statistics.median(ms), "ms_per_iteration": ms,
+            "auprc_eval_wall_s": [e["s"] for e in evals], "eval_cli_wall_s": walls,
+            "train_cli_wall_s": train_wall, "launches_per_iteration": per_iteration,
+        }
+        print("[anomaly] " + json.dumps(out))
+        return {"train": train_launches, "eval": eval_launches, "cli": cli_launches, **out}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def anomaly_profile_phase(cfg):
+    """One anomaly iteration (B=128) under torch.profiler, as
+    `train_profile_phase` profiles cifar10's, on MNIST-shaped images made
+    from the seed."""
+    import torch
+
+    from damc_tpu_torch.train.state import create_state
+
+    m = cfg.model
+    gen = torch.Generator(device="cpu").manual_seed(SEED + 10)
+    x = torch.rand(cfg.train.batch_size, m.image_size, m.image_size, m.nc, generator=gen).cuda() * 2 - 1
+    train_profile_phase(cfg, create_state(cfg, SEED, "cuda"), x=x, path="anomaly")
+
+
+def toy_profile_phase(cfg):
+    """One toy iteration (B=500) under torch.profiler, on observations of
+    the fixed pinwheel batch as `train_toy` makes them."""
+    import torch
+
+    from damc_tpu_torch.data.pinwheel import sample_pinwheel
+    from damc_tpu_torch.train.state import create_state
+    from damc_tpu_torch.train.toy import make_observations
+
+    state = create_state(cfg, SEED, "cuda")
+    z = torch.from_numpy(sample_pinwheel(cfg.train.batch_size, SEED)).cuda()
+    x = make_observations(state.models.generator, z, torch.randn(z.shape, generator=state.rng, device="cuda"))
+    train_profile_phase(cfg, state, x=x, path="toy")
+
+
+def toy_kernel_phase(cfg):
+    """K2 at the toy's widths (nz = 2: one Fourier pair, the last layer 2
+    wide) at B=500 under the MLP encoder of pinwheel observations: stream
+    mode (the step's Q_ema draw and the parity eval's Q samples) with its
+    first 16 rows launched alone equal bit for bit, counter mode, and
+    noiseless; each against the plain version and the fp64 plain version."""
+    import torch
+
+    from damc_tpu_torch.data.pinwheel import sample_pinwheel
+    from damc_tpu_torch.models import build_models
+
+    dev = torch.device("cuda")
+    models = build_models(cfg, seed=SEED, device=dev)
+    gen = torch.Generator(device="cpu").manual_seed(SEED + 9)
+    b, nz = cfg.train.batch_size, cfg.model.nz
+    z = torch.randn(b, nz, generator=gen).to(dev)
+    seeds = torch.randint(0, 2**31 - 1, (b,), generator=gen, dtype=torch.int32).to(dev)
+    with torch.no_grad():
+        x = models.generator(torch.from_numpy(sample_pinwheel(b, SEED)).to(dev))
+        xemb = models.amortizer.encode(x + 0.25 * torch.randn(b, 2, generator=gen).to(dev))
+    res = {}
+    print(f"[toy-kernels] K2 nz={nz} B={b}")
+    sweep_check(models, cfg, z, xemb, dict(with_noise=False), "K2 toy noiseless", full=False)
+    res["K2_counter"] = sweep_check(models, cfg, z, xemb, dict(row_seeds=seeds), "K2 toy counter")[b]
+    r = sweep_check(models, cfg, z, xemb, dict(seed=24681357), "K2 toy stream", subs=(16,))
+    res["K2"] = r[b]
+    return res
+
+
+def toy_phase(cfg, counters):
+    """The toy workload through its CLI at the preset's width (nz=2, B=500)
+    in a temporary directory: 40 iterations with a parity eval (1,000
+    ground-truth Langevin steps, 2 batches of 500) every 20 and at the end;
+    checks the eval rows, the KDE plots and the launches."""
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+
+    from damc_tpu_torch.cli import toy as toy_cli
+    from damc_tpu_torch.train import toy
+    from damc_tpu_torch.utils.logging import KDE_CELL, KDE_GRID
+
+    tmp = tempfile.mkdtemp(prefix="damc_toy_smoke_")
+    try:
+        evals, events = [], []
+        undo = [_instrument(toy, "eval_toy_parity", counters, evals), _timed_steps(toy, events)]
+        for k in counters.values():
+            k.launches = 0
+        t0 = time.perf_counter()
+        try:
+            state, final = toy_cli.main([
+                "--iterations", str(TOY_ITERATIONS), "--viz_iter", str(TOY_VIZ_EVERY),
+                "--viz_batches", str(TOY_VIZ_BATCHES), "--gt_steps", str(TOY_GT_STEPS), "--log_path", tmp,
+            ])
+        finally:
+            for u in undo:
+                u()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        total = {k: c.launches for k, c in counters.items()}
+        (run,) = os.listdir(os.path.join(tmp, "toy"))
+        run = os.path.join(tmp, "toy", run)
+        rows = _jsonl(os.path.join(run, "metrics.jsonl"))
+        eval_rows = [r for r in rows if r["phase"] == "eval"]
+        print("[toy] eval rows " + json.dumps(
+            [{k: r[k] for k in ("step", "g_loss_q", "g_loss_l", "mmd2")} for r in eval_rows]))
+        viz_its = list(range(0, TOY_ITERATIONS, TOY_VIZ_EVERY))
+        if [r["step"] for r in eval_rows] != viz_its + [TOY_ITERATIONS]:
+            raise AssertionError("metrics.jsonl lacks an eval row")
+        if not all(np.isfinite(r[k]) for r in eval_rows for k in ("g_loss_q", "g_loss_l", "mmd2")):
+            raise AssertionError("a parity eval gave a non-finite g_loss_q, g_loss_l or mmd2")
+        if final["zq"].shape != (TOY_VIZ_BATCHES * 500, 2) or not np.isfinite(final["zq"]).all():
+            raise AssertionError("the final Q cloud has the wrong shape or is not finite")
+        side = KDE_GRID * KDE_CELL
+        plots = sorted(os.listdir(os.path.join(run, "viz")))
+        want = sorted(f"{n}_lang_post_{w}.png" for n in [*map(str, viz_its), "final"] for w in ("Q", "gt"))
+        if plots != want:
+            raise AssertionError(f"KDE plots {plots}, expected {want}")
+        for p in plots:
+            if _png_size(os.path.join(run, "viz", p)) != (side, side, 2):
+                raise AssertionError(f"{p}: not a {side}x{side} RGB plot")
+        print(f"[toy] {len(plots)} KDE plots, each {side}x{side} RGB")
+        per_eval = {"K1": 0, "K2": TOY_VIZ_BATCHES}
+        if any(e["launches"] != per_eval for e in evals):
+            raise AssertionError(f"a parity eval launched {[e['launches'] for e in evals]}, expected {per_eval}")
+        eval_launches = {k: sum(e["launches"][k] for e in evals) for k in counters}
+        train_launches = {k: total[k] - eval_launches[k] for k in counters}
+        print(f"[toy] launches: whole run {total}, the {len(evals)} evals {eval_launches}")
+        if train_launches != {"K1": 0, "K2": TOY_ITERATIONS}:
+            raise AssertionError("the toy step must launch K2 once an iteration and K1 never")
+        ms = _step_ms(events, skip=set(viz_its))
+        out = {"median_ms_per_iteration": statistics.median(ms), "ms_per_iteration": ms,
+               "parity_eval_wall_s": [e["s"] for e in evals], "cli_wall_s": wall,
+               "final": {k: final[k] for k in ("g_loss_q", "g_loss_l", "mmd2")}}
+        print("[toy] " + json.dumps(out))
+        return {"train": train_launches, "eval": eval_launches, **out}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main() -> int:
     import torch
 
@@ -1290,6 +1636,13 @@ def main() -> int:
     eval_info = eval_phase(cfg, counters)
     _, inception_ms, _ = inception_phase()
     eval_timing_phase(cfg, inception_ms, eval_info, train_ms)
+    cfg_anomaly, cfg_toy = preset("mnist_anomaly"), preset("toy")
+    res_anomaly = anomaly_kernel_phase(cfg_anomaly)
+    anomaly_info = anomaly_phase(cfg_anomaly, counters)
+    anomaly_profile_phase(cfg_anomaly)
+    res_toy = toy_kernel_phase(cfg_toy)
+    toy_info = toy_phase(cfg_toy, counters)
+    toy_profile_phase(cfg_toy)
 
     meta = {
         "K1": ("fused_prior_langevin", "damc_tpu_torch/csrc/fused_langevin.cu",
@@ -1298,24 +1651,35 @@ def main() -> int:
                "damc_tpu/ops/pallas/fused_qsweep.py:344"),
     }
     kernels = []
-    for path, mode, results, launches in (
-        ("serve", "counter", {k: res[k][16] for k in meta}, total),  # the serving shape B=16
-        ("train", "stream", res_stream, total_train),
-        ("eval", "stream", res_eval, eval_info["cli_launches"]),  # B=500: K1 100 steps, K2 prior
-    ):
-        for key, (name, source, replaces) in meta.items():
-            r = results[key]
-            bound_ms, bound_by = bound(r["flops"], r["bytes"])
-            kernels.append({
-                "name": name, "route": "cuda", "source": source, "replaces": replaces,
-                "launches": launches[key], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-                "plain_ms": r["plain_ms"], "bound_ms": bound_ms, "bound_by": bound_by,
-                "library_ms": None, "path": path, "noise": mode, "batch": r["b"],
-            })
+    # (path, noise, kernel, its result at the path's shape, its launches in the path's run)
+    entries = [
+        ("serve", "counter", key, res[key][16], total[key]) for key in meta  # the serving shape B=16
+    ] + [("train", "stream", key, res_stream[key], total_train[key]) for key in meta] + [
+        ("eval", "stream", key, res_eval[key], eval_info["cli_launches"][key])  # B=500: K1 100 steps, K2 prior
+        for key in meta
+    ] + [
+        ("anomaly", "stream", "K1", res_anomaly["K1"], anomaly_info["train"]["K1"]),  # B=128, nz=8
+        ("anomaly", "stream", "K2", res_anomaly["K2"], anomaly_info["train"]["K2"]),  # B=128, nz=8
+        # B=500 posterior, nz=8: the train CLI's AUPRC evals, then the eval CLI's own run.
+        ("anomaly_eval", "stream", "K2", res_anomaly["K2_auprc"], anomaly_info["eval"]["K2"]),
+        ("anomaly_eval_cli", "stream", "K2", res_anomaly["K2_auprc"], anomaly_info["cli"]["K2"]),
+        ("toy", "stream", "K2", res_toy["K2"], toy_info["train"]["K2"] + toy_info["eval"]["K2"]),  # B=500, nz=2
+    ]
+    for path, mode, key, r, launches in entries:
+        name, source, replaces = meta[key]
+        bound_ms, bound_by = bound(r["flops"], r["bytes"])
+        kernels.append({
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": launches, "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": None, "path": path, "noise": mode, "batch": r["b"],
+        })
     for key, (name, _, _) in meta.items():
         shapes = [("serving counter", res[key][16]), ("training stream", res_stream[key]),
                   ("counter", res[key][500])]
         shapes += [(f"eval stream {k}", r) for k, r in res_eval.items() if k.startswith(key)]
+        shapes += [(f"anomaly stream {k}", r) for k, r in res_anomaly.items() if k.startswith(key)]
+        shapes += [(f"toy {k}", r) for k, r in res_toy.items() if k.startswith(key)]
         for label, r in shapes:
             b_ms, by = bound(r["flops"], r["bytes"])
             print(f"[kernels] {name} {label} B={r['b']}: ms={r['ms']} plain_ms={r['plain_ms']} "

@@ -5,7 +5,9 @@ run directory, dataset loading and the FID feature extractor.
 The flags are the JAX CLI's, aliases included, plus `--device` (default
 `cuda`; `cpu` runs the plain versions of the kernels). `--use_mesh` and
 `--multihost` are accepted by the parser and raise (ROADMAP.md, queue 1,
-item 8); so do the datasets other than cifar10 and svhn (item 4).
+item 8). `load_dataset` reads the gen_recon datasets cifar10 and svhn; the
+image-folder and LSUN readers raise (item 4); mnist is the anomaly
+workload's (`cli/train_anomaly_det.py`).
 """
 
 from __future__ import annotations
@@ -280,9 +282,14 @@ def load_dataset(cfg: Config) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
     if d == "svhn":
         tr = load_svhn(root, "train")
         return tr, tr, to_pm1(load_svhn(root, "test"))
+    if d == "mnist":
+        raise ValueError(
+            "mnist is the anomaly workload, not a gen_recon dataset: "
+            "python -m damc_tpu_torch.cli.train_anomaly_det"
+        )
     raise NotImplementedError(
-        f"dataset {d!r}: the port reads cifar10 and svhn; the image-folder, LSUN and "
-        "MNIST readers are not ported (ROADMAP.md, queue 1, item 4)"
+        f"dataset {d!r}: the port reads cifar10 and svhn; the image-folder and LSUN "
+        "readers are not ported (ROADMAP.md, queue 1, item 4)"
     )
 
 

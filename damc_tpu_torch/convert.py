@@ -13,7 +13,8 @@ The port's modules keep the reference torch key layout, so
     Q_ema, step and the optax Adam moments) as a port `TrainState`, so a
     port step can continue a JAX run.
 
-Maps: Dense kernel (in, out) -> Linear weight (out, in); Conv HWIO -> OIHW;
+Maps: Dense kernel (in, out) -> Linear weight (out, in) (the toy's MLPs
+too); Conv HWIO -> OIHW;
 ConvTranspose (kh, kw, in, out) -> (in, out, kh, kw) with a spatial flip;
 GroupNorm(group_size=1) scale/bias -> InstanceNorm2d weight/bias.
 """
@@ -41,8 +42,14 @@ def _dense(p, sd: StateDict, prefix: str) -> None:
 
 
 def generator_state(params) -> StateDict:
+    """A `DeconvGenerator`'s, or the toy's `ToyGenerator` (Dense layers at
+    `net.{2i}`)."""
     p = params["params"]
     sd: StateDict = {}
+    if "Dense_0" in p:
+        for i in range(len(p)):
+            _dense(p[f"Dense_{i}"], sd, f"net.{2 * i}")
+        return sd
     for i in range(len(p)):
         q = p[f"ConvTranspose_{i}"]
         sd[f"gen.{2 * i}.weight"] = _a(q["kernel"]).transpose(2, 3, 0, 1)[:, :, ::-1, ::-1]
@@ -92,7 +99,12 @@ def amortizer_state(params, nxemb: int) -> StateDict:
     _denoiser_state(p["p"], sd, "p")
     _dense(p["prior_emb"]["Dense_0"], sd, "prior_emb.0")
     _dense(p["prior_emb"]["Dense_1"], sd, "prior_emb.2")
-    _encoder_state(p["encoder"], sd, "encoder.net")
+    enc = p["encoder"]
+    if "Dense_0" in enc:  # the toy's MLPEncoder, Linears at encoder.{2i}
+        for i in range(len(enc)):
+            _dense(enc[f"Dense_{i}"], sd, f"encoder.{2 * i}")
+    else:
+        _encoder_state(enc, sd, "encoder.net")
     return sd
 
 
@@ -169,8 +181,9 @@ def train_state_from_jax(
     """A JAX `DAMCState` with numpy leaves (params_g/e/q, params_q_ema,
     step, opt_g/e/q) -> a port `TrainState` on `device` (default CUDA)
     that continues it: the weights, Q_ema, the iteration count and each
-    optimizer's Adam moments and update count. The JAX PRNG key has no
-    torch counterpart: the port's generator is seeded with `seed`."""
+    optimizer's Adam moments and update count. A toy state has no E and
+    trains only Q. The JAX PRNG key has no torch counterpart: the port's
+    generator is seeded with `seed`."""
     from .train.state import create_state
 
     port = create_state(cfg, seed, device)
@@ -183,8 +196,10 @@ def train_state_from_jax(
     ema = _torch(amortizer_state(state.params_q_ema, nxemb))
     port.amortizer_ema.load_state_dict(ema, strict=True)
     amort_sd = lambda tree: {k: v for k, v in amortizer_state(tree, nxemb).items() if k != "xemb"}
-    _load_adam(port.opts.g, m.generator, generator_state, state.opt_g)
-    _load_adam(port.opts.e, m.ebm, ebm_state, state.opt_e)
+    if port.opts.g is not None:
+        _load_adam(port.opts.g, m.generator, generator_state, state.opt_g)
+    if port.opts.e is not None:
+        _load_adam(port.opts.e, m.ebm, ebm_state, state.opt_e)
     _load_adam(port.opts.q, m.amortizer, amort_sd, state.opt_q)
     port.step = int(np.asarray(state.step))
     return port

@@ -64,6 +64,12 @@
 //    the fp32 rounding of t - rint(t) is amplified by the chaotic sweep
 //    into the largest error of the whole step. With it, 6 steps land about
 //    20 times closer to the fp64 reference than the fp32 plain version.
+//  - Widths: products read float4s of a layer's input, and gathers copy
+//    float4s; a width that is not a multiple of 4 (the toy's nz = 2: its
+//    last layer's output and context are 2 wide) takes its last rows and
+//    columns one float at a time, in the same order, and the buffers' row
+//    strides are rounded up to 4. The z, Fourier and ancestral-step loops
+//    are scalar for every width.
 //  - Not taken: precomputing the FiLM half (gate and hyper, 42% of the
 //    multiply-adds) for every (step, row) off the serial path would cost
 //    2 x 1,408 floats each (144 MB at B=128) and a second kernel.
@@ -188,6 +194,27 @@ __device__ __forceinline__ void fma4(const float* x, int x_ld, const float* wa, 
   }
 }
 
+// The same for the last m < 4 rows of an input whose width is not a
+// multiple of 4 (the toy's context of width nz = 2), one k at a time and in
+// order of k, so each sum takes the additions fma4 would give it; w holds
+// the rows as the ring does, A at w[k * 2 kTile] and B kTile further.
+template <int kRt, int kTile>
+__device__ __forceinline__ void fma_tail(const float* x, int x_ld, const float* w, int m,
+                                         float* acc_a, float* acc_b) {
+#pragma unroll
+  for (int u = 0; u < 3; ++u) {
+    if (u < m) {
+      const float wa = w[u * 2 * kTile], wb = w[u * 2 * kTile + kTile];
+#pragma unroll
+      for (int r = 0; r < kRt; ++r) {
+        const float v = x[r * x_ld + u];
+        acc_a[r] = fmaf(v, wa, acc_a[r]);
+        acc_b[r] = fmaf(v, wb, acc_b[r]);
+      }
+    }
+  }
+}
+
 // This block's kTile output columns [col0, col0 + kTile) of layer l for
 // all kRows rows: out = (h L + l) * sigmoid(c G + g) + c H + h S + s, into
 // out (kRows x kTile). The weights arrive stage by stage in the ring (g
@@ -234,7 +261,8 @@ __device__ __forceinline__ void csl_layer(const SweepArgs& a, int l, int rank, c
 #pragma unroll
       for (int h = 0; h < kChunkRows; h += 4) {
         const int i = chunk * kChunkRows + h;  // [row][matrix][kTile] in the slot
-        if (k0 + i < n) {
+        const int m = n - (k0 + i);             // rows of these four that exist
+        if (m >= 4) {
           float wa[4], wb[4];
 #pragma unroll
           for (int u = 0; u < 4; ++u) {
@@ -245,6 +273,11 @@ __device__ __forceinline__ void csl_layer(const SweepArgs& a, int l, int rank, c
             fma4<kRt>(xr + k0 + i, ld, wa, wb, al, as);
           else
             fma4<kRt>(xr + k0 + i, ld, wa, wb, ag, ah);
+        } else if (m > 0) {
+          if (p == 0)
+            fma_tail<kRt, kTile>(xr + k0 + i, ld, slot + i * 2 * kTile, m, al, as);
+          else
+            fma_tail<kRt, kTile>(xr + k0 + i, ld, slot + i * 2 * kTile, m, ag, ah);
         }
       }
       __syncwarp();
@@ -279,7 +312,9 @@ __device__ __forceinline__ void csl_layer(const SweepArgs& a, int l, int rank, c
 // dst[r][c] (row stride dst_ld) = act or identity of a layer-wide vector
 // of width d whose columns the cluster's blocks hold in tiles (kRows x
 // col_tile(d)). The compute warps take the rows in turn, their lanes the
-// float4 columns; every remote read is issued before the first store.
+// float4 columns; every remote read is issued before the first store. A
+// width or a destination that is not a multiple of 4 floats (the toy's last
+// layer, nz = 2) is copied one float at a time.
 template <int kRows, bool kAct>
 __device__ __forceinline__ void gather(const cg::cluster_group& cluster, const float* tiles, int d,
                                        float* dst, int dst_ld) {
@@ -289,6 +324,14 @@ __device__ __forceinline__ void gather(const cg::cluster_group& cluster, const f
   if (w >= kRows * kPerRow) return;
   const int r = w % kRows, first = (w / kRows) * 32 + lane;
   const int n4 = d / 4, t = col_tile(d), shift = t == 16 ? 4 : 5;
+  if ((d & 3) || (dst_ld & 3) || (reinterpret_cast<uintptr_t>(dst) & 15)) {
+    for (int c = first; c < d; c += 32 * kPerRow) {
+      const int owner = c >> shift;
+      const float v = cluster.map_shared_rank(tiles, owner)[r * t + (c - (owner << shift))];
+      dst[r * dst_ld + c] = kAct ? act(v) : v;
+    }
+    return;
+  }
   float4 v[kMax];
 #pragma unroll
   for (int u = 0; u < kMax; ++u) {
@@ -510,14 +553,25 @@ int stages_per_step(const int* dims) {
   return s;
 }
 
+// Row strides of the layer input and context buffers: the widest input
+// and output, rounded up to a multiple of 4 so that every row starts on a
+// float4.
+void row_widths(const int* dims, int* in_max, int* d_max) {
+  int a = 0, b = 0;
+  for (int l = 0; l < kLayers; ++l) {
+    a = dims[l] > a ? dims[l] : a;
+    b = dims[kLayers + l] > b ? dims[kLayers + l] : b;
+  }
+  *in_max = (a + 3) / 4 * 4;
+  *d_max = (b + 3) / 4 * 4;
+}
+
 SweepArgs make_args(const float* packed, const void* const* layer_ptrs, const int* dims) {
   SweepArgs a;
   a.packed = packed;
   packed_offsets(dims, a.off);
   a.stages = stages_per_step(dims);
   int off = 0;
-  a.in_max = 0;
-  a.d_max = 0;
   for (int l = 0; l < kLayers; ++l) {
     const void* const* p = layer_ptrs + 7 * l;  // lin_k, lin_b, skip_k, skip_b, gate_k, gate_b, hyper_k
     a.lin_b[l] = static_cast<const float*>(p[1]);
@@ -527,19 +581,15 @@ SweepArgs make_args(const float* packed, const void* const* layer_ptrs, const in
     a.dout[l] = dims[kLayers + l];
     a.ctx_off[l] = off;
     off += a.dout[l];
-    a.in_max = a.din[l] > a.in_max ? a.din[l] : a.in_max;
-    a.d_max = a.dout[l] > a.d_max ? a.dout[l] : a.d_max;
   }
   a.ctx_total = off;
+  row_widths(dims, &a.in_max, &a.d_max);
   return a;
 }
 
 int smem_bytes(const int* dims, int nz, int rows) {
-  int in_max = 0, d_max = 0;
-  for (int l = 0; l < kLayers; ++l) {
-    in_max = dims[l] > in_max ? dims[l] : in_max;
-    d_max = dims[kLayers + l] > d_max ? dims[kLayers + l] : d_max;
-  }
+  int in_max, d_max;
+  row_widths(dims, &in_max, &d_max);
   const int nfour = (dims[0] - nz) / 2;
   const int per_row = nz + in_max + d_max + 2 * kLayers * kMaxTile + 2 * emb_tile(nfour);
   const int floats = ring_stages(rows) * kStageFloats + kSplit * 4 * rows * kMaxTile + rows * per_row;

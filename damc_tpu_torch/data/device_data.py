@@ -28,13 +28,13 @@ from ..ops.noise import counter_bits
 
 # Counter of the hash that gives the data seed: one no training iteration
 # reaches, so it is none of the kernels' stream seeds (`train/step.py::stream_seeds`).
-_DATA_COUNTER = 0xFFFFFFFF
+DATA_COUNTER = 0xFFFFFFFF
 
 
 def data_seed(seed: int) -> int:
     """The seed of a dataset's generator for the run seed `seed`:
-    fmix32 counter bits of (seed, `_DATA_COUNTER`), in [0, 2^32)."""
-    return int(counter_bits(torch.tensor([int(seed)]), _DATA_COUNTER, 1)[0, 0])
+    fmix32 counter bits of (seed, `DATA_COUNTER`), in [0, 2^32)."""
+    return int(counter_bits(torch.tensor([int(seed)]), DATA_COUNTER, 1)[0, 0])
 
 
 class DeviceDataset:

@@ -13,14 +13,14 @@ from .amortizer import DAMCAmortizer, PriorEmbedder, sample_q, sample_q_per_item
 from .common import torch_default_init_
 from .denoiser import ConcatSquashLinear, LatentDenoiser, SinusoidalTimeEmbedding
 from .ebm import LatentEBM
-from .encoders import ConvEncoder, encoder_spec, make_encoder
-from .generators import DeconvGenerator, generator_spec, make_generator
+from .encoders import ConvEncoder, MLPEncoder, encoder_spec, make_encoder
+from .generators import DeconvGenerator, ToyGenerator, generator_spec, make_generator
 
 
 @dataclass
 class ModelBundle:
-    generator: DeconvGenerator
-    ebm: Optional[LatentEBM]
+    generator: Union[DeconvGenerator, ToyGenerator]
+    ebm: Optional[LatentEBM]  # None for the toy workload
     amortizer: DAMCAmortizer
 
     def modules(self):
@@ -41,19 +41,20 @@ def build_models(
     Frozen in eval mode by default (serving); `trainable=True` gives train
     mode with parameters that require grad. No module here computes
     differently in the two modes: there is no dropout, and InstanceNorm2d
-    keeps no running statistics (track_running_stats=False)."""
+    keeps no running statistics (track_running_stats=False). The toy
+    workload has no EBM, and its G (`ToyGenerator`) takes its own normal
+    init from the same generator."""
     dev = resolve_device(device)
     m, d = cfg.model, cfg.diffusion
-    if m.dataset == "toy":
-        raise ValueError("the toy workload is not ported yet")
+    toy = m.dataset == "toy"
     if m.compute_dtype != "float32":
         raise NotImplementedError(
             f"compute_dtype={m.compute_dtype!r} is not ported (ROADMAP.md, queue 1, item 2): "
             "the port's networks compute in float32"
         )
     with torch.device("meta"):
-        generator = make_generator(m.dataset, ngf=m.ngf, nc=m.nc, nz=m.nz)
-        ebm = LatentEBM(m.nz, ndf=m.ndf)
+        generator = ToyGenerator(in_dim=m.nz) if toy else make_generator(m.dataset, ngf=m.ngf, nc=m.nc, nz=m.nz)
+        ebm = None if toy else LatentEBM(m.nz, ndf=m.ndf)
         amortizer = DAMCAmortizer(
             nz=m.nz, nxemb=m.nxemb, ntemb=m.ntemb, nf=m.nf, nif=m.nif, nc=m.nc,
             dataset=m.dataset, n_interval=d.n_interval, logsnr_min=d.logsnr_min,
@@ -64,7 +65,10 @@ def build_models(
     bundle = ModelBundle(generator=generator, ebm=ebm, amortizer=amortizer)
     for module in bundle.modules():
         module.to_empty(device="cpu")
-        torch_default_init_(module, gen)
+        if isinstance(module, ToyGenerator):
+            module.init_(gen)
+        else:
+            torch_default_init_(module, gen)
     with torch.no_grad():
         amortizer.p.B.normal_(generator=gen)
         amortizer.xemb.zero_()
@@ -85,9 +89,11 @@ __all__ = [
     "SinusoidalTimeEmbedding",
     "LatentEBM",
     "ConvEncoder",
+    "MLPEncoder",
     "encoder_spec",
     "make_encoder",
     "DeconvGenerator",
+    "ToyGenerator",
     "generator_spec",
     "make_generator",
 ]

@@ -1,6 +1,6 @@
 """DAMC amortizer Q (counterpart of `damc_tpu/models/amortizer.py`).
 
-Bundles the conv encoder, the prior embedder and the latent denoiser, holds
+Bundles the encoder (conv, or the toy's MLP), the prior embedder and the latent denoiser, holds
 the denoising score-matching loss that trains Q (`DAMCAmortizer.loss`), and
 draws Q samples through the reverse-sweep kernel: `sample_q_per_item` with
 per-row counter noise (serving), `sample_q` with stream noise (training).
@@ -20,7 +20,7 @@ from torch import nn
 from ..ops.cuda.fused_qsweep import denoiser_layer_params, fused_reverse_sweep
 from ..ops.diffusion import diffusion_forward, logsnr_schedule, step_coefficients, sweep_logsnr_grid
 from .denoiser import LatentDenoiser
-from .encoders import make_encoder
+from .encoders import MLPEncoder, make_encoder
 
 
 class PriorEmbedder(nn.Sequential):
@@ -31,7 +31,8 @@ class PriorEmbedder(nn.Sequential):
 
 
 class DAMCAmortizer(nn.Module):
-    """Q: amortized sampler of p(z | x), and of p(z) when unconditioned."""
+    """Q: amortized sampler of p(z | x), and of p(z) when unconditioned.
+    dataset='toy' selects the MLP encoder, the others the conv encoders."""
 
     def __init__(
         self,
@@ -50,14 +51,17 @@ class DAMCAmortizer(nn.Module):
         residual: bool = True,
     ):
         super().__init__()
-        if dataset in ("toy", "stylegan"):
-            raise ValueError(f"dataset {dataset!r} is not ported yet")
+        if dataset == "stylegan":
+            raise ValueError("the StyleGAN amortizer is not ported yet (ROADMAP.md, queue 1, item 6)")
         self.nz, self.nxemb = nz, nxemb
         self.n_interval = n_interval
         self.logsnr_min, self.logsnr_max = logsnr_min, logsnr_max
         self.var_type = var_type
         self.with_noise = with_noise
-        self.encoder = make_encoder(dataset, nemb=nxemb, nif=nif, nc=nc)
+        if dataset == "toy":  # x is a 2-D observation: nc is its width
+            self.encoder = MLPEncoder(nemb=nxemb, in_dim=nc)
+        else:
+            self.encoder = make_encoder(dataset, nemb=nxemb, nif=nif, nc=nc)
         self.prior_emb = PriorEmbedder(nz, nxemb)
         self.p = LatentDenoiser(nz, nxemb, ntemb, nf=nf, residual=residual)
         self.register_buffer("xemb", torch.zeros(1, nxemb))

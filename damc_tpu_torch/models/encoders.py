@@ -1,5 +1,6 @@
 """Image -> embedding conv encoders (counterpart of
-`damc_tpu/models/encoders.py`: `encoder_spec`, `ConvEncoder`).
+`damc_tpu/models/encoders.py`: `encoder_spec`, `ConvEncoder`), and the toy
+workload's MLP encoder (`MLPEncoder`).
 
 Conv -> InstanceNorm2d(affine, eps 1e-5) -> LeakyReLU(0.2) triplets close
 with a VALID conv to 1x1, reshaped to (B, nemb). The public input is NHWC;
@@ -99,3 +100,17 @@ class ConvEncoder(nn.Module):
 
 def make_encoder(dataset: str, nemb: int, nif: int, nc: int) -> ConvEncoder:
     return ConvEncoder(nc, encoder_spec(dataset, nemb, nif), nemb)
+
+
+class MLPEncoder(nn.Sequential):
+    """The toy workload's encoder, x (B, in_dim) -> (B, nemb): in_dim ->
+    128 -> 128 -> 128 -> nemb with ReLU (`damc_tpu/models/encoders.py:
+    115-139`). Linears at `0`, `2`, `4`, `6`, the reference toy layout;
+    torch-default init."""
+
+    def __init__(self, nemb: int, in_dim: int = 2, width: int = 128, depth: int = 3):
+        dims = (in_dim,) + (width,) * depth
+        mods = []
+        for a, b in zip(dims, dims[1:]):
+            mods += [nn.Linear(a, b), nn.ReLU()]
+        super().__init__(*mods, nn.Linear(width, nemb))

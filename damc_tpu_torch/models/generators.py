@@ -1,8 +1,8 @@
 """Deconv generators G: z (B, nz) -> x (B, H, W, nc) in [-1, 1].
 
 Counterpart of `damc_tpu/models/generators.py` (`generator_spec`,
-`DeconvGenerator`, `make_generator`). One spec table covers the five
-datasets. The stack runs NCHW on `nn.ConvTranspose2d`; the public output is
+`DeconvGenerator`, `make_generator`, `ToyGenerator`). One spec table covers
+the five image datasets; the toy workload's G is a small MLP. The stack runs NCHW on `nn.ConvTranspose2d`; the public output is
 NHWC like the JAX package's. ConvTranspose2d layers sit at even indices of
 `self.gen` (the reference torch layout `gen.0`, `gen.2`, ...), LeakyReLU(0.2)
 between them and Tanh at the end.
@@ -94,3 +94,30 @@ class DeconvGenerator(nn.Module):
 
 def make_generator(dataset: str, ngf: int, nc: int, nz: int) -> DeconvGenerator:
     return DeconvGenerator(nz, generator_spec(dataset, ngf, nc))
+
+
+class ToyGenerator(nn.Module):
+    """The toy workload's frozen likelihood net, z (B, nz) -> x (B, 2):
+    nz (2 in the preset) -> 128 -> 128 -> 128 -> 2 with ReLU (`damc_tpu/models/generators.py:
+    204-224`). Linears at `net.0`, `net.2`, `net.4`, `net.6`, the
+    reference toy `G` layout. `init_` draws weights from N(0, 0.2^2) and
+    biases from N(0, 0.1^2); the toy never trains G."""
+
+    def __init__(self, width: int = 128, in_dim: int = 2, out_dim: int = 2):
+        super().__init__()
+        dims = (in_dim, width, width, width)
+        mods = []
+        for a, b in zip(dims, dims[1:]):
+            mods += [nn.Linear(a, b), nn.ReLU()]
+        self.net = nn.Sequential(*mods, nn.Linear(width, out_dim))
+
+    @torch.no_grad()
+    def init_(self, generator: torch.Generator) -> "ToyGenerator":
+        for m in self.net:
+            if isinstance(m, nn.Linear):
+                m.weight.normal_(0.0, 0.2, generator=generator)
+                m.bias.normal_(0.0, 0.1, generator=generator)
+        return self
+
+    def forward(self, z: torch.Tensor) -> torch.Tensor:
+        return self.net(z)

@@ -162,22 +162,21 @@ def smem_bytes(nz: int, dins: Sequence[int], douts: Sequence[int], rows: int = T
     weight stages."""
     ring = ring_stages(rows) * STAGE_ROWS * 2 * MAX_TILE
     nfour = (dins[0] - nz) // 2
-    per_row = nz + max(dins) + max(douts) + 2 * LAYERS * MAX_TILE + 2 * -(-nfour // CLUSTER)
+    in_max, d_max = (-(-max(w) // 4) * 4 for w in (dins, douts))  # row strides, float4-aligned
+    per_row = nz + in_max + d_max + 2 * LAYERS * MAX_TILE + 2 * -(-nfour // CLUSTER)
     floats = ring + K_SPLIT * 4 * rows * MAX_TILE + rows * per_row
     return 4 * floats + 8 * stages_per_step(dins, douts)
 
 
 def fits_smem(nz: int, dins: Sequence[int], douts: Sequence[int]) -> bool:
-    """The Hopper fit rule in place of the TPU's `fits_vmem`: every width a
-    multiple of 4 (float4 reads), no block owning more than MAX_TILE columns
-    of a layer (at most 256 columns a layer on a cluster of 8), and a
-    block's shared memory within 227 KB at every row tile. The CIFAR-10
-    family fits (at most 214 KB a block); the StyleGAN width (1024,
-    nz=7168) does not."""
-    widths = [nz, *dins, *douts]
+    """The Hopper fit rule in place of the TPU's `fits_vmem`: no block
+    owning more than MAX_TILE columns of a layer (at most 256 columns a
+    layer on a cluster of 8), and a block's shared memory within 227 KB at
+    every row tile. Widths need not be multiples of 4 (the toy's nz = 2).
+    The CIFAR-10 family and the toy fit (at most 214 KB a block); the
+    StyleGAN width (1024, nz=7168) does not."""
     return (
-        all(w % 4 == 0 for w in widths)
-        and all(col_tile(d) <= MAX_TILE for d in douts)
+        all(col_tile(d) <= MAX_TILE for d in douts)
         and max(smem_bytes(nz, dins, douts, r) for r in TILE_ROWS) <= SMEM_LIMIT
     )
 
@@ -299,7 +298,7 @@ def fused_reverse_sweep(
     if not fits_smem(nz, dins, douts):
         raise ValueError(
             f"denoiser widths din={dins}, dout={douts} do not fit the sweep kernel: "
-            f"widths must be multiples of 4, at most {CLUSTER * MAX_TILE} columns a layer, "
+            f"at most {CLUSTER * MAX_TILE} columns a layer, "
             f"and {max(smem_bytes(nz, dins, douts, r) for r in TILE_ROWS)} B of shared memory "
             f"a block within {SMEM_LIMIT}"
         )
@@ -356,11 +355,15 @@ def _library() -> ctypes.CDLL:
         lib.damc_fused_qsweep_geometry(geometry)
         if tuple(geometry) != (CLUSTER, THREADS, K_SPLIT, MAX_TILE, STAGE_ROWS, *TILE_ROWS):
             raise RuntimeError("fused_qsweep.cu and fused_qsweep.py disagree on the geometry")
-        dims = (ctypes.c_int * 14)(256, 128, 256, 256, 512, 512, 256, 128, 256, 256, 256, 256, 128, 128)
-        agree = all(lib.damc_fused_qsweep_smem_bytes(dims, 128, r) == smem_bytes(128, dims[:7], dims[7:], r)
-                    for r in TILE_ROWS)
-        agree &= lib.damc_fused_qsweep_packed_floats(dims) == sum(
-            2 * (n + d) * CLUSTER * col_tile(d) for n, d in zip(dims[:7], dims[7:]))
+        agree = True
+        for nz, widths in ((128, (256, 128, 256, 256, 512, 512, 256, 128, 256, 256, 256, 256, 128, 128)),
+                           (2, (4, 128, 256, 256, 512, 512, 256, 128, 256, 256, 256, 256, 128, 2)),
+                           (2, (6, 10, 10, 10, 21, 21, 21, 10, 10, 10, 11, 11, 11, 2))):
+            dims = (ctypes.c_int * 14)(*widths)
+            agree &= all(lib.damc_fused_qsweep_smem_bytes(dims, nz, r) == smem_bytes(nz, widths[:7], widths[7:], r)
+                         for r in TILE_ROWS)
+            agree &= lib.damc_fused_qsweep_packed_floats(dims) == sum(
+                2 * (n + d) * CLUSTER * col_tile(d) for n, d in zip(widths[:7], widths[7:]))
         for n in (4, 100, 128, 256, 512):
             agree &= lib.damc_fused_qsweep_col_tile(n) == col_tile(n)
         if not agree:

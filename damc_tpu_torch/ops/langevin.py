@@ -112,6 +112,18 @@ def posterior_energy(gen_fn, ebm_fn, x: torch.Tensor, llhd_sigma: float) -> Ener
     return energy
 
 
+def gaussian_posterior_energy(gen_fn, x: torch.Tensor, llhd_sigma: float) -> EnergyFn:
+    """U(z) = ||G(z) - x||^2 / (2 sigma^2) + 0.5 ||z||^2: the posterior
+    under a plain N(0, I) prior, the toy workload's (no EBM tilt)."""
+    inv_two_sigma2 = 1.0 / (2.0 * llhd_sigma * llhd_sigma)
+
+    def energy(z):
+        recon = torch.sum((gen_fn(z) - x).reshape(z.shape[0], -1) ** 2, dim=-1) * inv_two_sigma2
+        return recon + 0.5 * torch.sum(z * z, dim=-1)
+
+    return energy
+
+
 def prior_langevin_auto(
     z_init: torch.Tensor,
     ebm,

@@ -1,21 +1,26 @@
 """Host-loop plumbing of the training drivers (counterpart of
 `damc_tpu/train/driver_utils.py:26-66, 154-192, 280-436`), for one process:
 resume-path resolution (with `auto`, the preemption-recovery mode), the
-log and checkpoint directories, the contrastive-divergence gap monitor and
-the preemption checkpoint. The multi-host pieces (batch placement, host
-shards, metric broadcast) are not ported (ROADMAP.md, queue 1, item 8).
+log and checkpoint directories, the contrastive-divergence gap monitor, the
+preemption checkpoint, and the loop around the iterations that the
+gen_recon and anomaly drivers share (`MetricsReport`, `run_loop`). The
+multi-host pieces (batch placement, host shards, metric broadcast) are not
+ported (ROADMAP.md, queue 1, item 8).
 """
 
 from __future__ import annotations
 
 import json
+import math
 import os
-from typing import Optional, Tuple
+import time
+from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 
 from ..utils.checkpoint import latest_step, restore_checkpoint, save_checkpoint
 from ..utils.logging import MetricsLogger
+from ..utils.preemption import graceful_shutdown
 
 
 def resolve_resume_path(resume_path: Optional[str], ckpt_dir: Optional[str]) -> Optional[str]:
@@ -147,3 +152,59 @@ def preemption_checkpoint(shutdown, ckpt_dir: Optional[str], it: int, state) -> 
     if ckpt_dir:
         path = save_checkpoint(ckpt_dir, str(it), state)
         print(f"[damc] signal {shutdown.signum}: checkpointed to {path}; exiting", flush=True)
+
+
+class MetricsReport:
+    """The `print_every` report of a training loop: the metrics read back
+    to the host, a FloatingPointError on any non-finite value (a NaN'd run
+    would otherwise train blind: the CD monitor never alarms on NaN gaps,
+    and best-checkpoint gating keeps a stale best), the CD-gap monitor, the
+    wall rate since the last report, one log row."""
+
+    def __init__(self, logger: MetricsLogger, cd_monitor: CDGapMonitor):
+        self.logger = logger
+        self.cd_monitor = cd_monitor
+        self.last = None  # (iteration, perf_counter) of the last report
+
+    def __call__(self, it: int, metrics, extra: Optional[Dict[str, float]] = None) -> None:
+        host = {k: float(v) for k, v in metrics.items()}
+        bad = [k for k, v in host.items() if not math.isfinite(v)]
+        if bad:
+            raise FloatingPointError(f"non-finite training metrics {bad} at iteration {it}; last metrics: {host}")
+        out = self.cd_monitor.update(it, host)
+        now = time.perf_counter()
+        if self.last is not None and it > self.last[0]:
+            out["iters_per_s_wall"] = (it - self.last[0]) / (now - self.last[1])
+        self.last = (it, now)
+        self.logger.log(it, {**host, **(extra or {}), **out})
+
+
+def run_loop(
+    tc, state, start_iter: int, iterations: int, ckpt_dir: Optional[str],
+    iterate: Callable[[int], None], run_eval: Optional[Callable[[int], None]] = None,
+) -> bool:
+    """The iterations [start_iter, iterations) of a driver, as the JAX
+    drivers run them: before each, a SIGTERM or SIGINT checkpoints `state`
+    at that iteration and stops the loop; `iterate(it)` runs the iteration
+    and its reports; then every `ckpt_every` iterations (not at 0) a
+    checkpoint and every `eval_every` a `run_eval(it)`. The reference's loop
+    is inclusive of the last iteration and this one keeps step ==
+    iterations, so after the last one the tail is saved and scored here
+    unless the intervals just did it. Returns whether a signal stopped it."""
+    with graceful_shutdown() as shutdown:
+        for it in range(start_iter, iterations):
+            if shutdown:
+                preemption_checkpoint(shutdown, ckpt_dir, it, state)
+                return True
+            iterate(it)
+            if ckpt_dir and tc.ckpt_every > 0 and it > 0 and it % tc.ckpt_every == 0:
+                save_checkpoint(ckpt_dir, str(it), state)
+            if run_eval is not None and tc.eval_every > 0 and it % tc.eval_every == 0:
+                run_eval(it)
+        if iterations > start_iter:
+            last_it = iterations - 1
+            if ckpt_dir and tc.ckpt_every > 0 and not (last_it > 0 and last_it % tc.ckpt_every == 0):
+                save_checkpoint(ckpt_dir, str(last_it), state)
+            if run_eval is not None and tc.eval_every > 0 and last_it % tc.eval_every != 0:
+                run_eval(last_it)
+    return False

@@ -30,9 +30,7 @@ items 4 and 8).
 
 from __future__ import annotations
 
-import math
 import os
-import time
 from typing import Callable, Dict, Optional, Union
 
 import numpy as np
@@ -45,16 +43,16 @@ from ..metrics.fid import compute_stats, fid_from_samples, images_to_unit
 from ..models import sample_q
 from ..utils.checkpoint import save_checkpoint
 from ..utils.logging import save_image_grid
-from ..utils.preemption import graceful_shutdown
 from ..utils.profiling import StepTimer
 from . import sampling
 from .driver_utils import (
     CDGapMonitor,
+    MetricsReport,
     cd_gap_ceiling,
     cd_history_path,
     init_driver_logging,
-    preemption_checkpoint,
     restore_for_resume,
+    run_loop,
 )
 from .state import TrainState, create_state
 from .step import Metrics, make_train_step
@@ -193,10 +191,10 @@ def train_gen_recon(
 
     fid_best = mse_best = float("inf")
     timer = StepTimer()
-    last_print = None
     cd_monitor = CDGapMonitor(gap_ceiling=cd_gap_ceiling(tc.e_energy_reg))
     if start_iter > 0:
         cd_monitor.seed_from_history(cd_history_path(logger.path, resume_path), start_iter)
+    report = MetricsReport(logger, cd_monitor)
     # FID batches of 500 (the reference's protocol), capped by the sample
     # budget for small runs.
     fid_bs = min(tc.fid_batch_size, max(tc.n_fid_samples, 1))
@@ -244,47 +242,18 @@ def train_gen_recon(
         x_prior, _ = sampling.gen_samples_damc_prior(models, cfg, one("plot_prior"))
         save_image_grid(x_prior.cpu().numpy(), f"{img_dir}/{it}_prior.png")
 
-    preempted = False
-    with graceful_shutdown() as shutdown:
-        for it in range(start_iter, iterations):
-            if shutdown:
-                preemption_checkpoint(shutdown, ckpt_dir, it, state)
-                preempted = True
-                break
-            with timer.phase("data"):
-                x, _ = next(stream)
-            with timer.phase("train_step"):
-                state, metrics = step(state, x)
-            if on_step is not None:
-                on_step(it, state, metrics)
+    def iterate(it: int) -> None:
+        nonlocal state
+        with timer.phase("data"):
+            x, _ = next(stream)
+        with timer.phase("train_step"):
+            state, metrics = step(state, x)
+        if on_step is not None:
+            on_step(it, state, metrics)
+        if tc.print_every > 0 and it % tc.print_every == 0:
+            report(it, metrics, timer.report())
+        if img_dir and tc.plot_every > 0 and it % tc.plot_every == 0:
+            plot(it, x)
 
-            if tc.print_every > 0 and it % tc.print_every == 0:
-                host = {k: float(v) for k, v in metrics.items()}
-                bad = [k for k, v in host.items() if not math.isfinite(v)]
-                if bad:
-                    raise FloatingPointError(
-                        f"non-finite training metrics {bad} at iteration {it}; last metrics: {host}"
-                    )
-                extra = cd_monitor.update(it, host)
-                now = time.perf_counter()
-                if last_print is not None and it > last_print[0]:
-                    extra["iters_per_s_wall"] = (it - last_print[0]) / (now - last_print[1])
-                last_print = (it, now)
-                logger.log(it, {**host, **timer.report(), **extra})
-            if img_dir and tc.plot_every > 0 and it % tc.plot_every == 0:
-                plot(it, x)
-            if ckpt_dir and tc.ckpt_every > 0 and it > 0 and it % tc.ckpt_every == 0:
-                save_checkpoint(ckpt_dir, str(it), state)
-            if tc.eval_every > 0 and it % tc.eval_every == 0:
-                run_eval(it)
-
-        if not preempted and iterations > start_iter:
-            # The reference's loop is inclusive of the last iteration; this
-            # one keeps step == iterations, so the tail is saved and scored
-            # here unless the intervals just did it.
-            last_it = iterations - 1
-            if ckpt_dir and tc.ckpt_every > 0 and not (last_it > 0 and last_it % tc.ckpt_every == 0):
-                save_checkpoint(ckpt_dir, str(last_it), state)
-            if tc.eval_every > 0 and last_it % tc.eval_every != 0:
-                run_eval(last_it)
+    run_loop(tc, state, start_iter, iterations, ckpt_dir, iterate, run_eval)
     return state

@@ -32,13 +32,19 @@ from typing import Tuple, Union
 import torch
 
 from ..config import Config
+from ..data.device_data import DATA_COUNTER
 from ..models import ModelBundle, sample_q
 from ..ops.langevin import frozen, langevin_sample, posterior_energy, prior_langevin_auto
 from ..ops.noise import counter_bits, int32_seed
 
-# The consumers of eval draws. Tag 7 at the last iteration and batch would
-# reach counter 0xFFFFFFFF, the data seed's.
-EVAL_TAGS = {"fid_damc": 0, "fid_ebm": 1, "mse": 2, "plot_post": 3, "plot_q": 4, "plot_prior": 5}
+# The consumers of eval draws: the gen_recon evals and plots, the anomaly
+# workload's AUPRC eval and the toy workload's parity eval. Tag 7 at the
+# last iteration and batch reaches DATA_COUNTER, the data seed's counter:
+# `eval_counter` refuses it.
+EVAL_TAGS = {
+    "fid_damc": 0, "fid_ebm": 1, "mse": 2, "plot_post": 3, "plot_q": 4, "plot_prior": 5,
+    "auprc": 6, "toy": 7,
+}
 IT_BITS, BATCH_BITS = 20, 8
 
 
@@ -55,14 +61,18 @@ class Draws:
 def eval_counter(tag: str, it, batch) -> torch.Tensor:
     """The hash counter of (consumer, iteration, batch); ints or int64
     tensors that broadcast. Raises outside the ranges that keep it
-    injective."""
+    injective, and at the one counter that is the data seed's."""
     it = torch.as_tensor(it, dtype=torch.int64)
     batch = torch.as_tensor(batch, dtype=torch.int64)
     if bool(((it < 0) | (it >= 1 << IT_BITS)).any()):
         raise ValueError(f"eval draws need an iteration below 2^{IT_BITS}")
     if bool(((batch < 0) | (batch >= 1 << BATCH_BITS)).any()):
         raise ValueError(f"eval draws need fewer than 2^{BATCH_BITS} batches an eval")
-    return (1 << 31) | (EVAL_TAGS[tag] << (IT_BITS + BATCH_BITS)) | (it << BATCH_BITS) | batch
+    counter = (1 << 31) | (EVAL_TAGS[tag] << (IT_BITS + BATCH_BITS)) | (it << BATCH_BITS) | batch
+    if bool((counter == DATA_COUNTER).any()):
+        raise ValueError(f"eval draws of {tag!r} at iteration {(1 << IT_BITS) - 1}, batch "
+                         f"{(1 << BATCH_BITS) - 1} would share the data seed's counter")
+    return counter
 
 
 def eval_bits(seed: int, tag: str, it, batch) -> torch.Tensor:
@@ -120,7 +130,7 @@ def reconstruct(
     gen, ebm = models.generator, models.ebm
     z0 = sample_q(models.amortizer, x, d.z0, d.sweep_seed)
     if ebm is None:
-        raise NotImplementedError("the Gaussian posterior of the toy workload is not ported")
+        raise ValueError("reconstruct needs an EBM; the toy workload's posterior is train/toy.py's")
     with frozen(gen, ebm):
         energy = posterior_energy(gen, ebm, x, mc.g_llhd_sigma)
         z, _ = langevin_sample(z0, energy, langevin_steps, mc.g_l_step_size, with_noise=False)

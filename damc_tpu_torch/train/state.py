@@ -97,18 +97,20 @@ class ClippedAdam:
 
 @dataclass
 class Optimizers:
-    g: ClippedAdam
-    e: ClippedAdam
+    g: Optional[ClippedAdam]  # None when G is not trained (the toy)
+    e: Optional[ClippedAdam]  # None without an EBM update (the toy)
     q: ClippedAdam
 
 
 def make_optimizers(models: ModelBundle, cfg: Config) -> Optimizers:
     """Adam(betas) for G and E, AdamW(q_weight_decay) for Q, each after a
-    global-norm clip (`damc_tpu/train/state.py:75-99`)."""
-    o = cfg.optim
+    global-norm clip (`damc_tpu/train/state.py:75-99`); G's and E's only
+    where the workload updates them, as the JAX state has opt_g and opt_e."""
+    o, tc = cfg.optim, cfg.train
+    train_e = tc.update_e and models.ebm is not None
     return Optimizers(
-        g=ClippedAdam(models.generator.parameters(), o.g_lr, cfg, o.g_max_norm),
-        e=ClippedAdam(models.ebm.parameters(), o.e_lr, cfg, o.e_max_norm),
+        g=ClippedAdam(models.generator.parameters(), o.g_lr, cfg, o.g_max_norm) if tc.update_g else None,
+        e=ClippedAdam(models.ebm.parameters(), o.e_lr, cfg, o.e_max_norm) if train_e else None,
         q=ClippedAdam(
             models.amortizer.parameters(), o.q_lr, cfg, o.q_max_norm,
             weight_decay=o.q_weight_decay, updates_per_iter=cfg.train.q_updates,
@@ -136,11 +138,11 @@ def create_state(
 ) -> TrainState:
     """Seeded trainable models on `device` (default CUDA), Q_ema an exact
     copy of Q (`damc_tpu/train/state.py:183`), fresh optimizers and a
-    device generator seeded with `seed`."""
+    device generator seeded with `seed`. A G that the workload does not
+    update (the toy's) stays frozen."""
     dev = resolve_device(device)
-    if cfg.model.dataset == "toy":
-        raise NotImplementedError("the toy training step is not ported (ROADMAP.md, queue 1, item 5)")
     models = build_models(cfg, seed=seed, device=dev, trainable=True)
+    models.generator.requires_grad_(cfg.train.update_g)
     ema = copy.deepcopy(models.amortizer).requires_grad_(False)
     return TrainState(
         step=0,

@@ -7,14 +7,18 @@ the JAX step, in order, each under a `torch.profiler.record_function` label
   1. q_ema_init          z0 ~ Q_ema(. | x): the 100-step sweep, kernel K2 in
                          stream mode;
   2. posterior_langevin  g_l_steps of Langevin on the posterior energy
-                         through G and E, by autograd (cuDNN, cuBLAS);
+                         through G and E, by autograd (cuDNN, cuBLAS); the
+                         toy's G alone under a N(0, I) prior;
   3. prior_langevin      e_l_steps over 2B chains [z0, N(0, I)] ("double")
                          or B chains z0 ("single"), kernel K1 in stream mode;
+                         none for the toy ("none");
   4. q_updates           `q_updates` denoising score-matching updates of Q
                          (both mask branches with `q_loss_both_branches`);
-  5. g_update            ||G(z+) - x||^2, summed per image, mean over B;
+  5. g_update            ||G(z+) - x||^2, summed per sample, mean over B; a
+                         monitor only where G is not trained (the toy);
   6. e_update            contrastive divergence E(z+) - E(z-), plus
-                         `e_energy_reg` (E+^2 + E-^2) when it is set;
+                         `e_energy_reg` (E+^2 + E-^2) when it is set; none
+                         without prior chains;
   7. ema                 Q_ema <- rho Q + (1 - rho) Q_ema every `ema_every`
                          iterations.
 
@@ -23,8 +27,8 @@ Neither kernel is differentiated: the JAX step puts both behind
 Parameters are updated in place. Every random number of an iteration comes
 from one `StepDraws`: production draws it from the state's device
 generator (`draw_step`), the parity tests build it from the JAX key tree.
-The toy variant (Gaussian posterior energy, no EBM, Q-only updates) is
-not ported.
+The toy's observations x = G(z) + 0.25 N are made before the step, as in
+the JAX package (`train/toy.py::make_observations`).
 """
 
 from __future__ import annotations
@@ -37,7 +41,9 @@ import torch
 
 from ..config import Config
 from ..models import ModelBundle, sample_q
-from ..ops.langevin import frozen, langevin_sample, posterior_energy, prior_langevin_auto
+from ..ops.langevin import (
+    frozen, gaussian_posterior_energy, langevin_sample, posterior_energy, prior_langevin_auto,
+)
 from ..ops.noise import counter_bits, int32_seed
 from .state import Optimizers, TrainState
 
@@ -69,7 +75,7 @@ class StepDraws:
     post_noise: torch.Tensor  # (g_l_steps, B, nz) normals of the posterior chain
     q: List[Tuple[QDraws, Optional[QDraws]]]  # per Q update: branch 1, branch 2 or None
     sweep_seed: int  # int32 stream seed of K2
-    chain_seed: int  # int32 stream seed of K1
+    chain_seed: int  # int32 stream seed of K1 (unused without prior chains)
 
 
 def stream_seeds(seed: int, step: int) -> Tuple[int, int]:
@@ -110,13 +116,13 @@ def make_train_step(
     models: ModelBundle, opts: Optimizers, cfg: Config
 ) -> Callable[..., Tuple[TrainState, Metrics]]:
     """`train_step(state, x, draws=None) -> (state, metrics)` for this
-    workload's config: x (B, H, W, C) in [-1, 1] on the models' device,
-    `draws` from `draw_step` when not given. Metrics stay on the device."""
+    workload's config: x (B, H, W, C) in [-1, 1] (the toy: (B, 2)) on the
+    models' device, `draws` from `draw_step` when not given. Metrics stay
+    on the device; without prior chains there is no `e_pos`, `e_neg` or
+    `prior_energy_final`, as in the JAX step."""
     tc, mc, dc = cfg.train, cfg.mcmc, cfg.diffusion
     gen, ebm, amort = models.generator, models.ebm, models.amortizer
-    # Only the toy preset runs without an EBM, prior chains or G and E updates.
-    if ebm is None or tc.prior_chains == "none" or not (tc.update_g and tc.update_e):
-        raise NotImplementedError("the toy training step is not ported (ROADMAP.md, queue 1, item 5)")
+    chains = tc.prior_chains != "none" and ebm is not None
     # The JAX step's dtype and kernel switches; the port runs float32 and K1.
     unported = {
         "compute_dtype": cfg.model.compute_dtype != "float32",
@@ -142,18 +148,22 @@ def make_train_step(
             z0 = sample_q(state.amortizer_ema, x, d.z0_init, d.sweep_seed)
 
         with _phase("posterior_langevin"), frozen(gen, ebm):
-            energy = posterior_energy(gen, ebm, x, mc.g_llhd_sigma)
+            if ebm is not None:
+                energy = posterior_energy(gen, ebm, x, mc.g_llhd_sigma)
+            else:
+                energy = gaussian_posterior_energy(gen, x, mc.g_llhd_sigma)
             zk_pos, post_diag = langevin_sample(
                 z0, energy, mc.g_l_steps, mc.g_l_step_size, mc.g_l_with_noise,
                 noise=d.post_noise,
             )
 
-        with _phase("prior_langevin"):
-            z_neg_init = torch.cat([z0, d.neg_init]) if tc.prior_chains == "double" else z0
-            zk_neg, prior_final_energy = prior_langevin_auto(
-                z_neg_init, ebm, mc.e_l_steps, mc.e_l_step_size, mc.e_l_with_noise,
-                seed=d.chain_seed,
-            )
+        if chains:
+            with _phase("prior_langevin"):
+                z_neg_init = torch.cat([z0, d.neg_init]) if tc.prior_chains == "double" else z0
+                zk_neg, prior_final_energy = prior_langevin_auto(
+                    z_neg_init, ebm, mc.e_l_steps, mc.e_l_step_size, mc.e_l_with_noise,
+                    seed=d.chain_seed,
+                )
 
         with _phase("q_updates"):
             q_params = opts.q.params
@@ -170,16 +180,23 @@ def make_train_step(
                 q_loss = loss.detach()
 
         with _phase("g_update"):
-            g_loss = torch.sum((gen(zk_pos) - x).reshape(b, -1) ** 2, dim=-1).mean()
-            opts.g.step(_grads(g_loss, opts.g.params))
+            if tc.update_g:
+                g_loss = torch.sum((gen(zk_pos) - x).reshape(b, -1) ** 2, dim=-1).mean()
+                opts.g.step(_grads(g_loss, opts.g.params))
+            else:  # the reconstruction monitor alone
+                with torch.no_grad():
+                    g_loss = torch.sum((gen(zk_pos) - x).reshape(b, -1) ** 2, dim=-1).mean()
 
-        with _phase("e_update"):
-            e_p, e_n = ebm(zk_pos), ebm(zk_neg)
-            e_pos, e_neg = e_p.mean(), e_n.mean()
-            e_loss = e_pos - e_neg
-            if tc.e_energy_reg > 0.0:
-                e_loss = e_loss + tc.e_energy_reg * (torch.mean(e_p**2) + torch.mean(e_n**2))
-            opts.e.step(_grads(e_loss, opts.e.params))
+        if tc.update_e and chains:
+            with _phase("e_update"):
+                e_p, e_n = ebm(zk_pos), ebm(zk_neg)
+                e_pos, e_neg = e_p.mean(), e_n.mean()
+                e_loss = e_pos - e_neg
+                if tc.e_energy_reg > 0.0:
+                    e_loss = e_loss + tc.e_energy_reg * (torch.mean(e_p**2) + torch.mean(e_n**2))
+                opts.e.step(_grads(e_loss, opts.e.params))
+        else:
+            e_pos = e_neg = torch.zeros((), device=x.device)
 
         with _phase("ema"):
             if (state.step + 1) % tc.ema_every == 0:
@@ -195,10 +212,12 @@ def make_train_step(
             "q_loss": q_loss,
             "post_energy_final": post_diag.energy_sum[-1] / b,
             "zk_pos_abs_max": zk_pos.abs().max(),
-            "e_pos": e_pos.detach(),
-            "e_neg": e_neg.detach(),
-            "prior_energy_final": prior_final_energy.mean(),
         }
+        if chains:
+            metrics.update(
+                e_pos=e_pos.detach(), e_neg=e_neg.detach(),
+                prior_energy_final=prior_final_energy.mean(),
+            )
         state.step += 1
         return state, metrics
 

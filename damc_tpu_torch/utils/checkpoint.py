@@ -5,7 +5,9 @@ One checkpoint is one file, `<directory>/<name>/state.pt`, written by
 `torch.save` and read back by `torch.load(weights_only=True)`. It holds the
 whole state, so a resumed run continues exactly: the iteration count, the
 run seed, the state dicts of G, E, Q and Q_ema, each optimizer's torch
-state dict and update count, and the device generator's state. `name` is
+state dict and update count, and the device generator's state. A part the
+state lacks (the toy's E, and its G and E optimizers) is saved as None,
+and a restore requires the target to lack the same parts. `name` is
 an iteration number or `best`, as in the JAX package's layout, so
 `<run>/ckpt/<iteration>` names a checkpoint there and here.
 
@@ -28,8 +30,12 @@ import torch
 FILE = "state.pt"
 
 
-def _opt_state(opt) -> dict:
-    return {"torch": opt.opt.state_dict(), "count": int(opt.count)}
+def _module_state(module) -> Optional[dict]:
+    return None if module is None else module.state_dict()
+
+
+def _opt_state(opt) -> Optional[dict]:
+    return None if opt is None else {"torch": opt.opt.state_dict(), "count": int(opt.count)}
 
 
 def state_payload(state) -> dict:
@@ -39,7 +45,7 @@ def state_payload(state) -> dict:
         "step": int(state.step),
         "seed": int(state.seed),
         "generator": m.generator.state_dict(),
-        "ebm": m.ebm.state_dict(),
+        "ebm": _module_state(m.ebm),
         "amortizer": m.amortizer.state_dict(),
         "amortizer_ema": state.amortizer_ema.state_dict(),
         "opt_g": _opt_state(o.g),
@@ -71,9 +77,24 @@ def save_checkpoint(directory: str, name: str, state) -> str:
     return path
 
 
-def _load_opt(opt, saved: dict) -> None:
-    opt.opt.load_state_dict(saved["torch"])
-    opt.count = int(saved["count"])
+def _check_present(key: str, target_part, saved_part) -> bool:
+    """Whether `key` is to be loaded: the target and the checkpoint must
+    both hold it or both lack it."""
+    if (target_part is None) != (saved_part is None):
+        have, saved = ("lacks", "holds") if target_part is None else ("holds", "lacks")
+        raise ValueError(f"restore_checkpoint: the target state {have} {key!r}, the checkpoint {saved} it")
+    return target_part is not None
+
+
+def _load_module(key: str, module, saved: dict) -> None:
+    if _check_present(key, module, saved[key]):
+        module.load_state_dict(saved[key], strict=True)
+
+
+def _load_opt(key: str, opt, saved: dict) -> None:
+    if _check_present(key, opt, saved[key]):
+        opt.opt.load_state_dict(saved[key]["torch"])
+        opt.count = int(saved[key]["count"])
 
 
 def restore_checkpoint(directory: str, name: str, target):
@@ -83,13 +104,13 @@ def restore_checkpoint(directory: str, name: str, target):
     path = os.path.join(os.path.abspath(directory), name, FILE)
     saved = torch.load(path, map_location="cpu", weights_only=True)
     m, o = target.models, target.opts
-    m.generator.load_state_dict(saved["generator"], strict=True)
-    m.ebm.load_state_dict(saved["ebm"], strict=True)
-    m.amortizer.load_state_dict(saved["amortizer"], strict=True)
-    target.amortizer_ema.load_state_dict(saved["amortizer_ema"], strict=True)
-    _load_opt(o.g, saved["opt_g"])
-    _load_opt(o.e, saved["opt_e"])
-    _load_opt(o.q, saved["opt_q"])
+    _load_module("generator", m.generator, saved)
+    _load_module("ebm", m.ebm, saved)
+    _load_module("amortizer", m.amortizer, saved)
+    _load_module("amortizer_ema", target.amortizer_ema, saved)
+    _load_opt("opt_g", o.g, saved)
+    _load_opt("opt_e", o.e, saved)
+    _load_opt("opt_q", o.q, saved)
     target.rng.set_state(saved["rng"])
     target.step = int(saved["step"])
     target.seed = int(saved["seed"])

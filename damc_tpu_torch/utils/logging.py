@@ -5,8 +5,9 @@
 stdout is the same row as JSON after a `[phase] ` tag. `save_image_grid`
 lays images out as the JAX package's does and writes the PNG with `zlib`
 and `struct` alone (8-bit gray or RGB, filter 0 on every row), so no image
-library is needed. The toy workload's KDE plot is not ported yet
-(ROADMAP.md, queue 1, item 5).
+library is needed. `save_kde_plot` writes the toy workload's density
+heatmap the same way: the JAX package's scipy KDE grid through a copy of
+matplotlib's viridis table, without matplotlib.
 """
 
 from __future__ import annotations
@@ -21,6 +22,26 @@ from typing import Dict, Optional
 import numpy as np
 
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
+# matplotlib's viridis colormap as it maps to bytes (256 entries, RGB):
+# `matplotlib.colormaps["viridis"](np.arange(256), bytes=True)[:, :3]`.
+VIRIDIS = np.frombuffer(bytes.fromhex(
+    "44015444025544035745055845065a45085b46095c460b5e460c5f460e61470f62471163471265471466471567471669"
+    "47186a48196b481a6c481c6e481d6f481e70482071482172482273482374472575472676472777472878472a79472b7a"
+    "472c7b462d7c462f7c46307d46317e45327f45347f453580453681443781443982433a83433b83433c84423d84423e85"
+    "4240854141864142864043874044873f45873f47883e48883e49893d4a893d4b893d4c893c4d8a3c4e8a3b508a3b518a"
+    "3a528b3a538b39548b39558b38568b38578c37588c37598c365a8c365b8c355c8c355d8c345e8d345f8d33608d33618d"
+    "32628d32638d31648d31658d31668d30678d30688d2f698d2f6a8d2e6b8e2e6c8e2e6d8e2d6e8e2d6f8e2c708e2c718e"
+    "2c728e2b738e2b748e2a758e2a768e2a778e29788e29798e287a8e287a8e287b8e277c8e277d8e277e8e267f8e26808e"
+    "26818e25828e25838d24848d24858d24868d23878d23888d23898d22898d228a8d228b8d218c8d218d8c218e8c208f8c"
+    "20908c20918c1f928c1f938b1f948b1f958b1f968b1e978a1e988a1e998a1e998a1e9a891e9b891e9c891e9d881e9e88"
+    "1e9f881ea0871fa1871fa2861fa38620a48520a58521a68521a78422a78423a88323a98224aa8225ab8126ac8127ad80"
+    "28ae7f29af7f2ab07e2bb17d2cb17d2eb27c2fb37b30b47a32b57a33b67935b77836b87738b97639b9763bba753dbb74"
+    "3ebc7340bd7242be7144be7045bf6f47c06e49c16d4bc26c4dc26b4fc36951c46853c56755c66657c66559c7645bc862"
+    "5ec96160c96062ca5f64cb5d67cc5c69cc5b6bcd596dce5870ce5672cf5574d05477d05279d1517cd24f7ed24e81d34c"
+    "83d34b86d44988d5478bd5468dd64490d64392d74195d73f97d83e9ad83c9dd93a9fd938a2da37a5da35a7db33aadb32"
+    "addc30afdc2eb2dd2cb5dd2bb7dd29bade27bdde26bfdf24c2df22c5df21c7e01fcae01ecde01dcfe11cd2e11bd4e11a"
+    "d7e219dae218dce218dfe318e1e318e4e318e7e419e9e419ece41aeee51bf1e51cf3e51ef6e61ff8e621fae622fde724"
+), np.uint8).reshape(256, 3)
 
 
 class MetricsLogger:
@@ -94,6 +115,42 @@ def save_image_grid(images: np.ndarray, path: str, nrow: int = 8) -> None:
     """Save a grid PNG of NHWC images in [-1, 1] or [0, 1]
     (torchvision `save_image(normalize=True)` equivalent)."""
     pixels = grid_pixels(images, nrow)
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    with open(path, "wb") as f:
+        f.write(encode_png(pixels))
+
+
+KDE_GRID = 100  # density cells a side (`np.mgrid[low:high:100j]`)
+KDE_CELL = 6  # pixels a side of one cell in the PNG
+
+
+def kde_grid(samples: np.ndarray, low: float = -4.0, high: float = 4.0, kde_bw: float = 0.15) -> np.ndarray:
+    """The (100, 100) density of a Gaussian KDE of 2-D `samples` (N, 2) on
+    the grid of `damc_tpu/utils/logging.py::save_kde_plot`: entry [i, j] at
+    x = the i-th and y = the j-th of 100 points from low to high."""
+    from scipy.stats import gaussian_kde
+
+    kernel = gaussian_kde(np.asarray(samples).T, bw_method=kde_bw)
+    xs, ys = np.mgrid[low:high:100j, low:high:100j]
+    return np.reshape(kernel(np.vstack([xs.ravel(), ys.ravel()])).T, xs.shape)
+
+
+def kde_pixels(zs: np.ndarray) -> np.ndarray:
+    """uint8 RGB of the grid as matplotlib's `imshow(zs, cmap="viridis")`
+    colours it: min-max normalised, index floor(v * 256) clipped to 255,
+    row i of the grid at the i-th row from the top; each cell a
+    KDE_CELL x KDE_CELL block."""
+    lo, hi = float(zs.min()), float(zs.max())
+    v = (zs - lo) / (hi - lo) if hi > lo else np.zeros_like(zs)
+    idx = np.clip((v * 256).astype(np.int64), 0, 255)
+    return np.repeat(np.repeat(VIRIDIS[idx], KDE_CELL, axis=0), KDE_CELL, axis=1)
+
+
+def save_kde_plot(samples: np.ndarray, path: str, low: float = -4.0, high: float = 4.0,
+                  kde_bw: float = 0.15) -> None:
+    """KDE density heatmap of 2-D samples (`toy_example.py:158-177`), a
+    600 x 600 RGB PNG of `kde_pixels(kde_grid(...))`."""
+    pixels = kde_pixels(kde_grid(samples, low, high, kde_bw))
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     with open(path, "wb") as f:
         f.write(encode_png(pixels))

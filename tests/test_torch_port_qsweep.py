@@ -91,18 +91,27 @@ def test_denoiser_layer_params_follow_the_module():
     assert torch.allclose(h @ layers[2][2] + layers[2][3], den.in_layers[2]._skip(h), atol=1e-6)
 
 
+TOY_DINS = [4, 128, 256, 256, 512, 512, 256]  # nz = 2: one Fourier pair, then [sin, cos, z]
+TOY_DOUTS = [128, 256, 256, 256, 256, 128, 2]
+
+
 def test_fit_rule():
-    """The CIFAR-10 widths fit the cluster kernel at every row tile; the
-    StyleGAN width (1024 hidden, nz=7168) does not and waits for its own
-    slice; widths that are not multiples of 4 (float4 reads) and layers
-    wider than a cluster's 8 x 32 columns are refused."""
+    """The CIFAR-10 widths and the toy's (nz = 2, whose last layer is 2
+    wide: widths need not be multiples of 4) fit the cluster kernel at
+    every row tile; the StyleGAN width (1024 hidden, nz=7168) does not and
+    waits for its own slice, nor do layers wider than a cluster's 8 x 32
+    columns. The row strides round up to a float4."""
     assert k2.fits_smem(NZ, DINS, DOUTS)
     assert max(k2.smem_bytes(NZ, DINS, DOUTS, r) for r in k2.TILE_ROWS) <= k2.SMEM_LIMIT
+    assert k2.fits_smem(2, TOY_DINS, TOY_DOUTS)
+    assert k2.fits_smem(NZ + 2, [d + 2 * (i == 0) for i, d in enumerate(DINS)], DOUTS)
+    odd = [d + (i == 4) for i, d in enumerate(DINS)]  # the widest input 513: a stride of 516
+    # 4 more floats a row, and one more 64-row weight stage (8 bytes) in the table.
+    assert k2.smem_bytes(NZ, odd, DOUTS) == k2.smem_bytes(NZ, DINS, DOUTS) + 4 * 4 * k2.TILE_ROWS[-1] + 8
     nz, w = 7168, 1024
     s_dins = [2 * nz, w, w, w, 2 * w, 2 * w, 2 * w]
     s_douts = [w, w, w, w, w, w, nz]
     assert not k2.fits_smem(nz, s_dins, s_douts)
-    assert not k2.fits_smem(NZ + 2, [d + 2 * (i == 0) for i, d in enumerate(DINS)], DOUTS)  # float4 rows
     wide = [DOUTS[0], 264, *DOUTS[2:]]  # 264 columns: 8 tiles of 48
     assert not k2.fits_smem(NZ, [DINS[0], DINS[1], 264, *DINS[3:]], wide)
 

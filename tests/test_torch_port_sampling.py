@@ -162,15 +162,38 @@ def test_eval_draws_are_a_pure_function_of_their_arguments():
         eval_draws(7, "mse", 0, 256, 2, 8, "cpu")
 
 
+def test_eval_counter_refuses_the_data_seeds_counter():
+    """Tag 7 (`toy`) at the last iteration and batch would reach counter
+    0xFFFFFFFF, the one `data_seed` hashes: it raises, and one step short of
+    it on either axis does not."""
+    from damc_tpu_torch.data.device_data import DATA_COUNTER
+    from damc_tpu_torch.train.sampling import BATCH_BITS, IT_BITS, eval_counter
+
+    last_it, last_batch = (1 << IT_BITS) - 1, (1 << BATCH_BITS) - 1
+    assert EVAL_TAGS["toy"] == 7 and DATA_COUNTER == 0xFFFFFFFF
+    with pytest.raises(ValueError, match="data seed"):
+        eval_counter("toy", last_it, last_batch)
+    with pytest.raises(ValueError, match="data seed"):
+        eval_counter("toy", torch.tensor([0, last_it]), torch.tensor([3, last_batch]))
+    assert int(eval_counter("toy", last_it, last_batch - 1)) == DATA_COUNTER - 1
+    assert int(eval_counter("toy", last_it - 1, last_batch)) == DATA_COUNTER - (1 << BATCH_BITS)
+    for tag in EVAL_TAGS:
+        if tag != "toy":
+            assert int(eval_counter(tag, last_it, last_batch)) < DATA_COUNTER
+
+
 @pytest.mark.parametrize("seed", [1, 12345])
 def test_eval_seeds_never_collide_over_a_full_run(seed):
     """Every draw seed a cifar10-preset run reaches (1,000,000 iterations;
     an eval every 100: 100 FID batches for each prior and 79 recon-MSE
     batches of 128 over the 10,000 test images; the 3 plot consumers every
-    1,000 iterations): no K2 stream seed is used twice, across the training
-    steps (`stream_seeds`) and every eval consumer, nor any K1 seed; no two
-    eval generators share a seed, and none equals the run seed or the data
-    seed."""
+    1,000 iterations), with the evals of an mnist_anomaly run of as many
+    iterations (an AUPRC eval every 500 over the 19,567 test images of digit
+    9, 40 batches of 500) and of a toy CLI run (3,000 iterations, a parity
+    eval every 100 and at the end, 10 batches): no K2 stream seed is used
+    twice, across the training steps (`stream_seeds`) and every eval
+    consumer, nor any K1 seed; no two eval generators share a seed, and none
+    equals the run seed or the data seed."""
     tc = preset("cifar10").train
     steps = torch.arange(tc.iterations)
     train = counter_bits(torch.tensor([seed]), steps, 2)
@@ -181,7 +204,9 @@ def test_eval_seeds_never_collide_over_a_full_run(seed):
     n_fid = round(tc.n_fid_samples / tc.fid_batch_size)
     n_mse = -(-10_000 // tc.batch_size)
     reach = {"fid_damc": (evals, n_fid), "fid_ebm": (evals, n_fid), "mse": (evals, n_mse),
-             "plot_post": (plots, 1), "plot_q": (plots, 1), "plot_prior": (plots, 1)}
+             "plot_post": (plots, 1), "plot_q": (plots, 1), "plot_prior": (plots, 1),
+             "auprc": (torch.arange(0, tc.iterations, preset("mnist_anomaly").train.eval_every), 40),
+             "toy": (torch.arange(0, 3001, 100), 10)}
     assert set(reach) == set(EVAL_TAGS)
     bits = []
     for tag, (its, n_b) in reach.items():

@@ -132,15 +132,20 @@ def test_train_gen_recon_three_iterations_on_cpu(capsys):
 
 
 def test_unported_options_raise():
-    """The host data feed and the toy workload raise; the evals, logs and
-    checkpoints are ported (tests/test_torch_port_driver.py)."""
+    """The host data feed raises in both drivers that read it, gen_recon's
+    and the anomaly workload's; the evals, logs and checkpoints are ported
+    (tests/test_torch_port_driver.py), and so are the anomaly and toy
+    workloads (tests/test_torch_port_{anomaly,toy}.py)."""
+    from damc_tpu_torch.train.anomaly import train_anomaly
+
     cfg = _tiny_cfg(data_placement="host")
     images = np.zeros((8, 32, 32, 3), np.uint8)
     with pytest.raises(NotImplementedError, match="not ported"):
         train_gen_recon(cfg, images, iterations=1, device="cpu")
-    toy = preset("toy")
-    with pytest.raises(NotImplementedError, match="toy"):
-        train_gen_recon(toy, np.zeros((8, 2, 2, 2), np.float32), iterations=1, device="cpu")
+    anomaly = preset("mnist_anomaly")
+    anomaly = dataclasses.replace(anomaly, train=dataclasses.replace(anomaly.train, data_placement="host"))
+    with pytest.raises(NotImplementedError, match="queue 1, item 4"):
+        train_anomaly(anomaly, np.zeros((8, 28, 28, 1), np.float32), iterations=1, device="cpu")
 
 
 def test_unported_dtypes_and_scan_chain_raise():

@@ -17,10 +17,12 @@ from damc_tpu_torch.models import build_models
 
 
 def tiny(cfg):
-    """The svhn family at test widths (as tests/test_serve.py sizes it)."""
+    """The svhn family at test widths (as tests/test_serve.py sizes it); the
+    toy keeps its nz = 2 (its G maps 2-D latents to 2-D observations)."""
+    nz = cfg.model.nz if cfg.model.dataset == "toy" else 8
     return dataclasses.replace(
         cfg,
-        model=dataclasses.replace(cfg.model, ngf=8, nif=8, nxemb=16, ntemb=16, nz=8),
+        model=dataclasses.replace(cfg.model, ngf=8, nif=8, nxemb=16, ntemb=16, nz=nz),
         diffusion=dataclasses.replace(cfg.diffusion, n_interval=2),
         mcmc=dataclasses.replace(cfg.mcmc, g_l_steps=2, e_l_steps=2),
     )
