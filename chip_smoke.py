@@ -73,11 +73,42 @@ Phases, each of which raises on failure (the script then exits non-zero):
      finite g_loss_q, g_loss_l and mmd2, a 600x600 KDE PNG per cloud and
      eval, K2 once an iteration and once an eval batch, K1 never; profiles
      one iteration;
- 14. prints one JSON line {"kernels": [...]} with launches, errors and times
+ 14. prints which image decoders the machine has (jpeglib.h, PIL);
+ 15. svhn (nz=100, ngf=64, 32x32, full width): K1 over 2B=256 (60 steps at
+     0.4) and at B=500 (100 steps at the eval CLI's 0.4; 60 at 0.4), K2 at
+     B=500 under the encoder and the prior embedding in stream
+     mode, whose rows 0-15, 0-63, 0-79 and 0-127 launched alone must equal
+     the B=500 launch's bit for bit, and both kernels at B=16 in counter
+     mode; K1 at cifar10's eval step size 1.6, which no svhn path runs,
+     traced step by step against its plain version and printed, not held;
+     then, on SVHN .mat files made from the seed (73,257 train images;
+     2,000 test images), 6 iterations through `cli.train_gen_recon` with
+     evals, grids and checkpoints every 3 and 1,000 FID samples, the eval
+     CLI once on ckpt/best, and ckpt/best served through the serve CLI's
+     loading path (--ckpt_dir): /sample damc and ebm and /reconstruct must
+     equal the restored state's serving core run in process, bit for bit;
+     profiles one iteration as phase 7 does;
+ 16. celeba64 (nz=100, ngf=128, 64x64): K1 and K2 at the training shapes;
+     a PNG tree made from the seed at CelebA's 178x218 (2,048 train, 512
+     test images; row filters cycling None to Paeth), written by worker
+     processes; 4 iterations through the train CLI, which decodes the tree
+     and writes the train split's .npy cache, then a resume to 5 with an
+     eval, which must read the cache memory-mapped, equal to the decode;
+     prints the walls of the tree, the decode and the cache; profiles one
+     iteration;
+ 17. celebaHQ (nz=128, ngf=128, 256x256): K1 and K2 at the training shapes;
+     a 1024x1024 PNG tree (160 train, 64 test images); 3 iterations at B=128
+     through the train CLI with evals at 0 and at the end (500 FID samples,
+     the 64 test images); one iteration from the last checkpoint with
+     remat_generator off and on, bit-identical in metrics and parameters,
+     with the peak memory of each; one iteration profiled as in phase 7;
+ 18. prints one JSON line {"kernels": [...]} with launches, errors and times
      of each kernel on each path (serve, train, eval, anomaly, anomaly_eval:
      the train CLI's AUPRC evals, anomaly_eval_cli: the eval CLI's two
-     runs, toy);
- 15. prints {"ok": true, "device": {...}} as the last line.
+     runs, toy, svhn: the train CLI run, svhn_eval: the eval CLI run,
+     svhn_serve: the served checkpoint, celeba64: both train CLI runs,
+     celebaHQ: the train CLI run);
+ 19. prints {"ok": true, "device": {...}} as the last line.
 """
 
 from __future__ import annotations
@@ -1002,6 +1033,101 @@ def _jsonl(path):
         return [json.loads(line) for line in f]
 
 
+def protocol_launches(cfg, iterations, n_evals, n_plots, n_fid, n_test):
+    """K1 and K2 launches of a train CLI run: one of each a training step;
+    per eval one K2 a DAMC-prior FID batch, one K1 an EBM-prior FID batch
+    and one K2 a recon-MSE batch (batches of B); three K2 a plot (post,
+    post_Q, prior)."""
+    n_fid_b = max(round(n_fid / min(cfg.train.fid_batch_size, n_fid)), 1)
+    n_mse_b = -(-n_test // cfg.train.batch_size)
+    per_eval = {"fid_damc": {"K1": 0, "K2": n_fid_b}, "fid_ebm": {"K1": n_fid_b, "K2": 0},
+                "evaluate_mse": {"K1": 0, "K2": n_mse_b}}
+    total = {"K1": iterations + n_evals * n_fid_b, "K2": iterations + n_evals * (n_fid_b + n_mse_b) + 3 * n_plots}
+    return per_eval, total, n_mse_b
+
+
+def train_cli_run(cfg, counters, argv, logs, evals, plots, n_fid, n_test, resumed=False, tag="eval"):
+    """`cli.train_gen_recon.main(argv)` (print_every 1), counted and timed:
+    checks that the run directory holds a train row for every iteration,
+    eval rows at `evals` with finite frechet_rand and recon MSE, the PNG
+    grids of the iterations `plots` and `evals` (64 images, 8 a row), and
+    that K1 and K2 launched as the protocol implies for the iterations the
+    call ran. A `resumed` run appends to the files of the run it resumes,
+    and `evals` and `plots` are the ones it adds."""
+    import os
+
+    import torch
+
+    from damc_tpu_torch.cli import train_gen_recon
+    from damc_tpu_torch.train import gen_recon
+
+    dataset = cfg.model.dataset
+    calls, events = [], []
+    undo = [_instrument(gen_recon, "evaluate_fid", counters, calls, what=lambda args: f"fid_{args[7]}"),
+            _instrument(gen_recon, "evaluate_mse", counters, calls), _timed_steps(gen_recon, events)]
+    for k in counters.values():
+        k.launches = 0
+    t0 = time.perf_counter()
+    try:
+        state = train_gen_recon.main(argv)
+    finally:
+        for u in undo:
+            u()
+    torch.cuda.synchronize()
+    train_wall = time.perf_counter() - t0
+    total = {k: c.launches for k, c in counters.items()}
+    runs = os.listdir(os.path.join(logs, dataset))
+    if len(runs) != 1:
+        raise AssertionError(f"expected one run directory, found {runs}")
+    run = os.path.join(logs, dataset, runs[0])
+    rows = _jsonl(os.path.join(run, "metrics.jsonl"))
+    train_steps = [r["step"] for r in rows if r["phase"] == "train"]
+    eval_rows = [r for r in rows if r["phase"] == "eval"]
+    eval_steps = [r["step"] for r in eval_rows]
+    print(f"[{tag}] {dataset}: train rows {train_steps}; eval rows {eval_steps}")
+    if resumed:
+        eval_steps = eval_steps[len(eval_steps) - len(evals):]
+    if train_steps != list(range(state.step)) or eval_steps != evals:
+        raise AssertionError("metrics.jsonl lacks a train or an eval row")
+    for r in eval_rows:
+        vals = {k: r.get(k) for k in ("frechet_rand_damc", "frechet_rand_ebm", "recon_mse")}
+        print(f"[{tag}] {dataset} iteration {r['step']}: " + json.dumps(vals))
+        if not all(v is not None and np.isfinite(v) for v in vals.values()):
+            raise AssertionError(f"eval row {r['step']}: a metric is missing or not finite")
+    if evals or plots:
+        grids = set(os.listdir(os.path.join(run, "imgs")))
+        want = {f"{it}_{k}.png" for it in plots for k in ("obs", "post", "post_Q", "prior")} | {
+            f"{it}_fid_{p}.png" for it in evals for p in ("damc", "ebm")}
+        if not (want <= grids if resumed else want == grids):
+            raise AssertionError(f"grids {sorted(grids)}, expected {sorted(want)}")
+        # 8 images a row, 2-pixel borders: the batch's first 64 images, the FID batch's first 64.
+        shown = {"plot": min(64, cfg.train.batch_size), "fid": min(64, cfg.train.fid_batch_size, n_fid)}
+        size = cfg.model.image_size + 2
+        for g in sorted(want):
+            n = shown["fid" if "_fid_" in g else "plot"]
+            if _png_size(os.path.join(run, "imgs", g)) != (8 * size + 2, -(-n // 8) * size + 2, 2):
+                raise AssertionError(f"{g}: not an RGB grid of {n} images")
+        print(f"[{tag}] {dataset}: {len(want)} PNG grids of this run, 8 images a row, RGB")
+    per_eval, want_total, n_mse_b = protocol_launches(cfg, len(events), len(evals), len(plots), n_fid, n_test)
+    for c in calls:
+        if c["launches"] != per_eval[c["what"]]:
+            raise AssertionError(f"{c['what']}: launches {c['launches']}, expected {per_eval[c['what']]}")
+    print(f"[{tag}] {dataset}: launches per eval {[(c['what'], c['launches']) for c in calls[:3]]}; "
+          f"whole run {total} (expected {want_total})")
+    if total != want_total:
+        raise AssertionError("the run's launches differ from the protocol's")
+    eval_walls = [sum(c["s"] for c in calls[i:i + 3]) for i in range(0, len(calls), 3)]
+    skip = {i for i, it in enumerate(range(state.step - len(events), state.step)) if it in evals or it in plots}
+    ms = _step_ms(events, skip=skip)
+    print(f"[{tag}] " + json.dumps({
+        "dataset": dataset, "train_cli_wall_s": train_wall, "eval_walls_s": eval_walls,
+        "ms_per_iteration": ms, "median_ms_per_iteration": statistics.median(ms) if ms else None,
+        "per_call": [{k: c[k] for k in ("what", "s")} for c in calls],
+    }))
+    return {"state": state, "run": run, "runs": runs, "calls": calls, "total": total, "train_wall": train_wall,
+            "eval_walls": eval_walls, "n_mse_b": n_mse_b, "ms": ms}
+
+
 def eval_phase(cfg, counters):
     """The gen_recon workload through its CLIs at full cifar10 width, in a
     temporary directory: train 6 iterations with evals, grids and
@@ -1014,8 +1140,7 @@ def eval_phase(cfg, counters):
 
     import torch
 
-    from damc_tpu_torch.cli import eval_gen_recon, train_gen_recon
-    from damc_tpu_torch.train import gen_recon
+    from damc_tpu_torch.cli import train_gen_recon
     from damc_tpu_torch.train.state import create_state
     from damc_tpu_torch.train.step import make_train_step
     from damc_tpu_torch.utils.checkpoint import restore_checkpoint
@@ -1034,71 +1159,14 @@ def eval_phase(cfg, counters):
                                "--plot_every", "3", "--print_every", "1", "--n_fid_samples", str(n_fid)]
 
         # 1. Train 6 iterations.
-        calls = []
-        undo = [_instrument(gen_recon, "evaluate_fid", counters, calls, what=lambda args: f"fid_{args[7]}"),
-                _instrument(gen_recon, "evaluate_mse", counters, calls)]
-        for k in counters.values():
-            k.launches = 0
-        t0 = time.perf_counter()
-        try:
-            state = train_gen_recon.main(train_args + ["--iterations", "6"])
-        finally:
-            for u in undo:
-                u()
-        torch.cuda.synchronize()
-        train_wall = time.perf_counter() - t0
-        total = {k: c.launches for k, c in counters.items()}
-        runs = os.listdir(os.path.join(logs, "cifar10"))
-        if len(runs) != 1:
-            raise AssertionError(f"expected one run directory, found {runs}")
-        run = os.path.join(logs, "cifar10", runs[0])
-        rows = _jsonl(os.path.join(run, "metrics.jsonl"))
-        train_steps = [r["step"] for r in rows if r["phase"] == "train"]
-        evals = [r for r in rows if r["phase"] == "eval"]
-        print(f"[eval] train rows {train_steps}; eval rows {[r['step'] for r in evals]}")
-        # The JAX loop evaluates at iteration 0 too (0 % eval_every == 0).
-        if train_steps != list(range(6)) or [r["step"] for r in evals] != [0, 3, 5]:
-            raise AssertionError("metrics.jsonl lacks a train or an eval row")
-        for r in evals:
-            vals = {k: r.get(k) for k in ("frechet_rand_damc", "frechet_rand_ebm", "recon_mse")}
-            print(f"[eval] iteration {r['step']}: " + json.dumps(vals))
-            if not all(v is not None and np.isfinite(v) for v in vals.values()):
-                raise AssertionError(f"eval row {r['step']}: a metric is missing or not finite")
+        run_info = train_cli_run(cfg, counters, train_args + ["--iterations", "6"], logs, evals=[0, 3, 5],
+                                 plots=[0, 3], n_fid=n_fid, n_test=EVAL_TEST_IMAGES)
+        state, run, runs, calls = run_info["state"], run_info["run"], run_info["runs"], run_info["calls"]
+        eval_walls, n_mse_b = run_info["eval_walls"], run_info["n_mse_b"]
         ckpts = sorted(os.listdir(os.path.join(run, "ckpt")))
         print(f"[eval] checkpoints {ckpts}")
         if not {"3", "5", "best"} <= set(ckpts):
             raise AssertionError("ckpt/3, ckpt/5 or ckpt/best is missing")
-        grids = sorted(os.listdir(os.path.join(run, "imgs")))
-        want_grids = sorted(f"{it}_{k}.png" for it in (0, 3) for k in ("obs", "post", "post_Q", "prior")) + sorted(
-            f"{it}_fid_{p}.png" for it in (0, 3, 5) for p in ("damc", "ebm"))
-        if sorted(grids) != sorted(want_grids):
-            raise AssertionError(f"grids {grids}, expected {want_grids}")
-        side = 8 * (32 + 2) + 2  # 64 images, 8 a row, 2-pixel borders
-        for g in grids:
-            if _png_size(os.path.join(run, "imgs", g)) != (side, side, 2):
-                raise AssertionError(f"{g}: not a {side}x{side} RGB grid")
-        print(f"[eval] {len(grids)} PNG grids, each {side}x{side} RGB")
-        # Launches: one K1 and one K2 a training step; per eval, one K2 a
-        # DAMC-prior FID batch, one K1 an EBM-prior FID batch and one K2 a
-        # recon-MSE batch; three K2 a plot (post, post_Q, prior).
-        n_fid_b = max(round(n_fid / min(cfg.train.fid_batch_size, n_fid)), 1)
-        n_mse_b = -(-EVAL_TEST_IMAGES // b)
-        want_call = {"fid_damc": {"K1": 0, "K2": n_fid_b}, "fid_ebm": {"K1": n_fid_b, "K2": 0},
-                     "evaluate_mse": {"K1": 0, "K2": n_mse_b}}
-        for c in calls:
-            if c["launches"] != want_call[c["what"]]:
-                raise AssertionError(f"{c['what']}: launches {c['launches']}, expected {want_call[c['what']]}")
-        n_plots, n_evals = 2, 3
-        want_total = {"K1": 6 + n_evals * n_fid_b, "K2": 6 + n_evals * (n_fid_b + n_mse_b) + 3 * n_plots}
-        print(f"[eval] launches per eval {[(c['what'], c['launches']) for c in calls[:3]]}; "
-              f"whole run {total} (expected {want_total})")
-        if total != want_total:
-            raise AssertionError("the run's launches differ from the protocol's")
-        eval_walls = [sum(c["s"] for c in calls[i:i + 3]) for i in range(0, len(calls), 3)]
-        print("[eval] " + json.dumps({
-            "train_cli_wall_s": train_wall, "eval_wall_s_at_0_3_5": eval_walls,
-            "per_call": [{k: c[k] for k in ("what", "s")} for c in calls],
-        }))
 
         # 2. Resume to 8 iterations in the same run directory.
         for k in counters.values():
@@ -1131,29 +1199,42 @@ def eval_phase(cfg, counters):
 
         # 4. The eval CLI on ckpt/best, twice.
         eval_args = common + ["--ckpt_dir", os.path.join(run, "ckpt"), "--n_fid_samples", "2000"]
-        for k in counters.values():
-            k.launches = 0
-        outs, walls = [], []
-        for _ in range(2):
-            t0 = time.perf_counter()
-            outs.append(eval_gen_recon.main(eval_args))
-            torch.cuda.synchronize()
-            walls.append(time.perf_counter() - t0)
-        cli_launches = {k: c.launches for k, c in counters.items()}
-        print(f"[eval] eval CLI: {json.dumps(outs[0])}; second run identical: {outs[0] == outs[1]}; "
-              f"launches over both {cli_launches}; wall s {walls}")
-        if outs[0] != outs[1]:
-            raise AssertionError("two eval CLI runs on one checkpoint printed different numbers")
-        # Per run: a K2 and a K1 launch per FID batch of 500, a K2 launch per
-        # recon-MSE batch of 500.
-        n_b, n_m = 2000 // cfg.train.fid_batch_size, -(-EVAL_TEST_IMAGES // cfg.train.fid_batch_size)
-        want = {"K1": 2 * n_b, "K2": 2 * (n_b + n_m)}
-        if cli_launches != want:
-            raise AssertionError(f"eval CLI launches {cli_launches}, expected {want}")
+        _, walls, cli_launches = eval_cli_runs(cfg, counters, eval_args, 2, 2000, EVAL_TEST_IMAGES)
         return {"calls": calls, "eval_walls": eval_walls, "cli_launches": cli_launches, "cli_walls": walls,
                 "n_mse_b": n_mse_b}
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+
+
+def eval_cli_runs(cfg, counters, argv, runs, n_fid, n_test, tag="eval"):
+    """`cli.eval_gen_recon.main(argv)` `runs` times: every run must print the
+    same numbers, and launch, per run, a K2 and a K1 per FID batch of 500
+    and a K2 per recon-MSE batch of 500. Returns (outputs, walls,
+    launches)."""
+    import torch
+
+    from damc_tpu_torch.cli import eval_gen_recon
+
+    for k in counters.values():
+        k.launches = 0
+    outs, walls = [], []
+    for _ in range(runs):
+        t0 = time.perf_counter()
+        outs.append(eval_gen_recon.main(argv))
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    launches = {k: c.launches for k, c in counters.items()}
+    same = all(o == outs[0] for o in outs)
+    print(f"[{tag}] {cfg.model.dataset} eval CLI: {json.dumps(outs[0])}; {runs} runs identical: {same}; "
+          f"launches over all {launches}; wall s {walls}")
+    if not same:
+        raise AssertionError("eval CLI runs on one checkpoint printed different numbers")
+    bs = cfg.train.fid_batch_size
+    n_b, n_m = n_fid // bs, -(-n_test // bs)
+    want = {"K1": runs * n_b, "K2": runs * (n_b + n_m)}
+    if launches != want:
+        raise AssertionError(f"eval CLI launches {launches}, expected {want}")
+    return outs, walls, launches
 
 
 def _states_equal(a, b) -> bool:
@@ -1461,10 +1542,10 @@ def anomaly_phase(cfg, counters):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
-def anomaly_profile_phase(cfg):
-    """One anomaly iteration (B=128) under torch.profiler, as
-    `train_profile_phase` profiles cifar10's, on MNIST-shaped images made
-    from the seed."""
+def image_profile_phase(cfg, path):
+    """One iteration (B=128) of an image workload under torch.profiler, as
+    `train_profile_phase` profiles cifar10's, on images of the preset's
+    shape made from the seed."""
     import torch
 
     from damc_tpu_torch.train.state import create_state
@@ -1472,7 +1553,7 @@ def anomaly_profile_phase(cfg):
     m = cfg.model
     gen = torch.Generator(device="cpu").manual_seed(SEED + 10)
     x = torch.rand(cfg.train.batch_size, m.image_size, m.image_size, m.nc, generator=gen).cuda() * 2 - 1
-    train_profile_phase(cfg, create_state(cfg, SEED, "cuda"), x=x, path="anomaly")
+    train_profile_phase(cfg, create_state(cfg, SEED, "cuda"), x=x, path=path)
 
 
 def toy_profile_phase(cfg):
@@ -1592,6 +1673,451 @@ def toy_phase(cfg, counters):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+SVHN_TRAIN_IMAGES = 73_257  # SVHN's train split
+SVHN_TEST_IMAGES = 2_000  # the test split holds 26,032: cut so that the MSE eval stays short
+CELEBA64_TRAIN, CELEBA64_TEST, CELEBA64_SIZE = 2_048, 512, (178, 218)  # CelebA's aligned images
+CELEBAHQ_TRAIN, CELEBAHQ_TEST, CELEBAHQ_SIZE = 160, 64, (1024, 1024)  # CelebA-HQ's images
+
+
+def write_svhn_mats(root: str, n_train: int, n_test: int) -> None:
+    """SVHN's .mat layout (X (32, 32, 3, N) uint8, y (N, 1) labels 1-10),
+    images made from the seed."""
+    import os
+
+    from scipy import io as sio
+
+    os.makedirs(root, exist_ok=True)
+    rng = np.random.default_rng(SEED + 11)
+    for split, n in (("train", n_train), ("test", n_test)):
+        sio.savemat(os.path.join(root, f"{split}_32x32.mat"), {
+            "X": rng.integers(0, 256, (32, 32, 3, n), dtype=np.uint8),
+            "y": rng.integers(1, 11, (n, 1), dtype=np.uint8),
+        })
+
+
+def write_png_tree(root: str, n: int, size, seed: int) -> float:
+    """`synthetic_image_tree` of n PNGs of `size` (width, height) under
+    root, written by up to 8 worker processes at once (each a run of the
+    file numbers, with its own seed); returns the wall in seconds."""
+    import multiprocessing
+    import os
+    from concurrent.futures import ProcessPoolExecutor
+
+    from damc_tpu_torch.data.datasets import synthetic_image_tree
+
+    t0 = time.perf_counter()
+    workers = max(1, min(8, os.cpu_count() or 1, n))
+    per = -(-n // workers)
+    with ProcessPoolExecutor(workers, mp_context=multiprocessing.get_context("spawn")) as pool:
+        jobs = [pool.submit(synthetic_image_tree, root, min(per, n - k * per), size, seed + k, k * per)
+                for k in range(workers) if k * per < n]
+        for job in jobs:
+            job.result()
+    return time.perf_counter() - t0
+
+
+def preset_kernel_phase(cfg, tag, seed_offset, eval_k1=(), serve=False, rows=False):
+    """K1 and K2 at a gen_recon preset's training shapes in stream mode,
+    on its own random weights: K1 over the 2B prior chains (60 steps at
+    0.4), K2 over B rows under the encoder of random images (the Q_ema
+    draw of a step). `eval_k1` lists (steps, step size) of K1 at B=500;
+    `serve` adds both kernels at B=16 in counter mode; `rows` adds K2 at
+    B=500 under the prior embedding (the FID batch) and the encoder (the
+    eval CLI's recon-MSE batch), whose rows 0-15, 0-63, 0-79 and 0-127
+    launched alone must equal those of the B=500 launch bit for bit."""
+    import torch
+
+    from damc_tpu_torch.models import build_models
+    from damc_tpu_torch.ops.cuda.fused_langevin import ebm_params_to_dense_weights
+
+    dev = torch.device("cuda")
+    models = build_models(cfg, seed=SEED, device=dev)
+    gen = torch.Generator(device="cpu").manual_seed(SEED + seed_offset)
+    m, mc, b = cfg.model, cfg.mcmc, cfg.train.batch_size
+    seed = 135792468 + seed_offset
+    ebm_w = ebm_params_to_dense_weights(models.ebm)
+    z = torch.randn(500, m.nz, generator=gen).to(dev)
+    res = {}
+    print(f"[{tag}-kernels] nz={m.nz}: K1 B={2 * b} stream, K2 B={b} stream")
+    res["K1"] = chain_check(ebm_w, torch.randn(2 * b, m.nz, generator=gen).to(dev), dict(seed=seed),
+                            mc.e_l_steps, mc.e_l_step_size, f"K1 {tag}")
+    for steps, size in eval_k1:
+        res[f"K1_eval_{steps}_{size}"] = chain_check(ebm_w, z, dict(seed=seed), steps, size, f"K1 {tag} eval")
+    x = torch.rand(500 if rows else b, m.image_size, m.image_size, m.nc, generator=gen).to(dev) * 2 - 1
+    with torch.no_grad():
+        post = torch.cat([models.amortizer.encode(x[i:i + 128]) for i in range(0, len(x), 128)])
+        prior = models.amortizer.prior_embed(torch.randn(500, m.nz, generator=gen).to(dev))
+    if rows:
+        r = sweep_check(models, cfg, z, post, dict(seed=seed), f"K2 {tag} posterior", subs=(64, 80, b))
+        res["K2"], res["K2_posterior"] = r[b], r[500]
+        r = sweep_check(models, cfg, z, prior, dict(seed=seed), f"K2 {tag} prior", subs=(16, 64))
+        res["K2_prior"] = r[500]
+    else:
+        res["K2"] = sweep_check(models, cfg, z[:b], post[:b], dict(seed=seed), f"K2 {tag}")[b]
+    if serve:
+        seeds = torch.randint(0, 2**31 - 1, (16,), generator=gen, dtype=torch.int32).to(dev)
+        res["K1_serve"] = chain_check(ebm_w, z[:16], dict(row_seeds=seeds), mc.e_l_steps, mc.e_l_step_size,
+                                      f"K1 {tag} counter")
+        sweep_check(models, cfg, z[:16], prior[:16], dict(with_noise=False), f"K2 {tag} noiseless", full=False)
+        res["K2_serve"] = sweep_check(models, cfg, z[:16], prior[:16], dict(row_seeds=seeds),
+                                      f"K2 {tag} counter")[16]
+    return res
+
+
+def serve_checkpoint_phase(cfg, counters, ckpt_dir, tag):
+    """The serve CLI's loading path on a training checkpoint:
+    `cli.serve.build_service` with --ckpt_dir/--ckpt_name best, over HTTP:
+    /sample damc and ebm and /reconstruct, each path's launches counted.
+    The served items must equal the serving core run in process on the
+    same checkpoint restored into a fresh state, bit for bit (each row is
+    a function of its own draws, whatever it is batched with)."""
+    import torch
+
+    from damc_tpu_torch.cli import serve as serve_cli
+    from damc_tpu_torch.serve import build_serving_fns, item_draws, make_http_server, stack_draws
+    from damc_tpu_torch.train.state import create_state
+    from damc_tpu_torch.utils.checkpoint import restore_checkpoint
+
+    m = cfg.model
+    service, _ = serve_cli.build_service([
+        "--dataset", m.dataset, "--ckpt_dir", ckpt_dir, "--ckpt_name", "best", "--max_batch", "16"])
+    service.warmup()
+    server = make_http_server(service, "127.0.0.1", 0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    base = "http://127.0.0.1:%d" % server.server_address[1]
+    x = np.random.default_rng(SEED + 12).uniform(-1, 1, (4, m.image_size, m.image_size, m.nc)).astype(np.float32)
+    served, launches = {}, {}
+    try:
+        for path in ("damc", "ebm", "recon"):
+            for k in counters.values():
+                k.launches = 0
+            if path == "recon":
+                body = _post(base + "/reconstruct", {
+                    "image_b64": base64.b64encode(x.tobytes()).decode(), "shape": list(x.shape),
+                    "seed": 3, "encoding": "b64"})
+                served[path] = (_array(body["x_hat"]), _array(body["z"]))
+            else:
+                body = _post(base + "/sample", {"n": 4, "prior": path, "seed": 7, "encoding": "b64"})
+                served[path] = (_array(body["images"]),)
+            launches[path] = {k: c.launches for k, c in counters.items()}
+        stats = json.loads(urllib.request.urlopen(base + "/stats", timeout=60).read())
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(30)
+        service.close()
+    print(f"[{tag}] served ckpt/best through the serve CLI's loading path; launches {launches}")
+    for path, st in stats.items():
+        print(f"[{tag}] {path}: p50 {st['latency_p50_ms']:.3f} ms, p99 {st['latency_p99_ms']:.3f} ms, "
+              f"{st['requests']} requests, {st['items']} items in {st['batches']} batches")
+    if launches["damc"]["K2"] < 1 or launches["recon"]["K2"] < 1 or launches["ebm"]["K1"] < 1:
+        raise AssertionError(f"a path did not launch its kernel: {launches}")
+    if launches["damc"]["K1"] or launches["ebm"]["K2"] or launches["recon"]["K1"]:
+        raise AssertionError(f"a path launched a kernel it should not: {launches}")
+    state = restore_checkpoint(ckpt_dir, "best", create_state(cfg, SEED + 13, "cuda"))
+    for module in state.models.modules():
+        module.eval().requires_grad_(False)
+    fns = build_serving_fns(state.models, cfg, recon_langevin_steps=10)
+    pad = lambda seed: stack_draws([item_draws(seed, i, m.nz) for i in (0, 1, 2, 3) + (3,) * 12], "cuda")
+    xs = torch.from_numpy(x[[0, 1, 2, 3] + [3] * 12]).cuda()
+    with torch.no_grad():
+        want = {"damc": (fns["damc"](pad(7)),), "ebm": (fns["ebm"](pad(7)),), "recon": fns["recon"](pad(3), xs)}
+    for path, outs in served.items():
+        same = all(np.array_equal(o, w[:4].cpu().numpy()) for o, w in zip(outs, want[path]))
+        print(f"[{tag}] {path}: the served items == the restored state's, in process: {same}")
+        if not same:
+            raise AssertionError(f"{path}: the served checkpoint differs from the restored state")
+    return launches, stats
+
+
+def svhn_phase(cfg, counters):
+    """svhn (nz=100, ngf=64) through its CLIs at full width in a temporary
+    directory, on SVHN .mat files made from the seed (73,257 train images,
+    the real split; 2,000 test images): train 6 iterations at B=128 with
+    evals, grids and checkpoints every 3 and 1,000 FID samples; score
+    ckpt/best once through the eval CLI (K1 100 steps at the CLI's 0.4);
+    then serve ckpt/best through the serve CLI's loading path."""
+    import os
+    import shutil
+    import tempfile
+
+    tmp = tempfile.mkdtemp(prefix="damc_svhn_smoke_")
+    try:
+        data, logs = os.path.join(tmp, "data"), os.path.join(tmp, "logs")
+        t0 = time.perf_counter()
+        write_svhn_mats(data, SVHN_TRAIN_IMAGES, SVHN_TEST_IMAGES)
+        print(f"[svhn] SVHN .mat files made from the seed: {SVHN_TRAIN_IMAGES} train images (the real split), "
+              f"{SVHN_TEST_IMAGES} test images (cut from 26,032), written in {time.perf_counter() - t0:.2f} s")
+        n_fid = 1000
+        common = ["--dataset", "svhn", "--data_path", data, "--log_path", logs, "--seed", str(SEED)]
+        t0 = time.perf_counter()
+        info = train_cli_run(cfg, counters, common + [
+            "--iterations", "6", "--eval_every", "3", "--ckpt_every", "3", "--plot_every", "3", "--print_every", "1",
+            "--n_fid_samples", str(n_fid)], logs, evals=[0, 3, 5], plots=[0, 3], n_fid=n_fid,
+            n_test=SVHN_TEST_IMAGES, tag="svhn")
+        ckpt = os.path.join(info["run"], "ckpt")
+        ckpts = sorted(os.listdir(ckpt))
+        print(f"[svhn] checkpoints {ckpts}")
+        if not {"3", "5", "best"} <= set(ckpts):
+            raise AssertionError("ckpt/3, ckpt/5 or ckpt/best is missing")
+        del info["state"]
+        _, cli_walls, cli_launches = eval_cli_runs(
+            cfg, counters, common + ["--ckpt_dir", ckpt, "--n_fid_samples", str(n_fid)], 1, n_fid,
+            SVHN_TEST_IMAGES, tag="svhn")
+        serve_launches, stats = serve_checkpoint_phase(cfg, counters, ckpt, "svhn")
+        wall = time.perf_counter() - t0
+        print(f"[svhn] phase wall without the data {wall:.2f} s")
+        return {**info, "cli_launches": cli_launches, "cli_walls": cli_walls, "serve": serve_launches,
+                "serve_total": {k: sum(l[k] for l in serve_launches.values()) for k in counters}, "wall": wall}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _record_reads(log):
+    """Wrap the folder readers the gen_recon CLIs call (the cache and the
+    direct decode, in `cli.common` and in `data.datasets`), recording each
+    call's root, wall and result; returns the undo."""
+    from damc_tpu_torch.cli import common
+    from damc_tpu_torch.data import datasets
+
+    undo = []
+    for module, name in ((common, "load_image_folder_cached"), (common, "load_image_folder"),
+                         (datasets, "load_image_folder")):
+        original = getattr(module, name)
+
+        def call(root, size, *a, _original=original, _name=name, **k):
+            t0 = time.perf_counter()
+            out = _original(root, size, *a, **k)
+            log.append({"what": _name, "root": root, "s": time.perf_counter() - t0, "value": out})
+            return out
+
+        setattr(module, name, call)
+        undo.append(lambda module=module, name=name, original=original: setattr(module, name, original))
+    return lambda: [u() for u in undo]
+
+
+def decoders_line() -> str:
+    """Which image decoders this machine offers: libjpeg's header, and PIL
+    as a fresh interpreter imports it (the port itself never does)."""
+    import glob
+
+    headers = sorted(glob.glob("/usr/include/jpeglib.h") + glob.glob("/usr/include/*/jpeglib.h")
+                     + glob.glob("/usr/local/include/jpeglib.h"))
+    pil = subprocess.run([sys.executable, "-c", "import PIL.Image; print(PIL.__version__)"],
+                         capture_output=True, text=True, timeout=120)
+    found = f"imports, version {pil.stdout.strip()}" if pil.returncode == 0 else "does not import"
+    return f"[data] decoders on this machine: jpeglib.h {headers or 'absent'}; PIL {found}"
+
+
+def chain_trace(cfg, steps, step_size, seed_offset):
+    """K1 at B=500 with `steps` at `step_size` on the preset's random EBM,
+    against its plain version after every step count k (kernel and plain
+    each run k steps from the same z and noise). Where the gap first jumps
+    past 1e-4, the two states one step before are compared through the
+    EBM: a pre-activation (z K1 + b1, or the next layer's) that the two
+    sides put on opposite sides of 0 sends the gradient through lrelu's
+    other slope (1 against 0.2), which float32 rounding alone can decide
+    near 0. Printed, not held: no path of the preset runs this chain."""
+    import torch
+
+    from damc_tpu_torch.models import build_models
+    from damc_tpu_torch.ops.cuda.fused_langevin import (
+        ebm_params_to_dense_weights, fused_prior_langevin, prior_langevin_plain,
+    )
+
+    models = build_models(cfg, seed=SEED, device="cuda")
+    k1, b1, k2, b2, _ = ebm_w = ebm_params_to_dense_weights(models.ebm)
+    z = torch.randn(500, cfg.model.nz, generator=torch.Generator().manual_seed(SEED + seed_offset)).cuda()
+    kw = dict(seed=135792468 + seed_offset, step_size=step_size)
+    runs = [(fused_prior_langevin(z, *ebm_w, steps=k, **kw), prior_langevin_plain(z, *ebm_w, steps=k, **kw))
+            for k in range(steps + 1)]
+    errs = [float((a - b).abs().max()) for a, b in runs]
+    label = f"[{cfg.model.dataset}-kernels] K1 B=500, {steps} steps at {step_size} (no path of this preset)"
+    jump = next((k for k, e in enumerate(errs) if e > 1e-4), None)
+    if jump is None:
+        print(f"{label}: kernel-plain at most {max(errs):.3e} over every step count")
+        return
+    row = int((runs[jump][0] - runs[jump][1]).abs().max(1).values.argmax())
+    pre = []
+    for zs in runs[jump - 1]:
+        h1 = zs[row] @ k1 + b1
+        pre.append((h1, torch.where(h1 >= 0, h1, 0.2 * h1) @ k2 + b2))
+    flips = [int(((a >= 0) != (b >= 0)).sum()) for a, b in zip(*pre)]
+    nearest = [float(h.abs().min()) for h in pre[1]]  # the plain state's
+    print(f"{label}: kernel-plain {errs[jump - 1]:.3e} after {jump - 1} steps, {errs[jump]:.3e} after {jump}, "
+          f"{errs[-1]:.3e} after {steps}; row {row} before step {jump}: the smallest |pre-activation| "
+          f"{nearest[0]:.3e} (first layer), {nearest[1]:.3e} (second); the two states put {flips[0]} and "
+          f"{flips[1]} of them on opposite sides of 0")
+
+
+def celeba64_phase(cfg, counters):
+    """celeba64 (nz=100, ngf=128, 64x64) through the train CLI at full width
+    in a temporary directory, on a PNG tree made from the seed at CelebA's
+    aligned size, 178x218 (2,048 train and 512 test images): train 4
+    iterations at B=128 (grids at 0, a checkpoint at the end), which writes
+    the train split's cache celeba64_train_64.npy; then resume to 5 with an
+    eval (500 FID samples, the 512 test images), which must read the cache
+    memory-mapped, equal to the first run's decode."""
+    import os
+    import shutil
+    import tempfile
+
+    tmp = tempfile.mkdtemp(prefix="damc_celeba64_smoke_")
+    reads = []
+    undo = _record_reads(reads)
+    try:
+        data, logs = os.path.join(tmp, "data"), os.path.join(tmp, "logs")
+        tree_s = write_png_tree(os.path.join(data, "celeba64_train"), CELEBA64_TRAIN, CELEBA64_SIZE, SEED + 20)
+        tree_s += write_png_tree(os.path.join(data, "celeba64_test"), CELEBA64_TEST, CELEBA64_SIZE, SEED + 40)
+        n_files = CELEBA64_TRAIN + CELEBA64_TEST
+        print(f"[celeba64] PNG tree made from the seed: {n_files} images at {CELEBA64_SIZE[0]}x{CELEBA64_SIZE[1]} "
+              f"(filters cycling None to Paeth), written in {tree_s:.2f} s")
+        n_fid = 500
+        common = ["--dataset", "celeba64", "--data_path", data, "--log_path", logs, "--seed", str(SEED),
+                  "--print_every", "1", "--n_fid_samples", str(n_fid)]
+        t0 = time.perf_counter()
+        first = train_cli_run(cfg, counters, common + ["--iterations", "4", "--eval_every", "0", "--plot_every", "4"],
+                              logs, evals=[], plots=[0], n_fid=n_fid, n_test=CELEBA64_TEST, tag="celeba64")
+        cache = os.path.join(data, "celeba64_train_64.npy")
+        decoded = [r for r in reads if r["what"] == "load_image_folder"]
+        train_decode = next(r for r in decoded if r["root"].endswith("celeba64_train"))
+        cached = next(r for r in reads if r["what"] == "load_image_folder_cached")
+        print(f"[celeba64] first run: decode of {CELEBA64_TRAIN} train images {train_decode['s']:.2f} s, "
+              f"the cache written and mapped {cached['s'] - train_decode['s']:.2f} s, decode of {CELEBA64_TEST} "
+              f"test images {sum(r['s'] for r in decoded if r is not train_decode):.2f} s; "
+              f"{os.path.basename(cache)} written: {os.path.exists(cache)}")
+        if not os.path.exists(cache) or not np.array_equal(np.load(cache), train_decode["value"]):
+            raise AssertionError("the first run did not write the train split's cache, or it differs from the decode")
+        if sorted(os.listdir(os.path.join(first["run"], "ckpt"))) != ["3"]:
+            raise AssertionError("the first run's checkpoint ckpt/3 is missing")
+        del first["state"]
+        reads.clear()
+        second = train_cli_run(cfg, counters, common + [
+            "--iterations", "5", "--eval_every", "4", "--plot_every", "0", "--resume_path", "auto"],
+            logs, evals=[4], plots=[], n_fid=n_fid, n_test=CELEBA64_TEST, resumed=True, tag="celeba64")
+        (cached,) = [r for r in reads if r["what"] == "load_image_folder_cached"]
+        store = cached["value"]
+        redecoded = [r["root"] for r in reads if r["what"] == "load_image_folder" and r["root"].endswith("_train")]
+        same = isinstance(store, np.memmap) and store.mode == "r" and np.array_equal(store, train_decode["value"])
+        print(f"[celeba64] resumed run: step {second['state'].step}; the train split read from the cache "
+              f"memory-mapped in {cached['s']:.4f} s, equal to the first run's decode: {same}; decoded again: "
+              f"{redecoded or 'none'}")
+        if second["state"].step != 5 or not same or redecoded:
+            raise AssertionError("the resumed run did not continue at 4 from the cache")
+        del second["state"]
+        wall = time.perf_counter() - t0
+        print(f"[celeba64] phase wall without the tree {wall:.2f} s")
+        launches = {k: first["total"][k] + second["total"][k] for k in counters}
+        return {"launches": launches, "tree_s": tree_s, "decode_s": train_decode["s"], "wall": wall,
+                "ms": first["ms"] + second["ms"]}
+    finally:
+        undo()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def celebahq_phase(cfg, counters):
+    """celebaHQ (nz=128, ngf=128, 256x256, G up to 2048 channels) through the
+    train CLI at full width in a temporary directory, on a PNG tree made
+    from the seed at CelebA-HQ's size, 1024x1024 (160 train and 64 test
+    images): 3 iterations at B=128 with evals at 0 and at the end (500 FID
+    samples, the 64-image recon-MSE set) and a checkpoint at the end; then
+    one iteration from that checkpoint with remat_generator off and on,
+    from the same state and draws, which must agree bit for bit, with the
+    peak memory of each; then one iteration under the profiler. Returns
+    the launches, times and the restored state."""
+    import dataclasses as dc
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+
+    from damc_tpu_torch.data.images import decode_png, resize_bilinear
+    from damc_tpu_torch.train.state import create_state
+    from damc_tpu_torch.train.step import draw_step, make_train_step
+    from damc_tpu_torch.utils.checkpoint import restore_checkpoint
+
+    tmp = tempfile.mkdtemp(prefix="damc_celebahq_smoke_")
+    reads = []
+    undo = _record_reads(reads)
+    try:
+        data, logs = os.path.join(tmp, "data"), os.path.join(tmp, "logs")
+        tree_s = write_png_tree(os.path.join(data, "train"), CELEBAHQ_TRAIN, CELEBAHQ_SIZE, SEED + 60)
+        tree_s += write_png_tree(os.path.join(data, "test"), CELEBAHQ_TEST, CELEBAHQ_SIZE, SEED + 80)
+        one = os.path.join(data, "train", "000000.png")
+        with open(one, "rb") as f:
+            blob = f.read()
+        t0 = time.perf_counter()
+        img = decode_png(blob, one)
+        decode_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        resize_bilinear(img, (256, 256))
+        resize_ms = (time.perf_counter() - t0) * 1e3
+        w, h = CELEBAHQ_SIZE
+        print(f"[celebaHQ] PNG tree made from the seed: {CELEBAHQ_TRAIN + CELEBAHQ_TEST} images at {w}x{h}, "
+              f"{os.path.getsize(one)} bytes the first, written in {tree_s:.2f} s; one {w}x{h} file: decode_png "
+              f"{decode_ms:.1f} ms, resize to 256x256 {resize_ms:.1f} ms")
+        n_fid = 500
+        argv = ["--dataset", "celebaHQ", "--data_path", data, "--log_path", logs, "--seed", str(SEED),
+                "--iterations", "3", "--eval_every", "2", "--ckpt_every", "2", "--plot_every", "0",
+                "--print_every", "1", "--n_fid_samples", str(n_fid)]
+        t0 = time.perf_counter()
+        info = train_cli_run(cfg, counters, argv, logs, evals=[0, 2], plots=[], n_fid=n_fid, n_test=CELEBAHQ_TEST,
+                             tag="celebaHQ")
+        decodes = {os.path.basename(r["root"]): r["s"] for r in reads if r["what"] == "load_image_folder"}
+        cached = next(r for r in reads if r["what"] == "load_image_folder_cached")
+        print(f"[celebaHQ] decode and resize of the train split ({CELEBAHQ_TRAIN} files) {decodes['train']:.2f} s, "
+              f"of the test split ({CELEBAHQ_TEST}) {decodes['test']:.2f} s; the cache written and mapped "
+              f"{cached['s'] - decodes['train']:.2f} s")
+        ckpt = os.path.join(info["run"], "ckpt")
+        if not {"2", "best"} <= set(os.listdir(ckpt)):
+            raise AssertionError("ckpt/2 or ckpt/best is missing")
+        del info["state"]
+        store = cached["value"]
+        x = torch.from_numpy(np.asarray(store[:cfg.train.batch_size])).cuda().float() / 255.0 * 2.0 - 1.0
+
+        # One iteration from ckpt/2 with remat_generator off, then on.
+        out = {}
+        for remat in (False, True):
+            c = dc.replace(cfg, train=dc.replace(cfg.train, remat_generator=remat))
+            state = restore_checkpoint(ckpt, "2", create_state(c, SEED, "cuda"))
+            draws = draw_step(c, len(x), state)
+            step = make_train_step(state.models, state.opts, c)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            t1 = time.perf_counter()
+            state, metrics = step(state, x, draws)
+            torch.cuda.synchronize()
+            out[remat] = {
+                "wall_ms": (time.perf_counter() - t1) * 1e3,
+                "peak_gib": (torch.cuda.max_memory_allocated() - base) / 2**30,
+                "metrics": {k: v.detach().cpu() for k, v in metrics.items()},
+                "params": [p.detach().cpu() for mod in state.models.modules() for p in mod.parameters()],
+            }
+            if remat:
+                del state
+        same = all(torch.equal(out[False]["metrics"][k], out[True]["metrics"][k]) for k in out[False]["metrics"]) \
+            and all(torch.equal(a, b) for a, b in zip(out[False]["params"], out[True]["params"]))
+        print("[celebaHQ] " + json.dumps({
+            "remat_generator": {str(k): {"iteration_wall_ms": v["wall_ms"], "peak_gib_above_state": v["peak_gib"]}
+                                for k, v in out.items()},
+            "bit_identical_metrics_and_parameters": same}))
+        if not same:
+            raise AssertionError("remat_generator changed the iteration's metrics or parameters")
+        state = restore_checkpoint(ckpt, "2", create_state(cfg, SEED, "cuda"))
+        train_profile_phase(cfg, state, x=x, path="celebaHQ")
+        del state
+        wall = time.perf_counter() - t0
+        print(f"[celebaHQ] phase wall without the tree {wall:.2f} s")
+        return {"launches": info["total"], "tree_s": tree_s, "decode_ms": decode_ms, "wall": wall, "ms": info["ms"],
+                "remat": {k: {"wall_ms": v["wall_ms"], "peak_gib": v["peak_gib"]} for k, v in out.items()}}
+    finally:
+        undo()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main() -> int:
     import torch
 
@@ -1639,10 +2165,29 @@ def main() -> int:
     cfg_anomaly, cfg_toy = preset("mnist_anomaly"), preset("toy")
     res_anomaly = anomaly_kernel_phase(cfg_anomaly)
     anomaly_info = anomaly_phase(cfg_anomaly, counters)
-    anomaly_profile_phase(cfg_anomaly)
+    image_profile_phase(cfg_anomaly, "anomaly")
     res_toy = toy_kernel_phase(cfg_toy)
     toy_info = toy_phase(cfg_toy, counters)
     toy_profile_phase(cfg_toy)
+    print(decoders_line())
+    cfg_svhn, cfg_c64, cfg_hq = preset("svhn"), preset("celeba64"), preset("celebaHQ")
+    walls = {}
+    t0 = time.perf_counter()
+    res_svhn = preset_kernel_phase(cfg_svhn, "svhn", 30, eval_k1=((100, 0.4), (60, 0.4)), serve=True, rows=True)
+    chain_trace(cfg_svhn, 100, 1.6, 30)
+    svhn_info = svhn_phase(cfg_svhn, counters)
+    image_profile_phase(cfg_svhn, "svhn")
+    walls["svhn"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    res_c64 = preset_kernel_phase(cfg_c64, "celeba64", 50)
+    c64_info = celeba64_phase(cfg_c64, counters)
+    image_profile_phase(cfg_c64, "celeba64")
+    walls["celeba64"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    res_hq = preset_kernel_phase(cfg_hq, "celebaHQ", 70)
+    hq_info = celebahq_phase(cfg_hq, counters)
+    walls["celebaHQ"] = time.perf_counter() - t0
+    print("[walls] " + json.dumps({f"{k}_phase_s": v for k, v in walls.items()}))
 
     meta = {
         "K1": ("fused_prior_langevin", "damc_tpu_torch/csrc/fused_langevin.cu",
@@ -1664,6 +2209,20 @@ def main() -> int:
         ("anomaly_eval", "stream", "K2", res_anomaly["K2_auprc"], anomaly_info["eval"]["K2"]),
         ("anomaly_eval_cli", "stream", "K2", res_anomaly["K2_auprc"], anomaly_info["cli"]["K2"]),
         ("toy", "stream", "K2", res_toy["K2"], toy_info["train"]["K2"] + toy_info["eval"]["K2"]),  # B=500, nz=2
+        # nz=100: the svhn train CLI run (6 iterations and their 3 evals), K1 over 2B=256, K2 B=128 posterior.
+        ("svhn", "stream", "K1", res_svhn["K1"], svhn_info["total"]["K1"]),
+        ("svhn", "stream", "K2", res_svhn["K2"], svhn_info["total"]["K2"]),
+        # The svhn eval CLI: K1 B=500, 100 steps at 0.4; K2 B=500 (the FID batch's prior tables).
+        ("svhn_eval", "stream", "K1", res_svhn["K1_eval_100_0.4"], svhn_info["cli_launches"]["K1"]),
+        ("svhn_eval", "stream", "K2", res_svhn["K2_prior"], svhn_info["cli_launches"]["K2"]),
+        # ckpt/best served through the serve CLI: B=16, counter mode.
+        ("svhn_serve", "counter", "K1", res_svhn["K1_serve"], svhn_info["serve_total"]["K1"]),
+        ("svhn_serve", "counter", "K2", res_svhn["K2_serve"], svhn_info["serve_total"]["K2"]),
+        # nz=100 at 64x64: both train CLI runs; nz=128 at 256x256: the train CLI run.
+        ("celeba64", "stream", "K1", res_c64["K1"], c64_info["launches"]["K1"]),
+        ("celeba64", "stream", "K2", res_c64["K2"], c64_info["launches"]["K2"]),
+        ("celebaHQ", "stream", "K1", res_hq["K1"], hq_info["launches"]["K1"]),
+        ("celebaHQ", "stream", "K2", res_hq["K2"], hq_info["launches"]["K2"]),
     ]
     for path, mode, key, r, launches in entries:
         name, source, replaces = meta[key]
@@ -1680,6 +2239,8 @@ def main() -> int:
         shapes += [(f"eval stream {k}", r) for k, r in res_eval.items() if k.startswith(key)]
         shapes += [(f"anomaly stream {k}", r) for k, r in res_anomaly.items() if k.startswith(key)]
         shapes += [(f"toy {k}", r) for k, r in res_toy.items() if k.startswith(key)]
+        for tag, res_p in (("svhn", res_svhn), ("celeba64", res_c64), ("celebaHQ", res_hq)):
+            shapes += [(f"{tag} {k}", r) for k, r in res_p.items() if k.startswith(key)]
         for label, r in shapes:
             b_ms, by = bound(r["flops"], r["bytes"])
             print(f"[kernels] {name} {label} B={r['b']}: ms={r['ms']} plain_ms={r['plain_ms']} "

@@ -5,9 +5,9 @@ run directory, dataset loading and the FID feature extractor.
 The flags are the JAX CLI's, aliases included, plus `--device` (default
 `cuda`; `cpu` runs the plain versions of the kernels). `--use_mesh` and
 `--multihost` are accepted by the parser and raise (ROADMAP.md, queue 1,
-item 8). `load_dataset` reads the gen_recon datasets cifar10 and svhn; the
-image-folder and LSUN readers raise (item 4); mnist is the anomaly
-workload's (`cli/train_anomaly_det.py`).
+item 8). `load_dataset` reads the gen_recon datasets cifar10, svhn,
+celeba64 and celebaHQ; mnist is the anomaly workload's
+(`cli/train_anomaly_det.py`).
 """
 
 from __future__ import annotations
@@ -24,7 +24,7 @@ from typing import Optional, Tuple
 import numpy as np
 
 from ..config import Config, preset
-from ..data.datasets import load_cifar10, load_svhn
+from ..data.datasets import load_cifar10, load_image_folder, load_image_folder_cached, load_svhn
 
 
 def str2bool(v: str) -> bool:
@@ -274,7 +274,9 @@ def to_pm1(u8: np.ndarray) -> np.ndarray:
 def load_dataset(cfg: Config) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
     """(train_images uint8, FID reference images uint8, recon-MSE eval
     images in [-1, 1]): FID statistics from the train split, MSE from the
-    test split (`train_gen_recon.py:58-111`)."""
+    test split (`train_gen_recon.py:58-111`). The image folders' train
+    splits come through the `.npy` cache, memory-mapped
+    (`damc_tpu/cli/common.py:433-440`)."""
     d, root = cfg.model.dataset, cfg.train.data_path
     if d == "cifar10":
         tr = load_cifar10(root, "train")
@@ -282,14 +284,15 @@ def load_dataset(cfg: Config) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
     if d == "svhn":
         tr = load_svhn(root, "train")
         return tr, tr, to_pm1(load_svhn(root, "test"))
-    if d == "mnist":
-        raise ValueError(
-            "mnist is the anomaly workload, not a gen_recon dataset: "
-            "python -m damc_tpu_torch.cli.train_anomaly_det"
-        )
-    raise NotImplementedError(
-        f"dataset {d!r}: the port reads cifar10 and svhn; the image-folder and LSUN "
-        "readers are not ported (ROADMAP.md, queue 1, item 4)"
+    if d == "celeba64":
+        tr = load_image_folder_cached(osp.join(root, "celeba64_train"), 64)
+        return tr, tr, to_pm1(load_image_folder(osp.join(root, "celeba64_test"), 64))
+    if d == "celebaHQ":
+        tr = load_image_folder_cached(osp.join(root, "train"), 256)
+        return tr, tr, to_pm1(load_image_folder(osp.join(root, "test"), 256))
+    raise ValueError(
+        f"unknown gen_recon dataset {d!r} (mnist is the anomaly workload: "
+        "python -m damc_tpu_torch.cli.train_anomaly_det)"
     )
 
 

@@ -1,18 +1,27 @@
 """Dataset readers of the port (counterpart of
-`damc_tpu/data/datasets.py:40-120, 464-479`): CIFAR-10 from the python
+`damc_tpu/data/datasets.py:40-167, 464-479`): CIFAR-10 from the python
 pickle batches and SVHN from its .mat files, both as (N, 32, 32, 3) uint8;
-the MNIST anomaly split from `mnist.npz`, and a seeded MNIST-shaped
-`mnist.npz` writer for runs without the real file. The image-folder and
-LSUN readers are not ported (ROADMAP.md, queue 1, item 4).
+image folders (CelebA-64, CelebA-HQ) through the port's PNG decoder and
+PIL's bilinear resize (`data/images.py`), with the JAX package's `.npy`
+cache; the MNIST anomaly split from `mnist.npz`; and seeded writers of an
+MNIST-shaped `mnist.npz` and of PNG trees for runs without the real files.
 """
 
 from __future__ import annotations
 
+import os
 import os.path as osp
 import pickle
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
+
+from .images import decode_parsed, parse_png, resize_bilinear
+
+BATCH_BYTES = 64 << 20  # filtered bytes the folder reader decodes together (its work array is about 4x)
+IMAGE_EXTENSIONS = (".png", ".jpg", ".jpeg", ".webp", ".bmp")  # the JAX reader's list
+# Formats the JAX reader opens through PIL and the port does not decode.
+UNDECODED = {".jpg": "JPEG", ".jpeg": "JPEG", ".webp": "WebP", ".bmp": "BMP"}
 
 
 def adapt_labels(true_labels: np.ndarray, label: int) -> np.ndarray:
@@ -108,3 +117,90 @@ def load_svhn(root: str, split: str = "train") -> np.ndarray:
 
     mat = sio.loadmat(osp.join(root, f"{split}_32x32.mat"))
     return np.transpose(mat["X"], (3, 0, 1, 2)).astype(np.uint8)
+
+
+def _resize_crop(img: np.ndarray, size: int) -> np.ndarray:
+    """The shorter side resized to `size` (torchvision `Resize(size)`), then
+    the centre crop, as the JAX reader does it through PIL."""
+    h, w = img.shape[:2]
+    scale = size / min(w, h)
+    img = resize_bilinear(img, (max(size, round(w * scale)), max(size, round(h * scale))))
+    h, w = img.shape[:2]
+    left, top = (w - size) // 2, (h - size) // 2
+    return img[top:top + size, left:left + size]
+
+
+def load_image_folder(root: str, size: int, limit: Optional[int] = None) -> np.ndarray:
+    """(N, size, size, 3) uint8 of the images under `root`, equal to the JAX
+    package's PIL reader (`damc_tpu/data/datasets.py:122-148`): its walk
+    order, extension list and `limit`; each image's shorter side resized
+    to `size` by PIL's bilinear filter, then centre-cropped. PNG only: a
+    JPEG, WebP or BMP file raises NotImplementedError before anything is
+    decoded."""
+    paths = []
+    for dirpath, _, filenames in sorted(os.walk(root)):
+        for fn in sorted(filenames):
+            if fn.lower().endswith(IMAGE_EXTENSIONS):
+                paths.append(osp.join(dirpath, fn))
+    if limit is not None:
+        paths = paths[:limit]
+    if not paths:
+        raise FileNotFoundError(f"no images under {root}")
+    for p in paths:
+        kind = UNDECODED.get(osp.splitext(p)[1].lower())
+        if kind:
+            raise NotImplementedError(
+                f"{p}: the port decodes PNG files only and has no {kind} decoder (ROADMAP.md, "
+                f"queue 1, item 4b). Convert the folder to PNG, or make its cache "
+                f"{root.rstrip('/')}_{size}.npy with the JAX package's load_image_folder_cached "
+                "on a machine with PIL: the port's load_image_folder_cached reads it as it is."
+            )
+    out = np.empty((len(paths), size, size, 3), np.uint8)
+    batch, nbytes = [], 0
+
+    def flush():
+        for (i, _), img in zip(batch, decode_parsed([png for _, png in batch])):
+            out[i] = _resize_crop(img, size)
+        batch.clear()
+
+    for i, p in enumerate(paths):
+        with open(p, "rb") as f:
+            batch.append((i, parse_png(f.read(), p)))
+        nbytes += batch[-1][1].filtered.size
+        if nbytes >= BATCH_BYTES:
+            flush()
+            nbytes = 0
+    flush()
+    return out
+
+
+def load_image_folder_cached(root: str, size: int, cache_path: Optional[str] = None) -> np.ndarray:
+    """`load_image_folder` through the JAX package's cache
+    (`damc_tpu/data/datasets.py:151-167`): the first call decodes into
+    `<root>_<size>.npy` (np.save), later calls map it read-only. A cache
+    written by either package loads in the other."""
+    cache_path = cache_path or (root.rstrip("/") + f"_{size}.npy")
+    if not osp.exists(cache_path):
+        data = load_image_folder(root, size)
+        np.save(cache_path, data)
+        del data
+    return np.load(cache_path, mmap_mode="r")
+
+
+def synthetic_image_tree(root: str, n: int, size: Tuple[int, int], seed: int = 0, start: int = 0) -> None:
+    """Write `n` RGB PNGs of `size` = (width, height) made from `seed` to
+    `root`/{start + i:06d}.png: smooth images (seeded noise at 1/32 of the
+    size, enlarged by the bilinear resize) plus a little pixel noise, so
+    that they compress as photos do. The rows' filter types cycle through
+    None, Sub, Up, Average and Paeth, so a reader meets all five."""
+    from ..utils.logging import encode_png
+
+    w, h = int(size[0]), int(size[1])
+    os.makedirs(root, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    ftypes = np.arange(h) % 5
+    for i in range(n):
+        low = rng.integers(0, 256, (max(h // 32, 2), max(w // 32, 2), 3), dtype=np.uint8)
+        img = resize_bilinear(low, (w, h)).astype(np.int16) + rng.integers(-2, 3, (h, w, 3), dtype=np.int16)
+        with open(osp.join(root, f"{start + i:06d}.png"), "wb") as f:
+            f.write(encode_png(np.clip(img, 0, 255).astype(np.uint8), filters=ftypes))

@@ -19,6 +19,7 @@ with the step's draws. The JAX package keeps the two apart the same way
 
 from __future__ import annotations
 
+import warnings
 from typing import Iterator, Optional, Tuple, Union
 
 import numpy as np
@@ -60,7 +61,12 @@ class DeviceDataset:
         if self.n_batches == 0:
             raise ValueError(f"no batches: {self.n} images < batch_size {batch_size} with drop_last")
         self.device = torch.device(device)
-        self.data = torch.from_numpy(np.ascontiguousarray(images)).to(self.device)
+        with warnings.catch_warnings():
+            # A read-only store (the image folders' memory-mapped .npy cache)
+            # is only read: it goes to the device from its pages, with no
+            # second host copy.
+            warnings.filterwarnings("ignore", message="The given NumPy array is not writable")
+            self.data = torch.from_numpy(np.ascontiguousarray(images)).to(self.device)
         self.augment_flip = augment_flip
         self.gen = torch.Generator(device=self.device).manual_seed(data_seed(seed))
 

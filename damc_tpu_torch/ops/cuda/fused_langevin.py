@@ -187,6 +187,6 @@ def _library() -> ctypes.CDLL:
         lib.damc_fused_langevin_geometry(geometry)
         if tuple(geometry) != (ROWS, CLUSTER, THREADS):
             raise RuntimeError("fused_langevin.cu and fused_langevin.py disagree on the geometry")
-        if lib.damc_fused_langevin_smem_bytes(128, 200) != smem_bytes(128, 200):
+        if any(lib.damc_fused_langevin_smem_bytes(nz, 200) != smem_bytes(nz, 200) for nz in (128, 100, 8)):
             raise RuntimeError("fused_langevin.cu and fused_langevin.py disagree on shared memory")
     return lib

@@ -357,6 +357,7 @@ def _library() -> ctypes.CDLL:
             raise RuntimeError("fused_qsweep.cu and fused_qsweep.py disagree on the geometry")
         agree = True
         for nz, widths in ((128, (256, 128, 256, 256, 512, 512, 256, 128, 256, 256, 256, 256, 128, 128)),
+                           (100, (200, 128, 256, 256, 512, 512, 256, 128, 256, 256, 256, 256, 128, 100)),
                            (2, (4, 128, 256, 256, 512, 512, 256, 128, 256, 256, 256, 256, 128, 2)),
                            (2, (6, 10, 10, 10, 21, 21, 21, 10, 10, 10, 11, 11, 11, 2))):
             dims = (ctypes.c_int * 14)(*widths)

@@ -91,7 +91,7 @@ def train_anomaly(
     tc, nz = cfg.train, cfg.model.nz
     if tc.data_placement == "host":
         raise NotImplementedError(
-            "data_placement='host' (the host loader) is not ported (ROADMAP.md, queue 1, item 4)"
+            "data_placement='host' (the host loader) is not ported (ROADMAP.md, queue 1, item 4b)"
         )
     seed = tc.seed if seed is None else int(seed)
     iterations = tc.iterations if iterations is None else int(iterations)

@@ -25,7 +25,7 @@ it, as in the JAX loop:
 Every eval draw comes from the run seed (`sampling.eval_draws`), so an
 eval is a pure function of the weights and the seed. The host data feed
 (`data_placement="host"`) and meshes are not ported (ROADMAP.md, queue 1,
-items 4 and 8).
+items 4b and 8).
 """
 
 from __future__ import annotations
@@ -167,7 +167,7 @@ def train_gen_recon(
     tc, nz = cfg.train, cfg.model.nz
     if tc.data_placement == "host":
         raise NotImplementedError(
-            "data_placement='host' (the host loader) is not ported (ROADMAP.md, queue 1, item 4)"
+            "data_placement='host' (the host loader) is not ported (ROADMAP.md, queue 1, item 4b)"
         )
     seed = tc.seed if seed is None else int(seed)
     iterations = tc.iterations if iterations is None else int(iterations)

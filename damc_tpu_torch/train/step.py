@@ -8,7 +8,11 @@ the JAX step, in order, each under a `torch.profiler.record_function` label
                          stream mode;
   2. posterior_langevin  g_l_steps of Langevin on the posterior energy
                          through G and E, by autograd (cuDNN, cuBLAS); the
-                         toy's G alone under a N(0, I) prior;
+                         toy's G alone under a N(0, I) prior. With
+                         `remat_generator` G's forward runs under
+                         `torch.utils.checkpoint` and is recomputed in the
+                         backward pass (JAX's `jax.checkpoint`): the same
+                         arithmetic, less activation memory;
   3. prior_langevin      e_l_steps over 2B chains [z0, N(0, I)] ("double")
                          or B chains z0 ("single"), kernel K1 in stream mode;
                          none for the toy ("none");
@@ -38,6 +42,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..config import Config
 from ..models import ModelBundle, sample_q
@@ -148,10 +153,14 @@ def make_train_step(
             z0 = sample_q(state.amortizer_ema, x, d.z0_init, d.sweep_seed)
 
         with _phase("posterior_langevin"), frozen(gen, ebm):
-            if ebm is not None:
-                energy = posterior_energy(gen, ebm, x, mc.g_llhd_sigma)
+            if tc.remat_generator:
+                gen_fn = lambda z: checkpoint(gen, z, use_reentrant=False)
             else:
-                energy = gaussian_posterior_energy(gen, x, mc.g_llhd_sigma)
+                gen_fn = gen
+            if ebm is not None:
+                energy = posterior_energy(gen_fn, ebm, x, mc.g_llhd_sigma)
+            else:
+                energy = gaussian_posterior_energy(gen_fn, x, mc.g_llhd_sigma)
             zk_pos, post_diag = langevin_sample(
                 z0, energy, mc.g_l_steps, mc.g_l_step_size, mc.g_l_with_noise,
                 noise=d.post_noise,

@@ -4,8 +4,9 @@
 `phase`, then the metrics) to `<log_dir>/metrics.jsonl`; its echo on
 stdout is the same row as JSON after a `[phase] ` tag. `save_image_grid`
 lays images out as the JAX package's does and writes the PNG with `zlib`
-and `struct` alone (8-bit gray or RGB, filter 0 on every row), so no image
-library is needed. `save_kde_plot` writes the toy workload's density
+and `struct` alone (8-bit gray or RGB; filter 0 on every row unless the
+caller names the rows' filters), so no image library is needed.
+`save_kde_plot` writes the toy workload's density
 heatmap the same way: the JAX package's scipy KDE grid through a copy of
 matplotlib's viridis table, without matplotlib.
 """
@@ -21,7 +22,7 @@ from typing import Dict, Optional
 
 import numpy as np
 
-PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
+from ..data.images import PNG_SIGNATURE, filter_rows
 # matplotlib's viridis colormap as it maps to bytes (256 entries, RGB):
 # `matplotlib.colormaps["viridis"](np.arange(256), bytes=True)[:, :3]`.
 VIRIDIS = np.frombuffer(bytes.fromhex(
@@ -75,14 +76,20 @@ def _chunk(tag: bytes, data: bytes) -> bytes:
     return struct.pack(">I", len(data)) + tag + data + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF)
 
 
-def encode_png(pixels: np.ndarray) -> bytes:
-    """uint8 (H, W) gray or (H, W, 3) RGB -> the bytes of a PNG file."""
+def encode_png(pixels: np.ndarray, filters=None) -> bytes:
+    """uint8 (H, W) gray or (H, W, 3) RGB -> the bytes of a PNG file. Row r
+    takes PNG filter type `filters[r]` (0 None, 1 Sub, 2 Up, 3 Average, 4
+    Paeth; one int for every row); None writes type 0 throughout."""
     if pixels.dtype != np.uint8 or pixels.ndim not in (2, 3) or (pixels.ndim == 3 and pixels.shape[2] != 3):
         raise ValueError(f"encode_png wants uint8 (H, W) or (H, W, 3), got {pixels.dtype} {pixels.shape}")
     h, w = pixels.shape[:2]
     color = 0 if pixels.ndim == 2 else 2
     rows = pixels.reshape(h, -1)
-    raw = np.concatenate([np.zeros((h, 1), np.uint8), rows], axis=1)  # filter type 0 per row
+    if filters is None:
+        raw = np.concatenate([np.zeros((h, 1), np.uint8), rows], axis=1)
+    else:
+        ftypes = np.broadcast_to(np.asarray(filters, np.uint8), (h,))
+        raw = np.concatenate([ftypes[:, None], filter_rows(rows, 1 if color == 0 else 3, ftypes)], axis=1)
     header = struct.pack(">IIBBBBB", w, h, 8, color, 0, 0, 0)
     return (
         PNG_SIGNATURE + _chunk(b"IHDR", header)

@@ -12,11 +12,13 @@ import dataclasses
 import json
 import os
 
+import numpy as np
 import pytest
 import torch
+from PIL import Image
 
 from damc_tpu.cli import common as jax_common
-from damc_tpu_torch.cli import common, eval_gen_recon, train_gen_recon
+from damc_tpu_torch.cli import common, eval_gen_recon, serve, train_gen_recon
 from damc_tpu_torch.config import preset
 from test_cli_integration import fake_cifar
 import torch_port_helpers
@@ -69,13 +71,21 @@ def test_port_flags_are_the_jax_flags_plus_device():
     assert _parse(common.add_common_flags, []).device == "cuda"
 
 
-def test_unported_options_raise():
+def test_unported_options_raise(tmp_path):
     for flag in ("--use_mesh", "--multihost"):
         with pytest.raises(NotImplementedError, match="queue 1, item 8"):
             common.config_from_args(_parse(common.add_common_flags, [flag]))
+    # celeba64 reads its PNG folders; a JPEG there raises, naming the decoder
+    # that item 4b owes and the JAX-made cache that serves in its place.
+    tree = tmp_path / "celeba64_train"
+    tree.mkdir()
+    Image.new("RGB", (8, 8)).save(tree / "000001.jpg")
     cfg = preset("celeba64")
-    with pytest.raises(NotImplementedError, match="queue 1, item 4"):
+    cfg = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, data_path=str(tmp_path)))
+    with pytest.raises(NotImplementedError, match=r"000001\.jpg: .*JPEG.*queue 1, item 4b.*celeba64_train_64\.npy"):
         common.load_dataset(cfg)
+    with pytest.raises(ValueError, match="unknown gen_recon dataset 'mnist'"):
+        common.load_dataset(preset("mnist_anomaly"))
 
 
 def test_make_log_dir_adopts_the_newest_run_with_auto(tmp_path):
@@ -127,6 +137,49 @@ def test_train_and_eval_cli_round_trip_on_cpu(tmp_path):
     a, b = eval_gen_recon.main(ev), eval_gen_recon.main(ev)
     assert a == b and set(a) == {"frechet_rand_damc", "frechet_rand_ebm", "recon_mse"}
     assert all(v == v and v >= 0 for v in a.values())
+
+
+def test_serve_cli_restores_a_port_checkpoint(tmp_path):
+    """Train 2 tiny iterations through the CLI, then build the service from
+    ckpt/1 with --ckpt_dir/--ckpt_name: it serves the restored state's
+    networks, so /sample (damc and ebm) and /reconstruct equal the serving
+    core run in process on that state, bit for bit, at the same padded
+    batch (deterministic mode pads to --max_batch). --ckpt with --ckpt_dir,
+    and a checkpoint that is not there, raise."""
+    from damc_tpu_torch.serve import build_serving_fns, item_draws, stack_draws
+    from damc_tpu_torch.train.state import create_state
+    from damc_tpu_torch.utils.checkpoint import restore_checkpoint
+
+    data, logs = str(tmp_path / "data"), str(tmp_path / "logs")
+    fake_cifar(data, n_train=40, n_test=13)
+    common_args = ["--dataset", "cifar10", "--data_path", data, "--log_path", logs, "--device", "cpu", *TINY]
+    train_gen_recon.main(common_args + ["--iterations", "2", "--eval_every", "0", "--plot_every", "0"])
+    (run,) = os.listdir(os.path.join(logs, "cifar10"))
+    ckpt = os.path.join(logs, "cifar10", run, "ckpt")
+    serve_args = common_args + ["--ckpt_dir", ckpt, "--ckpt_name", "1", "--max_batch", "4",
+                                "--recon_langevin_steps", "2"]
+    service, args = serve.build_service(serve_args)
+    try:
+        cfg = common.config_from_args(args)
+        state = restore_checkpoint(ckpt, "1", create_state(cfg, 5, "cpu"))
+        assert state.step == 2
+        fns = build_serving_fns(state.models, cfg, recon_langevin_steps=2)
+        # Items 0 and 1 of seed 3, padded to max_batch with the last, as the service pads.
+        draws = stack_draws([item_draws(3, i, cfg.model.nz) for i in (0, 1, 1, 1)], "cpu")
+        x = np.random.default_rng(2).uniform(-1, 1, (2, 32, 32, 3)).astype(np.float32)
+        with torch.no_grad():
+            for prior in ("damc", "ebm"):
+                np.testing.assert_array_equal(service.sample(2, prior, seed=3), fns[prior](draws)[:2].numpy())
+            x_hat, z = service.reconstruct(x, seed=3)
+            want = fns["recon"](draws, torch.from_numpy(x[[0, 1, 1, 1]]))
+        np.testing.assert_array_equal(x_hat, want[0][:2].numpy())
+        np.testing.assert_array_equal(z, want[1][:2].numpy())
+    finally:
+        service.close()
+    with pytest.raises(ValueError, match="exclusive"):
+        serve.build_service(serve_args + ["--ckpt", "ref.pth.tar"])
+    with pytest.raises(FileNotFoundError):
+        serve.build_service(common_args + ["--ckpt_dir", ckpt, "--ckpt_name", "77"])
 
 
 @pytest.mark.parametrize("cli", ["train", "eval"])

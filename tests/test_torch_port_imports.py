@@ -1,6 +1,8 @@
 """Import hygiene of the port: no module under `damc_tpu_torch/` imports JAX,
-Flax, Optax or the JAX package. Parsed with `ast`, not read from
-`sys.modules`, because the interpreter may import JAX at start-up."""
+Flax, Optax, the JAX package or PIL (the port depends on no image
+library: it decodes its PNGs itself, `data/images.py`). Parsed with `ast`, not
+read from `sys.modules`, because the interpreter may import JAX at
+start-up."""
 
 from __future__ import annotations
 
@@ -11,7 +13,7 @@ from pathlib import Path
 import pytest
 
 PORT = Path(__file__).resolve().parents[1] / "damc_tpu_torch"
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "damc_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "damc_tpu", "PIL")
 
 
 def _imports(tree):
@@ -33,9 +35,12 @@ SLICE_4 = (
 )
 
 
+SLICE_6 = ("data/images.py", "data/datasets.py", "cli/serve.py")
+
+
 def test_port_has_modules():
     assert len(FILES) >= 40
-    assert set(SLICE_4) <= {str(p.relative_to(PORT)) for p in FILES}
+    assert set(SLICE_4 + SLICE_6) <= {str(p.relative_to(PORT)) for p in FILES}
 
 
 MODULES = [

@@ -126,6 +126,14 @@ def test_wrapper_dispatch_rules():
     assert not k1.fits_smem(NZ, NDF + 2) and not k1.fits_smem(NZ + 2, NDF)
 
 
+
+def test_fit_rule_at_nz100():
+    """K1 at nz = 100 (svhn, celeba64): a multiple of 4, as the float4 reads
+    of z need; 88,128 bytes of shared memory a block; each block 50 of the
+    200 hidden columns, its slices at a row stride of 52 floats."""
+    assert k1.fits_smem(100, 200) and k1.smem_bytes(100, 200) == 88128
+    assert k1.slice_ld(50) == 52 and k1.column_ranges(200) == [(0, 50), (50, 100), (100, 150), (150, 200)]
+
 @pytest.mark.parametrize("ndf", [8, 16, 200, 512])
 def test_blocks_hold_every_hidden_column_once(ndf):
     """The cluster's blocks hold every hidden column exactly once, a split

@@ -116,6 +116,33 @@ def test_fit_rule():
     assert not k2.fits_smem(NZ, [DINS[0], DINS[1], 264, *DINS[3:]], wide)
 
 
+NZ100_DINS = [200, 128, 256, 256, 512, 512, 256]  # svhn, celeba64: nz = 100, 50 Fourier pairs
+NZ100_DOUTS = [128, 256, 256, 256, 256, 128, 100]
+
+
+def test_plan_at_nz100():
+    """nz = 100 (svhn, celeba64), the first width that is a multiple of 4
+    but not of 8 or 16: the denoiser's widths; a block's shared memory at
+    each row tile, pinned; the 100-wide last layer over blocks of 16
+    columns, the seventh holding 4 and the eighth none; the 200-wide first
+    input in four 64-row stages, whose last 8 rows chunk 0 sums alone; the
+    100-row gate and hyper stages, whose last 4 rows chunk 4 sums; and the
+    row tiles of the batches the presets launch."""
+    den = LatentDenoiser(100, nxemb=32, ntemb=16, nf=4, residual=True)
+    fourier, layers = k2.denoiser_layer_params(den)
+    assert fourier.shape == (100, 50)
+    assert [tuple(lt[0].shape) for lt in layers] == list(zip(NZ100_DINS, NZ100_DOUTS))
+    assert k2.fits_smem(100, NZ100_DINS, NZ100_DOUTS)
+    assert [k2.smem_bytes(100, NZ100_DINS, NZ100_DOUTS, r) for r in k2.TILE_ROWS] == [218336, 206848, 211744, 216640]
+    assert k2.col_tile(100) == 16 and k2.column_ranges(100)[5:] == [(80, 96), (96, 100), (100, 100)]
+    assert k2.chunk_rows(200)[0] == [(0, 8), (64, 72), (128, 136), (192, 200)]
+    assert all(len(chunk) == 3 for chunk in k2.chunk_rows(200)[1:])
+    assert k2.chunk_rows(100)[4] == [(32, 40), (96, 100)] and k2.chunk_rows(100)[5] == [(40, 48)]
+    assert k2.stages_per_step(NZ100_DINS, NZ100_DOUTS) == 56
+    tiles = {b: k2.row_tile(b, max_clusters=15) for b in (16, 64, 80, 128, 500)}
+    assert tiles == {16: 4, 64: 8, 80: 8, 128: 12, 500: 16}
+
+
 @pytest.mark.parametrize("b", [1, 16, 128, 500])
 def test_row_tile_fills_the_card_in_one_wave(b):
     """Row i of a launch goes to cluster i // rows, slot i % rows. The row

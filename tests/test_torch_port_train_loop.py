@@ -144,7 +144,7 @@ def test_unported_options_raise():
         train_gen_recon(cfg, images, iterations=1, device="cpu")
     anomaly = preset("mnist_anomaly")
     anomaly = dataclasses.replace(anomaly, train=dataclasses.replace(anomaly.train, data_placement="host"))
-    with pytest.raises(NotImplementedError, match="queue 1, item 4"):
+    with pytest.raises(NotImplementedError, match="queue 1, item 4b"):
         train_anomaly(anomaly, np.zeros((8, 28, 28, 1), np.float32), iterations=1, device="cpu")
 
 
