@@ -102,13 +102,25 @@ Phases, each of which raises on failure (the script then exits non-zero):
      the 64 test images); one iteration from the last checkpoint with
      remat_generator off and on, bit-identical in metrics and parameters,
      with the peak memory of each; one iteration profiled as in phase 7;
- 18. prints one JSON line {"kernels": [...]} with launches, errors and times
+ 18. unfused sweep (item 2a) on the full-width cifar10 Q: B=128, 6 noiseless
+     steps held to K2's fp64 plain version at sweep_check's limit; B=500,
+     100 steps on K2's own stream normals, moments held to K2's; a guided
+     sweep (cond_w 0.5) finite and apart from the unguided one; the route
+     rule; the 100-step unfused sweep's ms beside K2's at B=16, 128, 500;
+ 19. StyleGAN inversion (item 6) at full size (256x256, nz 7168, the 313M-
+     weight Q, random weights saved as .pth files, 16 seeded 1024x1024
+     PNGs): 2 training iterations at B=8 (every Q update changes Q), a Q
+     checkpoint, the eval CLI twice from it with identical output, K1 and
+     K2 launched 0 times and the unfused sweep once a batch; nan_rescue;
+     invert_batch's ms split by part, images/s, peak memory, the device's
+     idle share and top kernels, the FLOP count beside its fp32 bound;
+ 20. prints one JSON line {"kernels": [...]} with launches, errors and times
      of each kernel on each path (serve, train, eval, anomaly, anomaly_eval:
      the train CLI's AUPRC evals, anomaly_eval_cli: the eval CLI's two
      runs, toy, svhn: the train CLI run, svhn_eval: the eval CLI run,
      svhn_serve: the served checkpoint, celeba64: both train CLI runs,
      celebaHQ: the train CLI run);
- 19. prints {"ok": true, "device": {...}} as the last line.
+ 21. prints {"ok": true, "device": {...}} as the last line.
 """
 
 from __future__ import annotations
@@ -2118,6 +2130,348 @@ def celebahq_phase(cfg, counters):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+UNFUSED_BATCHES = (16, 128, 500)  # the serving, training and FID shapes
+
+
+def unfused_sweep_phase(models, cfg):
+    """Item 2a on the card, on the full-width cifar10 Q: the unfused sweep
+    (`ops/reverse_diffusion.py`, the torch loop over `denoise_from_tables`
+    that `sample_q` runs for a denoiser K2 does not take) at B=128, 6 steps,
+    noiseless, held to K2's fp64 plain version at `sweep_check`'s limit
+    (twice the fp32 plain version's distance, plus 2e-4); at B=500, 100
+    steps, fed K2's own stream normals, its per-dimension mean and std held
+    to K2's within 0.1 x K2's mean std; a guided sweep (cond_w 0.5, route
+    "guided") finite and apart from the unguided one on the same normals;
+    the route rule ("k2" for this Q, "tables" for the StyleGAN Q, "guided"
+    under guidance); then the median ms of the 100-step unfused sweep beside
+    K2's at B=16, 128 and 500 (stream mode, CUDA events). Returns the
+    times and errors."""
+    import torch
+
+    from damc_tpu_torch.models import DAMCAmortizer, sample_q, sweep_route
+    from damc_tpu_torch.ops.cuda.fused_qsweep import denoiser_layer_params, fused_reverse_sweep, reverse_sweep_plain
+    from damc_tpu_torch.ops.diffusion import step_coefficients, sweep_logsnr_grid
+    from damc_tpu_torch.ops.noise import counter_normal, stream_row_seeds
+    from damc_tpu_torch.ops.reverse_diffusion import reverse_diffusion_sample
+
+    dev, d, nz = torch.device("cuda"), cfg.diffusion, cfg.model.nz
+    q = models.amortizer
+    gen = torch.Generator(device="cpu").manual_seed(SEED + 90)
+    normal = lambda *shape: torch.randn(shape, generator=gen).to(dev)
+    fourier, layers = denoiser_layer_params(q.p)
+    out = {}
+
+    with torch.no_grad():
+        def tables(n, xemb):
+            grid, _ = sweep_logsnr_grid(n, d.logsnr_min, d.logsnr_max)
+            t = q.p.sample_tables(grid.to(dev), xemb)
+            return t["pre_x"], t["pre_t"], step_coefficients(n, d.logsnr_min, d.logsnr_max, d.var_type).to(dev)
+
+        def unfused(z, tabs, n, noise=None):
+            pre_x, pre_t, _ = tabs
+            return reverse_diffusion_sample(
+                lambda zz, logsnr, step: q.p.denoise_from_tables(zz, step, pre_x), z, n, d.logsnr_min,
+                d.logsnr_max, d.var_type, noise is not None, noise=noise, step_xs=pre_t)
+
+        def k2_normals(seed, b, n):
+            rows = stream_row_seeds(seed, b, dev)
+            return torch.stack([counter_normal(rows, k, nz) for k in range(n)])
+
+        # 1. B=128, 6 steps, noiseless, against the fp64 plain version.
+        b = 128
+        z, xemb = normal(b, nz), q.prior_embed(normal(b, nz))
+        tabs = tables(6, xemb)
+        got = unfused(z, tabs, 6)
+        args = (z, fourier, layers, tabs[0], tabs[1], tabs[2])
+        want = reverse_sweep_plain(*args, steps=6, with_noise=False, residual=d.residual)
+        dbl = lambda t: t.double()
+        args64 = (dbl(z), dbl(fourier), [tuple(map(dbl, lt)) for lt in layers], [dbl(t) for t in tabs[0]],
+                  [dbl(t) for t in tabs[1]], dbl(tabs[2]))
+        ref = reverse_sweep_plain(*args64, steps=6, with_noise=False, residual=d.residual)
+        err_u = float((got.double() - ref).abs().max())
+        err_p = float((want.double() - ref).abs().max())
+        print(f"[unfused] B={b} 6 steps noiseless: against fp64: unfused {err_u:.3e}, plain fp32 {err_p:.3e} "
+              f"(limit 2 x plain + 2e-4); unfused - plain fp32 {float((got - want).abs().max()):.3e}")
+        if not err_u <= 2 * err_p + 2e-4:
+            raise AssertionError("unfused sweep further from the fp64 plain version than fp32 allows")
+        out["fp64"] = {"b": b, "unfused_err": err_u, "plain_fp32_err": err_p}
+
+        # 2. B=500, 100 steps, on K2's own normals: moments.
+        b, n, seed = 500, d.n_interval, 0x5EED
+        z, xemb = normal(b, nz), q.prior_embed(normal(b, nz))
+        tabs = tables(n, xemb)
+        got = unfused(z, tabs, n, k2_normals(seed, b, n))
+        k2 = fused_reverse_sweep(z, fourier, layers, tabs[0], tabs[1], tabs[2], steps=n, residual=d.residual,
+                                 seed=seed)
+        if not bool(torch.isfinite(got).all()):
+            raise AssertionError("unfused sweep: non-finite output at 100 steps")
+        scale = float(k2.std(0).mean())
+        d_mean = float((got.mean(0) - k2.mean(0)).abs().max())
+        d_std = float((got.std(0) - k2.std(0)).abs().max())
+        print(f"[unfused] B={b} {n} steps on K2's normals: max |d mean|={d_mean:.3e}, max |d std|={d_std:.3e}, "
+              f"K2's mean std={scale:.3e} (limit 0.1 x mean std each)")
+        if d_mean > 0.1 * scale or d_std > 0.1 * scale:
+            raise AssertionError("unfused sweep: moments disagree with K2's")
+        out["moments"] = {"b": b, "d_mean": d_mean, "d_std": d_std, "mean_std": scale}
+
+        # 3. Guidance, through sample_q on images (route "guided").
+        b = 16
+        x = torch.from_numpy(train_images(b)).to(dev).float() / 255.0 * 2.0 - 1.0
+        z, noise, guide = normal(b, nz), normal(n, b, nz), normal(n, b, nz)
+        if sweep_route(q, 0.5, True) != "guided":
+            raise AssertionError("cond_w > 0 on a conditional draw must take the guided route")
+        guided = sample_q(q, x, z, 0, cond_w=0.5, noise=noise, guide_noise=guide)
+        xe = q.encode(x)
+        plain = reverse_diffusion_sample(lambda zz, logsnr: q.p(zz, logsnr, xe), z, n, d.logsnr_min,
+                                         d.logsnr_max, d.var_type, True, noise=noise)
+        apart = float((guided - plain).abs().max())
+        print(f"[unfused] guided B={b} cond_w=0.5: finite {bool(torch.isfinite(guided).all())}, max |guided - "
+              f"unguided| {apart:.3e} on the same normals")
+        if not bool(torch.isfinite(guided).all()) or apart <= 1e-3:
+            raise AssertionError("guided sweep: non-finite, or no different from the unguided one")
+
+    # 4. The route rule.
+    with torch.device("meta"):
+        sg = DAMCAmortizer(nz=7168, nxemb=7168, ntemb=128, dataset="stylegan")
+    routes = {"cifar10": sweep_route(q), "stylegan": sweep_route(sg), "cifar10_guided": sweep_route(q, 0.5, True)}
+    print(f"[unfused] routes {routes}")
+    if routes != {"cifar10": "k2", "stylegan": "tables", "cifar10_guided": "guided"}:
+        raise AssertionError(f"sweep_route: {routes}")
+
+    # 5. Times, 100 steps, stream mode.
+    times = {}
+    with torch.no_grad():
+        for b in UNFUSED_BATCHES:
+            z, xemb = normal(b, nz), q.prior_embed(normal(b, nz))
+            tabs = tables(n, xemb)
+            noise = k2_normals(seed, b, n)
+            u_ms = time_ms(lambda: unfused(z, tabs, n, noise), 5)
+            k_ms = time_ms(lambda: fused_reverse_sweep(z, fourier, layers, tabs[0], tabs[1], tabs[2], steps=n,
+                                                       residual=d.residual, seed=seed), 10)
+            times[b] = {"unfused_ms": u_ms, "k2_ms": k_ms}
+    print("[unfused] " + json.dumps({"steps": n, "median_ms": times}))
+    out["times"] = times
+    return out
+
+
+STYLEGAN_RES = 256
+STYLEGAN_IMAGES, STYLEGAN_SIZE = 16, (1024, 1024)  # seeded PNGs at FFHQ's published 1024x1024
+STYLEGAN_B, STYLEGAN_REFINE = 8, 100
+
+
+class _Spans:
+    """CUDA events around each call of wrapped functions, read after a sync."""
+
+    def __init__(self):
+        self.events = {}
+
+    def wrap(self, name, fn):
+        import torch
+
+        def call(*args, **kwargs):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*args, **kwargs)
+            end.record()
+            self.events.setdefault(name, []).append((start, end))
+            return out
+
+        return call
+
+    def ms(self, name):
+        return [s.elapsed_time(e) for s, e in self.events.get(name, [])]
+
+
+def stylegan_phase(counters):
+    """Item 6 at full size: resolution 256, nz = nxemb = 7168, the 1024-wide
+    Q (313M weights), random StyleGAN weights from the seed in the reference
+    layout, saved as .pth files; 16 seeded PNGs at 1024x1024, which the
+    reader resizes to 256. With every launch count at 0: two iterations of
+    `make_inversion_train_step` at B=8 (100 refine steps, 6 Q updates, each
+    of which must change Q), Q saved in the port's checkpoint format, and
+    the eval CLI twice from it over the 16 images at --batch_size 8, which
+    must print the same numbers; then K1 and K2 must not have launched and
+    the unfused sweep must have run once a batch (route "tables"). Then
+    `nan_rescue` on a z0 with one NaN row, the ms of `invert_batch` split
+    into encoder, Q sweep, rescue, Adam refine and decode (CUDA events,
+    the median of 2 batches), images/s, peak memory, one batch under the
+    profiler (idle share, top kernels) and the FLOP count beside its fp32
+    bound. Returns the numbers."""
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from damc_tpu_torch.cli import eval_stylegan_inv
+    from damc_tpu_torch.cli.common import to_pm1
+    from damc_tpu_torch.config import preset
+    from damc_tpu_torch.data.datasets import load_image_folder
+    from damc_tpu_torch.models import amortizer as amortizer_module
+    from damc_tpu_torch.models import sweep_route
+    from damc_tpu_torch.models.stylegan import W_DIM, build_stylegan, sample_w_codes
+    from damc_tpu_torch.train import stylegan_inv as inv
+    from damc_tpu_torch.utils.checkpoint import save_checkpoint
+    from damc_tpu_torch.utils.flops import inversion_phase_flops
+
+    cfg = preset("celebaHQ")  # the eval CLI's diffusion settings
+    tmp = tempfile.mkdtemp(prefix="damc_stylegan_smoke_")
+    sweeps = []
+    original_sweep = amortizer_module.reverse_diffusion_sample
+
+    def counted_sweep(*args, **kwargs):
+        sweeps.append(args[1].shape[0])
+        return original_sweep(*args, **kwargs)
+
+    amortizer_module.reverse_diffusion_sample = counted_sweep
+    try:
+        t0 = time.perf_counter()
+        nets = build_stylegan(STYLEGAN_RES, SEED, "cuda")
+        paths = {}
+        for name, flag in (("generator", "G"), ("encoder", "E"), ("vgg", "F")):
+            paths[flag] = os.path.join(tmp, f"{name}.pth")
+            torch.save(getattr(nets, name).state_dict(), paths[flag])
+        sizes = {f: os.path.getsize(p) for f, p in paths.items()}
+        weights_s = time.perf_counter() - t0
+        tree = os.path.join(tmp, "ffhq")
+        tree_s = write_png_tree(tree, STYLEGAN_IMAGES, STYLEGAN_SIZE, SEED + 100)
+        t0 = time.perf_counter()
+        images = to_pm1(load_image_folder(tree, STYLEGAN_RES))
+        decode_s = time.perf_counter() - t0
+        print(f"[stylegan] random weights in the reference layout saved in {weights_s:.2f} s ({sizes} bytes); "
+              f"{STYLEGAN_IMAGES} PNGs at {STYLEGAN_SIZE} written in {tree_s:.2f} s, decoded and resized to "
+              f"{STYLEGAN_RES} in {decode_s:.2f} s")
+        x = torch.from_numpy(images[:STYLEGAN_B]).cuda()
+
+        # The main path, with every launch count at 0.
+        for k in counters.values():
+            k.launches = 0
+        state = inv.create_inversion_state(cfg, STYLEGAN_RES, SEED, "cuda")
+        q = state.models.amortizer
+        n_q = sum(p.numel() for p in q.parameters())
+        if sweep_route(q) != "tables":
+            raise AssertionError(f"the StyleGAN Q must take the tables route, not {sweep_route(q)!r}")
+        opt = state.opts.q
+        changed, original_step = [], opt.step
+
+        def checked_step(grads):
+            before = torch.cat([p.detach().reshape(-1) for p in q.parameters()])
+            original_step(grads)
+            changed.append(not torch.equal(before, torch.cat([p.detach().reshape(-1) for p in q.parameters()])))
+
+        opt.step = checked_step
+        step = inv.make_inversion_train_step(q, nets, opt, refine_steps=STYLEGAN_REFINE, refine_lr=0.01,
+                                             q_updates=cfg.train.q_updates, p_mask=cfg.diffusion.p_mask)
+        train = []
+        for it in range(2):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t1 = time.perf_counter()
+            metrics = step(x, gen=state.rng)
+            torch.cuda.synchronize()
+            state.step += 1
+            train.append({"wall_ms": (time.perf_counter() - t1) * 1e3,
+                          "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+                          **{k: float(v) for k, v in metrics.items()}})
+        del opt.step
+        print("[stylegan] train " + json.dumps({"q_weights": n_q, "iterations": train, "q_updates_changed_q": changed}))
+        if not all(np.isfinite(v) for it in train for v in it.values()):
+            raise AssertionError("non-finite inversion training metrics")
+        if changed != [True] * (2 * cfg.train.q_updates):
+            raise AssertionError(f"every Q update must change Q: {changed}")
+        ckpt = os.path.join(tmp, "ckpt")
+        save_checkpoint(ckpt, "best", state)
+        argv = ["--dataset", "ffhq", "--data_path", tree, "--resolution", str(STYLEGAN_RES),
+                "--batch_size", str(STYLEGAN_B), "--n_fid_samples", str(STYLEGAN_IMAGES), "--seed", str(SEED),
+                "--q_ckpt_dir", ckpt, "--q_ckpt_name", "best"] + [
+                    a for f, p in paths.items() for a in (f"--pretrained_{f}_path", p)]
+        cli = []
+        for _ in range(2):
+            t1 = time.perf_counter()
+            out = eval_stylegan_inv.main(argv)
+            cli.append({"wall_s": time.perf_counter() - t1, **out})
+        launches = {k: c.launches for k, c in counters.items()}
+        print("[stylegan] eval CLI " + json.dumps({"runs": cli, "launches": launches, "unfused_sweeps": sweeps}))
+        if {k: v for k, v in cli[0].items() if k != "wall_s"} != {k: v for k, v in cli[1].items() if k != "wall_s"}:
+            raise AssertionError("two eval CLI runs from one checkpoint printed different numbers")
+        if not all(np.isfinite(v) for k, v in cli[0].items()):
+            raise AssertionError("non-finite eval CLI metrics")
+        if launches != {"K1": 0, "K2": 0}:
+            raise AssertionError(f"the StyleGAN path launched a kernel: {launches}")
+        n_batches = -(-STYLEGAN_IMAGES // STYLEGAN_B)
+        if sweeps != [STYLEGAN_B] * (2 + 2 * n_batches):
+            raise AssertionError(f"the unfused sweep must run once a batch: {sweeps}")
+
+        # nan_rescue: one NaN row is replaced, the others are not touched.
+        q.eval().requires_grad_(False)
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 101)
+        bad = STYLEGAN_B // 2
+        with torch.no_grad():
+            z0 = sample_w_codes(nets.generator, torch.randn(STYLEGAN_B, W_DIM, generator=gen, device="cuda"))
+            z0[bad, 17] = float("nan")
+            normals = torch.randn(STYLEGAN_B, W_DIM, generator=gen, device="cuda")
+            rescued = inv.nan_rescue(nets, z0, x, normals)
+            fresh = sample_w_codes(nets.generator, normals)
+        others = [i for i in range(STYLEGAN_B) if i != bad]
+        ok = bool(torch.isfinite(rescued).all()) and torch.equal(rescued[bad], fresh[bad]) \
+            and torch.equal(rescued[others], z0[others])
+        print(f"[stylegan] nan_rescue: row {bad} replaced by a fresh W code, the other rows unchanged: {ok}")
+        if not ok:
+            raise AssertionError("nan_rescue replaced the wrong rows")
+
+        # invert_batch split by CUDA events, then one batch under the profiler.
+        spans = _Spans()
+        patched = {name: getattr(inv, name) for name in ("sample_q", "nan_rescue", "adam_latent_descent")}
+        timed = dataclasses.replace(nets, encoder=spans.wrap("encoder", nets.encoder))
+        # The training iterations ran invert_batch already: no warm-up here.
+        draws = [inv.inversion_draws(inv.batch_generator(SEED, i, "cuda"), STYLEGAN_B, q.nz, q.n_interval)
+                 for i in range(2)]
+        try:
+            for name, fn in patched.items():
+                setattr(inv, name, spans.wrap(name, fn))
+            run = spans.wrap("total", lambda d: inv.invert_batch(q, timed, x, d, STYLEGAN_REFINE, 0.01))
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            for d in draws:
+                run(d)
+            torch.cuda.synchronize()
+        finally:
+            for name, fn in patched.items():
+                setattr(inv, name, fn)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        parts = {"encoder": "encoder", "q_sweep": "sample_q", "rescue": "nan_rescue", "refine": "adam_latent_descent"}
+        split = {k: statistics.median(spans.ms(v)) for k, v in parts.items()}
+        total = statistics.median(spans.ms("total"))
+        split["decode_and_rest"] = total - sum(split.values())
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t1 = time.perf_counter()
+            inv.invert_batch(q, nets, x, draws[0], STYLEGAN_REFINE, 0.01)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t1) * 1e3
+        # Device rows of kernels only: the `inversion/*` labels have device rows too.
+        kernels = [e for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA and "/" not in e.key]
+        dev_ms = lambda e: e.self_device_time_total / 1e3
+        kernels.sort(key=dev_ms, reverse=True)
+        busy_ms = sum(dev_ms(e) for e in kernels)
+        flops = inversion_phase_flops(STYLEGAN_B, STYLEGAN_RES, q.n_interval, STYLEGAN_REFINE, cfg.model.ntemb)
+        bound_ms, _ = bound(flops["total"], 0.0)
+        res = {
+            "b": STYLEGAN_B, "ms_per_invert_batch": total, "split_ms": split,
+            "images_per_s": STYLEGAN_B / total * 1e3, "peak_gib_invert_batch": peak,
+            "profile": {"wall_ms": wall_ms, "device_busy_ms": busy_ms, "device_idle_share": 1.0 - busy_ms / wall_ms,
+                        "top": [{"name": e.key[:60], "ms": dev_ms(e), "calls": e.count} for e in kernels[:8]]},
+            "flops": flops, "fp32_bound_ms": bound_ms, "bound_share": bound_ms / total,
+            "train": train, "eval_cli": cli, "tree_s": tree_s, "decode_s": decode_s,
+        }
+        print("[stylegan] " + json.dumps(res))
+        return res
+    finally:
+        amortizer_module.reverse_diffusion_sample = original_sweep
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main() -> int:
     import torch
 
@@ -2187,6 +2541,14 @@ def main() -> int:
     res_hq = preset_kernel_phase(cfg_hq, "celebaHQ", 70)
     hq_info = celebahq_phase(cfg_hq, counters)
     walls["celebaHQ"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    models = build_models(cfg, seed=SEED, device="cuda")
+    unfused_sweep_phase(models, cfg)
+    del models
+    walls["unfused_sweep"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    stylegan_phase(counters)
+    walls["stylegan"] = time.perf_counter() - t0
     print("[walls] " + json.dumps({f"{k}_phase_s": v for k, v in walls.items()}))
 
     meta = {

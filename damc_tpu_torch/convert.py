@@ -11,7 +11,12 @@ The port's modules keep the reference torch key layout, so
     `damc_tpu.cli.export_checkpoint` writes;
   * `train_state_from_jax(state, cfg)`: a whole JAX training state (weights,
     Q_ema, step and the optax Adam moments) as a port `TrainState`, so a
-    port step can continue a JAX run.
+    port step can continue a JAX run;
+  * `stylegan_state_dicts_from_jax(params, resolution)`: the StyleGAN
+    param trees that `damc_tpu/models/stylegan.py`'s converters make from
+    the published `.pth` files, back into those files' state dicts (the
+    keys of `models/stylegan.py`). The StyleGAN inversion Q's tree has no
+    encoder; `amortizer_state` takes it too.
 
 Maps: Dense kernel (in, out) -> Linear weight (out, in) (the toy's MLPs
 too); Conv HWIO -> OIHW;
@@ -99,13 +104,101 @@ def amortizer_state(params, nxemb: int) -> StateDict:
     _denoiser_state(p["p"], sd, "p")
     _dense(p["prior_emb"]["Dense_0"], sd, "prior_emb.0")
     _dense(p["prior_emb"]["Dense_1"], sd, "prior_emb.2")
-    enc = p["encoder"]
+    enc = p.get("encoder")
+    if enc is None:  # the StyleGAN Q: conditioned on the frozen inversion encoder
+        return sd
     if "Dense_0" in enc:  # the toy's MLPEncoder, Linears at encoder.{2i}
         for i in range(len(enc)):
             _dense(enc[f"Dense_{i}"], sd, f"encoder.{2 * i}")
     else:
         _encoder_state(enc, sd, "encoder.net")
     return sd
+
+
+def _oihw(hwio) -> np.ndarray:
+    return _a(hwio).transpose(3, 2, 0, 1)
+
+
+def _sg_epilogue(p, sd: StateDict, prefix: str) -> None:
+    sd[f"{prefix}.apply_noise.noise"] = _a(p["noise"])[None, None]
+    sd[f"{prefix}.apply_noise.weight"] = _a(p["noise_weight"])
+    sd[f"{prefix}.bias"] = _a(p["bias"])
+    sd[f"{prefix}.style_mod.dense.fc.weight"] = _a(p["style_mod"]["dense"]["weight"])
+    sd[f"{prefix}.style_mod.dense.wscale.bias"] = _a(p["style_mod"]["dense"]["bias"])
+
+
+def stylegan_generator_state(params, resolution: int) -> StateDict:
+    """The inverse of `damc_tpu.models.stylegan.convert_generator_state_dict`."""
+    sd: StateDict = {}
+    for name, q in params["mapping"].items():
+        sd[f"mapping.{name}.fc.weight"] = _a(q["weight"])
+        sd[f"mapping.{name}.wscale.bias"] = _a(q["bias"])
+    sd["truncation.w_avg"] = _a(params["truncation"]["w_avg"])
+    syn = params["synthesis"]
+    sd["synthesis.layer0.const"] = _a(syn["const"]).transpose(2, 0, 1)[None]
+    for b in range(int(np.log2(resolution)) - 1):
+        for name in (f"layer{2 * b}", f"layer{2 * b + 1}"):
+            q, pre = syn[name], f"synthesis.{name}"
+            if "weight" in q:  # the fused up-convolution keeps (3, 3, in, out)
+                sd[f"{pre}.weight"] = _a(q["weight"])
+            elif "kernel" in q:
+                sd[f"{pre}.conv.weight"] = _oihw(q["kernel"])
+            _sg_epilogue(q["epilogue"], sd, f"{pre}.epilogue")
+        sd[f"synthesis.output{b}.conv.weight"] = _oihw(syn[f"output{b}"]["kernel"])
+        sd[f"synthesis.output{b}.bias"] = _a(syn[f"output{b}"]["bias"])
+    return sd
+
+
+def stylegan_encoder_state(params) -> StateDict:
+    """The inverse of `damc_tpu.models.stylegan.convert_encoder_state_dict`."""
+    sd: StateDict = {}
+
+    def bn(q, prefix):
+        for k in ("weight", "bias", "running_mean", "running_var"):
+            sd[f"{prefix}.bn.{k}"] = _a(q[k])
+
+    last = len(params) - 1
+    for i in range(last + 1):
+        q, pre = params[f"block{i}"], f"block{i}"
+        if i == 0:
+            sd[f"{pre}.conv.weight"] = _oihw(q["kernel"])
+            bn(q["bn"], f"{pre}.bn")
+        elif i == last:
+            sd[f"{pre}.fc.weight"] = _a(q["weight"])
+            bn(q["bn"], f"{pre}.bn")
+        else:
+            if "shortcut_kernel" in q:
+                sd[f"{pre}.conv.weight"] = _oihw(q["shortcut_kernel"])
+                bn(q["shortcut_bn"], f"{pre}.bn")
+            for j in (1, 2):
+                sd[f"{pre}.conv{j}.weight"] = _oihw(q[f"conv{j}_kernel"])
+                sd[f"{pre}.wscale{j}.bias"] = _a(q[f"conv{j}_bias"])
+                bn(q[f"bn{j}"], f"{pre}.bn{j}")
+    return sd
+
+
+def stylegan_vgg_state(params) -> StateDict:
+    """The inverse of `damc_tpu.models.stylegan.convert_vgg16_state_dict`:
+    conv i sits at the i-th conv index of the reference's layer list."""
+    from .models.stylegan import VGG_CONVS
+
+    sd: StateDict = {}
+    for i, idx in enumerate(sorted(VGG_CONVS)):
+        sd[f"layer{idx}.weight"] = _oihw(params[f"conv{i}"]["kernel"])
+        sd[f"layer{idx}.bias"] = _a(params[f"conv{i}"]["bias"])
+    return sd
+
+
+def stylegan_state_dicts_from_jax(params: Mapping, resolution: int) -> Dict[str, Dict[str, torch.Tensor]]:
+    """{'generator', 'encoder', 'vgg'} JAX StyleGAN trees (numpy leaves;
+    any of them may be absent) -> torch state dicts of the port's
+    `StyleGANGenerator`, `StyleGANEncoder` and `VGG16Features`."""
+    maps = {
+        "generator": lambda p: stylegan_generator_state(p, resolution),
+        "encoder": stylegan_encoder_state,
+        "vgg": stylegan_vgg_state,
+    }
+    return {k: _torch(f(params[k])) for k, f in maps.items() if params.get(k) is not None}
 
 
 def _torch(sd: StateDict) -> Dict[str, torch.Tensor]:

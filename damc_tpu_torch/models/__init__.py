@@ -1,4 +1,5 @@
-"""PyTorch model zoo of the port: generator, EBM, encoder, denoiser, amortizer."""
+"""PyTorch model zoo of the port: generator, EBM, encoder, denoiser, amortizer,
+and the StyleGAN inversion stack (`models/stylegan.py`)."""
 
 from __future__ import annotations
 
@@ -9,12 +10,16 @@ import torch
 
 from ..config import Config
 from ..device import resolve_device
-from .amortizer import DAMCAmortizer, PriorEmbedder, sample_q, sample_q_per_item
+from .amortizer import DAMCAmortizer, PriorEmbedder, sample_q, sample_q_per_item, sweep_route
 from .common import torch_default_init_
 from .denoiser import ConcatSquashLinear, LatentDenoiser, SinusoidalTimeEmbedding
 from .ebm import LatentEBM
 from .encoders import ConvEncoder, MLPEncoder, encoder_spec, make_encoder
 from .generators import DeconvGenerator, ToyGenerator, generator_spec, make_generator
+from .stylegan import (
+    StyleGANEncoder, StyleGANGenerator, StyleGANNets, VGG16Features, build_stylegan, generator_apply,
+    load_stylegan, sample_w_codes,
+)
 
 
 @dataclass
@@ -49,7 +54,7 @@ def build_models(
     toy = m.dataset == "toy"
     if m.compute_dtype != "float32":
         raise NotImplementedError(
-            f"compute_dtype={m.compute_dtype!r} is not ported (ROADMAP.md, queue 1, item 2): "
+            f"compute_dtype={m.compute_dtype!r} is not ported (ROADMAP.md, queue 1, item 2b): "
             "the port's networks compute in float32"
         )
     with torch.device("meta"):
@@ -84,6 +89,7 @@ __all__ = [
     "PriorEmbedder",
     "sample_q",
     "sample_q_per_item",
+    "sweep_route",
     "ConcatSquashLinear",
     "LatentDenoiser",
     "SinusoidalTimeEmbedding",
@@ -96,4 +102,12 @@ __all__ = [
     "ToyGenerator",
     "generator_spec",
     "make_generator",
+    "StyleGANEncoder",
+    "StyleGANGenerator",
+    "StyleGANNets",
+    "VGG16Features",
+    "build_stylegan",
+    "generator_apply",
+    "load_stylegan",
+    "sample_w_codes",
 ]

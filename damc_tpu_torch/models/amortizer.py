@@ -1,13 +1,27 @@
 """DAMC amortizer Q (counterpart of `damc_tpu/models/amortizer.py`).
 
-Bundles the encoder (conv, or the toy's MLP), the prior embedder and the latent denoiser, holds
-the denoising score-matching loss that trains Q (`DAMCAmortizer.loss`), and
-draws Q samples through the reverse-sweep kernel: `sample_q_per_item` with
-per-row counter noise (serving), `sample_q` with stream noise (training).
-Random draws come in as tensors, so a caller can feed the JAX package's.
-Keys keep the reference `_netQ_U` layout: `encoder.net.*`, `prior_emb.0`,
-`prior_emb.2`, `p.*`, and the reference's unused `xemb` (1, nxemb), held
-here as a buffer so a reference-format state dict loads strictly.
+Bundles the encoder (conv, or the toy's MLP; none for the StyleGAN
+inversion Q, whose conditioning is the frozen inversion encoder's W+ code),
+the prior embedder and the latent denoiser, holds the denoising
+score-matching loss that trains Q (`DAMCAmortizer.loss`), and draws Q
+samples. `sample_q` takes one of three routes, fixed by `sweep_route`
+before anything is launched, as JAX's `sample_q` chooses (:226-347):
+
+  * "k2"      the hoisted sweep in the fused kernel K2 (stream noise from
+              an int32 seed), when no guidance is active and K2's fit rule
+              `fits_smem` takes the denoiser;
+  * "tables"  the same hoisted sweep as a torch loop over
+              `denoise_from_tables` (`ops/reverse_diffusion.py`), for a
+              denoiser K2 cannot take (the StyleGAN Q);
+  * "guided"  the unhoisted loop with classifier-free guidance
+              (`cond_w` > 0 on a conditional draw).
+
+`sample_q_per_item` (serving: per-row counter noise) runs K2 only and
+raises for a denoiser K2 cannot take. Random draws come in as tensors, so
+a caller can feed the JAX package's. Keys keep the reference `_netQ_U`
+layout: `encoder.net.*`, `prior_emb.0`, `prior_emb.2`, `p.*`, and the
+reference's unused `xemb` (1, nxemb), held here as a buffer so a
+reference-format state dict loads strictly.
 """
 
 from __future__ import annotations
@@ -17,8 +31,9 @@ from typing import Optional, Sequence, Tuple
 import torch
 from torch import nn
 
-from ..ops.cuda.fused_qsweep import denoiser_layer_params, fused_reverse_sweep
+from ..ops.cuda.fused_qsweep import denoiser_layer_params, fits_smem, fused_reverse_sweep
 from ..ops.diffusion import diffusion_forward, logsnr_schedule, step_coefficients, sweep_logsnr_grid
+from ..ops.reverse_diffusion import reverse_diffusion_sample
 from .denoiser import LatentDenoiser
 from .encoders import MLPEncoder, make_encoder
 
@@ -30,9 +45,14 @@ class PriorEmbedder(nn.Sequential):
         super().__init__(nn.Linear(nz, width), nn.LeakyReLU(0.01), nn.Linear(width, nxemb))
 
 
+STYLEGAN_WIDTHS = (1024, 1024)  # the inversion Q's hidden widths (`damc_tpu/models/amortizer.py:80-87`)
+
+
 class DAMCAmortizer(nn.Module):
     """Q: amortized sampler of p(z | x), and of p(z) when unconditioned.
-    dataset='toy' selects the MLP encoder, the others the conv encoders."""
+    dataset='toy' selects the MLP encoder, 'stylegan' none (the caller
+    passes the embedding as `xemb`) and 1024-wide hidden layers, the others
+    the conv encoders."""
 
     def __init__(
         self,
@@ -51,22 +71,26 @@ class DAMCAmortizer(nn.Module):
         residual: bool = True,
     ):
         super().__init__()
-        if dataset == "stylegan":
-            raise ValueError("the StyleGAN amortizer is not ported yet (ROADMAP.md, queue 1, item 6)")
         self.nz, self.nxemb = nz, nxemb
         self.n_interval = n_interval
         self.logsnr_min, self.logsnr_max = logsnr_min, logsnr_max
         self.var_type = var_type
         self.with_noise = with_noise
+        widths = None
         if dataset == "toy":  # x is a 2-D observation: nc is its width
             self.encoder = MLPEncoder(nemb=nxemb, in_dim=nc)
+        elif dataset == "stylegan":
+            self.encoder = None
+            widths = STYLEGAN_WIDTHS
         else:
             self.encoder = make_encoder(dataset, nemb=nxemb, nif=nif, nc=nc)
         self.prior_emb = PriorEmbedder(nz, nxemb)
-        self.p = LatentDenoiser(nz, nxemb, ntemb, nf=nf, residual=residual)
+        self.p = LatentDenoiser(nz, nxemb, ntemb, nf=nf, residual=residual, widths=widths)
         self.register_buffer("xemb", torch.zeros(1, nxemb))
 
     def encode(self, x: torch.Tensor) -> torch.Tensor:
+        if self.encoder is None:
+            raise ValueError("the StyleGAN Q has no encoder: pass the inversion encoder's code as xemb")
         return self.encoder(x)
 
     def prior_embed(self, noise: torch.Tensor) -> torch.Tensor:
@@ -127,6 +151,18 @@ class DAMCAmortizer(nn.Module):
         return grid.to(device), coeffs.to(device)
 
 
+def sweep_route(amortizer: DAMCAmortizer, cond_w: float = 0.0, conditional: bool = True) -> str:
+    """The path `sample_q` takes, from static facts alone (JAX's rule,
+    `damc_tpu/models/amortizer.py:236-326`): "guided" when guidance is on
+    (a conditional draw with cond_w > 0), else "k2" when K2's fit rule
+    takes the denoiser, else "tables"."""
+    if conditional and cond_w > 0:
+        return "guided"
+    layers = amortizer.p.all_layers
+    dins, douts = [l.dim_in for l in layers], [l.dim_out for l in layers]
+    return "k2" if fits_smem(amortizer.nz, dins, douts) else "tables"
+
+
 @torch.no_grad()
 def sample_q_per_item(
     amortizer: DAMCAmortizer,
@@ -140,8 +176,15 @@ def sample_q_per_item(
     and x[i] (posterior) or emb_noise[i] (prior).
 
     The n-step reverse sweep runs in the fused kernel with per-row counter
-    noise. `layers` is `denoiser_layer_params(amortizer.p)`, which a caller
-    that samples often computes once."""
+    noise; a denoiser the kernel cannot take raises, as JAX refuses
+    row_seeds off the fused path (:328-334). `layers` is
+    `denoiser_layer_params(amortizer.p)`, which a caller that samples often
+    computes once."""
+    if sweep_route(amortizer) != "k2":
+        raise ValueError(
+            "sample_q_per_item: per-row counter noise needs the fused sweep K2, which does not "
+            "take this denoiser (fits_smem)"
+        )
     if x is not None:
         xemb = amortizer.encode(x)
     elif emb_noise is not None:
@@ -159,20 +202,52 @@ def sample_q(
     seed: int,
     layers: Optional[Tuple[torch.Tensor, Sequence[Tuple[torch.Tensor, ...]]]] = None,
     emb_noise: Optional[torch.Tensor] = None,
+    *,
+    xemb: Optional[torch.Tensor] = None,
+    cond_w: float = 0.0,
+    noise: Optional[torch.Tensor] = None,
+    guide_noise: Optional[torch.Tensor] = None,
+    generator: Optional[torch.Generator] = None,
 ) -> torch.Tensor:
-    """z ~ Q(. | x), or z ~ Q(.) when x is None, detached: the hoisted
-    sweep of `damc_tpu/models/amortizer.py:226-305` through the fused
-    kernel in stream mode (the int32 `seed` for the whole batch), from the
-    normals `z_init` (B, nz). The prior sweep runs under the prior
-    embedding of the normals `emb_noise` (B, nz). The training step draws
-    its chain inits with it, the evals their samples and reconstructions."""
-    if x is not None:
-        xemb = amortizer.encode(x)
-    elif emb_noise is not None:
-        xemb = amortizer.prior_embed(emb_noise)
+    """z ~ Q(. | x), or z ~ Q(.) when x is None, detached, from the normals
+    `z_init` (B, nz) (`damc_tpu/models/amortizer.py:181-347`).
+
+    The conditioning is `xemb` (B, nxemb) when given (the StyleGAN Q's
+    inversion-encoder code; guidance applies to it as to x), else the
+    encoding of x, else the prior embedding of the normals `emb_noise`
+    (B, nz). `sweep_route` picks the path: K2 in stream mode from the int32
+    `seed`, or the torch loop of `ops/reverse_diffusion.py`, hoisted
+    ("tables") or guided with weight `cond_w`. The loop's ancestral normals
+    are `noise` (n, B, nz) and the guided branch's `guide_noise` (n, B, nz);
+    what is not given is drawn from `generator`, a generator on z_init's
+    device. The training step draws its chain inits with it, the evals
+    their samples and reconstructions, the inversion its Q codes."""
+    conditional = xemb is not None or x is not None
+    if xemb is None:
+        if x is not None:
+            xemb = amortizer.encode(x)
+        elif emb_noise is not None:
+            xemb = amortizer.prior_embed(emb_noise)
+        else:
+            raise ValueError("sample_q needs xemb or x (posterior) or emb_noise (prior)")
+    route = sweep_route(amortizer, cond_w, conditional)
+    if route == "k2":
+        return _sweep(amortizer, xemb, z_init, layers, seed=seed)
+    p = amortizer.p
+    guided, step_xs = None, None
+    if route == "tables":
+        grid, _ = sweep_logsnr_grid(amortizer.n_interval, amortizer.logsnr_min, amortizer.logsnr_max)
+        tables = p.sample_tables(grid.to(z_init.device), xemb)
+        step_xs, pre_x = tables["pre_t"], tables["pre_x"]
+        denoise_fn = lambda z, logsnr, pre_t_step: p.denoise_from_tables(z, pre_t_step, pre_x)
     else:
-        raise ValueError("sample_q needs x (posterior) or emb_noise (prior)")
-    return _sweep(amortizer, xemb, z_init, layers, seed=seed)
+        denoise_fn = lambda z, logsnr: p(z, logsnr, xemb)
+        guided = lambda normals, z, logsnr: p(z, logsnr, amortizer.prior_embed(normals))
+    return reverse_diffusion_sample(
+        denoise_fn, z_init, amortizer.n_interval, amortizer.logsnr_min, amortizer.logsnr_max,
+        amortizer.var_type, amortizer.with_noise, noise=noise, guided_denoise_fn=guided,
+        cond_w=cond_w, guide_noise=guide_noise, step_xs=step_xs, generator=generator,
+    )
 
 
 def _sweep(amortizer: DAMCAmortizer, xemb, z_init, layers, **noise) -> torch.Tensor:

@@ -5,7 +5,9 @@ autograd: the posterior refinement of the `recon` serving path and of the
 training step goes through it (through G and E, on cuDNN), as the JAX
 package runs it through XLA. `prior_langevin_auto` sends the EBM prior chain
 to the fused kernel K1 (`ops/cuda/fused_langevin.py`) when the EBM is the
-standard 2-hidden MLP.
+standard 2-hidden MLP and `use_pallas` is on (JAX's switch name), else to
+`langevin_sample`. `adam_latent_descent` is the StyleGAN inversion's Adam
+refinement of latents.
 """
 
 from __future__ import annotations
@@ -133,15 +135,19 @@ def prior_langevin_auto(
     row_seeds: Optional[torch.Tensor] = None,
     generator: Optional[torch.Generator] = None,
     seed: Optional[int] = None,
+    use_pallas: bool = True,
+    noise: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Prior-Langevin chain; returns (z_final, final energy per chain).
 
-    The standard 2-hidden `LatentEBM` runs in the fused chain kernel: with
-    per-row counter noise when `row_seeds` is given (serving), else with
-    stream noise from the int32 `seed` (training). Another EBM (the
-    3-hidden StyleGAN head) runs `langevin_sample` by autograd, with noise
-    from `generator`, and honours neither."""
-    if ebm.n_hidden == 2 and ebm.nez == 1:
+    With `use_pallas` the standard 2-hidden `LatentEBM` runs in the fused
+    chain kernel: with per-row counter noise when `row_seeds` is given
+    (serving), else with stream noise from the int32 `seed` (training).
+    Without it, or for another EBM (the 3-hidden StyleGAN head), the chain
+    runs `langevin_sample` by autograd with the EBM frozen, its per-step
+    normals `noise` (steps, B, nz) or drawn from `generator`, and honours
+    neither seed (`damc_tpu/ops/langevin.py:200-253`)."""
+    if use_pallas and ebm.n_hidden == 2 and ebm.nez == 1:
         with torch.no_grad():
             z = fused_prior_langevin(
                 z_init, *ebm_params_to_dense_weights(ebm), seed=seed, row_seeds=row_seeds,
@@ -150,9 +156,39 @@ def prior_langevin_auto(
     else:
         if row_seeds is not None or seed is not None:
             raise ValueError(
-                "row_seeds and seed (kernel noise) need the fused 2-hidden EBM chain"
+                "row_seeds and seed (kernel noise) need the fused 2-hidden EBM chain (use_pallas)"
             )
-        z, _ = langevin_sample(z_init, prior_energy(ebm), steps, step_size, with_noise, generator)
+        with frozen(ebm):
+            z, _ = langevin_sample(
+                z_init, prior_energy(ebm), steps, step_size, with_noise, generator, noise
+            )
     with torch.no_grad():
         final_energy = prior_energy(ebm)(z)
     return z, final_energy
+
+
+def adam_latent_descent(
+    z_init: torch.Tensor,
+    loss_fn: Callable[[torch.Tensor], torch.Tensor],
+    steps: int,
+    lr: float,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Adam on the latents z for `steps` steps under the gradient of the
+    SUM of the per-item losses `loss_fn(z)` (B,) (`damc_tpu/ops/langevin.py:
+    258-287`, optax.adam(lr): b1 0.9, b2 0.999, eps 1e-8, m_hat /
+    (sqrt(v_hat) + eps)). Only z takes a gradient: the caller freezes the
+    networks in loss_fn. Returns (z_final detached, the per-step loss sums
+    (steps,), left on the device); loss k is taken before update k."""
+    z = z_init.detach().clone().requires_grad_(True)
+    opt = torch.optim.Adam([z], lr=lr, betas=(0.9, 0.999), eps=1e-8)
+    losses = []
+    for _ in range(steps):
+        with torch.enable_grad():
+            loss = torch.sum(loss_fn(z))
+            (grad,) = torch.autograd.grad(loss, z)
+        losses.append(loss.detach())
+        z.grad = grad
+        opt.step()
+    z.grad = None
+    out = torch.stack(losses) if losses else z.new_zeros((0,))
+    return z.detach(), out

@@ -104,10 +104,16 @@ def eval_draws(
 @torch.no_grad()
 def gen_samples_ebm_prior(models: ModelBundle, cfg: Config, d: Draws) -> torch.Tensor:
     """x = G(z), z after e_l_steps of prior Langevin on the EBM from d.z0
-    (kernel K1, stream seed d.chain_seed). Images in [-1, 1]."""
+    (kernel K1, stream seed d.chain_seed; with `use_pallas` off the
+    autograd chain, its normals from a device generator seeded with
+    d.chain_seed). Images in [-1, 1]."""
     mc = cfg.mcmc
+    chain = dict(seed=d.chain_seed)
+    if not cfg.train.use_pallas:
+        gen = torch.Generator(device=d.z0.device).manual_seed(d.chain_seed & 0xFFFFFFFF)
+        chain = dict(use_pallas=False, generator=gen)
     z, _ = prior_langevin_auto(
-        d.z0, models.ebm, mc.e_l_steps, mc.e_l_step_size, mc.e_l_with_noise, seed=d.chain_seed
+        d.z0, models.ebm, mc.e_l_steps, mc.e_l_step_size, mc.e_l_with_noise, **chain
     )
     return models.generator(z)
 

@@ -14,8 +14,9 @@ the JAX step, in order, each under a `torch.profiler.record_function` label
                          backward pass (JAX's `jax.checkpoint`): the same
                          arithmetic, less activation memory;
   3. prior_langevin      e_l_steps over 2B chains [z0, N(0, I)] ("double")
-                         or B chains z0 ("single"), kernel K1 in stream mode;
-                         none for the toy ("none");
+                         or B chains z0 ("single"), kernel K1 in stream mode,
+                         or with `use_pallas` off the autograd chain of
+                         `langevin_sample`; none for the toy ("none");
   4. q_updates           `q_updates` denoising score-matching updates of Q
                          (both mask branches with `q_loss_both_branches`);
   5. g_update            ||G(z+) - x||^2, summed per sample, mean over B; a
@@ -81,6 +82,8 @@ class StepDraws:
     q: List[Tuple[QDraws, Optional[QDraws]]]  # per Q update: branch 1, branch 2 or None
     sweep_seed: int  # int32 stream seed of K2
     chain_seed: int  # int32 stream seed of K1 (unused without prior chains)
+    # (e_l_steps, chains, nz) normals of the autograd prior chain; only with use_pallas off
+    chain_noise: Optional[torch.Tensor] = None
 
 
 def stream_seeds(seed: int, step: int) -> Tuple[int, int]:
@@ -92,7 +95,9 @@ def stream_seeds(seed: int, step: int) -> Tuple[int, int]:
 
 
 def draw_step(cfg: Config, b: int, state: TrainState) -> StepDraws:
-    """One iteration's draws from the state's device generator."""
+    """One iteration's draws from the state's device generator. The
+    autograd prior chain's normals come last, so the draws of the K1 path
+    do not depend on `use_pallas`."""
     tc, nz = cfg.train, cfg.model.nz
     gen = state.rng
     dev = gen.device
@@ -105,7 +110,11 @@ def draw_step(cfg: Config, b: int, state: TrainState) -> StepDraws:
     q_draw = lambda: QDraws(normal(b, nz), uniform(b), normal(b, nz))
     q = [(q_draw(), q_draw() if tc.q_loss_both_branches else None) for _ in range(tc.q_updates)]
     sweep_seed, chain_seed = stream_seeds(state.seed, state.step)
-    return StepDraws(mask_u, z0_init, neg_init, post_noise, q, sweep_seed, chain_seed)
+    chain_noise = None
+    if not tc.use_pallas and tc.prior_chains != "none":
+        chains = 2 * b if tc.prior_chains == "double" else b
+        chain_noise = normal(cfg.mcmc.e_l_steps, chains, nz)
+    return StepDraws(mask_u, z0_init, neg_init, post_noise, q, sweep_seed, chain_seed, chain_noise)
 
 
 def _phase(name: str):
@@ -128,17 +137,16 @@ def make_train_step(
     tc, mc, dc = cfg.train, cfg.mcmc, cfg.diffusion
     gen, ebm, amort = models.generator, models.ebm, models.amortizer
     chains = tc.prior_chains != "none" and ebm is not None
-    # The JAX step's dtype and kernel switches; the port runs float32 and K1.
+    # The JAX step's dtype switches; the port runs float32.
     unported = {
         "compute_dtype": cfg.model.compute_dtype != "float32",
         "pallas_dots_dtype": tc.pallas_dots_dtype != "float32",
-        "use_pallas": not tc.use_pallas,
     }
     asked = [k for k, v in unported.items() if v]
     if asked:
         raise NotImplementedError(
-            f"{asked}: bfloat16 and the scan prior chain are not ported (ROADMAP.md, queue 1, "
-            "item 2); the port trains in float32 through K1"
+            f"{asked}: bfloat16 is not ported (ROADMAP.md, queue 1, item 2b); the port trains "
+            "in float32"
         )
 
     def train_step(state: TrainState, x: torch.Tensor, draws: Optional[StepDraws] = None):
@@ -171,7 +179,8 @@ def make_train_step(
                 z_neg_init = torch.cat([z0, d.neg_init]) if tc.prior_chains == "double" else z0
                 zk_neg, prior_final_energy = prior_langevin_auto(
                     z_neg_init, ebm, mc.e_l_steps, mc.e_l_step_size, mc.e_l_with_noise,
-                    seed=d.chain_seed,
+                    seed=d.chain_seed if tc.use_pallas else None, use_pallas=tc.use_pallas,
+                    noise=d.chain_noise, generator=state.rng,
                 )
 
         with _phase("q_updates"):

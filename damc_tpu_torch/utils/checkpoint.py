@@ -6,8 +6,9 @@ One checkpoint is one file, `<directory>/<name>/state.pt`, written by
 whole state, so a resumed run continues exactly: the iteration count, the
 run seed, the state dicts of G, E, Q and Q_ema, each optimizer's torch
 state dict and update count, and the device generator's state. A part the
-state lacks (the toy's E, and its G and E optimizers) is saved as None,
-and a restore requires the target to lack the same parts. `name` is
+state lacks (the toy's E, and its G and E optimizers; all but Q and its
+optimizer in the StyleGAN inversion's state) is saved as None, and a
+restore requires the target to lack the same parts. `name` is
 an iteration number or `best`, as in the JAX package's layout, so
 `<run>/ckpt/<iteration>` names a checkpoint there and here.
 
@@ -44,10 +45,10 @@ def state_payload(state) -> dict:
     return {
         "step": int(state.step),
         "seed": int(state.seed),
-        "generator": m.generator.state_dict(),
+        "generator": _module_state(m.generator),
         "ebm": _module_state(m.ebm),
         "amortizer": m.amortizer.state_dict(),
-        "amortizer_ema": state.amortizer_ema.state_dict(),
+        "amortizer_ema": _module_state(state.amortizer_ema),
         "opt_g": _opt_state(o.g),
         "opt_e": _opt_state(o.e),
         "opt_q": _opt_state(o.q),

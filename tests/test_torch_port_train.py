@@ -290,9 +290,15 @@ def test_train_state_from_jax_continues_a_jax_run():
 
 
 def test_stylegan_amortizer_is_not_ported():
-    """The StyleGAN-width Q (the frozen inversion encoder, 1024-wide
-    denoiser) still raises, naming its ROADMAP item."""
+    """The StyleGAN-width Q is ported now (its name predates that): it has
+    no encoder of its own (the frozen inversion encoder's code comes in as
+    xemb, and `encode` raises), its hidden layers are 1024 wide, and its
+    state dict holds no encoder key."""
     from damc_tpu_torch.models import DAMCAmortizer
 
-    with pytest.raises(ValueError, match="queue 1, item 6"):
-        DAMCAmortizer(nz=8, dataset="stylegan")
+    with torch.device("meta"):
+        q = DAMCAmortizer(nz=8, nxemb=8, dataset="stylegan")
+    assert q.encoder is None and not any(k.startswith("encoder.") for k in q.state_dict())
+    assert {l.dim_out for l in q.p.all_layers} == {1024, 8}
+    with pytest.raises(ValueError, match="no encoder"):
+        q.encode(torch.zeros(1, 3, 8, 8, device="meta"))

@@ -149,15 +149,19 @@ def test_unported_options_raise():
 
 
 def test_unported_dtypes_and_scan_chain_raise():
-    """The JAX step's bfloat16 switches and its scan prior chain raise where
-    the port reads them, instead of training in float32 through K1 unasked."""
+    """The JAX step's bfloat16 switches raise where the port reads them,
+    instead of training in float32 unasked. The scan prior chain
+    (use_pallas=False) is ported now: the step builds (its name predates
+    that; tests/test_torch_port_unfused_sweep.py holds the step to JAX's)."""
     cfg = _tiny_cfg()
     state = create_state(cfg, seed=0, device="cpu")
-    for section, kw in (("train", dict(pallas_dots_dtype="bfloat16")), ("train", dict(use_pallas=False)),
+    for section, kw in (("train", dict(pallas_dots_dtype="bfloat16")),
                         ("model", dict(compute_dtype="bfloat16"))):
         bad = dataclasses.replace(cfg, **{section: dataclasses.replace(getattr(cfg, section), **kw)})
         with pytest.raises(NotImplementedError, match=next(iter(kw))):
             make_train_step(state.models, state.opts, bad)
+    scan = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, use_pallas=False))
+    assert callable(make_train_step(state.models, state.opts, scan))
     bf16 = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, compute_dtype="bfloat16"))
     for build in (lambda: create_state(bf16, device="cpu"), lambda: build_models(bf16, device="cpu")):
         with pytest.raises(NotImplementedError, match="compute_dtype"):

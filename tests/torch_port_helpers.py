@@ -82,16 +82,21 @@ def jax_step_draws(rng, cfg, b: int):
     """The port's `StepDraws` holding exactly the numbers the JAX train step
     draws from the state key `rng` (`damc_tpu/train/step.py:70-72`). The
     kernels' stream seeds are left at 0: the parity runs are noiseless
-    there."""
+    there. With `use_pallas` off, the autograd prior chain's normals are
+    those JAX's scan chain draws from the prior key."""
     import torch
 
     from damc_tpu_torch.train.step import QDraws, StepDraws
 
     tc, nz = cfg.train, cfg.model.nz
-    _, k_mask, k_q0, k_post, k_neg, _, k_qloss = jax.random.split(rng, 7)
+    _, k_mask, k_q0, k_post, k_neg, k_prior, k_qloss = jax.random.split(rng, 7)
     t = lambda a: torch.from_numpy(np.array(a, np.float32))
     post = jax.vmap(lambda k: jax.random.normal(k, (b, nz)))(
         jax.random.split(k_post, cfg.mcmc.g_l_steps)
+    )
+    chains = 2 * b if tc.prior_chains == "double" else b
+    chain = jax.vmap(lambda k: jax.random.normal(k, (chains, nz)))(
+        jax.random.split(k_prior, cfg.mcmc.e_l_steps)
     )
     q = []
     for i in range(tc.q_updates):
@@ -106,6 +111,7 @@ def jax_step_draws(rng, cfg, b: int):
         q=q,
         sweep_seed=0,
         chain_seed=0,
+        chain_noise=None if tc.use_pallas or tc.prior_chains == "none" else t(chain),
     )
 
 
