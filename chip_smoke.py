@@ -14,7 +14,10 @@ Phases, each of which raises on failure (the script then exits non-zero):
      their bounds; then, in counter mode, rows 0, 7, 250 and 499 of a B=500
      launch of each kernel must equal, bit for bit, the same rows launched
      alone and inside batches of 16, 64, 80 and 128 (every K2 row tile the
-     main path runs);
+     main path runs); K1's bf16-dot variant against its plain bf16 version
+     at B=256 and B=500 (nz=128), B=128 (nz=8) and B=256 (nz=100): 6
+     noiseless steps pointwise, the 60-step stream chain in moments, apart
+     from the float32 variant, and timed beside it;
   4. serves the full-width `cifar10` preset (random weights from a seed) over
      HTTP: /sample damc and ebm and /reconstruct, some requests concurrent;
      checks shapes, range, that an item served alone equals the same item
@@ -31,7 +34,12 @@ Phases, each of which raises on failure (the script then exits non-zero):
      with the CPU plain path on the same draws and z0, in metrics,
      gradients and parameters;
   7. profiles one training iteration (device busy and idle time, the seven
-     phases, top kernels);
+     phases, top kernels); then phases 6 and 7 again with compute_dtype and
+     pallas_dots_dtype "bfloat16" (K1's bf16 variant once an iteration, its
+     float32 variant never; the card-vs-CPU iteration at bf16 limits), and
+     the serving of phase 4 with a bf16 G and encoder (K1 in float32),
+     and one bf16 FID batch of each prior at B=500 (K1's bf16 variant
+     once for the EBM prior);
   8. holds each kernel against its plain version at the eval shapes in
      stream mode: K1 at B=500 with the eval CLI's 100 steps at 1.6 and the
      loop's 60 at 0.4; K2 at B=500 under the prior embedding (the FID
@@ -97,9 +105,9 @@ Phases, each of which raises on failure (the script then exits non-zero):
      prints the walls of the tree, the decode and the cache; profiles one
      iteration;
  17. celebaHQ (nz=128, ngf=128, 256x256): K1 and K2 at the training shapes;
-     a 1024x1024 PNG tree (160 train, 64 test images); 3 iterations at B=128
+     a 1024x1024 PNG tree (160 train, 32 test images); 3 iterations at B=128
      through the train CLI with evals at 0 and at the end (500 FID samples,
-     the 64 test images); one iteration from the last checkpoint with
+     the 32 test images); one iteration from the last checkpoint with
      remat_generator off and on, bit-identical in metrics and parameters,
      with the peak memory of each; one iteration profiled as in phase 7;
  18. unfused sweep (item 2a) on the full-width cifar10 Q: B=128, 6 noiseless
@@ -113,13 +121,17 @@ Phases, each of which raises on failure (the script then exits non-zero):
      checkpoint, the eval CLI twice from it with identical output, K1 and
      K2 launched 0 times and the unfused sweep once a batch; nan_rescue;
      invert_batch's ms split by part, images/s, peak memory, the device's
-     idle share and top kernels, the FLOP count beside its fp32 bound;
+     idle share and top kernels, the FLOP count beside its fp32 bound; the
+     eval CLI once more with --compute_dtype bfloat16 (recon MSE within 5%
+     of the float32 run's, no kernel launched) and the bf16 refine's split,
+     images/s and peak memory beside the bf16 tensor-core bound;
  20. prints one JSON line {"kernels": [...]} with launches, errors and times
      of each kernel on each path (serve, train, eval, anomaly, anomaly_eval:
      the train CLI's AUPRC evals, anomaly_eval_cli: the eval CLI's two
      runs, toy, svhn: the train CLI run, svhn_eval: the eval CLI run,
      svhn_serve: the served checkpoint, celeba64: both train CLI runs,
-     celebaHQ: the train CLI run);
+     celebaHQ: the train CLI run, train_bf16: the bf16 training run,
+     eval_bf16: the bf16 EBM-prior FID batch);
  21. prints {"ok": true, "device": {...}} as the last line.
 """
 
@@ -138,6 +150,7 @@ import urllib.request
 import numpy as np
 
 PEAK_FP32_FLOPS = 67e12  # H100 SXM, fp32 outside the tensor cores (NVIDIA data sheet)
+PEAK_BF16_FLOPS = 989e12  # H100 SXM, bf16 on the tensor cores, dense (NVIDIA data sheet)
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3 bandwidth
 SEED = 0
 
@@ -167,14 +180,18 @@ def time_ms(fn, reps: int, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
-def bound(flops: float, nbytes: float):
-    t_ops, t_bytes = flops / PEAK_FP32_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+def bound(flops: float, nbytes: float, peak: float = PEAK_FP32_FLOPS):
+    t_ops, t_bytes = flops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def langevin_cost(b, nz, ndf, steps):
+def langevin_cost(b, nz, ndf, steps, weight_bytes=4):
+    """FLOP and bytes of a K1 launch: the four products per chain and step;
+    z in and out, the two weight matrices (weight_bytes each: 2 for the
+    bf16-dot variant, whose bound takes them in bf16), biases, head and
+    one int32 seed per chain."""
     flops = 2.0 * b * steps * (2 * nz * ndf + 2 * ndf * ndf)
-    nbytes = 4.0 * (2 * b * nz + nz * ndf + ndf * ndf + 3 * ndf + b)
+    nbytes = 4.0 * (2 * b * nz + 3 * ndf + b) + weight_bytes * (nz * ndf + ndf * ndf)
     return flops, nbytes
 
 
@@ -213,7 +230,7 @@ def _stream_as_counter(noise, b, dev):
 
 
 def report(name, r):
-    b_ms, by = bound(r["flops"], r["bytes"])
+    b_ms, by = bound(r["flops"], r["bytes"], r.get("peak", PEAK_FP32_FLOPS))
     print(f"  {name} B={r['b']}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
           f"bound {b_ms:.5g} ms ({by}), {r['flops']:.4g} FLOP, {r['bytes']:.4g} B")
 
@@ -480,6 +497,96 @@ def stream_kernel_phase(models, cfg):
     return res
 
 
+# K1 bf16 against its plain version. The product of two bf16 operands is
+# exact in float32, so the kernel and its plain version differ in summation
+# order; a one-ulp float32 difference between two sums can flip the bf16
+# rounding of an operand. 6 noiseless steps are held at 2e-5 (the largest
+# reading, 2.6e-6 at nz=8, times 8), and the float32 variant's output must
+# lie at least K1_BF16_APART times the kernel's error from the bf16
+# kernel's: a kernel that rounds no operand, or only some, or rounds by
+# truncation, is caught there (the float32 variant lies 4.9e-4 to 1.7e-3
+# away). The noisy chain is held in moments, as sweep_check holds K2's.
+K1_BF16_ATOL = 2e-5
+K1_BF16_APART = 20
+K1_BF16_MOMENTS = 0.1  # share of the plain version's mean per-dimension std
+K1_BF16_SHAPES = (  # (label, preset, B, steps, step size)
+    ("train", "cifar10", 256, 60, 0.4),  # the 2B prior chains of cifar10 training
+    ("eval", "cifar10", 500, 60, 0.4),  # the training loop's EBM-prior FID batch
+    ("anomaly", "mnist_anomaly", 128, 60, 0.4),  # the single chains at nz=8
+    ("svhn", "svhn", 256, 60, 0.4),  # nz=100
+)
+
+
+def k1_bf16_phase():
+    """K1's bf16-dot variant against its plain bf16 version on the card at
+    the shapes of K1_BF16_SHAPES, on each preset's random EBM from the seed:
+    6 noiseless steps pointwise (K1_BF16_ATOL), the full stream-noise chain
+    in per-dimension mean and std over the batch (K1_BF16_MOMENTS) and
+    equal, bit for bit, to counter mode on stream_row_seeds; the float32
+    variant's output on the same 6 steps must lie at least K1_BF16_APART
+    times the kernel's error from it (the variant rounds as its plain
+    version does). Then the bf16 kernel, its plain
+    version and the float32 kernel are timed on the full chain."""
+    import torch
+
+    from damc_tpu_torch.config import preset
+    from damc_tpu_torch.models import build_models
+    from damc_tpu_torch.ops.cuda.fused_langevin import (
+        ebm_params_to_dense_weights, fused_prior_langevin, prior_langevin_plain,
+    )
+
+    gen = torch.Generator(device="cpu").manual_seed(SEED + 5)
+    seed = 987654321
+    res = {}
+    weights = {}
+    for label, name, b, steps, step_size in K1_BF16_SHAPES:
+        if name not in weights:
+            cfg = preset(name)
+            weights[name] = ebm_params_to_dense_weights(build_models(cfg, seed=SEED, device="cuda").ebm)
+        w = weights[name]
+        nz, ndf = w[0].shape
+        z = torch.randn(b, nz, generator=gen).cuda()
+        bf = dict(dots_dtype="bfloat16")
+        short = dict(steps=6, step_size=step_size, with_noise=False)
+        got6 = fused_prior_langevin(z, *w, **short, **bf)
+        fp32_6 = fused_prior_langevin(z, *w, **short)
+        err6 = check_close(f"K1 bf16 {label} B={b} nz={nz}, 6 noiseless steps", got6,
+                           prior_langevin_plain(z, *w, **short, **bf), atol=K1_BF16_ATOL)
+        apart = float((got6 - fp32_6).abs().max())
+        print(f"  K1 bf16 against the float32 variant, same 6 steps: max_abs_diff={apart:.3e} "
+              f"({apart / max(err6, 1e-30):.3g} times the error; at least {K1_BF16_APART})")
+        if not (apart > 0 and apart >= K1_BF16_APART * err6):
+            raise AssertionError(f"K1 bf16 {label}: the float32 variant is not {K1_BF16_APART} times farther "
+                                 "from the kernel than the plain bf16 version is")
+        kw = dict(steps=steps, step_size=step_size, seed=seed, **bf)
+        got = fused_prior_langevin(z, *w, **kw)
+        counter = _stream_as_counter(dict(seed=seed), b, z.device)
+        if not torch.equal(got, fused_prior_langevin(z, *w, steps=steps, step_size=step_size, **counter, **bf)):
+            raise AssertionError(f"K1 bf16 {label}: stream mode differs from counter mode on stream_row_seeds")
+        want = prior_langevin_plain(z, *w, **kw)
+        if not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"K1 bf16 {label}: non-finite chain")
+        err = float((got - want).abs().max())
+        scale = float(want.std(dim=0).mean())
+        mom = max(float((got.mean(0) - want.mean(0)).abs().max()), float((got.std(0) - want.std(0)).abs().max()))
+        ok = mom <= K1_BF16_MOMENTS * scale
+        print(f"  K1 bf16 {label} B={b}, {steps} steps at {step_size}, stream: pointwise max_abs_err={err:.3e} "
+              f"(not held); moments max diff {mom:.3e} (limit {K1_BF16_MOMENTS * scale:.3e}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"K1 bf16 {label}: moments of the chain differ from the plain version's")
+        flops, nbytes = langevin_cost(b, nz, ndf, steps, weight_bytes=2)
+        fp32_kw = dict(steps=steps, step_size=step_size, seed=seed)
+        r = dict(b=b, nz=nz, steps=steps, max_abs_err=err, max_abs_err_6_noiseless=err6, apart_from_fp32=apart,
+                 moment_err=mom, flops=flops, bytes=nbytes, peak=PEAK_BF16_FLOPS,
+                 ms=time_ms(lambda: fused_prior_langevin(z, *w, **kw), 20),
+                 plain_ms=time_ms(lambda: prior_langevin_plain(z, *w, **kw), 5),
+                 fp32_kernel_ms=time_ms(lambda: fused_prior_langevin(z, *w, **fp32_kw), 20))
+        report(f"K1 bf16 {label}", r)
+        print(f"  K1 float32 variant, same shape: {r['fp32_kernel_ms']:.4f} ms")
+        res[label] = r
+    return res
+
+
 def _post(url, payload):
     req = urllib.request.Request(url, data=json.dumps(payload).encode(), method="POST")
     with urllib.request.urlopen(req, timeout=300) as r:
@@ -519,8 +626,11 @@ def _check_images(name, imgs, n):
         raise AssertionError(f"{name}: bad images, shape {imgs.shape}")
 
 
-def serving_phase(models, cfg, counters):
-    """Full-width cifar10 over HTTP; returns per-path kernel launches and stats."""
+def serving_phase(models, cfg, counters, cpu_atol=1e-3, tag="serve"):
+    """Full-width cifar10 over HTTP; returns per-path kernel launches and stats.
+    The EBM path is held to the CPU plain path at `cpu_atol`; K1's bf16
+    variant, where `counters` has it, must not launch (serving keeps K1 in
+    float32)."""
     import torch
 
     from damc_tpu_torch.models import build_models
@@ -576,7 +686,7 @@ def serving_phase(models, cfg, counters):
             if not same:
                 raise AssertionError(f"{path}: item (seed, 0) alone differs from it coalesced")
             launches[path] = {name: k.launches - before[name] for name, k in counters.items()}
-            print(f"[serve] {path}: alone == coalesced; kernel launches {launches[path]}")
+            print(f"[{tag}] {path}: alone == coalesced; kernel launches {launches[path]}")
         stats = json.loads(urllib.request.urlopen(base + "/stats", timeout=60).read())
     finally:
         server.shutdown()
@@ -586,22 +696,53 @@ def serving_phase(models, cfg, counters):
     total = {name: k.launches for name, k in counters.items()}
     if launches["damc"]["K2"] < 1 or launches["recon"]["K2"] < 1 or launches["ebm"]["K1"] < 1:
         raise AssertionError(f"a path did not launch its kernel: {launches}")
-    if launches["damc"]["K1"] or launches["ebm"]["K2"]:
+    if launches["damc"]["K1"] or launches["ebm"]["K2"] or any(l.get("K1_bf16") for l in launches.values()):
         raise AssertionError(f"a path launched a kernel it should not: {launches}")
     for path, s in stats.items():
-        print(f"[serve] {path}: p50 {s['latency_p50_ms']:.3f} ms, p99 {s['latency_p99_ms']:.3f} ms, "
+        print(f"[{tag}] {path}: p50 {s['latency_p50_ms']:.3f} ms, p99 {s['latency_p99_ms']:.3f} ms, "
               f"{s['requests']} requests, {s['items']} items in {s['batches']} batches")
-    print("[serve] /stats " + json.dumps(stats))
+    print(f"[{tag}] /stats " + json.dumps(stats))
 
     # The EBM path against the plain versions on the CPU, same seed and items:
-    # a 60-step contracting chain, then G; 1e-3 covers cuDNN against the CPU.
+    # a 60-step contracting chain, then G; 1e-3 covers cuDNN against the CPU
+    # in float32 (a bf16 G's caller passes its own limit).
     cpu = build_models(cfg, seed=SEED, device="cpu")
     want = build_serving_fns(cpu, cfg)["ebm"](stack_draws([item_draws(7, i, cfg.model.nz) for i in range(2)], "cpu"))
     err = float(np.abs(served["ebm"] - want.numpy()).max())
-    print(f"[serve] ebm items (7, 0..1) against the CPU plain path: max_abs_err={err:.3e} (atol 1e-3)")
-    if err > 1e-3:
+    print(f"[{tag}] ebm items (7, 0..1) against the CPU plain path: max_abs_err={err:.3e} (atol {cpu_atol:g})")
+    if err > cpu_atol:
         raise AssertionError("ebm path disagrees with the CPU plain path")
     return total, stats
+
+
+def bf16_fid_batch_phase(models, cfg, counters):
+    """One EBM-prior FID batch (B=500, the loop eval's 60-step chain) and one
+    DAMC-prior batch with compute_dtype and pallas_dots_dtype bf16, through
+    `train.gen_recon.make_fid_batch_fn`, counts at 0 before each: the EBM
+    batch launches K1's bf16 variant once and nothing else, the DAMC batch
+    K2 once; the images are bf16 in [0, 1]. Returns the EBM batch's
+    launches and both batches' ms (CUDA events, after one warm-up each)."""
+    import torch
+
+    from damc_tpu_torch.train.gen_recon import make_draws_fn, make_fid_batch_fn
+
+    draws = make_draws_fn(SEED, "fid_ebm", 0, cfg.model.nz, "cuda")(0, 500)
+    out = {}
+    for prior, want in (("ebm", {"K1": 0, "K2": 0, "K1_bf16": 1}), ("damc", {"K1": 0, "K2": 1, "K1_bf16": 0})):
+        fn = make_fid_batch_fn(models, cfg, prior)
+        for k in counters.values():
+            k.launches = 0
+        x = fn(draws)
+        torch.cuda.synchronize()
+        launches = {k: c.launches for k, c in counters.items()}
+        ok = x.dtype == torch.bfloat16 and x.shape == (500, 32, 32, 3) and bool(
+            ((x >= 0) & (x <= 1)).all())
+        print(f"[eval_bf16] {prior} FID batch B=500: launches {launches}, bf16 images in [0, 1]: {ok}")
+        if launches != want or not ok:
+            raise AssertionError(f"the bf16 {prior} FID batch launched {launches} (want {want}) or is malformed")
+        out[prior] = {"launches": launches, "ms": time_ms(lambda: fn(draws), 5)}
+    print("[eval_bf16] " + json.dumps(out))
+    return out
 
 
 def profile_phase(models, cfg):
@@ -660,9 +801,11 @@ def _state_modules(state):
     return {"G": m.generator, "E": m.ebm, "Q": m.amortizer, "Q_ema": state.amortizer_ema}
 
 
-def training_phase(cfg, counters, iterations: int = 10):
+def training_phase(cfg, counters, iterations: int = 10, expect=None, tag="train"):
     """`iterations` full-width iterations through `train_gen_recon` at the
     preset's `print_every`; returns (final state, launches over the run).
+    Each iteration must launch each kernel of `counters` as `expect` says
+    (default K1 and K2 once).
 
     Nothing in the run waits for the device but the loop's own metric read
     at `print_every` (iteration 1 here): after each iteration the callback
@@ -703,20 +846,21 @@ def training_phase(cfg, counters, iterations: int = 10):
     per_iter = [log["launches"][0]] + [
         {n: cur[n] - prev[n] for n in cur} for prev, cur in zip(log["launches"], log["launches"][1:])
     ]
-    print(f"[train] launches per iteration {per_iter}")
-    if any(l != {"K1": 1, "K2": 1} for l in per_iter):
-        raise AssertionError("K1 and K2 must each launch exactly once per iteration")
+    print(f"[{tag}] launches per iteration {per_iter}")
+    expect = expect or {"K1": 1, "K2": 1}
+    if any(l != expect for l in per_iter):
+        raise AssertionError(f"each iteration must launch {expect}")
     for name, module in _state_modules(state).items():
         if not _changed(module, start[name]):
             raise AssertionError(f"{name} did not change in {iterations} iterations")
     ema = [start["Q_ema"]] + log["ema"]
     changed = [any(not bool((p == q).all()) for p, q in zip(a, b_)) for a, b_ in zip(ema, ema[1:])]
-    print(f"[train] Q_ema changed at iterations {[i + 1 for i, c in enumerate(changed) if c]}")
+    print(f"[{tag}] Q_ema changed at iterations {[i + 1 for i, c in enumerate(changed) if c]}")
     if changed != [i == cfg.train.ema_every - 1 for i in range(iterations)]:
         raise AssertionError(f"Q_ema must change only at iteration {cfg.train.ema_every}")
     ev = log["events"]
     ms = [a.elapsed_time(b_) for a, b_ in zip(ev, ev[1:])]  # iterations 2 .. iterations
-    print("[train] " + json.dumps({
+    print(f"[{tag}] " + json.dumps({
         "print_every": cfg.train.print_every, "ms_per_iteration_2_to_10": ms,
         "median_ms_iterations_3_to_10": statistics.median(ms[1:]),
         "mean_ms_iterations_3_to_10": ev[1].elapsed_time(ev[-1]) / (iterations - 2),
@@ -725,7 +869,7 @@ def training_phase(cfg, counters, iterations: int = 10):
     return state, total, statistics.median(ms[1:])
 
 
-def rerun_phase(cfg):
+def rerun_phase(cfg, tag="train"):
     """Two fresh 2-iteration runs from one seed: every metric of every
     iteration and every parameter at the end, bit for bit."""
     import torch
@@ -745,16 +889,47 @@ def rerun_phase(cfg):
     same = all(torch.equal(a[k], b[k]) for a, b in zip(m_a, m_b) for k in a) and all(
         torch.equal(p, q) for name in s_a for p, q in zip(s_a[name].parameters(), s_b[name].parameters())
     )
-    print(f"[train] two fresh 2-iteration runs bit-identical: {same}")
+    print(f"[{tag}] two fresh 2-iteration runs bit-identical: {same}")
     if not same:
         raise AssertionError("two runs from one seed differ")
 
 
-# Card against CPU after one iteration from one z0. Metrics: the rule of the
-# CPU tests against the JAX package (tests/test_torch_port_train.py).
-# Gradients: a relative L2 error per network and per leaf.
-METRIC_RTOL = METRIC_ATOL = 1e-5
-GRAD_RTOL = 1e-4
+# Card against CPU after one iteration from one z0, held to one set of
+# limits per mode. float32: the metrics by the rule of the CPU tests against
+# the JAX package (tests/test_torch_port_train.py), each network's gradient
+# and each leaf's within relative L2 error 1e-4.
+@dataclasses.dataclass(frozen=True)
+class CardCpuLimits:
+    metric_rtol: float  # each metric within METRIC_ATOL + metric_rtol |CPU's|
+    grad_rtol: float  # each network's gradient, relative L2 error
+    leaf_rtol: float  # each leaf's gradient, relative L2 error
+    exempt_zero: bool  # leave the conv biases in front of InstanceNorm out (`zero_by_construction`)
+
+
+METRIC_ATOL = 1e-5
+FP32_LIMITS = CardCpuLimits(metric_rtol=1e-5, grad_rtol=1e-4, leaf_rtol=1e-4, exempt_zero=False)
+# bf16 (compute_dtype and pallas_dots_dtype "bfloat16"): cuDNN on the card
+# and oneDNN on the CPU sum G's and the encoder's convolutions in other
+# orders and round each activation to bf16 (8 significant bits), so
+# elements of every layer differ by one bf16 ulp (2^-8 relative) and the
+# backward passes take those differences on. A leaf whose gradient is a
+# batch sum of terms that nearly cancel (the FiLM gates of Q's layers, fed
+# by the bf16 embedding) carries them further. The conv biases in front of
+# InstanceNorm, whose true gradient is 0, are rounding on both sides and
+# printed apart. The control is the same iteration on the card in float32
+# (BF16_CONTROL): its distance from the CPU's bf16 iteration is of the same
+# kind, half an ulp in every element where the sound run differs by one ulp
+# in some, so the two readings lie about 1.3 to 2 times apart. Each limit
+# is their geometric mean: metrics 3.09e-4 and 6.09e-4, network gradients
+# 4.04e-2 and 7.54e-2, leaves 0.178 and 0.234 (Q's, both), on the H100.
+# The control must break a limit. The K1 variant is not seen here (a
+# float32-dot chain moves E's gradient from 3.64e-3 to 3.87e-3): K1's bf16
+# phase and the launch counts hold it.
+BF16_LIMITS = CardCpuLimits(metric_rtol=4.3e-4, grad_rtol=5.5e-2, leaf_rtol=0.2, exempt_zero=True)
+BF16_CONTROL = ("float32", "float32")  # the control's compute_dtype and pallas_dots_dtype
+# Serving: the EBM path's images, G's bf16 output on z that differs by
+# float32 rounding, within 4 bf16 ulps of 1.
+BF16_SERVE_ATOL = 2.0**-6
 ZERO_LEAF = 1e-6  # a leaf whose gradient norm is below this share of its network's is zero to rounding
 
 
@@ -770,7 +945,127 @@ def _recording(opt, log):
     opt.step = record
 
 
-def gpu_cpu_phase(cfg):
+def zero_by_construction(module):
+    """Names of the conv biases that an InstanceNorm follows: the norm takes
+    each channel's mean out, so their true gradient is 0 and what either
+    side computes for them is rounding."""
+    import torch
+
+    out = set()
+    for prefix, m in module.named_modules():
+        if isinstance(m, torch.nn.Sequential):
+            kids = list(m.named_children())
+            for (name, a), (_, b) in zip(kids, kids[1:]):
+                if isinstance(a, torch.nn.Conv2d) and isinstance(b, torch.nn.InstanceNorm2d):
+                    out.add(f"{prefix}.{name}.bias" if prefix else f"{name}.bias")
+    return out
+
+
+_NETS = ("G", "E", "Q")
+_MODULES = {"G": "generator", "E": "ebm", "Q": "amortizer"}
+
+
+def _one_iteration(small, dev, x, draws, z0):
+    """One iteration of `small` on `dev` from the seed's state, with `z0` as
+    Q_ema's proposal. Returns ((metrics, named parameters per network, the
+    gradients each optimizer received), all on the CPU; the models)."""
+    from damc_tpu_torch.train import step as step_module
+    from damc_tpu_torch.train.state import create_state
+    from damc_tpu_torch.train.step import make_train_step
+
+    def to(t):
+        return None if t is None else t.to(dev)
+
+    d = dataclasses.replace(
+        draws, mask_u=to(draws.mask_u), z0_init=to(draws.z0_init), neg_init=to(draws.neg_init),
+        post_noise=to(draws.post_noise),
+        q=[tuple(None if qd is None else dataclasses.replace(
+            qd, prior_noise=to(qd.prior_noise), u=to(qd.u), eps=to(qd.eps)) for qd in pair) for pair in draws.q],
+    )
+    state = create_state(small, SEED, dev)
+    grads = {name: [] for name in _NETS}
+    for name, opt in zip(_NETS, (state.opts.g, state.opts.e, state.opts.q)):
+        _recording(opt, grads[name])
+    step = make_train_step(state.models, state.opts, small)
+    original = step_module.sample_q
+    step_module.sample_q = lambda ema, xx, z_init, seed: z0.to(xx.device)
+    try:
+        state, metrics = step(state, x.to(dev), d)
+    finally:
+        step_module.sample_q = original
+    return (
+        {k: float(v) for k, v in metrics.items()},
+        {k: [(n, p.detach().cpu()) for n, p in v.named_parameters()] for k, v in _state_modules(state).items()},
+        {k: [g.cpu() for g in v[0]] for k, v in grads.items()},
+    ), state.models
+
+
+def _card_cpu_readings(small, cpu, card, models, limits, tag, quiet=False):
+    """The card's iteration `card` against the CPU's `cpu`: the readings that
+    `limits` holds, and the names of those that break it."""
+    import torch
+
+    say = (lambda s: None) if quiet else print
+    (m_c, p_c, g_c), (m_g, p_g, g_g) = cpu, card
+    failed, readings = [], {}
+    norm = lambda ts: float(torch.sqrt(sum((t.double() ** 2).sum() for t in ts)))
+    worst_m = 0.0
+    for k in m_c:
+        diff = abs(m_g[k] - m_c[k])
+        limit = METRIC_ATOL + limits.metric_rtol * abs(m_c[k])
+        worst_m = max(worst_m, max(diff - METRIC_ATOL, 0.0) / abs(m_c[k]))
+        say(f"[{tag}]   {k}: card {m_g[k]:.9g}, CPU {m_c[k]:.9g}, diff {diff:.3e}, limit {limit:.3e}")
+        if diff > limit:
+            failed.append(k)
+    readings["metrics"] = worst_m  # the least metric_rtol that every metric passes
+    lrs = {"G": small.optim.g_lr, "E": small.optim.e_lr, "Q": small.optim.q_lr}
+    for name in _NETS:
+        names = [n for n, _ in p_c[name]]
+        deltas = [gg - gc for gg, gc in zip(g_g[name], g_c[name])]
+        exempt = zero_by_construction(getattr(models, _MODULES[name])) if limits.exempt_zero else set()
+        for n, dl, gc in zip(names, deltas, g_c[name]):
+            if n in exempt:
+                say(f"[{tag}]   {name} {n} (zero by construction): card-CPU {norm([dl]):.3e}, CPU {norm([gc]):.3e}")
+        kept = [i for i, n in enumerate(names) if n not in exempt]
+        net_norm = norm([g_c[name][i] for i in kept])
+        net_rel = norm([deltas[i] for i in kept]) / net_norm
+        leaf_rel = {names[i]: norm([deltas[i]]) / norm([g_c[name][i]]) for i in kept
+                    if norm([g_c[name][i]]) >= ZERO_LEAF * net_norm}
+        worst = max(leaf_rel, key=leaf_rel.get)
+        readings[f"{name} gradient"], readings[f"{name} leaf"] = net_rel, leaf_rel[worst]
+        say(f"[{tag}]   {name} gradient: relative L2 error {net_rel:.3e} (limit {limits.grad_rtol:g}); worst leaf "
+            f"{worst} {leaf_rel[worst]:.3e} (limit {limits.leaf_rtol:g}); {len(kept) - len(leaf_rel)} of "
+            f"{len(names)} leaves zero to rounding, {len(exempt)} zero by construction")
+        if exempt:
+            top = sorted(leaf_rel, key=leaf_rel.get, reverse=True)[:4]
+            say(f"[{tag}]   {name} worst leaves (relative L2 error, share of the network's norm): " + ", ".join(
+                f"{n} {leaf_rel[n]:.3e} {norm([g_c[name][names.index(n)]]) / net_norm:.3e}" for n in top))
+        if net_rel > limits.grad_rtol:
+            failed.append(f"{name} gradient")
+        if leaf_rel[worst] > limits.leaf_rtol:
+            failed.append(f"{name} leaf")
+        limit = lrs[name] / 36 + 1e-6
+        held = loose = 0
+        worst_p = 0.0
+        for (n, pc), (_, pg), gc, dl in zip(p_c[name], p_g[name], g_c[name], deltas):
+            keep = gc.abs() > 10 * dl.abs()
+            held += int(keep.sum())
+            loose += int((~keep).sum())
+            if bool(keep.any()):
+                worst_p = max(worst_p, float((pg - pc).abs()[keep].max()))
+        readings[f"{name} parameters"] = worst_p / limit
+        say(f"[{tag}]   {name} parameters: {held} elements held, max abs diff {worst_p:.3e} "
+            f"(limit {limit:.3e}); {loose} set by rounding (share {loose / (held + loose):.3e})")
+        if worst_p > limit:
+            failed.append(f"{name} parameters")
+    same_ema = all(torch.equal(a, c) for (_, a), (_, c) in zip(p_g["Q_ema"], p_c["Q_ema"]))
+    say(f"[{tag}]   Q_ema equal: {same_ema}")
+    if not same_ema:
+        failed.append("Q_ema")
+    return readings, failed
+
+
+def gpu_cpu_phase(cfg, limits=FP32_LIMITS, tag="train", control=None):
     """One iteration at B=8 with 2 posterior steps, noiseless kernels and
     one Q update, on the card and on the CPU plain path, from the same
     weights, draws and z0.
@@ -784,26 +1079,31 @@ def gpu_cpu_phase(cfg):
     few ulps of x reach the gradients at 1e-3 after five steps where they
     stay near 1e-6 after two; and each further Q update starts from
     parameters that Adam's first steps moved apart where a gradient is zero
-    to rounding. The rest differs in float32 rounding only (no TF32,
-    deterministic cuDNN), and is held to:
-      * every metric within rtol 1e-5 / atol 1e-5 of the CPU's;
+    to rounding. The rest differs in rounding only (no TF32, deterministic
+    cuDNN), and is held to `limits` (CardCpuLimits):
+      * every metric within rtol `metric_rtol` / atol METRIC_ATOL of the
+        CPU's;
       * each network's gradient, as its optimizer receives it, within
-        relative L2 error GRAD_RTOL, and so is each leaf's unless its
-        gradient is zero to rounding (below ZERO_LEAF of the network's
-        norm: a conv bias in front of InstanceNorm);
+        relative L2 error `grad_rtol`, and each leaf's within `leaf_rtol`
+        unless its gradient is zero to rounding (below ZERO_LEAF of the
+        network's norm) or, with `exempt_zero`, a conv bias in front of
+        InstanceNorm (`zero_by_construction`), left out and printed apart;
       * each updated parameter element whose CPU gradient g is more than
         10 times the card's difference d from it within lr / 36 + 1e-6 of
         the CPU's. Adam's first step is -lr g / (|g| + eps); where
         |d| < |g| / 10 it moves by at most lr |d| eps / (0.9 |g| + eps)^2
         <= lr / 36. Elements with |g| <= 10 |d| take a step whose direction
         rounding sets, on either side, and are counted, not held;
-      * Q_ema, which one iteration does not mix, equal."""
+      * Q_ema, which one iteration does not mix, equal.
+    `control` (compute_dtype, pallas_dots_dtype) runs the same iteration on
+    the card with those switches, which must break a limit: the limits are
+    shown to tell the mode asked for from another. Returns the readings of
+    the card run and of the control."""
     import torch
 
     from damc_tpu_torch.models import sample_q
-    from damc_tpu_torch.train import step as step_module
     from damc_tpu_torch.train.state import create_state
-    from damc_tpu_torch.train.step import draw_step, make_train_step
+    from damc_tpu_torch.train.step import draw_step
 
     b = 8
     small = dataclasses.replace(
@@ -816,79 +1116,23 @@ def gpu_cpu_phase(cfg):
     state = create_state(small, SEED, "cpu")
     draws = draw_step(small, b, state)
     z0 = sample_q(state.amortizer_ema, x, draws.z0_init, draws.sweep_seed)
-
-    def to(dev, t):
-        return None if t is None else t.to(dev)
-
-    nets = ("G", "E", "Q")
-    out = {}
-    for dev in ("cpu", "cuda"):
-        d = dataclasses.replace(
-            draws, mask_u=to(dev, draws.mask_u), z0_init=to(dev, draws.z0_init),
-            neg_init=to(dev, draws.neg_init), post_noise=to(dev, draws.post_noise),
-            q=[tuple(None if qd is None else dataclasses.replace(
-                qd, prior_noise=to(dev, qd.prior_noise), u=to(dev, qd.u), eps=to(dev, qd.eps))
-                for qd in pair) for pair in draws.q],
-        )
-        state = create_state(small, SEED, dev)
-        grads = {name: [] for name in nets}
-        for name, opt in zip(nets, (state.opts.g, state.opts.e, state.opts.q)):
-            _recording(opt, grads[name])
-        step = make_train_step(state.models, state.opts, small)
-        original = step_module.sample_q
-        step_module.sample_q = lambda ema, xx, z_init, seed: z0.to(xx.device)
-        try:
-            state, metrics = step(state, x.to(dev), d)
-        finally:
-            step_module.sample_q = original
-        modules = _state_modules(state)
-        out[dev] = (
-            {k: float(v) for k, v in metrics.items()},
-            {k: [(n, p.detach().cpu()) for n, p in v.named_parameters()] for k, v in modules.items()},
-            {k: [g.cpu() for g in v[0]] for k, v in grads.items()},
-        )
-    (m_c, p_c, g_c), (m_g, p_g, g_g) = out["cpu"], out["cuda"]
-    failed = []
-    for k in m_c:
-        diff = abs(m_g[k] - m_c[k])
-        limit = METRIC_ATOL + METRIC_RTOL * abs(m_c[k])
-        print(f"[train]   {k}: card {m_g[k]:.9g}, CPU {m_c[k]:.9g}, diff {diff:.3e}, limit {limit:.3e}")
-        if diff > limit:
-            failed.append(k)
-    lrs = {"G": small.optim.g_lr, "E": small.optim.e_lr, "Q": small.optim.q_lr}
-    for name in nets:
-        names = [n for n, _ in p_c[name]]
-        deltas = [gg - gc for gg, gc in zip(g_g[name], g_c[name])]
-        norm = lambda ts: float(torch.sqrt(sum((t.double() ** 2).sum() for t in ts)))
-        net_norm = norm(g_c[name])
-        net_rel = norm(deltas) / net_norm
-        leaf_rel = {n: norm([dl]) / norm([gc]) for n, dl, gc in zip(names, deltas, g_c[name])
-                    if norm([gc]) >= ZERO_LEAF * net_norm}
-        worst = max(leaf_rel, key=leaf_rel.get)
-        print(f"[train]   {name} gradient: relative L2 error {net_rel:.3e}; worst leaf {worst} "
-              f"{leaf_rel[worst]:.3e}; {len(names) - len(leaf_rel)} of {len(names)} leaves zero to "
-              f"rounding (limit {GRAD_RTOL:g} each)")
-        if net_rel > GRAD_RTOL or leaf_rel[worst] > GRAD_RTOL:
-            failed.append(f"{name} gradient")
-        limit = lrs[name] / 36 + 1e-6
-        held = exempt = 0
-        worst_p = 0.0
-        for (n, pc), (_, pg), gc, dl in zip(p_c[name], p_g[name], g_c[name], deltas):
-            keep = gc.abs() > 10 * dl.abs()
-            held += int(keep.sum())
-            exempt += int((~keep).sum())
-            if bool(keep.any()):
-                worst_p = max(worst_p, float((pg - pc).abs()[keep].max()))
-        print(f"[train]   {name} parameters: {held} elements held, max abs diff {worst_p:.3e} "
-              f"(limit {limit:.3e}); {exempt} set by rounding (share {exempt / (held + exempt):.3e})")
-        if worst_p > limit:
-            failed.append(f"{name} parameters")
-    same_ema = all(torch.equal(a, c) for (_, a), (_, c) in zip(p_g["Q_ema"], p_c["Q_ema"]))
-    print(f"[train]   Q_ema equal: {same_ema}")
-    if not same_ema:
-        failed.append("Q_ema")
+    cpu, _ = _one_iteration(small, "cpu", x, draws, z0)
+    card, models = _one_iteration(small, "cuda", x, draws, z0)
+    readings, failed = _card_cpu_readings(small, cpu, card, models, limits, tag)
     if failed:
-        raise AssertionError(f"card and CPU disagree beyond float32 rounding: {failed}")
+        raise AssertionError(f"card and CPU disagree beyond rounding: {failed}")
+    out = {"card": readings}
+    if control is not None:
+        dtype, dots = control
+        small_c = dataclasses.replace(small, model=dataclasses.replace(small.model, compute_dtype=dtype),
+                                      train=dataclasses.replace(small.train, pallas_dots_dtype=dots))
+        card_c, _ = _one_iteration(small_c, "cuda", x, draws, z0)
+        out["control"], broke = _card_cpu_readings(small, cpu, card_c, models, limits, tag, quiet=True)
+        print(f"[{tag}] control, the card with compute_dtype {dtype} and pallas_dots_dtype {dots}: breaks "
+              f"{broke or 'no limit'}; readings (the card run, the control) " + json.dumps(out))
+        if not broke:
+            raise AssertionError(f"the limits do not tell the card's {control} run from the CPU's {tag} run")
+    return out
 
 
 def train_profile_phase(cfg, state, x=None, path="train"):
@@ -1688,7 +1932,9 @@ def toy_phase(cfg, counters):
 SVHN_TRAIN_IMAGES = 73_257  # SVHN's train split
 SVHN_TEST_IMAGES = 2_000  # the test split holds 26,032: cut so that the MSE eval stays short
 CELEBA64_TRAIN, CELEBA64_TEST, CELEBA64_SIZE = 2_048, 512, (178, 218)  # CelebA's aligned images
-CELEBAHQ_TRAIN, CELEBAHQ_TEST, CELEBAHQ_SIZE = 160, 64, (1024, 1024)  # CelebA-HQ's images
+# CelebA-HQ's images; a small test split keeps the script within about
+# 800 s (decoding a 1024x1024 PNG takes 0.2 s on one core).
+CELEBAHQ_TRAIN, CELEBAHQ_TEST, CELEBAHQ_SIZE = 160, 32, (1024, 1024)
 
 
 def write_svhn_mats(root: str, n_train: int, n_test: int) -> None:
@@ -2031,9 +2277,9 @@ def celeba64_phase(cfg, counters):
 def celebahq_phase(cfg, counters):
     """celebaHQ (nz=128, ngf=128, 256x256, G up to 2048 channels) through the
     train CLI at full width in a temporary directory, on a PNG tree made
-    from the seed at CelebA-HQ's size, 1024x1024 (160 train and 64 test
+    from the seed at CelebA-HQ's size, 1024x1024 (160 train and 32 test
     images): 3 iterations at B=128 with evals at 0 and at the end (500 FID
-    samples, the 64-image recon-MSE set) and a checkpoint at the end; then
+    samples, the 32-image recon-MSE set) and a checkpoint at the end; then
     one iteration from that checkpoint with remat_generator off and on,
     from the same state and draws, which must agree bit for bit, with the
     peak memory of each; then one iteration under the profiler. Returns
@@ -2257,6 +2503,9 @@ def unfused_sweep_phase(models, cfg):
 STYLEGAN_RES = 256
 STYLEGAN_IMAGES, STYLEGAN_SIZE = 16, (1024, 1024)  # seeded PNGs at FFHQ's published 1024x1024
 STYLEGAN_B, STYLEGAN_REFINE = 8, 100
+# invert_batch is timed over one batch, to keep the script within about
+# 800 s of its 1,200 s limit.
+STYLEGAN_TRAIN_ITERATIONS, STYLEGAN_TIMED_BATCHES = 2, 1
 
 
 class _Spans:
@@ -2286,17 +2535,24 @@ def stylegan_phase(counters):
     """Item 6 at full size: resolution 256, nz = nxemb = 7168, the 1024-wide
     Q (313M weights), random StyleGAN weights from the seed in the reference
     layout, saved as .pth files; 16 seeded PNGs at 1024x1024, which the
-    reader resizes to 256. With every launch count at 0: two iterations of
-    `make_inversion_train_step` at B=8 (100 refine steps, 6 Q updates, each
-    of which must change Q), Q saved in the port's checkpoint format, and
-    the eval CLI twice from it over the 16 images at --batch_size 8, which
-    must print the same numbers; then K1 and K2 must not have launched and
-    the unfused sweep must have run once a batch (route "tables"). Then
-    `nan_rescue` on a z0 with one NaN row, the ms of `invert_batch` split
-    into encoder, Q sweep, rescue, Adam refine and decode (CUDA events,
-    the median of 2 batches), images/s, peak memory, one batch under the
-    profiler (idle share, top kernels) and the FLOP count beside its fp32
-    bound. Returns the numbers."""
+    reader resizes to 256. With every launch count at 0:
+    STYLEGAN_TRAIN_ITERATIONS iterations of `make_inversion_train_step` at
+    B=8 (100 refine steps, 6 Q updates, each of which must change Q), Q
+    saved in the port's checkpoint format, and the eval CLI twice from it
+    over the 16 images at --batch_size 8, which must print the same
+    numbers; then K1 and K2 must not have launched and the unfused sweep
+    must have run once a batch (route "tables"). Then `nan_rescue` on a z0
+    with one NaN row, the ms of `invert_batch` split into encoder, Q sweep,
+    rescue, Adam refine and decode (CUDA events, the median of
+    STYLEGAN_TIMED_BATCHES batches), images/s, peak memory, one batch under
+    the profiler (idle share, top kernels) and the FLOP count beside its
+    fp32 bound. Then the bf16 Adam refine (`compute_dtype` bfloat16): the
+    eval CLI once with --compute_dtype bfloat16 from the same checkpoint
+    over the same images, whose recon MSE must be within 5% of the float32
+    run's (the bound of tests/test_cli_stylegan_inv.py) with no kernel
+    launched, and the same split, images/s and peak memory, with the FLOP
+    count beside
+    the bf16 tensor-core bound. Returns the numbers."""
     import os
     import shutil
     import tempfile
@@ -2364,7 +2620,7 @@ def stylegan_phase(counters):
         step = inv.make_inversion_train_step(q, nets, opt, refine_steps=STYLEGAN_REFINE, refine_lr=0.01,
                                              q_updates=cfg.train.q_updates, p_mask=cfg.diffusion.p_mask)
         train = []
-        for it in range(2):
+        for it in range(STYLEGAN_TRAIN_ITERATIONS):
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             t1 = time.perf_counter()
@@ -2378,7 +2634,7 @@ def stylegan_phase(counters):
         print("[stylegan] train " + json.dumps({"q_weights": n_q, "iterations": train, "q_updates_changed_q": changed}))
         if not all(np.isfinite(v) for it in train for v in it.values()):
             raise AssertionError("non-finite inversion training metrics")
-        if changed != [True] * (2 * cfg.train.q_updates):
+        if changed != [True] * (STYLEGAN_TRAIN_ITERATIONS * cfg.train.q_updates):
             raise AssertionError(f"every Q update must change Q: {changed}")
         ckpt = os.path.join(tmp, "ckpt")
         save_checkpoint(ckpt, "best", state)
@@ -2397,10 +2653,10 @@ def stylegan_phase(counters):
             raise AssertionError("two eval CLI runs from one checkpoint printed different numbers")
         if not all(np.isfinite(v) for k, v in cli[0].items()):
             raise AssertionError("non-finite eval CLI metrics")
-        if launches != {"K1": 0, "K2": 0}:
+        if any(launches.values()):
             raise AssertionError(f"the StyleGAN path launched a kernel: {launches}")
         n_batches = -(-STYLEGAN_IMAGES // STYLEGAN_B)
-        if sweeps != [STYLEGAN_B] * (2 + 2 * n_batches):
+        if sweeps != [STYLEGAN_B] * (STYLEGAN_TRAIN_ITERATIONS + 2 * n_batches):
             raise AssertionError(f"the unfused sweep must run once a batch: {sweeps}")
 
         # nan_rescue: one NaN row is replaced, the others are not touched.
@@ -2421,29 +2677,36 @@ def stylegan_phase(counters):
             raise AssertionError("nan_rescue replaced the wrong rows")
 
         # invert_batch split by CUDA events, then one batch under the profiler.
-        spans = _Spans()
-        patched = {name: getattr(inv, name) for name in ("sample_q", "nan_rescue", "adam_latent_descent")}
-        timed = dataclasses.replace(nets, encoder=spans.wrap("encoder", nets.encoder))
-        # The training iterations ran invert_batch already: no warm-up here.
         draws = [inv.inversion_draws(inv.batch_generator(SEED, i, "cuda"), STYLEGAN_B, q.nz, q.n_interval)
-                 for i in range(2)]
-        try:
-            for name, fn in patched.items():
-                setattr(inv, name, spans.wrap(name, fn))
-            run = spans.wrap("total", lambda d: inv.invert_batch(q, timed, x, d, STYLEGAN_REFINE, 0.01))
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            for d in draws:
-                run(d)
-            torch.cuda.synchronize()
-        finally:
-            for name, fn in patched.items():
-                setattr(inv, name, fn)
-        peak = torch.cuda.max_memory_allocated() / 2**30
-        parts = {"encoder": "encoder", "q_sweep": "sample_q", "rescue": "nan_rescue", "refine": "adam_latent_descent"}
-        split = {k: statistics.median(spans.ms(v)) for k, v in parts.items()}
-        total = statistics.median(spans.ms("total"))
-        split["decode_and_rest"] = total - sum(split.values())
+                 for i in range(STYLEGAN_TIMED_BATCHES)]
+
+        def split_run(compute_dtype):
+            """(median ms of invert_batch over `draws`, its split, peak GiB)."""
+            spans = _Spans()
+            patched = {name: getattr(inv, name) for name in ("sample_q", "nan_rescue", "adam_latent_descent")}
+            timed = dataclasses.replace(nets, encoder=spans.wrap("encoder", nets.encoder))
+            try:
+                for name, fn in patched.items():
+                    setattr(inv, name, spans.wrap(name, fn))
+                run = spans.wrap("total", lambda d: inv.invert_batch(q, timed, x, d, STYLEGAN_REFINE, 0.01,
+                                                                     compute_dtype=compute_dtype))
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                for d in draws:
+                    run(d)
+                torch.cuda.synchronize()
+            finally:
+                for name, fn in patched.items():
+                    setattr(inv, name, fn)
+            parts = {"encoder": "encoder", "q_sweep": "sample_q", "rescue": "nan_rescue",
+                     "refine": "adam_latent_descent"}
+            split = {k: statistics.median(spans.ms(v)) for k, v in parts.items()}
+            total = statistics.median(spans.ms("total"))
+            split["decode_and_rest"] = total - sum(split.values())
+            return total, split, torch.cuda.max_memory_allocated() / 2**30
+
+        # The training iterations ran invert_batch already: no warm-up here.
+        total, split, peak = split_run(torch.float32)
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t1 = time.perf_counter()
             inv.invert_batch(q, nets, x, draws[0], STYLEGAN_REFINE, 0.01)
@@ -2466,6 +2729,32 @@ def stylegan_phase(counters):
             "train": train, "eval_cli": cli, "tree_s": tree_s, "decode_s": decode_s,
         }
         print("[stylegan] " + json.dumps(res))
+
+        # The bf16 Adam refine: the eval CLI once (which also warms the bf16
+        # convolutions up), then the split.
+        for k in counters.values():
+            k.launches = 0
+        t1 = time.perf_counter()
+        out16 = eval_stylegan_inv.main(argv + ["--compute_dtype", "bfloat16"])
+        cli16 = {"wall_s": time.perf_counter() - t1, **out16}
+        launches16 = {k: c.launches for k, c in counters.items()}
+        gap = abs(out16["recon_mse"] - cli[0]["recon_mse"]) / cli[0]["recon_mse"]
+        print("[stylegan_bf16] eval CLI " + json.dumps({"run": cli16, "launches": launches16,
+                                                        "recon_mse_gap_to_fp32": gap}))
+        if not all(np.isfinite(v) for v in out16.values()):
+            raise AssertionError("non-finite bf16 eval CLI metrics")
+        if gap >= 0.05:
+            raise AssertionError(f"the bf16 recon MSE is {gap:.3%} from the float32 run's (limit 5%)")
+        if any(launches16.values()):
+            raise AssertionError(f"the bf16 StyleGAN path launched a kernel: {launches16}")
+        total16, split16, peak16 = split_run(torch.bfloat16)
+        bound16_ms, _ = bound(flops["total"], 0.0, PEAK_BF16_FLOPS)
+        res["bf16"] = {
+            "b": STYLEGAN_B, "ms_per_invert_batch": total16, "split_ms": split16,
+            "images_per_s": STYLEGAN_B / total16 * 1e3, "peak_gib_invert_batch": peak16,
+            "bf16_bound_ms": bound16_ms, "bound_share": bound16_ms / total16, "eval_cli": cli16,
+        }
+        print("[stylegan_bf16] " + json.dumps(res["bf16"]))
         return res
     finally:
         amortizer_module.reverse_diffusion_sample = original_sweep
@@ -2496,59 +2785,89 @@ def main() -> int:
             if "registers" in line or "spill" in line or "error" in line:
                 print(f"  {line.strip()}")
 
+    walls, mark = {"build": time.monotonic() - t0}, [time.perf_counter()]
+
+    def lap(name):
+        """The wall since the previous lap, under `name` in the [walls] line."""
+        now = time.perf_counter()
+        walls[name] = now - mark[0]
+        mark[0] = now
+
     cfg = preset("cifar10")
     models = build_models(cfg, seed=SEED, device="cuda")
     res = kernel_phase(models, cfg)
     res_stream = stream_kernel_phase(models, cfg)
+    lap("kernels")
+    res_bf16 = k1_bf16_phase()
+    lap("k1_bf16")
     row_independence_phase(models, cfg)
     counters = {"K1": fused_prior_langevin, "K2": fused_reverse_sweep}
     total, _ = serving_phase(models, cfg, counters)
     profile_phase(models, cfg)
     del models
+    lap("serve")
     state, total_train, train_ms = training_phase(cfg, counters)
     rerun_phase(cfg)
+    lap("train")
     gpu_cpu_phase(cfg)
+    lap("train_card_cpu")
     train_profile_phase(cfg, state)
     del state
+    lap("train_profile")
+    # The bfloat16 mode: G and the encoder in bf16, K1's bf16-dot variant.
+    cfg_bf16 = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, compute_dtype="bfloat16"),
+                                   train=dataclasses.replace(cfg.train, pallas_dots_dtype="bfloat16"))
+    counters16 = {**counters, "K1_bf16": fused_prior_langevin.bf16}
+    state, total_train16, train16_ms = training_phase(
+        cfg_bf16, counters16, expect={"K1": 0, "K2": 1, "K1_bf16": 1}, tag="train_bf16")
+    rerun_phase(cfg_bf16, tag="train_bf16")
+    lap("train_bf16")
+    gpu_cpu_phase(cfg_bf16, BF16_LIMITS, tag="train_bf16", control=BF16_CONTROL)
+    lap("train_bf16_card_cpu")
+    train_profile_phase(cfg_bf16, state, path="train_bf16")
+    del state
+    print(f"[train_bf16] median ms an iteration (iterations 3 to 10): float32 {train_ms}, bf16 {train16_ms}")
+    models = build_models(cfg_bf16, seed=SEED, device="cuda")
+    serving_phase(models, cfg_bf16, counters16, cpu_atol=BF16_SERVE_ATOL, tag="serve_bf16")
+    fid16 = bf16_fid_batch_phase(models, cfg_bf16, counters16)
+    del models
+    lap("bf16_profile_and_serve")
     models = build_models(cfg, seed=SEED, device="cuda")
     res_eval = eval_kernel_phase(models, cfg)
     del models
     eval_info = eval_phase(cfg, counters)
     _, inception_ms, _ = inception_phase()
     eval_timing_phase(cfg, inception_ms, eval_info, train_ms)
+    lap("eval")
     cfg_anomaly, cfg_toy = preset("mnist_anomaly"), preset("toy")
     res_anomaly = anomaly_kernel_phase(cfg_anomaly)
     anomaly_info = anomaly_phase(cfg_anomaly, counters)
     image_profile_phase(cfg_anomaly, "anomaly")
+    lap("anomaly")
     res_toy = toy_kernel_phase(cfg_toy)
     toy_info = toy_phase(cfg_toy, counters)
     toy_profile_phase(cfg_toy)
     print(decoders_line())
+    lap("toy")
     cfg_svhn, cfg_c64, cfg_hq = preset("svhn"), preset("celeba64"), preset("celebaHQ")
-    walls = {}
-    t0 = time.perf_counter()
     res_svhn = preset_kernel_phase(cfg_svhn, "svhn", 30, eval_k1=((100, 0.4), (60, 0.4)), serve=True, rows=True)
     chain_trace(cfg_svhn, 100, 1.6, 30)
     svhn_info = svhn_phase(cfg_svhn, counters)
     image_profile_phase(cfg_svhn, "svhn")
-    walls["svhn"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
+    lap("svhn")
     res_c64 = preset_kernel_phase(cfg_c64, "celeba64", 50)
     c64_info = celeba64_phase(cfg_c64, counters)
     image_profile_phase(cfg_c64, "celeba64")
-    walls["celeba64"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
+    lap("celeba64")
     res_hq = preset_kernel_phase(cfg_hq, "celebaHQ", 70)
     hq_info = celebahq_phase(cfg_hq, counters)
-    walls["celebaHQ"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
+    lap("celebaHQ")
     models = build_models(cfg, seed=SEED, device="cuda")
     unfused_sweep_phase(models, cfg)
     del models
-    walls["unfused_sweep"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    stylegan_phase(counters)
-    walls["stylegan"] = time.perf_counter() - t0
+    lap("unfused_sweep")
+    stylegan_phase(counters16)
+    lap("stylegan")
     print("[walls] " + json.dumps({f"{k}_phase_s": v for k, v in walls.items()}))
 
     meta = {
@@ -2585,17 +2904,34 @@ def main() -> int:
         ("celeba64", "stream", "K2", res_c64["K2"], c64_info["launches"]["K2"]),
         ("celebaHQ", "stream", "K1", res_hq["K1"], hq_info["launches"]["K1"]),
         ("celebaHQ", "stream", "K2", res_hq["K2"], hq_info["launches"]["K2"]),
+        # cifar10 with compute_dtype and pallas_dots_dtype bfloat16: K1's bf16-dot
+        # variant over 2B=256 chains (K1's float32 variant launched 0 times), K2 B=128.
+        ("train_bf16", "stream", "K1_bf16", res_bf16["train"], total_train16["K1_bf16"]),
+        # The EBM-prior FID batch in bf16 (B=500, 60 steps at 0.4).
+        ("eval_bf16", "stream", "K1_bf16", res_bf16["eval"], fid16["ebm"]["launches"]["K1_bf16"]),
+        ("train_bf16", "stream", "K2", res_stream["K2"], total_train16["K2"]),
     ]
+    if total_train16["K1"]:
+        raise AssertionError("the bf16 training run launched K1's float32 variant")
+    meta["K1_bf16"] = ("fused_prior_langevin_bf16", "damc_tpu_torch/csrc/fused_langevin.cu",
+                       "damc_tpu/ops/pallas/fused_langevin.py:311")
     for path, mode, key, r, launches in entries:
         name, source, replaces = meta[key]
-        bound_ms, bound_by = bound(r["flops"], r["bytes"])
+        bound_ms, bound_by = bound(r["flops"], r["bytes"], r.get("peak", PEAK_FP32_FLOPS))
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches, "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": None, "path": path, "noise": mode, "batch": r["b"],
         })
-    for key, (name, _, _) in meta.items():
+    for label, r in res_bf16.items():
+        b_ms, by = bound(r["flops"], r["bytes"], PEAK_BF16_FLOPS)
+        print(f"[kernels] fused_prior_langevin_bf16 {label} stream B={r['b']} nz={r['nz']}: ms={r['ms']} "
+              f"plain_ms={r['plain_ms']} fp32_kernel_ms={r['fp32_kernel_ms']} bound_ms={b_ms} ({by}) "
+              f"flops={r['flops']} bytes={r['bytes']} max_abs_err={r['max_abs_err']} "
+              f"max_abs_err_6_noiseless={r['max_abs_err_6_noiseless']}")
+    for key in ("K1", "K2"):
+        name = meta[key][0]
         shapes = [("serving counter", res[key][16]), ("training stream", res_stream[key]),
                   ("counter", res[key][500])]
         shapes += [(f"eval stream {k}", r) for k, r in res_eval.items() if k.startswith(key)]

@@ -57,7 +57,8 @@ def add_common_flags(p: argparse.ArgumentParser) -> None:
     # architecture
     p.add_argument(
         "--compute_dtype", type=str, default=None, choices=["float32", "bfloat16"],
-        help="conv-net compute dtype (the port computes in float32; bfloat16 raises)",
+        help="compute dtype of G and the conv encoder (parameters, the EBM and Q's denoiser "
+        "stay float32)",
     )
     p.add_argument("--nz", type=int, default=None)
     p.add_argument("--ngf", type=int, default=None)

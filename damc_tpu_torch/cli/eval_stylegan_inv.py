@@ -12,9 +12,10 @@ load_stylegan`) and Q from the port's own checkpoint format
 seed 0), sweeps the test images with the Q init and `--g_l_steps` Adam
 steps, and prints the recon MSE and the Frechet distance of the
 reconstructions (`frechet_rand` without the Inception weights). Every draw
-comes from `--seed`, so two runs print the same numbers. Not ported:
-`--compute_dtype bfloat16` (ROADMAP.md, queue 1, item 2b), `--use_mesh`
-(item 8) and LSUN's lmdb folders (item 4b).
+comes from `--seed`, so two runs print the same numbers. `--compute_dtype
+bfloat16` runs the Adam refine's synthesis and VGG16 in bfloat16
+(`train/stylegan_inv.py`). Not ported: `--use_mesh` (ROADMAP.md, queue 1,
+item 8) and LSUN's lmdb folders (item 4b).
 """
 
 from __future__ import annotations
@@ -42,7 +43,7 @@ def main(argv=None):
     p.add_argument("--resolution", type=int, default=256, help="StyleGAN resolution (published models: 256)")
     p.add_argument("--batch_size", type=int, default=8)
     p.add_argument("--compute_dtype", type=str, default="float32", choices=["float32", "bfloat16"],
-                   help="Adam-refine dtype (the port computes in float32; bfloat16 raises)")
+                   help="compute dtype of the Adam refine's synthesis and VGG16 forwards and backwards")
     p.add_argument("--g_l_steps", type=int, default=100)
     p.add_argument("--g_l_step_size", type=float, default=0.01)
     p.add_argument("--n_fid_samples", type=int, default=50000)
@@ -51,11 +52,6 @@ def main(argv=None):
     p.add_argument("--device", type=str, default="cuda", help="cuda (default) or cpu")
     args = p.parse_args(argv)
 
-    if args.compute_dtype != "float32":
-        raise NotImplementedError(
-            "--compute_dtype bfloat16 is not ported (ROADMAP.md, queue 1, item 2b): the port computes "
-            "in float32"
-        )
     if args.use_mesh:
         raise NotImplementedError("--use_mesh (several devices) is not ported (ROADMAP.md, queue 1, item 8)")
     first = args.lsun_classes.split(",")[0] + "_lmdb"
@@ -69,6 +65,7 @@ def main(argv=None):
     from ..data.datasets import load_image_folder
     from ..device import resolve_device
     from ..metrics.fid import compute_stats, images_to_unit
+    from ..models.common import compute_dtype
     from ..models.stylegan import load_stylegan
     from ..train.stylegan_inv import create_inversion_state, evaluate_inversion
     from ..utils.checkpoint import restore_checkpoint
@@ -97,6 +94,7 @@ def main(argv=None):
         q, nets, images, batch=args.batch_size, steps=args.g_l_steps, lr=args.g_l_step_size,
         seed=args.seed, feature_fn=feature_fn, real_mu=real_mu, real_sigma=real_sigma,
         fid_metric_name=metric_name,
+        compute_dtype=compute_dtype(args.compute_dtype),
     )
     label = "FID" if metric_name == "fid" else metric_name
     print(f"[damc] recon MSE {out['recon_mse']:.5f} {label} {out.get(metric_name, float('nan')):.3f}", flush=True)

@@ -54,7 +54,25 @@
 // to 0.96 ms; float4 activation and weight-row reads to 0.77 ms. The rest
 // is the three barriers and gathers a step and the dependent chains of the
 // sums (PERF.md, section 6).
+//
+// The bf16-dot variant (kBf16Dots; the TPU kernel's dots_dtype="bfloat16",
+// damc_tpu/ops/pallas/fused_langevin.py:184-212): the four products take
+// bfloat16 operands and accumulate in fp32. Each weight is rounded to bf16
+// once, as it is loaded to shared memory; each activation operand (z, the
+// gathered lrelu(h1p), d2, d1) is rounded as it enters a product: z as it
+// is read, the other three where they are stored, since nothing else reads
+// them. Rounding is round-to-nearest-even (__float2bfloat16_rn), as JAX's
+// astype; the rounded values are kept as floats, so a product of two is
+// exact in fp32 and the FMAs, the layout and the summation order are the
+// fp32 variant's. The biases, lrelu and its derivative, k3, the + z term,
+// the chain state and the noise stay fp32. The fp32 variant (kBf16Dots
+// false) compiles to the same code as before the variant existed. Its bound
+// on an H100 is the same operations at the bf16 tensor-core rate (989
+// TFLOP/s): 0.0041 ms at B=256, nz=128, 60 steps. This first version runs
+// them on the CUDA cores as the fp32 variant does, so it takes about that
+// variant's time; tensor-core products (mma.sync) are later work.
 #include <cooperative_groups.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -74,6 +92,13 @@ constexpr float kSlope = 0.2f;
 __device__ __forceinline__ float lrelu(float x) { return x >= 0.f ? x : kSlope * x; }
 __device__ __forceinline__ float dlrelu(float x) { return x >= 0.f ? 1.f : kSlope; }
 
+// A product operand: x rounded to the nearest bfloat16 in the bf16-dot
+// variant, x itself in the fp32 one.
+template <bool kBf16Dots>
+__device__ __forceinline__ float operand(float x) {
+  return kBf16Dots ? __bfloat162float(__float2bfloat16_rn(x)) : x;
+}
+
 // J = ndf / kCluster hidden columns a block holds, padded with zeros to
 // j4 (a multiple of 4, for float4 reads); its weight slices have row stride
 // slice_ld: a multiple of 4 whose quarter is odd, so that 128-bit reads of
@@ -85,7 +110,9 @@ __host__ __device__ inline int slice_ld(int J) {
 }
 
 // acc[r] = sum_k x[r][k] w[k * ld], k < n (n % 4 == 0), in order of k: a
-// walk down a weight column, kRt chains at x (row stride x_ld).
+// walk down a weight column, kRt chains at x (row stride x_ld); with
+// kRoundX each x is rounded to bf16 as it is read.
+template <bool kRoundX>
 __device__ __forceinline__ void dot_col(const float* w, int ld, const float* x, int x_ld, int n,
                                         float* acc) {
 #pragma unroll 4
@@ -95,10 +122,10 @@ __device__ __forceinline__ void dot_col(const float* w, int ld, const float* x, 
 #pragma unroll
     for (int r = 0; r < kRt; ++r) {
       const float4 v = *reinterpret_cast<const float4*>(x + r * x_ld + k);
-      acc[r] = fmaf(v.x, w0, acc[r]);
-      acc[r] = fmaf(v.y, w1, acc[r]);
-      acc[r] = fmaf(v.z, w2, acc[r]);
-      acc[r] = fmaf(v.w, w3, acc[r]);
+      acc[r] = fmaf(operand<kRoundX>(v.x), w0, acc[r]);
+      acc[r] = fmaf(operand<kRoundX>(v.y), w1, acc[r]);
+      acc[r] = fmaf(operand<kRoundX>(v.z), w2, acc[r]);
+      acc[r] = fmaf(operand<kRoundX>(v.w), w3, acc[r]);
     }
   }
 }
@@ -121,6 +148,7 @@ __device__ __forceinline__ void dot_row(const float* w, const float* x, int x_ld
   }
 }
 
+template <bool kBf16Dots>
 __global__ void __launch_bounds__(kThreads, 2) prior_langevin_kernel(
     const float* __restrict__ z_in, const float* __restrict__ k1, const float* __restrict__ b1,
     const float* __restrict__ k2, const float* __restrict__ b2, const float* __restrict__ k3,
@@ -153,11 +181,11 @@ __global__ void __launch_bounds__(kThreads, 2) prior_langevin_kernel(
                         : damc::stream_row_seed((uint32_t)seed, (uint32_t)(row0 + tid));
   for (int e = tid; e < nz * ld; e += kThreads) {
     const int k = e / ld, j = e - k * ld;
-    k1s[e] = j < J ? k1[(size_t)k * ndf + j0 + j] : 0.f;
+    k1s[e] = j < J ? operand<kBf16Dots>(k1[(size_t)k * ndf + j0 + j]) : 0.f;
   }
   for (int e = tid; e < ndf * ld; e += kThreads) {
     const int i = e / ld, j = e - i * ld;
-    k2s[e] = j < J ? k2[(size_t)i * ndf + j0 + j] : 0.f;
+    k2s[e] = j < J ? operand<kBf16Dots>(k2[(size_t)i * ndf + j0 + j]) : 0.f;
   }
   for (int e = tid; e < 2 * kRows * j4; e += kThreads) d2[e] = 0.f;  // d2 and d1
   for (int e = tid; e < kRows * nz; e += kThreads) {
@@ -171,13 +199,13 @@ __global__ void __launch_bounds__(kThreads, 2) prior_langevin_kernel(
     for (int t = tid; t < J * kGroups; t += kThreads) {
       const int j = t % J, r0 = (t / J) * kRt;
       float acc[kRt] = {};
-      dot_col(k1s + j, ld, zs + r0 * nz, nz, nz, acc);
+      dot_col<kBf16Dots>(k1s + j, ld, zs + r0 * nz, nz, nz, acc);
       const float b = __ldg(b1 + j0 + j);
 #pragma unroll
       for (int r = 0; r < kRt; ++r) {
         const float v = acc[r] + b;
         h1p[(r0 + r) * J + j] = v;
-        xh1[(r0 + r) * J + j] = lrelu(v);
+        xh1[(r0 + r) * J + j] = operand<kBf16Dots>(lrelu(v));
       }
     }
     cluster.sync();
@@ -192,10 +220,11 @@ __global__ void __launch_bounds__(kThreads, 2) prior_langevin_kernel(
     for (int t = tid; t < J * kGroups; t += kThreads) {
       const int j = t % J, r0 = (t / J) * kRt;
       float acc[kRt] = {};
-      dot_col(k2s + j, ld, h1 + r0 * ndf, ndf, ndf, acc);
+      dot_col<false>(k2s + j, ld, h1 + r0 * ndf, ndf, ndf, acc);  // h1 was rounded where stored
       const float b = __ldg(b2 + j0 + j), head = __ldg(k3 + j0 + j);
 #pragma unroll
-      for (int r = 0; r < kRt; ++r) d2[(r0 + r) * j4 + j] = dlrelu(acc[r] + b) * head;
+      for (int r = 0; r < kRt; ++r)
+        d2[(r0 + r) * j4 + j] = operand<kBf16Dots>(dlrelu(acc[r] + b) * head);
     }
     __syncthreads();
     // d2 K2^T over own columns, every output.
@@ -213,7 +242,7 @@ __global__ void __launch_bounds__(kThreads, 2) prior_langevin_kernel(
       float v = 0.f;
 #pragma unroll
       for (int c = 0; c < kCluster; ++c) v += cluster.map_shared_rank(xd1, c)[r * ndf + j0 + j];
-      d1[r * j4 + j] = dlrelu(h1p[e]) * v;
+      d1[r * j4 + j] = operand<kBf16Dots>(dlrelu(h1p[e]) * v);
     }
     __syncthreads();
     // d1 K1^T over own columns, every output.
@@ -263,6 +292,22 @@ cudaLaunchConfig_t launch_config(int clusters, int smem, cudaStream_t stream,
   return cfg;
 }
 
+template <bool kBf16Dots>
+int launch(const float* z, const float* k1, const float* b1, const float* k2, const float* b2,
+           const float* k3, const int* seeds, int seed, int stream_noise, float* out, int B, int nz,
+           int ndf, int steps, float step_size, float coeff, cudaStream_t stream) {
+  const int smem = smem_bytes(nz, ndf);
+  cudaError_t err = cudaFuncSetAttribute(prior_langevin_kernel<kBf16Dots>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = launch_config((B + kRows - 1) / kRows, smem, stream, &attr);
+  err = cudaLaunchKernelEx(&cfg, prior_langevin_kernel<kBf16Dots>, z, k1, b1, k2, b2, k3, seeds,
+                           seed, stream_noise, out, B, nz, ndf, steps, step_size, coeff);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 DAMC_ERROR_STRING_EXPORT
@@ -279,20 +324,15 @@ extern "C" int damc_fused_langevin_smem_bytes(int nz, int ndf) { return smem_byt
 
 // Noise: seeds = per-chain int32 counter seeds (counter mode); else
 // stream_noise != 0 draws stream mode from the scalar `seed`; else the
-// chain is noiseless. ndf must be a multiple of kCluster.
+// chain is noiseless. bf16_dots != 0 selects the bf16-dot variant. ndf
+// must be a multiple of kCluster.
 extern "C" int damc_fused_langevin(const float* z, const float* k1, const float* b1, const float* k2,
                                    const float* b2, const float* k3, const int* seeds, int seed,
-                                   int stream_noise, float* out, int B, int nz, int ndf, int steps,
-                                   float step_size, float coeff, void* stream) {
-  const int smem = smem_bytes(nz, ndf);
-  cudaError_t err = cudaFuncSetAttribute(prior_langevin_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  cudaLaunchAttribute attr;
-  const cudaLaunchConfig_t cfg =
-      launch_config((B + kRows - 1) / kRows, smem, static_cast<cudaStream_t>(stream), &attr);
-  err = cudaLaunchKernelEx(&cfg, prior_langevin_kernel, z, k1, b1, k2, b2, k3, seeds, seed,
-                           stream_noise, out, B, nz, ndf, steps, step_size, coeff);
-  if (err != cudaSuccess) return (int)err;
-  return (int)cudaGetLastError();
+                                   int stream_noise, int bf16_dots, float* out, int B, int nz,
+                                   int ndf, int steps, float step_size, float coeff, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return bf16_dots ? launch<true>(z, k1, b1, k2, b2, k3, seeds, seed, stream_noise, out, B, nz, ndf,
+                                  steps, step_size, coeff, s)
+                   : launch<false>(z, k1, b1, k2, b2, k3, seeds, seed, stream_noise, out, B, nz,
+                                   ndf, steps, step_size, coeff, s);
 }

@@ -11,7 +11,7 @@ import torch
 from ..config import Config
 from ..device import resolve_device
 from .amortizer import DAMCAmortizer, PriorEmbedder, sample_q, sample_q_per_item, sweep_route
-from .common import torch_default_init_
+from .common import cast_float_leaves, compute_dtype, torch_default_init_
 from .denoiser import ConcatSquashLinear, LatentDenoiser, SinusoidalTimeEmbedding
 from .ebm import LatentEBM
 from .encoders import ConvEncoder, MLPEncoder, encoder_spec, make_encoder
@@ -48,23 +48,25 @@ def build_models(
     differently in the two modes: there is no dropout, and InstanceNorm2d
     keeps no running statistics (track_running_stats=False). The toy
     workload has no EBM, and its G (`ToyGenerator`) takes its own normal
-    init from the same generator."""
+    init from the same generator.
+
+    `cfg.model.compute_dtype` ("float32" or "bfloat16") is the compute
+    dtype of G and the conv encoder (`damc_tpu/train/state.py:102-130`);
+    the EBM, Q's denoiser and every parameter stay float32, and the toy's
+    G and encoder compute in float32 whatever it says."""
     dev = resolve_device(device)
     m, d = cfg.model, cfg.diffusion
     toy = m.dataset == "toy"
-    if m.compute_dtype != "float32":
-        raise NotImplementedError(
-            f"compute_dtype={m.compute_dtype!r} is not ported (ROADMAP.md, queue 1, item 2b): "
-            "the port's networks compute in float32"
-        )
+    dtype = compute_dtype(m.compute_dtype)
     with torch.device("meta"):
-        generator = ToyGenerator(in_dim=m.nz) if toy else make_generator(m.dataset, ngf=m.ngf, nc=m.nc, nz=m.nz)
+        generator = ToyGenerator(in_dim=m.nz) if toy else make_generator(
+            m.dataset, ngf=m.ngf, nc=m.nc, nz=m.nz, dtype=dtype)
         ebm = None if toy else LatentEBM(m.nz, ndf=m.ndf)
         amortizer = DAMCAmortizer(
             nz=m.nz, nxemb=m.nxemb, ntemb=m.ntemb, nf=m.nf, nif=m.nif, nc=m.nc,
             dataset=m.dataset, n_interval=d.n_interval, logsnr_min=d.logsnr_min,
             logsnr_max=d.logsnr_max, var_type=d.var_type, with_noise=d.with_noise,
-            residual=d.residual,
+            residual=d.residual, encoder_dtype=dtype,
         )
     gen = torch.Generator().manual_seed(int(seed))
     bundle = ModelBundle(generator=generator, ebm=ebm, amortizer=amortizer)
@@ -87,6 +89,8 @@ __all__ = [
     "build_models",
     "DAMCAmortizer",
     "PriorEmbedder",
+    "cast_float_leaves",
+    "compute_dtype",
     "sample_q",
     "sample_q_per_item",
     "sweep_route",

@@ -52,7 +52,8 @@ class DAMCAmortizer(nn.Module):
     """Q: amortized sampler of p(z | x), and of p(z) when unconditioned.
     dataset='toy' selects the MLP encoder, 'stylegan' none (the caller
     passes the embedding as `xemb`) and 1024-wide hidden layers, the others
-    the conv encoders."""
+    the conv encoders, which compute in `encoder_dtype`; the denoiser stays
+    float32."""
 
     def __init__(
         self,
@@ -69,6 +70,7 @@ class DAMCAmortizer(nn.Module):
         var_type: str = "large",
         with_noise: bool = True,
         residual: bool = True,
+        encoder_dtype: torch.dtype = torch.float32,
     ):
         super().__init__()
         self.nz, self.nxemb = nz, nxemb
@@ -83,7 +85,7 @@ class DAMCAmortizer(nn.Module):
             self.encoder = None
             widths = STYLEGAN_WIDTHS
         else:
-            self.encoder = make_encoder(dataset, nemb=nxemb, nif=nif, nc=nc)
+            self.encoder = make_encoder(dataset, nemb=nxemb, nif=nif, nc=nc, dtype=encoder_dtype)
         self.prior_emb = PriorEmbedder(nz, nxemb)
         self.p = LatentDenoiser(nz, nxemb, ntemb, nf=nf, residual=residual, widths=widths)
         self.register_buffer("xemb", torch.zeros(1, nxemb))
@@ -91,7 +93,10 @@ class DAMCAmortizer(nn.Module):
     def encode(self, x: torch.Tensor) -> torch.Tensor:
         if self.encoder is None:
             raise ValueError("the StyleGAN Q has no encoder: pass the inversion encoder's code as xemb")
-        return self.encoder(x)
+        # A bfloat16 embedding enters Q's float32 layers, where JAX promotes
+        # it to float32 (`damc_tpu/models/amortizer.py:81-95`): the cast is
+        # exact, and its gradient is cast back to the encoder's dtype.
+        return self.encoder(x).float()
 
     def prior_embed(self, noise: torch.Tensor) -> torch.Tensor:
         return self.prior_emb(noise)

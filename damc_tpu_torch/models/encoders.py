@@ -9,6 +9,13 @@ the stack runs NCHW. Layers keep the reference torch layout: conv at
   * 'SAME' (3x3, stride 1) -> 1
   * an int (the stride-2 4x4 convs) -> that explicit pad on both sides
   * 'VALID' -> 0
+
+`ConvEncoder(dtype=torch.bfloat16)` computes as flax's `dtype=bfloat16`
+does (`models/common.py::promoted_forward`): each conv casts its input,
+weight and bias to bfloat16, and each InstanceNorm is flax's
+`GroupNorm(group_size=1, dtype=bfloat16)`, its statistics and affine in
+float32 and its result in bfloat16. The embedding comes out in bfloat16;
+the parameters stay float32.
 """
 
 from __future__ import annotations
@@ -17,6 +24,8 @@ from typing import Sequence, Tuple, Union
 
 import torch
 from torch import nn
+
+from .common import promoted_forward
 
 # (features, kernel, stride, padding, normalize)
 ConvLayer = Tuple[int, int, int, Union[str, int], bool]
@@ -74,11 +83,12 @@ def _torch_padding(kernel: int, padding: Union[str, int]) -> int:
 
 
 class ConvEncoder(nn.Module):
-    """x (B, H, W, C) -> embedding (B, nemb)."""
+    """x (B, H, W, C) -> embedding (B, nemb), in `dtype`."""
 
-    def __init__(self, nc: int, layers: Sequence[ConvLayer], nemb: int):
+    def __init__(self, nc: int, layers: Sequence[ConvLayer], nemb: int, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.nemb = nemb
+        self.dtype = dtype
         mods = []
         cin = nc
         for i, (features, kernel, stride, padding, normalize) in enumerate(layers):
@@ -94,12 +104,13 @@ class ConvEncoder(nn.Module):
         self.net = nn.Sequential(*mods)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        h = self.net(x.permute(0, 3, 1, 2))  # NHWC -> NCHW
+        h = x.permute(0, 3, 1, 2)  # NHWC -> NCHW
+        h = self.net(h) if self.dtype == torch.float32 else promoted_forward(self.net, h, self.dtype)
         return h.reshape(h.shape[0], self.nemb)
 
 
-def make_encoder(dataset: str, nemb: int, nif: int, nc: int) -> ConvEncoder:
-    return ConvEncoder(nc, encoder_spec(dataset, nemb, nif), nemb)
+def make_encoder(dataset: str, nemb: int, nif: int, nc: int, dtype: torch.dtype = torch.float32) -> ConvEncoder:
+    return ConvEncoder(nc, encoder_spec(dataset, nemb, nif), nemb, dtype)
 
 
 class MLPEncoder(nn.Sequential):

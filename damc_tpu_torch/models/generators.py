@@ -6,6 +6,12 @@ the five image datasets; the toy workload's G is a small MLP. The stack runs NCH
 NHWC like the JAX package's. ConvTranspose2d layers sit at even indices of
 `self.gen` (the reference torch layout `gen.0`, `gen.2`, ...), LeakyReLU(0.2)
 between them and Tanh at the end.
+
+`DeconvGenerator(dtype=torch.bfloat16)` computes as flax's `dtype=bfloat16`
+does (`models/common.py::promoted_forward`): each layer casts its input,
+weight and bias to bfloat16, so the activations, LeakyReLU and Tanh are
+bfloat16 and so is the output, while the parameters and their gradients
+stay float32. The toy's G stays float32, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -14,6 +20,8 @@ from typing import Sequence, Tuple
 
 import torch
 from torch import nn
+
+from .common import promoted_forward
 
 # (features, kernel, stride, padding)
 DeconvLayer = Tuple[int, int, int, str]
@@ -73,8 +81,9 @@ def _torch_padding(kernel: int, stride: int, padding: str) -> int:
 
 
 class DeconvGenerator(nn.Module):
-    def __init__(self, nz: int, layers: Sequence[DeconvLayer]):
+    def __init__(self, nz: int, layers: Sequence[DeconvLayer], dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.dtype = dtype
         mods = []
         cin = nz
         for i, (features, kernel, stride, padding) in enumerate(layers):
@@ -88,12 +97,13 @@ class DeconvGenerator(nn.Module):
         self.gen = nn.Sequential(*mods)
 
     def forward(self, z: torch.Tensor) -> torch.Tensor:
-        x = self.gen(z.reshape(z.shape[0], z.shape[1], 1, 1))
+        x = z.reshape(z.shape[0], z.shape[1], 1, 1)
+        x = self.gen(x) if self.dtype == torch.float32 else promoted_forward(self.gen, x, self.dtype)
         return x.permute(0, 2, 3, 1)  # NCHW -> NHWC
 
 
-def make_generator(dataset: str, ngf: int, nc: int, nz: int) -> DeconvGenerator:
-    return DeconvGenerator(nz, generator_spec(dataset, ngf, nc))
+def make_generator(dataset: str, ngf: int, nc: int, nz: int, dtype: torch.dtype = torch.float32) -> DeconvGenerator:
+    return DeconvGenerator(nz, generator_spec(dataset, ngf, nc), dtype)
 
 
 class ToyGenerator(nn.Module):

@@ -7,20 +7,26 @@ Counterpart of `damc_tpu/ops/pallas/fused_langevin.py`
 `fused_prior_langevin` runs the plain PyTorch version for tensors on the CPU
 and launches the kernel for tensors on a CUDA device; anything else, or a
 failed build or launch, raises. `fused_prior_langevin.launches` counts the
-kernel launches.
+launches of the fp32-dot variant; the bf16-dot variant has a count object
+of its own, `fused_prior_langevin.bf16`, whose `launches` counts its.
 
 Noise modes, as the TPU kernel's: counter (`row_seeds`, per-chain int32
 seeds; serving), stream (`seed`, one int32 for the launch; training) and
 noiseless. Stream mode draws row i's noise from
 `ops/noise.py::stream_row_seeds(seed, B)[i]`, not from the TPU's on-core
-PRNG (see `ops/noise.py`). The TPU kernel's bf16 dot option is not ported
-(ROADMAP.md, queue 2, K1).
+PRNG (see `ops/noise.py`).
+
+Dot precision, as the TPU kernel's `dots_dtype`: "float32", or "bfloat16":
+the four products take operands rounded to bfloat16 (the weights, z,
+lrelu(h1p), d2 and d1) and accumulate in float32, while the biases, k3,
+the + z term, the chain state and the noise stay float32.
 """
 
 from __future__ import annotations
 
 import ctypes
 import threading
+import types
 from typing import List, Tuple
 
 import torch
@@ -34,6 +40,7 @@ CLUSTER = 4  # blocks per cluster; each holds ndf / CLUSTER hidden columns of K1
 THREADS = 256
 SMEM_LIMIT = 232_448  # bytes of shared memory one Hopper block may use
 _SLOPE = 0.2
+DOTS_DTYPES = ("float32", "bfloat16")
 _lock = threading.Lock()
 
 
@@ -91,28 +98,41 @@ def _dlrelu(x):
     return torch.where(x >= 0.0, 1.0, _SLOPE)
 
 
-def _check_noise(with_noise, seed, row_seeds) -> None:
+def _check_args(with_noise, seed, row_seeds, dots_dtype) -> None:
     if with_noise and seed is None and row_seeds is None:
         raise ValueError("a noisy chain needs seed (stream mode) or row_seeds (counter mode)")
+    if dots_dtype not in DOTS_DTYPES:
+        raise ValueError(f"dots_dtype must be one of {DOTS_DTYPES}, got {dots_dtype!r}")
+
+
+def _bf16_operand(t: torch.Tensor) -> torch.Tensor:
+    """t rounded to the nearest bfloat16 (ties to even), held in float32."""
+    return t.to(torch.bfloat16).float()
 
 
 def prior_langevin_plain(
     z, k1, b1, k2, b2, k3, seed=None, steps: int = 1, step_size: float = 0.1,
-    with_noise: bool = True, row_seeds=None,
+    with_noise: bool = True, row_seeds=None, dots_dtype: str = "float32",
 ) -> torch.Tensor:
     """The kernel's function as a Python loop over steps (torch.matmul).
-    `row_seeds` wins over `seed`."""
+    `row_seeds` wins over `seed`. With dots_dtype "bfloat16" the operands
+    of the four products are rounded where the kernel rounds them; the
+    product of two bfloat16 values is exact in float32, so the products
+    then differ from the kernel's in summation order alone."""
+    _check_args(with_noise, seed, row_seeds, dots_dtype)
+    op = _bf16_operand if dots_dtype == "bfloat16" else (lambda t: t)
     coeff = 0.5 * step_size * step_size
     k3 = k3.reshape(1, -1)
+    k1, k2 = op(k1), op(k2)
     z = z.float()
     if with_noise and row_seeds is None:
         row_seeds = stream_row_seeds(seed, z.shape[0], z.device)
     for step in range(steps):
-        h1p = z @ k1 + b1
-        h2p = _lrelu(h1p) @ k2 + b2
+        h1p = op(z) @ k1 + b1
+        h2p = op(_lrelu(h1p)) @ k2 + b2
         d2 = _dlrelu(h2p) * k3
-        d1 = _dlrelu(h1p) * (d2 @ k2.t())
-        grad = d1 @ k1.t() + z
+        d1 = _dlrelu(h1p) * (op(d2) @ k2.t())
+        grad = op(d1) @ k1.t() + z
         z = z - coeff * grad
         if with_noise:
             z = z + step_size * counter_normal(row_seeds, step, z.shape[1])
@@ -121,7 +141,7 @@ def prior_langevin_plain(
 
 def fused_prior_langevin(
     z, k1, b1, k2, b2, k3, seed=None, steps: int = 1, step_size: float = 0.1,
-    with_noise: bool = True, row_seeds=None,
+    with_noise: bool = True, row_seeds=None, dots_dtype: str = "float32",
 ) -> torch.Tensor:
     """Run the whole K-step chain z (B, nz) -> z_K on the EBM weights
     (k1, b1, k2, b2, k3) of `ebm_params_to_dense_weights`.
@@ -129,12 +149,12 @@ def fused_prior_langevin(
     Noise: `row_seeds` (B,) int32 selects counter mode, chain i a function
     of (row_seeds[i], z[i]) only; otherwise `seed` (int32) selects stream
     mode, chain i a function of (seed, i, z[i]). `row_seeds` wins when both
-    are given."""
-    _check_noise(with_noise, seed, row_seeds)
+    are given. `dots_dtype` ("float32" or "bfloat16") selects the variant."""
+    _check_args(with_noise, seed, row_seeds, dots_dtype)
     if z.device.type == "cpu":
         return prior_langevin_plain(
             z, k1, b1, k2, b2, k3, seed=seed, steps=steps, step_size=step_size,
-            with_noise=with_noise, row_seeds=row_seeds,
+            with_noise=with_noise, row_seeds=row_seeds, dots_dtype=dots_dtype,
         )
     if z.device.type != "cuda":
         raise ValueError(f"no prior-Langevin kernel for device {z.device}")
@@ -156,22 +176,27 @@ def fused_prior_langevin(
         if seeds.shape != (b,):
             raise ValueError(f"row_seeds must be ({b},), got {tuple(seeds.shape)}")
     stream = with_noise and seeds is None
+    bf16 = dots_dtype == "bfloat16"
     out = torch.empty_like(z32)
     lib = _library()
     rc = lib.damc_fused_langevin(
         z32.data_ptr(), *[t.data_ptr() for t in w],
         None if seeds is None else seeds.data_ptr(), int32_seed(seed) if stream else 0,
-        int(stream), out.data_ptr(),
+        int(stream), int(bf16), out.data_ptr(),
         b, nz, ndf, steps, float(step_size), 0.5 * step_size * step_size,
         torch.cuda.current_stream(dev).cuda_stream,
     )
     build.check(lib, rc, "fused_prior_langevin")
     with _lock:
-        fused_prior_langevin.launches += 1
+        if bf16:
+            fused_prior_langevin.bf16.launches += 1
+        else:
+            fused_prior_langevin.launches += 1
     return out
 
 
 fused_prior_langevin.launches = 0
+fused_prior_langevin.bf16 = types.SimpleNamespace(launches=0)
 
 
 def _library() -> ctypes.CDLL:
@@ -179,9 +204,9 @@ def _library() -> ctypes.CDLL:
     fn = lib.damc_fused_langevin
     if fn.argtypes is None:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        # z, k1, b1, k2, b2, k3, seeds, seed, stream_noise, out, B, nz, ndf,
-        # steps, step_size, coeff, stream
-        fn.argtypes = [p, p, p, p, p, p, p, i, i, p, i, i, i, i, f, f, p]
+        # z, k1, b1, k2, b2, k3, seeds, seed, stream_noise, bf16_dots, out, B,
+        # nz, ndf, steps, step_size, coeff, stream
+        fn.argtypes = [p, p, p, p, p, p, p, i, i, i, p, i, i, i, i, f, f, p]
         fn.restype = ctypes.c_int
         geometry = (ctypes.c_int * 3)()
         lib.damc_fused_langevin_geometry(geometry)

@@ -137,21 +137,25 @@ def prior_langevin_auto(
     seed: Optional[int] = None,
     use_pallas: bool = True,
     noise: Optional[torch.Tensor] = None,
+    dots_dtype: str = "float32",
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Prior-Langevin chain; returns (z_final, final energy per chain).
 
     With `use_pallas` the standard 2-hidden `LatentEBM` runs in the fused
     chain kernel: with per-row counter noise when `row_seeds` is given
-    (serving), else with stream noise from the int32 `seed` (training).
+    (serving), else with stream noise from the int32 `seed` (training),
+    its products in the precision `dots_dtype` ("float32" or "bfloat16").
     Without it, or for another EBM (the 3-hidden StyleGAN head), the chain
     runs `langevin_sample` by autograd with the EBM frozen, its per-step
-    normals `noise` (steps, B, nz) or drawn from `generator`, and honours
-    neither seed (`damc_tpu/ops/langevin.py:200-253`)."""
+    normals `noise` (steps, B, nz) or drawn from `generator`, in float32
+    whatever `dots_dtype` says, and honours neither seed
+    (`damc_tpu/ops/langevin.py:166-253`)."""
     if use_pallas and ebm.n_hidden == 2 and ebm.nez == 1:
         with torch.no_grad():
             z = fused_prior_langevin(
                 z_init, *ebm_params_to_dense_weights(ebm), seed=seed, row_seeds=row_seeds,
                 steps=steps, step_size=float(step_size), with_noise=with_noise,
+                dots_dtype=dots_dtype,
             )
     else:
         if row_seeds is not None or seed is not None:

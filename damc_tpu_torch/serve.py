@@ -11,7 +11,9 @@ Counterpart of `damc_tpu/serve.py` for one GPU. Three paths:
               G decode;
 
 plus a stdlib HTTP front (`make_http_server`) and a CLI
-(`damc_tpu_torch.cli.serve`).
+(`damc_tpu_torch.cli.serve`). With `compute_dtype` "bfloat16" G and the
+encoder compute in bfloat16 (the images are answered in float32), while K1
+keeps float32 products, as the JAX package's serving does.
 
 Per-request determinism, independent of coalescing: item i of a request
 with seed s is a pure function of (s, i). The serving path has two layers:
@@ -104,7 +106,9 @@ def build_serving_fns(models, cfg: Config, recon_langevin_steps: int = 10) -> Di
     q_layers = denoiser_layer_params(amort.p)
 
     def decode(z):
-        return gen(z).contiguous()
+        # A bfloat16 G (compute_dtype) answers float32 images, the values of
+        # its bfloat16 output.
+        return gen(z).float().contiguous()
 
     @torch.no_grad()
     def damc(d: RowDraws) -> torch.Tensor:
@@ -125,6 +129,8 @@ def build_serving_fns(models, cfg: Config, recon_langevin_steps: int = 10) -> Di
 
         @torch.no_grad()
         def ebm_sample(d: RowDraws) -> torch.Tensor:
+            # K1 with float32 products whatever pallas_dots_dtype says: JAX's
+            # serving passes no dots_dtype (`damc_tpu/serve.py:360-364`).
             z, _ = prior_langevin_auto(
                 d.z_init, ebm, mc.e_l_steps, mc.e_l_step_size, mc.e_l_with_noise,
                 row_seeds=d.chain_seed,

@@ -96,7 +96,7 @@ def evaluate_fid(
         for i in range(n_batches):
             b = one_batch(draws_fn(i, batch))
             if i == 0 and grid_path:
-                save_image_grid(b[:64].cpu().numpy() * 2.0 - 1.0, grid_path)
+                save_image_grid(b[:64].float().cpu().numpy() * 2.0 - 1.0, grid_path)
             yield b
 
     return fid_from_samples(feature_fn, batches(), real_mu, real_sigma)
@@ -234,13 +234,13 @@ def train_gen_recon(
         one = lambda tag: sampling.eval_draws(seed, tag, it, 0, n_show, nz, dev)
         save_image_grid(xs.cpu().numpy(), f"{img_dir}/{it}_obs.png")
         x_hat, _ = sampling.reconstruct(models, cfg, xs, one("plot_post"), cfg.mcmc.g_l_steps)
-        save_image_grid(x_hat.cpu().numpy(), f"{img_dir}/{it}_post.png")
+        save_image_grid(x_hat.float().cpu().numpy(), f"{img_dir}/{it}_post.png")
         d = one("plot_q")
         with torch.no_grad():
             x_hat_q = models.generator(sample_q(state.amortizer_ema, xs, d.z0, d.sweep_seed))
-        save_image_grid(x_hat_q.cpu().numpy(), f"{img_dir}/{it}_post_Q.png")
+        save_image_grid(x_hat_q.float().cpu().numpy(), f"{img_dir}/{it}_post_Q.png")
         x_prior, _ = sampling.gen_samples_damc_prior(models, cfg, one("plot_prior"))
-        save_image_grid(x_prior.cpu().numpy(), f"{img_dir}/{it}_prior.png")
+        save_image_grid(x_prior.float().cpu().numpy(), f"{img_dir}/{it}_prior.png")
 
     def iterate(it: int) -> None:
         nonlocal state

@@ -104,11 +104,12 @@ def eval_draws(
 @torch.no_grad()
 def gen_samples_ebm_prior(models: ModelBundle, cfg: Config, d: Draws) -> torch.Tensor:
     """x = G(z), z after e_l_steps of prior Langevin on the EBM from d.z0
-    (kernel K1, stream seed d.chain_seed; with `use_pallas` off the
-    autograd chain, its normals from a device generator seeded with
-    d.chain_seed). Images in [-1, 1]."""
+    (kernel K1, stream seed d.chain_seed, `pallas_dots_dtype` products;
+    with `use_pallas` off the autograd chain, its normals from a device
+    generator seeded with d.chain_seed). Images in [-1, 1], in G's compute
+    dtype, as the JAX pipeline's."""
     mc = cfg.mcmc
-    chain = dict(seed=d.chain_seed)
+    chain = dict(seed=d.chain_seed, dots_dtype=cfg.train.pallas_dots_dtype)
     if not cfg.train.use_pallas:
         gen = torch.Generator(device=d.z0.device).manual_seed(d.chain_seed & 0xFFFFFFFF)
         chain = dict(use_pallas=False, generator=gen)

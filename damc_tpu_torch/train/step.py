@@ -14,9 +14,11 @@ the JAX step, in order, each under a `torch.profiler.record_function` label
                          backward pass (JAX's `jax.checkpoint`): the same
                          arithmetic, less activation memory;
   3. prior_langevin      e_l_steps over 2B chains [z0, N(0, I)] ("double")
-                         or B chains z0 ("single"), kernel K1 in stream mode,
-                         or with `use_pallas` off the autograd chain of
-                         `langevin_sample`; none for the toy ("none");
+                         or B chains z0 ("single"), kernel K1 in stream mode
+                         with `pallas_dots_dtype` products, or with
+                         `use_pallas` off the autograd chain of
+                         `langevin_sample` (float32); none for the toy
+                         ("none");
   4. q_updates           `q_updates` denoising score-matching updates of Q
                          (both mask branches with `q_loss_both_branches`);
   5. g_update            ||G(z+) - x||^2, summed per sample, mean over B; a
@@ -29,6 +31,12 @@ the JAX step, in order, each under a `torch.profiler.record_function` label
 
 Neither kernel is differentiated: the JAX step puts both behind
 `stop_gradient`, so every gradient here is autograd through the networks.
+With `compute_dtype` "bfloat16" G and the conv encoder compute in bfloat16
+(`models/__init__.py::build_models`); their outputs meet float32 tensors
+where the JAX step's do, and PyTorch promotes them there as JAX does:
+G(z) - x in the posterior energy and the G loss, the embedding in Q's
+layers (`DAMCAmortizer.encode`). Parameters, gradients and optimizer
+states stay float32.
 Parameters are updated in place. Every random number of an iteration comes
 from one `StepDraws`: production draws it from the state's device
 generator (`draw_step`), the parity tests build it from the JAX key tree.
@@ -137,17 +145,6 @@ def make_train_step(
     tc, mc, dc = cfg.train, cfg.mcmc, cfg.diffusion
     gen, ebm, amort = models.generator, models.ebm, models.amortizer
     chains = tc.prior_chains != "none" and ebm is not None
-    # The JAX step's dtype switches; the port runs float32.
-    unported = {
-        "compute_dtype": cfg.model.compute_dtype != "float32",
-        "pallas_dots_dtype": tc.pallas_dots_dtype != "float32",
-    }
-    asked = [k for k, v in unported.items() if v]
-    if asked:
-        raise NotImplementedError(
-            f"{asked}: bfloat16 is not ported (ROADMAP.md, queue 1, item 2b); the port trains "
-            "in float32"
-        )
 
     def train_step(state: TrainState, x: torch.Tensor, draws: Optional[StepDraws] = None):
         b = x.shape[0]
@@ -180,7 +177,7 @@ def make_train_step(
                 zk_neg, prior_final_energy = prior_langevin_auto(
                     z_neg_init, ebm, mc.e_l_steps, mc.e_l_step_size, mc.e_l_with_noise,
                     seed=d.chain_seed if tc.use_pallas else None, use_pallas=tc.use_pallas,
-                    noise=d.chain_noise, generator=state.rng,
+                    noise=d.chain_noise, generator=state.rng, dots_dtype=tc.pallas_dots_dtype,
                 )
 
         with _phase("q_updates"):

@@ -14,6 +14,14 @@ from a device generator (`inversion_draws`), so the CPU tests can feed
 JAX's own draws. `make_inversion_train_step` trains Q with the refined
 inversion as the posterior target; `evaluate_inversion` sweeps a test set
 for the recon MSE and the Frechet distance of the reconstructions.
+
+`compute_dtype` (torch.float32 or torch.bfloat16) runs the Adam
+refine's synthesis and VGG16 forwards and their input-backwards in that
+dtype: the two networks' parameters and buffers are cast for the call
+(`models/common.py::cast_float_leaves`) and x and z are cast as they
+enter, while z, the loss reductions (each cast to float32 first) and Adam
+stay float32. The Q sweep, the NaN rescue and the returned x_hat stay
+float32 (`damc_tpu/train/stylegan_inv.py:48-145`).
 """
 
 from __future__ import annotations
@@ -23,12 +31,13 @@ from typing import Callable, Dict, List, Optional, Union
 
 import numpy as np
 import torch
+from torch.func import functional_call
 
 from ..config import Config
 from ..device import resolve_device
 from ..models import ModelBundle, sample_q
 from ..models.amortizer import DAMCAmortizer
-from ..models.common import torch_default_init_
+from ..models.common import cast_float_leaves, torch_default_init_
 from ..models.stylegan import StyleGANNets, W_DIM, num_synthesis_layers, sample_w_codes
 from ..ops.langevin import adam_latent_descent
 from ..ops.noise import counter_bits
@@ -107,19 +116,33 @@ def _nhwc(x: torch.Tensor) -> torch.Tensor:
     return x.permute(0, 2, 3, 1)
 
 
-def inversion_loss_fn(nets: StyleGANNets, x: torch.Tensor) -> Callable[[torch.Tensor], torch.Tensor]:
+def _in_dtype(module: torch.nn.Module, dtype: torch.dtype) -> Callable[[torch.Tensor], torch.Tensor]:
+    """module's forward with its floating parameters and buffers and its
+    input in `dtype`; the (float32) module itself when dtype is float32."""
+    if dtype == torch.float32:
+        return module
+    leaves = cast_float_leaves(module, dtype)
+    return lambda t: functional_call(module, leaves, (t.to(dtype),))
+
+
+def inversion_loss_fn(
+    nets: StyleGANNets, x: torch.Tensor, compute_dtype: torch.dtype = torch.float32
+) -> Callable[[torch.Tensor], torch.Tensor]:
     """Per-image loss of latents z (B, L*512) against images x (B, H, W, 3):
     1.5 pixel MSE + 5e-5 VGG16 feature MSE, the features of x computed once
-    (`damc_tpu/train/stylegan_inv.py:47-92`)."""
+    (`damc_tpu/train/stylegan_inv.py:48-92`). The synthesis and VGG16 run in
+    `compute_dtype`; their outputs are cast to float32
+    before the reductions."""
+    gen, vgg = _in_dtype(nets.generator, compute_dtype), _in_dtype(nets.vgg, compute_dtype)
     x_c = _nchw(x)
     with torch.no_grad():
-        feat_x = nets.vgg(x_c)
+        feat_x = vgg(x_c).float()
     b = x.shape[0]
 
     def loss(z):
-        x_hat = nets.generator(z)
+        x_hat = gen(z).float()
         mse = torch.mean((x_hat - x_c).reshape(b, -1) ** 2, dim=-1)
-        f_mse = torch.mean((feat_x - nets.vgg(x_hat)).reshape(b, -1) ** 2, dim=-1)
+        f_mse = torch.mean((feat_x - vgg(x_hat).float()).reshape(b, -1) ** 2, dim=-1)
         return 1.5 * mse + 5e-5 * f_mse
 
     return loss
@@ -148,11 +171,13 @@ def invert_batch(
     steps: int = 100,
     lr: float = 0.01,
     xemb: Optional[torch.Tensor] = None,
+    compute_dtype: torch.dtype = torch.float32,
 ):
     """Q(x) -> NaN rescue -> Adam refine, for images x (B, H, W, 3) in
     [-1, 1] (`damc_tpu/train/stylegan_inv.py:108-140`). A caller that holds
-    the frozen encoder's code of x passes it as `xemb`. Returns (x_hat
-    (B, H, W, 3), z, per-step loss sums)."""
+    the frozen encoder's code of x passes it as `xemb`. `compute_dtype`
+    applies to the Adam refine alone. Returns (x_hat (B, H, W, 3) in
+    float32, z, per-step loss sums)."""
     if xemb is None:
         with _phase("encoder"), torch.no_grad():
             xemb = nets.encoder(_nchw(x))
@@ -161,7 +186,7 @@ def invert_batch(
     with _phase("rescue"):
         z0 = nan_rescue(nets, z0, x, draws.rescue)
     with _phase("refine"):
-        z, losses = adam_latent_descent(z0, inversion_loss_fn(nets, x), steps=steps, lr=lr)
+        z, losses = adam_latent_descent(z0, inversion_loss_fn(nets, x, compute_dtype), steps=steps, lr=lr)
     with _phase("decode"), torch.no_grad():
         x_hat = _nhwc(nets.generator(z))
     return x_hat, z, losses
@@ -248,13 +273,14 @@ def evaluate_inversion(
     real_mu=None,
     real_sigma=None,
     fid_metric_name: str = "fid",
+    compute_dtype: torch.dtype = torch.float32,
 ) -> Dict[str, float]:
     """Recon MSE (the sum of per-image means over N) and, with a feature
     extractor and real statistics, the Frechet distance of the
     reconstructions, over every image of `images` (N, H, W, 3) in [-1, 1]
     (`damc_tpu/train/stylegan_inv.py:203-307`): a tail batch is padded by
     repeating its last image, then sliced back; features stream into
-    `RunningStats`."""
+    `RunningStats`. `compute_dtype` is the Adam refine's (`invert_batch`)."""
     from ..metrics.fid import RunningStats, frechet_distance
 
     n_total = len(images)
@@ -268,7 +294,7 @@ def evaluate_inversion(
         if n_real < batch:
             xb = torch.cat([xb, xb[-1:].expand(batch - n_real, -1, -1, -1)])
         draws = inversion_draws(batch_generator(seed, bi, dev), batch, q.nz, q.n_interval, q.with_noise)
-        x_hat, _, _ = invert_batch(q, nets, xb, draws, steps, lr)
+        x_hat, _, _ = invert_batch(q, nets, xb, draws, steps, lr, compute_dtype=compute_dtype)
         x_hat = x_hat[:n_real]
         total_mse += float(torch.sum(torch.mean((x_hat - xb[:n_real]).reshape(n_real, -1) ** 2, dim=-1)))
         n += n_real

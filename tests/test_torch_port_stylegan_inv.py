@@ -237,7 +237,9 @@ def test_evaluate_inversion_covers_a_tail_batch(pair):
 
 def test_eval_cli_round_trip_on_cpu(pair, tmp_path, capsys):
     """The eval CLI on tiny seeded `.pth` files (res 8) and 3 PNGs at 16x16
-    (resized to 8): twice from a saved Q checkpoint, identical output; and
+    (resized to 8): twice from a saved Q checkpoint, identical output; with
+    `--compute_dtype bfloat16` a recon MSE within 5% of the float32 run's
+    (the bound of tests/test_cli_stylegan_inv.py) and not equal to it; and
     the options it does not port raise, naming their ROADMAP item."""
     from damc_tpu_torch.cli import eval_stylegan_inv
     from damc_tpu_torch.data.datasets import synthetic_image_tree
@@ -264,7 +266,10 @@ def test_eval_cli_round_trip_on_cpu(pair, tmp_path, capsys):
     assert printed.count("restored Q (step 7)") == 2
     closing = [l for l in printed.splitlines() if l.startswith("[damc] recon MSE")]
     assert len(closing) == 2 and closing[0] == closing[1] and "frechet_rand" in closing[0]
-    for extra, item in ((["--compute_dtype", "bfloat16"], "item 2b"), (["--use_mesh"], "item 8")):
+    bf16 = eval_stylegan_inv.main(argv + ["--compute_dtype", "bfloat16"])
+    assert np.isfinite(bf16["recon_mse"]) and bf16["recon_mse"] != outs[0]["recon_mse"]
+    assert abs(bf16["recon_mse"] - outs[0]["recon_mse"]) / outs[0]["recon_mse"] < 0.05
+    for extra, item in ((["--use_mesh"], "item 8"),):
         with pytest.raises(NotImplementedError, match=item):
             eval_stylegan_inv.main(argv + extra)
     os.makedirs(tmp_path / "lsun" / "tower_val_lmdb")

@@ -149,23 +149,28 @@ def test_unported_options_raise():
 
 
 def test_unported_dtypes_and_scan_chain_raise():
-    """The JAX step's bfloat16 switches raise where the port reads them,
-    instead of training in float32 unasked. The scan prior chain
-    (use_pallas=False) is ported now: the step builds (its name predates
-    that; tests/test_torch_port_unfused_sweep.py holds the step to JAX's)."""
+    """The JAX step's bfloat16 switches are ported now (the name predates
+    that): with `pallas_dots_dtype` or `compute_dtype` "bfloat16" the
+    models build, G and the conv encoder compute in bfloat16 where asked,
+    and one iteration steps with finite metrics and float32 parameters
+    (tests/test_torch_port_bf16.py holds the bf16 step to JAX's). The scan
+    prior chain (use_pallas=False) builds too
+    (tests/test_torch_port_unfused_sweep.py holds that step to JAX's)."""
     cfg = _tiny_cfg()
     state = create_state(cfg, seed=0, device="cpu")
+    x = torch.from_numpy(np.random.default_rng(0).uniform(-1, 1, (8, 32, 32, 3)).astype(np.float32))
     for section, kw in (("train", dict(pallas_dots_dtype="bfloat16")),
                         ("model", dict(compute_dtype="bfloat16"))):
-        bad = dataclasses.replace(cfg, **{section: dataclasses.replace(getattr(cfg, section), **kw)})
-        with pytest.raises(NotImplementedError, match=next(iter(kw))):
-            make_train_step(state.models, state.opts, bad)
+        bf16 = dataclasses.replace(cfg, **{section: dataclasses.replace(getattr(cfg, section), **kw)})
+        st = create_state(bf16, seed=0, device="cpu")
+        want = torch.bfloat16 if section == "model" else torch.float32
+        assert st.models.generator.dtype == want and st.models.amortizer.encoder.dtype == want
+        assert build_models(bf16, device="cpu").generator.dtype == want
+        st, metrics = make_train_step(st.models, st.opts, bf16)(st, x, draw_step(bf16, 8, st))
+        assert st.step == 1 and all(bool(torch.isfinite(v)) for v in metrics.values())
+        assert all(p.dtype == torch.float32 for m in st.models.modules() for p in m.parameters())
     scan = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, use_pallas=False))
     assert callable(make_train_step(state.models, state.opts, scan))
-    bf16 = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, compute_dtype="bfloat16"))
-    for build in (lambda: create_state(bf16, device="cpu"), lambda: build_models(bf16, device="cpu")):
-        with pytest.raises(NotImplementedError, match="compute_dtype"):
-            build()
 
 
 def test_entry_point_defaults_to_cuda():
