@@ -6,7 +6,9 @@
 Phases, each of which raises on failure (the script then exits non-zero):
   1. prints the card's name and power limit (nvidia-smi); needs CUDA;
   2. builds every CUDA kernel from `damc_tpu_torch/csrc`, one nvcc each, all
-     at once;
+     at once, and beside them the host C++ libraries of
+     `damc_tpu_torch/csrc/host` (batch engine, JPEG decoder, LMDB reader),
+     one g++ each;
   3. holds each kernel against its plain PyTorch version on the card, at the
      serving shape B=16 and the FID shape B=500 (ragged row tiles) in
      counter and noiseless mode, and in stream mode at the training shapes
@@ -97,13 +99,18 @@ Phases, each of which raises on failure (the script then exits non-zero):
      equal the restored state's serving core run in process, bit for bit;
      profiles one iteration as phase 7 does;
  16. celeba64 (nz=100, ngf=128, 64x64): K1 and K2 at the training shapes;
-     a PNG tree made from the seed at CelebA's 178x218 (2,048 train, 512
-     test images; row filters cycling None to Paeth), written by worker
-     processes; 4 iterations through the train CLI, which decodes the tree
-     and writes the train split's .npy cache, then a resume to 5 with an
-     eval, which must read the cache memory-mapped, equal to the decode;
-     prints the walls of the tree, the decode and the cache; profiles one
-     iteration;
+     a JPEG tree made from the seed by PIL at CelebA's 178x218 (2,048
+     train, 512 test images; 4:2:0 at quality 75, some 4:4:4, some with
+     restart markers), written by worker processes; 4 iterations through
+     the train CLI with --data_placement host, which decodes the tree and
+     writes the train split's .npy cache; every train file decoded by the
+     port must equal PIL's decode and the cache the JAX package's PIL
+     pipeline, with both decode rates; then a resume to 5 with an eval
+     under 'auto' with a device budget below the store, which must read the
+     cache memory-mapped and take the host feed; 'device' over the budget
+     must raise; host batches queued to the card must equal the CPU's; the
+     host feed's ms an iteration and idle share beside the device-resident
+     store's; profiles one iteration;
  17. celebaHQ (nz=128, ngf=128, 256x256): K1 and K2 at the training shapes;
      a 1024x1024 PNG tree (160 train, 32 test images); 3 iterations at B=128
      through the train CLI with evals at 0 and at the end (500 FID samples,
@@ -124,7 +131,11 @@ Phases, each of which raises on failure (the script then exits non-zero):
      idle share and top kernels, the FLOP count beside its fp32 bound; the
      eval CLI once more with --compute_dtype bfloat16 (recon MSE within 5%
      of the float32 run's, no kernel launched) and the bf16 refine's split,
-     images/s and peak memory beside the bf16 tensor-core bound;
+     images/s and peak memory beside the bf16 tensor-core bound; LSUN
+     (item 4b): an LMDB of 64 seeded JPEGs up to 256x340 read through
+     `LSUNImages`, bit-equal to PIL's decode, crop and LANCZOS, with the
+     read rate, and the eval CLI with --dataset lsun_tower over one batch
+     of 8;
  20. prints one JSON line {"kernels": [...]} with launches, errors and times
      of each kernel on each path (serve, train, eval, anomaly, anomaly_eval:
      the train CLI's AUPRC evals, anomaly_eval_cli: the eval CLI's two
@@ -2209,68 +2220,269 @@ def chain_trace(cfg, steps, step_size, seed_offset):
           f"{flips[1]} of them on opposite sides of 0")
 
 
+def synthetic_jpeg_tree(root: str, n: int, size, seed: int, start: int = 0) -> None:
+    """n JPEGs of `size` (width, height) made from `seed`, written by PIL to
+    root/{start + i:06d}.jpg, as CelebA's published files are: smooth
+    images with a little pixel noise, 4:2:0 at quality 75, every eighth
+    4:4:4 at quality 90, every fourth (from the second) with a restart
+    marker every MCU row."""
+    import os
+
+    from PIL import Image
+
+    w, h = int(size[0]), int(size[1])
+    os.makedirs(root, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    for i in range(n):
+        k = start + i
+        low = rng.integers(0, 256, (max(h // 16, 2), max(w // 16, 2), 3), dtype=np.uint8)
+        img = np.asarray(Image.fromarray(low).resize((w, h), Image.BILINEAR)).astype(np.int16)
+        img = np.clip(img + rng.integers(-6, 7, (h, w, 3)), 0, 255).astype(np.uint8)
+        kw = dict(quality=90, subsampling=0) if k % 8 == 7 else dict(quality=75, subsampling=2)
+        if k % 4 == 1:
+            kw["restart_marker_rows"] = 1
+        Image.fromarray(img).save(os.path.join(root, f"{k:06d}.jpg"), "JPEG", **kw)
+
+
+def write_jpeg_tree(root: str, n: int, size, seed: int) -> float:
+    """`synthetic_jpeg_tree` of n files under root, written by up to 8
+    worker processes at once; returns the wall in seconds."""
+    import multiprocessing
+    import os
+    from concurrent.futures import ProcessPoolExecutor
+
+    t0 = time.perf_counter()
+    workers = max(1, min(8, os.cpu_count() or 1, n))
+    per = -(-n // workers)
+    with ProcessPoolExecutor(workers, mp_context=multiprocessing.get_context("spawn")) as pool:
+        jobs = [pool.submit(synthetic_jpeg_tree, root, min(per, n - k * per), size, seed + k, k * per)
+                for k in range(workers) if k * per < n]
+        for job in jobs:
+            job.result()
+    return time.perf_counter() - t0
+
+
+def jpeg_check(root: str, cached: np.ndarray, size: int) -> dict:
+    """Every JPEG under root decoded by the port (`decode_jpegs`, its thread
+    pool) must equal PIL's `Image.open(...).convert("RGB")`, byte for byte,
+    and the folder reader's (size, size) images (`cached`) must equal the
+    JAX package's PIL pipeline (bilinear resize of the shorter side, centre
+    crop). Returns the decode rates in images/s: the port on all cores and
+    on one thread, PIL on one."""
+    import io
+    import os
+
+    from PIL import Image
+
+    from damc_tpu_torch.data.jpeg import decode_jpegs
+
+    paths = sorted(os.path.join(root, f) for f in os.listdir(root))
+    blobs = []
+    for p in paths:
+        with open(p, "rb") as f:
+            blobs.append(f.read())
+    t0 = time.perf_counter()
+    port = decode_jpegs(blobs, paths)
+    port_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    decode_jpegs(blobs, paths, threads=1)
+    port1_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    pil = [np.asarray(Image.open(io.BytesIO(b)).convert("RGB")) for b in blobs]
+    pil_s = time.perf_counter() - t0
+    bad = [p for p, a, b in zip(paths, port, pil) if not np.array_equal(a, b)]
+    folder = []
+    for img in pil:
+        h, w = img.shape[:2]
+        scale = size / min(w, h)
+        r = Image.fromarray(img).resize((max(size, round(w * scale)), max(size, round(h * scale))), Image.BILINEAR)
+        left, top = (r.size[0] - size) // 2, (r.size[1] - size) // 2
+        folder.append(np.asarray(r.crop((left, top, left + size, top + size))))
+    same_folder = np.array_equal(np.stack(folder), np.asarray(cached))
+    out = {"files": len(paths), "bytes": sum(map(len, blobs)), "port_images_per_s": len(paths) / port_s,
+           "port_one_thread_images_per_s": len(paths) / port1_s, "pil_images_per_s": len(paths) / pil_s,
+           "threads": min(16, os.cpu_count() or 4), "differ_from_pil": len(bad),
+           "folder_reader_equals_pil_pipeline": same_folder}
+    print("[celeba64] JPEG decode " + json.dumps(out) + " " + card_line())
+    if bad or not same_folder:
+        raise AssertionError(f"the port's JPEG decode differs from PIL's: {bad[:5]}, folder equal {same_folder}")
+    return out
+
+
+def _record_placements(log):
+    """Wrap the gen_recon driver's `make_batch_source`, logging each
+    source's placement; returns the undo."""
+    from damc_tpu_torch.train import gen_recon
+
+    original = gen_recon.make_batch_source
+
+    def make(*args, **kwargs):
+        out = original(*args, **kwargs)
+        log.append(out[2])
+        return out
+
+    gen_recon.make_batch_source = make
+    return lambda: setattr(gen_recon, "make_batch_source", original)
+
+
+def feed_phase(cfg, store, iterations: int = 3):
+    """The host feed against the device-resident store at celeba64's
+    shapes, in one process on one state: for each placement, the card's
+    batches first (the host ones must equal the CPU's host stream, so that
+    the pinned, non-blocking copy is seen to land intact), then one
+    warm-up iteration, `iterations` timed by CUDA events (batch included)
+    and one under the profiler (wall, device busy, idle share)."""
+    import dataclasses as dc
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from damc_tpu_torch.train.driver_utils import make_batch_source
+    from damc_tpu_torch.train.state import create_state
+    from damc_tpu_torch.train.step import make_train_step
+
+    state = create_state(cfg, SEED, "cuda")
+    step = make_train_step(state.models, state.opts, cfg)
+    out = {}
+    for placement in ("host", "device"):
+        tc = dc.replace(cfg.train, data_placement=placement)
+        if placement == "host":
+            card, cpu = make_batch_source(store, tc, SEED, "cuda"), make_batch_source(store, tc, SEED, "cpu")
+            try:
+                busy = torch.randn(4096, 4096, device="cuda")
+                queued = []
+                for _ in range(4):
+                    busy = busy @ busy / 64.0  # keeps the stream busy while the copies are queued
+                    queued.append(card[0]())
+                same = all(torch.equal(x.cpu(), cpu[0]()) for x in queued)
+            finally:
+                card[1]()
+                cpu[1]()
+            print(f"[celeba64-feed] 4 host batches queued to the card behind busy work == the CPU's host "
+                  f"stream: {same}")
+            if not same:
+                raise AssertionError("a host batch changed on its way to the card")
+        next_batch, close, got = make_batch_source(store, tc, SEED, "cuda")
+        try:
+            if got != placement:
+                raise AssertionError(f"placement {got}, asked {placement}")
+            state, _ = step(state, next_batch())
+            torch.cuda.synchronize()
+            events = [torch.cuda.Event(enable_timing=True) for _ in range(iterations + 1)]
+            events[0].record()
+            for e in events[1:]:
+                state, _ = step(state, next_batch())
+                e.record()
+            torch.cuda.synchronize()
+            ms = [a.elapsed_time(b) for a, b in zip(events, events[1:])]
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                state, _ = step(state, next_batch())
+                torch.cuda.synchronize()
+                wall_ms = (time.perf_counter() - t0) * 1e3
+        finally:
+            close()
+        cuda = torch.autograd.DeviceType.CUDA
+        annotation = lambda e: getattr(e, "is_user_annotation", False) or "/" in e.name or "#" in e.name
+        busy_ms = sum((e.time_range.end - e.time_range.start) / 1e3 for e in prof.events()
+                      if e.device_type == cuda and not annotation(e))
+        out[placement] = {"ms_per_iteration": ms, "median_ms": statistics.median(ms), "profiled_wall_ms": wall_ms,
+                          "device_busy_ms": busy_ms, "device_idle_share": 1.0 - busy_ms / wall_ms}
+    print("[celeba64-feed] " + json.dumps(out) + " " + card_line())
+    return out
+
+
 def celeba64_phase(cfg, counters):
     """celeba64 (nz=100, ngf=128, 64x64) through the train CLI at full width
-    in a temporary directory, on a PNG tree made from the seed at CelebA's
-    aligned size, 178x218 (2,048 train and 512 test images): train 4
-    iterations at B=128 (grids at 0, a checkpoint at the end), which writes
-    the train split's cache celeba64_train_64.npy; then resume to 5 with an
-    eval (500 FID samples, the 512 test images), which must read the cache
-    memory-mapped, equal to the first run's decode."""
+    in a temporary directory, on a JPEG tree made from the seed at CelebA's
+    aligned size, 178x218 (2,048 train and 512 test images; CelebA's
+    published format): every train file decoded by the port must equal
+    PIL's decode; train 4 iterations at B=128 with --data_placement host
+    (grids at 0, a checkpoint at the end), which writes the train split's
+    cache celeba64_train_64.npy, equal to the JAX package's PIL pipeline;
+    then resume to 5 with an eval (500 FID samples, the 512 test images)
+    under 'auto' with --data_device_budget_gb below the store, which must
+    read the cache memory-mapped and fall back to the host feed;
+    'device' over that budget must raise; then the host feed beside the
+    device-resident store (`feed_phase`)."""
+    import dataclasses as dc
     import os
     import shutil
     import tempfile
 
+    from damc_tpu_torch.train.driver_utils import make_batch_source
+
     tmp = tempfile.mkdtemp(prefix="damc_celeba64_smoke_")
-    reads = []
-    undo = _record_reads(reads)
+    reads, placements = [], []
+    undo = [_record_reads(reads), _record_placements(placements)]
     try:
         data, logs = os.path.join(tmp, "data"), os.path.join(tmp, "logs")
-        tree_s = write_png_tree(os.path.join(data, "celeba64_train"), CELEBA64_TRAIN, CELEBA64_SIZE, SEED + 20)
-        tree_s += write_png_tree(os.path.join(data, "celeba64_test"), CELEBA64_TEST, CELEBA64_SIZE, SEED + 40)
+        tree_s = write_jpeg_tree(os.path.join(data, "celeba64_train"), CELEBA64_TRAIN, CELEBA64_SIZE, SEED + 20)
+        tree_s += write_jpeg_tree(os.path.join(data, "celeba64_test"), CELEBA64_TEST, CELEBA64_SIZE, SEED + 40)
         n_files = CELEBA64_TRAIN + CELEBA64_TEST
-        print(f"[celeba64] PNG tree made from the seed: {n_files} images at {CELEBA64_SIZE[0]}x{CELEBA64_SIZE[1]} "
-              f"(filters cycling None to Paeth), written in {tree_s:.2f} s")
+        print(f"[celeba64] JPEG tree made from the seed: {n_files} images at {CELEBA64_SIZE[0]}x{CELEBA64_SIZE[1]} "
+              f"(4:2:0 at quality 75, every eighth 4:4:4, every fourth with restart markers), written by PIL in "
+              f"{tree_s:.2f} s")
         n_fid = 500
         common = ["--dataset", "celeba64", "--data_path", data, "--log_path", logs, "--seed", str(SEED),
                   "--print_every", "1", "--n_fid_samples", str(n_fid)]
         t0 = time.perf_counter()
-        first = train_cli_run(cfg, counters, common + ["--iterations", "4", "--eval_every", "0", "--plot_every", "4"],
+        first = train_cli_run(cfg, counters, common + ["--iterations", "4", "--eval_every", "0", "--plot_every", "4",
+                                                       "--data_placement", "host"],
                               logs, evals=[], plots=[0], n_fid=n_fid, n_test=CELEBA64_TEST, tag="celeba64")
         cache = os.path.join(data, "celeba64_train_64.npy")
         decoded = [r for r in reads if r["what"] == "load_image_folder"]
         train_decode = next(r for r in decoded if r["root"].endswith("celeba64_train"))
         cached = next(r for r in reads if r["what"] == "load_image_folder_cached")
-        print(f"[celeba64] first run: decode of {CELEBA64_TRAIN} train images {train_decode['s']:.2f} s, "
-              f"the cache written and mapped {cached['s'] - train_decode['s']:.2f} s, decode of {CELEBA64_TEST} "
-              f"test images {sum(r['s'] for r in decoded if r is not train_decode):.2f} s; "
+        print(f"[celeba64] first run: placement {placements}; decode of {CELEBA64_TRAIN} train images "
+              f"{train_decode['s']:.2f} s, the cache written and mapped {cached['s'] - train_decode['s']:.2f} s, "
+              f"decode of {CELEBA64_TEST} test images {sum(r['s'] for r in decoded if r is not train_decode):.2f} s; "
               f"{os.path.basename(cache)} written: {os.path.exists(cache)}")
+        if placements != ["host"]:
+            raise AssertionError(f"--data_placement host trained on {placements}")
         if not os.path.exists(cache) or not np.array_equal(np.load(cache), train_decode["value"]):
             raise AssertionError("the first run did not write the train split's cache, or it differs from the decode")
         if sorted(os.listdir(os.path.join(first["run"], "ckpt"))) != ["3"]:
             raise AssertionError("the first run's checkpoint ckpt/3 is missing")
         del first["state"]
+        rates = jpeg_check(os.path.join(data, "celeba64_train"), train_decode["value"], 64)
+        store_gib = train_decode["value"].nbytes / 2**30
+        budget = store_gib / 2
         reads.clear()
+        placements.clear()
         second = train_cli_run(cfg, counters, common + [
-            "--iterations", "5", "--eval_every", "4", "--plot_every", "0", "--resume_path", "auto"],
+            "--iterations", "5", "--eval_every", "4", "--plot_every", "0", "--resume_path", "auto",
+            "--data_placement", "auto", "--data_device_budget_gb", repr(budget)],
             logs, evals=[4], plots=[], n_fid=n_fid, n_test=CELEBA64_TEST, resumed=True, tag="celeba64")
         (cached,) = [r for r in reads if r["what"] == "load_image_folder_cached"]
         store = cached["value"]
         redecoded = [r["root"] for r in reads if r["what"] == "load_image_folder" and r["root"].endswith("_train")]
         same = isinstance(store, np.memmap) and store.mode == "r" and np.array_equal(store, train_decode["value"])
-        print(f"[celeba64] resumed run: step {second['state'].step}; the train split read from the cache "
+        print(f"[celeba64] resumed run: step {second['state'].step}; placement {placements} under 'auto' with a "
+              f"budget of {budget:.5f} GiB for a {store_gib:.5f} GiB store; the train split read from the cache "
               f"memory-mapped in {cached['s']:.4f} s, equal to the first run's decode: {same}; decoded again: "
               f"{redecoded or 'none'}")
         if second["state"].step != 5 or not same or redecoded:
             raise AssertionError("the resumed run did not continue at 4 from the cache")
+        if placements != ["host"]:
+            raise AssertionError(f"'auto' over the budget trained on {placements}, not the host feed")
         del second["state"]
+        try:
+            make_batch_source(store, dc.replace(cfg.train, data_placement="device", data_device_budget_gb=budget),
+                              SEED, "cuda")
+        except ValueError as e:
+            print(f"[celeba64] 'device' over the budget raised: {e}")
+        else:
+            raise AssertionError("data_placement 'device' over the budget did not raise")
+        feed = feed_phase(cfg, store)
         wall = time.perf_counter() - t0
         print(f"[celeba64] phase wall without the tree {wall:.2f} s")
         launches = {k: first["total"][k] + second["total"][k] for k in counters}
         return {"launches": launches, "tree_s": tree_s, "decode_s": train_decode["s"], "wall": wall,
-                "ms": first["ms"] + second["ms"]}
+                "ms": first["ms"] + second["ms"], "rates": rates, "feed": feed}
     finally:
-        undo()
+        for u in undo:
+            u()
         shutil.rmtree(tmp, ignore_errors=True)
 
 
@@ -2508,6 +2720,81 @@ STYLEGAN_B, STYLEGAN_REFINE = 8, 100
 STYLEGAN_TRAIN_ITERATIONS, STYLEGAN_TIMED_BATCHES = 2, 1
 
 
+LSUN_IMAGES = 64  # the LMDB's JPEGs; the CLI scores the first batch of STYLEGAN_B
+LSUN_SIZES = ((256, 340), (340, 256), (256, 256), (200, 300), (300, 200), (180, 240), (128, 170), (96, 96))
+
+
+def lsun_phase(tmp, argv, counters, sweeps):
+    """LSUN-tower at the inversion's 256x256: an LMDB (tests/lmdb_fixture.py)
+    of LSUN_IMAGES seeded JPEGs of sizes up to 256x340, written by PIL;
+    `LSUNImages` must read it bit-equal to the reference transform computed
+    with PIL (decode, centre crop, LANCZOS), with its read rate beside
+    PIL's; then the eval CLI with --dataset lsun_tower over one batch of
+    STYLEGAN_B, from the StyleGAN phase's weights and checkpoint: finite
+    numbers, no K1 or K2 launch, the unfused sweep once."""
+    import io
+    import os
+
+    from PIL import Image
+
+    from damc_tpu_torch.cli import eval_stylegan_inv
+    from damc_tpu_torch.data.datasets import LSUNImages
+
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests"))
+    from lmdb_fixture import build_lmdb
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(SEED + 110)
+    items = {}
+    for i in range(LSUN_IMAGES):
+        w, h = LSUN_SIZES[i % len(LSUN_SIZES)]
+        low = rng.integers(0, 256, (h // 16, w // 16, 3), dtype=np.uint8)
+        img = np.asarray(Image.fromarray(low).resize((w, h), Image.BILINEAR)).astype(np.int16)
+        img = np.clip(img + rng.integers(-6, 7, (h, w, 3)), 0, 255).astype(np.uint8)
+        buf = io.BytesIO()
+        Image.fromarray(img).save(buf, "JPEG", quality=85, subsampling=0 if i % 3 == 2 else 2)
+        items[f"{i:08d}".encode()] = buf.getvalue()
+    root = os.path.join(tmp, "lsun")
+    build_lmdb(os.path.join(root, "tower_val_lmdb"), items)
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    got = LSUNImages(root, ["tower_val"], STYLEGAN_RES)[np.arange(LSUN_IMAGES)]
+    port_s = time.perf_counter() - t0
+
+    def reference(data):
+        img = np.asarray(Image.open(io.BytesIO(data)).convert("RGB"))
+        crop = min(img.shape[:2])
+        top, left = (img.shape[0] - crop) // 2, (img.shape[1] - crop) // 2
+        img = img[top:top + crop, left:left + crop]
+        return np.asarray(Image.fromarray(img).resize((STYLEGAN_RES, STYLEGAN_RES), Image.LANCZOS))
+
+    t0 = time.perf_counter()
+    want = np.stack([reference(items[k]) for k in sorted(items)])
+    pil_s = time.perf_counter() - t0
+    same = np.array_equal(got, want)
+    for k in counters.values():
+        k.launches = 0
+    n_sweeps = len(sweeps)
+    t0 = time.perf_counter()
+    out = eval_stylegan_inv.main(argv + ["--dataset", "lsun_tower", "--data_path", root, "--lsun_classes",
+                                         "tower_val", "--limit", str(STYLEGAN_B), "--n_fid_samples", str(STYLEGAN_B)])
+    cli_s = time.perf_counter() - t0
+    launches = {k: c.launches for k, c in counters.items()}
+    res = {"images": LSUN_IMAGES, "sizes": LSUN_SIZES, "lmdb_bytes": os.path.getsize(
+        os.path.join(root, "tower_val_lmdb", "data.mdb")), "write_s": write_s,
+        "port_read_images_per_s": LSUN_IMAGES / port_s, "pil_images_per_s": LSUN_IMAGES / pil_s,
+        "equal_to_pil": same, "cli": {"wall_s": cli_s, **out}, "launches": launches,
+        "unfused_sweeps": sweeps[n_sweeps:]}
+    print("[lsun] " + json.dumps(res) + " " + card_line())
+    if not same:
+        raise AssertionError(f"LSUNImages differs from PIL's transform at {np.argwhere((got != want).any((1, 2, 3)))}")
+    if not all(np.isfinite(v) for v in out.values()) or any(launches.values()):
+        raise AssertionError("the lsun_tower eval CLI printed a non-finite number or launched a kernel")
+    if sweeps[n_sweeps:] != [STYLEGAN_B]:
+        raise AssertionError(f"the lsun_tower batch must run the unfused sweep once: {sweeps[n_sweeps:]}")
+    return res
+
+
 class _Spans:
     """CUDA events around each call of wrapped functions, read after a sync."""
 
@@ -2658,6 +2945,7 @@ def stylegan_phase(counters):
         n_batches = -(-STYLEGAN_IMAGES // STYLEGAN_B)
         if sweeps != [STYLEGAN_B] * (STYLEGAN_TRAIN_ITERATIONS + 2 * n_batches):
             raise AssertionError(f"the unfused sweep must run once a batch: {sweeps}")
+        lsun = lsun_phase(tmp, argv, counters, sweeps)
 
         # nan_rescue: one NaN row is replaced, the others are not touched.
         q.eval().requires_grad_(False)
@@ -2726,7 +3014,7 @@ def stylegan_phase(counters):
             "profile": {"wall_ms": wall_ms, "device_busy_ms": busy_ms, "device_idle_share": 1.0 - busy_ms / wall_ms,
                         "top": [{"name": e.key[:60], "ms": dev_ms(e), "calls": e.count} for e in kernels[:8]]},
             "flops": flops, "fp32_bound_ms": bound_ms, "bound_share": bound_ms / total,
-            "train": train, "eval_cli": cli, "tree_s": tree_s, "decode_s": decode_s,
+            "train": train, "eval_cli": cli, "tree_s": tree_s, "decode_s": decode_s, "lsun": lsun,
         }
         print("[stylegan] " + json.dumps(res))
 
@@ -2775,10 +3063,20 @@ def main() -> int:
     from damc_tpu_torch.ops.cuda.fused_langevin import fused_prior_langevin
     from damc_tpu_torch.ops.cuda.fused_qsweep import fused_reverse_sweep
 
+    from concurrent.futures import ThreadPoolExecutor
+
+    from damc_tpu_torch.data import _native_build
+
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
     t0 = time.monotonic()
-    built = build.build()
-    print(f"[build] {len(built)} kernel libraries in {time.monotonic() - t0:.1f} s")
+    with ThreadPoolExecutor(1) as pool:  # g++ for the host libraries beside nvcc for the kernels
+        host = pool.submit(_native_build.build)
+        built = build.build()
+        host_built = host.result()
+    print(f"[build] {len(built)} kernel libraries and {len(host_built)} host libraries in "
+          f"{time.monotonic() - t0:.1f} s ({_native_build.compiler()[0]} {_native_build.compiler()[1]})")
+    for name, info in host_built.items():
+        print(f"[build] host {name}: {info['path']} ({info['seconds']:.1f} s)")
     for name, info in built.items():
         print(f"[build] {name}: {info['path']}")
         for line in str(info["log"]).splitlines():

@@ -115,12 +115,13 @@ def add_common_flags(p: argparse.ArgumentParser) -> None:
     )
     p.add_argument(
         "--data_placement", type=str, default=None, choices=["auto", "device", "host"],
-        help="training-batch feed: 'auto' and 'device' keep the store on the device; "
-        "'host' (the host loader) is not ported",
+        help="training-batch feed: 'device' keeps the whole store on the card; 'host' makes each batch on "
+        "the host (C++ engine or NumPy loader, prefetched) and copies it over; 'auto' (default) takes "
+        "'device' for an array store within --data_device_budget_gb, 'host' otherwise",
     )
     p.add_argument(
         "--data_device_budget_gb", type=float, default=None,
-        help="device budget of the resident store (kept for parity; not read)",
+        help="largest store, in GiB, that 'auto' puts on the card and 'device' accepts (default 8)",
     )
     # grad-clip on/off toggles (reference-CLI compatibility): False maps to
     # max_norm=inf, an exact no-op clip.

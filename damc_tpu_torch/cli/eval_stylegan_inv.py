@@ -14,8 +14,11 @@ steps, and prints the recon MSE and the Frechet distance of the
 reconstructions (`frechet_rand` without the Inception weights). Every draw
 comes from `--seed`, so two runs print the same numbers. `--compute_dtype
 bfloat16` runs the Adam refine's synthesis and VGG16 in bfloat16
-(`train/stylegan_inv.py`). Not ported: `--use_mesh` (ROADMAP.md, queue 1,
-item 8) and LSUN's lmdb folders (item 4b).
+(`train/stylegan_inv.py`). `--dataset lsun_tower` reads the LSUN classes
+`--lsun_classes` from their `<class>_lmdb` databases under `--data_path`
+(`data/datasets.py::load_lsun`) when the first one is there, and an image
+folder otherwise, as the JAX CLI does. Not ported: `--use_mesh`
+(ROADMAP.md, queue 1, item 8).
 """
 
 from __future__ import annotations
@@ -54,15 +57,8 @@ def main(argv=None):
 
     if args.use_mesh:
         raise NotImplementedError("--use_mesh (several devices) is not ported (ROADMAP.md, queue 1, item 8)")
-    first = args.lsun_classes.split(",")[0] + "_lmdb"
-    if args.dataset == "lsun_tower" and osp.isdir(osp.join(args.data_path, first)):
-        raise NotImplementedError(
-            f"{osp.join(args.data_path, first)}: LSUN's lmdb reader is not ported (ROADMAP.md, queue 1, "
-            "item 4b); give a folder of decoded images instead"
-        )
-
     from ..config import preset
-    from ..data.datasets import load_image_folder
+    from ..data.datasets import load_image_folder, load_lsun
     from ..device import resolve_device
     from ..metrics.fid import compute_stats, images_to_unit
     from ..models.common import compute_dtype
@@ -84,7 +80,11 @@ def main(argv=None):
         print("[damc] WARNING: no --q_ckpt_dir given; using random Q init")
     q = state.models.amortizer.eval().requires_grad_(False)
 
-    images = to_pm1(load_image_folder(args.data_path, res, limit=args.limit))
+    classes = args.lsun_classes.split(",")
+    if args.dataset == "lsun_tower" and osp.isdir(osp.join(args.data_path, classes[0] + "_lmdb")):
+        images = to_pm1(load_lsun(args.data_path, classes, res, limit=args.limit))
+    else:
+        images = to_pm1(load_image_folder(args.data_path, res, limit=args.limit))
     feature_fn, metric_name = make_feature_fn(cfg, device)
     unit = images_to_unit(images[: args.n_fid_samples])
     real_mu, real_sigma = compute_stats(

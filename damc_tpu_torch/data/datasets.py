@@ -1,10 +1,19 @@
 """Dataset readers of the port (counterpart of
-`damc_tpu/data/datasets.py:40-167, 464-479`): CIFAR-10 from the python
-pickle batches and SVHN from its .mat files, both as (N, 32, 32, 3) uint8;
-image folders (CelebA-64, CelebA-HQ) through the port's PNG decoder and
-PIL's bilinear resize (`data/images.py`), with the JAX package's `.npy`
-cache; the MNIST anomaly split from `mnist.npz`; and seeded writers of an
-MNIST-shaped `mnist.npz` and of PNG trees for runs without the real files.
+`damc_tpu/data/datasets.py`): CIFAR-10 from the python pickle batches and
+SVHN from its .mat files, both as (N, 32, 32, 3) uint8; image folders
+(CelebA-64, CelebA-HQ, FFHQ) through the port's own PNG, JPEG and BMP
+decoders and PIL's bilinear resize, with the JAX package's `.npy` cache;
+LSUN's lmdb databases (`LSUNClassImages`, `LSUNImages`, `load_lsun`)
+through the port's LMDB reader, decoded, centre-cropped and resized by
+PIL's Lanczos filter per item; the MNIST anomaly split from `mnist.npz`;
+the NumPy batch `Loader`; and seeded writers of an MNIST-shaped
+`mnist.npz` and of PNG trees for runs without the real files.
+
+Every decoder equals PIL's `Image.open(...).convert("RGB")` byte for byte
+(`data/images.py`, `data/jpeg.py`); the port itself never imports PIL. A
+file is decoded by what its first bytes say it is, as PIL opens it. WebP
+(the LSUN tools' export format) and progressive or CMYK JPEGs are not
+decoded yet (ROADMAP.md, queue 1, item 4c): they raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -12,16 +21,42 @@ from __future__ import annotations
 import os
 import os.path as osp
 import pickle
-from typing import Optional, Tuple
+from typing import Iterator, Optional, Tuple
 
 import numpy as np
 
-from .images import decode_parsed, parse_png, resize_bilinear
+from .images import PNG_SIGNATURE, decode_bmp, decode_parsed, decode_png, parse_png, resize_bilinear, resize_lanczos
+from .jpeg import JPEG_MAGIC, decode_jpeg, decode_jpegs, jpeg_size, unsupported_message
 
-BATCH_BYTES = 64 << 20  # filtered bytes the folder reader decodes together (its work array is about 4x)
+BATCH_BYTES = 64 << 20  # decoded bytes the folder reader decodes together (a PNG's work array is about 4x)
 IMAGE_EXTENSIONS = (".png", ".jpg", ".jpeg", ".webp", ".bmp")  # the JAX reader's list
-# Formats the JAX reader opens through PIL and the port does not decode.
-UNDECODED = {".jpg": "JPEG", ".jpeg": "JPEG", ".webp": "WebP", ".bmp": "BMP"}
+MAGIC_BYTES = 12  # enough to tell PNG, JPEG, BMP and WebP apart
+
+
+def image_kind(head: bytes, name: str, cache: Optional[str] = None) -> str:
+    """The kind of a file from its first bytes: "png", "jpeg" or "bmp". WebP
+    raises NotImplementedError (item 4c; `cache` is the way round it names),
+    anything else ValueError."""
+    if head.startswith(PNG_SIGNATURE):
+        return "png"
+    if head.startswith(JPEG_MAGIC):
+        return "jpeg"
+    if head.startswith(b"BM"):
+        return "bmp"
+    if head[:4] == b"RIFF" and head[8:12] == b"WEBP":
+        raise NotImplementedError(unsupported_message(name, "WebP", cache))
+    raise ValueError(f"{name}: not a PNG, JPEG, BMP or WebP file")
+
+
+def decode_image(data: bytes, name: str = "<bytes>") -> np.ndarray:
+    """One PNG, JPEG or BMP file's RGB pixels (H, W, 3) uint8, as PIL's
+    `Image.open(...).convert("RGB")` gives them."""
+    kind = image_kind(data[:MAGIC_BYTES], name)
+    if kind == "png":
+        return decode_png(data, name)
+    if kind == "jpeg":
+        return decode_jpeg(data, name)
+    return decode_bmp(data, name)
 
 
 def adapt_labels(true_labels: np.ndarray, label: int) -> np.ndarray:
@@ -133,10 +168,13 @@ def _resize_crop(img: np.ndarray, size: int) -> np.ndarray:
 def load_image_folder(root: str, size: int, limit: Optional[int] = None) -> np.ndarray:
     """(N, size, size, 3) uint8 of the images under `root`, equal to the JAX
     package's PIL reader (`damc_tpu/data/datasets.py:122-148`): its walk
-    order, extension list and `limit`; each image's shorter side resized
-    to `size` by PIL's bilinear filter, then centre-cropped. PNG only: a
-    JPEG, WebP or BMP file raises NotImplementedError before anything is
-    decoded."""
+    order, extension list and `limit`; each image decoded as its first
+    bytes say (PNG, JPEG, BMP), its shorter side resized to `size` by PIL's
+    bilinear filter, then centre-cropped. The first bytes of every file are
+    read before anything is decoded, so a WebP file (or one that is no
+    image) raises first. Files are decoded in batches of about
+    `BATCH_BYTES`: PNGs of one size together, JPEGs on the decoder's
+    thread pool."""
     paths = []
     for dirpath, _, filenames in sorted(os.walk(root)):
         for fn in sorted(filenames):
@@ -146,27 +184,35 @@ def load_image_folder(root: str, size: int, limit: Optional[int] = None) -> np.n
         paths = paths[:limit]
     if not paths:
         raise FileNotFoundError(f"no images under {root}")
+    cache = root.rstrip("/") + f"_{size}.npy"
+    kinds = []
     for p in paths:
-        kind = UNDECODED.get(osp.splitext(p)[1].lower())
-        if kind:
-            raise NotImplementedError(
-                f"{p}: the port decodes PNG files only and has no {kind} decoder (ROADMAP.md, "
-                f"queue 1, item 4b). Convert the folder to PNG, or make its cache "
-                f"{root.rstrip('/')}_{size}.npy with the JAX package's load_image_folder_cached "
-                "on a machine with PIL: the port's load_image_folder_cached reads it as it is."
-            )
+        with open(p, "rb") as f:
+            kinds.append(image_kind(f.read(MAGIC_BYTES), p, cache))
     out = np.empty((len(paths), size, size, 3), np.uint8)
-    batch, nbytes = [], 0
+    pngs, jpegs, nbytes = [], [], 0
 
     def flush():
-        for (i, _), img in zip(batch, decode_parsed([png for _, png in batch])):
+        for (i, _), img in zip(pngs, decode_parsed([png for _, png in pngs])):
             out[i] = _resize_crop(img, size)
-        batch.clear()
+        imgs = decode_jpegs([b for _, b, _ in jpegs], [p for _, _, p in jpegs], cache=cache)
+        for (i, _, _), img in zip(jpegs, imgs):
+            out[i] = _resize_crop(img, size)
+        pngs.clear()
+        jpegs.clear()
 
-    for i, p in enumerate(paths):
+    for i, (p, kind) in enumerate(zip(paths, kinds)):
         with open(p, "rb") as f:
-            batch.append((i, parse_png(f.read(), p)))
-        nbytes += batch[-1][1].filtered.size
+            data = f.read()
+        if kind == "png":
+            pngs.append((i, parse_png(data, p)))
+            nbytes += pngs[-1][1].filtered.size
+        elif kind == "jpeg":
+            w, h = jpeg_size(data, p, cache)
+            jpegs.append((i, data, p))
+            nbytes += w * h * 3
+        else:
+            out[i] = _resize_crop(decode_bmp(data, p), size)
         if nbytes >= BATCH_BYTES:
             flush()
             nbytes = 0
@@ -185,6 +231,235 @@ def load_image_folder_cached(root: str, size: int, cache_path: Optional[str] = N
         np.save(cache_path, data)
         del data
     return np.load(cache_path, mmap_mode="r")
+
+
+# --------------------------------------------------------------------------
+# LSUN (lmdb databases of encoded images)
+# --------------------------------------------------------------------------
+
+LSUN_CATEGORIES = (
+    "bedroom", "bridge", "church_outdoor", "classroom", "conference_room",
+    "dining_room", "kitchen", "living_room", "restaurant", "tower",
+)
+
+
+def _crop_resize(img: np.ndarray, size: int) -> np.ndarray:
+    """Centre crop to the shorter side, then PIL's LANCZOS resize to
+    (size, size) (a copy when the crop already has that size)."""
+    crop = min(img.shape[:2])
+    top = (img.shape[0] - crop) // 2
+    left = (img.shape[1] - crop) // 2
+    return resize_lanczos(img[top:top + crop, left:left + crop], (size, size))
+
+
+def _decode_crop_resize(imgbuf: bytes, size: int, name: str = "<lsun item>") -> np.ndarray:
+    """Encoded image bytes -> uint8 (size, size, 3): the reference's LSUN
+    transform (`data/dataset.py:47-64`; `Image.ANTIALIAS`, the alias of
+    LANCZOS), bit for bit `damc_tpu/data/datasets.py::_decode_crop_resize`,
+    which goes through PIL."""
+    return _crop_resize(decode_image(bytes(imgbuf), name), size)
+
+
+class LSUNClassImages:
+    """One LSUN class database as a lazily decoded, batch-indexable array
+    (counterpart of `damc_tpu/data/datasets.py::LSUNClassImages`): point
+    reads by key through the port's LMDB reader, the key list cached in
+    `<root>/_keys_cache.pkl` (the JAX package's file: a cache written by
+    either package serves the other), and `_decode_crop_resize` per item.
+
+    `len()` and indexing with an int (one (size, size, 3) image) or an
+    index array (a uint8 (B, size, size, 3) batch, its JPEG payloads
+    decoded together on the decoder's thread pool) are the surface the
+    `Loader` needs. `env` is injectable: anything with `begin()` returning
+    a context manager whose value has `.stat()["entries"]`, `.get(key)` and
+    `.cursor().iternext(keys=True, values=False)`."""
+
+    def __init__(self, root: str, size: int = 256, env=None, cache_keys: bool = True):
+        from .native_lmdb import NativeLMDBEnv
+
+        self.root = root
+        self.size = size
+        self.env = env if env is not None else NativeLMDBEnv(root)
+        with self.env.begin() as txn:
+            self.length = int(txn.stat()["entries"])
+        cache_path = osp.join(root, "_keys_cache.pkl")
+        if cache_keys and osp.isfile(cache_path):
+            with open(cache_path, "rb") as fh:
+                self.keys = pickle.load(fh)
+        else:
+            with self.env.begin() as txn:
+                self.keys = list(txn.cursor().iternext(keys=True, values=False))
+            if cache_keys and osp.isdir(root):
+                # Atomic and best-effort: dataset mounts are often read-only,
+                # and a failed cache write must not stop a reader whose reads
+                # all work; the rename keeps other readers from a torn file.
+                try:
+                    tmp = cache_path + f".tmp.{os.getpid()}"
+                    with open(tmp, "wb") as fh:
+                        pickle.dump(self.keys, fh)
+                    os.replace(tmp, cache_path)
+                except OSError as e:
+                    print(f"[damc] lsun key cache not written ({e}); continuing uncached")
+        if len(self.keys) != self.length:
+            raise ValueError(
+                f"stale key cache for {root}: {len(self.keys)} keys vs {self.length} entries; "
+                "delete _keys_cache.pkl"
+            )
+
+    def __len__(self) -> int:
+        return self.length
+
+    def _get_buf(self, index: int) -> bytes:
+        with self.env.begin() as txn:
+            imgbuf = txn.get(self.keys[int(index)])
+        if imgbuf is None:
+            raise KeyError(f"missing lmdb key at index {index} in {self.root}")
+        return bytes(imgbuf)
+
+    def _name(self, index: int) -> str:
+        return f"{self.root}[{int(index)}]"
+
+    def __getitem__(self, index):
+        if np.isscalar(index) or isinstance(index, (int, np.integer)):
+            return _decode_crop_resize(self._get_buf(int(index)), self.size, self._name(index))
+        index = np.asarray(index)
+        bufs = [self._get_buf(int(j)) for j in index]
+        names = [self._name(j) for j in index]
+        out = np.empty((len(index), self.size, self.size, 3), np.uint8)
+        jpegs = [i for i, b in enumerate(bufs) if b[:2] == JPEG_MAGIC]
+        for i, img in zip(jpegs, decode_jpegs([bufs[i] for i in jpegs], [names[i] for i in jpegs])):
+            out[i] = _crop_resize(img, self.size)
+        for i in sorted(set(range(len(bufs))) - set(jpegs)):
+            out[i] = _decode_crop_resize(bufs[i], self.size, names[i])
+        return out
+
+
+class LSUNImages:
+    """Several LSUN class databases as one batch-indexable view with
+    cumulative indexing (counterpart of
+    `damc_tpu/data/datasets.py::LSUNImages`): class c lives at
+    `<root>/<c>_lmdb`. `classes` is a list such as `['tower_val']` or one of
+    'train' and 'val' (all ten categories) or 'test'."""
+
+    def __init__(self, root: str, classes="train", size: int = 256, envs=None):
+        self.classes = self._expand_classes(classes)
+        self.dbs = [
+            LSUNClassImages(osp.join(root, f"{c}_lmdb"), size=size, env=None if envs is None else envs[i])
+            for i, c in enumerate(self.classes)
+        ]
+        self.cum = np.cumsum([len(db) for db in self.dbs])
+        self.size = size
+
+    @staticmethod
+    def _expand_classes(classes):
+        if isinstance(classes, str):
+            if classes == "test":
+                return ["test"]
+            if classes in ("train", "val"):
+                return [f"{c}_{classes}" for c in LSUN_CATEGORIES]
+            classes = [classes]
+        classes = list(classes)
+        for c in classes:
+            cat, _, split = c.rpartition("_")
+            if c != "test" and (cat not in LSUN_CATEGORIES or split not in ("train", "val")):
+                raise ValueError(
+                    f"unknown LSUN class {c!r}; valid: <category>_<train|val> "
+                    f"with category in {LSUN_CATEGORIES} or 'test'"
+                )
+        return classes
+
+    def __len__(self) -> int:
+        return int(self.cum[-1]) if len(self.dbs) else 0
+
+    def __getitem__(self, index):
+        if np.isscalar(index) or isinstance(index, (int, np.integer)):
+            index = int(index)
+            db_i = int(np.searchsorted(self.cum, index, side="right"))
+            base = 0 if db_i == 0 else int(self.cum[db_i - 1])
+            return self.dbs[db_i][index - base]
+        # One batch call per class database, so that each decodes its JPEGs together.
+        index = np.asarray(index)
+        out = np.empty((len(index), self.size, self.size, 3), np.uint8)
+        db_ids = np.searchsorted(self.cum, index, side="right")
+        for db_i in np.unique(db_ids):
+            sel = np.nonzero(db_ids == db_i)[0]
+            base = 0 if db_i == 0 else int(self.cum[db_i - 1])
+            out[sel] = self.dbs[int(db_i)][index[sel] - base]
+        return out
+
+
+def load_lsun(root: str, classes, size: int = 256, limit: Optional[int] = None) -> np.ndarray:
+    """The first `limit` (default all) images of the LSUN `classes` under
+    `root`, decoded into a uint8 (N, size, size, 3) array (for training, use
+    `LSUNImages` with the `Loader`, which decodes batch by batch)."""
+    view = LSUNImages(root, classes, size=size)
+    n = len(view) if limit is None else min(limit, len(view))
+    return view[np.arange(n)]
+
+
+# --------------------------------------------------------------------------
+# Batching
+# --------------------------------------------------------------------------
+
+class Loader:
+    """Epoch-shuffled batch iterator with optional horizontal flips (the
+    port's copy of `damc_tpu/data/datasets.py::Loader`, whose
+    RandomState draws it repeats: the same seed gives the same batches).
+
+    Yields (images float32 [-1, 1] NHWC, indices or labels). Takes uint8
+    [0, 255] or float32 [-1, 1] stores, and any batch-indexable store with
+    `len()` (a lazy `LSUNImages`); converts batch by batch, so the resident
+    copy stays the store's. `stream()` cycles over epochs forever."""
+
+    def __init__(
+        self,
+        images,
+        labels: Optional[np.ndarray] = None,
+        batch_size: int = 128,
+        shuffle: bool = True,
+        drop_last: bool = True,
+        augment_flip: bool = False,
+        seed: int = 0,
+    ):
+        self.images = images
+        self.labels = labels
+        self.batch_size = batch_size
+        self.shuffle = shuffle
+        self.drop_last = drop_last
+        self.augment_flip = augment_flip
+        self._rng = np.random.RandomState(seed)
+
+    def __len__(self) -> int:
+        n = len(self.images)
+        return n // self.batch_size if self.drop_last else -(-n // self.batch_size)
+
+    def _to_float(self, batch: np.ndarray) -> np.ndarray:
+        if batch.dtype == np.uint8:
+            batch = batch.astype(np.float32) / 255.0 * 2.0 - 1.0
+        return np.ascontiguousarray(batch, np.float32)
+
+    def __iter__(self) -> Iterator[Tuple[np.ndarray, np.ndarray]]:
+        n = len(self.images)
+        order = self._rng.permutation(n) if self.shuffle else np.arange(n)
+        stop = (n // self.batch_size) * self.batch_size if self.drop_last else n
+        for start in range(0, stop, self.batch_size):
+            idx = order[start : start + self.batch_size]
+            batch = self._to_float(self.images[idx])
+            if self.augment_flip:
+                flip = self._rng.rand(len(idx)) < 0.5
+                batch[flip] = batch[flip, :, ::-1]
+            lbl = self.labels[idx] if self.labels is not None else idx
+            yield batch, lbl
+
+    def stream(self) -> Iterator[Tuple[np.ndarray, np.ndarray]]:
+        """Infinite epoch-cycling stream."""
+        if len(self) == 0:
+            raise ValueError(
+                f"Loader yields no batches: {len(self.images)} images < batch_size {self.batch_size} "
+                "with drop_last: an infinite stream would spin forever"
+            )
+        while True:
+            yield from self
 
 
 def synthetic_image_tree(root: str, n: int, size: Tuple[int, int], seed: int = 0, start: int = 0) -> None:

@@ -1,6 +1,6 @@
 """Device-resident training batches (counterpart of
 `damc_tpu/data/device_data.py::DeviceDataset`, the feed the JAX package's
-`make_batch_source` picks for CIFAR-sized stores).
+`make_batch_source` picks for stores under the device budget).
 
 The whole uint8 (or float32) NHWC store is copied to the device once. Each
 batch is a gather from a fresh per-epoch permutation, drop-last (the
@@ -26,6 +26,25 @@ import numpy as np
 import torch
 
 from ..ops.noise import counter_bits
+
+# Stores larger than this take the host feed under data_placement "auto"
+# (the JAX package's default, `damc_tpu/data/device_data.py:66`, kept
+# although the H100 holds 80 GB; TrainConfig.data_device_budget_gb
+# overrides it).
+DEFAULT_DEVICE_BUDGET_BYTES = 8 << 30
+
+
+def fits_device(images, budget_bytes: int = DEFAULT_DEVICE_BUDGET_BYTES) -> bool:
+    """Can `images` take the device-resident path? A materialised uint8 or
+    float32 (N, H, W, C) ndarray under the byte budget (a lazy
+    batch-indexable dataset such as `LSUNImages` cannot be copied whole)."""
+    return (
+        isinstance(images, np.ndarray)
+        and images.ndim == 4
+        and images.dtype in (np.uint8, np.float32)
+        and images.nbytes <= budget_bytes
+    )
+
 
 # Counter of the hash that gives the data seed: one no training iteration
 # reaches, so it is none of the kernels' stream seeds (`train/step.py::stream_seeds`).

@@ -1,4 +1,5 @@
-"""PNG decoding and PIL's bilinear resize, with zlib and numpy alone.
+"""PNG and BMP decoding and PIL's bilinear and Lanczos resize, with zlib and
+numpy alone.
 
 The JAX package reads image folders through PIL (`damc_tpu/data/datasets.py::
 load_image_folder`: `Image.open(p).convert("RGB")`, then `Image.resize(...,
@@ -11,11 +12,17 @@ so that its training data equals the JAX package's:
     RGB as PIL's `convert("RGB")` does: grey replicated, alpha dropped,
     palette looked up. Any other PNG raises `ValueError` naming the file
     and the feature.
-  * `resize_bilinear` is PIL's `Image.resize(size, Image.BILINEAR)` on 8-bit
-    images, bit for bit (Pillow's `libImaging/Resample.c`): a triangle
-    filter whose support grows with the downscale factor (antialiasing),
-    weights normalised in float64 and rounded to 22 fraction bits, the
-    horizontal pass, then the vertical, each rounded and clamped to 8 bits.
+  * `decode_bmp` reads uncompressed (BI_RGB) BMPs of 24 and 32 bits a
+    pixel and with an 8-bit palette, bottom-up or top-down, as PIL's
+    `convert("RGB")` gives them (the fourth byte of a 32-bit pixel is
+    dropped, as PIL's BGRX raw mode drops it). Any other BMP raises
+    `ValueError` naming the file and the feature.
+  * `resize` is PIL's `Image.resize(size, Image.BILINEAR)` or
+    `Image.LANCZOS` on 8-bit images, bit for bit (Pillow's
+    `libImaging/Resample.c`): a triangle or Lanczos-3 filter whose support
+    grows with the downscale factor (antialiasing), weights normalised in
+    float64 and rounded to 22 fraction bits, the horizontal pass, then the
+    vertical, each rounded and clamped to 8 bits.
 
 A PNG row carries one of five filters (None, Sub, Up, Average, Paeth),
 which predict each byte from its left, upper and upper-left neighbours.
@@ -32,6 +39,7 @@ which spreads each step's fixed cost over the batch.
 
 from __future__ import annotations
 
+import functools
 import math
 import struct
 import zlib
@@ -212,36 +220,130 @@ def decode_png(data: bytes, name: str = "<bytes>") -> np.ndarray:
     return decode_parsed([parse_png(data, name)])[0]
 
 
-def _coefficients(in_size: int, out_size: int) -> Tuple[np.ndarray, np.ndarray]:
+BMP_HEADERS = (12, 40, 52, 56, 64, 108, 124)  # the info-header sizes PIL reads
+
+
+def decode_bmp(data: bytes, name: str = "<bytes>") -> np.ndarray:
+    """The RGB pixels (H, W, 3) uint8 of the BMP file `data`, as PIL's
+    `Image.open(...).convert("RGB")` gives them (`BmpImagePlugin.py`):
+    uncompressed 24- and 32-bit pixels (BGR, BGRX) and 8-bit palette
+    indices, rows padded to 4 bytes, bottom-up unless the height is
+    negative. Raises ValueError naming the file and the feature for any
+    other BMP (RLE or bit-field compression, 1, 4 or 16 bits a pixel) and
+    for a truncated one."""
+    u16 = lambda o: struct.unpack_from("<H", data, o)[0]
+    u32 = lambda o: struct.unpack_from("<I", data, o)[0]
+    if data[:2] != b"BM" or len(data) < 18:
+        raise ValueError(f"{name}: not a BMP file (bad signature)")
+    offset, header = u32(10), u32(14)
+    if header not in BMP_HEADERS:
+        raise ValueError(f"{name}: BMP info header of {header} bytes is not supported")
+    if len(data) < 14 + header:
+        raise ValueError(f"{name}: truncated BMP header")
+    if header == 12:  # OS/2 1.x core header: 16-bit sizes, 3-byte palette entries
+        width, height, bits, compression, colors, entry = u16(18), u16(20), u16(24), 0, 0, 3
+        top_down = False
+    else:
+        top_down = data[25] == 0xFF  # PIL reads the height's top byte
+        width, height = u32(18), u32(22)
+        height = 2**32 - height if top_down else height
+        bits, compression, colors, entry = u16(28), u32(30), u32(46), 4
+    if compression != 0:
+        kind = {1: "RLE8", 2: "RLE4", 3: "BI_BITFIELDS", 4: "JPEG", 5: "PNG"}.get(compression, str(compression))
+        raise ValueError(f"{name}: BMP compression {kind} is not supported (uncompressed BI_RGB only)")
+    if bits not in (8, 24, 32):
+        raise ValueError(f"{name}: BMP of {bits} bits a pixel is not supported (8, 24 and 32 only)")
+    if width < 1 or height < 1:
+        raise ValueError(f"{name}: BMP of size {width}x{height}")
+    palette = None
+    if bits == 8:
+        colors = colors or 256
+        if not 0 < colors <= 65536:
+            raise ValueError(f"{name}: BMP palette of {colors} colours")
+        start = 14 + header
+        if len(data) < start + entry * colors:
+            raise ValueError(f"{name}: truncated BMP palette")
+        palette = np.frombuffer(data, np.uint8, entry * colors, start).reshape(colors, entry)[:, 2::-1]
+        if offset == 14 + header:  # PIL's quirk: the pixels start after the palette
+            offset += 4 * colors
+    stride = ((width * bits + 31) >> 3) & ~3
+    if len(data) < offset + stride * height:
+        raise ValueError(f"{name}: truncated BMP pixel data")
+    rows = np.frombuffer(data, np.uint8, stride * height, offset).reshape(height, stride)
+    if not top_down:
+        rows = rows[::-1]
+    if bits == 8:
+        idx = rows[:, :width]
+        if int(idx.max()) >= len(palette):
+            raise ValueError(f"{name}: a palette index beyond the {len(palette)} palette entries")
+        return palette[idx]
+    step = bits // 8
+    return np.ascontiguousarray(rows[:, :width * step].reshape(height, width, step)[..., 2::-1])
+
+
+def _triangle(x: np.ndarray) -> np.ndarray:
+    """Resample.c's bilinear_filter: 1 - |x| on (-1, 1)."""
+    x = np.abs(x)
+    return np.where(x < 1.0, 1.0 - x, 0.0)
+
+
+def _sinc(x: float) -> float:
+    if x == 0.0:
+        return 1.0
+    x = x * math.pi
+    return math.sin(x) / x
+
+
+def _lanczos(x: np.ndarray) -> np.ndarray:
+    """Resample.c's lanczos_filter: sinc(x) * sinc(x / 3) on [-3, 3). It
+    goes through `math.sin`, the C library's sin that Pillow calls, value
+    by value: numpy's vectorised sin may round differently."""
+    return np.array([_sinc(v) * _sinc(v / 3) if -3.0 <= v < 3.0 else 0.0 for v in x.ravel()]).reshape(x.shape)
+
+
+# filter name -> (support, filter), as Resample.c's filter table holds them
+FILTERS = {"bilinear": (1.0, _triangle), "lanczos": (3.0, _lanczos)}
+
+
+@functools.lru_cache(maxsize=256)
+def _coefficients(in_size: int, out_size: int, filter: str = "bilinear") -> Tuple[np.ndarray, np.ndarray]:
     """(first input index (out,), integer weights (out, ksize)) of each
-    output sample: Resample.c's `precompute_coeffs` with the bilinear
-    (triangle) filter, then `normalize_coeffs_8bpc`. Weights past a
-    sample's window are 0."""
+    output sample: Resample.c's `precompute_coeffs` with PIL's `filter`,
+    then `normalize_coeffs_8bpc` (a negative weight rounds with -0.5, C's
+    conversion toward zero). Weights past a sample's window are 0. Cached
+    per sizes and filter (a folder's or a database's images mostly share
+    their sizes, and the Lanczos weights go value by value through
+    `math.sin`); the arrays are read-only, since every caller shares them."""
+    support, fn = FILTERS[filter]
     scale = in_size / out_size
     filterscale = max(scale, 1.0)
-    support = 1.0 * filterscale  # the triangle's support is 1
+    support = support * filterscale
     ksize = int(math.ceil(support)) * 2 + 1
     center = (np.arange(out_size) + 0.5) * scale
     xmin = np.maximum((center - support + 0.5).astype(np.int64), 0)  # C's (int): toward zero
     xmax = np.minimum((center + support + 0.5).astype(np.int64), in_size) - xmin
     x = np.arange(ksize)
-    arg = np.abs(((x[None, :] + xmin[:, None]) - center[:, None] + 0.5) * (1.0 / filterscale))
-    k = np.where((arg < 1.0) & (x[None, :] < xmax[:, None]), 1.0 - arg, 0.0)
+    arg = ((x[None, :] + xmin[:, None]) - center[:, None] + 0.5) * (1.0 / filterscale)
+    k = np.where(x[None, :] < xmax[:, None], fn(arg), 0.0)
     total = np.zeros(out_size)
     for j in range(ksize):  # in order, as the C loop adds them
         total = total + k[:, j]
     k = k / np.where(total != 0.0, total, 1.0)[:, None]
-    return xmin, (0.5 + k * (1 << PRECISION_BITS)).astype(np.int64)
+    scaled = k * (1 << PRECISION_BITS)
+    weights = np.where(k < 0, -0.5 + scaled, 0.5 + scaled).astype(np.int64)
+    xmin.setflags(write=False)
+    weights.setflags(write=False)
+    return xmin, weights
 
 
-def _resample(img: np.ndarray, axis: int, out_size: int) -> np.ndarray:
+def _resample(img: np.ndarray, axis: int, out_size: int, filter: str) -> np.ndarray:
     """One pass of the resize along `axis` (1 horizontal, 0 vertical) of a
     uint8 (H, W, C) image: each output sample is 2^21 plus the weighted sum
-    of its window, shifted right by 22 bits and clamped to [0, 255]. The
-    sums fit int32 as they do in C: 255 times weights that add up to about
-    2^22."""
+    of its window, shifted right by 22 bits (arithmetically: a negative sum
+    gives 0) and clamped to [0, 255]. The sums fit int32 as they do in C:
+    255 times the positive weights, which add up to less than 2^23."""
     in_size = img.shape[axis]
-    xmin, k = _coefficients(in_size, out_size)
+    xmin, k = _coefficients(in_size, out_size, filter)
     k = k.astype(np.int32)
     shape = [1, 1, 1]
     shape[axis] = out_size
@@ -253,19 +355,34 @@ def _resample(img: np.ndarray, axis: int, out_size: int) -> np.ndarray:
     return np.clip(acc >> PRECISION_BITS, 0, 255).astype(np.uint8)
 
 
-def resize_bilinear(img: np.ndarray, size: Tuple[int, int]) -> np.ndarray:
+def resize(img: np.ndarray, size: Tuple[int, int], filter: str = "bilinear") -> np.ndarray:
     """`img` (H, W, C) uint8 resized to `size` = (width, height), equal to
-    PIL's `Image.resize(size, Image.BILINEAR)` on 8-bit RGB: the horizontal
-    pass first, then the vertical; a pass whose size does not change is
-    skipped."""
+    PIL's `Image.resize(size, Image.BILINEAR)` or `Image.LANCZOS` on 8-bit
+    RGB: the horizontal pass first, then the vertical; a pass whose size
+    does not change is skipped, so a resize to the image's own size is a
+    copy."""
     w, h = int(size[0]), int(size[1])
     if img.dtype != np.uint8 or img.ndim != 3:
-        raise ValueError(f"resize_bilinear wants uint8 (H, W, C), got {img.dtype} {img.shape}")
+        raise ValueError(f"resize wants uint8 (H, W, C), got {img.dtype} {img.shape}")
     if w < 1 or h < 1:
-        raise ValueError(f"resize_bilinear: bad size {size}")
+        raise ValueError(f"resize: bad size {size}")
+    if filter not in FILTERS:
+        raise ValueError(f"resize: filter must be one of {sorted(FILTERS)}, got {filter!r}")
     out = img
     if w != img.shape[1]:
-        out = _resample(out, 1, w)
+        out = _resample(out, 1, w, filter)
     if h != img.shape[0]:
-        out = _resample(out, 0, h)
+        out = _resample(out, 0, h, filter)
     return out.copy() if out is img else out
+
+
+def resize_bilinear(img: np.ndarray, size: Tuple[int, int]) -> np.ndarray:
+    """`resize(img, size, "bilinear")`: PIL's `Image.resize(size,
+    Image.BILINEAR)`, bit for bit."""
+    return resize(img, size, "bilinear")
+
+
+def resize_lanczos(img: np.ndarray, size: Tuple[int, int]) -> np.ndarray:
+    """`resize(img, size, "lanczos")`: PIL's `Image.resize(size,
+    Image.LANCZOS)`, bit for bit."""
+    return resize(img, size, "lanczos")

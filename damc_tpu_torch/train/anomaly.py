@@ -2,8 +2,9 @@
 (counterpart of `damc_tpu/train/anomaly.py`).
 
 The anomaly variant of the step (`preset("mnist_anomaly")`: B prior
-chains, a fixed all-ones mask, both Q loss branches) on `DeviceDataset`
-batches without flips, in the loop that gen_recon runs
+chains, a fixed all-ones mask, both Q loss branches) on batches without
+flips from `driver_utils.make_batch_source` (the store on the device, or
+the host `Loader` with prefetch), in the loop that gen_recon runs
 (`driver_utils.run_loop`): metrics every `print_every` iterations with the
 CD-gap monitor, checkpoints every `ckpt_every`, the AUPRC eval every
 `eval_every` with a `best` checkpoint whenever it improves, a terminal
@@ -24,7 +25,6 @@ import numpy as np
 import torch
 
 from ..config import Config
-from ..data.device_data import DeviceDataset
 from ..device import resolve_device
 from ..metrics.prauc import auprc
 from ..utils.checkpoint import save_checkpoint
@@ -35,6 +35,7 @@ from .driver_utils import (
     cd_gap_ceiling,
     cd_history_path,
     init_driver_logging,
+    make_batch_source,
     restore_for_resume,
     run_loop,
 )
@@ -89,10 +90,6 @@ def train_anomaly(
     if (test_images is None) != (test_labels is None):
         raise ValueError("test_images and test_labels must be supplied together (AUPRC needs both)")
     tc, nz = cfg.train, cfg.model.nz
-    if tc.data_placement == "host":
-        raise NotImplementedError(
-            "data_placement='host' (the host loader) is not ported (ROADMAP.md, queue 1, item 4b)"
-        )
     seed = tc.seed if seed is None else int(seed)
     iterations = tc.iterations if iterations is None else int(iterations)
     resume_path = tc.resume_path if resume_path is None else resume_path
@@ -104,10 +101,9 @@ def train_anomaly(
     step = make_train_step(state.models, state.opts, cfg)
     # No flips: the reference's anomaly loader does not augment
     # (`train_anomaly_det.py:49-56`).
-    stream = DeviceDataset(
-        np.asarray(train_images, np.float32), batch_size=tc.batch_size, augment_flip=False, seed=seed,
-        device=dev,
-    ).stream()
+    next_batch, close_data, placement = make_batch_source(
+        np.asarray(train_images, np.float32), tc, seed, dev, augment_flip=False)
+    print(f"[damc] training-batch placement: {placement}", flush=True)
 
     cd_monitor = CDGapMonitor(gap_ceiling=cd_gap_ceiling(tc.e_energy_reg))
     if start_iter > 0:
@@ -129,11 +125,13 @@ def train_anomaly(
 
     def iterate(it: int) -> None:
         nonlocal state
-        x, _ = next(stream)
-        state, metrics = step(state, x)
+        state, metrics = step(state, next_batch())
         if tc.print_every > 0 and it % tc.print_every == 0:
             report(it, metrics)
 
-    run_loop(tc, state, start_iter, iterations, ckpt_dir, iterate,
-             run_eval if test_images is not None else None)
+    try:
+        run_loop(tc, state, start_iter, iterations, ckpt_dir, iterate,
+                 run_eval if test_images is not None else None)
+    finally:
+        close_data()
     return state, auc_best

@@ -2,9 +2,10 @@
 `damc_tpu/train/driver_utils.py:26-66, 154-192, 280-436`), for one process:
 resume-path resolution (with `auto`, the preemption-recovery mode), the
 log and checkpoint directories, the contrastive-divergence gap monitor, the
-preemption checkpoint, and the loop around the iterations that the
-gen_recon and anomaly drivers share (`MetricsReport`, `run_loop`). The
-multi-host pieces (batch placement, host shards, metric broadcast) are not
+preemption checkpoint, the training-batch source (`make_batch_source`:
+the device-resident store or the host feed), and the loop around the
+iterations that the gen_recon and anomaly drivers share (`MetricsReport`,
+`run_loop`). The multi-host pieces (host shards, metric broadcast) are not
 ported (ROADMAP.md, queue 1, item 8).
 """
 
@@ -14,10 +15,14 @@ import json
 import math
 import os
 import time
-from typing import Callable, Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple, Union
 
 import numpy as np
+import torch
 
+from ..data.device_data import DEFAULT_DEVICE_BUDGET_BYTES, DeviceDataset, fits_device
+from ..data.native_loader import make_loader
+from ..data.prefetch import Prefetcher
 from ..utils.checkpoint import latest_step, restore_checkpoint, save_checkpoint
 from ..utils.logging import MetricsLogger
 from ..utils.preemption import graceful_shutdown
@@ -69,6 +74,80 @@ def cd_history_path(logger_path: Optional[str], resume_path: Optional[str]) -> O
         if os.path.exists(cand):
             return cand
     return logger_path
+
+
+def make_stream(loader):
+    """loader.stream(), with background prefetch for loaders that do not
+    already overlap batch assembly (the C++ engine does)."""
+    stream = loader.stream()
+    if not getattr(loader, "native_prefetch", False):
+        stream = Prefetcher(stream, depth=2)
+    return stream
+
+
+def put_batch(x_np: np.ndarray, device: torch.device) -> torch.Tensor:
+    """One host batch on `device`. To a card it goes through pinned memory
+    with a copy that does not block the host: `pin_memory()` copies the
+    batch into a block of PyTorch's caching host allocator, which records
+    the copy's event on the stream and hands the block out again only after
+    the copy has landed, so no later batch can overwrite it in flight. On
+    the CPU the batch is used as it is (each host batch is a fresh array)."""
+    x = torch.from_numpy(x_np)
+    if device.type != "cuda":
+        return x
+    return x.pin_memory().to(device, non_blocking=True)
+
+
+def make_batch_source(train_images, tc, seed: int, device: Union[str, torch.device], augment_flip: bool = True):
+    """One `next_batch()` per training iteration, on `device` either way
+    (counterpart of `damc_tpu/train/driver_utils.py::make_batch_source`).
+
+    Placement (`tc.data_placement`):
+      * 'device', or 'auto' when the store is a uint8 or float32 ndarray
+        under the device budget (`tc.data_device_budget_gb`, default
+        `DEFAULT_DEVICE_BUDGET_BYTES`): `DeviceDataset`, the whole store on
+        the card, each batch a gather and flip there. 'device' over the
+        budget raises ValueError, as in JAX.
+      * 'host', or 'auto' over the budget or for a lazy store: the host
+        loader (the C++ engine for uint8 arrays, the NumPy `Loader`
+        otherwise, the JAX package's streams for the same seed), a
+        background `Prefetcher` where the loader has no threads of its own,
+        then `put_batch`.
+
+    Returns (next_batch, close, placement); `close()` stops the host
+    loader's threads."""
+    placement = getattr(tc, "data_placement", "auto")
+    if placement not in ("auto", "device", "host"):
+        raise ValueError(f"data_placement must be auto|device|host, got {placement!r}")
+    device = torch.device(device)
+    budget_gb = getattr(tc, "data_device_budget_gb", None)
+    budget = int(budget_gb * (1 << 30)) if budget_gb is not None else DEFAULT_DEVICE_BUDGET_BYTES
+    eligible = fits_device(train_images, budget)
+    if placement == "device" and not eligible:
+        raise ValueError(
+            f"data_placement='device' but the store is ineligible (a lazy dataset, or over the device budget "
+            f"of {budget / (1 << 30):g} GiB): use 'auto' or 'host'"
+        )
+    if placement != "host" and eligible:
+        stream = DeviceDataset(
+            train_images, batch_size=tc.batch_size, augment_flip=augment_flip, seed=seed, device=device,
+        ).stream()
+        return (lambda: next(stream)[0]), (lambda: None), "device"
+
+    loader = make_loader(train_images, batch_size=tc.batch_size, shuffle=True, drop_last=True,
+                         augment_flip=augment_flip, seed=seed)
+    stream = make_stream(loader)
+
+    def next_batch():
+        x_np, _ = next(stream)
+        return put_batch(x_np, device)
+
+    def close():
+        stream.close()
+        if hasattr(loader, "close"):
+            loader.close()
+
+    return next_batch, close, "host"
 
 
 class CDGapMonitor:

@@ -1,9 +1,11 @@
 """Image generation + reconstruction training driver (counterpart of
 `damc_tpu/train/gen_recon.py:44-394`).
 
-Batches come from `DeviceDataset` (the whole store on the device, flips
-on); each iteration is one call of `make_train_step`'s function. Around
-it, as in the JAX loop:
+Batches (flips on) come from `driver_utils.make_batch_source`: the whole
+store on the device (`DeviceDataset`), or the host feed for stores over
+the device budget, lazy stores and `data_placement="host"`; each iteration
+is one call of `make_train_step`'s function. Around it, as in the JAX
+loop:
   * every `print_every` iterations the metrics are read back, checked for
     non-finite values, fed to the CD-gap monitor and logged;
   * every `plot_every` iterations four grids go to <log_dir>/imgs: the
@@ -20,12 +22,12 @@ it, as in the JAX loop:
   * SIGTERM or SIGINT checkpoints at the next iteration boundary and
     returns; `resume_path="auto"` continues from the newest checkpoint of
     <log_dir>/ckpt. A resumed run restarts the data stream from the run
-    seed, as the JAX feed restarts its epoch stream.
+    seed, as the JAX feed restarts its epoch stream. However the loop ends,
+    the host feed's threads are stopped.
 
 Every eval draw comes from the run seed (`sampling.eval_draws`), so an
-eval is a pure function of the weights and the seed. The host data feed
-(`data_placement="host"`) and meshes are not ported (ROADMAP.md, queue 1,
-items 4b and 8).
+eval is a pure function of the weights and the seed. Meshes are not ported
+(ROADMAP.md, queue 1, item 8).
 """
 
 from __future__ import annotations
@@ -37,7 +39,6 @@ import numpy as np
 import torch
 
 from ..config import Config
-from ..data.device_data import DeviceDataset
 from ..device import resolve_device
 from ..metrics.fid import compute_stats, fid_from_samples, images_to_unit
 from ..models import sample_q
@@ -51,6 +52,7 @@ from .driver_utils import (
     cd_gap_ceiling,
     cd_history_path,
     init_driver_logging,
+    make_batch_source,
     restore_for_resume,
     run_loop,
 )
@@ -165,10 +167,6 @@ def train_gen_recon(
     checkpoint directory or 'auto'. Runs on CUDA unless `device` says
     otherwise."""
     tc, nz = cfg.train, cfg.model.nz
-    if tc.data_placement == "host":
-        raise NotImplementedError(
-            "data_placement='host' (the host loader) is not ported (ROADMAP.md, queue 1, item 4b)"
-        )
     seed = tc.seed if seed is None else int(seed)
     iterations = tc.iterations if iterations is None else int(iterations)
     resume_path = tc.resume_path if resume_path is None else resume_path
@@ -185,9 +183,8 @@ def train_gen_recon(
     if feature_fn is not None and fid_images is not None:
         real_mu, real_sigma = real_stats(feature_fn, fid_images, dev)
 
-    stream = DeviceDataset(
-        train_images, batch_size=tc.batch_size, augment_flip=True, seed=seed, device=dev,
-    ).stream()
+    next_batch, close_data, placement = make_batch_source(train_images, tc, seed, dev)
+    print(f"[damc] training-batch placement: {placement}", flush=True)
 
     fid_best = mse_best = float("inf")
     timer = StepTimer()
@@ -245,7 +242,7 @@ def train_gen_recon(
     def iterate(it: int) -> None:
         nonlocal state
         with timer.phase("data"):
-            x, _ = next(stream)
+            x = next_batch()
         with timer.phase("train_step"):
             state, metrics = step(state, x)
         if on_step is not None:
@@ -255,5 +252,8 @@ def train_gen_recon(
         if img_dir and tc.plot_every > 0 and it % tc.plot_every == 0:
             plot(it, x)
 
-    run_loop(tc, state, start_iter, iterations, ckpt_dir, iterate, run_eval)
+    try:
+        run_loop(tc, state, start_iter, iterations, ckpt_dir, iterate, run_eval)
+    finally:
+        close_data()
     return state

@@ -75,14 +75,15 @@ def test_unported_options_raise(tmp_path):
     for flag in ("--use_mesh", "--multihost"):
         with pytest.raises(NotImplementedError, match="queue 1, item 8"):
             common.config_from_args(_parse(common.add_common_flags, [flag]))
-    # celeba64 reads its PNG folders; a JPEG there raises, naming the decoder
-    # that item 4b owes and the JAX-made cache that serves in its place.
+    # celeba64 reads its folders of PNG, JPEG and BMP files (item 4b); a
+    # progressive JPEG there raises, naming the decoder item 4c owes and the
+    # JAX-made cache that serves in its place.
     tree = tmp_path / "celeba64_train"
     tree.mkdir()
-    Image.new("RGB", (8, 8)).save(tree / "000001.jpg")
+    Image.new("RGB", (8, 8)).save(tree / "000001.jpg", progressive=True)
     cfg = preset("celeba64")
     cfg = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, data_path=str(tmp_path)))
-    with pytest.raises(NotImplementedError, match=r"000001\.jpg: .*JPEG.*queue 1, item 4b.*celeba64_train_64\.npy"):
+    with pytest.raises(NotImplementedError, match=r"000001\.jpg: .*progressive.*queue 1, item 4c.*celeba64_train_64\.npy"):
         common.load_dataset(cfg)
     with pytest.raises(ValueError, match="unknown gen_recon dataset 'mnist'"):
         common.load_dataset(preset("mnist_anomaly"))

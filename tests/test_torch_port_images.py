@@ -1,5 +1,6 @@
 """The port's image-folder reader on the CPU: `damc_tpu_torch/data/images.py`
-(PNG decoding, PIL's bilinear resize) against PIL itself, and
+(PNG and BMP decoding, PIL's bilinear and Lanczos resize) against PIL
+itself, and
 `data/datasets.py::load_image_folder{,_cached}` and
 `cli/common.py::load_dataset` against the JAX package's PIL-based reader.
 Every comparison is exact (uint8 equality): the port's training data must
@@ -26,6 +27,7 @@ from damc_tpu_torch.cli import common
 from damc_tpu_torch.config import preset
 from damc_tpu_torch.data import datasets
 from damc_tpu_torch.data.device_data import DeviceDataset
+from damc_tpu_torch.data import images
 from damc_tpu_torch.data.images import decode_parsed, decode_png, parse_png, resize_bilinear
 from damc_tpu_torch.utils.logging import encode_png
 import torch_port_helpers
@@ -198,15 +200,126 @@ def test_load_image_folder_empty_raises(tmp_path):
         datasets.load_image_folder(str(tmp_path), 16)
 
 
-def test_load_image_folder_jpeg_raises_before_decoding(tmp_path):
-    """A JPEG among the selected files raises NotImplementedError naming
-    the file, the decoder and the cache that takes its place; a JPEG that
-    `limit` leaves out does not."""
+def test_load_image_folder_jpeg_raises_before_decoding(tmp_path, monkeypatch):
+    """JPEGs decode now (item 4b; the name predates that). A kind the port
+    does not decode still raises NotImplementedError naming the file, the
+    feature, item 4c and the cache that takes its place: a WebP file from
+    its first bytes, before any image of the folder is decoded; a
+    progressive JPEG from its header, before its batch is decoded. A file
+    that `limit` leaves out does not raise."""
     _mixed_tree(str(tmp_path), np.random.default_rng(7))
-    Image.fromarray(_smooth(np.random.default_rng(8), 16, 16, 3)).save(tmp_path / "d" / "zz.jpg")
-    with pytest.raises(NotImplementedError, match=r"zz\.jpg: .*no JPEG decoder.*item 4b.*_16\.npy"):
+    decoded = []
+    for name in ("decode_parsed", "decode_jpegs", "decode_bmp"):
+        original = getattr(datasets, name)
+        monkeypatch.setattr(datasets, name, lambda *a, _o=original, _n=name, **k: (decoded.append(_n), _o(*a, **k))[1])
+    pix = _smooth(np.random.default_rng(8), 16, 16, 3)
+    Image.fromarray(pix).save(tmp_path / "d" / "zz.webp", "WEBP")
+    with pytest.raises(NotImplementedError, match=r"zz\.webp: WebP.*item 4c.*_16\.npy"):
+        datasets.load_image_folder(str(tmp_path), 16)
+    assert decoded == []
+    os.remove(tmp_path / "d" / "zz.webp")
+    Image.fromarray(pix).save(tmp_path / "d" / "zz.jpg", "JPEG", progressive=True)
+    with pytest.raises(NotImplementedError, match=r"zz\.jpg: a JPEG with progressive coding.*item 4c.*_16\.npy"):
         datasets.load_image_folder(str(tmp_path), 16)
     assert datasets.load_image_folder(str(tmp_path), 16, limit=6).shape == (6, 16, 16, 3)
+
+
+def _bmp(pix: np.ndarray, bits: int, top_down: bool) -> bytes:
+    """A BITMAPINFOHEADER BMP of RGB `pix` at 24 or 32 bits a pixel (the
+    fourth byte of a 32-bit pixel set to 0x5A), written by hand: PIL writes
+    bottom-up 24-bit files only."""
+    h, w, _ = pix.shape
+    step = bits // 8
+    stride = ((w * bits + 31) >> 3) & ~3
+    rows = np.zeros((h, stride), np.uint8)
+    px = np.full((h, w, step), 0x5A, np.uint8)
+    px[..., :3] = pix[..., ::-1]
+    rows[:, :w * step] = px.reshape(h, w * step)
+    if not top_down:
+        rows = rows[::-1]
+    info = struct.pack("<IiiHHIIiiII", 40, w, -h if top_down else h, 1, bits, 0, rows.size, 2835, 2835, 0, 0)
+    return b"BM" + struct.pack("<IHHI", 14 + 40 + rows.size, 0, 0, 54) + info + rows.tobytes()
+
+
+@pytest.mark.parametrize("case", ["pil_rgb", "pil_palette", "pil_grey", "pil_1x1", "24_top_down", "32_bottom_up",
+                                  "32_top_down"])
+def test_decode_bmp_matches_pil(case):
+    """BI_RGB BMPs at 24 and 32 bits and with an 8-bit palette (colour or
+    grey), bottom-up and top-down: `decode_bmp` equals PIL's
+    `convert("RGB")`."""
+    rng = np.random.default_rng(len(case))
+    pix = _smooth(rng, 13, 1 if case == "pil_1x1" else 21, 3)[: 1 if case == "pil_1x1" else 13]
+    if case.startswith("pil"):
+        img = {"pil_palette": Image.fromarray(pix).quantize(41), "pil_grey": Image.fromarray(pix).convert("L")}.get(
+            case, Image.fromarray(pix))
+        buf = io.BytesIO()
+        img.save(buf, "BMP")
+        data = buf.getvalue()
+    else:
+        bits, top_down = int(case[:2]), case.endswith("top_down")
+        data = _bmp(pix, bits, top_down)
+    got = images.decode_bmp(data, "x.bmp")
+    np.testing.assert_array_equal(got, _pil_rgb(data))
+    if not case.startswith("pil"):
+        np.testing.assert_array_equal(got, pix)
+
+
+@pytest.mark.parametrize("edit, match", [
+    (lambda d: d[:30] + struct.pack("<I", 1) + d[34:], "compression RLE8"),
+    (lambda d: d[:28] + struct.pack("<H", 16) + d[30:], "16 bits a pixel"),
+    (lambda d: d[:14] + struct.pack("<I", 20) + d[18:], "info header of 20 bytes"),
+    (lambda d: d[:-40], "truncated BMP pixel data"),
+    (lambda d: b"BX" + d[2:], "not a BMP file"),
+], ids=["rle8", "16-bit", "header", "truncated", "signature"])
+def test_unsupported_or_corrupt_bmps_raise(edit, match):
+    data = _bmp(_smooth(np.random.default_rng(9), 6, 7, 3), 24, False)
+    with pytest.raises(ValueError, match=f"x.bmp: .*{match}"):
+        images.decode_bmp(edit(data), "x.bmp")
+
+
+def _mixed_format_tree(root, rng):
+    """PNG, JPEG (4:2:0, 4:4:4 with restart markers, greyscale, an upper-
+    case extension) and BMP (24-bit and palette) files in one tree, a
+    .jpeg file that holds a PNG (decoded by its first bytes, as PIL opens
+    it) and a file that is not an image."""
+    _mixed_tree(root, rng)
+    specs = [("b/j1.jpg", dict(quality=75)), ("b/c/j2.JPEG", dict(quality=95, subsampling=0, restart_marker_blocks=2)),
+             ("e/j3.jpg", dict(quality=50, mode="L")), ("e/b1.bmp", dict()), ("e/b2.bmp", dict(mode="P")),
+             ("e/png_named.jpeg", dict(fmt="PNG"))]
+    for rel, kw in specs:
+        w, h = int(rng.integers(20, 200)), int(rng.integers(20, 200))
+        img = Image.fromarray(_smooth(rng, h, w, 3))
+        mode = kw.pop("mode", None)
+        img = img.convert(mode) if mode == "L" else img.quantize(30) if mode == "P" else img
+        fmt = kw.pop("fmt", None) or ("BMP" if rel.endswith(".bmp") else "JPEG")
+        path = os.path.join(root, rel)
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        img.save(path, fmt, **kw)
+
+
+@pytest.mark.parametrize("size, batch_bytes", [(64, datasets.BATCH_BYTES), (32, 20000)])
+def test_mixed_format_folder_matches_jax(tmp_path, monkeypatch, size, batch_bytes):
+    """A folder of PNG, JPEG and BMP files: the port's `load_image_folder`
+    equals the JAX package's PIL reader exactly, in one batch and in many."""
+    _mixed_format_tree(str(tmp_path), np.random.default_rng(12))
+    monkeypatch.setattr(datasets, "BATCH_BYTES", batch_bytes)
+    want = jax_datasets.load_image_folder(str(tmp_path), size)
+    got = datasets.load_image_folder(str(tmp_path), size)
+    assert got.shape == want.shape == (12, size, size, 3)
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("src, dst", [
+    ((178, 218), (64, 64)), ((256, 340), (256, 256)), ((40, 40), (256, 256)), ((1024, 1024), (256, 256)),
+    ((64, 64), (64, 64)), ((97, 64), (64, 42)),
+], ids=lambda s: "x".join(map(str, s)))
+def test_resize_matches_pil_lanczos(src, dst):
+    """`resize_lanczos` equals PIL's `Image.resize(size, LANCZOS)` on 8-bit
+    RGB, exactly, down and up (negative weights included)."""
+    rng = np.random.default_rng(list(src + dst) + [1])
+    img = rng.integers(0, 256, (src[1], src[0], 3), dtype=np.uint8)
+    want = np.asarray(Image.fromarray(img).resize(dst, Image.LANCZOS))
+    np.testing.assert_array_equal(images.resize_lanczos(img, dst), want)
 
 
 @pytest.mark.parametrize("writer", ["jax", "port"])

@@ -1,8 +1,10 @@
 """Import hygiene of the port: no module under `damc_tpu_torch/` imports JAX,
-Flax, Optax, the JAX package or PIL (the port depends on no image
-library: it decodes its PNGs itself, `data/images.py`). Parsed with `ast`, not
-read from `sys.modules`, because the interpreter may import JAX at
-start-up."""
+Flax, Optax, the JAX package, PIL or lmdb (the port depends on no image
+library and no LMDB binding: it decodes its PNGs, BMPs and JPEGs itself,
+`data/images.py` and `data/jpeg.py`, and reads LMDB through its own C++
+reader), and none reads a file under the JAX package's `native/` (it keeps
+its own copies under `csrc/host/`). Parsed with `ast`, not read from
+`sys.modules`, because the interpreter may import JAX at start-up."""
 
 from __future__ import annotations
 
@@ -13,7 +15,7 @@ from pathlib import Path
 import pytest
 
 PORT = Path(__file__).resolve().parents[1] / "damc_tpu_torch"
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "damc_tpu", "PIL")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "damc_tpu", "PIL", "lmdb")
 
 
 def _imports(tree):
@@ -44,9 +46,43 @@ SLICE_7 = (
 )
 
 
+SLICE_9 = (
+    "data/_native_build.py", "data/native_loader.py", "data/prefetch.py", "data/jpeg.py", "data/native_lmdb.py",
+)
+
+
 def test_port_has_modules():
-    assert len(FILES) >= 45
-    assert set(SLICE_4 + SLICE_6 + SLICE_7) <= {str(p.relative_to(PORT)) for p in FILES}
+    assert len(FILES) >= 50
+    assert set(SLICE_4 + SLICE_6 + SLICE_7 + SLICE_9) <= {str(p.relative_to(PORT)) for p in FILES}
+    assert {p.name for p in (PORT / "csrc" / "host").glob("*.cpp")} == {
+        "batch_loader.cpp", "jpeg_decode.cpp", "lmdb_reader.cpp"}
+
+
+def _code_strings(tree):
+    """The string constants of a module that are not docstrings."""
+    docs = set()
+    for node in ast.walk(tree):
+        if isinstance(node, (ast.Module, ast.ClassDef, ast.FunctionDef, ast.AsyncFunctionDef)) and node.body:
+            first = node.body[0]
+            if isinstance(first, ast.Expr) and isinstance(first.value, ast.Constant):
+                docs.add(id(first.value))
+    return [n.value for n in ast.walk(tree)
+            if isinstance(n, ast.Constant) and isinstance(n.value, str) and id(n) not in docs]
+
+
+@pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(PORT)))
+def test_no_read_of_the_jax_native_sources(path):
+    """The port builds its host libraries from its own `csrc/host/`: no
+    string in its code names the JAX package's `native/` directory."""
+    bad = [v for v in _code_strings(ast.parse(path.read_text(), str(path))) if v == "native" or "native/" in v]
+    assert not bad, f"{path} names {bad}"
+
+
+def test_host_build_reads_csrc_host():
+    from damc_tpu_torch.data import _native_build
+
+    assert _native_build.SRC_DIR == PORT / "csrc" / "host"
+    assert all((_native_build.SRC_DIR / f"{name}.cpp").is_file() for name in _native_build.LIBRARIES)
 
 
 MODULES = [
@@ -72,6 +108,9 @@ def test_no_jax_import(path):
 
 
 def test_chip_smoke_imports_no_jax():
+    """chip_smoke.py imports nothing of JAX or the JAX package; it may
+    import PIL (and only it of the port's forbidden names), as the oracle
+    that the port's image decoders are held against on the card."""
     path = PORT.parent / "chip_smoke.py"
-    bad = [n for n in _imports(ast.parse(path.read_text())) if n.split(".")[0] in FORBIDDEN]
+    bad = [n for n in _imports(ast.parse(path.read_text())) if n.split(".")[0] in FORBIDDEN and n != "PIL"]
     assert not bad

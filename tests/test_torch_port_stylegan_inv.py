@@ -24,6 +24,7 @@ from __future__ import annotations
 import copy
 import dataclasses
 import os
+import shutil
 
 import jax
 import jax.numpy as jnp
@@ -46,7 +47,7 @@ from damc_tpu_torch.train.state import ClippedAdam
 from damc_tpu_torch.train.step import QDraws
 from damc_tpu_torch.utils.checkpoint import save_checkpoint
 from test_torch_port_train import _assert_params
-from torch_port_helpers import loss_draws, one_torch_thread, to_numpy
+from torch_port_helpers import loss_draws, lsun_jpeg_db, one_torch_thread, to_numpy
 
 RES, N, B = 8, 3, 2
 FOURIER_DAMP = 0.01  # module docstring
@@ -272,6 +273,12 @@ def test_eval_cli_round_trip_on_cpu(pair, tmp_path, capsys):
     for extra, item in ((["--use_mesh"], "item 8"),):
         with pytest.raises(NotImplementedError, match=item):
             eval_stylegan_inv.main(argv + extra)
+    # LSUN's lmdb databases are read since item 4b: an empty directory is no database.
     os.makedirs(tmp_path / "lsun" / "tower_val_lmdb")
-    with pytest.raises(NotImplementedError, match="item 4b"):
+    with pytest.raises(OSError, match="cannot open LMDB env"):
         eval_stylegan_inv.main(argv + ["--dataset", "lsun_tower", "--data_path", str(tmp_path / "lsun")])
+    shutil.rmtree(tmp_path / "lsun")
+    lsun_jpeg_db(str(tmp_path / "lsun"), "tower_val", 4, seed=5, max_size=(40, 30))
+    lsun = eval_stylegan_inv.main(argv + ["--dataset", "lsun_tower", "--data_path", str(tmp_path / "lsun")])
+    assert set(lsun) == {"recon_mse", "frechet_rand"} and all(np.isfinite(v) for v in lsun.values())
+    assert lsun["recon_mse"] != outs[0]["recon_mse"]  # the LMDB's images, not the folder's

@@ -1,6 +1,6 @@
 """The port's training feed and loop on the CPU: `DeviceDataset`'s epoch
-invariants, a 3-iteration `train_gen_recon` at tiny widths, the options
-that are not ported yet, and the train-mode models."""
+invariants, a 3-iteration `train_gen_recon` at tiny widths, the placement
+that raises, and the train-mode models."""
 
 from __future__ import annotations
 
@@ -132,19 +132,20 @@ def test_train_gen_recon_three_iterations_on_cpu(capsys):
 
 
 def test_unported_options_raise():
-    """The host data feed raises in both drivers that read it, gen_recon's
-    and the anomaly workload's; the evals, logs and checkpoints are ported
-    (tests/test_torch_port_driver.py), and so are the anomaly and toy
-    workloads (tests/test_torch_port_{anomaly,toy}.py)."""
+    """The host data feed is ported now (the name predates that; both
+    drivers train host-fed in tests/test_torch_port_host_feed.py): what
+    still raises is 'device' over the device budget, in both drivers that
+    read it, gen_recon's and the anomaly workload's, as in JAX."""
     from damc_tpu_torch.train.anomaly import train_anomaly
 
-    cfg = _tiny_cfg(data_placement="host")
+    cfg = _tiny_cfg(data_placement="device", data_device_budget_gb=1e-6)
     images = np.zeros((8, 32, 32, 3), np.uint8)
-    with pytest.raises(NotImplementedError, match="not ported"):
+    with pytest.raises(ValueError, match="data_placement='device' but the store is ineligible"):
         train_gen_recon(cfg, images, iterations=1, device="cpu")
     anomaly = preset("mnist_anomaly")
-    anomaly = dataclasses.replace(anomaly, train=dataclasses.replace(anomaly.train, data_placement="host"))
-    with pytest.raises(NotImplementedError, match="queue 1, item 4b"):
+    anomaly = dataclasses.replace(anomaly, train=dataclasses.replace(
+        anomaly.train, data_placement="device", data_device_budget_gb=1e-6))
+    with pytest.raises(ValueError, match="over the device budget"):
         train_anomaly(anomaly, np.zeros((8, 28, 28, 1), np.float32), iterations=1, device="cpu")
 
 

@@ -143,3 +143,28 @@ def one_torch_thread():
     finally:
         torch.set_num_threads(before)
 
+
+
+def lsun_jpeg_db(root: str, cls: str, n: int, seed: int, max_size=(120, 90), quality: int = 85, **fixture_kw):
+    """Write `<root>/<cls>_lmdb`, an LSUN-style LMDB (tests/lmdb_fixture.py)
+    of `n` seeded JPEGs, PIL-written, of random sizes up to `max_size`
+    (width, height), 4:2:0 or 4:4:4 by turns; returns {key: bytes}."""
+    import io
+    import os
+
+    from PIL import Image
+
+    from lmdb_fixture import build_lmdb
+
+    rng = np.random.default_rng(seed)
+    items = {}
+    for i in range(n):
+        w, h = int(rng.integers(9, max_size[0] + 1)), int(rng.integers(9, max_size[1] + 1))
+        low = rng.integers(0, 256, (max(h // 16, 2), max(w // 16, 2), 3), dtype=np.uint8)
+        pix = np.asarray(Image.fromarray(low).resize((w, h), Image.BILINEAR)).astype(np.int16)
+        pix = np.clip(pix + rng.integers(-8, 9, pix.shape), 0, 255).astype(np.uint8)
+        buf = io.BytesIO()
+        Image.fromarray(pix).save(buf, "JPEG", quality=quality, subsampling=2 * (i % 2 == 0))
+        items[f"{i:08d}".encode()] = buf.getvalue()
+    build_lmdb(os.path.join(root, f"{cls}_lmdb"), items, **fixture_kw)
+    return items
