@@ -26,7 +26,17 @@ Phases, each of which raises on failure (the script then exits non-zero):
      served coalesced, that the EBM path agrees with the CPU plain versions,
      and that each path launched its kernels;
   5. profiles one B=16 dispatch of each serving path (device busy and idle
-     time, top kernels);
+     time, top kernels); then serving artifacts (item 7) of phase 4's
+     weights, exported on the card and, from the same seeded weights, on the
+     CPU (B=16, 10 recon steps), are served on the card over HTTP by a
+     separate process that imports no model or training module: the answers
+     of both must equal the live service's bit for bit, K2 launch once per
+     damc and recon dispatch and K1 once per ebm dispatch, and K2 pack its
+     weights once per program; p50/p99 of 20 sequential single-item
+     requests a path, artifact beside live; and the two checkpoint CLIs: a
+     `.pth.tar` of the seeded weights converted, one training iteration
+     resumed from it, exported back and loaded strictly, equal tensor for
+     tensor;
   6. trains the full-width `cifar10` preset at B=128 for 10 iterations
      through `train_gen_recon` on images made from a seed, timed by CUDA
      events without a sync per iteration; checks finite metrics, that every
@@ -137,7 +147,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
      read rate, and the eval CLI with --dataset lsun_tower over one batch
      of 8;
  20. prints one JSON line {"kernels": [...]} with launches, errors and times
-     of each kernel on each path (serve, train, eval, anomaly, anomaly_eval:
+     of each kernel on each path (serve, serve_artifact: the card-exported
+     artifact's requests in its serving process, train, eval, anomaly, anomaly_eval:
      the train CLI's AUPRC evals, anomaly_eval_cli: the eval CLI's two
      runs, toy, svhn: the train CLI run, svhn_eval: the eval CLI run,
      svhn_serve: the served checkpoint, celeba64: both train CLI runs,
@@ -792,6 +803,299 @@ def profile_phase(models, cfg):
             "path": path, "wall_ms": wall_ms, "device_busy_ms": busy_ms,
             "device_idle_share": 1.0 - busy_ms / wall_ms if wall_ms else None, "top": top,
         }))
+
+
+ARTIFACT_B = 16  # the serving bucket
+ARTIFACT_RECON_STEPS = 10
+ARTIFACT_ATOL = 0.0  # the artifact's answers against the live service's: bit for bit
+LATENCY_REQUESTS = 20
+ARTIFACT_PATHS = ("damc", "ebm", "recon")
+
+
+def serve_requests(base, x, path):
+    """The artifact phase's requests of one path over HTTP at `base`: an
+    item alone, then two requests at once (seeds 7 and 8 of /sample, n=8;
+    /reconstruct of x[:4] and x[4:] with seeds 3 and 4). Item (seed, 0)
+    alone must equal it coalesced. Returns the coalesced answers by name."""
+    if path != "recon":
+        sample = lambda n, seed: _array(
+            _post(base + "/sample", {"n": n, "prior": path, "seed": seed, "encoding": "b64"})["images"])
+        alone = sample(1, 7)
+        a, b = _concurrent([lambda: sample(8, 7), lambda: sample(8, 8)])
+        if not np.array_equal(a[0], alone[0]):
+            raise AssertionError(f"{path}: item (7, 0) alone differs from it coalesced")
+        return {f"{path}_7": a, f"{path}_8": b}
+
+    def recon(imgs, seed):
+        body = _post(base + "/reconstruct", {
+            "image_b64": base64.b64encode(np.ascontiguousarray(imgs).tobytes()).decode(),
+            "shape": list(imgs.shape), "seed": seed, "encoding": "b64",
+        })
+        return _array(body["x_hat"]), _array(body["z"])
+
+    alone = recon(x[:1], 3)
+    (x3, z3), (x4, z4) = _concurrent([lambda: recon(x[:4], 3), lambda: recon(x[4:], 4)])
+    if not (np.array_equal(x3[0], alone[0][0]) and np.array_equal(z3[0], alone[1][0])):
+        raise AssertionError("recon: item (3, 0) alone differs from it coalesced")
+    return {"recon_3_x": x3, "recon_3_z": z3, "recon_4_x": x4, "recon_4_z": z4}
+
+
+def request_latency(base, x, n=LATENCY_REQUESTS):
+    """p50 and p99 (ms) of n sequential single-item requests of each path,
+    on the host clock around each HTTP round trip."""
+    one = lambda i: {"image_b64": base64.b64encode(np.ascontiguousarray(x[i % len(x)]).tobytes()).decode(),
+                     "shape": list(x.shape[1:])}
+    out = {}
+    for path in ARTIFACT_PATHS:
+        ms = []
+        for i in range(n):
+            t0 = time.perf_counter()
+            if path == "recon":
+                _post(base + "/reconstruct", {**one(i), "seed": 100 + i, "encoding": "b64"})
+            else:
+                _post(base + "/sample", {"n": 1, "prior": path, "seed": 100 + i, "encoding": "b64"})
+            ms.append((time.perf_counter() - t0) * 1e3)
+        out[path] = {"p50_ms": float(np.percentile(ms, 50)), "p99_ms": float(np.percentile(ms, 99))}
+    return out
+
+
+def _artifact_x():
+    return np.random.default_rng(SEED + 1).uniform(-1, 1, (8, 32, 32, 3)).astype(np.float32)
+
+
+def _serve_all(service, counters):
+    """Serve `service` over HTTP and run every path's requests, the counts
+    at 0 before each path, then the latency requests. Returns (answers,
+    {path: kernel launches}, {path: dispatches}, latency)."""
+    from damc_tpu_torch.serve import make_http_server
+
+    server = make_http_server(service, "127.0.0.1", 0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    base = "http://127.0.0.1:%d" % server.server_address[1]
+    x = _artifact_x()
+    answers, launches, batches = {}, {}, {}
+    try:
+        for path in ARTIFACT_PATHS:
+            for k in counters.values():
+                k.launches = 0
+            before = service.stats[path].batches
+            answers.update(serve_requests(base, x, path))
+            launches[path] = {name: k.launches for name, k in counters.items()}
+            batches[path] = service.stats[path].batches - before
+        latency = request_latency(base, x)
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(30)
+    return answers, launches, batches, latency
+
+
+def artifact_server() -> int:
+    """The artifact phase's serving process: starts CUDA, then reads its
+    spec (one JSON line) from standard input, loads each artifact of it on
+    the card with `SamplerService.from_artifact`, serves it over HTTP
+    (`_serve_all`), counts K2's weight packings, and writes the answers
+    (npz) and the readings (json) where the spec says. It imports only the
+    port's serving and artifact modules (and through them the ops)."""
+    import torch
+    import torch.export.passes  # noqa: F401  (the loader's machinery, imported ahead)
+
+    from damc_tpu_torch.ops.cuda import fused_langevin, fused_qsweep
+    from damc_tpu_torch.serve import SamplerService
+
+    # CUDA, cuBLAS, cuDNN and the kernel libraries start while the exports run.
+    x = torch.ones(1, 1, 4, 4, device="cuda")
+    torch.nn.functional.conv2d(x, x[:, :, :3, :3]) @ x[0, 0, :2, :2]
+    fused_langevin._library(), fused_qsweep._library()
+    torch.cuda.synchronize()
+    spec = json.loads(sys.stdin.readline())
+    packs = [0]
+    pack = fused_qsweep.pack_weights
+
+    def counting_pack(layers):
+        packs[0] += 1
+        return pack(layers)
+
+    fused_qsweep.pack_weights = counting_pack
+    counters = {"K1": fused_langevin.fused_prior_langevin, "K2": fused_qsweep.fused_reverse_sweep}
+    readings, answers = {}, {}
+    for name, directory in spec["dirs"].items():
+        packs[0] = 0
+        t0 = time.perf_counter()
+        service = SamplerService.from_artifact(directory, device="cuda")
+        service.warmup()
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        try:
+            out, launches, batches, latency = _serve_all(service, counters)
+        finally:
+            service.close()
+        answers.update({f"{name}/{k}": v for k, v in out.items()})
+        readings[name] = {"load_and_warmup_s": load_s, "launches": launches, "batches": batches,
+                          "packs": packs[0], "latency": latency}
+    readings["modules"] = sorted(m for m in sys.modules if m.startswith("damc_tpu_torch"))
+    np.savez(spec["out"] + ".npz", **answers)
+    with open(spec["out"] + ".json", "w") as f:
+        json.dump(readings, f)
+    return 0
+
+
+def artifact_phase(models, cfg, counters):
+    """Serving artifacts of phase 4's full-width cifar10 weights: exported on
+    the card and, from the same seeded weights, on the CPU, at B=16 with 10
+    recon steps; both served on the card by a separate process
+    (`artifact_server`) that must import no model or training module, over
+    HTTP, and answer exactly as the live service does in this process;
+    K2 must launch once per damc and recon dispatch, K1 once per ebm
+    dispatch, and K2 pack its weights once per program. Prints each path's
+    p50/p99 over 20 sequential single-item requests, artifact beside live.
+    Returns the card artifact's launches over its requests."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory(prefix="damc_artifact_") as tmp:
+        return _artifact_phase(models, cfg, counters, tmp)
+
+
+def _artifact_phase(models, cfg, counters, tmp):
+    import os
+
+    import torch
+
+    from damc_tpu_torch.artifact import export_serving_artifact
+    from damc_tpu_torch.models import build_models
+    from damc_tpu_torch.serve import SamplerService
+
+    dirs = {"card": os.path.join(tmp, "card"), "cpu": os.path.join(tmp, "cpu")}
+    # The serving process starts now and reads its spec once both artifacts
+    # are written.
+    server = subprocess.Popen(
+        [sys.executable, "-c", "import sys, chip_smoke; sys.exit(chip_smoke.artifact_server())"],
+        cwd=os.path.dirname(os.path.abspath(__file__)), stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True,
+    )
+    walls = {}
+    try:
+        for where, m in (("card", models), ("cpu", build_models(cfg, seed=SEED, device="cpu"))):
+            t0 = time.perf_counter()
+            export_serving_artifact(m, cfg, dirs[where], batch_size=ARTIFACT_B,
+                                    recon_langevin_steps=ARTIFACT_RECON_STEPS)
+            torch.cuda.synchronize()
+            walls[f"export_{where}_s"] = time.perf_counter() - t0
+            sizes = {f: os.path.getsize(os.path.join(dirs[where], f)) for f in sorted(os.listdir(dirs[where]))}
+            print(f"[serve_artifact] exported on the {where} in {walls[f'export_{where}_s']:.1f} s: {sizes} (bytes)")
+        spec = {"dirs": dirs, "out": os.path.join(tmp, "served")}
+        t0 = time.perf_counter()
+        _, err = server.communicate(json.dumps(spec) + "\n", timeout=600)
+    finally:
+        if server.poll() is None:
+            server.kill()
+            server.wait()
+    walls["serving_after_exports_s"] = time.perf_counter() - t0
+    if server.returncode != 0:
+        raise AssertionError(f"the artifact serving process failed (rc {server.returncode}):\n{err[-6000:]}")
+    with open(spec["out"] + ".json") as f:
+        readings = json.load(f)
+    served = dict(np.load(spec["out"] + ".npz"))
+    bad = [m for m in readings["modules"] if m.startswith(("damc_tpu_torch.models", "damc_tpu_torch.train"))]
+    print(f"[serve_artifact] serving process imported {readings['modules']}")
+    if bad:
+        raise AssertionError(f"the artifact serving process imported model or training code: {bad}")
+
+    live = SamplerService(models, cfg, max_batch=ARTIFACT_B, recon_langevin_steps=ARTIFACT_RECON_STEPS,
+                          device="cuda")
+    live.warmup()
+    try:
+        want, live_launches, live_batches, live_latency = _serve_all(live, counters)
+    finally:
+        live.close()
+    for where in dirs:
+        r = readings[where]
+        expect = {p: {"K1": r["batches"][p] if p == "ebm" else 0, "K2": 0 if p == "ebm" else r["batches"][p]}
+                  for p in ARTIFACT_PATHS}
+        print(f"[serve_artifact] {where}-exported: dispatches {r['batches']}, launches {r['launches']}, "
+              f"K2 weight packings {r['packs']}, load and warm-up {r['load_and_warmup_s']:.2f} s")
+        if r["launches"] != expect or min(r["batches"].values()) < 1:
+            raise AssertionError(f"{where}-exported artifact: launches {r['launches']}, want {expect}")
+        if r["packs"] != 2:
+            raise AssertionError(f"{where}-exported artifact packed K2's weights {r['packs']} times, want 2")
+        errs = {k: float(np.abs(served[f"{where}/{k}"] - v).max()) for k, v in want.items()}
+        equal = all(np.array_equal(served[f"{where}/{k}"], v) for k, v in want.items())
+        print(f"[serve_artifact] {where}-exported artifact against the live service: bit for bit {equal}, "
+              f"max_abs_err {errs} (atol {ARTIFACT_ATOL:g})")
+        if max(errs.values()) > ARTIFACT_ATOL:
+            raise AssertionError(f"the {where}-exported artifact's answers differ from the live service's")
+    lat = {"live": live_latency, "artifact_card": readings["card"]["latency"],
+           "artifact_cpu_exported": readings["cpu"]["latency"]}
+    print(f"[serve_artifact] {card_line()}: {LATENCY_REQUESTS} sequential single-item requests a path, "
+          "HTTP round trip ms " + json.dumps(lat))
+    print(f"[serve_artifact] live dispatches {live_batches}, launches {live_launches}")
+    print("[serve_artifact] walls " + json.dumps(walls))
+    return {k: sum(r[k] for r in readings["card"]["launches"].values()) for k in ("K1", "K2")}
+
+
+def checkpoint_cli_phase(models, cfg, counters):
+    """The two checkpoint CLIs on the card: a reference `.pth.tar` written
+    from phase 4's seeded weights (Q_dummy a scaled Q, iter 5) through
+    `cli.convert_checkpoint`; one training iteration resumed from the
+    result (K1 and K2 once); the converted checkpoint back through
+    `cli.export_checkpoint`, whose state dicts `load_state_dict(strict=True)`
+    takes, equal to the file's; the trained state exported the same way."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory(prefix="damc_ckpt_cli_") as tmp:
+        _checkpoint_cli_phase(models, cfg, counters, tmp)
+
+
+def _checkpoint_cli_phase(models, cfg, counters, tmp):
+    import os
+
+    import torch
+
+    from damc_tpu_torch.cli import convert_checkpoint, export_checkpoint
+    from damc_tpu_torch.models import build_models
+    from damc_tpu_torch.train.gen_recon import train_gen_recon
+    from damc_tpu_torch.utils.checkpoint import save_checkpoint
+
+    cpu = lambda m: {k: v.detach().float().cpu().clone() for k, v in m.state_dict().items()}
+    ref = {"iter": 5, "G_state_dict": cpu(models.generator), "E_state_dict": cpu(models.ebm),
+           "Q_state_dict": cpu(models.amortizer),
+           "Q_dummy_state_dict": {k: v * 0.5 for k, v in cpu(models.amortizer).items()}}
+    pth = os.path.join(tmp, "ref.pth.tar")
+    torch.save(ref, pth)
+    t0 = time.perf_counter()
+    path = convert_checkpoint.main(["--dataset", "cifar10", "--torch_ckpt", pth, "--out_dir", tmp])
+    for k in counters.values():
+        k.launches = 0
+    state = train_gen_recon(cfg, train_images(cfg.train.batch_size), iterations=6, seed=SEED,
+                            resume_path=path, device="cuda")
+    torch.cuda.synchronize()
+    launches = {name: k.launches for name, k in counters.items()}
+    print(f"[ckpt_cli] resumed {path} for one iteration: step {state.step}, launches {launches}")
+    if state.step != 6 or launches != {"K1": 1, "K2": 1}:
+        raise AssertionError("the converted checkpoint did not resume for exactly one iteration")
+
+    def check(pth_out, want, what):
+        got = torch.load(pth_out, map_location="cpu", weights_only=True)
+        fresh = build_models(cfg, seed=SEED + 1, device="cuda")
+        nets = {"G_state_dict": fresh.generator, "E_state_dict": fresh.ebm, "Q_state_dict": fresh.amortizer,
+                "Q_dummy_state_dict": fresh.amortizer}
+        for key, net in nets.items():
+            net.load_state_dict(got[key], strict=True)
+            if not all(torch.equal(v.cpu(), want[key][k].cpu()) for k, v in net.state_dict().items()):
+                raise AssertionError(f"{what}: {key} does not give back the tensors")
+        if got["iter"] != want["iter"]:
+            raise AssertionError(f"{what}: iter {got['iter']}, want {want['iter']}")
+
+    export_checkpoint.main(["--ckpt", path, "--out", os.path.join(tmp, "back.pth.tar")])
+    check(os.path.join(tmp, "back.pth.tar"), ref, "convert then export")
+    trained = save_checkpoint(tmp, "trained", state)
+    export_checkpoint.main(["--ckpt", trained, "--out", os.path.join(tmp, "trained.pth.tar")])
+    m = state.models
+    check(os.path.join(tmp, "trained.pth.tar"),
+          {"iter": 6, "G_state_dict": cpu(m.generator), "E_state_dict": cpu(m.ebm),
+           "Q_state_dict": cpu(m.amortizer), "Q_dummy_state_dict": cpu(state.amortizer_ema)}, "the trained state")
+    print(f"[ckpt_cli] convert, resume, export and strict loads in {time.perf_counter() - t0:.1f} s")
 
 
 def train_images(n: int) -> np.ndarray:
@@ -3102,8 +3406,11 @@ def main() -> int:
     counters = {"K1": fused_prior_langevin, "K2": fused_reverse_sweep}
     total, _ = serving_phase(models, cfg, counters)
     profile_phase(models, cfg)
-    del models
     lap("serve")
+    total_artifact = artifact_phase(models, cfg, counters)
+    checkpoint_cli_phase(models, cfg, counters)
+    del models
+    lap("serve_artifact")
     state, total_train, train_ms = training_phase(cfg, counters)
     rerun_phase(cfg)
     lap("train")
@@ -3178,6 +3485,9 @@ def main() -> int:
     # (path, noise, kernel, its result at the path's shape, its launches in the path's run)
     entries = [
         ("serve", "counter", key, res[key][16], total[key]) for key in meta  # the serving shape B=16
+    ] + [
+        # The card-exported serving artifact, served by its own process: B=16, counter mode.
+        ("serve_artifact", "counter", key, res[key][16], total_artifact[key]) for key in meta
     ] + [("train", "stream", key, res_stream[key], total_train[key]) for key in meta] + [
         ("eval", "stream", key, res_eval[key], eval_info["cli_launches"][key])  # B=500: K1 100 steps, K2 prior
         for key in meta

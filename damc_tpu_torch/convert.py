@@ -7,7 +7,8 @@ The port's modules keep the reference torch key layout, so
     numpy arrays, mapped the way `damc_tpu/utils/torch_compat.py:183-302`
     exports them (the port keeps its own copy of those maps);
   * `load_reference_checkpoint(models, path)`: a reference-format checkpoint
-    (`G_state_dict`, `E_state_dict`, `Q_state_dict`), such as the one
+    (`G_state_dict`, `E_state_dict`, `Q_state_dict`, and for a training
+    state's Q_ema `Q_dummy_state_dict`), such as the one
     `damc_tpu.cli.export_checkpoint` writes;
   * `train_state_from_jax(state, cfg)`: a whole JAX training state (weights,
     Q_ema, step and the optax Adam moments) as a port `TrainState`, so a
@@ -227,15 +228,19 @@ def load_state_dicts(models, sds: Mapping[str, Mapping[str, torch.Tensor]]) -> N
         models.ebm.load_state_dict(sds["ebm"], strict=True)
 
 
-def load_reference_checkpoint(models, path: str) -> int:
+def load_reference_checkpoint(models, path: str, amortizer_ema: Optional[torch.nn.Module] = None) -> int:
     """Load a reference-format `.pth.tar` (G/E/Q state dicts) strictly into
-    `models`; returns its `iter`."""
+    `models`; returns its `iter`. Serving reads no more. A training state
+    passes its `amortizer_ema` too, which takes `Q_dummy_state_dict` (the
+    reference's EMA of Q), or Q's weights when the file has none."""
     ckpt = torch.load(path, map_location="cpu", weights_only=True)
     load_state_dicts(
         models,
         {"generator": ckpt["G_state_dict"], "amortizer": ckpt["Q_state_dict"],
          "ebm": ckpt.get("E_state_dict")},
     )
+    if amortizer_ema is not None:
+        amortizer_ema.load_state_dict(ckpt.get("Q_dummy_state_dict", ckpt["Q_state_dict"]), strict=True)
     return int(ckpt.get("iter", 0))
 
 

@@ -176,6 +176,7 @@ def sample_q_per_item(
     x: Optional[torch.Tensor] = None,
     emb_noise: Optional[torch.Tensor] = None,
     layers: Optional[Tuple[torch.Tensor, Sequence[Tuple[torch.Tensor, ...]]]] = None,
+    step_tables: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
 ) -> torch.Tensor:
     """Q samples whose row i is a pure function of (z_init[i], row_seeds[i])
     and x[i] (posterior) or emb_noise[i] (prior).
@@ -183,8 +184,10 @@ def sample_q_per_item(
     The n-step reverse sweep runs in the fused kernel with per-row counter
     noise; a denoiser the kernel cannot take raises, as JAX refuses
     row_seeds off the fused path (:328-334). `layers` is
-    `denoiser_layer_params(amortizer.p)`, which a caller that samples often
-    computes once."""
+    `denoiser_layer_params(amortizer.p)` and `step_tables` is
+    `amortizer.step_tables(device)`, which a caller that samples often
+    computes once (serving: a traced serving program then holds them as
+    constants instead of recomputing the CPU-side tables on its device)."""
     if sweep_route(amortizer) != "k2":
         raise ValueError(
             "sample_q_per_item: per-row counter noise needs the fused sweep K2, which does not "
@@ -196,7 +199,7 @@ def sample_q_per_item(
         xemb = amortizer.prior_embed(emb_noise)
     else:
         raise ValueError("sample_q_per_item needs x (posterior) or emb_noise (prior)")
-    return _sweep(amortizer, xemb, z_init, layers, row_seeds=row_seeds)
+    return _sweep(amortizer, xemb, z_init, layers, step_tables, row_seeds=row_seeds)
 
 
 @torch.no_grad()
@@ -237,7 +240,7 @@ def sample_q(
             raise ValueError("sample_q needs xemb or x (posterior) or emb_noise (prior)")
     route = sweep_route(amortizer, cond_w, conditional)
     if route == "k2":
-        return _sweep(amortizer, xemb, z_init, layers, seed=seed)
+        return _sweep(amortizer, xemb, z_init, layers, None, seed=seed)
     p = amortizer.p
     guided, step_xs = None, None
     if route == "tables":
@@ -255,10 +258,10 @@ def sample_q(
     )
 
 
-def _sweep(amortizer: DAMCAmortizer, xemb, z_init, layers, **noise) -> torch.Tensor:
+def _sweep(amortizer: DAMCAmortizer, xemb, z_init, layers, step_tables, **noise) -> torch.Tensor:
     """The hoisted n-step sweep from z_init under the embedding xemb, in
     the fused kernel; `noise` is its seed or row_seeds."""
-    grid, coeffs = amortizer.step_tables(z_init.device)
+    grid, coeffs = step_tables if step_tables is not None else amortizer.step_tables(z_init.device)
     tables = amortizer.p.sample_tables(grid, xemb)
     fourier, layer_tuples = layers if layers is not None else denoiser_layer_params(amortizer.p)
     return fused_reverse_sweep(

@@ -4,9 +4,11 @@ Counterpart of `damc_tpu/ops/pallas/fused_langevin.py`
 (`fused_prior_langevin`, `ebm_params_to_dense_weights`). The kernel is
 `damc_tpu_torch/csrc/fused_langevin.cu`; its source note gives the design.
 
-`fused_prior_langevin` runs the plain PyTorch version for tensors on the CPU
-and launches the kernel for tensors on a CUDA device; anything else, or a
-failed build or launch, raises. `fused_prior_langevin.launches` counts the
+`fused_prior_langevin` calls the custom op `torch.ops.damc.fused_prior_langevin`,
+which runs the plain PyTorch version for tensors on the CPU and launches
+the kernel for tensors on a CUDA device; anything else, or a failed build
+or launch, raises. A fake implementation gives the output's shape, so
+`make_fx` and `torch.export` record the whole chain as one node. `fused_prior_langevin.launches` counts the
 launches of the fp32-dot variant; the bf16-dot variant has a count object
 of its own, `fused_prior_langevin.bf16`, whose `launches` counts its.
 
@@ -27,7 +29,7 @@ from __future__ import annotations
 import ctypes
 import threading
 import types
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 import torch
 
@@ -149,15 +151,47 @@ def fused_prior_langevin(
     Noise: `row_seeds` (B,) int32 selects counter mode, chain i a function
     of (row_seeds[i], z[i]) only; otherwise `seed` (int32) selects stream
     mode, chain i a function of (seed, i, z[i]). `row_seeds` wins when both
-    are given. `dots_dtype` ("float32" or "bfloat16") selects the variant."""
+    are given. `dots_dtype` ("float32" or "bfloat16") selects the variant.
+
+    The chain runs as the custom op `torch.ops.damc.fused_prior_langevin`:
+    its CPU implementation is the plain version, its CUDA implementation
+    the kernel launch, and a trace (`torch.export`) keeps it as one node."""
     _check_args(with_noise, seed, row_seeds, dots_dtype)
-    if z.device.type == "cpu":
-        return prior_langevin_plain(
-            z, k1, b1, k2, b2, k3, seed=seed, steps=steps, step_size=step_size,
-            with_noise=with_noise, row_seeds=row_seeds, dots_dtype=dots_dtype,
-        )
-    if z.device.type != "cuda":
+    if z.device.type not in ("cpu", "cuda"):
         raise ValueError(f"no prior-Langevin kernel for device {z.device}")
+    if row_seeds is not None and not isinstance(row_seeds, torch.Tensor):
+        row_seeds = torch.as_tensor(row_seeds, device=z.device)
+    return torch.ops.damc.fused_prior_langevin(
+        z, k1, b1, k2, b2, k3, row_seeds if with_noise else None,
+        None if seed is None else int32_seed(seed), int(steps), float(step_size),
+        bool(with_noise), dots_dtype,
+    )
+
+
+fused_prior_langevin.launches = 0
+fused_prior_langevin.bf16 = types.SimpleNamespace(launches=0)
+
+
+@torch.library.custom_op("damc::fused_prior_langevin", mutates_args=(), device_types="cpu")
+def _chain_op(
+    z: torch.Tensor, k1: torch.Tensor, b1: torch.Tensor, k2: torch.Tensor, b2: torch.Tensor,
+    k3: torch.Tensor, row_seeds: Optional[torch.Tensor], seed: Optional[int], steps: int,
+    step_size: float, with_noise: bool, dots_dtype: str,
+) -> torch.Tensor:
+    out = prior_langevin_plain(
+        z, k1, b1, k2, b2, k3, seed=seed, steps=steps, step_size=step_size,
+        with_noise=with_noise, row_seeds=row_seeds, dots_dtype=dots_dtype,
+    )
+    return out.clone() if out is z else out  # an op's output may not alias its input
+
+
+@_chain_op.register_fake
+def _chain_fake(z, k1, b1, k2, b2, k3, row_seeds, seed, steps, step_size, with_noise, dots_dtype):
+    return z.new_empty(z.shape, dtype=torch.float32)
+
+
+@_chain_op.register_kernel("cuda")
+def _chain_launch(z, k1, b1, k2, b2, k3, row_seeds, seed, steps, step_size, with_noise, dots_dtype):
     b, nz = z.shape
     ndf = k1.shape[1]
     if k1.shape != (nz, ndf) or k2.shape != (ndf, ndf) or b1.numel() != ndf or b2.numel() != ndf or k3.numel() != ndf:
@@ -172,7 +206,7 @@ def fused_prior_langevin(
     z32, w = f32(z), [f32(t) for t in (k1, b1, k2, b2, k3)]
     seeds = None
     if with_noise and row_seeds is not None:
-        seeds = torch.as_tensor(row_seeds).to(device=dev, dtype=torch.int32).contiguous()
+        seeds = row_seeds.to(device=dev, dtype=torch.int32).contiguous()
         if seeds.shape != (b,):
             raise ValueError(f"row_seeds must be ({b},), got {tuple(seeds.shape)}")
     stream = with_noise and seeds is None
@@ -193,10 +227,6 @@ def fused_prior_langevin(
         else:
             fused_prior_langevin.launches += 1
     return out
-
-
-fused_prior_langevin.launches = 0
-fused_prior_langevin.bf16 = types.SimpleNamespace(launches=0)
 
 
 def _library() -> ctypes.CDLL:

@@ -4,9 +4,11 @@ Counterpart of `damc_tpu/ops/pallas/fused_qsweep.py` (`fused_reverse_sweep`,
 `denoiser_layer_params`, `fits_vmem`). The kernel is
 `damc_tpu_torch/csrc/fused_qsweep.cu`; its source note gives the design.
 
-`fused_reverse_sweep` runs the plain PyTorch version for tensors on the CPU
-and launches the kernel for tensors on a CUDA device; anything else, or a
-failed build or launch, raises. `fused_reverse_sweep.launches` counts the
+`fused_reverse_sweep` calls the custom op `torch.ops.damc.fused_reverse_sweep`,
+which runs the plain PyTorch version for tensors on the CPU and launches
+the kernel for tensors on a CUDA device; anything else, or a failed build
+or launch, raises. A fake implementation gives the output's shape, so
+`make_fx` and `torch.export` record the whole sweep as one node. `fused_reverse_sweep.launches` counts the
 kernel launches.
 
 Noise modes, as the TPU kernel's: counter (`row_seeds`, per-row int32
@@ -23,7 +25,7 @@ import functools
 import math
 import threading
 import weakref
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -108,25 +110,29 @@ def pack_weights(layers: Sequence[LayerTuple]) -> torch.Tensor:
     return torch.cat(parts)
 
 
-# The last packing: (weak references to its source tensors, their version
-# counters, the packed tensor). Serving passes one set of layer tuples for
-# its lifetime, so it packs once; a caller that builds new tuples (the
-# training step) packs every call.
-_last_pack: Tuple[tuple, tuple, torch.Tensor] = ((), (), torch.empty(0))
+# The last packings, newest last: (weak references to the source tensors,
+# their version counters, the packed tensor). Serving passes one set of
+# layer tuples for its lifetime, and a loaded serving artifact one set a
+# program (its damc and recon programs hold their own copies), so each packs
+# once; a caller that builds new tuples (the training step) packs every call.
+_PACK_CACHE = 4
+_packs: List[Tuple[tuple, tuple, torch.Tensor]] = []
 
 
 def _packed(flat: Sequence[torch.Tensor]) -> torch.Tensor:
     """pack_weights of the flat layer tensors, reused while the very same
     tensors, unmodified, come again."""
-    global _last_pack
     versions = tuple(t._version for t in flat)
     with _lock:
-        refs, seen, packed = _last_pack
-        if seen == versions and len(refs) == len(flat) and all(r() is t for r, t in zip(refs, flat)):
-            return packed
+        for i, (refs, seen, packed) in enumerate(_packs):
+            if seen == versions and len(refs) == len(flat) and all(r() is t for r, t in zip(refs, flat)):
+                _packs.append(_packs.pop(i))
+                return packed
     packed = pack_weights([flat[7 * l:7 * l + 7] for l in range(LAYERS)])
     with _lock:
-        _last_pack = (tuple(weakref.ref(t) for t in flat), versions, packed)
+        _packs[:] = [e for e in _packs if all(r() is not None for r in e[0])]  # sources gone
+        _packs.append((tuple(weakref.ref(t) for t in flat), versions, packed))
+        del _packs[:-_PACK_CACHE]
     return packed
 
 
@@ -282,17 +288,55 @@ def fused_reverse_sweep(
     Noise: `row_seeds` (B,) int32 selects counter mode, row i a function of
     (row_seeds[i], z_init[i], pre_x[*][i]) only; otherwise `seed` (int32)
     selects stream mode, row i a function of (seed, i, z_init[i],
-    pre_x[*][i]). `row_seeds` wins when both are given."""
+    pre_x[*][i]). `row_seeds` wins when both are given.
+
+    The sweep runs as the custom op `torch.ops.damc.fused_reverse_sweep`,
+    `layers` flattened into one list of 7 tensors a layer (the widths come
+    from their shapes): its CPU implementation is the plain version, its
+    CUDA implementation the kernel launch."""
     if with_noise and seed is None and row_seeds is None:
         raise ValueError("a noisy sweep needs seed (stream mode) or row_seeds (counter mode)")
-    args = (z_init, fourier, layers, pre_x, pre_t, coeffs)
-    if z_init.device.type == "cpu":
-        return reverse_sweep_plain(
-            *args, seed=seed, steps=steps, with_noise=with_noise, residual=residual,
-            row_seeds=row_seeds,
-        )
-    if z_init.device.type != "cuda":
+    if z_init.device.type not in ("cpu", "cuda"):
         raise ValueError(f"no reverse-sweep kernel for device {z_init.device}")
+    if row_seeds is not None and not isinstance(row_seeds, torch.Tensor):
+        row_seeds = torch.as_tensor(row_seeds, device=z_init.device)
+    return torch.ops.damc.fused_reverse_sweep(
+        z_init, fourier, [t for lt in layers for t in lt], list(pre_x), list(pre_t), coeffs,
+        row_seeds if with_noise else None, None if seed is None else int32_seed(seed),
+        int(steps), bool(with_noise), bool(residual),
+    )
+
+
+fused_reverse_sweep.launches = 0
+
+
+def _layer_tuples(flat: Sequence[torch.Tensor]) -> List[LayerTuple]:
+    return [tuple(flat[i:i + 7]) for i in range(0, len(flat), 7)]
+
+
+@torch.library.custom_op("damc::fused_reverse_sweep", mutates_args=(), device_types="cpu")
+def _sweep_op(
+    z_init: torch.Tensor, fourier: torch.Tensor, layers: List[torch.Tensor],
+    pre_x: List[torch.Tensor], pre_t: List[torch.Tensor], coeffs: torch.Tensor,
+    row_seeds: Optional[torch.Tensor], seed: Optional[int], steps: int, with_noise: bool,
+    residual: bool,
+) -> torch.Tensor:
+    out = reverse_sweep_plain(
+        z_init, fourier, _layer_tuples(layers), pre_x, pre_t, coeffs, seed=seed, steps=steps,
+        with_noise=with_noise, residual=residual, row_seeds=row_seeds,
+    )
+    return out.clone() if out is z_init else out  # an op's output may not alias its input
+
+
+@_sweep_op.register_fake
+def _sweep_fake(z_init, fourier, layers, pre_x, pre_t, coeffs, row_seeds, seed, steps, with_noise, residual):
+    dtype = torch.float32 if z_init.device.type == "cuda" else z_init.dtype
+    return z_init.new_empty(z_init.shape, dtype=dtype)
+
+
+@_sweep_op.register_kernel("cuda")
+def _sweep_launch(z_init, fourier, layers, pre_x, pre_t, coeffs, row_seeds, seed, steps, with_noise, residual):
+    layers = _layer_tuples(layers)
     nz, nfour, dins, douts = _dims(fourier, layers)
     _check_unet(nz, nfour, dins, douts)
     if not fits_smem(nz, dins, douts):
@@ -317,7 +361,7 @@ def fused_reverse_sweep(
     flat = [f32(t) for lt in layers for t in lt]
     seeds = None
     if with_noise and row_seeds is not None:
-        seeds = torch.as_tensor(row_seeds).to(device=dev, dtype=torch.int32).contiguous()
+        seeds = row_seeds.to(device=dev, dtype=torch.int32).contiguous()
         if seeds.shape != (b,):
             raise ValueError(f"row_seeds must be ({b},), got {tuple(seeds.shape)}")
     stream = with_noise and seeds is None
@@ -326,6 +370,7 @@ def fused_reverse_sweep(
     packed = _packed(flat)
     ptrs = (ctypes.c_void_p * len(flat))(*[t.data_ptr() for t in flat])
     dims = (ctypes.c_int * 14)(*dins, *douts)
+    # The row tile is a host decision at each launch, from B and the card.
     rows = row_tile(b, max_active_clusters(nz, dins, douts))
     rc = lib.damc_fused_qsweep(
         z.data_ptr(), four.data_ptr(), packed.data_ptr(), ptrs, dims, px.data_ptr(), pt.data_ptr(),
@@ -337,9 +382,6 @@ def fused_reverse_sweep(
     with _lock:
         fused_reverse_sweep.launches += 1
     return out
-
-
-fused_reverse_sweep.launches = 0
 
 
 def _library() -> ctypes.CDLL:

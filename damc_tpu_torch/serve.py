@@ -33,6 +33,11 @@ with seed s is a pure function of (s, i). The serving path has two layers:
 
 One worker thread per path serializes dispatch; HTTP handler threads only
 enqueue and wait on futures.
+
+`SamplerService.from_artifact(dir)` serves the same core from a serving
+artifact (`damc_tpu_torch.artifact`): traced programs with the weights
+baked in, fed the same stacked draws. That route imports no model or
+training module.
 """
 
 from __future__ import annotations
@@ -52,7 +57,6 @@ import torch
 
 from .config import Config
 from .device import resolve_device
-from .models.amortizer import sample_q_per_item
 from .ops.cuda.fused_qsweep import denoiser_layer_params
 from .ops.langevin import langevin_sample, posterior_energy, prior_langevin_auto
 from .ops.noise import counter_bits, counter_normal
@@ -100,10 +104,15 @@ def build_serving_fns(models, cfg: Config, recon_langevin_steps: int = 10) -> Di
       'damc'  (draws)    -> images (B, H, W, C)
       'ebm'   (draws)    -> images            (absent without an EBM)
       'recon' (draws, x) -> (x_hat, z)
-    """
+
+    The weights' kernel layouts and Q's step tables are computed once,
+    here, on the models' device."""
+    from .models.amortizer import sample_q_per_item  # not at import: an artifact service needs no model code
+
     mc = cfg.mcmc
     amort, gen, ebm = models.amortizer, models.generator, models.ebm
     q_layers = denoiser_layer_params(amort.p)
+    q_tables = amort.step_tables(amort.xemb.device)
 
     def decode(z):
         # A bfloat16 G (compute_dtype) answers float32 images, the values of
@@ -113,13 +122,16 @@ def build_serving_fns(models, cfg: Config, recon_langevin_steps: int = 10) -> Di
     @torch.no_grad()
     def damc(d: RowDraws) -> torch.Tensor:
         z = sample_q_per_item(
-            amort, d.z_init, d.sweep_seed, emb_noise=d.emb_noise, layers=q_layers
+            amort, d.z_init, d.sweep_seed, emb_noise=d.emb_noise, layers=q_layers,
+            step_tables=q_tables,
         )
         return decode(z)
 
     @torch.no_grad()
     def recon(d: RowDraws, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-        z0 = sample_q_per_item(amort, d.z_init, d.sweep_seed, x=x, layers=q_layers)
+        z0 = sample_q_per_item(
+            amort, d.z_init, d.sweep_seed, x=x, layers=q_layers, step_tables=q_tables
+        )
         energy = posterior_energy(gen, ebm, x, mc.g_llhd_sigma)
         z, _ = langevin_sample(z0, energy, recon_langevin_steps, mc.g_l_step_size, with_noise=False)
         return decode(z), z
@@ -307,7 +319,9 @@ class SamplerService:
     """Micro-batched serving facade over the port's models.
 
     `device` defaults to CUDA and raises when it is missing; pass
-    device='cpu' to serve through the kernels' plain versions."""
+    device='cpu' to serve through the kernels' plain versions.
+    `SamplerService.from_artifact(dir)` builds the same facade over the
+    programs of a serving artifact instead of live models."""
 
     def __init__(
         self,
@@ -320,23 +334,63 @@ class SamplerService:
         deterministic: bool = True,
         device=None,
     ):
-        self.device = resolve_device(device)
+        device = resolve_device(device)
         for m in models.modules():
-            m.to(self.device)
+            m.to(device)
+        self._setup(
+            build_serving_fns(models, cfg, recon_langevin_steps),
+            (cfg.model.image_size, cfg.model.image_size, cfg.model.nc),
+            cfg.model.nz, max_batch, window_ms, request_timeout_s, deterministic, device,
+        )
         self.cfg = cfg
-        self.nz = cfg.model.nz
+
+    @classmethod
+    def from_artifact(
+        cls, artifact_dir, window_ms: float = 3.0, request_timeout_s: float = 300.0, device=None
+    ) -> "SamplerService":
+        """Serve from a serving artifact (`damc_tpu_torch.artifact`): its
+        loaded programs, with the weights baked in; no model code and no
+        checkpoint. An artifact holds one batch size, so the service runs in
+        deterministic (single-bucket) mode with max_batch that size."""
+        from .artifact import load_serving_artifact
+
+        device = resolve_device(device)
+        fns, meta = load_serving_artifact(artifact_dir, device)
+        svc = cls.__new__(cls)
+        svc._setup(
+            fns, tuple(meta["image_shape"]), int(meta["nz"]), int(meta["batch_size"]),
+            window_ms, request_timeout_s, True, device,
+        )
+        svc.artifact_meta = meta
+        return svc
+
+    def _setup(
+        self,
+        fns: Dict[str, Callable],
+        image_shape: Tuple[int, int, int],
+        nz: int,
+        max_batch: int,
+        window_ms: float,
+        request_timeout_s: float,
+        deterministic: bool,
+        device: torch.device,
+    ) -> None:
+        self.device = device
+        self.cfg: Optional[Config] = None
+        self.artifact_meta: Optional[Dict[str, Any]] = None
+        self.nz = int(nz)
         self.max_batch = int(max_batch)
         self.deterministic = bool(deterministic)
         self.request_timeout_s = float(request_timeout_s)
-        self.image_shape = (cfg.model.image_size, cfg.model.image_size, cfg.model.nc)
-        self._fns = build_serving_fns(models, cfg, recon_langevin_steps)
-        self.stats: Dict[str, BatchStats] = {p: BatchStats() for p in self._fns}
+        self.image_shape = tuple(image_shape)
+        self._fns = fns
+        self.stats: Dict[str, BatchStats] = {p: BatchStats() for p in fns}
         self._batchers = {
             p: MicroBatcher(
                 functools.partial(self._run, p), max_batch=self.max_batch,
                 window_ms=window_ms, stats=self.stats[p],
             )
-            for p in self._fns
+            for p in fns
         }
 
     @property
@@ -447,7 +501,8 @@ def make_http_server(
     """A threading HTTP server over `service` (port 0 = ephemeral).
 
     Endpoints:
-      GET  /healthz      {"status": "ok", "device", "paths", "image_shape", "max_batch"}
+      GET  /healthz      {"status": "ok", "device", "source", "paths", "image_shape",
+                          "max_batch"}
       GET  /stats        per-path coalescing counters and latency percentiles
       POST /sample       {"n": 4, "prior": "damc"|"ebm", "seed": 0,
                           "encoding": "list"|"b64"}
@@ -476,6 +531,7 @@ def make_http_server(
                     {
                         "status": "ok",
                         "device": str(service.device),
+                        "source": "artifact" if service.artifact_meta else "live",
                         "paths": list(service.paths),
                         "image_shape": list(service.image_shape),
                         "max_batch": service.max_batch,
