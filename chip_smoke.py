@@ -52,6 +52,24 @@ Phases, each of which raises on failure (the script then exits non-zero):
      the serving of phase 4 with a bf16 G and encoder (K1 in float32),
      and one bf16 FID batch of each prior at B=500 (K1's bf16 variant
      once for the EBM prior);
+  7b. data parallelism (`dp_phase`, before phase 7's bf16 half): two ranks
+     of a torch.distributed group share the card over gloo, each a process
+     started with torchrun's environment, under one hard timeout. K4a
+     (K1 over 2B=256 chains and B=500, 60 steps at 0.4) and K4b (K2 at
+     B=128 under the encoder and B=500 under the prior embedding), each in
+     stream, counter and noiseless mode, gathered over the ranks, must
+     equal one K1 or K2 launch bit for bit, and each rank's own stream
+     launch (its rows at its row_base) the same rows of that launch; those
+     launches are held against the plain versions and timed, one rank at a
+     time. Then 4 iterations of `cli.train_gen_recon --use_mesh
+     --dist_backend gloo` at full cifar10 width and global B=128 on a
+     10,000-image CIFAR-10 tree made from the seed (evals at 0 and at the
+     end, 1,000 FID samples; a checkpoint): K1 and K2 once a step on each
+     rank at 128 and 64 rows with the rank's row_base, the replicas equal
+     bit for bit, one run directory, only rank 0 writes; and the
+     card-vs-CPU iteration of phase 6 on two ranks against the same
+     iteration in one process on the card, within FP32_LIMITS. Prints the
+     ms an iteration of the two ranks sharing one H100 beside phase 6's;
   8. holds each kernel against its plain version at the eval shapes in
      stream mode: K1 at B=500 with the eval CLI's 100 steps at 1.6 and the
      loop's 60 at 0.4; K2 at B=500 under the prior embedding (the FID
@@ -79,9 +97,9 @@ Phases, each of which raises on failure (the script then exits non-zero):
      B=128 single prior chains and K2 at B=128 and at the AUPRC batch B=500,
      stream mode, against their plain versions; then, on an MNIST-shaped
      mnist.npz made from the seed (70,000 images; held-out digit 9; the
-     test split cut to 4,000 images through its cache file), trains 20
+     test split cut to 4,000 images through its cache file), trains 10
      iterations through `cli.train_anomaly_det` with an AUPRC eval and
-     checkpoints every 10, resumes to 22 in the same directory, and scores
+     checkpoints every 5, resumes to 11 in the same directory, and scores
      ckpt/best twice through `cli.eval_anomaly_det` (identical AUPRCs);
      checks rows, checkpoints, K1 and K2 once an iteration and K2 once an
      eval batch; profiles one iteration as phase 7 does;
@@ -122,7 +140,7 @@ Phases, each of which raises on failure (the script then exits non-zero):
      host feed's ms an iteration and idle share beside the device-resident
      store's; profiles one iteration;
  17. celebaHQ (nz=128, ngf=128, 256x256): K1 and K2 at the training shapes;
-     a 1024x1024 PNG tree (160 train, 32 test images); 3 iterations at B=128
+     a 1024x1024 PNG tree (128 train, 32 test images); 3 iterations at B=128
      through the train CLI with evals at 0 and at the end (500 FID samples,
      the 32 test images); one iteration from the last checkpoint with
      remat_generator off and on, bit-identical in metrics and parameters,
@@ -152,6 +170,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
      the train CLI's AUPRC evals, anomaly_eval_cli: the eval CLI's two
      runs, toy, svhn: the train CLI run, svhn_eval: the eval CLI run,
      svhn_serve: the served checkpoint, celeba64: both train CLI runs,
+     train_dp rank 0 and rank 1: each rank's launches of K4a and K4b in
+     the data-parallel train CLI run, its own rows' times and bound,
      celebaHQ: the train CLI run, train_bf16: the bf16 training run,
      eval_bf16: the bf16 EBM-prior FID batch);
  21. prints {"ok": true, "device": {...}} as the last line.
@@ -248,7 +268,9 @@ def _stream_as_counter(noise, b, dev):
     bits (stream mode is counter mode fed stream_row_seeds); else None."""
     from damc_tpu_torch.ops.noise import stream_row_seeds
 
-    return dict(row_seeds=_int32(stream_row_seeds(noise["seed"], b, dev))) if "seed" in noise else None
+    if "seed" not in noise:
+        return None
+    return dict(row_seeds=_int32(stream_row_seeds(noise["seed"], b, dev, noise.get("row_base", 0))))
 
 
 def report(name, r):
@@ -1280,10 +1302,13 @@ _NETS = ("G", "E", "Q")
 _MODULES = {"G": "generator", "E": "ebm", "Q": "amortizer"}
 
 
-def _one_iteration(small, dev, x, draws, z0):
+def _one_iteration(small, dev, x, draws, z0, mesh=None):
     """One iteration of `small` on `dev` from the seed's state, with `z0` as
     Q_ema's proposal. Returns ((metrics, named parameters per network, the
-    gradients each optimizer received), all on the CPU; the models)."""
+    gradients each optimizer received), all on the CPU; the models). With a
+    `mesh` (a data-parallel rank), x, draws and z0 are the global batch's
+    and the rank steps its rows."""
+    from damc_tpu_torch.parallel import shard_batch
     from damc_tpu_torch.train import step as step_module
     from damc_tpu_torch.train.state import create_state
     from damc_tpu_torch.train.step import make_train_step
@@ -1301,11 +1326,11 @@ def _one_iteration(small, dev, x, draws, z0):
     grads = {name: [] for name in _NETS}
     for name, opt in zip(_NETS, (state.opts.g, state.opts.e, state.opts.q)):
         _recording(opt, grads[name])
-    step = make_train_step(state.models, state.opts, small)
+    step = make_train_step(state.models, state.opts, small, mesh=mesh)
     original = step_module.sample_q
-    step_module.sample_q = lambda ema, xx, z_init, seed: z0.to(xx.device)
+    step_module.sample_q = lambda ema, xx, z_init, seed, row_base=0: z0[row_base:row_base + len(xx)].to(xx.device)
     try:
-        state, metrics = step(state, x.to(dev), d)
+        state, metrics = step(state, (x if mesh is None else shard_batch(mesh, x)).to(dev), d)
     finally:
         step_module.sample_q = original
     return (
@@ -1315,9 +1340,10 @@ def _one_iteration(small, dev, x, draws, z0):
     ), state.models
 
 
-def _card_cpu_readings(small, cpu, card, models, limits, tag, quiet=False):
-    """The card's iteration `card` against the CPU's `cpu`: the readings that
-    `limits` holds, and the names of those that break it."""
+def _card_cpu_readings(small, cpu, card, models, limits, tag, quiet=False, names=("card", "CPU")):
+    """The card's iteration `card` against the CPU's `cpu` (or two other
+    runs, printed under `names`): the readings that `limits` holds, and the
+    names of those that break it."""
     import torch
 
     say = (lambda s: None) if quiet else print
@@ -1329,7 +1355,7 @@ def _card_cpu_readings(small, cpu, card, models, limits, tag, quiet=False):
         diff = abs(m_g[k] - m_c[k])
         limit = METRIC_ATOL + limits.metric_rtol * abs(m_c[k])
         worst_m = max(worst_m, max(diff - METRIC_ATOL, 0.0) / abs(m_c[k]))
-        say(f"[{tag}]   {k}: card {m_g[k]:.9g}, CPU {m_c[k]:.9g}, diff {diff:.3e}, limit {limit:.3e}")
+        say(f"[{tag}]   {k}: {names[0]} {m_g[k]:.9g}, {names[1]} {m_c[k]:.9g}, diff {diff:.3e}, limit {limit:.3e}")
         if diff > limit:
             failed.append(k)
     readings["metrics"] = worst_m  # the least metric_rtol that every metric passes
@@ -1380,6 +1406,30 @@ def _card_cpu_readings(small, cpu, card, models, limits, tag, quiet=False):
     return readings, failed
 
 
+def small_iteration_inputs(cfg):
+    """(config, x, draws, z0) of the card-vs-CPU iteration (gpu_cpu_phase):
+    B=8, 2 posterior steps, noiseless kernels, one Q update; the draws and
+    Q_ema's z0 made on the CPU from the seed."""
+    import torch
+
+    from damc_tpu_torch.models import sample_q
+    from damc_tpu_torch.train.state import create_state
+    from damc_tpu_torch.train.step import draw_step
+
+    b = 8
+    small = dataclasses.replace(
+        cfg,
+        train=dataclasses.replace(cfg.train, batch_size=b, q_updates=1),
+        mcmc=dataclasses.replace(cfg.mcmc, g_l_steps=2, e_l_with_noise=False),
+        diffusion=dataclasses.replace(cfg.diffusion, with_noise=False),
+    )
+    x = torch.from_numpy(train_images(b)).float() / 255.0 * 2.0 - 1.0
+    state = create_state(small, SEED, "cpu")
+    draws = draw_step(small, b, state)
+    z0 = sample_q(state.amortizer_ema, x, draws.z0_init, draws.sweep_seed)
+    return small, x, draws, z0
+
+
 def gpu_cpu_phase(cfg, limits=FP32_LIMITS, tag="train", control=None):
     """One iteration at B=8 with 2 posterior steps, noiseless kernels and
     one Q update, on the card and on the CPU plain path, from the same
@@ -1414,23 +1464,7 @@ def gpu_cpu_phase(cfg, limits=FP32_LIMITS, tag="train", control=None):
     the card with those switches, which must break a limit: the limits are
     shown to tell the mode asked for from another. Returns the readings of
     the card run and of the control."""
-    import torch
-
-    from damc_tpu_torch.models import sample_q
-    from damc_tpu_torch.train.state import create_state
-    from damc_tpu_torch.train.step import draw_step
-
-    b = 8
-    small = dataclasses.replace(
-        cfg,
-        train=dataclasses.replace(cfg.train, batch_size=b, q_updates=1),
-        mcmc=dataclasses.replace(cfg.mcmc, g_l_steps=2, e_l_with_noise=False),
-        diffusion=dataclasses.replace(cfg.diffusion, with_noise=False),
-    )
-    x = torch.from_numpy(train_images(b)).float() / 255.0 * 2.0 - 1.0
-    state = create_state(small, SEED, "cpu")
-    draws = draw_step(small, b, state)
-    z0 = sample_q(state.amortizer_ema, x, draws.z0_init, draws.sweep_seed)
+    small, x, draws, z0 = small_iteration_inputs(cfg)
     cpu, _ = _one_iteration(small, "cpu", x, draws, z0)
     card, models = _one_iteration(small, "cuda", x, draws, z0)
     readings, failed = _card_cpu_readings(small, cpu, card, models, limits, tag)
@@ -1918,7 +1952,7 @@ def eval_timing_phase(cfg, inception_ms, eval_info, train_ms_per_iteration):
 
 
 ANOMALY_TEST_IMAGES = 4_000  # the digit-9 test split holds 19,567: cut so that each AUPRC eval stays short
-ANOMALY_ITERATIONS, ANOMALY_EVAL_EVERY, ANOMALY_RESUME_TO = 20, 10, 22
+ANOMALY_ITERATIONS, ANOMALY_EVAL_EVERY, ANOMALY_RESUME_TO = 10, 5, 11
 TOY_ITERATIONS, TOY_VIZ_EVERY, TOY_VIZ_BATCHES, TOY_GT_STEPS = 40, 20, 2, 1000
 
 
@@ -1987,8 +2021,8 @@ def anomaly_phase(cfg, counters):
     """The anomaly workload through its CLIs at full mnist_anomaly width, in
     a temporary directory, on an MNIST-shaped mnist.npz made from the seed
     (70,000 images: 50,000/10,000/10,000 in x_train/x_test/x_valid): train
-    20 iterations at B=128 with an AUPRC eval and checkpoints every 10 (the
-    test split cut to 4,000 images through its cache file), resume to 22
+    10 iterations at B=128 with an AUPRC eval and checkpoints every 5 (the
+    test split cut to 4,000 images through its cache file), resume to 11
     with --resume_path auto in the same directory, then score ckpt/best
     twice through the eval CLI. Returns the times and launches."""
     import os
@@ -2027,7 +2061,7 @@ def anomaly_phase(cfg, counters):
         train_args = common + ["--eval_every", str(ANOMALY_EVAL_EVERY), "--ckpt_every", str(ANOMALY_EVAL_EVERY),
                                "--print_every", "5"]
 
-        # 1. Train 20 iterations.
+        # 1. Train ANOMALY_ITERATIONS iterations.
         evals, events = [], []
         undo = [_instrument(anomaly, "evaluate_auprc", counters, evals), _timed_steps(anomaly, events)]
         for k in counters.values():
@@ -2048,7 +2082,7 @@ def anomaly_phase(cfg, counters):
         eval_rows = [r for r in rows if r["phase"] == "eval"]
         print(f"[anomaly] train rows {train_steps}; eval rows "
               + json.dumps([{k: r[k] for k in ("step", "auprc", "auprc_best")} for r in eval_rows]))
-        want_evals = [0, 10, ANOMALY_ITERATIONS - 1]
+        want_evals = [0, ANOMALY_EVAL_EVERY, ANOMALY_ITERATIONS - 1]
         if train_steps != list(range(0, ANOMALY_ITERATIONS, 5)) or [r["step"] for r in eval_rows] != want_evals:
             raise AssertionError("metrics.jsonl lacks a train or an eval row")
         for r in rows:
@@ -2058,8 +2092,8 @@ def anomaly_phase(cfg, counters):
             raise AssertionError(f"AUPRC out of (0, 1] or best {best} is not the largest")
         ckpts = sorted(os.listdir(os.path.join(run, "ckpt")))
         print(f"[anomaly] checkpoints {ckpts}; best AUPRC {best}")
-        if ckpts != sorted(["10", str(ANOMALY_ITERATIONS - 1), "best"]):
-            raise AssertionError("ckpt/10, the terminal checkpoint or ckpt/best is missing")
+        if ckpts != sorted([str(ANOMALY_EVAL_EVERY), str(ANOMALY_ITERATIONS - 1), "best"]):
+            raise AssertionError(f"ckpt/{ANOMALY_EVAL_EVERY}, the terminal checkpoint or ckpt/best is missing")
         n_batches = -(-ANOMALY_TEST_IMAGES // anomaly.EVAL_BATCH)
         for e in evals:
             if e["launches"] != {"K1": 0, "K2": n_batches}:
@@ -2074,7 +2108,7 @@ def anomaly_phase(cfg, counters):
         ms = _step_ms(events, skip={0, ANOMALY_EVAL_EVERY})
         del state
 
-        # 2. Resume to 22 in the same directory (no eval on the way).
+        # 2. Resume one iteration further in the same directory (no eval on the way).
         resumed, _ = train_anomaly_det.main(
             common + ["--iterations", str(ANOMALY_RESUME_TO), "--resume_path", "auto", "--eval_every", "0",
                       "--ckpt_every", str(ANOMALY_EVAL_EVERY), "--print_every", "1"])
@@ -2083,7 +2117,8 @@ def anomaly_phase(cfg, counters):
         print(f"[anomaly] resumed: directories {os.listdir(os.path.join(logs, 'mnist'))}, new train rows "
               f"{resumed_rows}, step {resumed.step}")
         if resumed.step != ANOMALY_RESUME_TO or resumed_rows != list(range(ANOMALY_ITERATIONS, ANOMALY_RESUME_TO)):
-            raise AssertionError("the resumed run did not continue at iteration 20 in the same directory")
+            raise AssertionError(f"the resumed run did not continue at iteration {ANOMALY_ITERATIONS} in the same "
+                                 "directory")
         del resumed
 
         # 3. The eval CLI on ckpt/best, twice.
@@ -2249,7 +2284,7 @@ SVHN_TEST_IMAGES = 2_000  # the test split holds 26,032: cut so that the MSE eva
 CELEBA64_TRAIN, CELEBA64_TEST, CELEBA64_SIZE = 2_048, 512, (178, 218)  # CelebA's aligned images
 # CelebA-HQ's images; a small test split keeps the script within about
 # 800 s (decoding a 1024x1024 PNG takes 0.2 s on one core).
-CELEBAHQ_TRAIN, CELEBAHQ_TEST, CELEBAHQ_SIZE = 160, 32, (1024, 1024)
+CELEBAHQ_TRAIN, CELEBAHQ_TEST, CELEBAHQ_SIZE = 128, 32, (1024, 1024)  # one batch of 128 an epoch
 
 
 def write_svhn_mats(root: str, n_train: int, n_test: int) -> None:
@@ -2793,7 +2828,7 @@ def celeba64_phase(cfg, counters):
 def celebahq_phase(cfg, counters):
     """celebaHQ (nz=128, ngf=128, 256x256, G up to 2048 channels) through the
     train CLI at full width in a temporary directory, on a PNG tree made
-    from the seed at CelebA-HQ's size, 1024x1024 (160 train and 32 test
+    from the seed at CelebA-HQ's size, 1024x1024 (128 train and 32 test
     images): 3 iterations at B=128 with evals at 0 and at the end (500 FID
     samples, the 32-image recon-MSE set) and a checkpoint at the end; then
     one iteration from that checkpoint with remat_generator off and on,
@@ -3353,6 +3388,361 @@ def stylegan_phase(counters):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# The data-parallel phase: two ranks of a torch.distributed group share the
+# one card over gloo (nccl refuses two ranks on one card), each a process
+# started here with torchrun's environment.
+DP_WORLD = 2
+DP_TIMEOUT_S = 600  # the whole group: it is killed and the phase fails after this
+DP_ITERATIONS = 4
+DP_TRAIN_IMAGES, DP_TEST_IMAGES, DP_FID = 10_000, 1_000, 1_000
+DP_K1_SHAPES = ((256, 60, 0.4), (500, 60, 0.4))  # the 2B training chains; the loop's EBM-prior FID batch
+DP_K2_SHAPES = (128, 500)  # Q_ema's training rows (encoder tables); the DAMC-prior FID batch
+
+
+def _dp_noises(b, gen, dev):
+    import torch
+
+    seeds = torch.randint(-2**31, 2**31 - 1, (b,), generator=gen, dtype=torch.int32).to(dev)
+    return {"stream": dict(seed=-987654321), "counter": dict(row_seeds=seeds), "noiseless": dict(with_noise=False)}
+
+
+def _dp_turns(mesh, fn):
+    """fn() on one rank at a time, the others waiting at a barrier, so that
+    a rank's time is not shared with its peer's work on the card."""
+    import torch.distributed as dist
+
+    out = None
+    for r in range(mesh.world):
+        if mesh.rank == r:
+            out = fn()
+        dist.barrier()
+    return out
+
+
+def _dp_kernels(mesh, models, cfg):
+    """K4a and K4b on the card: at each shape and noise mode the gathered
+    result of the ranks must equal one unsharded K1 or K2 launch bit for
+    bit, and so must each rank's own launch (its rows at its row_base) in
+    stream mode; that launch is then held against the plain version on the
+    same rows and timed (`chain_check`, `sweep_check`), one rank at a time."""
+    import torch
+
+    from damc_tpu_torch.ops.cuda.fused_langevin import (
+        ebm_params_to_dense_weights, fused_prior_langevin, fused_prior_langevin_sharded,
+    )
+    from damc_tpu_torch.ops.cuda.fused_qsweep import (
+        denoiser_layer_params, fused_reverse_sweep, fused_reverse_sweep_sharded,
+    )
+    from damc_tpu_torch.ops.diffusion import step_coefficients, sweep_logsnr_grid
+
+    dev, m, d = mesh.device, cfg.model, cfg.diffusion
+    gen = torch.Generator(device="cpu").manual_seed(SEED + 90)  # the same draws on every rank
+    ebm_w = ebm_params_to_dense_weights(models.ebm)
+    fourier, layers = denoiser_layer_params(models.amortizer.p)
+    grid, _ = sweep_logsnr_grid(d.n_interval, d.logsnr_min, d.logsnr_max)
+    coeffs = step_coefficients(d.n_interval, d.logsnr_min, d.logsnr_max, d.var_type).to(dev)
+    res, equal = {}, {}
+    for b, steps, size in DP_K1_SHAPES:
+        z = torch.randn(b, m.nz, generator=gen).to(dev)
+        local = b // mesh.world
+        rows = slice(mesh.rank * local, (mesh.rank + 1) * local)
+        for mode, noise in _dp_noises(b, gen, dev).items():
+            kw = dict(steps=steps, step_size=size, **noise)
+            whole = fused_prior_langevin(z, *ebm_w, **kw)
+            equal[f"K4a B={b} {mode}"] = bool(torch.equal(fused_prior_langevin_sharded(mesh, z, *ebm_w, **kw), whole))
+            if mode == "stream":
+                own = fused_prior_langevin(z[rows], *ebm_w, row_base=rows.start, **kw)
+                equal[f"K4a B={b} stream, own rows"] = bool(torch.equal(own, whole[rows]))
+                res[f"K4a_{b}"] = _dp_turns(mesh, lambda: chain_check(
+                    ebm_w, z[rows], dict(noise, row_base=rows.start), steps, size,
+                    f"K4a rank {mesh.rank}, rows {rows.start}-{rows.stop - 1} of {b}"))
+    for b in DP_K2_SHAPES:
+        z = torch.randn(b, m.nz, generator=gen).to(dev)
+        with torch.no_grad():
+            if b == cfg.train.batch_size:  # the training step's tables: Q's encoder of images
+                xemb = models.amortizer.encode(torch.rand(b, 32, 32, 3, generator=gen).to(dev) * 2 - 1)
+            else:  # the DAMC-prior FID batch: the prior embedding of noise
+                xemb = models.amortizer.prior_embed(torch.randn(b, m.nz, generator=gen).to(dev))
+            t = models.amortizer.p.sample_tables(grid.to(dev), xemb)
+        local = b // mesh.world
+        rows = slice(mesh.rank * local, (mesh.rank + 1) * local)
+        for mode, noise in _dp_noises(b, gen, dev).items():
+            kw = dict(steps=d.n_interval, residual=d.residual, **noise)
+            args = (fourier, layers, t["pre_x"], t["pre_t"], coeffs)
+            whole = fused_reverse_sweep(z, *args, **kw)
+            equal[f"K4b B={b} {mode}"] = bool(torch.equal(fused_reverse_sweep_sharded(mesh, z, *args, **kw), whole))
+            if mode == "stream":
+                own = fused_reverse_sweep(z[rows], fourier, layers, [p[rows] for p in t["pre_x"]], t["pre_t"],
+                                          coeffs, row_base=rows.start, **kw)
+                equal[f"K4b B={b} stream, own rows"] = bool(torch.equal(own, whole[rows]))
+                res[f"K4b_{b}"] = _dp_turns(mesh, lambda: sweep_check(
+                    models, cfg, z[rows], xemb[rows], dict(noise, row_base=rows.start),
+                    f"K4b rank {mesh.rank}, rows {rows.start}-{rows.stop - 1} of {b}")[local])
+    return res, equal
+
+
+def _digest(state) -> str:
+    """sha256 of every tensor of a TrainState's networks, in order."""
+    import hashlib
+
+    import torch
+
+    from damc_tpu_torch.train.driver_utils import state_tensors
+
+    h = hashlib.sha256()
+    for t in state_tensors(state):
+        h.update(t.detach().cpu().contiguous().view(-1).view(dtype=torch.uint8).numpy().tobytes())
+    return h.hexdigest()
+
+
+def _dp_train(mesh, spec):
+    """`cli.train_gen_recon --use_mesh` on this rank, counted: the launches,
+    rows and row_base of K1 and K2 in each training step, the files this
+    rank wrote, a CUDA event after each step, the final state's digest."""
+    import torch
+
+    from damc_tpu_torch.cli import train_gen_recon
+    from damc_tpu_torch.models import amortizer
+    from damc_tpu_torch.ops import langevin
+    from damc_tpu_torch.ops.cuda.fused_langevin import fused_prior_langevin
+    from damc_tpu_torch.ops.cuda.fused_qsweep import fused_reverse_sweep
+    from damc_tpu_torch.train import driver_utils, gen_recon
+    from damc_tpu_torch.train import step as step_module
+    from damc_tpu_torch.utils import logging as port_logging
+
+    counters = {"K1": fused_prior_langevin, "K2": fused_reverse_sweep}
+    rows, steps, events, writes = [], [], [], {"checkpoints": [], "grids": [], "metrics": []}
+    reduce_s = [0.0]  # host seconds in the step's all-reduces (gradients, metrics), synchronised
+    all_mean = step_module.all_mean
+
+    def timed_mean(*a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = all_mean(*a, **kw)
+        torch.cuda.synchronize()
+        reduce_s[0] += time.perf_counter() - t0
+        return out
+    chain, sweep, make_step = langevin.fused_prior_langevin_sharded, amortizer.fused_reverse_sweep, gen_recon.make_train_step
+    save, grid, log = driver_utils.save_checkpoint, gen_recon.save_image_grid, port_logging.MetricsLogger.log
+
+    def chain_rec(mesh_, z, *a, **kw):
+        rows.append(("K1", z.shape[0] // mesh_.world, mesh_.rank * (z.shape[0] // mesh_.world)))
+        return chain(mesh_, z, *a, **kw)
+
+    def sweep_rec(z, *a, **kw):
+        rows.append(("K2", z.shape[0], kw.get("row_base", 0)))
+        return sweep(z, *a, **kw)
+
+    def counted_make(*a, **kw):
+        step = make_step(*a, **kw)
+
+        def counted(*sa, **skw):
+            before, n = {k: c.launches for k, c in counters.items()}, len(rows)
+            reduce_s[0] = 0.0
+            out = step(*sa, **skw)
+            event = torch.cuda.Event(enable_timing=True)
+            event.record()
+            events.append(event)
+            steps.append({"launches": {k: c.launches - before[k] for k, c in counters.items()}, "rows": rows[n:],
+                          "all_reduce_ms": reduce_s[0] * 1e3})
+            return out
+
+        return counted
+
+    langevin.fused_prior_langevin_sharded, amortizer.fused_reverse_sweep = chain_rec, sweep_rec
+    gen_recon.make_train_step, step_module.all_mean = counted_make, timed_mean
+    driver_utils.save_checkpoint = lambda d, name, st: (writes["checkpoints"].append(name), save(d, name, st))[1]
+    gen_recon.save_image_grid = lambda a, path, **kw: (writes["grids"].append(path), grid(a, path, **kw))[1]
+    port_logging.MetricsLogger.log = lambda self, *a, **kw: (
+        writes["metrics"].append(self.path) if self.path else None, log(self, *a, **kw))[1]
+    for c in counters.values():
+        c.launches = 0
+    t0 = time.perf_counter()
+    try:
+        state = train_gen_recon.main([
+            "--dataset", "cifar10", "--data_path", spec["data"], "--log_path", spec["logs"],
+            "--seed", str(SEED), "--iterations", str(DP_ITERATIONS), "--n_fid_samples", str(DP_FID),
+            "--eval_every", "1000", "--ckpt_every", "1000", "--plot_every", "1000", "--print_every", "1",
+            "--use_mesh", "--dist_backend", "gloo",
+        ])
+    finally:
+        langevin.fused_prior_langevin_sharded, amortizer.fused_reverse_sweep = chain, sweep
+        gen_recon.make_train_step, driver_utils.save_checkpoint, gen_recon.save_image_grid = make_step, save, grid
+        port_logging.MetricsLogger.log, step_module.all_mean = log, all_mean
+    torch.cuda.synchronize()
+    return {
+        "wall_s": time.perf_counter() - t0, "steps": steps, "step": int(state.step), "digest": _digest(state),
+        "launches": {k: c.launches for k, c in counters.items()}, "writes": writes,
+        # between the events of steps 2-3 and 3-4: step 1's interval holds the evals and grids of iteration 0
+        "ms_per_iteration": [a.elapsed_time(b) for a, b in zip(events[1:], events[2:])],
+    }
+
+
+def dp_rank() -> int:
+    """One rank of the data-parallel phase (started by `dp_phase` with
+    torchrun's environment and its spec as the one argument): joins the
+    group over gloo on the card, checks K4a and K4b, runs the card-vs-world-1
+    iteration on its rows, trains through the CLI, and writes its readings
+    to <out>/rank<r>.json (and the iteration to <out>/iteration<r>.pt)."""
+    import os
+
+    import torch
+
+    from damc_tpu_torch.config import preset
+    from damc_tpu_torch.device import resolve_device
+    from damc_tpu_torch.models import build_models
+    from damc_tpu_torch.parallel.distributed import global_mesh, initialize_distributed, shutdown_distributed
+
+    spec = json.loads(sys.argv[1])
+    resolve_device("cuda")
+    initialize_distributed(backend="gloo", device="cuda", timeout_s=DP_TIMEOUT_S)
+    try:
+        mesh = global_mesh("cuda")
+        print(f"[train_dp] rank {mesh.rank} of {mesh.world} on {mesh.device} ({torch.distributed.get_backend()})",
+              flush=True)
+        cfg = preset("cifar10")
+        models = build_models(cfg, seed=SEED, device=mesh.device)
+        kernels, equal = _dp_kernels(mesh, models, cfg)
+        del models
+        small, x, draws, z0 = small_iteration_inputs(cfg)
+        iteration, _ = _one_iteration(small, mesh.device, x, draws, z0, mesh=mesh)
+        torch.save(iteration, os.path.join(spec["out"], f"iteration{mesh.rank}.pt"))
+        train = _dp_train(mesh, spec)
+        with open(os.path.join(spec["out"], f"rank{mesh.rank}.json"), "w") as f:
+            json.dump({"kernels": kernels, "equal": equal, "train": train}, f)
+    finally:
+        shutdown_distributed()
+    return 0
+
+
+def dp_phase(cfg, train_ms):
+    """Data-parallel gen_recon on the card: DP_WORLD ranks (`dp_rank`), one
+    process each, sharing the H100 over gloo, with a hard timeout on the
+    group. K4a and K4b at the training and FID shapes in stream, counter
+    and noiseless mode, gathered, must equal one K1 or K2 launch bit for
+    bit; DP_ITERATIONS iterations of `cli.train_gen_recon --use_mesh` at
+    full cifar10 width and global B=128 on a CIFAR-10 tree made from the
+    seed (evals at 0 and at the end with DP_FID samples, a checkpoint): K1
+    and K2 once a step on each rank at 128 and 64 rows, the replicas equal
+    bit for bit, only rank 0 writes; and one iteration of the card-vs-CPU
+    configuration on two ranks against the same iteration in one process
+    on the card, within FP32_LIMITS. Returns each rank's readings."""
+    import os
+    import shutil
+    import socket
+    import subprocess
+    import tempfile
+
+    import torch
+
+    tmp = tempfile.mkdtemp(prefix="damc_dp_smoke_")
+    procs, logs = [], []
+    try:
+        data, logdir = os.path.join(tmp, "data"), os.path.join(tmp, "logs")
+        write_cifar_tree(data, DP_TRAIN_IMAGES, DP_TEST_IMAGES)
+        spec = json.dumps({"data": data, "logs": logdir, "out": tmp})
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            port = sock.getsockname()[1]
+        t0 = time.perf_counter()
+        for r in range(DP_WORLD):
+            env = dict(os.environ, RANK=str(r), WORLD_SIZE=str(DP_WORLD), LOCAL_RANK=str(r),
+                       LOCAL_WORLD_SIZE=str(DP_WORLD), MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+            logs.append(open(os.path.join(tmp, f"rank{r}.log"), "w+"))
+            procs.append(subprocess.Popen(
+                [sys.executable, "-c", "import sys, chip_smoke; sys.exit(chip_smoke.dp_rank())", spec],
+                env=env, stdout=logs[-1], stderr=subprocess.STDOUT, cwd=os.path.dirname(os.path.abspath(__file__))))
+        deadline = time.monotonic() + DP_TIMEOUT_S
+        for p in procs:
+            try:
+                p.wait(max(deadline - time.monotonic(), 1))
+            except subprocess.TimeoutExpired:
+                pass
+        wall = time.perf_counter() - t0
+        codes = [p.poll() for p in procs]
+        for r, f in enumerate(logs):
+            f.seek(0)
+            for line in f.read().splitlines()[-60:]:
+                print(f"[train_dp rank {r}] {line}")
+        if codes != [0] * DP_WORLD:
+            raise AssertionError(f"the data-parallel ranks ended with {codes} (None: killed at {DP_TIMEOUT_S} s)")
+        ranks = []
+        for r in range(DP_WORLD):
+            with open(os.path.join(tmp, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+
+        # 1. The sharded kernels.
+        for key in ranks[0]["equal"]:
+            print(f"[train_dp] {key}: gathered over {DP_WORLD} ranks == one launch, bit for bit: "
+                  f"{[rk['equal'][key] for rk in ranks]}")
+        if not all(all(rk["equal"].values()) for rk in ranks):
+            raise AssertionError("a sharded kernel's gathered result differs from the unsharded launch")
+        for r, rk in enumerate(ranks):
+            for key, k in rk["kernels"].items():
+                b_ms, by = bound(k["flops"], k["bytes"])
+                print(f"[train_dp] rank {r} {key} stream, its {k['b']} rows: kernel {k['ms']:.4f} ms, plain "
+                      f"{k['plain_ms']:.4f} ms, bound {b_ms:.5g} ms ({by}), kernel-plain {k['max_abs_err']:.3e}")
+
+        # 2. Training.
+        trains = [rk["train"] for rk in ranks]
+        b = cfg.train.batch_size
+        for r, t in enumerate(trains):
+            print(f"[train_dp] rank {r}: steps {t['step']}, per step (launches, rows, row_base; ms in the "
+                  f"all-reduces of gradients and metrics, synchronised) " + json.dumps(t["steps"])
+                  + f"; whole run {t['launches']}; writes " + json.dumps(t["writes"]))
+            want_rows = [("K2", b // DP_WORLD, r * b // DP_WORLD), ("K1", 2 * b // DP_WORLD, r * 2 * b // DP_WORLD)]
+            for s in t["steps"]:
+                if s["launches"] != {"K1": 1, "K2": 1} or [tuple(x) for x in s["rows"]] != want_rows:
+                    raise AssertionError(f"rank {r}: a step launched {s}, expected K1 and K2 once at {want_rows}")
+            if t["step"] != DP_ITERATIONS or len(t["steps"]) != DP_ITERATIONS:
+                raise AssertionError(f"rank {r} took {t['step']} steps")
+        if len({t["digest"] for t in trains}) != 1:
+            raise AssertionError("the replicas differ after training")
+        if any(trains[r]["writes"][k] for r in range(1, DP_WORLD) for k in trains[r]["writes"]):
+            raise AssertionError("a rank other than 0 wrote a log, grid or checkpoint")
+        w0 = trains[0]["writes"]
+        (run,) = os.listdir(os.path.join(logdir, "cifar10"))
+        ckpts = sorted(os.listdir(os.path.join(logdir, "cifar10", run, "ckpt")))
+        rows = _jsonl(os.path.join(logdir, "cifar10", run, "metrics.jsonl"))
+        evals = [r["step"] for r in rows if r["phase"] == "eval"]
+        print(f"[train_dp] one run directory; checkpoints {ckpts}; eval rows at {evals}; rank 0 saved "
+              f"{w0['checkpoints']} and {len(w0['grids'])} grids; replicas equal (sha256 {trains[0]['digest'][:16]})")
+        if ckpts != [str(DP_ITERATIONS - 1), "best"] or evals != [0, DP_ITERATIONS - 1]:
+            raise AssertionError("the run lacks its checkpoints or eval rows")
+        for r in rows:
+            if r["phase"] == "eval" and not all(np.isfinite(r[k]) for k in ("frechet_rand_damc", "recon_mse")):
+                raise AssertionError(f"eval row {r}: not finite")
+
+        # 3. One iteration on two ranks against one process, on the card.
+        small, x, draws, z0 = small_iteration_inputs(cfg)
+        world1, models = _one_iteration(small, "cuda", x, draws, z0)
+        world2 = torch.load(os.path.join(tmp, "iteration0.pt"), weights_only=False)
+        other = torch.load(os.path.join(tmp, "iteration1.pt"), weights_only=False)
+        same = world2[0] == other[0] and all(torch.equal(a, c) for k in world2[1] for (_, a), (_, c) in
+                                             zip(world2[1][k], other[1][k]))
+        print(f"[train_dp] the card-vs-CPU iteration (B=8) on {DP_WORLD} ranks against one process; replicas "
+              f"equal: {same}")
+        if not same:
+            raise AssertionError("the two ranks' replicas differ after one iteration")
+        readings, failed = _card_cpu_readings(small, world1, world2, models, FP32_LIMITS, "train_dp",
+                                              names=("world 2", "world 1"))
+        if failed:
+            raise AssertionError(f"world 2 and world 1 disagree beyond rounding: {failed}")
+        ms = trains[0]["ms_per_iteration"]
+        print(f"[train_dp] ms an iteration at global B={b}, two ranks sharing one H100 over gloo (not a scaling "
+              f"figure): {ms} (median {statistics.median(ms)}); one process, phase 6: {train_ms}; group wall "
+              f"{wall:.1f} s; readings " + json.dumps(readings))
+        return {"ranks": ranks, "ms": ms, "wall_s": wall}
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in logs:
+            f.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main() -> int:
     import torch
 
@@ -3419,6 +3809,8 @@ def main() -> int:
     train_profile_phase(cfg, state)
     del state
     lap("train_profile")
+    dp = dp_phase(cfg, train_ms)
+    lap("train_dp")
     # The bfloat16 mode: G and the encoder in bf16, K1's bf16-dot variant.
     cfg_bf16 = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, compute_dtype="bfloat16"),
                                    train=dataclasses.replace(cfg.train, pallas_dots_dtype="bfloat16"))
@@ -3523,6 +3915,17 @@ def main() -> int:
         raise AssertionError("the bf16 training run launched K1's float32 variant")
     meta["K1_bf16"] = ("fused_prior_langevin_bf16", "damc_tpu_torch/csrc/fused_langevin.cu",
                        "damc_tpu/ops/pallas/fused_langevin.py:311")
+    # The data-parallel run: each rank's own launches (K1 on its 128 of the
+    # 2B=256 chains, K2 on its 64 of B=128 rows) and its whole run's count.
+    meta["K4a"] = ("fused_prior_langevin_sharded", "damc_tpu_torch/csrc/fused_langevin.cu",
+                   "damc_tpu/ops/pallas/fused_langevin.py:335")
+    meta["K4b"] = ("fused_reverse_sweep_sharded", "damc_tpu_torch/csrc/fused_qsweep.cu",
+                   "damc_tpu/ops/pallas/fused_qsweep.py:364")
+    entries += [
+        (f"train_dp rank {r}", "stream", key, rk["kernels"][f"{key}_{b}"], rk["train"]["launches"][counter])
+        for r, rk in enumerate(dp["ranks"])
+        for key, b, counter in (("K4a", 2 * cfg.train.batch_size, "K1"), ("K4b", cfg.train.batch_size, "K2"))
+    ]
     for path, mode, key, r, launches in entries:
         name, source, replaces = meta[key]
         bound_ms, bound_by = bound(r["flops"], r["bytes"], r.get("peak", PEAK_FP32_FLOPS))
@@ -3547,6 +3950,8 @@ def main() -> int:
         shapes += [(f"toy {k}", r) for k, r in res_toy.items() if k.startswith(key)]
         for tag, res_p in (("svhn", res_svhn), ("celeba64", res_c64), ("celebaHQ", res_hq)):
             shapes += [(f"{tag} {k}", r) for k, r in res_p.items() if k.startswith(key)]
+        shapes += [(f"train_dp rank {i} {k} (its rows)", r) for i, rk in enumerate(dp["ranks"])
+                   for k, r in rk["kernels"].items() if k.startswith({"K1": "K4a", "K2": "K4b"}[key])]
         for label, r in shapes:
             b_ms, by = bound(r["flops"], r["bytes"])
             print(f"[kernels] {name} {label} B={r['b']}: ms={r['ms']} plain_ms={r['plain_ms']} "

@@ -3,11 +3,18 @@
 run directory, dataset loading and the FID feature extractor.
 
 The flags are the JAX CLI's, aliases included, plus `--device` (default
-`cuda`; `cpu` runs the plain versions of the kernels). `--use_mesh` and
-`--multihost` are accepted by the parser and raise (ROADMAP.md, queue 1,
-item 8). `load_dataset` reads the gen_recon datasets cifar10, svhn,
-celeba64 and celebaHQ; mnist is the anomaly workload's
-(`cli/train_anomaly_det.py`).
+`cuda`; `cpu` runs the plain versions of the kernels) and `--dist_backend`
+(`nccl` or `gloo`; by default `nccl` on `cuda`, `gloo` on `cpu`), the
+transport of a data-parallel run, which torch has two of and JAX one.
+
+`--use_mesh` trains or scores gen_recon data-parallel, one process a rank,
+the group started from torchrun's environment; `--multihost` starts it
+from `--coordinator_address`, `--num_processes` and `--process_id` (or,
+without them, from that environment) and implies `--use_mesh`, as the JAX
+CLI's `maybe_init_multihost` does (`init_distributed`). The other CLIs
+refuse both flags (`refuse_mesh`; ROADMAP.md, queue 1, item 8).
+`load_dataset` reads the gen_recon datasets cifar10, svhn, celeba64 and
+celebaHQ; mnist is the anomaly workload's (`cli/train_anomaly_det.py`).
 """
 
 from __future__ import annotations
@@ -54,6 +61,11 @@ def add_common_flags(p: argparse.ArgumentParser) -> None:
     p.add_argument("--iterations", type=int, default=None)
     p.add_argument("--n_fid_samples", type=int, default=None)
     p.add_argument("--device", type=str, default="cuda", help="cuda (default) or cpu")
+    p.add_argument(
+        "--dist_backend", type=str, default=None, choices=["nccl", "gloo"],
+        help="transport of a data-parallel run (default nccl on cuda, gloo on cpu); gloo also lets "
+        "several ranks share one card, which nccl refuses",
+    )
     # architecture
     p.add_argument(
         "--compute_dtype", type=str, default=None, choices=["float32", "bfloat16"],
@@ -139,20 +151,46 @@ def add_common_flags(p: argparse.ArgumentParser) -> None:
                    default=None, help="fid/auprc eval interval")
     # misc
     p.add_argument("--label", type=int, default=None, help="anomaly held-out digit")
-    p.add_argument("--use_mesh", action="store_true", help="data-parallel over all devices (not ported)")
-    p.add_argument("--multihost", action="store_true", help="multi-process run (not ported)")
+    p.add_argument("--use_mesh", action="store_true",
+                   help="data-parallel over the ranks torchrun started, one rank a process")
+    p.add_argument("--multihost", action="store_true",
+                   help="start the process group from --coordinator_address, --num_processes and "
+                   "--process_id (else torchrun's environment); implies --use_mesh")
     p.add_argument("--coordinator_address", default=None, help="host:port of process 0 (with --multihost)")
     p.add_argument("--num_processes", type=int, default=None)
     p.add_argument("--process_id", type=int, default=None)
 
 
-def config_from_args(args, preset_name: Optional[str] = None) -> Config:
-    """The preset of `--dataset` with every flag that was given on top."""
+def refuse_mesh(args) -> None:
+    """Raise for `--use_mesh` and `--multihost` in a CLI whose workload has
+    no data-parallel port yet."""
     if getattr(args, "use_mesh", False) or getattr(args, "multihost", False):
         raise NotImplementedError(
-            "--use_mesh and --multihost (several devices or processes) are not ported "
-            "(ROADMAP.md, queue 1, item 8)"
+            "--use_mesh and --multihost (several devices or processes) are ported for gen_recon "
+            "training and evaluation only (ROADMAP.md, queue 1, item 8)"
         )
+
+
+def init_distributed(args, device):
+    """Start the process group of a data-parallel run (JAX's
+    `maybe_init_multihost`, before anything else uses the device):
+    `--multihost` joins the explicit coordinator when its flags are given
+    and implies `--use_mesh`; `--use_mesh` joins the group of torchrun's
+    environment, a no-op in a single process. Returns the device of this
+    rank (`device` itself outside a group)."""
+    from ..parallel.distributed import initialize_distributed, rank_device, world_size
+
+    if args.multihost:
+        args.use_mesh = True
+        initialize_distributed(args.coordinator_address, args.num_processes, args.process_id,
+                               backend=args.dist_backend, device=device)
+    elif args.use_mesh:
+        initialize_distributed(backend=args.dist_backend, device=device)
+    return rank_device(device) if args.use_mesh and world_size() > 1 else device
+
+
+def config_from_args(args, preset_name: Optional[str] = None) -> Config:
+    """The preset of `--dataset` with every flag that was given on top."""
     cfg = preset(preset_name or args.dataset)
 
     def over(section, **kw):

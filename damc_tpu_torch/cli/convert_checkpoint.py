@@ -25,7 +25,7 @@ from __future__ import annotations
 import argparse
 import os
 
-from .common import add_common_flags, config_from_args
+from .common import add_common_flags, config_from_args, refuse_mesh
 
 
 def main(argv=None) -> str:
@@ -41,6 +41,7 @@ def main(argv=None) -> str:
     from ..train.state import create_state
     from ..utils.checkpoint import save_checkpoint
 
+    refuse_mesh(args)
     cfg = config_from_args(args)
     state = create_state(cfg, 0 if args.seed is None else args.seed, args.device)
     state.step = load_reference_checkpoint(state.models, args.torch_ckpt, state.amortizer_ema)

@@ -16,7 +16,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 
-from .common import add_common_flags, config_from_args
+from .common import add_common_flags, config_from_args, refuse_mesh
 
 PER_LABEL_SIGMA = {1: 0.1, 4: 1.0, 5: 1.0, 7: 1.0, 9: 1.0}  # README.md:64-72 of the reference
 
@@ -36,6 +36,7 @@ def main(argv=None):
     from ..train.state import create_state
     from ..utils.checkpoint import restore_checkpoint
 
+    refuse_mesh(args)
     cfg = config_from_args(args, preset_name="mnist_anomaly")
     if args.g_llhd_sigma is None:
         sigma = PER_LABEL_SIGMA.get(cfg.train.heldout_digit, 1.0)

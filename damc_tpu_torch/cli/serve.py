@@ -30,7 +30,7 @@ from __future__ import annotations
 
 import argparse
 
-from .common import add_common_flags, config_from_args
+from .common import add_common_flags, config_from_args, refuse_mesh
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -93,6 +93,7 @@ def _models(args):
     from ..train.state import create_state
     from ..utils.checkpoint import restore_checkpoint
 
+    refuse_mesh(args)
     cfg = config_from_args(args)
     seed = 0 if args.seed is None else args.seed
     step = 0

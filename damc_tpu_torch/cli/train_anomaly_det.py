@@ -15,7 +15,7 @@ from __future__ import annotations
 
 import argparse
 
-from .common import add_common_flags, config_from_args, make_log_dir
+from .common import add_common_flags, config_from_args, refuse_mesh, make_log_dir
 
 
 def main(argv=None):
@@ -28,6 +28,7 @@ def main(argv=None):
     from ..device import resolve_device
     from ..train.anomaly import train_anomaly
 
+    refuse_mesh(args)
     cfg = config_from_args(args, preset_name="mnist_anomaly")
     device = resolve_device(args.device)
     log_dir = make_log_dir(cfg)

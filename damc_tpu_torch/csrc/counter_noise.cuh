@@ -11,7 +11,9 @@
 //
 // Stream mode (one scalar seed for a whole launch) draws from the same
 // counter stream, with row i's seed fmix32(seed ^ i * 0x27D4EB2F)
-// (`stream_row_seed`, equal to ops/noise.py::stream_row_seeds). The TPU
+// (`stream_row_seed`, equal to ops/noise.py::stream_row_seeds); i is the
+// global row, row_base + the row of the launch, so a rank's launch on its
+// rows of a sharded batch draws what one unsharded launch draws. The TPU
 // kernels instead seed the on-core PRNG once per grid block
 // (pltpu.prng_seed(seed + program_id)), whose bits no GPU can give: here a
 // row's noise depends on (seed, row) and not on how rows are cut into

@@ -152,8 +152,8 @@ template <bool kBf16Dots>
 __global__ void __launch_bounds__(kThreads, 2) prior_langevin_kernel(
     const float* __restrict__ z_in, const float* __restrict__ k1, const float* __restrict__ b1,
     const float* __restrict__ k2, const float* __restrict__ b2, const float* __restrict__ k3,
-    const int* __restrict__ seeds, int seed, int stream_noise, float* __restrict__ z_out, int B,
-    int nz, int ndf, int steps, float step_size, float coeff) {
+    const int* __restrict__ seeds, int seed, int stream_noise, int row_base,
+    float* __restrict__ z_out, int B, int nz, int ndf, int steps, float step_size, float coeff) {
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = (int)cluster.block_rank();
   const int J = ndf / kCluster, j4 = pad4(J), j0 = rank * J, ld = slice_ld(J);
@@ -178,7 +178,7 @@ __global__ void __launch_bounds__(kThreads, 2) prior_langevin_kernel(
   if (tid < nrows)
     row_seed[tid] = seeds != nullptr
                         ? (uint32_t)seeds[row0 + tid]
-                        : damc::stream_row_seed((uint32_t)seed, (uint32_t)(row0 + tid));
+                        : damc::stream_row_seed((uint32_t)seed, (uint32_t)(row_base + row0 + tid));
   for (int e = tid; e < nz * ld; e += kThreads) {
     const int k = e / ld, j = e - k * ld;
     k1s[e] = j < J ? operand<kBf16Dots>(k1[(size_t)k * ndf + j0 + j]) : 0.f;
@@ -294,8 +294,8 @@ cudaLaunchConfig_t launch_config(int clusters, int smem, cudaStream_t stream,
 
 template <bool kBf16Dots>
 int launch(const float* z, const float* k1, const float* b1, const float* k2, const float* b2,
-           const float* k3, const int* seeds, int seed, int stream_noise, float* out, int B, int nz,
-           int ndf, int steps, float step_size, float coeff, cudaStream_t stream) {
+           const float* k3, const int* seeds, int seed, int stream_noise, int row_base, float* out,
+           int B, int nz, int ndf, int steps, float step_size, float coeff, cudaStream_t stream) {
   const int smem = smem_bytes(nz, ndf);
   cudaError_t err = cudaFuncSetAttribute(prior_langevin_kernel<kBf16Dots>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -303,7 +303,7 @@ int launch(const float* z, const float* k1, const float* b1, const float* k2, co
   cudaLaunchAttribute attr;
   const cudaLaunchConfig_t cfg = launch_config((B + kRows - 1) / kRows, smem, stream, &attr);
   err = cudaLaunchKernelEx(&cfg, prior_langevin_kernel<kBf16Dots>, z, k1, b1, k2, b2, k3, seeds,
-                           seed, stream_noise, out, B, nz, ndf, steps, step_size, coeff);
+                           seed, stream_noise, row_base, out, B, nz, ndf, steps, step_size, coeff);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
@@ -323,16 +323,19 @@ extern "C" void damc_fused_langevin_geometry(int* out) {
 extern "C" int damc_fused_langevin_smem_bytes(int nz, int ndf) { return smem_bytes(nz, ndf); }
 
 // Noise: seeds = per-chain int32 counter seeds (counter mode); else
-// stream_noise != 0 draws stream mode from the scalar `seed`; else the
-// chain is noiseless. bf16_dots != 0 selects the bf16-dot variant. ndf
-// must be a multiple of kCluster.
+// stream_noise != 0 draws stream mode from the scalar `seed`, chain r of
+// the launch with the seed of global row row_base + r (a rank's rows of a
+// sharded batch start at row_base, so they draw what an unsharded launch
+// draws for them); else the chain is noiseless. bf16_dots != 0 selects the
+// bf16-dot variant. ndf must be a multiple of kCluster.
 extern "C" int damc_fused_langevin(const float* z, const float* k1, const float* b1, const float* k2,
                                    const float* b2, const float* k3, const int* seeds, int seed,
-                                   int stream_noise, int bf16_dots, float* out, int B, int nz,
-                                   int ndf, int steps, float step_size, float coeff, void* stream) {
+                                   int stream_noise, int row_base, int bf16_dots, float* out, int B,
+                                   int nz, int ndf, int steps, float step_size, float coeff,
+                                   void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return bf16_dots ? launch<true>(z, k1, b1, k2, b2, k3, seeds, seed, stream_noise, out, B, nz, ndf,
-                                  steps, step_size, coeff, s)
-                   : launch<false>(z, k1, b1, k2, b2, k3, seeds, seed, stream_noise, out, B, nz,
-                                   ndf, steps, step_size, coeff, s);
+  return bf16_dots ? launch<true>(z, k1, b1, k2, b2, k3, seeds, seed, stream_noise, row_base, out, B,
+                                  nz, ndf, steps, step_size, coeff, s)
+                   : launch<false>(z, k1, b1, k2, b2, k3, seeds, seed, stream_noise, row_base, out,
+                                   B, nz, ndf, steps, step_size, coeff, s);
 }

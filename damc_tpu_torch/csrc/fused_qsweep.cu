@@ -385,8 +385,8 @@ __global__ void __launch_bounds__(kThreads, 1) reverse_sweep_kernel(
     const float* __restrict__ z_in, const float* __restrict__ fourier,
     const float* __restrict__ pre_x, const float* __restrict__ pre_t,
     const float* __restrict__ coeffs, const int* __restrict__ seeds, int seed, int stream_noise,
-    float* __restrict__ z_out, const __grid_constant__ SweepArgs a, int B, int nz, int nfour,
-    int steps, int residual) {
+    int row_base, float* __restrict__ z_out, const __grid_constant__ SweepArgs a, int B, int nz,
+    int nfour, int steps, int residual) {
   cg::cluster_group cluster = cg::this_cluster();
   extern __shared__ float4 smem4[];
   __shared__ uint64_t full[kStages];   // a weight stage has landed
@@ -429,7 +429,7 @@ __global__ void __launch_bounds__(kThreads, 1) reverse_sweep_kernel(
   if (tid < nrows)
     row_seed[tid] = seeds != nullptr
                         ? (uint32_t)seeds[row0 + tid]
-                        : damc::stream_row_seed((uint32_t)seed, (uint32_t)(row0 + tid));
+                        : damc::stream_row_seed((uint32_t)seed, (uint32_t)(row_base + row0 + tid));
   for (int e = tid; e < kRows * nz; e += kThreads) {
     const int r = e / nz;
     zs[e] = r < nrows ? z_in[(size_t)row0 * nz + e] : 0.f;  // ragged tile: zero rows
@@ -619,7 +619,8 @@ DAMC_ERROR_STRING_EXPORT
 namespace {
 
 using SweepKernel = void (*)(const float*, const float*, const float*, const float*, const float*,
-                             const int*, int, int, float*, const SweepArgs, int, int, int, int, int);
+                             const int*, int, int, int, float*, const SweepArgs, int, int, int, int,
+                             int);
 
 // The kernel of a row tile (4, 8, 12 or 16 rows a cluster), or null.
 SweepKernel kernel_for(int rows) {
@@ -677,12 +678,14 @@ extern "C" int damc_fused_qsweep_max_active_clusters(const int* dims, int nz, in
 // the biases). pre_x (B, sum dout) and pre_t (steps, sum dout) hold the
 // layers' columns side by side. rows = the row tile (4, 8, 12 or 16). Noise:
 // seeds = per-row int32 counter seeds (counter mode); else stream_noise !=
-// 0 draws stream mode from the scalar `seed`; else the sweep is noiseless.
+// 0 draws stream mode from the scalar `seed`, row r of the launch with the
+// seed of global row row_base + r (a rank's rows of a sharded batch);
+// else the sweep is noiseless.
 extern "C" int damc_fused_qsweep(const float* z, const float* fourier, const float* packed,
                                  const void* const* layer_ptrs, const int* dims, const float* pre_x,
                                  const float* pre_t, const float* coeffs, const int* seeds, int seed,
-                                 int stream_noise, float* out, int B, int nz, int nfour, int steps,
-                                 int residual, int rows, void* stream) {
+                                 int stream_noise, int row_base, float* out, int B, int nz,
+                                 int nfour, int steps, int residual, int rows, void* stream) {
   const SweepKernel kernel = kernel_for(rows);
   if (kernel == nullptr) return (int)cudaErrorInvalidValue;
   const SweepArgs a = make_args(packed, layer_ptrs, dims);
@@ -694,7 +697,7 @@ extern "C" int damc_fused_qsweep(const float* z, const float* fourier, const flo
   const cudaLaunchConfig_t cfg =
       launch_config((B + rows - 1) / rows, smem, static_cast<cudaStream_t>(stream), &attr);
   err = cudaLaunchKernelEx(&cfg, kernel, z, fourier, pre_x, pre_t, coeffs, seeds, seed,
-                           stream_noise, out, a, B, nz, nfour, steps, residual);
+                           stream_noise, row_base, out, a, B, nz, nfour, steps, residual);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

@@ -11,8 +11,10 @@ features' device and copies them to the host once, at `finalize`, where the
 unbiased covariance and the Frechet distance are formed in float64 numpy,
 with scipy's `sqrtm` as pytorch-fid does.
 
-The mesh-sharded accumulator of the JAX package (:74-173) is not ported
-(ROADMAP.md, queue 1, item 8).
+`compute_stats_sharded` is the data-parallel form (JAX's
+`make_stats_accumulator` and `compute_stats_sharded`, :74-173): each rank
+accumulates its rows of every batch in a `RunningStats`, and every
+`fold_every` batches the ranks' sums are all-reduced into the totals.
 """
 
 from __future__ import annotations
@@ -78,6 +80,46 @@ def compute_stats(feature_fn: FeatureFn, batches: Iterable) -> Tuple[np.ndarray,
     if stats is None:
         raise ValueError("no batches provided")
     return stats.finalize()
+
+
+def compute_stats_sharded(
+    feature_fn: FeatureFn, batches: Iterable, dim: int, fold_every: int = 16
+) -> Tuple[np.ndarray, np.ndarray]:
+    """(mu, sigma) of the features of the global batches, each rank of the
+    process group passing its own rows of each (every rank the same number
+    of batches). Each rank sums its rows in float64 as `compute_stats` does;
+    every `fold_every` batches, and after the last, the count and sums of
+    all ranks are all-reduced (one flat float64 buffer) into the totals,
+    so the result is `compute_stats` of the global batches up to the order
+    of the float64 sums. The JAX package folds a float32 device carry into
+    float64 host totals at the same points; here the carry is float64 from
+    the start and a fold is one collective in place of one a batch."""
+    local: Optional[RunningStats] = None
+    totals: Optional[torch.Tensor] = None  # [n, sum (dim), outer (dim * dim)]
+    pending = 0
+
+    def fold() -> None:
+        nonlocal totals, local, pending
+        flat = torch.cat([local.sum.new_tensor([float(local.n)]), local.sum, local.outer.reshape(-1)])
+        torch.distributed.all_reduce(flat)
+        totals = flat if totals is None else totals + flat
+        local, pending = RunningStats(dim, flat.device), 0
+
+    with torch.no_grad():
+        for batch in batches:
+            feats = feature_fn(torch.as_tensor(batch))
+            if local is None:
+                local = RunningStats(dim, feats.device)
+            local.update(feats)
+            pending += 1
+            if pending == fold_every:
+                fold()
+    if local is None:
+        raise ValueError("no batches provided")
+    if pending:
+        fold()
+    flat = totals.cpu().numpy()
+    return finalize_stats(int(round(flat[0])), flat[1:1 + dim], flat[1 + dim:].reshape(dim, dim))
 
 
 def frechet_distance(

@@ -16,6 +16,12 @@ before anything is launched, as JAX's `sample_q` chooses (:226-347):
   * "guided"  the unhoisted loop with classifier-free guidance
               (`cond_w` > 0 on a conditional draw).
 
+Under data parallelism (a `parallel.Mesh`), `sample_q(..., mesh=)` takes
+the global batch on every rank and splits K2's rows over the ranks (K4b,
+`fused_reverse_sweep_sharded`); `sample_q(..., row_base=)` runs K2 on a
+rank's own rows of a global batch (the training step's, already local),
+drawing what the unsharded launch draws for them.
+
 `sample_q_per_item` (serving: per-row counter noise) runs K2 only and
 raises for a denoiser K2 cannot take. Random draws come in as tensors, so
 a caller can feed the JAX package's. Keys keep the reference `_netQ_U`
@@ -31,7 +37,9 @@ from typing import Optional, Sequence, Tuple
 import torch
 from torch import nn
 
-from ..ops.cuda.fused_qsweep import denoiser_layer_params, fits_smem, fused_reverse_sweep
+from ..ops.cuda.fused_qsweep import (
+    denoiser_layer_params, fits_smem, fused_reverse_sweep, fused_reverse_sweep_sharded,
+)
 from ..ops.diffusion import diffusion_forward, logsnr_schedule, step_coefficients, sweep_logsnr_grid
 from ..ops.reverse_diffusion import reverse_diffusion_sample
 from .denoiser import LatentDenoiser
@@ -216,6 +224,8 @@ def sample_q(
     noise: Optional[torch.Tensor] = None,
     guide_noise: Optional[torch.Tensor] = None,
     generator: Optional[torch.Generator] = None,
+    mesh=None,
+    row_base: int = 0,
 ) -> torch.Tensor:
     """z ~ Q(. | x), or z ~ Q(.) when x is None, detached, from the normals
     `z_init` (B, nz) (`damc_tpu/models/amortizer.py:181-347`).
@@ -229,7 +239,14 @@ def sample_q(
     are `noise` (n, B, nz) and the guided branch's `guide_noise` (n, B, nz);
     what is not given is drawn from `generator`, a generator on z_init's
     device. The training step draws its chain inits with it, the evals
-    their samples and reconstructions, the inversion its Q codes."""
+    their samples and reconstructions, the inversion its Q codes.
+
+    On the "k2" route, `mesh` (JAX's `mesh=`, :295-297) takes the inputs
+    as the global batch on every rank and splits the sweep's rows over the
+    ranks (K4b); every rank gets the whole result. `row_base` says instead
+    that the inputs are a rank's rows from global row `row_base` on, and
+    seeds their stream noise as the global rows'. The other routes run
+    what they are given as it is."""
     conditional = xemb is not None or x is not None
     if xemb is None:
         if x is not None:
@@ -240,7 +257,11 @@ def sample_q(
             raise ValueError("sample_q needs xemb or x (posterior) or emb_noise (prior)")
     route = sweep_route(amortizer, cond_w, conditional)
     if route == "k2":
-        return _sweep(amortizer, xemb, z_init, layers, None, seed=seed)
+        if mesh is None:
+            return _sweep(amortizer, xemb, z_init, layers, None, seed=seed, row_base=row_base)
+        if row_base:
+            raise ValueError("sample_q: row_base names a rank's rows, mesh takes the global batch; not both")
+        return _sweep(amortizer, xemb, z_init, layers, None, mesh=mesh, seed=seed)
     p = amortizer.p
     guided, step_xs = None, None
     if route == "tables":
@@ -258,14 +279,15 @@ def sample_q(
     )
 
 
-def _sweep(amortizer: DAMCAmortizer, xemb, z_init, layers, step_tables, **noise) -> torch.Tensor:
+def _sweep(amortizer: DAMCAmortizer, xemb, z_init, layers, step_tables, mesh=None, **noise) -> torch.Tensor:
     """The hoisted n-step sweep from z_init under the embedding xemb, in
-    the fused kernel; `noise` is its seed or row_seeds."""
+    the fused kernel (K4b over `mesh`'s ranks when given); `noise` is its
+    seed (and row_base) or row_seeds."""
     grid, coeffs = step_tables if step_tables is not None else amortizer.step_tables(z_init.device)
     tables = amortizer.p.sample_tables(grid, xemb)
     fourier, layer_tuples = layers if layers is not None else denoiser_layer_params(amortizer.p)
-    return fused_reverse_sweep(
-        z_init, fourier, layer_tuples, tables["pre_x"], tables["pre_t"], coeffs,
-        steps=amortizer.n_interval, with_noise=amortizer.with_noise,
-        residual=amortizer.p.residual, **noise,
-    )
+    kw = dict(steps=amortizer.n_interval, with_noise=amortizer.with_noise, residual=amortizer.p.residual)
+    args = (z_init, fourier, layer_tuples, tables["pre_x"], tables["pre_t"], coeffs)
+    if mesh is not None:
+        return fused_reverse_sweep_sharded(mesh, *args, **kw, **noise)
+    return fused_reverse_sweep(*args, **kw, **noise)

@@ -15,8 +15,18 @@ of its own, `fused_prior_langevin.bf16`, whose `launches` counts its.
 Noise modes, as the TPU kernel's: counter (`row_seeds`, per-chain int32
 seeds; serving), stream (`seed`, one int32 for the launch; training) and
 noiseless. Stream mode draws row i's noise from
-`ops/noise.py::stream_row_seeds(seed, B)[i]`, not from the TPU's on-core
-PRNG (see `ops/noise.py`).
+`ops/noise.py::stream_row_seeds(seed, B, row_base=row_base)[i]`, not from
+the TPU's on-core PRNG (see `ops/noise.py`).
+
+K4a, `fused_prior_langevin_sharded` (counterpart of the TPU's
+`fused_prior_langevin_sharded`, `damc_tpu/ops/pallas/fused_langevin.py:335`,
+K1 inside `jax.shard_map`): the chains of a global batch split over the
+ranks of a `parallel.Mesh`, the weights replicated. Each rank launches K1 on
+its rows with `row_base` its first global row, and the rows are gathered:
+in every noise mode the result equals one unsharded launch bit for bit,
+since a chain's arithmetic and its stream seed depend on its global row
+alone. The TPU kernel offsets each shard's seed instead, so its sharded
+stream draws are not its unsharded ones.
 
 Dot precision, as the TPU kernel's `dots_dtype`: "float32", or "bfloat16":
 the four products take operands rounded to bfloat16 (the weights, z,
@@ -33,6 +43,7 @@ from typing import List, Optional, Tuple
 
 import torch
 
+from ...parallel.mesh import gather_rows, pad_rows
 from ..noise import counter_normal, int32_seed, stream_row_seeds
 from . import build
 
@@ -114,7 +125,7 @@ def _bf16_operand(t: torch.Tensor) -> torch.Tensor:
 
 def prior_langevin_plain(
     z, k1, b1, k2, b2, k3, seed=None, steps: int = 1, step_size: float = 0.1,
-    with_noise: bool = True, row_seeds=None, dots_dtype: str = "float32",
+    with_noise: bool = True, row_seeds=None, dots_dtype: str = "float32", row_base: int = 0,
 ) -> torch.Tensor:
     """The kernel's function as a Python loop over steps (torch.matmul).
     `row_seeds` wins over `seed`. With dots_dtype "bfloat16" the operands
@@ -128,7 +139,7 @@ def prior_langevin_plain(
     k1, k2 = op(k1), op(k2)
     z = z.float()
     if with_noise and row_seeds is None:
-        row_seeds = stream_row_seeds(seed, z.shape[0], z.device)
+        row_seeds = stream_row_seeds(seed, z.shape[0], z.device, row_base)
     for step in range(steps):
         h1p = op(z) @ k1 + b1
         h2p = op(_lrelu(h1p)) @ k2 + b2
@@ -143,15 +154,17 @@ def prior_langevin_plain(
 
 def fused_prior_langevin(
     z, k1, b1, k2, b2, k3, seed=None, steps: int = 1, step_size: float = 0.1,
-    with_noise: bool = True, row_seeds=None, dots_dtype: str = "float32",
+    with_noise: bool = True, row_seeds=None, dots_dtype: str = "float32", row_base: int = 0,
 ) -> torch.Tensor:
     """Run the whole K-step chain z (B, nz) -> z_K on the EBM weights
     (k1, b1, k2, b2, k3) of `ebm_params_to_dense_weights`.
 
     Noise: `row_seeds` (B,) int32 selects counter mode, chain i a function
     of (row_seeds[i], z[i]) only; otherwise `seed` (int32) selects stream
-    mode, chain i a function of (seed, i, z[i]). `row_seeds` wins when both
-    are given. `dots_dtype` ("float32" or "bfloat16") selects the variant.
+    mode, chain i a function of (seed, row_base + i, z[i]): z holds rows
+    row_base .. row_base + B - 1 of a global batch (a rank's rows; 0 for a
+    whole batch). `row_seeds` wins when both are given. `dots_dtype`
+    ("float32" or "bfloat16") selects the variant.
 
     The chain runs as the custom op `torch.ops.damc.fused_prior_langevin`:
     its CPU implementation is the plain version, its CUDA implementation
@@ -164,7 +177,7 @@ def fused_prior_langevin(
     return torch.ops.damc.fused_prior_langevin(
         z, k1, b1, k2, b2, k3, row_seeds if with_noise else None,
         None if seed is None else int32_seed(seed), int(steps), float(step_size),
-        bool(with_noise), dots_dtype,
+        bool(with_noise), dots_dtype, int(row_base),
     )
 
 
@@ -176,22 +189,24 @@ fused_prior_langevin.bf16 = types.SimpleNamespace(launches=0)
 def _chain_op(
     z: torch.Tensor, k1: torch.Tensor, b1: torch.Tensor, k2: torch.Tensor, b2: torch.Tensor,
     k3: torch.Tensor, row_seeds: Optional[torch.Tensor], seed: Optional[int], steps: int,
-    step_size: float, with_noise: bool, dots_dtype: str,
+    step_size: float, with_noise: bool, dots_dtype: str, row_base: int = 0,
 ) -> torch.Tensor:
     out = prior_langevin_plain(
         z, k1, b1, k2, b2, k3, seed=seed, steps=steps, step_size=step_size,
-        with_noise=with_noise, row_seeds=row_seeds, dots_dtype=dots_dtype,
+        with_noise=with_noise, row_seeds=row_seeds, dots_dtype=dots_dtype, row_base=row_base,
     )
     return out.clone() if out is z else out  # an op's output may not alias its input
 
 
 @_chain_op.register_fake
-def _chain_fake(z, k1, b1, k2, b2, k3, row_seeds, seed, steps, step_size, with_noise, dots_dtype):
+def _chain_fake(z, k1, b1, k2, b2, k3, row_seeds, seed, steps, step_size, with_noise, dots_dtype,
+                row_base=0):
     return z.new_empty(z.shape, dtype=torch.float32)
 
 
 @_chain_op.register_kernel("cuda")
-def _chain_launch(z, k1, b1, k2, b2, k3, row_seeds, seed, steps, step_size, with_noise, dots_dtype):
+def _chain_launch(z, k1, b1, k2, b2, k3, row_seeds, seed, steps, step_size, with_noise, dots_dtype,
+                  row_base=0):
     b, nz = z.shape
     ndf = k1.shape[1]
     if k1.shape != (nz, ndf) or k2.shape != (ndf, ndf) or b1.numel() != ndf or b2.numel() != ndf or k3.numel() != ndf:
@@ -216,7 +231,7 @@ def _chain_launch(z, k1, b1, k2, b2, k3, row_seeds, seed, steps, step_size, with
     rc = lib.damc_fused_langevin(
         z32.data_ptr(), *[t.data_ptr() for t in w],
         None if seeds is None else seeds.data_ptr(), int32_seed(seed) if stream else 0,
-        int(stream), int(bf16), out.data_ptr(),
+        int(stream), int(row_base), int(bf16), out.data_ptr(),
         b, nz, ndf, steps, float(step_size), 0.5 * step_size * step_size,
         torch.cuda.current_stream(dev).cuda_stream,
     )
@@ -234,9 +249,9 @@ def _library() -> ctypes.CDLL:
     fn = lib.damc_fused_langevin
     if fn.argtypes is None:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        # z, k1, b1, k2, b2, k3, seeds, seed, stream_noise, bf16_dots, out, B,
-        # nz, ndf, steps, step_size, coeff, stream
-        fn.argtypes = [p, p, p, p, p, p, p, i, i, i, p, i, i, i, i, f, f, p]
+        # z, k1, b1, k2, b2, k3, seeds, seed, stream_noise, row_base, bf16_dots,
+        # out, B, nz, ndf, steps, step_size, coeff, stream
+        fn.argtypes = [p, p, p, p, p, p, p, i, i, i, i, p, i, i, i, i, f, f, p]
         fn.restype = ctypes.c_int
         geometry = (ctypes.c_int * 3)()
         lib.damc_fused_langevin_geometry(geometry)
@@ -245,3 +260,28 @@ def _library() -> ctypes.CDLL:
         if any(lib.damc_fused_langevin_smem_bytes(nz, 200) != smem_bytes(nz, 200) for nz in (128, 100, 8)):
             raise RuntimeError("fused_langevin.cu and fused_langevin.py disagree on shared memory")
     return lib
+
+
+def fused_prior_langevin_sharded(
+    mesh, z, k1, b1, k2, b2, k3, seed=None, steps: int = 1, step_size: float = 0.1,
+    with_noise: bool = True, row_seeds=None, dots_dtype: str = "float32",
+) -> torch.Tensor:
+    """K4a: `fused_prior_langevin` on the global batch z (B, nz), which
+    every rank of `mesh` holds, with its chains split over the ranks. The
+    batch is padded to a multiple of the world with zero rows (dropped
+    again); each rank runs its local_b rows with row_base = rank * local_b
+    (counter-mode `row_seeds` split with the rows, the weights replicated),
+    and the rows are gathered onto every rank. Equal to the unsharded
+    launch bit for bit in every mode. A world of 1 (or no mesh) launches
+    K1 on the whole batch."""
+    kw = dict(seed=seed, steps=steps, step_size=step_size, with_noise=with_noise, dots_dtype=dots_dtype)
+    if mesh is None or mesh.world == 1:
+        return fused_prior_langevin(z, k1, b1, k2, b2, k3, row_seeds=row_seeds, **kw)
+    b = z.shape[0]
+    local_b = -(-b // mesh.world)
+    rows = slice(mesh.rank * local_b, (mesh.rank + 1) * local_b)
+    z_l = pad_rows(z, local_b * mesh.world)[rows]
+    if with_noise and row_seeds is not None:
+        row_seeds = pad_rows(torch.as_tensor(row_seeds, device=z.device), local_b * mesh.world)[rows]
+    out = fused_prior_langevin(z_l, k1, b1, k2, b2, k3, row_seeds=row_seeds, row_base=rows.start, **kw)
+    return gather_rows(mesh, out)[:b]

@@ -14,8 +14,17 @@ kernel launches.
 Noise modes, as the TPU kernel's: counter (`row_seeds`, per-row int32
 seeds; serving), stream (`seed`, one int32 for the launch; the training
 step's Q_ema draw) and noiseless. Stream mode draws row i's noise from
-`ops/noise.py::stream_row_seeds(seed, B)[i]`, not from the TPU's on-core
-PRNG (see `ops/noise.py`).
+`ops/noise.py::stream_row_seeds(seed, B, row_base=row_base)[i]`, not from
+the TPU's on-core PRNG (see `ops/noise.py`).
+
+K4b, `fused_reverse_sweep_sharded` (counterpart of the TPU's
+`fused_reverse_sweep_sharded`, `damc_tpu/ops/pallas/fused_qsweep.py:364`,
+K2 inside `jax.shard_map`): the rows of a global batch and of `pre_x` split
+over the ranks of a `parallel.Mesh`, while `pre_t`, the coefficients and
+the weights replicate. Each rank launches K2 on its rows with `row_base`
+its first global row, and the rows are gathered: equal to one unsharded
+launch bit for bit in every noise mode (a row's summation order never
+depends on the batch or the row tile, `chunk_rows`).
 """
 
 from __future__ import annotations
@@ -30,6 +39,7 @@ from typing import List, Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
+from ...parallel.mesh import gather_rows, pad_rows
 from ..noise import counter_normal, int32_seed, stream_row_seeds
 from . import build
 
@@ -221,6 +231,7 @@ def reverse_sweep_plain(
     with_noise: bool = True,
     residual: bool = True,
     row_seeds=None,
+    row_base: int = 0,
 ) -> torch.Tensor:
     """The kernel's function as a Python loop over steps (torch.matmul), in
     the dtype of its inputs (float32; float64 gives a reference).
@@ -229,7 +240,7 @@ def reverse_sweep_plain(
     z = z_init
     nz = z.shape[1]
     if with_noise and row_seeds is None:
-        row_seeds = stream_row_seeds(seed, z.shape[0], z.device)
+        row_seeds = stream_row_seeds(seed, z.shape[0], z.device, row_base)
     for step in range(steps):
         films = []
         for (_, _, _, _, gate_k, gate_b, hyper_k), px, pt in zip(layers, pre_x, pre_t):
@@ -280,6 +291,7 @@ def fused_reverse_sweep(
     with_noise: bool = True,
     residual: bool = True,
     row_seeds=None,
+    row_base: int = 0,
 ) -> torch.Tensor:
     """Run the whole n-step reverse sweep: z_init (B, nz) -> x_hat (B, nz).
 
@@ -287,8 +299,10 @@ def fused_reverse_sweep(
     sample tables and `coeffs` (n, 6) the `step_coefficients` table.
     Noise: `row_seeds` (B,) int32 selects counter mode, row i a function of
     (row_seeds[i], z_init[i], pre_x[*][i]) only; otherwise `seed` (int32)
-    selects stream mode, row i a function of (seed, i, z_init[i],
-    pre_x[*][i]). `row_seeds` wins when both are given.
+    selects stream mode, row i a function of (seed, row_base + i,
+    z_init[i], pre_x[*][i]): the rows are rows row_base .. row_base + B - 1
+    of a global batch (a rank's rows; 0 for a whole batch). `row_seeds`
+    wins when both are given.
 
     The sweep runs as the custom op `torch.ops.damc.fused_reverse_sweep`,
     `layers` flattened into one list of 7 tensors a layer (the widths come
@@ -303,11 +317,49 @@ def fused_reverse_sweep(
     return torch.ops.damc.fused_reverse_sweep(
         z_init, fourier, [t for lt in layers for t in lt], list(pre_x), list(pre_t), coeffs,
         row_seeds if with_noise else None, None if seed is None else int32_seed(seed),
-        int(steps), bool(with_noise), bool(residual),
+        int(steps), bool(with_noise), bool(residual), int(row_base),
     )
 
 
 fused_reverse_sweep.launches = 0
+
+
+def fused_reverse_sweep_sharded(
+    mesh,
+    z_init: torch.Tensor,
+    fourier: torch.Tensor,
+    layers: Sequence[LayerTuple],
+    pre_x: Sequence[torch.Tensor],
+    pre_t: Sequence[torch.Tensor],
+    coeffs: torch.Tensor,
+    seed=None,
+    steps: int = 1,
+    with_noise: bool = True,
+    residual: bool = True,
+    row_seeds=None,
+) -> torch.Tensor:
+    """K4b: `fused_reverse_sweep` on the global batch z_init (B, nz) and its
+    `pre_x` tables, which every rank of `mesh` holds, with the rows split
+    over the ranks. Rows are padded to a multiple of the world with zeros
+    (dropped again); each rank runs its local_b rows of z_init, `pre_x`
+    and counter-mode `row_seeds` with row_base = rank * local_b, `pre_t`,
+    `coeffs` and the weights replicated, and the rows are gathered onto
+    every rank. Equal to the unsharded launch bit for bit in every mode. A
+    world of 1 (or no mesh) launches K2 on the whole batch."""
+    kw = dict(seed=seed, steps=steps, with_noise=with_noise, residual=residual)
+    if mesh is None or mesh.world == 1:
+        return fused_reverse_sweep(z_init, fourier, layers, pre_x, pre_t, coeffs, row_seeds=row_seeds, **kw)
+    b = z_init.shape[0]
+    local_b = -(-b // mesh.world)
+    rows = slice(mesh.rank * local_b, (mesh.rank + 1) * local_b)
+    local = lambda t: pad_rows(t, local_b * mesh.world)[rows]
+    if with_noise and row_seeds is not None:
+        row_seeds = local(torch.as_tensor(row_seeds, device=z_init.device))
+    out = fused_reverse_sweep(
+        local(z_init), fourier, layers, [local(t) for t in pre_x], pre_t, coeffs,
+        row_seeds=row_seeds, row_base=rows.start, **kw,
+    )
+    return gather_rows(mesh, out)[:b]
 
 
 def _layer_tuples(flat: Sequence[torch.Tensor]) -> List[LayerTuple]:
@@ -319,23 +371,25 @@ def _sweep_op(
     z_init: torch.Tensor, fourier: torch.Tensor, layers: List[torch.Tensor],
     pre_x: List[torch.Tensor], pre_t: List[torch.Tensor], coeffs: torch.Tensor,
     row_seeds: Optional[torch.Tensor], seed: Optional[int], steps: int, with_noise: bool,
-    residual: bool,
+    residual: bool, row_base: int = 0,
 ) -> torch.Tensor:
     out = reverse_sweep_plain(
         z_init, fourier, _layer_tuples(layers), pre_x, pre_t, coeffs, seed=seed, steps=steps,
-        with_noise=with_noise, residual=residual, row_seeds=row_seeds,
+        with_noise=with_noise, residual=residual, row_seeds=row_seeds, row_base=row_base,
     )
     return out.clone() if out is z_init else out  # an op's output may not alias its input
 
 
 @_sweep_op.register_fake
-def _sweep_fake(z_init, fourier, layers, pre_x, pre_t, coeffs, row_seeds, seed, steps, with_noise, residual):
+def _sweep_fake(z_init, fourier, layers, pre_x, pre_t, coeffs, row_seeds, seed, steps, with_noise, residual,
+                row_base=0):
     dtype = torch.float32 if z_init.device.type == "cuda" else z_init.dtype
     return z_init.new_empty(z_init.shape, dtype=dtype)
 
 
 @_sweep_op.register_kernel("cuda")
-def _sweep_launch(z_init, fourier, layers, pre_x, pre_t, coeffs, row_seeds, seed, steps, with_noise, residual):
+def _sweep_launch(z_init, fourier, layers, pre_x, pre_t, coeffs, row_seeds, seed, steps, with_noise, residual,
+                  row_base=0):
     layers = _layer_tuples(layers)
     nz, nfour, dins, douts = _dims(fourier, layers)
     _check_unet(nz, nfour, dins, douts)
@@ -375,7 +429,7 @@ def _sweep_launch(z_init, fourier, layers, pre_x, pre_t, coeffs, row_seeds, seed
     rc = lib.damc_fused_qsweep(
         z.data_ptr(), four.data_ptr(), packed.data_ptr(), ptrs, dims, px.data_ptr(), pt.data_ptr(),
         cf.data_ptr(), None if seeds is None else seeds.data_ptr(),
-        int32_seed(seed) if stream else 0, int(stream), out.data_ptr(),
+        int32_seed(seed) if stream else 0, int(stream), int(row_base), out.data_ptr(),
         b, nz, nfour, steps, int(residual), rows, torch.cuda.current_stream(dev).cuda_stream,
     )
     build.check(lib, rc, "fused_reverse_sweep")
@@ -390,8 +444,9 @@ def _library() -> ctypes.CDLL:
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
         # z, fourier, packed, layer_ptrs, dims, pre_x, pre_t, coeffs, seeds,
-        # seed, stream_noise, out, B, nz, nfour, steps, residual, rows, stream
-        fn.argtypes = [p, p, p, p, p, p, p, p, p, i, i, p, i, i, i, i, i, i, p]
+        # seed, stream_noise, row_base, out, B, nz, nfour, steps, residual,
+        # rows, stream
+        fn.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, p, i, i, i, i, i, i, p]
         fn.restype = ctypes.c_int
         geometry = (ctypes.c_int * 9)()
         lib.damc_fused_qsweep_geometry(geometry)

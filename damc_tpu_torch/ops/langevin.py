@@ -6,8 +6,9 @@ training step goes through it (through G and E, on cuDNN), as the JAX
 package runs it through XLA. `prior_langevin_auto` sends the EBM prior chain
 to the fused kernel K1 (`ops/cuda/fused_langevin.py`) when the EBM is the
 standard 2-hidden MLP and `use_pallas` is on (JAX's switch name), else to
-`langevin_sample`. `adam_latent_descent` is the StyleGAN inversion's Adam
-refinement of latents.
+`langevin_sample`; with a `parallel.Mesh` the kernel is K4a, the chains
+split over the ranks (`fused_prior_langevin_sharded`). `adam_latent_descent`
+is the StyleGAN inversion's Adam refinement of latents.
 """
 
 from __future__ import annotations
@@ -18,7 +19,9 @@ from typing import Callable, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from .cuda.fused_langevin import ebm_params_to_dense_weights, fused_prior_langevin
+from .cuda.fused_langevin import (
+    ebm_params_to_dense_weights, fused_prior_langevin, fused_prior_langevin_sharded,
+)
 
 # An energy maps a batch of latents (B, nz) to per-chain energies (B,).
 EnergyFn = Callable[[torch.Tensor], torch.Tensor]
@@ -138,6 +141,7 @@ def prior_langevin_auto(
     use_pallas: bool = True,
     noise: Optional[torch.Tensor] = None,
     dots_dtype: str = "float32",
+    mesh=None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Prior-Langevin chain; returns (z_final, final energy per chain).
 
@@ -149,14 +153,20 @@ def prior_langevin_auto(
     runs `langevin_sample` by autograd with the EBM frozen, its per-step
     normals `noise` (steps, B, nz) or drawn from `generator`, in float32
     whatever `dots_dtype` says, and honours neither seed
-    (`damc_tpu/ops/langevin.py:166-253`)."""
+    (`damc_tpu/ops/langevin.py:166-253`).
+
+    With a `mesh` (JAX's `mesh=`, :237-238), z_init is the global batch,
+    which every rank holds: the kernel's chains split over the ranks (K4a)
+    and every rank gets the whole result, equal to the unsharded chain bit
+    for bit; the autograd chain runs the whole batch on every rank."""
     if use_pallas and ebm.n_hidden == 2 and ebm.nez == 1:
+        kw = dict(seed=seed, row_seeds=row_seeds, steps=steps, step_size=float(step_size),
+                  with_noise=with_noise, dots_dtype=dots_dtype)
         with torch.no_grad():
-            z = fused_prior_langevin(
-                z_init, *ebm_params_to_dense_weights(ebm), seed=seed, row_seeds=row_seeds,
-                steps=steps, step_size=float(step_size), with_noise=with_noise,
-                dots_dtype=dots_dtype,
-            )
+            if mesh is None:
+                z = fused_prior_langevin(z_init, *ebm_params_to_dense_weights(ebm), **kw)
+            else:
+                z = fused_prior_langevin_sharded(mesh, z_init, *ebm_params_to_dense_weights(ebm), **kw)
     else:
         if row_seeds is not None or seed is not None:
             raise ValueError(

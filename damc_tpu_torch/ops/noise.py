@@ -19,7 +19,13 @@ from the same counter stream: row i's seed is `stream_row_seeds(seed, B)[i]`
 grid block instead (`pltpu.prng_seed(seed + program_id)`,
 `damc_tpu/ops/pallas/fused_langevin.py:178-180`), whose bits no GPU can
 give; here a row's noise depends on (seed, row) and not on the block
-layout, so it does not change when the batch grows. Both are standard
+layout, so it does not change when the batch grows. A sharded launch
+(`fused_prior_langevin_sharded`, `fused_reverse_sweep_sharded`) passes its
+first global row as `row_base`, so the rows of every rank draw what one
+unsharded launch draws for them: the port's counterpart of the TPU's
+"every block on every shard draws a distinct stream"
+(`damc_tpu/ops/pallas/fused_langevin.py:403`, seed + axis_index *
+local_blocks), which gives the same distribution but other draws. Both are standard
 normals; the JAX package documents the same kind of difference between
 its fused and scan sweeps (`damc_tpu/models/amortizer.py:211-214`).
 
@@ -81,11 +87,14 @@ def int32_seed(seed) -> int:
     return s - (1 << 32) if s >= (1 << 31) else s
 
 
-def stream_row_seeds(seed: int, b: int, device=None) -> torch.Tensor:
+def stream_row_seeds(seed: int, b: int, device=None, row_base: int = 0) -> torch.Tensor:
     """(b,) uint32 row seeds (as int64) of stream mode for the int32 `seed`:
-    row i gets fmix32(seed ^ i * ROWC), as `stream_row_seed` in
-    `csrc/counter_noise.cuh`. Row i's seed does not depend on b."""
-    rows = torch.arange(b, dtype=torch.int64, device=device)
+    row i gets fmix32(seed ^ (row_base + i) * ROWC), as `stream_row_seed`
+    in `csrc/counter_noise.cuh`. Row i's seed does not depend on b, and
+    the b rows from `row_base` on are rows row_base .. row_base + b - 1 of
+    any longer batch: a rank's slice of a sharded batch draws what the
+    unsharded launch draws for those rows."""
+    rows = torch.arange(row_base, row_base + b, dtype=torch.int64, device=device)
     return mix32((int(seed) & _M32) ^ _mul32(rows, ROWC))
 
 

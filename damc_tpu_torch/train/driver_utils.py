@@ -5,8 +5,19 @@ log and checkpoint directories, the contrastive-divergence gap monitor, the
 preemption checkpoint, the training-batch source (`make_batch_source`:
 the device-resident store or the host feed), and the loop around the
 iterations that the gen_recon and anomaly drivers share (`MetricsReport`,
-`run_loop`). The multi-host pieces (host shards, metric broadcast) are not
-ported (ROADMAP.md, queue 1, item 8).
+`run_loop`).
+
+Data parallelism (a `parallel.Mesh`): every rank is a process, so these
+follow the JAX package's multi-host branches. Each rank reads its own
+shard of the training set (`host_shard`) in batches of B / world
+(`local_batch_size`), seeded seed + rank * 7919; rank 0 alone writes the
+logs, grids and checkpoints (`is_primary`, `init_driver_logging`,
+`save_state`: the other ranks wait at a barrier after each save); every
+rank resumes from rank 0's path (`restore_for_resume`); a preemption
+signal stops every rank at the same iteration once one rank has it
+(`shutdown_agreed`); and a score that gates a save is rank 0's on every
+rank (`broadcast_metric`). Every rank holds a whole replica of the state,
+so JAX's `host_local_state` has no counterpart.
 """
 
 from __future__ import annotations
@@ -19,13 +30,87 @@ from typing import Callable, Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..data.device_data import DEFAULT_DEVICE_BUDGET_BYTES, DeviceDataset, fits_device
 from ..data.native_loader import make_loader
 from ..data.prefetch import Prefetcher
+from ..parallel.mesh import Mesh, broadcast_object, replicate
 from ..utils.checkpoint import latest_step, restore_checkpoint, save_checkpoint
 from ..utils.logging import MetricsLogger
 from ..utils.preemption import graceful_shutdown
+
+
+def is_primary(mesh: Optional[Mesh]) -> bool:
+    """Whether this process writes the run's files: rank 0, or the only one."""
+    return mesh is None or mesh.rank == 0
+
+
+def host_shard(images, mesh: Optional[Mesh]):
+    """This rank's disjoint share of the training set, strided (every
+    world-th image from its rank on), as JAX's `host_shard`; the whole set
+    without a mesh."""
+    return images if mesh is None else images[mesh.rank::mesh.world]
+
+
+def local_batch_size(global_batch: int, mesh: Optional[Mesh]) -> int:
+    """This rank's share of the global training batch."""
+    if mesh is None:
+        return global_batch
+    if global_batch % mesh.world:
+        raise ValueError(f"global batch_size {global_batch} must divide across {mesh.world} ranks")
+    return global_batch // mesh.world
+
+
+def shutdown_agreed(shutdown, mesh: Optional[Mesh]) -> bool:
+    """Whether any rank has a preemption signal (an all-reduce MAX of the
+    flag, at the same loop point on every rank): every rank then stops at
+    the same iteration, none is left in a collective of the next one."""
+    local = bool(shutdown)
+    if mesh is None:
+        return local
+    flag = torch.tensor([int(local)], dtype=torch.int32, device=mesh.device)
+    dist.all_reduce(flag, op=dist.ReduceOp.MAX)
+    return bool(flag.item())
+
+
+def broadcast_metric(value: float, mesh: Optional[Mesh]) -> float:
+    """Rank 0's value on every rank. A branch into a save (the best
+    checkpoint) is gated on it: the ranks' evals may differ in the last
+    ulp, and a save some ranks enter and others skip would leave them at
+    different barriers."""
+    if mesh is None:
+        return float(value)
+    t = torch.tensor([float(value)], dtype=torch.float64, device=mesh.device)
+    dist.broadcast(t, src=0)
+    return float(t.item())
+
+
+def save_state(ckpt_dir: str, name: str, state, mesh: Optional[Mesh]) -> Optional[str]:
+    """`save_checkpoint` on rank 0; every rank then waits at a barrier, so
+    none reads or replaces the checkpoint before it is whole."""
+    path = save_checkpoint(ckpt_dir, name, state) if is_primary(mesh) else None
+    if mesh is not None:
+        dist.barrier()
+    return path
+
+
+def state_tensors(state) -> list:
+    """The parameters and buffers of every network of a `TrainState`."""
+    m = state.models
+    mods = [m.generator, m.ebm, m.amortizer, state.amortizer_ema]
+    return [t for mod in mods if mod is not None for t in mod.state_dict().values()]
+
+
+def replicate_state(mesh: Optional[Mesh], state, global_batch: int) -> None:
+    """Before a data-parallel run (JAX's `make_step_fn` under a mesh): the
+    global batch must divide over the ranks, and every network is made
+    rank 0's on every rank. They are built from the one seed, or restored
+    from the one checkpoint, so this changes nothing unless a rank went
+    astray. A no-op without a mesh."""
+    if mesh is not None:
+        local_batch_size(global_batch, mesh)
+        replicate(mesh, state_tensors(state))
 
 
 def resolve_resume_path(resume_path: Optional[str], ckpt_dir: Optional[str]) -> Optional[str]:
@@ -37,25 +122,29 @@ def resolve_resume_path(resume_path: Optional[str], ckpt_dir: Optional[str]) -> 
     return os.path.join(ckpt_dir, str(step_no)) if step_no is not None else None
 
 
-def restore_for_resume(state, resume_path: Optional[str], ckpt_dir: Optional[str]):
+def restore_for_resume(state, resume_path: Optional[str], ckpt_dir: Optional[str], mesh: Optional[Mesh] = None):
     """Returns (state, start_iter), restoring the whole state in place when
-    resuming: weights, Q_ema, every optimizer and the generator."""
-    resume_path = resolve_resume_path(resume_path, ckpt_dir)
+    resuming: weights, Q_ema, every optimizer and the generator. With a
+    mesh every rank restores the path rank 0 resolved."""
+    resume_path = broadcast_object(mesh, resolve_resume_path(resume_path, ckpt_dir))
     if not resume_path:
         return state, 0
     directory, name = os.path.split(resume_path.rstrip("/"))
     state = restore_checkpoint(directory, name, state)
     start_iter = int(state.step)
-    print(f"[damc] resumed from {resume_path} at iteration {start_iter}", flush=True)
+    if is_primary(mesh):
+        print(f"[damc] resumed from {resume_path} at iteration {start_iter}", flush=True)
     return state, start_iter
 
 
-def init_driver_logging(log_dir: Optional[str]) -> Tuple[MetricsLogger, Optional[str]]:
+def init_driver_logging(log_dir: Optional[str], mesh: Optional[Mesh] = None) -> Tuple[MetricsLogger, Optional[str]]:
     """(logger, ckpt_dir): metrics go to <log_dir>/metrics.jsonl and
     checkpoints to <log_dir>/ckpt; without a log_dir, to stdout only and
-    nowhere."""
+    nowhere. With a mesh, rank 0 alone writes and echoes the metrics, and
+    every rank knows ckpt_dir (to resume from it)."""
     ckpt_dir = os.path.join(log_dir, "ckpt") if log_dir else None
-    return MetricsLogger(log_dir), ckpt_dir
+    primary = is_primary(mesh)
+    return MetricsLogger(log_dir if primary else None, echo=primary), ckpt_dir
 
 
 def cd_history_path(logger_path: Optional[str], resume_path: Optional[str]) -> Optional[str]:
@@ -98,7 +187,10 @@ def put_batch(x_np: np.ndarray, device: torch.device) -> torch.Tensor:
     return x.pin_memory().to(device, non_blocking=True)
 
 
-def make_batch_source(train_images, tc, seed: int, device: Union[str, torch.device], augment_flip: bool = True):
+def make_batch_source(
+    train_images, tc, seed: int, device: Union[str, torch.device], augment_flip: bool = True,
+    mesh: Optional[Mesh] = None,
+):
     """One `next_batch()` per training iteration, on `device` either way
     (counterpart of `damc_tpu/train/driver_utils.py::make_batch_source`).
 
@@ -114,12 +206,20 @@ def make_batch_source(train_images, tc, seed: int, device: Union[str, torch.devi
         background `Prefetcher` where the loader has no threads of its own,
         then `put_batch`.
 
+    With a mesh, this rank's shard of the store (`host_shard`) in batches
+    of B / world (`local_batch_size`), seeded seed + rank * 7919, through
+    the same placement rule.
+
     Returns (next_batch, close, placement); `close()` stops the host
     loader's threads."""
     placement = getattr(tc, "data_placement", "auto")
     if placement not in ("auto", "device", "host"):
         raise ValueError(f"data_placement must be auto|device|host, got {placement!r}")
     device = torch.device(device)
+    batch_size = local_batch_size(tc.batch_size, mesh)
+    if mesh is not None:
+        train_images = host_shard(train_images, mesh)
+        seed = seed + mesh.rank * 7919
     budget_gb = getattr(tc, "data_device_budget_gb", None)
     budget = int(budget_gb * (1 << 30)) if budget_gb is not None else DEFAULT_DEVICE_BUDGET_BYTES
     eligible = fits_device(train_images, budget)
@@ -130,11 +230,11 @@ def make_batch_source(train_images, tc, seed: int, device: Union[str, torch.devi
         )
     if placement != "host" and eligible:
         stream = DeviceDataset(
-            train_images, batch_size=tc.batch_size, augment_flip=augment_flip, seed=seed, device=device,
+            train_images, batch_size=batch_size, augment_flip=augment_flip, seed=seed, device=device,
         ).stream()
         return (lambda: next(stream)[0]), (lambda: None), "device"
 
-    loader = make_loader(train_images, batch_size=tc.batch_size, shuffle=True, drop_last=True,
+    loader = make_loader(train_images, batch_size=batch_size, shuffle=True, drop_last=True,
                          augment_flip=augment_flip, seed=seed)
     stream = make_stream(loader)
 
@@ -226,11 +326,13 @@ def cd_gap_ceiling(e_energy_reg: float) -> Optional[float]:
     return 1.25 / e_energy_reg if e_energy_reg > 0.0 else None
 
 
-def preemption_checkpoint(shutdown, ckpt_dir: Optional[str], it: int, state) -> None:
-    """Save the full state at a signal-interrupted iteration boundary."""
+def preemption_checkpoint(shutdown, ckpt_dir: Optional[str], it: int, state, mesh: Optional[Mesh] = None) -> None:
+    """Save the full state at a signal-interrupted iteration boundary (a
+    rank that never had the signal reports signum None)."""
     if ckpt_dir:
-        path = save_checkpoint(ckpt_dir, str(it), state)
-        print(f"[damc] signal {shutdown.signum}: checkpointed to {path}; exiting", flush=True)
+        path = save_state(ckpt_dir, str(it), state, mesh)
+        if is_primary(mesh):
+            print(f"[damc] signal {shutdown.signum}: checkpointed to {path}; exiting", flush=True)
 
 
 class MetricsReport:
@@ -261,6 +363,7 @@ class MetricsReport:
 def run_loop(
     tc, state, start_iter: int, iterations: int, ckpt_dir: Optional[str],
     iterate: Callable[[int], None], run_eval: Optional[Callable[[int], None]] = None,
+    mesh: Optional[Mesh] = None,
 ) -> bool:
     """The iterations [start_iter, iterations) of a driver, as the JAX
     drivers run them: before each, a SIGTERM or SIGINT checkpoints `state`
@@ -269,21 +372,23 @@ def run_loop(
     checkpoint and every `eval_every` a `run_eval(it)`. The reference's loop
     is inclusive of the last iteration and this one keeps step ==
     iterations, so after the last one the tail is saved and scored here
-    unless the intervals just did it. Returns whether a signal stopped it."""
+    unless the intervals just did it. Returns whether a signal stopped it.
+    With a mesh the ranks agree on the signal (`shutdown_agreed`) and rank
+    0 saves (`save_state`)."""
     with graceful_shutdown() as shutdown:
         for it in range(start_iter, iterations):
-            if shutdown:
-                preemption_checkpoint(shutdown, ckpt_dir, it, state)
+            if shutdown_agreed(shutdown, mesh):
+                preemption_checkpoint(shutdown, ckpt_dir, it, state, mesh)
                 return True
             iterate(it)
             if ckpt_dir and tc.ckpt_every > 0 and it > 0 and it % tc.ckpt_every == 0:
-                save_checkpoint(ckpt_dir, str(it), state)
+                save_state(ckpt_dir, str(it), state, mesh)
             if run_eval is not None and tc.eval_every > 0 and it % tc.eval_every == 0:
                 run_eval(it)
         if iterations > start_iter:
             last_it = iterations - 1
             if ckpt_dir and tc.ckpt_every > 0 and not (last_it > 0 and last_it % tc.ckpt_every == 0):
-                save_checkpoint(ckpt_dir, str(last_it), state)
+                save_state(ckpt_dir, str(last_it), state, mesh)
             if run_eval is not None and tc.eval_every > 0 and last_it % tc.eval_every != 0:
                 run_eval(last_it)
     return False

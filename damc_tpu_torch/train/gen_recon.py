@@ -26,8 +26,19 @@ loop:
     the host feed's threads are stopped.
 
 Every eval draw comes from the run seed (`sampling.eval_draws`), so an
-eval is a pure function of the weights and the seed. Meshes are not ported
-(ROADMAP.md, queue 1, item 8).
+eval is a pure function of the weights and the seed.
+
+`use_mesh` with a started process group of more than one rank
+(`parallel.distributed.initialize_distributed`) trains data-parallel, one
+rank a process, as the JAX loop does across hosts
+(`damc_tpu/train/gen_recon.py:195-394`): each rank its shard of the
+training set and B / world rows a step, gradients averaged before every
+update (`train/step.py`); the FID batches (rounded down to a multiple of
+the world; the batch count to the nearest) generated with their rows split
+over the ranks (K4a, K4b) and their statistics all-reduced
+(`compute_stats_sharded`); the recon MSE on every rank's replica; logs,
+grids and checkpoints from rank 0 alone (`driver_utils`). A world of 1 is
+the single-device run.
 """
 
 from __future__ import annotations
@@ -40,21 +51,27 @@ import torch
 
 from ..config import Config
 from ..device import resolve_device
-from ..metrics.fid import compute_stats, fid_from_samples, images_to_unit
+from ..metrics.fid import (
+    compute_stats, compute_stats_sharded, fid_from_samples, frechet_distance, images_to_unit,
+)
 from ..models import sample_q
-from ..utils.checkpoint import save_checkpoint
+from ..parallel.distributed import global_mesh, world_size
 from ..utils.logging import save_image_grid
 from ..utils.profiling import StepTimer
 from . import sampling
 from .driver_utils import (
     CDGapMonitor,
     MetricsReport,
+    broadcast_metric,
     cd_gap_ceiling,
     cd_history_path,
     init_driver_logging,
+    is_primary,
     make_batch_source,
+    replicate_state,
     restore_for_resume,
     run_loop,
+    save_state,
 )
 from .state import TrainState, create_state
 from .step import Metrics, make_train_step
@@ -73,25 +90,38 @@ def make_draws_fn(seed: int, tag: str, it: int, nz: int, device) -> DrawsFn:
     return lambda i, b: sampling.eval_draws(seed, tag, it, i, b, nz, device)
 
 
-def make_fid_batch_fn(models, cfg: Config, prior: str) -> Callable[[sampling.Draws], torch.Tensor]:
+def make_fid_batch_fn(models, cfg: Config, prior: str, mesh=None) -> Callable[[sampling.Draws], torch.Tensor]:
     """fn(draws) -> one batch of generated images (B, H, W, C) in [0, 1],
-    through the DAMC prior (K2) or the EBM prior (K1)."""
+    through the DAMC prior (K2) or the EBM prior (K1); with a mesh, this
+    rank's rows of the global batch (K4b, K4a)."""
     if prior == "damc":
-        return lambda d: sampling.to_unit_range(sampling.gen_samples_damc_prior(models, cfg, d)[0])
+        return lambda d: sampling.to_unit_range(sampling.gen_samples_damc_prior(models, cfg, d, mesh)[0])
     if prior == "ebm":
-        return lambda d: sampling.to_unit_range(sampling.gen_samples_ebm_prior(models, cfg, d))
+        return lambda d: sampling.to_unit_range(sampling.gen_samples_ebm_prior(models, cfg, d, mesh))
     raise ValueError(f"prior must be damc or ebm, got {prior!r}")
+
+
+def fid_batch_size(tc, mesh=None) -> int:
+    """The FID generation batch: `fid_batch_size` (the reference's 500)
+    capped by the sample budget; with a mesh, rounded down to a multiple of
+    the world (at least the world), as JAX rounds it to its data axis."""
+    fid_bs = min(tc.fid_batch_size, max(tc.n_fid_samples, 1))
+    if mesh is not None:
+        fid_bs = max(fid_bs - fid_bs % mesh.world, mesh.world)
+    return fid_bs
 
 
 def evaluate_fid(
     models, cfg: Config, feature_fn, real_mu, real_sigma, n_samples: int, batch: int,
-    prior: str, draws_fn: DrawsFn, grid_path: Optional[str] = None,
+    prior: str, draws_fn: DrawsFn, grid_path: Optional[str] = None, mesh=None,
 ) -> float:
     """Frechet distance of round(n_samples / batch) batches (at least one)
     generated through `prior` against the real statistics; batch i takes
     `draws_fn(i, batch)`. With `grid_path`, an 8x8 grid of the first
-    batch is saved there."""
-    one_batch = make_fid_batch_fn(models, cfg, prior)
+    batch is saved there. With a mesh, every rank generates its rows of
+    each batch and the statistics are all-reduced; the grid is then of
+    the first rows this rank holds."""
+    one_batch = make_fid_batch_fn(models, cfg, prior, mesh)
     n_batches = max(int(round(n_samples / batch)), 1)
 
     def batches():
@@ -101,6 +131,9 @@ def evaluate_fid(
                 save_image_grid(b[:64].float().cpu().numpy() * 2.0 - 1.0, grid_path)
             yield b
 
+    if mesh is not None:
+        mu, sigma = compute_stats_sharded(feature_fn, batches(), dim=int(np.shape(real_mu)[0]))
+        return frechet_distance(mu, sigma, real_mu, real_sigma)
     return fid_from_samples(feature_fn, batches(), real_mu, real_sigma)
 
 
@@ -157,6 +190,7 @@ def train_gen_recon(
     resume_path: Optional[str] = None,
     on_step: Optional[StepCallback] = None,
     fid_metric_name: str = "fid",
+    use_mesh: bool = False,
 ) -> TrainState:
     """Train from `seed` (default `cfg.train.seed`) for `iterations`
     (default `cfg.train.iterations`) on `train_images` (N, H, W, C) uint8 or
@@ -165,26 +199,34 @@ def train_gen_recon(
     [-1, 1]) the recon MSE, `log_dir` the metrics file, grids and
     checkpoints; `resume_path` (default `cfg.train.resume_path`) is a
     checkpoint directory or 'auto'. Runs on CUDA unless `device` says
-    otherwise."""
+    otherwise. `use_mesh` trains data-parallel over the started process
+    group (each rank on its device, `parallel.distributed.rank_device`)
+    when it has more than one rank; `log_dir` must then be the same
+    directory on every rank."""
     tc, nz = cfg.train, cfg.model.nz
     seed = tc.seed if seed is None else int(seed)
     iterations = tc.iterations if iterations is None else int(iterations)
     resume_path = tc.resume_path if resume_path is None else resume_path
     dev = resolve_device(device)
-    logger, ckpt_dir = init_driver_logging(log_dir)
-    img_dir = os.path.join(log_dir, "imgs") if log_dir else None
+    mesh = global_mesh(dev) if use_mesh and world_size() > 1 else None
+    if mesh is not None:
+        dev = mesh.device
+    logger, ckpt_dir = init_driver_logging(log_dir, mesh)
+    img_dir = os.path.join(log_dir, "imgs") if log_dir and is_primary(mesh) else None
 
     state = create_state(cfg, seed, dev)
-    state, start_iter = restore_for_resume(state, resume_path, ckpt_dir)
-    step = make_train_step(state.models, state.opts, cfg)
+    state, start_iter = restore_for_resume(state, resume_path, ckpt_dir, mesh)
+    replicate_state(mesh, state, tc.batch_size)
+    step = make_train_step(state.models, state.opts, cfg, mesh=mesh)
     models = state.models
 
     real_mu = real_sigma = None
     if feature_fn is not None and fid_images is not None:
         real_mu, real_sigma = real_stats(feature_fn, fid_images, dev)
 
-    next_batch, close_data, placement = make_batch_source(train_images, tc, seed, dev)
-    print(f"[damc] training-batch placement: {placement}", flush=True)
+    next_batch, close_data, placement = make_batch_source(train_images, tc, seed, dev, mesh=mesh)
+    if is_primary(mesh):
+        print(f"[damc] training-batch placement: {placement}", flush=True)
 
     fid_best = mse_best = float("inf")
     timer = StepTimer()
@@ -192,9 +234,7 @@ def train_gen_recon(
     if start_iter > 0:
         cd_monitor.seed_from_history(cd_history_path(logger.path, resume_path), start_iter)
     report = MetricsReport(logger, cd_monitor)
-    # FID batches of 500 (the reference's protocol), capped by the sample
-    # budget for small runs.
-    fid_bs = min(tc.fid_batch_size, max(tc.n_fid_samples, 1))
+    fid_bs = fid_batch_size(tc, mesh)
     draws = lambda tag, it: make_draws_fn(seed, tag, it, nz, dev)
 
     def run_eval(it: int) -> None:
@@ -208,16 +248,19 @@ def train_gen_recon(
                 eval_metrics[f"{name}_{prior}"] = evaluate_fid(
                     models, cfg, feature_fn, real_mu, real_sigma, tc.n_fid_samples, fid_bs,
                     prior, draws(f"fid_{prior}", it),
-                    grid_path=f"{img_dir}/{it}_fid_{prior}.png" if img_dir else None,
+                    grid_path=f"{img_dir}/{it}_fid_{prior}.png" if img_dir else None, mesh=mesh,
                 )
-        if mse_images is not None:
+            # The best-checkpoint branch below is a save every rank takes
+            # part in: gate it on rank 0's score.
+            eval_metrics[f"{name}_damc"] = broadcast_metric(eval_metrics[f"{name}_damc"], mesh)
+        if mse_images is not None:  # on every rank's replica, as JAX's multi-host loop
             eval_metrics["recon_mse"] = evaluate_mse(models, cfg, mse_images, tc.batch_size, draws("mse", it))
             mse_best = min(mse_best, eval_metrics["recon_mse"])
             eval_metrics["recon_mse_best"] = mse_best
         if eval_metrics.get(f"{name}_damc", float("inf")) < fid_best:
             fid_best = eval_metrics[f"{name}_damc"]
             if ckpt_dir:
-                save_checkpoint(ckpt_dir, "best", state)
+                save_state(ckpt_dir, "best", state, mesh)
         if f"{name}_damc" in eval_metrics:
             eval_metrics[f"{name}_best"] = fid_best
         if eval_metrics:
@@ -226,7 +269,7 @@ def train_gen_recon(
     def plot(it: int, x: torch.Tensor) -> None:
         """The four grids of iteration `it` (observations, posterior recon,
         Q_ema alone, DAMC prior samples)."""
-        n_show = min(64, tc.batch_size)
+        n_show = min(64, x.shape[0])
         xs = x[:n_show]
         one = lambda tag: sampling.eval_draws(seed, tag, it, 0, n_show, nz, dev)
         save_image_grid(xs.cpu().numpy(), f"{img_dir}/{it}_obs.png")
@@ -253,7 +296,7 @@ def train_gen_recon(
             plot(it, x)
 
     try:
-        run_loop(tc, state, start_iter, iterations, ckpt_dir, iterate, run_eval)
+        run_loop(tc, state, start_iter, iterations, ckpt_dir, iterate, run_eval, mesh)
     finally:
         close_data()
     return state

@@ -22,6 +22,13 @@ the counter, and the training step's stream seeds (`train/step.py::
 stream_seeds`) sit at counters below 2^31 in the same columns, so no two
 consumers, evals or training, ever share a kernel seed; the generator seeds
 are at least 2^63, apart from every run seed and `data_seed` (< 2^32).
+
+With a `parallel.Mesh` (JAX's `mesh=`, :32-133), the generation pipelines
+take the global batch's draws, which every rank makes alike from the seed:
+the kernel's rows split over the ranks (K4a, K4b) and each rank decodes and
+returns its own rows, the port's form of JAX's batch-sharded output.
+`reconstruct` takes no mesh: the data-parallel drivers run it on each
+rank's replica, as JAX's multi-host drivers do.
 """
 
 from __future__ import annotations
@@ -36,6 +43,7 @@ from ..data.device_data import DATA_COUNTER
 from ..models import ModelBundle, sample_q
 from ..ops.langevin import frozen, langevin_sample, posterior_energy, prior_langevin_auto
 from ..ops.noise import counter_bits, int32_seed
+from ..parallel.mesh import shard_batch
 
 # The consumers of eval draws: the gen_recon evals and plots, the anomaly
 # workload's AUPRC eval and the toy workload's parity eval. Tag 7 at the
@@ -102,28 +110,36 @@ def eval_draws(
 
 
 @torch.no_grad()
-def gen_samples_ebm_prior(models: ModelBundle, cfg: Config, d: Draws) -> torch.Tensor:
+def gen_samples_ebm_prior(models: ModelBundle, cfg: Config, d: Draws, mesh=None) -> torch.Tensor:
     """x = G(z), z after e_l_steps of prior Langevin on the EBM from d.z0
     (kernel K1, stream seed d.chain_seed, `pallas_dots_dtype` products;
     with `use_pallas` off the autograd chain, its normals from a device
     generator seeded with d.chain_seed). Images in [-1, 1], in G's compute
-    dtype, as the JAX pipeline's."""
+    dtype, as the JAX pipeline's. With a `mesh`, the chain is K4a and the
+    images are this rank's rows."""
     mc = cfg.mcmc
     chain = dict(seed=d.chain_seed, dots_dtype=cfg.train.pallas_dots_dtype)
     if not cfg.train.use_pallas:
         gen = torch.Generator(device=d.z0.device).manual_seed(d.chain_seed & 0xFFFFFFFF)
         chain = dict(use_pallas=False, generator=gen)
     z, _ = prior_langevin_auto(
-        d.z0, models.ebm, mc.e_l_steps, mc.e_l_step_size, mc.e_l_with_noise, **chain
+        d.z0, models.ebm, mc.e_l_steps, mc.e_l_step_size, mc.e_l_with_noise, mesh=mesh, **chain
     )
+    if mesh is not None:
+        z = shard_batch(mesh, z)
     return models.generator(z)
 
 
 @torch.no_grad()
-def gen_samples_damc_prior(models: ModelBundle, cfg: Config, d: Draws) -> Tuple[torch.Tensor, torch.Tensor]:
+def gen_samples_damc_prior(
+    models: ModelBundle, cfg: Config, d: Draws, mesh=None
+) -> Tuple[torch.Tensor, torch.Tensor]:
     """(x = G(z), z), z ~ Q(.): one prior reverse sweep of the trained Q
-    (not Q_ema) under the embedding of d.emb_noise, kernel K2."""
-    z = sample_q(models.amortizer, None, d.z0, d.sweep_seed, emb_noise=d.emb_noise)
+    (not Q_ema) under the embedding of d.emb_noise, kernel K2. With a
+    `mesh`, the sweep is K4b and x and z are this rank's rows."""
+    z = sample_q(models.amortizer, None, d.z0, d.sweep_seed, emb_noise=d.emb_noise, mesh=mesh)
+    if mesh is not None:
+        z = shard_batch(mesh, z)
     return models.generator(z), z
 
 

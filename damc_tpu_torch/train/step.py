@@ -42,6 +42,23 @@ from one `StepDraws`: production draws it from the state's device
 generator (`draw_step`), the parity tests build it from the JAX key tree.
 The toy's observations x = G(z) + 0.25 N are made before the step, as in
 the JAX package (`train/toy.py::make_observations`).
+
+Data parallelism (`mesh`, a `parallel.Mesh`; JAX's `make_train_step(...,
+mesh=)` under the step's replicated and batch shardings): every rank holds
+a replica of the state and its own rows of the global batch, B / world of
+them. Each rank draws the global batch's `StepDraws` from the one
+generator state and keeps its rows. Q_ema's sweep runs on the local rows
+(K2 with `row_base`, so its stream draws are the global rows'); the 2B
+prior chains are the global [z0, N(0, I)] (z0 gathered from the ranks),
+split over the ranks by K4a as JAX's shard_map splits them; each rank
+then takes its rows of them for the E update. Before every optimizer step
+(each Q update, G, E) the gradients are averaged over the ranks, one
+all-reduce of a flat buffer a network, and the metrics are reduced as the
+JAX step's replicated outputs are (means; the max of |z+|). The modules
+are not wrapped in DistributedDataParallel: the posterior chain's autograd
+through G and E would fire its hooks. A world-2 iteration so differs from
+a world-1 iteration on the same draws by the order of the reductions
+alone.
 """
 
 from __future__ import annotations
@@ -59,6 +76,7 @@ from ..ops.langevin import (
     frozen, gaussian_posterior_energy, langevin_sample, posterior_energy, prior_langevin_auto,
 )
 from ..ops.noise import counter_bits, int32_seed
+from ..parallel.mesh import Mesh, all_max, all_mean, batch_sharding, gather_rows
 from .state import Optimizers, TrainState
 
 Metrics = Dict[str, torch.Tensor]
@@ -125,6 +143,16 @@ def draw_step(cfg: Config, b: int, state: TrainState) -> StepDraws:
     return StepDraws(mask_u, z0_init, neg_init, post_noise, q, sweep_seed, chain_seed, chain_noise)
 
 
+def shard_draws(d: StepDraws, rows: slice) -> StepDraws:
+    """A rank's draws of the global batch's `d`: its rows of every per-row
+    draw. The prior chains' draws (neg_init, chain_noise) stay global,
+    since the chains are the global batch's."""
+    q = [tuple(None if qd is None else QDraws(qd.prior_noise[rows], qd.u[rows], qd.eps[rows]) for qd in pair)
+         for pair in d.q]
+    return StepDraws(d.mask_u[rows], d.z0_init[rows], d.neg_init, d.post_noise[:, rows], q,
+                     d.sweep_seed, d.chain_seed, d.chain_noise)
+
+
 def _phase(name: str):
     return torch.profiler.record_function(f"train/{name}")
 
@@ -135,27 +163,36 @@ def _grads(loss: torch.Tensor, params: Sequence[torch.nn.Parameter]) -> List[tor
 
 
 def make_train_step(
-    models: ModelBundle, opts: Optimizers, cfg: Config
+    models: ModelBundle, opts: Optimizers, cfg: Config, mesh: Optional[Mesh] = None
 ) -> Callable[..., Tuple[TrainState, Metrics]]:
     """`train_step(state, x, draws=None) -> (state, metrics)` for this
     workload's config: x (B, H, W, C) in [-1, 1] (the toy: (B, 2)) on the
     models' device, `draws` from `draw_step` when not given. Metrics stay
     on the device; without prior chains there is no `e_pos`, `e_neg` or
-    `prior_energy_final`, as in the JAX step."""
+    `prior_energy_final`, as in the JAX step. With a `mesh`, x is this
+    rank's rows of the global batch and `draws` the global batch's."""
     tc, mc, dc = cfg.train, cfg.mcmc, cfg.diffusion
     gen, ebm, amort = models.generator, models.ebm, models.amortizer
     chains = tc.prior_chains != "none" and ebm is not None
+    world = 1 if mesh is None else mesh.world
+
+    def mean_grads(grads: List[torch.Tensor]) -> List[torch.Tensor]:
+        return grads if world == 1 else all_mean(mesh, grads)
 
     def train_step(state: TrainState, x: torch.Tensor, draws: Optional[StepDraws] = None):
         b = x.shape[0]
-        d = draws if draws is not None else draw_step(cfg, b, state)
+        d = draws if draws is not None else draw_step(cfg, b * world, state)
+        rows = slice(0, b)
+        if world > 1:
+            rows = batch_sharding(mesh, b * world)
+            d = shard_draws(d, rows)
         if tc.random_mask:
             z_mask = (d.mask_u >= dc.p_mask).to(x.dtype)[:, None]
         else:
             z_mask = torch.ones((b, 1), dtype=x.dtype, device=x.device)
 
         with _phase("q_ema_init"):
-            z0 = sample_q(state.amortizer_ema, x, d.z0_init, d.sweep_seed)
+            z0 = sample_q(state.amortizer_ema, x, d.z0_init, d.sweep_seed, row_base=rows.start)
 
         with _phase("posterior_langevin"), frozen(gen, ebm):
             if tc.remat_generator:
@@ -173,12 +210,16 @@ def make_train_step(
 
         if chains:
             with _phase("prior_langevin"):
-                z_neg_init = torch.cat([z0, d.neg_init]) if tc.prior_chains == "double" else z0
+                z0_all = z0 if world == 1 else gather_rows(mesh, z0)
+                z_neg_init = torch.cat([z0_all, d.neg_init]) if tc.prior_chains == "double" else z0_all
                 zk_neg, prior_final_energy = prior_langevin_auto(
                     z_neg_init, ebm, mc.e_l_steps, mc.e_l_step_size, mc.e_l_with_noise,
                     seed=d.chain_seed if tc.use_pallas else None, use_pallas=tc.use_pallas,
                     noise=d.chain_noise, generator=state.rng, dots_dtype=tc.pallas_dots_dtype,
+                    mesh=mesh,
                 )
+                if world > 1:
+                    zk_neg = zk_neg[batch_sharding(mesh, zk_neg.shape[0])]
 
         with _phase("q_updates"):
             q_params = opts.q.params
@@ -191,13 +232,13 @@ def make_train_step(
                     loss = loss + amort.loss(
                         zk_pos, x, 1.0 - z_mask, prior_noise=qd2.prior_noise, u=qd2.u, eps=qd2.eps
                     ).mean()
-                opts.q.step(_grads(loss, q_params))
+                opts.q.step(mean_grads(_grads(loss, q_params)))
                 q_loss = loss.detach()
 
         with _phase("g_update"):
             if tc.update_g:
                 g_loss = torch.sum((gen(zk_pos) - x).reshape(b, -1) ** 2, dim=-1).mean()
-                opts.g.step(_grads(g_loss, opts.g.params))
+                opts.g.step(mean_grads(_grads(g_loss, opts.g.params)))
             else:  # the reconstruction monitor alone
                 with torch.no_grad():
                     g_loss = torch.sum((gen(zk_pos) - x).reshape(b, -1) ** 2, dim=-1).mean()
@@ -209,7 +250,7 @@ def make_train_step(
                 e_loss = e_pos - e_neg
                 if tc.e_energy_reg > 0.0:
                     e_loss = e_loss + tc.e_energy_reg * (torch.mean(e_p**2) + torch.mean(e_n**2))
-                opts.e.step(_grads(e_loss, opts.e.params))
+                opts.e.step(mean_grads(_grads(e_loss, opts.e.params)))
         else:
             e_pos = e_neg = torch.zeros((), device=x.device)
 
@@ -222,17 +263,17 @@ def make_train_step(
                     for q, e in zip(amort.parameters(), state.amortizer_ema.parameters()):
                         e.copy_(float(rho) * q + keep * e)
 
-        metrics: Metrics = {
-            "g_loss": g_loss.detach(),
-            "q_loss": q_loss,
-            "post_energy_final": post_diag.energy_sum[-1] / b,
-            "zk_pos_abs_max": zk_pos.abs().max(),
-        }
+        means = [g_loss.detach(), q_loss, post_diag.energy_sum[-1] / b]
         if chains:
-            metrics.update(
-                e_pos=e_pos.detach(), e_neg=e_neg.detach(),
-                prior_energy_final=prior_final_energy.mean(),
-            )
+            means += [e_pos.detach(), e_neg.detach()]
+        abs_max = zk_pos.abs().max()
+        if world > 1:  # the per-rank means of equal shards average to the global means
+            means, abs_max = all_mean(mesh, means), all_max(mesh, abs_max)
+        metrics: Metrics = dict(zip(("g_loss", "q_loss", "post_energy_final"), means))
+        metrics["zk_pos_abs_max"] = abs_max
+        if chains:
+            # The chains' energies are the whole batch's on every rank already.
+            metrics.update(e_pos=means[3], e_neg=means[4], prior_energy_final=prior_final_energy.mean())
         state.step += 1
         return state, metrics
 

@@ -67,14 +67,28 @@ def test_port_flags_are_the_jax_flags_plus_device():
 
     port, jax_flags = dests(common.add_common_flags), dests(jax_common.add_common_flags)
     assert port.pop("device") == ["--device"]
+    # torch has two transports where JAX has one; the choice changes no result.
+    assert port.pop("dist_backend") == ["--dist_backend"]
     assert port == jax_flags
     assert _parse(common.add_common_flags, []).device == "cuda"
 
 
 def test_unported_options_raise(tmp_path):
+    # gen_recon's --use_mesh and --multihost are ported: the config is the
+    # one without them; --multihost implies --use_mesh, and in one process
+    # with no coordinator starts no group; an explicit coordinator setup
+    # that cannot be joined raises (JAX's tests/test_distributed.py:107).
+    plain = dataclasses.asdict(common.config_from_args(_parse(common.add_common_flags, [])))
     for flag in ("--use_mesh", "--multihost"):
-        with pytest.raises(NotImplementedError, match="queue 1, item 8"):
-            common.config_from_args(_parse(common.add_common_flags, [flag]))
+        args = _parse(common.add_common_flags, [flag, "--device", "cpu"])
+        assert dataclasses.asdict(common.config_from_args(args)) == plain
+        assert common.init_distributed(args, torch.device("cpu")) == torch.device("cpu")
+        assert args.use_mesh and not torch.distributed.is_initialized()
+    bad = _parse(common.add_common_flags, ["--multihost", "--coordinator_address", "127.0.0.1:1",
+                                           "--num_processes", "2", "--process_id", "5"])
+    with pytest.raises(ValueError, match="process id 5"):
+        common.init_distributed(bad, torch.device("cpu"))
+    assert not torch.distributed.is_initialized()
     # celeba64 reads its folders of PNG, JPEG and BMP files (item 4b); a
     # progressive JPEG there raises, naming the decoder item 4c owes and the
     # JAX-made cache that serves in its place.

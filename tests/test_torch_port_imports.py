@@ -54,9 +54,13 @@ SLICE_9 = (
 SLICE_10 = ("artifact.py", "cli/convert_checkpoint.py", "cli/export_checkpoint.py")
 
 
+SLICE_11 = ("parallel/__init__.py", "parallel/mesh.py", "parallel/distributed.py")
+
+
 def test_port_has_modules():
     assert len(FILES) >= 50
-    assert set(SLICE_4 + SLICE_6 + SLICE_7 + SLICE_9 + SLICE_10) <= {str(p.relative_to(PORT)) for p in FILES}
+    assert set(SLICE_4 + SLICE_6 + SLICE_7 + SLICE_9 + SLICE_10 + SLICE_11) <= {
+        str(p.relative_to(PORT)) for p in FILES}
     assert {p.name for p in (PORT / "csrc" / "host").glob("*.cpp")} == {
         "batch_loader.cpp", "jpeg_decode.cpp", "lmdb_reader.cpp"}
 
@@ -108,6 +112,15 @@ def test_no_jax_import(path):
         if name.split(".")[0] in FORBIDDEN
     ]
     assert not bad, f"{path} imports {bad}"
+
+
+@pytest.mark.parametrize("rel", SLICE_11)
+def test_the_process_group_layer_is_torch_distributed(rel):
+    """parallel/ is the port's counterpart of the JAX package's
+    `parallel/`: built on torch.distributed, with nothing of JAX (the test
+    above holds every module to that)."""
+    names = set(_imports(ast.parse((PORT / rel).read_text())))
+    assert rel.endswith("__init__.py") or "torch.distributed" in names or "torch" in names
 
 
 def test_chip_smoke_imports_no_jax():
