@@ -37,6 +37,18 @@ Phases, each of which raises on failure (the script then exits non-zero):
      `.pth.tar` of the seeded weights converted, one training iteration
      resumed from it, exported back and loaded strictly, equal tensor for
      tensor;
+  5b. serving over two replicas of the card (`serve_mesh_phase`,
+     `LocalMesh(["cuda:0", "cuda:0"])`, max_batch=16): one 16-row dispatch
+     of each path's core, where K1's outputs (8 rows a replica) and K2 on
+     each half of the one-device launch's inputs must equal that launch bit
+     for bit, a rerun must be bit-identical and the images and recon z
+     agree within SERVE_MESH_IMAGE_ATOL and SERVE_MESH_Z_ATOL (the sweep's
+     tables come from cuBLAS and cuDNN products at 8 rows, not 16); then
+     both services over
+     HTTP (an item alone == coalesced), K1 or K2 once a replica a dispatch
+     on 8 rows, p50/p99 of 20 single-item requests a path beside one
+     device's; K1 and K2 at B=8 in counter mode against their plain
+     versions;
   6. trains the full-width `cifar10` preset at B=128 for 10 iterations
      through `train_gen_recon` on images made from a seed, timed by CUDA
      events without a sync per iteration; checks finite metrics, that every
@@ -52,24 +64,6 @@ Phases, each of which raises on failure (the script then exits non-zero):
      the serving of phase 4 with a bf16 G and encoder (K1 in float32),
      and one bf16 FID batch of each prior at B=500 (K1's bf16 variant
      once for the EBM prior);
-  7b. data parallelism (`dp_phase`, before phase 7's bf16 half): two ranks
-     of a torch.distributed group share the card over gloo, each a process
-     started with torchrun's environment, under one hard timeout. K4a
-     (K1 over 2B=256 chains and B=500, 60 steps at 0.4) and K4b (K2 at
-     B=128 under the encoder and B=500 under the prior embedding), each in
-     stream, counter and noiseless mode, gathered over the ranks, must
-     equal one K1 or K2 launch bit for bit, and each rank's own stream
-     launch (its rows at its row_base) the same rows of that launch; those
-     launches are held against the plain versions and timed, one rank at a
-     time. Then 4 iterations of `cli.train_gen_recon --use_mesh
-     --dist_backend gloo` at full cifar10 width and global B=128 on a
-     10,000-image CIFAR-10 tree made from the seed (evals at 0 and at the
-     end, 1,000 FID samples; a checkpoint): K1 and K2 once a step on each
-     rank at 128 and 64 rows with the rank's row_base, the replicas equal
-     bit for bit, one run directory, only rank 0 writes; and the
-     card-vs-CPU iteration of phase 6 on two ranks against the same
-     iteration in one process on the card, within FP32_LIMITS. Prints the
-     ms an iteration of the two ranks sharing one H100 beside phase 6's;
   8. holds each kernel against its plain version at the eval shapes in
      stream mode: K1 at B=500 with the eval CLI's 100 steps at 1.6 and the
      loop's 60 at 0.4; K2 at B=500 under the prior embedding (the FID
@@ -78,7 +72,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
      equal those of the B=500 launch bit for bit;
   9. drives the gen_recon workload through its CLIs at full cifar10 width
      in a temporary directory, on a CIFAR-10 pickle tree made from the seed
-     (50,000 train images; 2,000 test images, cut from 10,000): trains 6
+     (10,000 train images, cut from 50,000; 2,000 test images, cut from
+     10,000): trains 6
      iterations at B=128 with evals, grids and checkpoints every 3 and 1,000
      FID samples (`frechet_rand`: no Inception weights here) and checks the
      metrics rows, the checkpoints, the PNG grids and that K1 and K2
@@ -164,6 +159,37 @@ Phases, each of which raises on failure (the script then exits non-zero):
      `LSUNImages`, bit-equal to PIL's decode, crop and LANCZOS, with the
      read rate, and the eval CLI with --dataset lsun_tower over one batch
      of 8;
+  19b. data parallelism (`dp_phase`, after the stylegan phase, whose
+     files it reuses): two ranks of a torch.distributed group share the
+     card over gloo, each a process started with torchrun's environment,
+     under one hard timeout. gen_recon: K4a (K1 over 2B=256 chains and
+     B=500, 60 steps at 0.4) and K4b (K2 at B=128 under the encoder and
+     B=500 under the prior embedding), each in stream, counter and
+     noiseless mode, gathered over the ranks, must equal one K1 or K2
+     launch bit for bit, and each rank's own stream launch (its rows at its
+     row_base) the same rows of that launch; those launches are held
+     against the plain versions and timed, one rank at a time. Then 4
+     iterations of `cli.train_gen_recon --use_mesh --dist_backend gloo` at
+     full cifar10 width and global B=128 on a 10,000-image CIFAR-10 tree
+     made from the seed (evals at 0 and at the end, 1,000 FID samples; a
+     checkpoint): K1 and K2 once a step on each rank at 128 and 64 rows
+     with the rank's row_base, the replicas equal bit for bit, one run
+     directory, only rank 0 writes; and the card-vs-CPU iteration of phase
+     6 on two ranks against the same iteration in one process on the card,
+     within FP32_LIMITS. The anomaly workload (nz=8): K4a over B=128 chains
+     and K4b at B=128 and B=500 under the encoder, checked the same way; 4
+     iterations of `cli.train_anomaly_det --use_mesh` at full width and
+     global B=128 on a seeded mnist.npz (AUPRC evals at 0 and 3, a
+     checkpoint): K1 and K2 once a step on each rank at its 64 rows, K2
+     once an AUPRC batch at its 250 of 500, replicas equal, one writer;
+     `cli.eval_anomaly_det --use_mesh` on ckpt/best against the one-process
+     CLI, AUPRC within 2 / (the anomalous count). The inversion eval CLI
+     with `--use_mesh` over phase 19's files (16 images, B=8, 4 a rank):
+     recon MSE within INV_MESH_RTOL of phase 19's one-process run, no K1 or
+     K2. The 256x256 synthesis with its wide parameters channel-sharded
+     over the ranks (`parallel/tp.py`) against the replicated forward, at
+     rtol 1e-4, atol 1e-5. Prints the ms an iteration of the two ranks
+     sharing one H100 beside phase 6's;
  20. prints one JSON line {"kernels": [...]} with launches, errors and times
      of each kernel on each path (serve, serve_artifact: the card-exported
      artifact's requests in its serving process, train, eval, anomaly, anomaly_eval:
@@ -172,6 +198,10 @@ Phases, each of which raises on failure (the script then exits non-zero):
      svhn_serve: the served checkpoint, celeba64: both train CLI runs,
      train_dp rank 0 and rank 1: each rank's launches of K4a and K4b in
      the data-parallel train CLI run, its own rows' times and bound,
+     anomaly_dp rank 0 and rank 1: each rank's K4a and K4b launches in the
+     training steps of the data-parallel anomaly run, anomaly_dp_eval: rank
+     0's K4b launches in the two-rank eval CLI, serve_mesh: the
+     two-replica service's K1 and K2 launches over its HTTP requests,
      celebaHQ: the train CLI run, train_bf16: the bf16 training run,
      eval_bf16: the bf16 EBM-prior FID batch);
  21. prints {"ok": true, "device": {...}} as the last line.
@@ -1056,6 +1086,128 @@ def _artifact_phase(models, cfg, counters, tmp):
     return {k: sum(r[k] for r in readings["card"]["launches"].values()) for k in ("K1", "K2")}
 
 
+# The two-replica service's answers against one device's. K1 and K2 are
+# row-independent bit for bit, but their inputs are not: the sweep's tables
+# come from the prior embedding's and the conv encoder's cuBLAS and cuDNN
+# products, which round otherwise at 8 rows than at 16, and the 100-step
+# noisy sweep at full width with random weights carries last-bit input
+# differences to about 1e-2 pointwise (`sweep_check`'s note). Measured on
+# the H100: 4.4e-5 on images, 3.8e-3 on recon z.
+SERVE_MESH_IMAGE_ATOL, SERVE_MESH_Z_ATOL = 1e-3, 5e-2
+
+
+def _serve_mesh_limit(key: str) -> float:
+    return SERVE_MESH_Z_ATOL if key.endswith("_z") else SERVE_MESH_IMAGE_ATOL
+
+
+def serve_mesh_phase(models, cfg, counters):
+    """Serving over `LocalMesh(["cuda:0", "cuda:0"])` (two replicas sharing
+    the card) at max_batch=16, against the one-device service on the same
+    weights. One dispatch of 16 rows of each path's core on both: K1's
+    outputs (8 rows on each replica, from the same inputs) must equal the
+    one launch's bit for bit, and so must K2 relaunched on each half of the
+    one-device launch's own inputs; a rerun of the two-replica dispatch
+    must be bit-identical; the images and recon z agree within
+    SERVE_MESH_IMAGE_ATOL and SERVE_MESH_Z_ATOL (their text says why).
+    Then both over HTTP (`_serve_all`: an item alone == coalesced), where
+    the two-replica service must launch K1 or K2 once per replica per
+    dispatch, on 8 rows, and p50/p99 of 20 sequential single-item requests
+    a path, two replicas beside one device. Then K1 and K2 at B=8 in
+    counter mode against their plain versions, timed. Returns the launches
+    and those results."""
+    import torch
+
+    from damc_tpu_torch import serve
+    from damc_tpu_torch.models import amortizer
+    from damc_tpu_torch.ops.cuda.fused_langevin import ebm_params_to_dense_weights
+    from damc_tpu_torch.ops.cuda.fused_qsweep import fused_reverse_sweep
+    from damc_tpu_torch.parallel import LocalMesh
+    from damc_tpu_torch.serve import SamplerService, item_draws, stack_draws
+
+    log, sweeps = [], []
+    q, chain, sweep = amortizer.sample_q_per_item, serve.prior_langevin_auto, amortizer.fused_reverse_sweep
+    amortizer.sample_q_per_item = lambda *a, **kw: (lambda z: (log.append(("K2", z)), z)[1])(q(*a, **kw))
+    serve.prior_langevin_auto = lambda *a, **kw: (lambda o: (log.append(("K1", o[0])), o)[1])(chain(*a, **kw))
+    amortizer.fused_reverse_sweep = lambda *a, **kw: (lambda o: (sweeps.append((a, kw, o)), o)[1])(sweep(*a, **kw))
+    kw = dict(max_batch=ARTIFACT_B, recon_langevin_steps=ARTIFACT_RECON_STEPS)
+    half = ARTIFACT_B // 2
+    services = {}
+    try:
+        services["one"] = SamplerService(models, cfg, device="cuda", **kw)
+        services["two"] = SamplerService(models, cfg, mesh=LocalMesh(["cuda:0", "cuda:0"]), **kw)
+        x = _artifact_x()
+        draws = stack_draws([item_draws(7, i, cfg.model.nz) for i in range(ARTIFACT_B)], "cuda")
+        xs = torch.from_numpy(np.concatenate([x, x])).cuda()
+        core, logs, k2_inputs = {}, {}, {}
+        for name in ("one", "two", "two_again"):
+            svc = services[name[:3]]
+            if name != "two_again":
+                svc.warmup()
+            log.clear()
+            sweeps.clear()
+            fns = svc._fns
+            core[name] = {"damc": fns["damc"](draws), "ebm": fns["ebm"](draws), **dict(zip(
+                ("recon_z", "recon_x"), fns["recon"](draws, xs)[::-1]))}
+            logs[name], k2_inputs[name] = list(log), list(sweeps)
+        shapes = {name: [(k, int(z.shape[0])) for k, z in l] for name, l in logs.items()}
+        if shapes["one"] != [("K2", ARTIFACT_B), ("K1", ARTIFACT_B), ("K2", ARTIFACT_B)] or shapes["two"] != [
+                ("K2", half), ("K2", half), ("K1", half), ("K1", half), ("K2", half), ("K2", half)]:
+            raise AssertionError(f"the kernels ran at {shapes}")
+        k1_equal = bool(torch.equal(torch.cat([logs["two"][2][1], logs["two"][3][1]]), logs["one"][1][1]))
+        k2_equal = []
+        for (z, four, layers, pre_x, pre_t, coeffs), skw, out in k2_inputs["one"]:  # damc, then recon
+            parts = [fused_reverse_sweep(z[r], four, layers, [p[r] for p in pre_x], pre_t, coeffs,
+                                         **{**skw, "row_seeds": skw["row_seeds"][r]})
+                     for r in (slice(0, half), slice(half, None))]
+            k2_equal.append(bool(torch.equal(torch.cat(parts), out)))
+        rerun = all(torch.equal(core["two"][k], v) for k, v in core["two_again"].items())
+        errs = {k: float((core["two"][k] - v).abs().max()) for k, v in core["one"].items()}
+        print(f"[serve_mesh] one dispatch of {ARTIFACT_B} rows a path on two replicas of cuda:0, {half} rows each: "
+              f"K1 (ebm) outputs equal to the one-device launch's bit for bit {k1_equal}; K2 on each half of the "
+              f"one-device launch's inputs (damc, recon) equal to it bit for bit {k2_equal}; a rerun of the "
+              f"two-replica dispatch bit for bit {rerun}; max_abs_err against the one-device service {errs} "
+              f"(atol images {SERVE_MESH_IMAGE_ATOL:g}, recon z {SERVE_MESH_Z_ATOL:g})")
+        if not (k1_equal and all(k2_equal) and len(k2_equal) == 2 and rerun) or any(
+                e > _serve_mesh_limit(k) for k, e in errs.items()):
+            raise AssertionError("the two-replica service differs from the one-device service")
+        answers, launches, batches, latency, rows = {}, {}, {}, {}, {}
+        for name in ("two", "one"):
+            log.clear()
+            answers[name], launches[name], batches[name], latency[name] = _serve_all(services[name], counters)
+            rows[name] = sorted({int(z.shape[0]) for _, z in log})
+            print(f"[serve_mesh] {name} over HTTP: dispatches {batches[name]}, launches {launches[name]}, kernel "
+                  f"rows {rows[name]}")
+        b2, l2 = batches["two"], launches["two"]
+        if {p: l2[p] for p in b2} != {p: {"K1": 2 * b2[p] if p == "ebm" else 0, "K2": 0 if p == "ebm" else 2 * b2[p]}
+                                       for p in b2} or rows["two"] != [half]:
+            raise AssertionError("the two-replica service must launch K1 or K2 once a replica a dispatch, on 8 rows")
+        errs = {k: float(np.abs(answers["two"][k] - v).max()) for k, v in answers["one"].items()}
+        print(f"[serve_mesh] HTTP answers, two replicas against one device: max_abs_err {errs} (atol images "
+              f"{SERVE_MESH_IMAGE_ATOL:g}, z {SERVE_MESH_Z_ATOL:g})")
+        if any(e > _serve_mesh_limit(k) for k, e in errs.items()):
+            raise AssertionError("the two-replica service's answers differ from the one-device service's")
+        print(f"[serve_mesh] {card_line()}: {LATENCY_REQUESTS} sequential single-item requests a path, HTTP round "
+              "trip ms " + json.dumps({"two_replicas": latency["two"], "one_device": latency["one"]})
+              + " (phase 4's concurrent p50/p99 are in its [serve] lines)")
+    finally:
+        amortizer.sample_q_per_item, serve.prior_langevin_auto, amortizer.fused_reverse_sweep = q, chain, sweep
+        for svc in services.values():
+            svc.close()
+
+    # The kernels at the rows each replica runs, in counter mode.
+    gen = torch.Generator(device="cpu").manual_seed(SEED + 93)
+    m, mc = cfg.model, cfg.mcmc
+    z = torch.randn(half, m.nz, generator=gen).cuda()
+    seeds = torch.randint(0, 2**31 - 1, (half,), generator=gen, dtype=torch.int32).cuda()
+    res = {"K1": chain_check(ebm_params_to_dense_weights(models.ebm), z, dict(row_seeds=seeds), mc.e_l_steps,
+                             mc.e_l_step_size, "K1 serve_mesh counter")}
+    with torch.no_grad():
+        xemb = models.amortizer.prior_embed(torch.randn(half, m.nz, generator=gen).cuda())
+    res["K2"] = sweep_check(models, cfg, z, xemb, dict(row_seeds=seeds), "K2 serve_mesh counter")[half]
+    total = {k: sum(l[k] for l in l2.values()) for k in ("K1", "K2")}
+    return {"res": res, "launches": total, "latency": latency}
+
+
 def checkpoint_cli_phase(models, cfg, counters):
     """The two checkpoint CLIs on the card: a reference `.pth.tar` written
     from phase 4's seeded weights (Q_dummy a scaled Q, iter 5) through
@@ -1539,7 +1691,7 @@ def train_profile_phase(cfg, state, x=None, path="train"):
     }))
 
 
-EVAL_TRAIN_IMAGES = 50_000  # CIFAR-10's train split
+EVAL_TRAIN_IMAGES = 10_000  # CIFAR-10's train split holds 50,000: cut to make room for the mesh phases
 EVAL_TEST_IMAGES = 2_000  # the test split holds 10,000: cut so that the MSE eval stays short
 EVAL_K1_STEPS, EVAL_K1_STEP_SIZE = 100, 1.6  # the eval CLI's prior chain on cifar10
 
@@ -1756,8 +1908,9 @@ def eval_phase(cfg, counters):
         data, logs = os.path.join(tmp, "data"), os.path.join(tmp, "logs")
         write_cifar_tree(data, EVAL_TRAIN_IMAGES, EVAL_TEST_IMAGES)
         print(f"[eval] CIFAR-10 pickle tree made from the seed: {EVAL_TRAIN_IMAGES} train images (the real "
-              f"split), {EVAL_TEST_IMAGES} test images (the real split holds 10,000; cut so the MSE eval "
-              f"stays short), written in {time.perf_counter() - t0:.2f} s")
+              f"split holds 50,000; cut to keep the script within its time), {EVAL_TEST_IMAGES} test images "
+              f"(the real split holds 10,000; cut so the MSE eval stays short), written in "
+              f"{time.perf_counter() - t0:.2f} s")
         b, n_fid = cfg.train.batch_size, 1000
         common = ["--dataset", "cifar10", "--data_path", data, "--log_path", logs, "--seed", str(SEED)]
         train_args = common + ["--batch_size", str(b), "--eval_every", "3", "--ckpt_every", "3",
@@ -2017,6 +2170,35 @@ def _step_ms(events, skip):
     return [t for i, t in enumerate(ms) if i > 0 and i not in skip]
 
 
+def write_mnist(data: str, digit: int, tag: str) -> int:
+    """An MNIST-shaped mnist.npz made from the seed in `data` (70,000
+    images: 50,000/10,000/10,000 in x_train/x_test/x_valid), its split for
+    held-out `digit` cached, the test split cut to ANOMALY_TEST_IMAGES
+    through its cache file. Returns the anomalous count of the cut split."""
+    import os
+
+    from damc_tpu_torch.data.datasets import load_mnist_anomaly, synthetic_mnist_npz
+
+    os.makedirs(data)
+    t0 = time.perf_counter()
+    synthetic_mnist_npz(os.path.join(data, "mnist.npz"), (50_000, 10_000, 10_000), seed=SEED)
+    train_x, _ = load_mnist_anomaly(data, digit, "train")
+    test_x, test_y = load_mnist_anomaly(data, digit, "test")
+    n_test = len(test_x)
+    # The cut: the first images of the split, through its own cache file.
+    cache = os.path.join(data, f"heldout_{digit}_test.npy")
+    split = np.load(cache, allow_pickle=True).item()
+    np.save(cache, {k: v[:ANOMALY_TEST_IMAGES] for k, v in split.items()})
+    cut_x, cut_y = load_mnist_anomaly(data, digit, "test")
+    if not (np.array_equal(cut_x, test_x[:ANOMALY_TEST_IMAGES]) and np.array_equal(cut_y, test_y[:len(cut_y)])
+            and len(cut_x) == ANOMALY_TEST_IMAGES):
+        raise AssertionError("the cut test split does not read back")
+    print(f"[{tag}] MNIST-shaped mnist.npz made from the seed (70,000 images), held-out digit {digit}: "
+          f"{len(train_x)} train images, {n_test} test images cut to {len(cut_x)} ({int(cut_y.sum())} "
+          f"anomalous; cut so each AUPRC eval stays short), in {time.perf_counter() - t0:.2f} s")
+    return int(cut_y.sum())
+
+
 def anomaly_phase(cfg, counters):
     """The anomaly workload through its CLIs at full mnist_anomaly width, in
     a temporary directory, on an MNIST-shaped mnist.npz made from the seed
@@ -2032,30 +2214,13 @@ def anomaly_phase(cfg, counters):
     import torch
 
     from damc_tpu_torch.cli import eval_anomaly_det, train_anomaly_det
-    from damc_tpu_torch.data.datasets import load_mnist_anomaly, synthetic_mnist_npz
     from damc_tpu_torch.train import anomaly
 
     tmp = tempfile.mkdtemp(prefix="damc_anomaly_smoke_")
     try:
         data, logs = os.path.join(tmp, "data"), os.path.join(tmp, "logs")
-        os.makedirs(data)
-        t0 = time.perf_counter()
-        synthetic_mnist_npz(os.path.join(data, "mnist.npz"), (50_000, 10_000, 10_000), seed=SEED)
         digit = cfg.train.heldout_digit
-        train_x, _ = load_mnist_anomaly(data, digit, "train")
-        test_x, test_y = load_mnist_anomaly(data, digit, "test")
-        n_test = len(test_x)
-        # The cut: the first 4,000 images of the split, through its own cache file.
-        cache = os.path.join(data, f"heldout_{digit}_test.npy")
-        split = np.load(cache, allow_pickle=True).item()
-        np.save(cache, {k: v[:ANOMALY_TEST_IMAGES] for k, v in split.items()})
-        cut_x, cut_y = load_mnist_anomaly(data, digit, "test")
-        if not (np.array_equal(cut_x, test_x[:ANOMALY_TEST_IMAGES]) and np.array_equal(cut_y, test_y[:len(cut_y)])
-                and len(cut_x) == ANOMALY_TEST_IMAGES):
-            raise AssertionError("the cut test split does not read back")
-        print(f"[anomaly] MNIST-shaped mnist.npz made from the seed (70,000 images), held-out digit {digit}: "
-              f"{len(train_x)} train images, {n_test} test images cut to {len(cut_x)} ({int(cut_y.sum())} "
-              f"anomalous; cut so each AUPRC eval stays short), in {time.perf_counter() - t0:.2f} s")
+        write_mnist(data, digit, "anomaly")
         b = cfg.train.batch_size
         common = ["--data_path", data, "--log_path", logs, "--seed", str(SEED), "--label", str(digit)]
         train_args = common + ["--eval_every", str(ANOMALY_EVAL_EVERY), "--ckpt_every", str(ANOMALY_EVAL_EVERY),
@@ -3157,7 +3322,7 @@ class _Spans:
         return [s.elapsed_time(e) for s, e in self.events.get(name, [])]
 
 
-def stylegan_phase(counters):
+def stylegan_phase(counters, tmp):
     """Item 6 at full size: resolution 256, nz = nxemb = 7168, the 1024-wide
     Q (313M weights), random StyleGAN weights from the seed in the reference
     layout, saved as .pth files; 16 seeded PNGs at 1024x1024, which the
@@ -3178,10 +3343,11 @@ def stylegan_phase(counters):
     run's (the bound of tests/test_cli_stylegan_inv.py) with no kernel
     launched, and the same split, images/s and peak memory, with the FLOP
     count beside
-    the bf16 tensor-core bound. Returns the numbers."""
+    the bf16 tensor-core bound. The files (weights, images, the Q
+    checkpoint) are written under `tmp` and stay there for the
+    data-parallel phase's inversion eval; the eval CLI's arguments are in
+    the result ("argv"). Returns the numbers."""
     import os
-    import shutil
-    import tempfile
 
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -3198,7 +3364,6 @@ def stylegan_phase(counters):
     from damc_tpu_torch.utils.flops import inversion_phase_flops
 
     cfg = preset("celebaHQ")  # the eval CLI's diffusion settings
-    tmp = tempfile.mkdtemp(prefix="damc_stylegan_smoke_")
     sweeps = []
     original_sweep = amortizer_module.reverse_diffusion_sample
 
@@ -3382,10 +3547,9 @@ def stylegan_phase(counters):
             "bf16_bound_ms": bound16_ms, "bound_share": bound16_ms / total16, "eval_cli": cli16,
         }
         print("[stylegan_bf16] " + json.dumps(res["bf16"]))
-        return res
+        return {**res, "argv": argv}
     finally:
         amortizer_module.reverse_diffusion_sample = original_sweep
-        shutil.rmtree(tmp, ignore_errors=True)
 
 
 # The data-parallel phase: two ranks of a torch.distributed group share the
@@ -3396,7 +3560,11 @@ DP_TIMEOUT_S = 600  # the whole group: it is killed and the phase fails after th
 DP_ITERATIONS = 4
 DP_TRAIN_IMAGES, DP_TEST_IMAGES, DP_FID = 10_000, 1_000, 1_000
 DP_K1_SHAPES = ((256, 60, 0.4), (500, 60, 0.4))  # the 2B training chains; the loop's EBM-prior FID batch
-DP_K2_SHAPES = (128, 500)  # Q_ema's training rows (encoder tables); the DAMC-prior FID batch
+DP_K2_SHAPES = ((128, "encoder"), (500, "prior"))  # Q_ema's training rows; the DAMC-prior FID batch
+# The anomaly workload's (nz=8): its B single chains, Q_ema's rows, the AUPRC batch.
+DP_ANOMALY_K1_SHAPES = ((128, 60, 0.4),)
+DP_ANOMALY_K2_SHAPES = ((128, "encoder"), (500, "encoder"))
+DP_ANOMALY_ITERATIONS, DP_ANOMALY_EVAL_EVERY = 4, 3
 
 
 def _dp_noises(b, gen, dev):
@@ -3419,12 +3587,15 @@ def _dp_turns(mesh, fn):
     return out
 
 
-def _dp_kernels(mesh, models, cfg):
-    """K4a and K4b on the card: at each shape and noise mode the gathered
-    result of the ranks must equal one unsharded K1 or K2 launch bit for
-    bit, and so must each rank's own launch (its rows at its row_base) in
-    stream mode; that launch is then held against the plain version on the
-    same rows and timed (`chain_check`, `sweep_check`), one rank at a time."""
+def _dp_kernels(mesh, models, cfg, k1_shapes, k2_shapes, seed):
+    """K4a and K4b on the card at `k1_shapes` ((B, steps, step size)) and
+    `k2_shapes` ((B, "encoder" or "prior"): the tables of Q's encoder of
+    images or of the prior embedding of noise): at each shape and noise
+    mode the gathered result of the ranks must equal one unsharded K1 or K2
+    launch bit for bit, and so must each rank's own launch (its rows at its
+    row_base) in stream mode; that launch is then held against the plain
+    version on the same rows and timed (`chain_check`, `sweep_check`), one
+    rank at a time."""
     import torch
 
     from damc_tpu_torch.ops.cuda.fused_langevin import (
@@ -3436,13 +3607,13 @@ def _dp_kernels(mesh, models, cfg):
     from damc_tpu_torch.ops.diffusion import step_coefficients, sweep_logsnr_grid
 
     dev, m, d = mesh.device, cfg.model, cfg.diffusion
-    gen = torch.Generator(device="cpu").manual_seed(SEED + 90)  # the same draws on every rank
+    gen = torch.Generator(device="cpu").manual_seed(seed)  # the same draws on every rank
     ebm_w = ebm_params_to_dense_weights(models.ebm)
     fourier, layers = denoiser_layer_params(models.amortizer.p)
     grid, _ = sweep_logsnr_grid(d.n_interval, d.logsnr_min, d.logsnr_max)
     coeffs = step_coefficients(d.n_interval, d.logsnr_min, d.logsnr_max, d.var_type).to(dev)
     res, equal = {}, {}
-    for b, steps, size in DP_K1_SHAPES:
+    for b, steps, size in k1_shapes:
         z = torch.randn(b, m.nz, generator=gen).to(dev)
         local = b // mesh.world
         rows = slice(mesh.rank * local, (mesh.rank + 1) * local)
@@ -3456,11 +3627,12 @@ def _dp_kernels(mesh, models, cfg):
                 res[f"K4a_{b}"] = _dp_turns(mesh, lambda: chain_check(
                     ebm_w, z[rows], dict(noise, row_base=rows.start), steps, size,
                     f"K4a rank {mesh.rank}, rows {rows.start}-{rows.stop - 1} of {b}"))
-    for b in DP_K2_SHAPES:
+    for b, tables in k2_shapes:
         z = torch.randn(b, m.nz, generator=gen).to(dev)
         with torch.no_grad():
-            if b == cfg.train.batch_size:  # the training step's tables: Q's encoder of images
-                xemb = models.amortizer.encode(torch.rand(b, 32, 32, 3, generator=gen).to(dev) * 2 - 1)
+            if tables == "encoder":  # a training or scoring batch: Q's encoder of images
+                x = torch.rand(b, m.image_size, m.image_size, m.nc, generator=gen).to(dev) * 2 - 1
+                xemb = models.amortizer.encode(x)
             else:  # the DAMC-prior FID batch: the prior embedding of noise
                 xemb = models.amortizer.prior_embed(torch.randn(b, m.nz, generator=gen).to(dev))
             t = models.amortizer.p.sample_tables(grid.to(dev), xemb)
@@ -3495,25 +3667,27 @@ def _digest(state) -> str:
     return h.hexdigest()
 
 
-def _dp_train(mesh, spec):
-    """`cli.train_gen_recon --use_mesh` on this rank, counted: the launches,
-    rows and row_base of K1 and K2 in each training step, the files this
-    rank wrote, a CUDA event after each step, the final state's digest."""
+def _dp_cli(mesh, main, argv, step_module, eval_name=None):
+    """A train CLI's `main(argv)` on this rank, counted: the launches, rows
+    and row_base of K1 and K2 in each training step (`step_module`'s
+    `make_train_step`), those of each call of `step_module.<eval_name>`,
+    the files this rank wrote, a CUDA event after each step, the final
+    state's digest."""
     import torch
 
-    from damc_tpu_torch.cli import train_gen_recon
     from damc_tpu_torch.models import amortizer
     from damc_tpu_torch.ops import langevin
     from damc_tpu_torch.ops.cuda.fused_langevin import fused_prior_langevin
     from damc_tpu_torch.ops.cuda.fused_qsweep import fused_reverse_sweep
     from damc_tpu_torch.train import driver_utils, gen_recon
-    from damc_tpu_torch.train import step as step_module
+    from damc_tpu_torch.train import step as step_module_
     from damc_tpu_torch.utils import logging as port_logging
 
     counters = {"K1": fused_prior_langevin, "K2": fused_reverse_sweep}
-    rows, steps, events, writes = [], [], [], {"checkpoints": [], "grids": [], "metrics": []}
+    rows, steps, evals, events = [], [], [], []
+    writes = {"checkpoints": [], "grids": [], "metrics": []}
     reduce_s = [0.0]  # host seconds in the step's all-reduces (gradients, metrics), synchronised
-    all_mean = step_module.all_mean
+    all_mean = step_module_.all_mean
 
     def timed_mean(*a, **kw):
         torch.cuda.synchronize()
@@ -3522,8 +3696,9 @@ def _dp_train(mesh, spec):
         torch.cuda.synchronize()
         reduce_s[0] += time.perf_counter() - t0
         return out
-    chain, sweep, make_step = langevin.fused_prior_langevin_sharded, amortizer.fused_reverse_sweep, gen_recon.make_train_step
+    chain, sweep, make_step = langevin.fused_prior_langevin_sharded, amortizer.fused_reverse_sweep, step_module.make_train_step
     save, grid, log = driver_utils.save_checkpoint, gen_recon.save_image_grid, port_logging.MetricsLogger.log
+    evaluate = getattr(step_module, eval_name) if eval_name else None
 
     def chain_rec(mesh_, z, *a, **kw):
         rows.append(("K1", z.shape[0] // mesh_.world, mesh_.rank * (z.shape[0] // mesh_.world)))
@@ -3533,24 +3708,26 @@ def _dp_train(mesh, spec):
         rows.append(("K2", z.shape[0], kw.get("row_base", 0)))
         return sweep(z, *a, **kw)
 
-    def counted_make(*a, **kw):
-        step = make_step(*a, **kw)
-
-        def counted(*sa, **skw):
+    def counted(fn, into):
+        def run(*a, **kw):
             before, n = {k: c.launches for k, c in counters.items()}, len(rows)
             reduce_s[0] = 0.0
-            out = step(*sa, **skw)
-            event = torch.cuda.Event(enable_timing=True)
-            event.record()
-            events.append(event)
-            steps.append({"launches": {k: c.launches - before[k] for k, c in counters.items()}, "rows": rows[n:],
-                          "all_reduce_ms": reduce_s[0] * 1e3})
+            out = fn(*a, **kw)
+            into.append({"launches": {k: c.launches - before[k] for k, c in counters.items()}, "rows": rows[n:],
+                         "all_reduce_ms": reduce_s[0] * 1e3})
+            if into is steps:
+                event = torch.cuda.Event(enable_timing=True)
+                event.record()
+                events.append(event)
             return out
 
-        return counted
+        return run
 
     langevin.fused_prior_langevin_sharded, amortizer.fused_reverse_sweep = chain_rec, sweep_rec
-    gen_recon.make_train_step, step_module.all_mean = counted_make, timed_mean
+    step_module.make_train_step = lambda *a, **kw: counted(make_step(*a, **kw), steps)
+    step_module_.all_mean = timed_mean
+    if evaluate is not None:
+        setattr(step_module, eval_name, counted(evaluate, evals))
     driver_utils.save_checkpoint = lambda d, name, st: (writes["checkpoints"].append(name), save(d, name, st))[1]
     gen_recon.save_image_grid = lambda a, path, **kw: (writes["grids"].append(path), grid(a, path, **kw))[1]
     port_logging.MetricsLogger.log = lambda self, *a, **kw: (
@@ -3559,31 +3736,143 @@ def _dp_train(mesh, spec):
         c.launches = 0
     t0 = time.perf_counter()
     try:
-        state = train_gen_recon.main([
-            "--dataset", "cifar10", "--data_path", spec["data"], "--log_path", spec["logs"],
-            "--seed", str(SEED), "--iterations", str(DP_ITERATIONS), "--n_fid_samples", str(DP_FID),
-            "--eval_every", "1000", "--ckpt_every", "1000", "--plot_every", "1000", "--print_every", "1",
-            "--use_mesh", "--dist_backend", "gloo",
-        ])
+        out = main(argv)
     finally:
         langevin.fused_prior_langevin_sharded, amortizer.fused_reverse_sweep = chain, sweep
-        gen_recon.make_train_step, driver_utils.save_checkpoint, gen_recon.save_image_grid = make_step, save, grid
-        port_logging.MetricsLogger.log, step_module.all_mean = log, all_mean
+        step_module.make_train_step, driver_utils.save_checkpoint, gen_recon.save_image_grid = make_step, save, grid
+        port_logging.MetricsLogger.log, step_module_.all_mean = log, all_mean
+        if evaluate is not None:
+            setattr(step_module, eval_name, evaluate)
     torch.cuda.synchronize()
+    state = out[0] if isinstance(out, tuple) else out
     return {
-        "wall_s": time.perf_counter() - t0, "steps": steps, "step": int(state.step), "digest": _digest(state),
-        "launches": {k: c.launches for k, c in counters.items()}, "writes": writes,
+        "wall_s": time.perf_counter() - t0, "steps": steps, "evals": evals, "step": int(state.step),
+        "digest": _digest(state), "launches": {k: c.launches for k, c in counters.items()}, "writes": writes,
         # between the events of steps 2-3 and 3-4: step 1's interval holds the evals and grids of iteration 0
         "ms_per_iteration": [a.elapsed_time(b) for a, b in zip(events[1:], events[2:])],
     }
+
+
+def _dp_train(mesh, spec):
+    """`cli.train_gen_recon --use_mesh` on this rank, counted (`_dp_cli`)."""
+    from damc_tpu_torch.cli import train_gen_recon
+    from damc_tpu_torch.train import gen_recon
+
+    return _dp_cli(mesh, train_gen_recon.main, [
+        "--dataset", "cifar10", "--data_path", spec["data"], "--log_path", spec["logs"],
+        "--seed", str(SEED), "--iterations", str(DP_ITERATIONS), "--n_fid_samples", str(DP_FID),
+        "--eval_every", "1000", "--ckpt_every", "1000", "--plot_every", "1000", "--print_every", "1",
+        "--use_mesh", "--dist_backend", "gloo",
+    ], gen_recon)
+
+
+def _dp_anomaly(mesh, spec):
+    """The anomaly workload on this rank: K4a and K4b at its shapes (nz=8),
+    `cli.train_anomaly_det --use_mesh` (DP_ANOMALY_ITERATIONS iterations
+    at global B=128, AUPRC evals at 0 and at the end, a checkpoint),
+    counted (`_dp_cli`), then `cli.eval_anomaly_det --use_mesh` on the
+    run's ckpt/best with its K2 launches and rows."""
+    import os
+
+    import torch
+
+    from damc_tpu_torch.cli import eval_anomaly_det, train_anomaly_det
+    from damc_tpu_torch.config import preset
+    from damc_tpu_torch.models import amortizer, build_models
+    from damc_tpu_torch.ops.cuda.fused_qsweep import fused_reverse_sweep
+    from damc_tpu_torch.train import anomaly
+
+    cfg = preset("mnist_anomaly")
+    models = build_models(cfg, seed=SEED, device=mesh.device)
+    kernels, equal = _dp_kernels(mesh, models, cfg, DP_ANOMALY_K1_SHAPES, DP_ANOMALY_K2_SHAPES, SEED + 91)
+    del models
+    common = ["--data_path", spec["mnist"], "--seed", str(SEED), "--label", str(cfg.train.heldout_digit),
+              "--use_mesh", "--dist_backend", "gloo"]
+    train = _dp_cli(mesh, train_anomaly_det.main, common + [
+        "--log_path", spec["anomaly_logs"], "--iterations", str(DP_ANOMALY_ITERATIONS),
+        "--eval_every", str(DP_ANOMALY_EVAL_EVERY), "--ckpt_every", "1000", "--print_every", "1"],
+        anomaly, "evaluate_auprc")
+    (run,) = os.listdir(os.path.join(spec["anomaly_logs"], "mnist"))
+    ckpt = os.path.join(spec["anomaly_logs"], "mnist", run, "ckpt")
+    rows, sweep = [], amortizer.fused_reverse_sweep
+    amortizer.fused_reverse_sweep = lambda z, *a, **kw: (rows.append((z.shape[0], kw.get("row_base", 0))),
+                                                         sweep(z, *a, **kw))[1]
+    fused_reverse_sweep.launches = 0
+    t0 = time.perf_counter()
+    try:
+        score = eval_anomaly_det.main(common + ["--log_path", spec["anomaly_logs"], "--ckpt_dir", ckpt])
+    finally:
+        amortizer.fused_reverse_sweep = sweep
+    torch.cuda.synchronize()
+    cli = {"auprc": score, "wall_s": time.perf_counter() - t0, "K2": fused_reverse_sweep.launches, "rows": rows,
+           "ckpt": ckpt}
+    return {"kernels": kernels, "equal": equal, "train": train, "eval_cli": cli}
+
+
+def _dp_inversion(mesh, spec):
+    """`cli.eval_stylegan_inv --use_mesh` on this rank over the stylegan
+    phase's files (its weights, images and Q checkpoint): its numbers, K1
+    and K2 launches and the unfused sweep's rows."""
+    import torch
+
+    from damc_tpu_torch.cli import eval_stylegan_inv
+    from damc_tpu_torch.models import amortizer
+    from damc_tpu_torch.ops.cuda.fused_langevin import fused_prior_langevin
+    from damc_tpu_torch.ops.cuda.fused_qsweep import fused_reverse_sweep
+
+    counters = {"K1": fused_prior_langevin, "K2": fused_reverse_sweep}
+    sweeps, original = [], amortizer.reverse_diffusion_sample
+    amortizer.reverse_diffusion_sample = lambda *a, **kw: (sweeps.append(a[1].shape[0]), original(*a, **kw))[1]
+    for c in counters.values():
+        c.launches = 0
+    t0 = time.perf_counter()
+    try:
+        out = eval_stylegan_inv.main(spec["stylegan_argv"] + ["--use_mesh", "--dist_backend", "gloo"])
+    finally:
+        amortizer.reverse_diffusion_sample = original
+    torch.cuda.synchronize()
+    return {"out": out, "wall_s": time.perf_counter() - t0, "launches": {k: c.launches for k, c in counters.items()},
+            "sweeps": sweeps}
+
+
+def _dp_tp(mesh):
+    """One forward of the 256x256 synthesis (random weights from the seed)
+    with its wide parameters channel-sharded over the ranks
+    (`parallel/tp.py`) against the replicated forward on the same W+
+    codes: the errors, the elements this rank holds and the wall."""
+    import torch
+
+    from damc_tpu_torch.models.stylegan import build_stylegan, num_synthesis_layers
+    from damc_tpu_torch.parallel import channel_sharding_tree, shard_params_channelwise
+
+    gen = build_stylegan(STYLEGAN_RES, SEED, mesh.device).generator
+    g = torch.Generator(device="cpu").manual_seed(SEED + 92)
+    wp = torch.randn(2, num_synthesis_layers(STYLEGAN_RES) * 512, generator=g).to(mesh.device)
+    with torch.no_grad():
+        want = gen(wp)
+        total = sum(p.numel() for p in gen.parameters())
+        tree = channel_sharding_tree(mesh, gen, 64)
+        shard_params_channelwise(mesh, gen, 64)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = gen(wp)
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    ok = bool(torch.allclose(got, want, rtol=1e-4, atol=1e-5))
+    return {"max_abs_err": float((got - want).abs().max()), "within_rtol_1e-4_atol_1e-5": ok,
+            "bit_equal": bool(torch.equal(got, want)), "sharded_leaves": sum(d is not None for d in tree.values()),
+            "leaves": len(tree), "elements_held": sum(p.numel() for p in gen.parameters()), "elements": total,
+            "forward_ms": wall * 1e3}
 
 
 def dp_rank() -> int:
     """One rank of the data-parallel phase (started by `dp_phase` with
     torchrun's environment and its spec as the one argument): joins the
     group over gloo on the card, checks K4a and K4b, runs the card-vs-world-1
-    iteration on its rows, trains through the CLI, and writes its readings
-    to <out>/rank<r>.json (and the iteration to <out>/iteration<r>.pt)."""
+    iteration on its rows, trains through the CLI; then the anomaly
+    workload (`_dp_anomaly`), the inversion eval (`_dp_inversion`) and the
+    channel-sharded synthesis (`_dp_tp`); and writes its readings to
+    <out>/rank<r>.json (and the iteration to <out>/iteration<r>.pt)."""
     import os
 
     import torch
@@ -3602,31 +3891,137 @@ def dp_rank() -> int:
               flush=True)
         cfg = preset("cifar10")
         models = build_models(cfg, seed=SEED, device=mesh.device)
-        kernels, equal = _dp_kernels(mesh, models, cfg)
+        kernels, equal = _dp_kernels(mesh, models, cfg, DP_K1_SHAPES, DP_K2_SHAPES, SEED + 90)
         del models
         small, x, draws, z0 = small_iteration_inputs(cfg)
         iteration, _ = _one_iteration(small, mesh.device, x, draws, z0, mesh=mesh)
         torch.save(iteration, os.path.join(spec["out"], f"iteration{mesh.rank}.pt"))
         train = _dp_train(mesh, spec)
+        out = {"kernels": kernels, "equal": equal, "train": train, "anomaly": _dp_anomaly(mesh, spec),
+               "inversion": _dp_inversion(mesh, spec), "tp": _dp_tp(mesh)}
         with open(os.path.join(spec["out"], f"rank{mesh.rank}.json"), "w") as f:
-            json.dump({"kernels": kernels, "equal": equal, "train": train}, f)
+            json.dump(out, f)
     finally:
         shutdown_distributed()
     return 0
 
 
-def dp_phase(cfg, train_ms):
-    """Data-parallel gen_recon on the card: DP_WORLD ranks (`dp_rank`), one
+INV_MESH_RTOL = 1e-3  # the two-rank inversion's recon MSE against one process's (4 rows a rank's convolutions, not 8)
+
+
+def _dp_anomaly_checks(an, cfg, mnist, logs, n_anomalous):
+    """The parent's checks of the ranks' anomaly readings (`_dp_anomaly`),
+    and the one-process eval CLI on the same checkpoint. Returns the
+    readings the kernels line needs."""
+    import os
+
+    from damc_tpu_torch.cli import eval_anomaly_det
+    from damc_tpu_torch.train.anomaly import EVAL_BATCH
+
+    for key in an[0]["equal"]:
+        print(f"[anomaly_dp] {key}: gathered over {DP_WORLD} ranks == one launch, bit for bit: "
+              f"{[a['equal'][key] for a in an]}")
+    if not all(all(a["equal"].values()) for a in an):
+        raise AssertionError("a sharded kernel's gathered result differs from the unsharded launch (nz=8)")
+    b, auprc_b = cfg.train.batch_size, EVAL_BATCH
+    n_batches = -(-ANOMALY_TEST_IMAGES // auprc_b)
+    for r, a in enumerate(an):
+        for key, k in a["kernels"].items():
+            b_ms, by = bound(k["flops"], k["bytes"])
+            print(f"[anomaly_dp] rank {r} {key} stream, its {k['b']} rows: kernel {k['ms']:.4f} ms, plain "
+                  f"{k['plain_ms']:.4f} ms, bound {b_ms:.5g} ms ({by}), kernel-plain {k['max_abs_err']:.3e}")
+        t, cli = a["train"], a["eval_cli"]
+        print(f"[anomaly_dp] rank {r}: steps {t['step']}, per step " + json.dumps(t["steps"]) + "; AUPRC evals "
+              + json.dumps([e["launches"] for e in t["evals"]]) + f"; whole run {t['launches']}; writes "
+              + json.dumps(t["writes"]) + f"; eval CLI AUPRC {cli['auprc']}, K2 {cli['K2']} at rows {cli['rows']}")
+        local, eval_local = b // DP_WORLD, auprc_b // DP_WORLD
+        want_rows = [["K2", local, r * local], ["K1", local, r * local]]
+        if any(s["launches"] != {"K1": 1, "K2": 1} or s["rows"] != want_rows for s in t["steps"]):
+            raise AssertionError(f"rank {r}: a step launched other than K1 and K2 once at {want_rows}")
+        eval_rows = [["K2", eval_local, r * eval_local]] * n_batches
+        if len(t["evals"]) != 2 or any(e["launches"] != {"K1": 0, "K2": n_batches} or e["rows"] != eval_rows
+                                       for e in t["evals"]):
+            raise AssertionError(f"rank {r}: the AUPRC evals did not launch K2 once a batch at its rows")
+        if t["step"] != DP_ANOMALY_ITERATIONS or len(t["steps"]) != DP_ANOMALY_ITERATIONS:
+            raise AssertionError(f"rank {r} took {t['step']} steps")
+        if cli["K2"] != n_batches or cli["rows"] != [[eval_local, r * eval_local]] * n_batches:
+            raise AssertionError(f"rank {r}: the eval CLI launched K2 {cli['K2']} times at {cli['rows']}")
+    if len({a["train"]["digest"] for a in an}) != 1 or len({a["eval_cli"]["auprc"] for a in an}) != 1:
+        raise AssertionError("the anomaly replicas, or the ranks' AUPRCs, differ")
+    if any(an[1]["train"]["writes"][k] for k in an[1]["train"]["writes"]):
+        raise AssertionError("a rank other than 0 wrote a log or checkpoint")
+    (run,) = os.listdir(os.path.join(logs, "mnist"))
+    ckpts = sorted(os.listdir(os.path.join(logs, "mnist", run, "ckpt")))
+    rows = _jsonl(os.path.join(logs, "mnist", run, "metrics.jsonl"))
+    evals = [(r["step"], r["auprc"]) for r in rows if r["phase"] == "eval"]
+    print(f"[anomaly_dp] one run directory; checkpoints {ckpts}; eval rows (step, AUPRC) {evals}")
+    last = DP_ANOMALY_ITERATIONS - 1
+    if ckpts != [str(last), "best"] or [e[0] for e in evals] != [0, last] or not all(0 < e[1] <= 1 for e in evals):
+        raise AssertionError("the anomaly run lacks its checkpoints or eval rows, or an AUPRC is out of (0, 1]")
+    ckpt = an[0]["eval_cli"]["ckpt"]
+    t0 = time.perf_counter()
+    one = eval_anomaly_det.main(["--data_path", mnist, "--seed", str(SEED), "--label", str(cfg.train.heldout_digit),
+                                 "--log_path", logs, "--ckpt_dir", ckpt])
+    one_s = time.perf_counter() - t0
+    mesh_auprc, limit = an[0]["eval_cli"]["auprc"], 2.0 / n_anomalous
+    print(f"[anomaly_dp] eval CLI AUPRC: two ranks {mesh_auprc}, one process {one} (|diff| "
+          f"{abs(mesh_auprc - one):.3e}, limit 2 / {n_anomalous} anomalous = {limit:.3e}); walls s: two ranks "
+          f"{an[0]['eval_cli']['wall_s']:.2f}, one process {one_s:.2f}")
+    if abs(mesh_auprc - one) > limit:
+        raise AssertionError("the two-rank eval CLI's AUPRC is not the one-process CLI's")
+    return {r: {"train": a["train"]["launches"], "steps": DP_ANOMALY_ITERATIONS, "eval_cli_K2": a["eval_cli"]["K2"]}
+            for r, a in enumerate(an)}
+
+
+def _dp_inversion_checks(inv, stylegan):
+    """The parent's checks of the ranks' inversion eval (`_dp_inversion`)
+    against the stylegan phase's one-process run on the same files."""
+    one = {k: v for k, v in stylegan["eval_cli"][0].items() if k != "wall_s"}
+    n_batches = -(-STYLEGAN_IMAGES // STYLEGAN_B)
+    for r, i in enumerate(inv):
+        print(f"[stylegan_dp] rank {r}: " + json.dumps(i))
+        if any(i["launches"].values()) or i["sweeps"] != [STYLEGAN_B // DP_WORLD] * n_batches:
+            raise AssertionError(f"rank {r}: K1 or K2 launched, or the unfused sweep did not run once a batch "
+                                 "on the rank's rows")
+    if inv[0]["out"] != inv[1]["out"]:
+        raise AssertionError("the ranks printed different inversion numbers")
+    got = inv[0]["out"]
+    rel = abs(got["recon_mse"] - one["recon_mse"]) / one["recon_mse"]
+    print(f"[stylegan_dp] {card_line()}: {STYLEGAN_IMAGES} images at B={STYLEGAN_B}, {STYLEGAN_B // DP_WORLD} a "
+          f"rank: two ranks {got} in {inv[0]['wall_s']:.1f} s; one process (stylegan phase) {one} in "
+          f"{stylegan['eval_cli'][0]['wall_s']:.1f} s; recon MSE relative difference {rel:.3e} (limit "
+          f"{INV_MESH_RTOL:g})")
+    if rel > INV_MESH_RTOL or not all(np.isfinite(v) for v in got.values()):
+        raise AssertionError("the two-rank inversion's recon MSE is not the one-process run's")
+
+
+def dp_phase(cfg, train_ms, stylegan):
+    """The data-parallel paths on the card: DP_WORLD ranks (`dp_rank`), one
     process each, sharing the H100 over gloo, with a hard timeout on the
-    group. K4a and K4b at the training and FID shapes in stream, counter
-    and noiseless mode, gathered, must equal one K1 or K2 launch bit for
-    bit; DP_ITERATIONS iterations of `cli.train_gen_recon --use_mesh` at
-    full cifar10 width and global B=128 on a CIFAR-10 tree made from the
-    seed (evals at 0 and at the end with DP_FID samples, a checkpoint): K1
-    and K2 once a step on each rank at 128 and 64 rows, the replicas equal
-    bit for bit, only rank 0 writes; and one iteration of the card-vs-CPU
-    configuration on two ranks against the same iteration in one process
-    on the card, within FP32_LIMITS. Returns each rank's readings."""
+    group. gen_recon: K4a and K4b at the training and FID shapes in stream,
+    counter and noiseless mode, gathered, must equal one K1 or K2 launch
+    bit for bit; DP_ITERATIONS iterations of `cli.train_gen_recon
+    --use_mesh` at full cifar10 width and global B=128 on a CIFAR-10 tree
+    made from the seed (evals at 0 and at the end with DP_FID samples, a
+    checkpoint): K1 and K2 once a step on each rank at 128 and 64 rows, the
+    replicas equal bit for bit, only rank 0 writes; and one iteration of
+    the card-vs-CPU configuration on two ranks against the same iteration
+    in one process on the card, within FP32_LIMITS. The anomaly workload
+    (nz=8, full width): K4a and K4b at its shapes, gathered, equal to one
+    launch bit for bit; DP_ANOMALY_ITERATIONS iterations of
+    `cli.train_anomaly_det --use_mesh` at global B=128 on a seeded
+    mnist.npz (AUPRC evals at 0 and at the end, a checkpoint): K1 and K2
+    once a step on each rank at its 64 rows, K2 once an AUPRC batch at its
+    250 of 500 rows, replicas equal, only rank 0 writes; then
+    `cli.eval_anomaly_det --use_mesh` on ckpt/best, whose AUPRC must be
+    the one-process eval CLI's within 2 / (the anomalous count), which one
+    pair of scores trading places may move it by. The inversion eval CLI
+    with `--use_mesh` over the stylegan phase's files (`stylegan`, its
+    result), 4 images a rank of each batch of STYLEGAN_B: recon MSE within
+    INV_MESH_RTOL of the stylegan phase's one-process run, no K1 or K2.
+    The 256x256 synthesis channel-sharded over the ranks (`parallel/tp.py`)
+    against the replicated forward, at rtol 1e-4, atol 1e-5. Returns each
+    rank's readings."""
     import os
     import shutil
     import socket
@@ -3635,12 +4030,18 @@ def dp_phase(cfg, train_ms):
 
     import torch
 
+    from damc_tpu_torch.config import preset
+
     tmp = tempfile.mkdtemp(prefix="damc_dp_smoke_")
     procs, logs = [], []
     try:
         data, logdir = os.path.join(tmp, "data"), os.path.join(tmp, "logs")
         write_cifar_tree(data, DP_TRAIN_IMAGES, DP_TEST_IMAGES)
-        spec = json.dumps({"data": data, "logs": logdir, "out": tmp})
+        cfg_anomaly = preset("mnist_anomaly")
+        mnist, anomaly_logs = os.path.join(tmp, "mnist"), os.path.join(tmp, "anomaly_logs")
+        n_anomalous = write_mnist(mnist, cfg_anomaly.train.heldout_digit, "anomaly_dp")
+        spec = json.dumps({"data": data, "logs": logdir, "out": tmp, "mnist": mnist, "anomaly_logs": anomaly_logs,
+                           "stylegan_argv": stylegan["argv"]})
         with socket.socket() as sock:
             sock.bind(("127.0.0.1", 0))
             port = sock.getsockname()[1]
@@ -3732,7 +4133,19 @@ def dp_phase(cfg, train_ms):
         print(f"[train_dp] ms an iteration at global B={b}, two ranks sharing one H100 over gloo (not a scaling "
               f"figure): {ms} (median {statistics.median(ms)}); one process, phase 6: {train_ms}; group wall "
               f"{wall:.1f} s; readings " + json.dumps(readings))
-        return {"ranks": ranks, "ms": ms, "wall_s": wall}
+
+        anomaly = _dp_anomaly_checks([rk["anomaly"] for rk in ranks], cfg_anomaly, mnist, anomaly_logs, n_anomalous)
+        _dp_inversion_checks([rk["inversion"] for rk in ranks], stylegan)
+        for r, rk in enumerate(ranks):
+            t = rk["tp"]
+            print(f"[tp] rank {r}: the {STYLEGAN_RES}x{STYLEGAN_RES} synthesis with {t['sharded_leaves']} of "
+                  f"{t['leaves']} parameters channel-sharded over {DP_WORLD} ranks against the replicated forward: "
+                  f"max_abs_err {t['max_abs_err']:.3e} (rtol 1e-4, atol 1e-5), bit for bit {t['bit_equal']}; "
+                  f"elements held {t['elements_held']} of {t['elements']}; forward {t['forward_ms']:.1f} ms "
+                  "(host clock, synchronised)")
+            if not t["within_rtol_1e-4_atol_1e-5"] or t["elements_held"] >= t["elements"]:
+                raise AssertionError(f"rank {r}: the channel-sharded synthesis differs, or holds every element")
+        return {"ranks": ranks, "ms": ms, "wall_s": wall, "anomaly": anomaly}
     finally:
         for p in procs:
             if p.poll() is None:
@@ -3744,6 +4157,9 @@ def dp_phase(cfg, train_ms):
 
 
 def main() -> int:
+    import shutil
+    import tempfile
+
     import torch
 
     if not torch.cuda.is_available():
@@ -3797,6 +4213,8 @@ def main() -> int:
     total, _ = serving_phase(models, cfg, counters)
     profile_phase(models, cfg)
     lap("serve")
+    serve_mesh = serve_mesh_phase(models, cfg, counters)
+    lap("serve_mesh")
     total_artifact = artifact_phase(models, cfg, counters)
     checkpoint_cli_phase(models, cfg, counters)
     del models
@@ -3809,8 +4227,6 @@ def main() -> int:
     train_profile_phase(cfg, state)
     del state
     lap("train_profile")
-    dp = dp_phase(cfg, train_ms)
-    lap("train_dp")
     # The bfloat16 mode: G and the encoder in bf16, K1's bf16-dot variant.
     cfg_bf16 = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, compute_dtype="bfloat16"),
                                    train=dataclasses.replace(cfg.train, pallas_dots_dtype="bfloat16"))
@@ -3863,8 +4279,15 @@ def main() -> int:
     unfused_sweep_phase(models, cfg)
     del models
     lap("unfused_sweep")
-    stylegan_phase(counters16)
-    lap("stylegan")
+    stylegan_tmp = tempfile.mkdtemp(prefix="damc_stylegan_smoke_")
+    try:
+        stylegan = stylegan_phase(counters16, stylegan_tmp)
+        lap("stylegan")
+        torch.cuda.empty_cache()  # the ranks of the data-parallel phase share the card with this process
+        dp = dp_phase(cfg, train_ms, stylegan)
+        lap("train_dp")
+    finally:
+        shutil.rmtree(stylegan_tmp, ignore_errors=True)
     print("[walls] " + json.dumps({f"{k}_phase_s": v for k, v in walls.items()}))
 
     meta = {
@@ -3926,6 +4349,18 @@ def main() -> int:
         for r, rk in enumerate(dp["ranks"])
         for key, b, counter in (("K4a", 2 * cfg.train.batch_size, "K1"), ("K4b", cfg.train.batch_size, "K2"))
     ]
+    # The data-parallel anomaly run (nz=8): each rank's K1 on its 64 of the
+    # B=128 chains and K2 on its 64 of 128 rows, launched once a training
+    # step; then the two-rank eval CLI's K2 on rank 0's 250 of each 500.
+    b_anomaly = cfg_anomaly.train.batch_size
+    entries += [
+        (f"anomaly_dp rank {r}", "stream", key, rk["anomaly"]["kernels"][f"{key}_{b_anomaly}"],
+         sum(s["launches"][counter] for s in rk["anomaly"]["train"]["steps"]))
+        for r, rk in enumerate(dp["ranks"]) for key, counter in (("K4a", "K1"), ("K4b", "K2"))
+    ] + [("anomaly_dp_eval", "stream", "K4b", dp["ranks"][0]["anomaly"]["kernels"]["K4b_500"],
+          dp["anomaly"][0]["eval_cli_K2"])]
+    # Serving over two replicas of the card: K1 and K2 on each replica's 8 rows, counter mode.
+    entries += [("serve_mesh", "counter", key, serve_mesh["res"][key], serve_mesh["launches"][key]) for key in ("K1", "K2")]
     for path, mode, key, r, launches in entries:
         name, source, replaces = meta[key]
         bound_ms, bound_by = bound(r["flops"], r["bytes"], r.get("peak", PEAK_FP32_FLOPS))

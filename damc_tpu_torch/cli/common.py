@@ -7,12 +7,16 @@ The flags are the JAX CLI's, aliases included, plus `--device` (default
 (`nccl` or `gloo`; by default `nccl` on `cuda`, `gloo` on `cpu`), the
 transport of a data-parallel run, which torch has two of and JAX one.
 
-`--use_mesh` trains or scores gen_recon data-parallel, one process a rank,
-the group started from torchrun's environment; `--multihost` starts it
-from `--coordinator_address`, `--num_processes` and `--process_id` (or,
-without them, from that environment) and implies `--use_mesh`, as the JAX
-CLI's `maybe_init_multihost` does (`init_distributed`). The other CLIs
-refuse both flags (`refuse_mesh`; ROADMAP.md, queue 1, item 8).
+`--use_mesh` trains or scores gen_recon and the anomaly workload
+data-parallel, one process a rank, the group started from torchrun's
+environment; `--multihost` starts it from `--coordinator_address`,
+`--num_processes` and `--process_id` (or, without them, from that
+environment) and implies `--use_mesh`, as the JAX CLI's
+`maybe_init_multihost` does (`init_distributed`). The serve CLI spreads
+its dispatches over the cards of its one process under `--use_mesh`
+(`parallel.mesh.LocalMesh`) and refuses `--multihost`, as JAX's does;
+the checkpoint converter, which has no mesh in JAX either, refuses both
+(`refuse_mesh`).
 `load_dataset` reads the gen_recon datasets cifar10, svhn, celeba64 and
 celebaHQ; mnist is the anomaly workload's (`cli/train_anomaly_det.py`).
 """
@@ -162,12 +166,12 @@ def add_common_flags(p: argparse.ArgumentParser) -> None:
 
 
 def refuse_mesh(args) -> None:
-    """Raise for `--use_mesh` and `--multihost` in a CLI whose workload has
-    no data-parallel port yet."""
+    """Raise for `--use_mesh` and `--multihost` in a CLI that runs in one
+    process on one device, as its JAX counterpart does."""
     if getattr(args, "use_mesh", False) or getattr(args, "multihost", False):
         raise NotImplementedError(
-            "--use_mesh and --multihost (several devices or processes) are ported for gen_recon "
-            "training and evaluation only (ROADMAP.md, queue 1, item 8)"
+            "--use_mesh and --multihost: this CLI runs in one process on one device, as the JAX "
+            "package's does (it takes no mesh)"
         )
 
 

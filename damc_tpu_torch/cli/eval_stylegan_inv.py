@@ -17,8 +17,15 @@ bfloat16` runs the Adam refine's synthesis and VGG16 in bfloat16
 (`train/stylegan_inv.py`). `--dataset lsun_tower` reads the LSUN classes
 `--lsun_classes` from their `<class>_lmdb` databases under `--data_path`
 (`data/datasets.py::load_lsun`) when the first one is there, and an image
-folder otherwise, as the JAX CLI does. Not ported: `--use_mesh`
-(ROADMAP.md, queue 1, item 8).
+folder otherwise, as the JAX CLI does.
+
+`--use_mesh` under torchrun inverts every batch with its rows split over
+the ranks, one rank a card (`--batch_size` must divide by the rank count;
+`--dist_backend` nccl by default on cuda, gloo to share one card):
+
+    torchrun --nproc_per_node N -m damc_tpu_torch.cli.eval_stylegan_inv ... --use_mesh
+
+In one process it is a no-op. Rank 0 prints the numbers.
 """
 
 from __future__ import annotations
@@ -51,23 +58,32 @@ def main(argv=None):
     p.add_argument("--g_l_step_size", type=float, default=0.01)
     p.add_argument("--n_fid_samples", type=int, default=50000)
     p.add_argument("--limit", type=int, default=None, help="cap on test images")
-    p.add_argument("--use_mesh", action="store_true", help="data-parallel over all devices (not ported)")
+    p.add_argument("--use_mesh", action="store_true",
+                   help="data-parallel over the ranks torchrun started, one rank a process")
+    p.add_argument("--dist_backend", type=str, default=None, choices=["nccl", "gloo"],
+                   help="transport of a data-parallel run (default nccl on cuda, gloo on cpu)")
     p.add_argument("--device", type=str, default="cuda", help="cuda (default) or cpu")
     args = p.parse_args(argv)
 
-    if args.use_mesh:
-        raise NotImplementedError("--use_mesh (several devices) is not ported (ROADMAP.md, queue 1, item 8)")
     from ..config import preset
     from ..data.datasets import load_image_folder, load_lsun
     from ..device import resolve_device
     from ..metrics.fid import compute_stats, images_to_unit
     from ..models.common import compute_dtype
     from ..models.stylegan import load_stylegan
+    from ..parallel.distributed import global_mesh, initialize_distributed, world_size
+    from ..train.driver_utils import is_primary
     from ..train.stylegan_inv import create_inversion_state, evaluate_inversion
     from ..utils.checkpoint import restore_checkpoint
     from .common import make_feature_fn, to_pm1
 
     device = resolve_device(args.device)
+    mesh = None
+    if args.use_mesh:
+        initialize_distributed(backend=args.dist_backend, device=device)
+        if world_size() > 1:
+            mesh = global_mesh(device)
+            device = mesh.device
     res = args.resolution
     nets = load_stylegan(args.pretrained_G_path, args.pretrained_E_path, args.pretrained_F_path, res, device)
     cfg = preset("celebaHQ")  # the 256^2 diffusion settings, as the JAX CLI
@@ -75,8 +91,9 @@ def main(argv=None):
     state = create_inversion_state(cfg, res, 0, device)
     if args.q_ckpt_dir:
         state = restore_checkpoint(args.q_ckpt_dir, args.q_ckpt_name, state)
-        print(f"[damc] restored Q (step {state.step}) from {args.q_ckpt_dir}/{args.q_ckpt_name}", flush=True)
-    else:
+        if is_primary(mesh):
+            print(f"[damc] restored Q (step {state.step}) from {args.q_ckpt_dir}/{args.q_ckpt_name}", flush=True)
+    elif is_primary(mesh):
         print("[damc] WARNING: no --q_ckpt_dir given; using random Q init")
     q = state.models.amortizer.eval().requires_grad_(False)
 
@@ -94,12 +111,19 @@ def main(argv=None):
         q, nets, images, batch=args.batch_size, steps=args.g_l_steps, lr=args.g_l_step_size,
         seed=args.seed, feature_fn=feature_fn, real_mu=real_mu, real_sigma=real_sigma,
         fid_metric_name=metric_name,
-        compute_dtype=compute_dtype(args.compute_dtype),
+        compute_dtype=compute_dtype(args.compute_dtype), mesh=mesh,
     )
-    label = "FID" if metric_name == "fid" else metric_name
-    print(f"[damc] recon MSE {out['recon_mse']:.5f} {label} {out.get(metric_name, float('nan')):.3f}", flush=True)
+    if is_primary(mesh):
+        label = "FID" if metric_name == "fid" else metric_name
+        print(f"[damc] recon MSE {out['recon_mse']:.5f} {label} {out.get(metric_name, float('nan')):.3f}",
+              flush=True)
     return out
 
 
 if __name__ == "__main__":
-    main()
+    from ..parallel.distributed import shutdown_distributed
+
+    try:
+        main()
+    finally:
+        shutdown_distributed()

@@ -1,4 +1,4 @@
-"""CLI: serve DAMC over HTTP with dynamic batching, on one GPU.
+"""CLI: serve DAMC over HTTP with dynamic batching, on one GPU or several.
 
     python -m damc_tpu_torch.cli.serve --dataset cifar10 \
         --ckpt_dir logs/cifar10/<run>/ckpt --ckpt_name best --port 8787
@@ -24,13 +24,19 @@ exclusive.
     python -m damc_tpu_torch.cli.serve --dataset cifar10 --ckpt_dir <run>/ckpt \
         --export_artifact art/cifar10
     python -m damc_tpu_torch.cli.serve --artifact art/cifar10 --port 8787
+
+`--use_mesh` serves over every card this process sees when there is more
+than one (`parallel.LocalMesh`: a replica a card, each dispatch's rows
+split over them; `--max_batch` must divide by the card count) and is a
+no-op on one card, as in JAX. Serving is one process: `--multihost` is
+refused.
 """
 
 from __future__ import annotations
 
 import argparse
 
-from .common import add_common_flags, config_from_args, refuse_mesh
+from .common import add_common_flags, config_from_args
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -72,6 +78,8 @@ def parse_args(argv=None) -> argparse.Namespace:
         help="comma-separated device types the exported artifact may be loaded on",
     )
     args = p.parse_args(argv)
+    if args.multihost:
+        raise SystemExit("serving is single-process; --multihost is invalid")
     if args.artifact and args.export_artifact:
         raise SystemExit("--artifact and --export_artifact are exclusive")
     if args.ckpt and args.ckpt_dir:
@@ -93,7 +101,6 @@ def _models(args):
     from ..train.state import create_state
     from ..utils.checkpoint import restore_checkpoint
 
-    refuse_mesh(args)
     cfg = config_from_args(args)
     seed = 0 if args.seed is None else args.seed
     step = 0
@@ -155,8 +162,23 @@ def service_from_args(args):
     return SamplerService(
         models, cfg, max_batch=args.max_batch, window_ms=args.window_ms,
         recon_langevin_steps=_recon_steps(args),
-        deterministic=not args.bucketed, device=args.device,
+        deterministic=not args.bucketed, device=args.device, mesh=serving_mesh(args),
     )
+
+
+def serving_mesh(args):
+    """`--use_mesh`: a LocalMesh of every card this process sees, when the
+    service runs on CUDA and there is more than one; else None (JAX's
+    `len(jax.devices()) > 1`)."""
+    import torch
+
+    from ..parallel.mesh import LocalMesh
+
+    if not args.use_mesh or torch.device(args.device).type != "cuda" or torch.cuda.device_count() < 2:
+        return None
+    mesh = LocalMesh.cards()
+    print(f"[damc] data-parallel serving over {mesh.world} devices")
+    return mesh
 
 
 def build_service(argv=None):

@@ -14,7 +14,8 @@ with scipy's `sqrtm` as pytorch-fid does.
 `compute_stats_sharded` is the data-parallel form (JAX's
 `make_stats_accumulator` and `compute_stats_sharded`, :74-173): each rank
 accumulates its rows of every batch in a `RunningStats`, and every
-`fold_every` batches the ranks' sums are all-reduced into the totals.
+`fold_every` batches the ranks' sums are all-reduced into the totals;
+`all_reduce_stats` merges one `RunningStats` a rank in one step.
 """
 
 from __future__ import annotations
@@ -82,6 +83,17 @@ def compute_stats(feature_fn: FeatureFn, batches: Iterable) -> Tuple[np.ndarray,
     return stats.finalize()
 
 
+def all_reduce_stats(local: RunningStats) -> RunningStats:
+    """The sum of every rank's `RunningStats` (count, sums), on every rank:
+    one all-reduce of a flat float64 buffer."""
+    dim = local.sum.shape[0]
+    flat = torch.cat([local.sum.new_tensor([float(local.n)]), local.sum, local.outer.reshape(-1)])
+    torch.distributed.all_reduce(flat)
+    out = RunningStats(dim, flat.device)
+    out.n, out.sum, out.outer = int(round(float(flat[0]))), flat[1:1 + dim], flat[1 + dim:].view(dim, dim)
+    return out
+
+
 def compute_stats_sharded(
     feature_fn: FeatureFn, batches: Iterable, dim: int, fold_every: int = 16
 ) -> Tuple[np.ndarray, np.ndarray]:
@@ -95,15 +107,17 @@ def compute_stats_sharded(
     float64 host totals at the same points; here the carry is float64 from
     the start and a fold is one collective in place of one a batch."""
     local: Optional[RunningStats] = None
-    totals: Optional[torch.Tensor] = None  # [n, sum (dim), outer (dim * dim)]
+    totals: Optional[RunningStats] = None
     pending = 0
 
     def fold() -> None:
         nonlocal totals, local, pending
-        flat = torch.cat([local.sum.new_tensor([float(local.n)]), local.sum, local.outer.reshape(-1)])
-        torch.distributed.all_reduce(flat)
-        totals = flat if totals is None else totals + flat
-        local, pending = RunningStats(dim, flat.device), 0
+        merged = all_reduce_stats(local)
+        if totals is None:
+            totals = merged
+        else:
+            totals.n, totals.sum, totals.outer = totals.n + merged.n, totals.sum + merged.sum, totals.outer + merged.outer
+        local, pending = RunningStats(dim, merged.sum.device), 0
 
     with torch.no_grad():
         for batch in batches:
@@ -118,8 +132,7 @@ def compute_stats_sharded(
         raise ValueError("no batches provided")
     if pending:
         fold()
-    flat = totals.cpu().numpy()
-    return finalize_stats(int(round(flat[0])), flat[1:1 + dim], flat[1 + dim:].reshape(dim, dim))
+    return totals.finalize()
 
 
 def frechet_distance(

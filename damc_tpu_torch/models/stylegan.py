@@ -169,6 +169,8 @@ class Epilogue(nn.Module):
 class _ConstBlock(nn.Module):
     """layer0: the learned 4x4 constant and its epilogue."""
 
+    out_channel_dims = {"const": 1}  # the channel axis of (1, C, 4, 4), for parallel/tp.py
+
     def __init__(self, c: int):
         super().__init__()
         self.const = nn.Parameter(torch.zeros(1, c, INIT_RES, INIT_RES))
@@ -196,6 +198,8 @@ class _UpConvBlock(nn.Module):
     nearest upsampling, then the conv. From 128 on (fused): the weight,
     stored (3, 3, cin, cout), scaled, padded and folded to a 4x4 kernel for
     a stride-2 transposed convolution."""
+
+    out_channel_dims = {"weight": 3}  # the fused weight's (3, 3, cin, cout), for parallel/tp.py
 
     def __init__(self, res: int, cin: int, cout: int):
         super().__init__()

@@ -17,12 +17,16 @@ are `all_reduce` and `broadcast` alone, which take CUDA tensors under
 NCCL and under gloo: a gather is the all-reduce sum of a zeroed buffer in
 which each rank has filled its own rows (`gather_rows`). No tensor goes
 through the host on the way.
+
+Serving is the one exception (`LocalMesh`): the JAX service spreads each
+dispatch over the local devices of its one controller, and so does the
+port's, over the devices a `LocalMesh` names, with no process group.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import List, Sequence
+from typing import List, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -34,6 +38,49 @@ class Mesh:
     rank: int
     world: int
     device: torch.device
+
+
+@dataclass(frozen=True)
+class LocalMesh:
+    """Devices of this process over which one controller splits a batch
+    into equal row blocks (the `data` axis of JAX's single-process mesh):
+    serving's mesh (`serve.py::SamplerService(mesh=)`). A device may be
+    named twice (two replicas sharing a card). Naming a CUDA device that
+    this process does not have raises; so does an empty list."""
+
+    devices: Tuple[torch.device, ...]
+
+    def __init__(self, devices: Sequence):
+        devs = tuple(torch.device(d) for d in devices)
+        if not devs:
+            raise ValueError("a LocalMesh needs at least one device")
+        for d in devs:
+            if d.type == "cuda":
+                if not torch.cuda.is_available():
+                    raise RuntimeError(f"LocalMesh names {d}, but CUDA is not available")
+                if (d.index or 0) >= torch.cuda.device_count():
+                    raise RuntimeError(f"LocalMesh names {d}, but this process sees "
+                                       f"{torch.cuda.device_count()} CUDA devices")
+            elif d.type != "cpu":
+                raise ValueError(f"LocalMesh takes cpu and cuda devices, not {d}")
+        object.__setattr__(self, "devices", tuple(
+            torch.device("cuda", d.index or 0) if d.type == "cuda" else d for d in devs))
+
+    @property
+    def world(self) -> int:
+        return len(self.devices)
+
+    @classmethod
+    def cards(cls) -> "LocalMesh":
+        """Every CUDA device this process sees."""
+        return cls([torch.device("cuda", i) for i in range(torch.cuda.device_count())])
+
+    def blocks(self, n: int) -> List[slice]:
+        """The row block of each device in a batch of n (n must divide)."""
+        if n % self.world:
+            raise ValueError(f"a batch of {n} rows does not divide over {self.world} devices")
+        local = n // self.world
+        return [slice(i * local, (i + 1) * local) for i in range(self.world)]
 
 
 def make_mesh(device) -> Mesh:

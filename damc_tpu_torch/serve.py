@@ -38,11 +38,28 @@ enqueue and wait on futures.
 artifact (`damc_tpu_torch.artifact`): traced programs with the weights
 baked in, fed the same stacked draws. That route imports no model or
 training module.
+
+Several devices (`mesh`, a `parallel.LocalMesh`; JAX's `SamplerService(
+mesh=)`, `damc_tpu/serve.py:427-499`): one process holds a replica of G,
+E and Q on each device, splits each padded dispatch into equal row blocks,
+runs block i on device i (K1 and K2 launch once a device, on its rows) and
+gathers the outputs on the first device (`split_serving_fns`). K1 and K2
+compute a row alike at any row count (per-row counter noise), but the
+networks around them run at max_batch / n rows, where cuBLAS and cuDNN
+may round otherwise than at max_batch: the sweep's tables (the prior
+embedding, the encoder), G's decode and the recon path's autograd. So the
+answers equal the one-device service's to that rounding, as the sweep
+carries it, and are reproducible for one mesh; an item alone still equals
+it coalesced. max_batch must divide over the devices; bucketed mode takes
+multiples of the device count. A service inside a process group of
+several ranks is refused: the service is one controller, as in JAX.
 """
 
 from __future__ import annotations
 
 import base64
+import contextlib
+import copy
 import functools
 import json
 import queue
@@ -60,6 +77,8 @@ from .device import resolve_device
 from .ops.cuda.fused_qsweep import denoiser_layer_params
 from .ops.langevin import langevin_sample, posterior_energy, prior_langevin_auto
 from .ops.noise import counter_bits, counter_normal
+from .parallel.distributed import world_size
+from .parallel.mesh import LocalMesh
 
 # Draw tags: counter_normal steps 0 and 1 use counters 0..3; the two row
 # seeds come from counter 4.
@@ -151,6 +170,34 @@ def build_serving_fns(models, cfg: Config, recon_langevin_steps: int = 10) -> Di
 
         fns["ebm"] = ebm_sample
     return fns
+
+
+def _on(device: torch.device):
+    """`device` as the current CUDA device (the kernels launch on the
+    current device's stream); nothing for the CPU."""
+    return torch.cuda.device(device) if device.type == "cuda" else contextlib.nullcontext()
+
+
+def split_serving_fns(replica_fns: Sequence[Dict[str, Callable]], mesh: LocalMesh) -> Dict[str, Callable]:
+    """The serving core over a `LocalMesh`: `replica_fns[i]` is
+    `build_serving_fns` of the replica on device i. Each call splits its
+    rows into equal blocks (`mesh.blocks`), runs block i on device i and
+    concatenates the outputs, in row order, on the first device."""
+    first = mesh.devices[0]
+
+    def make(path: str) -> Callable:
+        def run(d: RowDraws, *x: torch.Tensor):
+            outs = []
+            for dev, fns, rows in zip(mesh.devices, replica_fns, mesh.blocks(d.z_init.shape[0])):
+                with _on(dev):
+                    out = fns[path](RowDraws(*(t[rows].to(dev) for t in d)), *(t[rows].to(dev) for t in x))
+                outs.append(out if isinstance(out, tuple) else (out,))
+            cols = tuple(torch.cat([o[c].to(first) for o in outs]) for c in range(len(outs[0])))
+            return cols if len(cols) > 1 else cols[0]
+
+        return run
+
+    return {path: make(path) for path in replica_fns[0]}
 
 
 def bucket_size(n: int, max_batch: int) -> int:
@@ -319,7 +366,9 @@ class SamplerService:
     """Micro-batched serving facade over the port's models.
 
     `device` defaults to CUDA and raises when it is missing; pass
-    device='cpu' to serve through the kernels' plain versions.
+    device='cpu' to serve through the kernels' plain versions. `mesh`, a
+    `parallel.LocalMesh`, serves over its devices instead of `device`
+    (module docstring); max_batch must divide over them.
     `SamplerService.from_artifact(dir)` builds the same facade over the
     programs of a serving artifact instead of live models."""
 
@@ -333,14 +382,32 @@ class SamplerService:
         request_timeout_s: float = 300.0,
         deterministic: bool = True,
         device=None,
+        mesh: Optional[LocalMesh] = None,
     ):
-        device = resolve_device(device)
-        for m in models.modules():
-            m.to(device)
+        if mesh is None:
+            device = resolve_device(device)
+            for m in models.modules():
+                m.to(device)
+            fns = build_serving_fns(models, cfg, recon_langevin_steps)
+        else:
+            if world_size() > 1:
+                raise ValueError("SamplerService is single-process: one controller serves over the devices "
+                                 "of a LocalMesh, not the ranks of a process group")
+            if int(max_batch) % mesh.world:
+                raise ValueError(f"max_batch={max_batch} must be divisible by the mesh's {mesh.world} devices "
+                                 "so every bucket splits evenly")
+            replicas = [models] + [copy.deepcopy(models) for _ in mesh.devices[1:]]
+            replica_fns = []
+            for dev, replica in zip(mesh.devices, replicas):
+                resolve_device(dev)
+                for m in replica.modules():
+                    m.to(dev)
+                with _on(dev):
+                    replica_fns.append(build_serving_fns(replica, cfg, recon_langevin_steps))
+            fns, device = split_serving_fns(replica_fns, mesh), mesh.devices[0]
         self._setup(
-            build_serving_fns(models, cfg, recon_langevin_steps),
-            (cfg.model.image_size, cfg.model.image_size, cfg.model.nc),
-            cfg.model.nz, max_batch, window_ms, request_timeout_s, deterministic, device,
+            fns, (cfg.model.image_size, cfg.model.image_size, cfg.model.nc),
+            cfg.model.nz, max_batch, window_ms, request_timeout_s, deterministic, device, mesh,
         )
         self.cfg = cfg
 
@@ -374,8 +441,10 @@ class SamplerService:
         request_timeout_s: float,
         deterministic: bool,
         device: torch.device,
+        mesh: Optional[LocalMesh] = None,
     ) -> None:
         self.device = device
+        self.mesh = mesh
         self.cfg: Optional[Config] = None
         self.artifact_meta: Optional[Dict[str, Any]] = None
         self.nz = int(nz)
@@ -398,7 +467,14 @@ class SamplerService:
         return tuple(self._fns)
 
     def _bucket_for(self, n: int) -> int:
-        return self.max_batch if self.deterministic else bucket_size(n, self.max_batch)
+        if self.deterministic:
+            return self.max_batch
+        if self.mesh is None:
+            return bucket_size(n, self.max_batch)
+        # Bucketed over a mesh: multiples of the device count, so that every
+        # dispatch splits evenly (max_batch divides, checked at init).
+        k = self.mesh.world
+        return min(self.max_batch, -(-n // k) * k)
 
     def _run(self, path: str, items: List[Tuple]) -> List[Tuple[np.ndarray, ...]]:
         n = len(items)

@@ -27,8 +27,9 @@ With a `parallel.Mesh` (JAX's `mesh=`, :32-133), the generation pipelines
 take the global batch's draws, which every rank makes alike from the seed:
 the kernel's rows split over the ranks (K4a, K4b) and each rank decodes and
 returns its own rows, the port's form of JAX's batch-sharded output.
-`reconstruct` takes no mesh: the data-parallel drivers run it on each
-rank's replica, as JAX's multi-host drivers do.
+`reconstruct` and `anomaly_scores` take a rank's rows instead (`row_base`,
+the first global row): the sharded AUPRC eval scores each rank's rows of
+the global batch, K2 seeding them as the global rows.
 """
 
 from __future__ import annotations
@@ -144,14 +145,15 @@ def gen_samples_damc_prior(
 
 
 def reconstruct(
-    models: ModelBundle, cfg: Config, x: torch.Tensor, d: Draws, langevin_steps: int = 10
+    models: ModelBundle, cfg: Config, x: torch.Tensor, d: Draws, langevin_steps: int = 10,
+    row_base: int = 0,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(x_hat, z): z0 ~ Q(. | x) (kernel K2), then `langevin_steps` of
     noiseless posterior Langevin through G and E by autograd, then
-    decode."""
+    decode. x and d are the global rows from `row_base` on."""
     mc = cfg.mcmc
     gen, ebm = models.generator, models.ebm
-    z0 = sample_q(models.amortizer, x, d.z0, d.sweep_seed)
+    z0 = sample_q(models.amortizer, x, d.z0, d.sweep_seed, row_base=row_base)
     if ebm is None:
         raise ValueError("reconstruct needs an EBM; the toy workload's posterior is train/toy.py's")
     with frozen(gen, ebm):
@@ -169,15 +171,22 @@ def recon_mse_per_image(x_hat: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
 
 
 def anomaly_scores(
-    models: ModelBundle, cfg: Config, x: torch.Tensor, d: Draws, langevin_steps: int = 10
+    models: ModelBundle, cfg: Config, x: torch.Tensor, d: Draws, langevin_steps: int = 10,
+    row_base: int = 0,
 ) -> torch.Tensor:
-    """||x_hat - x||^2 + E(z) + 0.5 ||z||^2 after `reconstruct`, (B,);
-    higher is more anomalous."""
-    x_hat, z = reconstruct(models, cfg, x, d, langevin_steps)
+    """||x_hat - x||^2 + E(z) + 0.5 ||z||^2 after `reconstruct` (of the
+    global rows from `row_base` on), (B,); higher is more anomalous."""
+    x_hat, z = reconstruct(models, cfg, x, d, langevin_steps, row_base)
     b = x.shape[0]
     with torch.no_grad():
         recon = torch.sum((x_hat - x).reshape(b, -1) ** 2, dim=-1)
         return recon + models.ebm(z) + 0.5 * torch.sum(z * z, dim=-1)
+
+
+def shard_draws(mesh, d: Draws) -> Draws:
+    """This rank's rows of the global batch's draws (the kernel seeds are
+    the launch's, the same on every rank)."""
+    return Draws(shard_batch(mesh, d.z0), shard_batch(mesh, d.emb_noise), d.sweep_seed, d.chain_seed)
 
 
 def to_unit_range(x: torch.Tensor) -> torch.Tensor:

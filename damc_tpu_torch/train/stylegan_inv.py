@@ -13,7 +13,8 @@ inside. Random numbers come in as `InversionDraws` (tensors), or are drawn
 from a device generator (`inversion_draws`), so the CPU tests can feed
 JAX's own draws. `make_inversion_train_step` trains Q with the refined
 inversion as the posterior target; `evaluate_inversion` sweeps a test set
-for the recon MSE and the Frechet distance of the reconstructions.
+for the recon MSE and the Frechet distance of the reconstructions, on one
+device or data-parallel over the ranks of a process group (`mesh`).
 
 `compute_dtype` (torch.float32 or torch.bfloat16) runs the Adam
 refine's synthesis and VGG16 forwards and their input-backwards in that
@@ -41,6 +42,7 @@ from ..models.common import cast_float_leaves, torch_default_init_
 from ..models.stylegan import StyleGANNets, W_DIM, num_synthesis_layers, sample_w_codes
 from ..ops.langevin import adam_latent_descent
 from ..ops.noise import counter_bits
+from ..parallel.mesh import all_max, batch_sharding
 from .sampling import to_unit_range
 from .state import ClippedAdam, Optimizers, TrainState
 from .step import QDraws
@@ -98,6 +100,11 @@ class InversionDraws:
     z_init: torch.Tensor  # (B, nz) normals: the start of Q's sweep
     sweep_noise: Optional[torch.Tensor]  # (n, B, nz) ancestral normals; None for a noiseless Q
     rescue: torch.Tensor  # (B, 512) normals: the mapping-net inputs of the NaN rescue
+
+
+def shard_inversion_draws(d: InversionDraws, rows: slice) -> InversionDraws:
+    """A rank's rows of the global batch's draws."""
+    return InversionDraws(d.z_init[rows], None if d.sweep_noise is None else d.sweep_noise[:, rows], d.rescue[rows])
 
 
 def inversion_draws(gen: torch.Generator, b: int, nz: int, n: int, with_noise: bool = True) -> InversionDraws:
@@ -274,37 +281,56 @@ def evaluate_inversion(
     real_sigma=None,
     fid_metric_name: str = "fid",
     compute_dtype: torch.dtype = torch.float32,
+    mesh=None,
 ) -> Dict[str, float]:
     """Recon MSE (the sum of per-image means over N) and, with a feature
     extractor and real statistics, the Frechet distance of the
     reconstructions, over every image of `images` (N, H, W, 3) in [-1, 1]
     (`damc_tpu/train/stylegan_inv.py:203-307`): a tail batch is padded by
     repeating its last image, then sliced back; features stream into
-    `RunningStats`. `compute_dtype` is the Adam refine's (`invert_batch`)."""
-    from ..metrics.fid import RunningStats, frechet_distance
+    `RunningStats`. `compute_dtype` is the Adam refine's (`invert_batch`).
+
+    With a `mesh` (the ranks of a process group, each holding Q and the
+    networks), `batch` must divide over the ranks, and each rank inverts
+    its rows of every batch, the padded tail's too (:240-283). Its draws
+    are its rows of the global batch's, so a row is inverted as in one
+    process: the refine's loss is a sum of per-image losses and Adam is
+    elementwise. The MSE sums and the feature statistics of the real rows
+    are all-reduced; every rank returns the same numbers."""
+    from ..metrics.fid import RunningStats, all_reduce_stats, frechet_distance
 
     n_total = len(images)
     if n_total == 0:
         raise ValueError("evaluate_inversion: empty image set")
+    if mesh is not None and batch % mesh.world:
+        raise ValueError(f"evaluate_inversion: batch {batch} must divide by the mesh's {mesh.world} ranks")
+    rows = slice(0, batch) if mesh is None else batch_sharding(mesh, batch)
     dev = q.p.B.device
-    total_mse, n, stats = 0.0, 0, None
+    total_mse = torch.zeros((), dtype=torch.float64, device=dev)
+    stats = None
     for bi, i in enumerate(range(0, n_total, batch)):
         xb = torch.from_numpy(np.asarray(images[i : i + batch], np.float32)).to(dev)
         n_real = xb.shape[0]
         if n_real < batch:
             xb = torch.cat([xb, xb[-1:].expand(batch - n_real, -1, -1, -1)])
         draws = inversion_draws(batch_generator(seed, bi, dev), batch, q.nz, q.n_interval, q.with_noise)
-        x_hat, _, _ = invert_batch(q, nets, xb, draws, steps, lr, compute_dtype=compute_dtype)
-        x_hat = x_hat[:n_real]
-        total_mse += float(torch.sum(torch.mean((x_hat - xb[:n_real]).reshape(n_real, -1) ** 2, dim=-1)))
-        n += n_real
-        if feature_fn is not None:
+        xl = xb[rows]
+        x_hat, _, _ = invert_batch(q, nets, xl, shard_inversion_draws(draws, rows), steps, lr,
+                                   compute_dtype=compute_dtype)
+        kept = min(max(n_real - rows.start, 0), xl.shape[0])  # this rank's rows that are not padding
+        total_mse += torch.sum(torch.mean((x_hat[:kept] - xl[:kept]).flatten(1) ** 2, dim=-1)).double()
+        if feature_fn is not None and kept:
             with torch.no_grad():
-                feats = feature_fn(to_unit_range(x_hat))
+                feats = feature_fn(to_unit_range(x_hat[:kept]))
             if stats is None:
                 stats = RunningStats(feats.shape[-1], feats.device)
             stats.update(feats)
-    out = {"recon_mse": total_mse / n}
+    if mesh is not None:
+        torch.distributed.all_reduce(total_mse)
+        if feature_fn is not None:  # a rank that held only padding learns the width from its peers
+            width = all_max(mesh, torch.tensor(0.0 if stats is None else float(stats.sum.shape[0]), device=dev))
+            stats = all_reduce_stats(stats if stats is not None else RunningStats(int(width), dev))
+    out = {"recon_mse": float(total_mse) / n_total}
     if stats is not None and real_mu is not None:
         mu, sigma = stats.finalize()
         out[fid_metric_name] = frechet_distance(mu, sigma, real_mu, real_sigma)

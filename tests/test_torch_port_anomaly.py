@@ -215,7 +215,18 @@ def test_new_clis_need_cuda_without_device(tmp_path, cli):
 
 @pytest.mark.parametrize("flag", ["--use_mesh", "--multihost"])
 def test_anomaly_clis_refuse_meshes(tmp_path, flag):
+    """Both CLIs take the mesh flags now (the name predates that;
+    tests/test_torch_port_anomaly_mesh.py runs them on two ranks): in one
+    process the flag starts no group and the CLI goes on to read its data
+    (here, none: mnist.npz is missing); an explicit coordinator setup that
+    cannot be joined raises before anything is read."""
     for main in (train_anomaly_det.main, eval_anomaly_det.main):
         argv = ["--data_path", str(tmp_path), "--ckpt_dir", str(tmp_path)] if main is eval_anomaly_det.main else []
-        with pytest.raises(NotImplementedError, match="queue 1, item 8"):
-            main(argv + [flag, "--device", "cpu", "--log_path", str(tmp_path)])
+        argv += [flag, "--device", "cpu", "--log_path", str(tmp_path / "logs")]
+        with pytest.raises(FileNotFoundError, match="mnist"):
+            main(argv)
+        assert not torch.distributed.is_initialized()
+        with pytest.raises(ValueError, match="process id 5"):
+            main(argv + ["--multihost", "--coordinator_address", "127.0.0.1:1", "--num_processes", "2",
+                         "--process_id", "5"])
+        assert not torch.distributed.is_initialized()

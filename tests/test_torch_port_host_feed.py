@@ -289,7 +289,7 @@ def test_gen_recon_lazy_store_and_preemption_close_the_feed(tmp_path, monkeypatc
 def test_anomaly_trains_host_fed_without_flips(monkeypatch, capsys):
     """The anomaly driver on the host feed: its float store goes through
     the NumPy Loader with flips off (as JAX's `augment_flip=False`), and a
-    failing step still closes the feed."""
+    failing step still closes the feed. One process passes no mesh."""
     cfg = tiny(preset("mnist_anomaly"))
     cfg = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, batch_size=8, q_updates=2,
                                                              data_placement="host"))
@@ -300,7 +300,7 @@ def test_anomaly_trains_host_fed_without_flips(monkeypatch, capsys):
                         lambda *a, **k: (calls.append(k), original(*a, **k))[1])
     images = np.random.default_rng(7).uniform(-1, 1, (20, 28, 28, 1)).astype(np.float32)
     state, _ = anomaly.train_anomaly(cfg, images, iterations=2, seed=2, device="cpu")
-    assert state.step == 2 and calls == [{"augment_flip": False}]
+    assert state.step == 2 and calls == [{"augment_flip": False, "mesh": None}]
     assert log == [{"placement": "host", "closed": 1}]
     assert "placement: host" in capsys.readouterr().out
 

@@ -241,7 +241,8 @@ def test_eval_cli_round_trip_on_cpu(pair, tmp_path, capsys):
     (resized to 8): twice from a saved Q checkpoint, identical output; with
     `--compute_dtype bfloat16` a recon MSE within 5% of the float32 run's
     (the bound of tests/test_cli_stylegan_inv.py) and not equal to it; and
-    the options it does not port raise, naming their ROADMAP item."""
+    `--use_mesh` in one process, the same numbers (it raised before the
+    mesh was ported)."""
     from damc_tpu_torch.cli import eval_stylegan_inv
     from damc_tpu_torch.data.datasets import synthetic_image_tree
 
@@ -270,9 +271,10 @@ def test_eval_cli_round_trip_on_cpu(pair, tmp_path, capsys):
     bf16 = eval_stylegan_inv.main(argv + ["--compute_dtype", "bfloat16"])
     assert np.isfinite(bf16["recon_mse"]) and bf16["recon_mse"] != outs[0]["recon_mse"]
     assert abs(bf16["recon_mse"] - outs[0]["recon_mse"]) / outs[0]["recon_mse"] < 0.05
-    for extra, item in ((["--use_mesh"], "item 8"),):
-        with pytest.raises(NotImplementedError, match=item):
-            eval_stylegan_inv.main(argv + extra)
+    # --use_mesh is ported (tests/test_torch_port_stylegan_mesh.py runs it on
+    # two ranks); in one process it starts no group and changes nothing.
+    assert eval_stylegan_inv.main(argv + ["--use_mesh"]) == outs[0]
+    assert not torch.distributed.is_initialized()
     # LSUN's lmdb databases are read since item 4b: an empty directory is no database.
     os.makedirs(tmp_path / "lsun" / "tower_val_lmdb")
     with pytest.raises(OSError, match="cannot open LMDB env"):

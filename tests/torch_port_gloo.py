@@ -361,3 +361,177 @@ def preempted_loop(iterations: int, signal_rank: int, signal_at: int):
     tc = types.SimpleNamespace(ckpt_every=0, eval_every=0)
     stopped = run_loop(tc, None, 0, iterations, None, iterate, None, mesh)
     return ran, stopped
+
+
+# --- the tasks of the anomaly, inversion, serving and channel-parallel tests
+
+
+def _counting_plain(calls):
+    """Patch the plain versions behind K1 and K2 to record each call's
+    (kernel, rows, row_base); returns the undo function."""
+    from damc_tpu_torch.ops.cuda import fused_langevin, fused_qsweep
+
+    patched = []
+    for module, name, kernel in ((fused_langevin, "prior_langevin_plain", "K1"),
+                                 (fused_qsweep, "reverse_sweep_plain", "K2")):
+        original = getattr(module, name)
+
+        def counting(z, *a, _original=original, _kernel=kernel, **kw):
+            calls.append((_kernel, int(z.shape[0]), int(kw.get("row_base", 0))))
+            return _original(z, *a, **kw)
+
+        setattr(module, name, counting)
+        patched.append((module, name, original))
+    return lambda: [setattr(m, n, o) for m, n, o in patched]
+
+
+def counted_train_steps(cfg, ckpt_dir: str, xs, draws):
+    """`train_steps`, with the (kernel, rows, row_base) of every K1 and K2
+    call of the steps appended to its result."""
+    calls = []
+    undo = _counting_plain(calls)
+    try:
+        metrics, arrays = train_steps(cfg, ckpt_dir, xs, draws)
+    finally:
+        undo()
+    return metrics, arrays, calls
+
+
+def auprc_eval(cfg, ckpt_dir: str, images, labels, batch: int, steps: int, seed: int):
+    """`evaluate_auprc(..., mesh=)` of the checkpoint `ckpt_dir`/0 on this
+    rank; returns (the AUPRC, the scores it was taken over, the K2 calls)."""
+    from damc_tpu_torch.train import anomaly
+    from damc_tpu_torch.train.gen_recon import make_draws_fn
+    from damc_tpu_torch.train.state import create_state
+    from damc_tpu_torch.utils.checkpoint import restore_checkpoint
+
+    mesh = _mesh()
+    state = restore_checkpoint(ckpt_dir, "0", create_state(cfg, 0, "cpu"))
+    seen, calls = [], []
+    original = anomaly.auprc
+    anomaly.auprc = lambda s, y: (seen.append(np.array(s)), original(s, y))[1]
+    undo = _counting_plain(calls)
+    try:
+        score = anomaly.evaluate_auprc(state.models, cfg, images, labels,
+                                       make_draws_fn(seed, "auprc", 0, cfg.model.nz, "cpu"),
+                                       batch=batch, langevin_steps=steps, mesh=mesh)
+    finally:
+        anomaly.auprc = original
+        undo()
+    return score, seen[0], calls
+
+
+def anomaly_cli(which: str, argv):
+    """`cli.train_anomaly_det.main(argv)` ("train": returns the checkpoint
+    names this rank saved, its metrics rows written, the step, the state's
+    tensors, the best AUPRC) or `cli.eval_anomaly_det.main(argv)` ("eval":
+    returns the AUPRC and what it printed)."""
+    from damc_tpu_torch.cli import eval_anomaly_det, train_anomaly_det
+    from damc_tpu_torch.train import driver_utils
+    from damc_tpu_torch.utils import logging as port_logging
+
+    if which == "eval":
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            score = eval_anomaly_det.main(argv)
+        return score, out.getvalue()
+    saves, rows = [], []
+    patches = [
+        (driver_utils, "save_checkpoint", lambda d, name, s, f=driver_utils.save_checkpoint: (saves.append(name), f(d, name, s))[1]),
+        (port_logging.MetricsLogger, "log", lambda self, *a, f=port_logging.MetricsLogger.log, **kw: (rows.append(self.path), f(self, *a, **kw))[1]),
+    ]
+    originals = [(obj, name, getattr(obj, name)) for obj, name, _ in patches]
+    for obj, name, fn in patches:
+        setattr(obj, name, fn)
+    try:
+        state, best = train_anomaly_det.main(argv)
+    finally:
+        for obj, name, fn in originals:
+            setattr(obj, name, fn)
+    return saves, [p for p in rows if p is not None], int(state.step), state_arrays(state), best
+
+
+def inversion_eval(res: int, seed: int, images, batch: int, steps: int, fourier_damp: float, world_one: bool = False):
+    """`evaluate_inversion` of seeded random StyleGAN networks and Q at
+    resolution `res` (Q's Fourier matrix times `fourier_damp`) over
+    `images` with the random feature map, on this rank's rows (or, with
+    `world_one`, the whole batches on this rank alone); returns its numbers
+    and whether a batch of batch + 1 raised."""
+    import dataclasses
+
+    import torch
+
+    from damc_tpu_torch.config import preset
+    from damc_tpu_torch.metrics.fid import make_random_feature_fn
+    from damc_tpu_torch.models.stylegan import build_stylegan
+    from damc_tpu_torch.train import stylegan_inv as inv
+
+    mesh = None if world_one else _mesh()
+    cfg = preset("celebaHQ")
+    cfg = dataclasses.replace(cfg, diffusion=dataclasses.replace(cfg.diffusion, n_interval=2))
+    nets = build_stylegan(res, seed=seed, device="cpu")
+    q = inv.make_stylegan_amortizer(cfg, res, seed=seed, device="cpu")
+    with torch.no_grad():
+        q.p.B.mul_(fourier_damp)
+    kw = dict(steps=steps, lr=0.05, seed=3, feature_fn=make_random_feature_fn((res, res, 3)),
+              real_mu=np.zeros(192), real_sigma=np.eye(192), fid_metric_name="frechet_rand", mesh=mesh)
+    out = inv.evaluate_inversion(q, nets, images, batch=batch, **kw)
+    try:
+        inv.evaluate_inversion(q, nets, images[:1], batch=batch + 1, **kw)
+        raised = False
+    except ValueError as e:
+        raised = "must divide" in str(e)
+    return out, raised
+
+
+def serve_in_group():
+    """A `SamplerService` over `LocalMesh(["cpu", "cpu"])` inside this
+    group of processes; returns the error it raises."""
+    from damc_tpu_torch.config import preset
+    from damc_tpu_torch.models import build_models
+    from damc_tpu_torch.parallel import LocalMesh
+    from damc_tpu_torch.serve import SamplerService
+    from torch_port_helpers import tiny
+
+    cfg = tiny(preset("svhn"))
+    try:
+        SamplerService(build_models(cfg, seed=1, device="cpu"), cfg, max_batch=4, mesh=LocalMesh(["cpu", "cpu"]))
+    except ValueError as e:
+        return str(e)
+    return None
+
+
+def tp_synthesis(res: int, seed: int, wp, min_channels: int):
+    """The synthesis of a seeded random StyleGAN generator at resolution
+    `res` with its wide parameters channel-sharded over the group
+    (`shard_params_channelwise`): returns (the sharding tree, the image of
+    `wp` (numpy), the gradient of the image's sum of squares with respect
+    to wp and to each parameter (None where it takes none), the sharded
+    ones gathered, by name, and the number of elements this rank holds)."""
+    import torch
+    from torch.nn.utils import parametrize
+
+    from damc_tpu_torch.models.stylegan import build_stylegan
+    from damc_tpu_torch.parallel import channel_sharding_tree, gather_rows, shard_params_channelwise
+
+    mesh = _mesh()
+    gen = build_stylegan(res, seed=seed, device="cpu").generator.requires_grad_(True)
+    tree = channel_sharding_tree(mesh, gen, min_channels)
+    shard_params_channelwise(mesh, gen, min_channels)
+    x = torch.from_numpy(wp).requires_grad_(True)
+    img = gen(x)
+    (img**2).sum().backward()
+    grads = {}
+    for name, dim in tree.items():
+        owner_name, _, leaf = name.rpartition(".")
+        owner = gen.get_submodule(owner_name)
+        local = getattr(owner, leaf).grad if dim is None else owner.parametrizations[leaf].original.grad
+        if local is None:  # a parameter the synthesis does not read (the mapping network's)
+            grads[name] = None
+        elif dim is None:
+            grads[name] = local.numpy()
+        else:
+            grads[name] = gather_rows(mesh, local.movedim(dim, 0).contiguous()).movedim(0, dim).numpy()
+        assert parametrize.is_parametrized(owner, leaf) == (dim is not None)
+    held = sum(p.numel() for p in gen.parameters())
+    return tree, img.detach().numpy(), x.grad.numpy(), grads, held
