@@ -7,8 +7,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
   1. prints the card's name and power limit (nvidia-smi); needs CUDA;
   2. builds every CUDA kernel from `damc_tpu_torch/csrc`, one nvcc each, all
      at once, and beside them the host C++ libraries of
-     `damc_tpu_torch/csrc/host` (batch engine, JPEG decoder, LMDB reader),
-     one g++ each;
+     `damc_tpu_torch/csrc/host` (batch engine, JPEG and WebP decoders, LMDB
+     reader), one g++ each;
   3. holds each kernel against its plain PyTorch version on the card, at the
      serving shape B=16 and the FID shape B=500 (ragged row tiles) in
      counter and noiseless mode, and in stream mode at the training shapes
@@ -73,12 +73,12 @@ Phases, each of which raises on failure (the script then exits non-zero):
   9. drives the gen_recon workload through its CLIs at full cifar10 width
      in a temporary directory, on a CIFAR-10 pickle tree made from the seed
      (10,000 train images, cut from 50,000; 2,000 test images, cut from
-     10,000): trains 6
-     iterations at B=128 with evals, grids and checkpoints every 3 and 1,000
+     10,000): trains 4
+     iterations at B=128 with evals, grids and checkpoints every 2 and 1,000
      FID samples (`frechet_rand`: no Inception weights here) and checks the
      metrics rows, the checkpoints, the PNG grids and that K1 and K2
-     launched exactly as the protocol implies; resumes to 8 iterations with
-     --resume_path auto in the same run directory; restores ckpt/5 into a
+     launched exactly as the protocol implies; resumes to 5 iterations with
+     --resume_path auto in the same run directory; restores ckpt/3 into a
      fresh state, equal to the state in memory, and steps both, bit for
      bit; scores ckpt/best twice through the eval CLI (K1 100 steps at 1.6,
      K2 at B=500) and checks that both print the same numbers;
@@ -92,21 +92,22 @@ Phases, each of which raises on failure (the script then exits non-zero):
      B=128 single prior chains and K2 at B=128 and at the AUPRC batch B=500,
      stream mode, against their plain versions; then, on an MNIST-shaped
      mnist.npz made from the seed (70,000 images; held-out digit 9; the
-     test split cut to 4,000 images through its cache file), trains 10
+     test split cut to 4,000 images through its cache file), trains 6
      iterations through `cli.train_anomaly_det` with an AUPRC eval and
-     checkpoints every 5, resumes to 11 in the same directory, and scores
+     checkpoints every 3, resumes to 7 in the same directory, and scores
      ckpt/best twice through `cli.eval_anomaly_det` (identical AUPRCs);
      checks rows, checkpoints, K1 and K2 once an iteration and K2 once an
      eval batch; profiles one iteration as phase 7 does;
  13. toy workload (`toy`, nz=2, B=500): K2 at the toy's widths in stream,
      counter and noiseless mode against the plain version (6 steps held to
      fp64; stream rows of B=500 equal to the same rows at B=16, bit for
-     bit); then 40 iterations through `cli.toy` with a parity eval (1,000
-     ground-truth steps, 2 batches of 500) every 20 and at the end; checks
+     bit); then 20 iterations through `cli.toy` with a parity eval (1,000
+     ground-truth steps, 2 batches of 500) every 10 and at the end; checks
      finite g_loss_q, g_loss_l and mmd2, a 600x600 KDE PNG per cloud and
      eval, K2 once an iteration and once an eval batch, K1 never; profiles
      one iteration;
- 14. prints which image decoders the machine has (jpeglib.h, PIL);
+ 14. prints which image decoders the machine has (jpeglib.h; PIL with the
+     libwebp and libjpeg-turbo versions it bundles);
  15. svhn (nz=100, ngf=64, 32x32, full width): K1 over 2B=256 (60 steps at
      0.4) and at B=500 (100 steps at the eval CLI's 0.4; 60 at 0.4), K2 at
      B=500 under the encoder and the prior embedding in stream
@@ -134,10 +135,19 @@ Phases, each of which raises on failure (the script then exits non-zero):
      must raise; host batches queued to the card must equal the CPU's; the
      host feed's ms an iteration and idle share beside the device-resident
      store's; profiles one iteration;
+ 16b. item 4c's decoders (`decoders_4c_phase`): 2,656 files at 178x218
+     written by PIL on worker processes (1,024 lossy, 256 lossless, 128
+     alpha and 32 animated WebPs; 1,024 progressive, 128 CMYK and 64 YCCK
+     JPEGs), each decoded by the port equal to PIL's decode byte for byte,
+     with the decode rates of each kind (8 threads, 1 thread, PIL on 1);
+     then a mixed celeba64 tree drawn from them (1,024 train, 256 test)
+     through the train CLI for 3 iterations at B=128, host-fed: the cache
+     equal to the JAX package's PIL pipeline, K1 and K2 once an iteration,
+     finite metrics, the ms an iteration;
  17. celebaHQ (nz=128, ngf=128, 256x256): K1 and K2 at the training shapes;
-     a 1024x1024 PNG tree (128 train, 32 test images); 3 iterations at B=128
+     a 1024x1024 PNG tree (128 train, 16 test images); 3 iterations at B=128
      through the train CLI with evals at 0 and at the end (500 FID samples,
-     the 32 test images); one iteration from the last checkpoint with
+     the 16 test images); one iteration from the last checkpoint with
      remat_generator off and on, bit-identical in metrics and parameters,
      with the peak memory of each; one iteration profiled as in phase 7;
  18. unfused sweep (item 2a) on the full-width cifar10 Q: B=128, 6 noiseless
@@ -147,7 +157,7 @@ Phases, each of which raises on failure (the script then exits non-zero):
      rule; the 100-step unfused sweep's ms beside K2's at B=16, 128, 500;
  19. StyleGAN inversion (item 6) at full size (256x256, nz 7168, the 313M-
      weight Q, random weights saved as .pth files, 16 seeded 1024x1024
-     PNGs): 2 training iterations at B=8 (every Q update changes Q), a Q
+     PNGs): 1 training iteration at B=8 (every Q update changes Q), a Q
      checkpoint, the eval CLI twice from it with identical output, K1 and
      K2 launched 0 times and the unfused sweep once a batch; nan_rescue;
      invert_batch's ms split by part, images/s, peak memory, the device's
@@ -155,10 +165,11 @@ Phases, each of which raises on failure (the script then exits non-zero):
      eval CLI once more with --compute_dtype bfloat16 (recon MSE within 5%
      of the float32 run's, no kernel launched) and the bf16 refine's split,
      images/s and peak memory beside the bf16 tensor-core bound; LSUN
-     (item 4b): an LMDB of 64 seeded JPEGs up to 256x340 read through
-     `LSUNImages`, bit-equal to PIL's decode, crop and LANCZOS, with the
-     read rate, and the eval CLI with --dataset lsun_tower over one batch
-     of 8;
+     (items 4b, 4c): an LMDB of 64 seeded JPEGs up to 256x340, and one of
+     64 lossy and lossless WebPs, each read through `LSUNImages` bit-equal
+     to PIL's decode, crop and LANCZOS, with the read rate, and the eval
+     CLI with --dataset lsun_tower over one batch of 8 of each (the WebPs'
+     with the bf16 refine);
   19b. data parallelism (`dp_phase`, after the stylegan phase, whose
      files it reuses): two ranks of a torch.distributed group share the
      card over gloo, each a process started with torchrun's environment,
@@ -168,10 +179,10 @@ Phases, each of which raises on failure (the script then exits non-zero):
      noiseless mode, gathered over the ranks, must equal one K1 or K2
      launch bit for bit, and each rank's own stream launch (its rows at its
      row_base) the same rows of that launch; those launches are held
-     against the plain versions and timed, one rank at a time. Then 4
+     against the plain versions and timed, one rank at a time. Then 3
      iterations of `cli.train_gen_recon --use_mesh --dist_backend gloo` at
-     full cifar10 width and global B=128 on a 10,000-image CIFAR-10 tree
-     made from the seed (evals at 0 and at the end, 1,000 FID samples; a
+     full cifar10 width and global B=128 on a 2,000-image CIFAR-10 tree
+     made from the seed (evals at 0 and at the end, 500 FID samples; a
      checkpoint): K1 and K2 once a step on each rank at 128 and 64 rows
      with the rank's row_base, the replicas equal bit for bit, one run
      directory, only rank 0 writes; and the card-vs-CPU iteration of phase
@@ -196,6 +207,7 @@ Phases, each of which raises on failure (the script then exits non-zero):
      the train CLI's AUPRC evals, anomaly_eval_cli: the eval CLI's two
      runs, toy, svhn: the train CLI run, svhn_eval: the eval CLI run,
      svhn_serve: the served checkpoint, celeba64: both train CLI runs,
+     celeba64_4c: the train CLI run over the mixed tree of item 4c,
      train_dp rank 0 and rank 1: each rank's launches of K4a and K4b in
      the data-parallel train CLI run, its own rows' times and bound,
      anomaly_dp rank 0 and rank 1: each rank's K4a and K4b launches in the
@@ -329,7 +341,7 @@ def chain_check(ebm_w, z, noise, steps, step_size, label):
     flops, nbytes = langevin_cost(b, nz, ebm_w[0].shape[1], steps)
     r = dict(b=b, max_abs_err=err, flops=flops, bytes=nbytes,
              ms=time_ms(lambda: fused_prior_langevin(z, *ebm_w, **noise, **kw), 20),
-             plain_ms=time_ms(lambda: prior_langevin_plain(z, *ebm_w, **noise, **kw), 5))
+             plain_ms=time_ms(lambda: prior_langevin_plain(z, *ebm_w, **noise, **kw), 3, warmup=1))
     report(label, r)
     return r
 
@@ -422,7 +434,7 @@ def sweep_check(models, cfg, z, xemb, noise, label, subs=(), full=True):
         flops, nbytes = sweep_cost(b, fourier, layers, n)
         r.update(flops=flops, bytes=nbytes,
                  ms=time_ms(lambda: fused_reverse_sweep(*a, steps=n, residual=d.residual, **kw), 10),
-                 plain_ms=time_ms(lambda: reverse_sweep_plain(*a, steps=n, residual=d.residual, **kw), 3,
+                 plain_ms=time_ms(lambda: reverse_sweep_plain(*a, steps=n, residual=d.residual, **kw), 2,
                                   warmup=1))
         report(label, r)
     return res
@@ -653,7 +665,7 @@ def k1_bf16_phase():
         r = dict(b=b, nz=nz, steps=steps, max_abs_err=err, max_abs_err_6_noiseless=err6, apart_from_fp32=apart,
                  moment_err=mom, flops=flops, bytes=nbytes, peak=PEAK_BF16_FLOPS,
                  ms=time_ms(lambda: fused_prior_langevin(z, *w, **kw), 20),
-                 plain_ms=time_ms(lambda: prior_langevin_plain(z, *w, **kw), 5),
+                 plain_ms=time_ms(lambda: prior_langevin_plain(z, *w, **kw), 3, warmup=1),
                  fp32_kernel_ms=time_ms(lambda: fused_prior_langevin(z, *w, **fp32_kw), 20))
         report(f"K1 bf16 {label}", r)
         print(f"  K1 float32 variant, same shape: {r['fp32_kernel_ms']:.4f} ms")
@@ -1887,9 +1899,9 @@ def train_cli_run(cfg, counters, argv, logs, evals, plots, n_fid, n_test, resume
 
 def eval_phase(cfg, counters):
     """The gen_recon workload through its CLIs at full cifar10 width, in a
-    temporary directory: train 6 iterations with evals, grids and
-    checkpoints every 3; resume to 8 with --resume_path auto; restore
-    ckpt/5 and step it against the state in memory; score ckpt/best twice
+    temporary directory: train 4 iterations with evals, grids and
+    checkpoints every 2; resume to 5 with --resume_path auto; restore
+    ckpt/3 and step it against the state in memory; score ckpt/best twice
     through the eval CLI. Returns what the timing and JSON lines need."""
     import os
     import shutil
@@ -1913,37 +1925,37 @@ def eval_phase(cfg, counters):
               f"{time.perf_counter() - t0:.2f} s")
         b, n_fid = cfg.train.batch_size, 1000
         common = ["--dataset", "cifar10", "--data_path", data, "--log_path", logs, "--seed", str(SEED)]
-        train_args = common + ["--batch_size", str(b), "--eval_every", "3", "--ckpt_every", "3",
-                               "--plot_every", "3", "--print_every", "1", "--n_fid_samples", str(n_fid)]
+        train_args = common + ["--batch_size", str(b), "--eval_every", "2", "--ckpt_every", "2",
+                               "--plot_every", "2", "--print_every", "1", "--n_fid_samples", str(n_fid)]
 
-        # 1. Train 6 iterations.
-        run_info = train_cli_run(cfg, counters, train_args + ["--iterations", "6"], logs, evals=[0, 3, 5],
-                                 plots=[0, 3], n_fid=n_fid, n_test=EVAL_TEST_IMAGES)
+        # 1. Train 4 iterations.
+        run_info = train_cli_run(cfg, counters, train_args + ["--iterations", "4"], logs, evals=[0, 2, 3],
+                                 plots=[0, 2], n_fid=n_fid, n_test=EVAL_TEST_IMAGES)
         state, run, runs, calls = run_info["state"], run_info["run"], run_info["runs"], run_info["calls"]
         eval_walls, n_mse_b = run_info["eval_walls"], run_info["n_mse_b"]
         ckpts = sorted(os.listdir(os.path.join(run, "ckpt")))
         print(f"[eval] checkpoints {ckpts}")
-        if not {"3", "5", "best"} <= set(ckpts):
-            raise AssertionError("ckpt/3, ckpt/5 or ckpt/best is missing")
+        if not {"2", "3", "best"} <= set(ckpts):
+            raise AssertionError("ckpt/2, ckpt/3 or ckpt/best is missing")
 
-        # 2. Resume to 8 iterations in the same run directory.
+        # 2. Resume to 5 iterations in the same run directory.
         for k in counters.values():
             k.launches = 0
-        resumed = train_gen_recon.main(train_args + ["--iterations", "8", "--resume_path", "auto"])
+        resumed = train_gen_recon.main(train_args + ["--iterations", "5", "--resume_path", "auto"])
         runs_after = os.listdir(os.path.join(logs, "cifar10"))
         rows = _jsonl(os.path.join(run, "metrics.jsonl"))
         steps_after = [r["step"] for r in rows if r["phase"] == "train"]
         print(f"[eval] resumed run: directories {runs_after}, train rows {steps_after}, step {resumed.step}, "
               f"launches {dict((k, c.launches) for k, c in counters.items())}")
-        if runs_after != runs or steps_after != list(range(8)) or resumed.step != 8:
-            raise AssertionError("the resumed run did not continue at iteration 6 in the same directory")
+        if runs_after != runs or steps_after != list(range(5)) or resumed.step != 5:
+            raise AssertionError("the resumed run did not continue at iteration 4 in the same directory")
         del resumed
 
-        # 3. Restore ckpt/5 into a fresh state: equal to the state in memory,
+        # 3. Restore ckpt/3 into a fresh state: equal to the state in memory,
         # and one more step from each, bit for bit.
-        restored = restore_checkpoint(os.path.join(run, "ckpt"), "5", create_state(cfg, 123, "cuda"))
+        restored = restore_checkpoint(os.path.join(run, "ckpt"), "3", create_state(cfg, 123, "cuda"))
         same = _states_equal(restored, state)
-        print(f"[eval] ckpt/5 restored into a fresh state equals the state in memory: {same}")
+        print(f"[eval] ckpt/3 restored into a fresh state equals the state in memory: {same}")
         if not same:
             raise AssertionError("a restored tensor, optimizer state or generator state differs")
         x = torch.from_numpy(train_images(b)).cuda().float() / 255.0 * 2.0 - 1.0
@@ -2105,8 +2117,8 @@ def eval_timing_phase(cfg, inception_ms, eval_info, train_ms_per_iteration):
 
 
 ANOMALY_TEST_IMAGES = 4_000  # the digit-9 test split holds 19,567: cut so that each AUPRC eval stays short
-ANOMALY_ITERATIONS, ANOMALY_EVAL_EVERY, ANOMALY_RESUME_TO = 10, 5, 11
-TOY_ITERATIONS, TOY_VIZ_EVERY, TOY_VIZ_BATCHES, TOY_GT_STEPS = 40, 20, 2, 1000
+ANOMALY_ITERATIONS, ANOMALY_EVAL_EVERY, ANOMALY_RESUME_TO = 6, 3, 7
+TOY_ITERATIONS, TOY_VIZ_EVERY, TOY_VIZ_BATCHES, TOY_GT_STEPS = 20, 10, 2, 1000
 
 
 def anomaly_kernel_phase(cfg):
@@ -2203,8 +2215,8 @@ def anomaly_phase(cfg, counters):
     """The anomaly workload through its CLIs at full mnist_anomaly width, in
     a temporary directory, on an MNIST-shaped mnist.npz made from the seed
     (70,000 images: 50,000/10,000/10,000 in x_train/x_test/x_valid): train
-    10 iterations at B=128 with an AUPRC eval and checkpoints every 5 (the
-    test split cut to 4,000 images through its cache file), resume to 11
+    6 iterations at B=128 with an AUPRC eval and checkpoints every 3 (the
+    test split cut to 4,000 images through its cache file), resume to 7
     with --resume_path auto in the same directory, then score ckpt/best
     twice through the eval CLI. Returns the times and launches."""
     import os
@@ -2373,8 +2385,8 @@ def toy_kernel_phase(cfg):
 
 def toy_phase(cfg, counters):
     """The toy workload through its CLI at the preset's width (nz=2, B=500)
-    in a temporary directory: 40 iterations with a parity eval (1,000
-    ground-truth Langevin steps, 2 batches of 500) every 20 and at the end;
+    in a temporary directory: 20 iterations with a parity eval (1,000
+    ground-truth Langevin steps, 2 batches of 500) every 10 and at the end;
     checks the eval rows, the KDE plots and the launches."""
     import os
     import shutil
@@ -2449,7 +2461,7 @@ SVHN_TEST_IMAGES = 2_000  # the test split holds 26,032: cut so that the MSE eva
 CELEBA64_TRAIN, CELEBA64_TEST, CELEBA64_SIZE = 2_048, 512, (178, 218)  # CelebA's aligned images
 # CelebA-HQ's images; a small test split keeps the script within about
 # 800 s (decoding a 1024x1024 PNG takes 0.2 s on one core).
-CELEBAHQ_TRAIN, CELEBAHQ_TEST, CELEBAHQ_SIZE = 128, 32, (1024, 1024)  # one batch of 128 an epoch
+CELEBAHQ_TRAIN, CELEBAHQ_TEST, CELEBAHQ_SIZE = 128, 16, (1024, 1024)  # one batch of 128 an epoch
 
 
 def write_svhn_mats(root: str, n_train: int, n_test: int) -> None:
@@ -2677,9 +2689,14 @@ def decoders_line() -> str:
 
     headers = sorted(glob.glob("/usr/include/jpeglib.h") + glob.glob("/usr/include/*/jpeglib.h")
                      + glob.glob("/usr/local/include/jpeglib.h"))
-    pil = subprocess.run([sys.executable, "-c", "import PIL.Image; print(PIL.__version__)"],
-                         capture_output=True, text=True, timeout=120)
-    found = f"imports, version {pil.stdout.strip()}" if pil.returncode == 0 else "does not import"
+    code = ("import PIL.Image, PIL.features as f; "
+            "print(PIL.__version__, f.version('webp'), f.version('libjpeg_turbo'))")
+    pil = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, timeout=120)
+    if pil.returncode == 0:
+        version, webp, turbo = pil.stdout.split()
+        found = f"imports, version {version}, libwebp {webp}, libjpeg-turbo {turbo}"
+    else:
+        found = "does not import"
     return f"[data] decoders on this machine: jpeglib.h {headers or 'absent'}; PIL {found}"
 
 
@@ -2766,6 +2783,22 @@ def write_jpeg_tree(root: str, n: int, size, seed: int) -> float:
     return time.perf_counter() - t0
 
 
+def pil_folder_pipeline(images, size: int) -> np.ndarray:
+    """The JAX package's image-folder transform of RGB `images`, through
+    PIL: the shorter side resized to `size` (bilinear), then the centre
+    crop; (N, size, size, 3) uint8."""
+    from PIL import Image
+
+    folder = []
+    for img in images:
+        h, w = img.shape[:2]
+        scale = size / min(w, h)
+        r = Image.fromarray(img).resize((max(size, round(w * scale)), max(size, round(h * scale))), Image.BILINEAR)
+        left, top = (r.size[0] - size) // 2, (r.size[1] - size) // 2
+        folder.append(np.asarray(r.crop((left, top, left + size, top + size))))
+    return np.stack(folder)
+
+
 def jpeg_check(root: str, cached: np.ndarray, size: int) -> dict:
     """Every JPEG under root decoded by the port (`decode_jpegs`, its thread
     pool) must equal PIL's `Image.open(...).convert("RGB")`, byte for byte,
@@ -2795,14 +2828,7 @@ def jpeg_check(root: str, cached: np.ndarray, size: int) -> dict:
     pil = [np.asarray(Image.open(io.BytesIO(b)).convert("RGB")) for b in blobs]
     pil_s = time.perf_counter() - t0
     bad = [p for p, a, b in zip(paths, port, pil) if not np.array_equal(a, b)]
-    folder = []
-    for img in pil:
-        h, w = img.shape[:2]
-        scale = size / min(w, h)
-        r = Image.fromarray(img).resize((max(size, round(w * scale)), max(size, round(h * scale))), Image.BILINEAR)
-        left, top = (r.size[0] - size) // 2, (r.size[1] - size) // 2
-        folder.append(np.asarray(r.crop((left, top, left + size, top + size))))
-    same_folder = np.array_equal(np.stack(folder), np.asarray(cached))
+    same_folder = np.array_equal(pil_folder_pipeline(pil, size), np.asarray(cached))
     out = {"files": len(paths), "bytes": sum(map(len, blobs)), "port_images_per_s": len(paths) / port_s,
            "port_one_thread_images_per_s": len(paths) / port1_s, "pil_images_per_s": len(paths) / pil_s,
            "threads": min(16, os.cpu_count() or 4), "differ_from_pil": len(bad),
@@ -2989,13 +3015,190 @@ def celeba64_phase(cfg, counters):
             u()
         shutil.rmtree(tmp, ignore_errors=True)
 
+# Item 4c's trees at CelebA's 178x218, written by PIL: (kind, files).
+TREE_4C = (("webp_lossy", 1024), ("webp_lossless", 256), ("webp_alpha", 128), ("webp_anim", 32),
+           ("jpeg_progressive", 1024), ("jpeg_cmyk", 128), ("jpeg_ycck", 64))
+MIXED_TRAIN, MIXED_TEST = 1024, 256  # the mixed celeba64 tree drawn from them
+ONE_THREAD_FILES = 256  # the port's one-thread rate is timed on the first of each kind
+
+
+def synthetic_4c_tree(root: str, kind: str, n: int, size, seed: int, start: int = 0) -> None:
+    """n files of one kind of TREE_4C, (width, height) `size`, made from
+    `seed` and written by PIL to root/{start + i:06d}_{kind}.webp or .jpg:
+    smooth images with a little pixel noise. Lossy WebP cycles quality 0 to
+    100 and method 0 to 6; lossless WebP quality and method 0 to 4, every
+    fourth a palette of 16 or 200 colours; alpha WebP a quarter fully
+    transparent, lossy and lossless by turns; animations three frames;
+    progressive JPEG 4:2:0 at quality 75 and 4:4:4 at 90 by turns, every
+    fourth with a restart marker every MCU row; CMYK JPEG baseline and
+    progressive by turns, and YCCK the same files with the Adobe transform
+    byte set to 2."""
+    import io
+    import os
+
+    from PIL import Image
+
+    w, h = int(size[0]), int(size[1])
+    os.makedirs(root, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    for i in range(n):
+        k = start + i
+        low = rng.integers(0, 256, (max(h // 16, 2), max(w // 16, 2), 3), dtype=np.uint8)
+        pix = np.asarray(Image.fromarray(low).resize((w, h), Image.BILINEAR)).astype(np.int16)
+        img = Image.fromarray(np.clip(pix + rng.integers(-6, 7, (h, w, 3)), 0, 255).astype(np.uint8))
+        path = os.path.join(root, f"{k:06d}_{kind}." + ("jpg" if kind.startswith("jpeg") else "webp"))
+        if kind == "webp_lossy":
+            img.save(path, "WEBP", quality=(37 * k) % 101, method=k % 7)
+        elif kind == "webp_lossless":
+            if k % 4 == 0:
+                img = img.quantize(16 if k % 8 else 200).convert("RGB")
+            img.save(path, "WEBP", lossless=True, quality=(29 * k) % 101, method=k % 5)
+        elif kind == "webp_alpha":
+            alpha = rng.integers(0, 256, (h, w), dtype=np.uint8)
+            alpha[: h // 4] = 0
+            Image.fromarray(np.dstack([np.asarray(img), alpha]), "RGBA").save(path, "WEBP", quality=80,
+                                                                               lossless=k % 2 == 1)
+        elif kind == "webp_anim":
+            frames = [img, img.transpose(Image.FLIP_LEFT_RIGHT), img.rotate(180)]
+            frames[0].save(path, "WEBP", save_all=True, append_images=frames[1:], duration=50, lossless=k % 2 == 1)
+        elif kind == "jpeg_progressive":
+            kw = dict(quality=90, subsampling=0) if k % 2 else dict(quality=75, subsampling=2)
+            if k % 4 == 1:
+                kw["restart_marker_rows"] = 1
+            img.save(path, "JPEG", progressive=True, **kw)
+        else:
+            buf = io.BytesIO()
+            img.convert("CMYK").save(buf, "JPEG", quality=85, progressive=k % 2 == 1)
+            data = buf.getvalue()
+            if kind == "jpeg_ycck":
+                at = data.index(b"\xff\xee") + 4 + 11
+                data = data[:at] + b"\x02" + data[at + 1:]
+            with open(path, "wb") as f:
+                f.write(data)
+
+
+def write_4c_tree(root: str, size, seed: int) -> float:
+    """Every kind of TREE_4C under root, written by up to 8 worker
+    processes at once; returns the wall in seconds."""
+    import multiprocessing
+    import os
+    from concurrent.futures import ProcessPoolExecutor
+
+    t0 = time.perf_counter()
+    workers = max(1, min(8, os.cpu_count() or 1))
+    with ProcessPoolExecutor(workers, mp_context=multiprocessing.get_context("spawn")) as pool:
+        jobs = []
+        for j, (kind, n) in enumerate(TREE_4C):
+            per = -(-n // workers)
+            jobs += [pool.submit(synthetic_4c_tree, root, kind, min(per, n - k * per), size,
+                                 seed + 100 * j + k, k * per) for k in range(workers) if k * per < n]
+        for job in jobs:
+            job.result()
+    return time.perf_counter() - t0
+
+
+def decoders_4c_phase(cfg, counters):
+    """Item 4c on the card's machine: the TREE_4C files (lossy, lossless,
+    alpha and animated WebP; progressive, CMYK and YCCK JPEG at CelebA's
+    178x218) written by PIL; every file decoded by the port must equal
+    PIL's `convert("RGB")` byte for byte, with the decode rates of each
+    kind (host side: the port on 8 threads, and on 1 over its first
+    ONE_THREAD_FILES, PIL on 1). Then a
+    mixed celeba64 tree drawn from them (MIXED_TRAIN train, MIXED_TEST test
+    images, hard links) through the train CLI at full width, 3 iterations
+    at B=128 with --data_placement host (the last one timed: the first
+    interval is first use): its cache celeba64_train_64.npy
+    must equal the JAX package's PIL pipeline over the same files, K1 and
+    K2 must launch once an iteration and every metric must be finite."""
+    import io
+    import os
+    import shutil
+    import tempfile
+
+    from PIL import Image
+
+    from damc_tpu_torch.data.jpeg import decode_jpegs
+    from damc_tpu_torch.data.webp import decode_webps
+
+    tmp = tempfile.mkdtemp(prefix="damc_4c_smoke_")
+    reads, placements = [], []
+    undo = [_record_reads(reads), _record_placements(placements)]
+    try:
+        every = os.path.join(tmp, "every")
+        tree_s = write_4c_tree(every, CELEBA64_SIZE, SEED + 130)
+        names = sorted(os.listdir(every))
+        blobs = {}
+        for name in names:
+            with open(os.path.join(every, name), "rb") as f:
+                blobs[name] = f.read()
+        pil, rates, bad = {}, {}, []
+        for kind, n in TREE_4C:
+            group = [name for name in names if name.split("_", 1)[1].rsplit(".", 1)[0] == kind]
+            data = [blobs[name] for name in group]
+            decode = decode_webps if kind.startswith("webp") else decode_jpegs
+            decode(data[:1], group[:1])  # first use (the library's load), untimed, as PIL's below
+            Image.open(io.BytesIO(data[0])).convert("RGB")
+            t0 = time.perf_counter()
+            port = decode(data, group, threads=8)
+            port8_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            one = decode(data[:ONE_THREAD_FILES], group[:ONE_THREAD_FILES], threads=1)
+            port1_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            want = [np.asarray(Image.open(io.BytesIO(b)).convert("RGB")) for b in data]
+            pil_s = time.perf_counter() - t0
+            bad += [name for name, a, b in zip(group, port, want) if not np.array_equal(a, b)]
+            pil.update(zip(group, want))
+            rates[kind] = {"files": len(group), "bytes": sum(map(len, data)),
+                           "port_8_threads_images_per_s": len(group) / port8_s,
+                           "port_1_thread_images_per_s": len(one) / port1_s, "pil_images_per_s": len(group) / pil_s}
+        print(f"[decoders_4c] {len(names)} files at {CELEBA64_SIZE[0]}x{CELEBA64_SIZE[1]} written by PIL in "
+              f"{tree_s:.2f} s; differing from PIL's decode: {len(bad)}; host-side decode rates "
+              + json.dumps(rates) + " " + card_line())
+        if len(names) != sum(n for _, n in TREE_4C) or bad:
+            raise AssertionError(f"the port's decode differs from PIL's: {bad[:5]} ({len(bad)} files)")
+        data_dir, logs = os.path.join(tmp, "data"), os.path.join(tmp, "logs")
+        order = np.random.default_rng(SEED + 131).permutation(len(names))
+        splits = {"celeba64_train": order[:MIXED_TRAIN], "celeba64_test": order[MIXED_TRAIN:MIXED_TRAIN + MIXED_TEST]}
+        for split, picks in splits.items():
+            os.makedirs(os.path.join(data_dir, split))
+            for i in picks:
+                os.link(os.path.join(every, names[i]), os.path.join(data_dir, split, names[i]))
+        train_names = sorted(names[i] for i in splits["celeba64_train"])
+        kinds = sorted({name.split("_", 1)[1].rsplit(".", 1)[0] for name in train_names})
+        n_fid = 500
+        run = train_cli_run(cfg, counters, ["--dataset", "celeba64", "--data_path", data_dir, "--log_path", logs,
+                                            "--seed", str(SEED), "--print_every", "1", "--n_fid_samples", str(n_fid),
+                                            "--iterations", "3", "--eval_every", "0", "--plot_every", "0",
+                                            "--data_placement", "host"],
+                            logs, evals=[], plots=[], n_fid=n_fid, n_test=MIXED_TEST, tag="decoders_4c")
+        cache = os.path.join(data_dir, "celeba64_train_64.npy")
+        same = os.path.exists(cache) and np.array_equal(
+            np.load(cache), pil_folder_pipeline([pil[name] for name in train_names], cfg.model.image_size))
+        rows = [r for r in _jsonl(os.path.join(run["run"], "metrics.jsonl")) if r["phase"] == "train"]
+        finite = all(np.isfinite(v) for r in rows for v in r.values() if isinstance(v, float))
+        decoded = {os.path.basename(r["root"]): r["s"] for r in reads if r["what"] == "load_image_folder"}
+        out = {"tree_s": tree_s, "rates": rates, "train_kinds": kinds, "placement": placements,
+               "decode_s": decoded, "cache_equals_pil_pipeline": same, "train_rows": len(rows),
+               "metrics_finite": finite, "launches": run["total"], "ms_per_iteration": run["ms"],
+               "train_cli_wall_s": run["train_wall"]}
+        del run["state"]
+        print("[decoders_4c] mixed celeba64 tree " + json.dumps(out) + " " + card_line())
+        if not same or not finite or placements != ["host"] or len(kinds) != len(TREE_4C):
+            raise AssertionError("the mixed celeba64 run: cache, metrics, placement or kinds wrong")
+        return out
+    finally:
+        for u in undo:
+            u()
+        shutil.rmtree(tmp, ignore_errors=True)
+
 
 def celebahq_phase(cfg, counters):
     """celebaHQ (nz=128, ngf=128, 256x256, G up to 2048 channels) through the
     train CLI at full width in a temporary directory, on a PNG tree made
-    from the seed at CelebA-HQ's size, 1024x1024 (128 train and 32 test
+    from the seed at CelebA-HQ's size, 1024x1024 (128 train and 16 test
     images): 3 iterations at B=128 with evals at 0 and at the end (500 FID
-    samples, the 32-image recon-MSE set) and a checkpoint at the end; then
+    samples, the 16-image recon-MSE set) and a checkpoint at the end; then
     one iteration from that checkpoint with remat_generator off and on,
     from the same state and draws, which must agree bit for bit, with the
     peak memory of each; then one iteration under the profiler. Returns
@@ -3221,20 +3424,49 @@ STYLEGAN_IMAGES, STYLEGAN_SIZE = 16, (1024, 1024)  # seeded PNGs at FFHQ's publi
 STYLEGAN_B, STYLEGAN_REFINE = 8, 100
 # invert_batch is timed over one batch, to keep the script within about
 # 800 s of its 1,200 s limit.
-STYLEGAN_TRAIN_ITERATIONS, STYLEGAN_TIMED_BATCHES = 2, 1
+STYLEGAN_TRAIN_ITERATIONS, STYLEGAN_TIMED_BATCHES = 1, 1
 
 
 LSUN_IMAGES = 64  # the LMDB's JPEGs; the CLI scores the first batch of STYLEGAN_B
+LSUN_WEBP_IMAGES = 64  # a second LMDB of WebPs (item 4c), lossy and lossless by turns
 LSUN_SIZES = ((256, 340), (340, 256), (256, 256), (200, 300), (300, 200), (180, 240), (128, 170), (96, 96))
 
 
-def lsun_phase(tmp, argv, counters, sweeps):
-    """LSUN-tower at the inversion's 256x256: an LMDB (tests/lmdb_fixture.py)
-    of LSUN_IMAGES seeded JPEGs of sizes up to 256x340, written by PIL;
-    `LSUNImages` must read it bit-equal to the reference transform computed
-    with PIL (decode, centre crop, LANCZOS), with its read rate beside
-    PIL's; then the eval CLI with --dataset lsun_tower over one batch of
-    STYLEGAN_B, from the StyleGAN phase's weights and checkpoint: finite
+def _lsun_db(root: str, n: int, seed: int, fmt: str) -> dict:
+    """An LMDB (tests/lmdb_fixture.py) root/tower_val_lmdb of n seeded images
+    of LSUN_SIZES written by PIL: JPEG (4:2:0, every third 4:4:4, quality
+    85) or WebP (lossy at quality 80 and lossless by turns); returns
+    {key: bytes}."""
+    import io
+    import os
+
+    from PIL import Image
+
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests"))
+    from lmdb_fixture import build_lmdb
+
+    rng = np.random.default_rng(seed)
+    items = {}
+    for i in range(n):
+        w, h = LSUN_SIZES[i % len(LSUN_SIZES)]
+        low = rng.integers(0, 256, (h // 16, w // 16, 3), dtype=np.uint8)
+        img = np.asarray(Image.fromarray(low).resize((w, h), Image.BILINEAR)).astype(np.int16)
+        img = np.clip(img + rng.integers(-6, 7, (h, w, 3)), 0, 255).astype(np.uint8)
+        buf = io.BytesIO()
+        if fmt == "JPEG":
+            Image.fromarray(img).save(buf, "JPEG", quality=85, subsampling=0 if i % 3 == 2 else 2)
+        else:
+            Image.fromarray(img).save(buf, "WEBP", quality=80, lossless=i % 2 == 1)
+        items[f"{i:08d}".encode()] = buf.getvalue()
+    build_lmdb(os.path.join(root, "tower_val_lmdb"), items)
+    return items
+
+
+def _lsun_check(root: str, items: dict, argv, counters, sweeps, tag: str) -> dict:
+    """`LSUNImages` over root's tower_val database must read it bit-equal to
+    the reference transform computed with PIL (decode, centre crop,
+    LANCZOS), with its read rate beside PIL's; then the eval CLI with
+    --dataset lsun_tower and `argv` over one batch of STYLEGAN_B: finite
     numbers, no K1 or K2 launch, the unfused sweep once."""
     import io
     import os
@@ -3244,25 +3476,9 @@ def lsun_phase(tmp, argv, counters, sweeps):
     from damc_tpu_torch.cli import eval_stylegan_inv
     from damc_tpu_torch.data.datasets import LSUNImages
 
-    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests"))
-    from lmdb_fixture import build_lmdb
-
+    n = len(items)
     t0 = time.perf_counter()
-    rng = np.random.default_rng(SEED + 110)
-    items = {}
-    for i in range(LSUN_IMAGES):
-        w, h = LSUN_SIZES[i % len(LSUN_SIZES)]
-        low = rng.integers(0, 256, (h // 16, w // 16, 3), dtype=np.uint8)
-        img = np.asarray(Image.fromarray(low).resize((w, h), Image.BILINEAR)).astype(np.int16)
-        img = np.clip(img + rng.integers(-6, 7, (h, w, 3)), 0, 255).astype(np.uint8)
-        buf = io.BytesIO()
-        Image.fromarray(img).save(buf, "JPEG", quality=85, subsampling=0 if i % 3 == 2 else 2)
-        items[f"{i:08d}".encode()] = buf.getvalue()
-    root = os.path.join(tmp, "lsun")
-    build_lmdb(os.path.join(root, "tower_val_lmdb"), items)
-    write_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    got = LSUNImages(root, ["tower_val"], STYLEGAN_RES)[np.arange(LSUN_IMAGES)]
+    got = LSUNImages(root, ["tower_val"], STYLEGAN_RES)[np.arange(n)]
     port_s = time.perf_counter() - t0
 
     def reference(data):
@@ -3284,12 +3500,12 @@ def lsun_phase(tmp, argv, counters, sweeps):
                                          "tower_val", "--limit", str(STYLEGAN_B), "--n_fid_samples", str(STYLEGAN_B)])
     cli_s = time.perf_counter() - t0
     launches = {k: c.launches for k, c in counters.items()}
-    res = {"images": LSUN_IMAGES, "sizes": LSUN_SIZES, "lmdb_bytes": os.path.getsize(
-        os.path.join(root, "tower_val_lmdb", "data.mdb")), "write_s": write_s,
-        "port_read_images_per_s": LSUN_IMAGES / port_s, "pil_images_per_s": LSUN_IMAGES / pil_s,
+    res = {"images": n, "sizes": LSUN_SIZES, "lmdb_bytes": os.path.getsize(
+        os.path.join(root, "tower_val_lmdb", "data.mdb")),
+        "port_read_images_per_s": n / port_s, "pil_images_per_s": n / pil_s,
         "equal_to_pil": same, "cli": {"wall_s": cli_s, **out}, "launches": launches,
         "unfused_sweeps": sweeps[n_sweeps:]}
-    print("[lsun] " + json.dumps(res) + " " + card_line())
+    print(f"[{tag}] " + json.dumps(res) + " " + card_line())
     if not same:
         raise AssertionError(f"LSUNImages differs from PIL's transform at {np.argwhere((got != want).any((1, 2, 3)))}")
     if not all(np.isfinite(v) for v in out.values()) or any(launches.values()):
@@ -3297,6 +3513,27 @@ def lsun_phase(tmp, argv, counters, sweeps):
     if sweeps[n_sweeps:] != [STYLEGAN_B]:
         raise AssertionError(f"the lsun_tower batch must run the unfused sweep once: {sweeps[n_sweeps:]}")
     return res
+
+
+def lsun_phase(tmp, argv, counters, sweeps):
+    """LSUN-tower at the inversion's 256x256: an LMDB of LSUN_IMAGES seeded
+    JPEGs of sizes up to 256x340, and one of LSUN_WEBP_IMAGES WebPs (lossy
+    and lossless), each written by PIL and checked by `_lsun_check` (the
+    read against PIL's transform, then one eval CLI batch of STYLEGAN_B
+    from the StyleGAN phase's weights and checkpoint: in float32 for the
+    JPEGs, with the bf16 refine for the WebPs)."""
+    import os
+
+    out = {}
+    for fmt, n, seed, tag, extra in (("JPEG", LSUN_IMAGES, SEED + 110, "lsun", []),
+                                     ("WEBP", LSUN_WEBP_IMAGES, SEED + 111, "lsun-webp",
+                                      ["--compute_dtype", "bfloat16"])):
+        root = os.path.join(tmp, tag)
+        t0 = time.perf_counter()
+        items = _lsun_db(root, n, seed, fmt)
+        write_s = time.perf_counter() - t0
+        out[tag] = {"write_s": write_s, **_lsun_check(root, items, argv + extra, counters, sweeps, tag)}
+    return out
 
 
 class _Spans:
@@ -3557,8 +3794,8 @@ def stylegan_phase(counters, tmp):
 # started here with torchrun's environment.
 DP_WORLD = 2
 DP_TIMEOUT_S = 600  # the whole group: it is killed and the phase fails after this
-DP_ITERATIONS = 4
-DP_TRAIN_IMAGES, DP_TEST_IMAGES, DP_FID = 10_000, 1_000, 1_000
+DP_ITERATIONS = 3  # the fewest that leave a timed step (`_dp_cli`)
+DP_TRAIN_IMAGES, DP_TEST_IMAGES, DP_FID = 2_000, 500, 500
 DP_K1_SHAPES = ((256, 60, 0.4), (500, 60, 0.4))  # the 2B training chains; the loop's EBM-prior FID batch
 DP_K2_SHAPES = ((128, "encoder"), (500, "prior"))  # Q_ema's training rows; the DAMC-prior FID batch
 # The anomaly workload's (nz=8): its B single chains, Q_ema's rows, the AUPRC batch.
@@ -4272,6 +4509,8 @@ def main() -> int:
     c64_info = celeba64_phase(cfg_c64, counters)
     image_profile_phase(cfg_c64, "celeba64")
     lap("celeba64")
+    c64_4c = decoders_4c_phase(cfg_c64, counters)
+    lap("decoders_4c")
     res_hq = preset_kernel_phase(cfg_hq, "celebaHQ", 70)
     hq_info = celebahq_phase(cfg_hq, counters)
     lap("celebaHQ")
@@ -4325,6 +4564,9 @@ def main() -> int:
         # nz=100 at 64x64: both train CLI runs; nz=128 at 256x256: the train CLI run.
         ("celeba64", "stream", "K1", res_c64["K1"], c64_info["launches"]["K1"]),
         ("celeba64", "stream", "K2", res_c64["K2"], c64_info["launches"]["K2"]),
+        # The same shapes over the mixed tree of item 4c's kinds: 3 iterations.
+        ("celeba64_4c", "stream", "K1", res_c64["K1"], c64_4c["launches"]["K1"]),
+        ("celeba64_4c", "stream", "K2", res_c64["K2"], c64_4c["launches"]["K2"]),
         ("celebaHQ", "stream", "K1", res_hq["K1"], hq_info["launches"]["K1"]),
         ("celebaHQ", "stream", "K2", res_hq["K2"], hq_info["launches"]["K2"]),
         # cifar10 with compute_dtype and pallas_dots_dtype bfloat16: K1's bf16-dot

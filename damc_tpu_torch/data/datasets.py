@@ -10,10 +10,12 @@ the NumPy batch `Loader`; and seeded writers of an MNIST-shaped
 `mnist.npz` and of PNG trees for runs without the real files.
 
 Every decoder equals PIL's `Image.open(...).convert("RGB")` byte for byte
-(`data/images.py`, `data/jpeg.py`); the port itself never imports PIL. A
-file is decoded by what its first bytes say it is, as PIL opens it. WebP
-(the LSUN tools' export format) and progressive or CMYK JPEGs are not
-decoded yet (ROADMAP.md, queue 1, item 4c): they raise NotImplementedError.
+(`data/images.py`; `data/jpeg.py`: baseline and progressive JPEG, grey,
+YCbCr, RGB, CMYK and YCCK; `data/webp.py`: lossy, lossless and animated
+WebP, the LSUN tools' export format); the port itself never imports PIL. A
+file is decoded by what its first bytes say it is, as PIL opens it. The rare
+JPEG codings (arithmetic, lossless, hierarchical, 12-bit) are not decoded
+(ROADMAP.md, queue 1, item 4c): they raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -26,36 +28,38 @@ from typing import Iterator, Optional, Tuple
 import numpy as np
 
 from .images import PNG_SIGNATURE, decode_bmp, decode_parsed, decode_png, parse_png, resize_bilinear, resize_lanczos
-from .jpeg import JPEG_MAGIC, decode_jpeg, decode_jpegs, jpeg_size, unsupported_message
+from .jpeg import JPEG_MAGIC, decode_jpeg, decode_jpegs, jpeg_size
+from .webp import decode_webp, decode_webps, is_webp, webp_size
 
 BATCH_BYTES = 64 << 20  # decoded bytes the folder reader decodes together (a PNG's work array is about 4x)
 IMAGE_EXTENSIONS = (".png", ".jpg", ".jpeg", ".webp", ".bmp")  # the JAX reader's list
 MAGIC_BYTES = 12  # enough to tell PNG, JPEG, BMP and WebP apart
 
 
-def image_kind(head: bytes, name: str, cache: Optional[str] = None) -> str:
-    """The kind of a file from its first bytes: "png", "jpeg" or "bmp". WebP
-    raises NotImplementedError (item 4c; `cache` is the way round it names),
-    anything else ValueError."""
+def image_kind(head: bytes, name: str) -> str:
+    """The kind of a file from its first bytes: "png", "jpeg", "bmp" or
+    "webp"; anything else raises ValueError."""
     if head.startswith(PNG_SIGNATURE):
         return "png"
     if head.startswith(JPEG_MAGIC):
         return "jpeg"
     if head.startswith(b"BM"):
         return "bmp"
-    if head[:4] == b"RIFF" and head[8:12] == b"WEBP":
-        raise NotImplementedError(unsupported_message(name, "WebP", cache))
+    if is_webp(head):
+        return "webp"
     raise ValueError(f"{name}: not a PNG, JPEG, BMP or WebP file")
 
 
 def decode_image(data: bytes, name: str = "<bytes>") -> np.ndarray:
-    """One PNG, JPEG or BMP file's RGB pixels (H, W, 3) uint8, as PIL's
-    `Image.open(...).convert("RGB")` gives them."""
+    """One PNG, JPEG, BMP or WebP file's RGB pixels (H, W, 3) uint8, as
+    PIL's `Image.open(...).convert("RGB")` gives them."""
     kind = image_kind(data[:MAGIC_BYTES], name)
     if kind == "png":
         return decode_png(data, name)
     if kind == "jpeg":
         return decode_jpeg(data, name)
+    if kind == "webp":
+        return decode_webp(data, name)
     return decode_bmp(data, name)
 
 
@@ -169,12 +173,13 @@ def load_image_folder(root: str, size: int, limit: Optional[int] = None) -> np.n
     """(N, size, size, 3) uint8 of the images under `root`, equal to the JAX
     package's PIL reader (`damc_tpu/data/datasets.py:122-148`): its walk
     order, extension list and `limit`; each image decoded as its first
-    bytes say (PNG, JPEG, BMP), its shorter side resized to `size` by PIL's
-    bilinear filter, then centre-cropped. The first bytes of every file are
-    read before anything is decoded, so a WebP file (or one that is no
-    image) raises first. Files are decoded in batches of about
-    `BATCH_BYTES`: PNGs of one size together, JPEGs on the decoder's
-    thread pool."""
+    bytes say (PNG, JPEG, BMP, WebP), its shorter side resized to `size` by
+    PIL's bilinear filter, then centre-cropped. The first bytes of every
+    file are read before anything is decoded, so a file that is no image
+    raises first, and a JPEG of a kind the port does not decode raises from
+    its header, before its batch is decoded. Files are decoded in batches
+    of about `BATCH_BYTES`: PNGs of one size together, JPEGs and WebPs on
+    their decoders' thread pools."""
     paths = []
     for dirpath, _, filenames in sorted(os.walk(root)):
         for fn in sorted(filenames):
@@ -188,9 +193,9 @@ def load_image_folder(root: str, size: int, limit: Optional[int] = None) -> np.n
     kinds = []
     for p in paths:
         with open(p, "rb") as f:
-            kinds.append(image_kind(f.read(MAGIC_BYTES), p, cache))
+            kinds.append(image_kind(f.read(MAGIC_BYTES), p))
     out = np.empty((len(paths), size, size, 3), np.uint8)
-    pngs, jpegs, nbytes = [], [], 0
+    pngs, jpegs, webps, nbytes = [], [], [], 0
 
     def flush():
         for (i, _), img in zip(pngs, decode_parsed([png for _, png in pngs])):
@@ -198,8 +203,11 @@ def load_image_folder(root: str, size: int, limit: Optional[int] = None) -> np.n
         imgs = decode_jpegs([b for _, b, _ in jpegs], [p for _, _, p in jpegs], cache=cache)
         for (i, _, _), img in zip(jpegs, imgs):
             out[i] = _resize_crop(img, size)
+        for (i, _, _), img in zip(webps, decode_webps([b for _, b, _ in webps], [p for _, _, p in webps])):
+            out[i] = _resize_crop(img, size)
         pngs.clear()
         jpegs.clear()
+        webps.clear()
 
     for i, (p, kind) in enumerate(zip(paths, kinds)):
         with open(p, "rb") as f:
@@ -210,6 +218,10 @@ def load_image_folder(root: str, size: int, limit: Optional[int] = None) -> np.n
         elif kind == "jpeg":
             w, h = jpeg_size(data, p, cache)
             jpegs.append((i, data, p))
+            nbytes += w * h * 3
+        elif kind == "webp":
+            w, h = webp_size(data, p)
+            webps.append((i, data, p))
             nbytes += w * h * 3
         else:
             out[i] = _resize_crop(decode_bmp(data, p), size)
@@ -268,8 +280,9 @@ class LSUNClassImages:
     either package serves the other), and `_decode_crop_resize` per item.
 
     `len()` and indexing with an int (one (size, size, 3) image) or an
-    index array (a uint8 (B, size, size, 3) batch, its JPEG payloads
-    decoded together on the decoder's thread pool) are the surface the
+    index array (a uint8 (B, size, size, 3) batch, its JPEG payloads and
+    its WebP payloads decoded together on their decoders' thread pools)
+    are the surface the
     `Loader` needs. `env` is injectable: anything with `begin()` returning
     a context manager whose value has `.stat()["entries"]`, `.get(key)` and
     `.cursor().iternext(keys=True, values=False)`."""
@@ -329,7 +342,10 @@ class LSUNClassImages:
         jpegs = [i for i, b in enumerate(bufs) if b[:2] == JPEG_MAGIC]
         for i, img in zip(jpegs, decode_jpegs([bufs[i] for i in jpegs], [names[i] for i in jpegs])):
             out[i] = _crop_resize(img, self.size)
-        for i in sorted(set(range(len(bufs))) - set(jpegs)):
+        webps = [i for i, b in enumerate(bufs) if is_webp(b[:MAGIC_BYTES])]
+        for i, img in zip(webps, decode_webps([bufs[i] for i in webps], [names[i] for i in webps])):
+            out[i] = _crop_resize(img, self.size)
+        for i in sorted(set(range(len(bufs))) - set(jpegs) - set(webps)):
             out[i] = _decode_crop_resize(bufs[i], self.size, names[i])
         return out
 

@@ -1,14 +1,17 @@
-"""The port's baseline JPEG decoder (ctypes binding of
-`csrc/host/jpeg_decode.cpp`), equal byte for byte to PIL's
-`Image.open(path).convert("RGB")` (PIL bundles libjpeg-turbo; the C++
-decoder computes what its default decompression computes: the islow IDCT,
-fancy upsampling and the table-driven YCbCr to RGB conversion).
+"""The port's JPEG decoder (ctypes binding of `csrc/host/jpeg_decode.cpp`),
+equal byte for byte to PIL's `Image.open(path).convert("RGB")` (PIL bundles
+libjpeg-turbo; the C++ decoder computes what its default decompression
+computes: the islow IDCT, fancy upsampling, the table-driven YCbCr to RGB
+and YCCK to CMYK conversions; then PIL's inverted-CMYK reading and its
+CMYK to RGB conversion). Baseline and progressive Huffman files, with 1, 3
+or 4 components (grey; YCbCr or RGB; CMYK or YCCK), decode.
 
 `decode_jpegs` takes a batch of files as bytes and decodes them on a pool
 of C++ threads; the interpreter lock is released for the whole batch.
-Progressive, arithmetic-coded, lossless, 12-bit and CMYK/YCCK files raise
-NotImplementedError; corrupt or truncated data raises ValueError; each
-error names the file.
+Arithmetic-coded, lossless, hierarchical and 12-bit files raise
+NotImplementedError; corrupt or truncated data raises ValueError (so does a
+progressive file whose scans leave coefficients that libjpeg would smooth);
+each error names the file.
 """
 
 from __future__ import annotations
@@ -32,9 +35,9 @@ def unsupported_message(name: str, feature: str, cache: Optional[str] = None) ->
     image folder, its `.npy` cache `cache`)."""
     return (
         f"{name}: {feature} is not decoded by the port (ROADMAP.md, queue 1, item 4c). Convert the "
-        f"file to baseline JPEG or PNG, or make the `.npy` cache {cache or '<folder>_<size>.npy'} with the "
-        "JAX package's load_image_folder_cached on a machine with PIL: the port's "
-        "load_image_folder_cached reads it as it is."
+        "file to baseline or progressive JPEG, PNG or WebP, or make the `.npy` cache "
+        f"{cache or '<folder>_<size>.npy'} with the JAX package's load_image_folder_cached on a machine "
+        "with PIL: the port's load_image_folder_cached reads it as it is."
     )
 
 
@@ -58,7 +61,7 @@ def _raise(status: int, name: str, msg: str, cache: Optional[str]) -> None:
 
 
 def jpeg_size(data: bytes, name: str = "<bytes>", cache: Optional[str] = None):
-    """(width, height) of a baseline JPEG, read from its frame header; raises
+    """(width, height) of a JPEG, read from its frame header; raises
     as `decode_jpegs` does for a file it would refuse."""
     lib = _native_build.load("jpeg_decode", _configure)
     w, h, c = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()

@@ -9,6 +9,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import io
 import json
 import os
 
@@ -89,15 +90,25 @@ def test_unported_options_raise(tmp_path):
     with pytest.raises(ValueError, match="process id 5"):
         common.init_distributed(bad, torch.device("cpu"))
     assert not torch.distributed.is_initialized()
-    # celeba64 reads its folders of PNG, JPEG and BMP files (item 4b); a
-    # progressive JPEG there raises, naming the decoder item 4c owes and the
-    # JAX-made cache that serves in its place.
-    tree = tmp_path / "celeba64_train"
-    tree.mkdir()
-    Image.new("RGB", (8, 8)).save(tree / "000001.jpg", progressive=True)
+    # celeba64 reads its folders of PNG, JPEG, BMP and WebP files (items 4b
+    # and 4c), progressive JPEGs among them; an arithmetic-coded JPEG there
+    # raises, naming the decoder item 4c still owes and the JAX-made cache
+    # that serves in its place.
+    for split in ("celeba64_train", "celeba64_test"):
+        (tmp_path / split).mkdir()
+        Image.new("RGB", (8, 8), (20, 140, 200)).save(tmp_path / split / "000001.jpg", progressive=True)
+        Image.new("RGB", (8, 8), (200, 40, 20)).save(tmp_path / split / "000002.webp")
     cfg = preset("celeba64")
     cfg = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, data_path=str(tmp_path)))
-    with pytest.raises(NotImplementedError, match=r"000001\.jpg: .*progressive.*queue 1, item 4c.*celeba64_train_64\.npy"):
+    train, ref, test = common.load_dataset(cfg)
+    assert train.shape == ref.shape == test.shape == (2, 64, 64, 3)
+    rare = tmp_path / "rare"
+    (rare / "celeba64_train").mkdir(parents=True)
+    buf = io.BytesIO()
+    Image.new("RGB", (8, 8)).save(buf, "JPEG")
+    (rare / "celeba64_train" / "000001.jpg").write_bytes(buf.getvalue().replace(b"\xff\xc0", b"\xff\xc9", 1))
+    cfg = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, data_path=str(rare)))
+    with pytest.raises(NotImplementedError, match=r"000001\.jpg: .*arithmetic.*queue 1, item 4c.*celeba64_train_64\.npy"):
         common.load_dataset(cfg)
     with pytest.raises(ValueError, match="unknown gen_recon dataset 'mnist'"):
         common.load_dataset(preset("mnist_anomaly"))

@@ -201,27 +201,83 @@ def test_load_image_folder_empty_raises(tmp_path):
 
 
 def test_load_image_folder_jpeg_raises_before_decoding(tmp_path, monkeypatch):
-    """JPEGs decode now (item 4b; the name predates that). A kind the port
-    does not decode still raises NotImplementedError naming the file, the
-    feature, item 4c and the cache that takes its place: a WebP file from
-    its first bytes, before any image of the folder is decoded; a
-    progressive JPEG from its header, before its batch is decoded. A file
-    that `limit` leaves out does not raise."""
+    """JPEGs decode (item 4b), and so do WebP and progressive JPEG files
+    (item 4c; the name predates both): here they decode equal to the JAX
+    package's reader. A JPEG coding the port does not decode (arithmetic)
+    still raises NotImplementedError naming the file, the feature, item 4c
+    and the cache that takes its place, from its header, before any image
+    of the folder is decoded. A file that `limit` leaves out does not
+    raise."""
     _mixed_tree(str(tmp_path), np.random.default_rng(7))
     decoded = []
-    for name in ("decode_parsed", "decode_jpegs", "decode_bmp"):
+    for name in ("decode_parsed", "decode_jpegs", "decode_webps", "decode_bmp"):
         original = getattr(datasets, name)
         monkeypatch.setattr(datasets, name, lambda *a, _o=original, _n=name, **k: (decoded.append(_n), _o(*a, **k))[1])
     pix = _smooth(np.random.default_rng(8), 16, 16, 3)
-    Image.fromarray(pix).save(tmp_path / "d" / "zz.webp", "WEBP")
-    with pytest.raises(NotImplementedError, match=r"zz\.webp: WebP.*item 4c.*_16\.npy"):
+    Image.fromarray(pix).save(tmp_path / "d" / "zy.webp", "WEBP")
+    Image.fromarray(pix).save(tmp_path / "d" / "zy.jpg", "JPEG", progressive=True)
+    buf = io.BytesIO()
+    Image.fromarray(pix).save(buf, "JPEG")
+    (tmp_path / "d" / "zz.jpg").write_bytes(buf.getvalue().replace(b"\xff\xc0", b"\xff\xc9", 1))
+    with pytest.raises(NotImplementedError, match=r"zz\.jpg: a JPEG with arithmetic coding.*item 4c.*_16\.npy"):
         datasets.load_image_folder(str(tmp_path), 16)
     assert decoded == []
-    os.remove(tmp_path / "d" / "zz.webp")
-    Image.fromarray(pix).save(tmp_path / "d" / "zz.jpg", "JPEG", progressive=True)
-    with pytest.raises(NotImplementedError, match=r"zz\.jpg: a JPEG with progressive coding.*item 4c.*_16\.npy"):
-        datasets.load_image_folder(str(tmp_path), 16)
-    assert datasets.load_image_folder(str(tmp_path), 16, limit=6).shape == (6, 16, 16, 3)
+    got = datasets.load_image_folder(str(tmp_path), 16, limit=8)
+    assert got.shape == (8, 16, 16, 3) and set(decoded) == {"decode_parsed", "decode_jpegs", "decode_webps"}
+    np.testing.assert_array_equal(got, jax_datasets.load_image_folder(str(tmp_path), 16, limit=8))
+
+
+def _adobe_ycck(data: bytes) -> bytes:
+    """A PIL-written CMYK JPEG with its Adobe transform byte set to 2: the
+    same file read as YCCK (libjpeg's colour-space rule)."""
+    i = data.index(b"\xff\xee") + 4 + 11
+    return data[:i] + b"\x02" + data[i + 1:]
+
+
+def _every_kind_tree(root, rng):
+    """One file of every kind the readers take: PNG; baseline, progressive
+    (with restart markers), grey progressive, CMYK and YCCK JPEG; lossy,
+    lossless, alpha and animated WebP; BMP. Sizes up to CelebA's."""
+    os.makedirs(os.path.join(root, "s"), exist_ok=True)
+
+    def save(rel, img, fmt, **kw):
+        buf = io.BytesIO()
+        img.save(buf, fmt, **kw)
+        data = buf.getvalue()
+        with open(os.path.join(root, rel), "wb") as f:
+            f.write(_adobe_ycck(data) if rel.endswith("ycck.jpg") else data)
+
+    pics = [Image.fromarray(_smooth(rng, h, w, 3)) for w, h in
+            [(178, 218), (40, 52), (33, 21), (64, 64), (50, 70), (29, 45), (80, 60), (37, 91), (52, 40), (45, 45),
+             (61, 31), (20, 24)]]
+    alpha = Image.fromarray(np.dstack([_smooth(rng, 45, 29, 3), rng.integers(0, 256, (45, 29), dtype=np.uint8)]))
+    save("a.png", pics[0], "PNG")
+    save("b_baseline.jpg", pics[1], "JPEG", quality=90)
+    save("c_progressive.jpg", pics[2], "JPEG", progressive=True, subsampling=0, restart_marker_blocks=2)
+    save("d_grey.jpeg", pics[3].convert("L"), "JPEG", progressive=True)
+    save("e_cmyk.jpg", pics[4].convert("CMYK"), "JPEG", quality=85)
+    save("s/f_ycck.jpg", pics[5].convert("CMYK"), "JPEG", progressive=True)
+    save("s/g_lossy.webp", pics[6], "WEBP", quality=70)
+    save("s/h_lossless.WEBP", pics[7], "WEBP", lossless=True)
+    save("s/i_alpha.webp", alpha, "WEBP", quality=85)
+    save("s/j_anim.webp", pics[8], "WEBP", save_all=True, append_images=[pics[9].resize(pics[8].size)], duration=40)
+    save("s/k.bmp", pics[10], "BMP")
+    save("s/l_palette.webp", pics[11].quantize(16).convert("RGB"), "WEBP", lossless=True)
+
+
+@pytest.mark.parametrize("size, batch_bytes", [(32, datasets.BATCH_BYTES), (64, 4000)])
+def test_every_image_kind_matches_jax(tmp_path, monkeypatch, size, batch_bytes):
+    """A tree of every kind: `load_image_folder` and
+    `load_image_folder_cached` equal the JAX package's PIL reader exactly,
+    with every file in one batch and with a file or two a batch."""
+    root = str(tmp_path / "tree")
+    _every_kind_tree(root, np.random.default_rng(21))
+    monkeypatch.setattr(datasets, "BATCH_BYTES", batch_bytes)
+    want = jax_datasets.load_image_folder(root, size)
+    assert want.shape == (12, size, size, 3)
+    np.testing.assert_array_equal(datasets.load_image_folder(root, size), want)
+    np.testing.assert_array_equal(datasets.load_image_folder_cached(root, size), want)
+    np.testing.assert_array_equal(jax_datasets.load_image_folder_cached(root, size), want)  # the port's cache
 
 
 def _bmp(pix: np.ndarray, bits: int, top_down: bool) -> bytes:

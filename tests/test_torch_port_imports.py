@@ -1,8 +1,8 @@
 """Import hygiene of the port: no module under `damc_tpu_torch/` imports JAX,
 Flax, Optax, the JAX package, PIL or lmdb (the port depends on no image
-library and no LMDB binding: it decodes its PNGs, BMPs and JPEGs itself,
-`data/images.py` and `data/jpeg.py`, and reads LMDB through its own C++
-reader), and none reads a file under the JAX package's `native/` (it keeps
+library and no LMDB binding: it decodes its PNGs, BMPs, JPEGs and WebPs
+itself, `data/images.py`, `data/jpeg.py` and `data/webp.py`, and reads LMDB
+through its own C++ reader), and none reads a file under the JAX package's `native/` (it keeps
 its own copies under `csrc/host/`). Parsed with `ast`, not read from
 `sys.modules`, because the interpreter may import JAX at start-up."""
 
@@ -60,12 +60,15 @@ SLICE_11 = ("parallel/__init__.py", "parallel/mesh.py", "parallel/distributed.py
 SLICE_12 = ("parallel/tp.py",)
 
 
+SLICE_13 = ("data/webp.py",)
+
+
 def test_port_has_modules():
     assert len(FILES) >= 50
-    assert set(SLICE_4 + SLICE_6 + SLICE_7 + SLICE_9 + SLICE_10 + SLICE_11 + SLICE_12) <= {
+    assert set(SLICE_4 + SLICE_6 + SLICE_7 + SLICE_9 + SLICE_10 + SLICE_11 + SLICE_12 + SLICE_13) <= {
         str(p.relative_to(PORT)) for p in FILES}
     assert {p.name for p in (PORT / "csrc" / "host").glob("*.cpp")} == {
-        "batch_loader.cpp", "jpeg_decode.cpp", "lmdb_reader.cpp"}
+        "batch_loader.cpp", "jpeg_decode.cpp", "lmdb_reader.cpp", "webp_decode.cpp"}
 
 
 def _code_strings(tree):

@@ -3,8 +3,8 @@
 spec-conformant databases of tests/lmdb_fixture.py, after
 tests/test_native_lmdb.py; `LSUNClassImages`, `LSUNImages` and `load_lsun`
 against the JAX package's readers over fixture databases of JPEGs
-(exactly: JAX's PIL path); `_decode_crop_resize` (decode, centre crop,
-PIL's LANCZOS) against JAX's; and the port against JAX's libjpeg batch path
+(exactly: JAX's PIL path), JPEG and WebP payloads of every kind;
+`_decode_crop_resize` (decode, centre crop, PIL's LANCZOS) against JAX's; and the port against JAX's libjpeg batch path
 within that path's own bound."""
 
 from __future__ import annotations
@@ -206,27 +206,65 @@ def _encode(img, fmt, **kw):
     return buf.getvalue()
 
 
-@pytest.mark.parametrize("fmt", ["JPEG", "PNG", "BMP"])
+PAYLOADS = {  # format name: (PIL format, save options, PIL mode)
+    "JPEG": ("JPEG", dict(quality=85), "RGB"), "PNG": ("PNG", {}, "RGB"), "BMP": ("BMP", {}, "RGB"),
+    "WEBP": ("WEBP", dict(quality=80), "RGB"), "WEBP_LOSSLESS": ("WEBP", dict(lossless=True), "RGB"),
+    "JPEG_PROGRESSIVE": ("JPEG", dict(quality=85, progressive=True), "RGB"),
+    "JPEG_CMYK": ("JPEG", dict(quality=85), "CMYK"),
+}
+
+
+def _payload(img, fmt):
+    kind, kw, mode = PAYLOADS[fmt]
+    buf = io.BytesIO()
+    Image.fromarray(img).convert(mode).save(buf, kind, **kw)
+    return buf.getvalue()
+
+
+@pytest.mark.parametrize("fmt", sorted(PAYLOADS))
 @pytest.mark.parametrize("hw, size", [((340, 256), 256), ((96, 128), 64), ((40, 30), 64), ((50, 64), 50),
                                       ((7, 9), 32)], ids=["340x256to256", "down", "up", "crop_only", "tiny_up"])
 def test_decode_crop_resize_equals_jax(fmt, hw, size):
     """Decode, centre crop to the shorter side and PIL's LANCZOS (a copy
     when the crop has the size already): the port's equals JAX's PIL path
-    on JPEG, PNG and BMP payloads, downscaled and enlarged."""
+    on baseline, progressive and CMYK JPEG, PNG, BMP, and lossy and
+    lossless WebP payloads, downscaled and enlarged."""
     h, w = hw
-    data = _encode(_smooth(h, w, h * w + len(fmt)), fmt, **({"quality": 85} if fmt == "JPEG" else {}))
+    data = _payload(_smooth(h, w, h * w + len(fmt)), fmt)
     got = datasets._decode_crop_resize(data, size)
     np.testing.assert_array_equal(got, jax_datasets._decode_crop_resize(data, size))
     assert got.shape == (size, size, 3)
 
 
-def test_webp_payload_raises_naming_item_4c(tmp_path):
-    data = _encode(_smooth(20, 20, 0), "WEBP")
-    with pytest.raises(NotImplementedError, match=r"item.jpg.*WebP.*item 4c"):
-        datasets._decode_crop_resize(data, 16, "item.jpg")
-    build_lmdb(str(tmp_path / "tower_val_lmdb"), {b"a": data})
-    with pytest.raises(NotImplementedError, match="WebP.*item 4c"):
-        datasets.load_lsun(str(tmp_path), ["tower_val"], 16)
+def test_webp_payload_raises_naming_item_4c(tmp_path, jax_pil_path):
+    """WebP payloads decode now (item 4c; the name predates that): an LSUN
+    database of lossy, lossless and alpha WebP, progressive and CMYK JPEG
+    payloads gives `load_lsun` and batch indexing equal to the JAX
+    package's PIL path, the WebPs and JPEGs of a batch each on their
+    decoder's pool. A payload of a coding the port still does not decode
+    (an arithmetic-coded JPEG) raises naming item 4c."""
+    items = {}
+    for i in range(10):
+        h, w = 30 + 7 * i, 64 - 3 * i
+        fmt = ["WEBP", "WEBP_LOSSLESS", "JPEG_PROGRESSIVE", "JPEG_CMYK", "JPEG"][i % 5]
+        items[f"{i:03d}".encode()] = _payload(_smooth(h, w, i), fmt)
+    alpha = np.dstack([_smooth(40, 36, 99), np.arange(40 * 36, dtype=np.uint8).reshape(40, 36)])
+    items[b"alpha"] = _encode(alpha, "WEBP", quality=75)
+    root = str(tmp_path)
+    build_lmdb(os.path.join(root, "tower_val_lmdb"), items)
+    want = jax_datasets.load_lsun(root, ["tower_val"], 32)
+    os.remove(os.path.join(root, "tower_val_lmdb", "_keys_cache.pkl"))
+    got = datasets.load_lsun(root, ["tower_val"], 32)
+    assert got.shape == (11, 32, 32, 3)
+    np.testing.assert_array_equal(got, want)
+    idx = np.array([10, 3, 0, 7])
+    np.testing.assert_array_equal(datasets.LSUNImages(root, ["tower_val"], 32)[idx], want[idx])
+    arithmetic = _encode(_smooth(20, 20, 0), "JPEG").replace(b"\xff\xc0", b"\xff\xc9", 1)
+    with pytest.raises(NotImplementedError, match=r"item.jpg.*arithmetic coding.*item 4c"):
+        datasets._decode_crop_resize(arithmetic, 16, "item.jpg")
+    build_lmdb(str(tmp_path / "bridge_val_lmdb"), {b"a": arithmetic})
+    with pytest.raises(NotImplementedError, match="arithmetic coding.*item 4c"):
+        datasets.load_lsun(str(tmp_path), ["bridge_val"], 16)
 
 
 @pytest.mark.parametrize("hw", [(64, 64), (80, 48), (37, 91), (32, 40)])
