@@ -10,7 +10,11 @@ traced into an ATen graph and saved with `torch.export`:
      recorded as plain ops, so the program needs no autograd), and each
      kernel as one node: K1 and K2 are the custom ops
      `torch.ops.damc.fused_prior_langevin` and `torch.ops.damc.fused_reverse_sweep`
-     (`ops/cuda/`). The weights are the trace's constants.
+     (`ops/cuda/`). The weights are the trace's constants. The route is the
+     one the live service would take (`serve.serving_fused_auto`), or the
+     caller's `fused`: an unfused program holds no kernel node, but the
+     sweep's loop, the autograd EBM chain's backward and the counter-noise
+     hash of its draws, recorded the same way.
   2. `torch.export.export` of that graph module, then `torch.export.save`
      to `<path>_b<B>.pt2`, its constants moved to the CPU so the file
      loads anywhere.
@@ -23,7 +27,7 @@ compile the ops' plain versions around the kernels.
 
 Layout of an artifact directory:
 
-    meta.json          format, paths, shapes, draws scheme, torch version
+    meta.json          format, paths, shapes, draws scheme, route, torch version
     damc_b<B>.pt2      (z_init, emb_noise, sweep_seed, chain_seed) -> images
     ebm_b<B>.pt2       the same inputs -> images   [when there is an EBM]
     recon_b<B>.pt2     (the same, x (B, H, W, C)) -> (x_hat, z)
@@ -109,12 +113,15 @@ def export_serving_artifact(
     recon_langevin_steps: int = 10,
     platforms: Sequence[str] = PLATFORMS,
     trained_step: int = 0,
+    fused: Optional[bool] = None,
 ) -> Dict[str, Any]:
     """Trace and save the serving programs of `models` (on their device)
     into `out_dir`, one per path at one fixed batch size (the deterministic
     serving bucket). Returns the written meta dict. `platforms` lists the
-    device types the artifact may be loaded on."""
-    from .serve import build_serving_fns, item_draws, stack_draws
+    device types the artifact may be loaded on. `fused` picks the route as
+    `SamplerService(fused=)` does (None: `serving_fused_auto`); the meta
+    records it."""
+    from .serve import build_serving_fns, item_draws, serving_fused_auto, stack_draws
 
     if batch_size < 1:
         raise ValueError(f"batch_size must be >= 1, got {batch_size}")
@@ -129,8 +136,9 @@ def export_serving_artifact(
     gen = torch.Generator().manual_seed(0)
     x = (torch.rand((batch_size,) + image_shape, generator=gen) * 2.0 - 1.0).to(device)
 
+    fused = serving_fused_auto(models) if fused is None else bool(fused)
     files = {}
-    for path, fn in build_serving_fns(models, cfg, recon_langevin_steps).items():
+    for path, fn in build_serving_fns(models, cfg, recon_langevin_steps, fused).items():
         example = draws + (x,) if path == "recon" else draws
         fname = _program_file(path, batch_size)
         torch.export.save(_trace(_flat(path, fn), example), str(out / fname))
@@ -150,6 +158,7 @@ def export_serving_artifact(
         "torch_version": torch.__version__,
         "trained_step": int(trained_step),
         "draws": DRAWS,
+        "fused": fused,
         "compute_dtype": cfg.model.compute_dtype,
     }
     (out / _META).write_text(json.dumps(meta, indent=2))
@@ -214,6 +223,7 @@ def _read_meta(artifact_dir) -> Dict[str, Any]:
             f"artifact draws scheme {meta.get('draws')!r} unknown: this build feeds {DRAWS!r} "
             "(serve.item_draws)"
         )
+    meta.setdefault("fused", True)  # an artifact written before the unfused route holds the kernels
     return meta
 
 

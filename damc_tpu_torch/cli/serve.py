@@ -25,6 +25,16 @@ exclusive.
         --export_artifact art/cifar10
     python -m damc_tpu_torch.cli.serve --artifact art/cifar10 --port 8787
 
+`--fused auto|on|off` picks the serving route (`serve.SamplerService(
+fused=)`): `on` the fused kernels K1 and K2, refused with the fit rule
+named for models they do not take; `off` the unfused torch loops (the
+sweep over the denoiser's step tables, the EBM chain by autograd), which
+serve any model; `auto`, the default, the kernels when
+`serve.serving_fused_auto` says both take the models. Both routes draw an
+item's noise from the same per-row counter seeds. With
+`--export_artifact` it picks the route the artifact holds; with
+`--artifact` it is refused (the route is the artifact's).
+
 `--use_mesh` serves over every card this process sees when there is more
 than one (`parallel.LocalMesh`: a replica a card, each dispatch's rows
 split over them; `--max_batch` must divide by the card count) and is a
@@ -37,6 +47,8 @@ from __future__ import annotations
 import argparse
 
 from .common import add_common_flags, config_from_args
+
+FUSED = {"auto": None, "on": True, "off": False}  # --fused -> SamplerService(fused=)
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -57,6 +69,11 @@ def parse_args(argv=None) -> argparse.Namespace:
         help="power-of-two batch buckets instead of the single max_batch bucket: less "
         "padded compute at low load, but a result may then differ in the last bits "
         "with batch composition (deterministic mode is the default)",
+    )
+    p.add_argument(
+        "--fused", choices=tuple(FUSED), default="auto",
+        help="serving route: the fused kernels K1 and K2 (on), the unfused torch loops (off), "
+        "or the kernels when their fit rules take the models (auto); both draw per-row counter noise",
     )
     p.add_argument(
         "--recon_langevin_steps", type=int, default=None,
@@ -82,6 +99,8 @@ def parse_args(argv=None) -> argparse.Namespace:
         raise SystemExit("serving is single-process; --multihost is invalid")
     if args.artifact and args.export_artifact:
         raise SystemExit("--artifact and --export_artifact are exclusive")
+    if args.artifact and args.fused != "auto":
+        raise SystemExit("--fused with --artifact: the artifact's route was fixed when it was exported")
     if args.ckpt and args.ckpt_dir:
         raise ValueError("--ckpt (a reference .pth.tar) and --ckpt_dir (a training checkpoint) are exclusive")
     return args
@@ -131,10 +150,11 @@ def export_artifact(args) -> dict:
         models, cfg, args.export_artifact, batch_size=args.max_batch,
         recon_langevin_steps=_recon_steps(args),
         platforms=tuple(s for s in args.artifact_platforms.split(",") if s), trained_step=step,
+        fused=FUSED[args.fused],
     )
     print(
         f"[damc] wrote serving artifact to {args.export_artifact}: paths={meta['paths']}, "
-        f"batch={meta['batch_size']}, platforms={meta['platforms']}"
+        f"batch={meta['batch_size']}, platforms={meta['platforms']}, {route_line(meta['fused'])}"
     )
     return meta
 
@@ -155,15 +175,23 @@ def service_from_args(args):
         meta = service.artifact_meta
         print(
             f"[damc] serving artifact {args.artifact} (dataset={meta['dataset']}, "
-            f"step={meta['trained_step']}, batch={meta['batch_size']}, platforms={meta['platforms']})"
+            f"step={meta['trained_step']}, batch={meta['batch_size']}, platforms={meta['platforms']}, "
+            f"{route_line(service.fused)})"
         )
         return service
     models, cfg, _ = _models(args)
-    return SamplerService(
+    service = SamplerService(
         models, cfg, max_batch=args.max_batch, window_ms=args.window_ms,
         recon_langevin_steps=_recon_steps(args),
         deterministic=not args.bucketed, device=args.device, mesh=serving_mesh(args),
+        fused=FUSED[args.fused],
     )
+    print(f"[damc] {route_line(service.fused)} (--fused {args.fused})")
+    return service
+
+
+def route_line(fused: bool) -> str:
+    return "route: " + ("fused kernels K1 and K2" if fused else "unfused torch loops, no kernel")
 
 
 def serving_mesh(args):

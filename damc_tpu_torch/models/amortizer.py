@@ -22,8 +22,12 @@ the global batch on every rank and splits K2's rows over the ranks (K4b,
 rank's own rows of a global batch (the training step's, already local),
 drawing what the unsharded launch draws for them.
 
-`sample_q_per_item` (serving: per-row counter noise) runs K2 only and
-raises for a denoiser K2 cannot take. Random draws come in as tensors, so
+`sample_q_per_item` (serving: per-row counter noise) runs K2 ("k2"), or,
+for a denoiser K2 cannot take or with `fused=False`, the "tables" loop
+drawing the same per-row counter normals K2 draws (JAX's
+`sample_q_per_item(fused=False)`, :417-432, runs a vmap of single-item
+scans there instead: the same per-row contract from another stream).
+Random draws come in as tensors, so
 a caller can feed the JAX package's. Keys keep the reference `_netQ_U`
 layout: `encoder.net.*`, `prior_emb.0`, `prior_emb.2`, `p.*`, and the
 reference's unused `xemb` (1, nxemb), held here as a buffer so a
@@ -41,6 +45,7 @@ from ..ops.cuda.fused_qsweep import (
     denoiser_layer_params, fits_smem, fused_reverse_sweep, fused_reverse_sweep_sharded,
 )
 from ..ops.diffusion import diffusion_forward, logsnr_schedule, step_coefficients, sweep_logsnr_grid
+from ..ops.noise import counter_normals
 from ..ops.reverse_diffusion import reverse_diffusion_sample
 from .denoiser import LatentDenoiser
 from .encoders import MLPEncoder, make_encoder
@@ -185,21 +190,28 @@ def sample_q_per_item(
     emb_noise: Optional[torch.Tensor] = None,
     layers: Optional[Tuple[torch.Tensor, Sequence[Tuple[torch.Tensor, ...]]]] = None,
     step_tables: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+    fused: Optional[bool] = None,
 ) -> torch.Tensor:
     """Q samples whose row i is a pure function of (z_init[i], row_seeds[i])
     and x[i] (posterior) or emb_noise[i] (prior).
 
-    The n-step reverse sweep runs in the fused kernel with per-row counter
-    noise; a denoiser the kernel cannot take raises, as JAX refuses
-    row_seeds off the fused path (:328-334). `layers` is
-    `denoiser_layer_params(amortizer.p)` and `step_tables` is
+    The n-step reverse sweep draws per-row counter noise from `row_seeds`.
+    `fused` (JAX's meaning): None runs the fused kernel K2 when its fit rule
+    takes the denoiser (`sweep_route` "k2") and the tables loop otherwise;
+    False runs the tables loop; True runs K2 and raises for a denoiser K2
+    cannot take. The loop draws each step's noise as K2 does
+    (`noise.counter_normals`), so both give a row the same normals.
+    `layers` is `denoiser_layer_params(amortizer.p)` and `step_tables` is
     `amortizer.step_tables(device)`, which a caller that samples often
     computes once (serving: a traced serving program then holds them as
     constants instead of recomputing the CPU-side tables on its device)."""
-    if sweep_route(amortizer) != "k2":
+    fits = sweep_route(amortizer) == "k2"
+    if fused is None:
+        fused = fits
+    elif fused and not fits:
         raise ValueError(
-            "sample_q_per_item: per-row counter noise needs the fused sweep K2, which does not "
-            "take this denoiser (fits_smem)"
+            "sample_q_per_item(fused=True): the fused sweep K2 does not take this denoiser "
+            "(fits_smem: at most 256 columns a layer and 227 KB of shared memory a block)"
         )
     if x is not None:
         xemb = amortizer.encode(x)
@@ -207,7 +219,13 @@ def sample_q_per_item(
         xemb = amortizer.prior_embed(emb_noise)
     else:
         raise ValueError("sample_q_per_item needs x (posterior) or emb_noise (prior)")
-    return _sweep(amortizer, xemb, z_init, layers, step_tables, row_seeds=row_seeds)
+    if fused:
+        return _sweep(amortizer, xemb, z_init, layers, step_tables, row_seeds=row_seeds)
+    grid, _ = step_tables if step_tables is not None else amortizer.step_tables(z_init.device)
+    noise = None
+    if amortizer.with_noise:
+        noise = counter_normals(row_seeds, amortizer.n_interval - 1, amortizer.nz).to(z_init.device)
+    return _table_sweep(amortizer, xemb, z_init, grid, noise=noise)
 
 
 @torch.no_grad()
@@ -262,20 +280,29 @@ def sample_q(
         if row_base:
             raise ValueError("sample_q: row_base names a rank's rows, mesh takes the global batch; not both")
         return _sweep(amortizer, xemb, z_init, layers, None, mesh=mesh, seed=seed)
-    p = amortizer.p
-    guided, step_xs = None, None
     if route == "tables":
         grid, _ = sweep_logsnr_grid(amortizer.n_interval, amortizer.logsnr_min, amortizer.logsnr_max)
-        tables = p.sample_tables(grid.to(z_init.device), xemb)
-        step_xs, pre_x = tables["pre_t"], tables["pre_x"]
-        denoise_fn = lambda z, logsnr, pre_t_step: p.denoise_from_tables(z, pre_t_step, pre_x)
-    else:
-        denoise_fn = lambda z, logsnr: p(z, logsnr, xemb)
-        guided = lambda normals, z, logsnr: p(z, logsnr, amortizer.prior_embed(normals))
+        return _table_sweep(amortizer, xemb, z_init, grid.to(z_init.device), noise, generator)
+    p = amortizer.p
     return reverse_diffusion_sample(
-        denoise_fn, z_init, amortizer.n_interval, amortizer.logsnr_min, amortizer.logsnr_max,
-        amortizer.var_type, amortizer.with_noise, noise=noise, guided_denoise_fn=guided,
-        cond_w=cond_w, guide_noise=guide_noise, step_xs=step_xs, generator=generator,
+        lambda z, logsnr: p(z, logsnr, xemb), z_init, amortizer.n_interval, amortizer.logsnr_min,
+        amortizer.logsnr_max, amortizer.var_type, amortizer.with_noise, noise=noise,
+        guided_denoise_fn=lambda normals, z, logsnr: p(z, logsnr, amortizer.prior_embed(normals)),
+        cond_w=cond_w, guide_noise=guide_noise, generator=generator,
+    )
+
+
+def _table_sweep(amortizer: DAMCAmortizer, xemb, z_init, grid, noise=None, generator=None) -> torch.Tensor:
+    """The hoisted n-step sweep as the torch loop over `denoise_from_tables`
+    (`ops/reverse_diffusion.py`), the tables built from `grid`, the
+    sweep's logSNR grid on z_init's device."""
+    p = amortizer.p
+    tables = p.sample_tables(grid, xemb)
+    pre_x = tables["pre_x"]
+    return reverse_diffusion_sample(
+        lambda z, logsnr, pre_t_step: p.denoise_from_tables(z, pre_t_step, pre_x), z_init,
+        amortizer.n_interval, amortizer.logsnr_min, amortizer.logsnr_max, amortizer.var_type,
+        amortizer.with_noise, noise=noise, step_xs=tables["pre_t"], generator=generator,
     )
 
 

@@ -103,6 +103,13 @@ def fits_smem(nz: int, ndf: int) -> bool:
     return nz % 4 == 0 and ndf % CLUSTER == 0 and smem_bytes(nz, ndf) <= SMEM_LIMIT
 
 
+def fits_ebm(ebm) -> bool:
+    """Whether K1 takes a `LatentEBM`, from static facts alone: the 2-hidden,
+    1-output layout the kernel hand-codes, at widths `fits_smem` takes."""
+    lin = [m for m in ebm.ebm if isinstance(m, torch.nn.Linear)]
+    return len(lin) == 3 and lin[2].out_features == 1 and fits_smem(lin[0].in_features, lin[0].out_features)
+
+
 def _lrelu(x):
     return torch.where(x >= 0.0, x, _SLOPE * x)
 

@@ -9,7 +9,8 @@ whatever the payload dtype.
 
 from __future__ import annotations
 
-from typing import NamedTuple
+import functools
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -76,12 +77,15 @@ def diffusion_forward(x, logsnr) -> Gaussian:
     )
 
 
-def pred_x_from_eps(z, eps, logsnr):
-    """x0-hat = (z - sigma eps) / alpha, 1/alpha = sqrt(1 + exp(-logsnr)),
-    sigma = rsqrt(1 + exp(logsnr))."""
+def _x_from_eps_scalars(logsnr):
+    """(1/alpha, sigma) = (sqrt(1 + exp(-logsnr)), rsqrt(1 + exp(logsnr)))."""
     logsnr = _f32(logsnr)
-    inv_alpha = torch.sqrt(1.0 + torch.exp(-logsnr))
-    sigma = torch.rsqrt(1.0 + torch.exp(logsnr))
+    return torch.sqrt(1.0 + torch.exp(-logsnr)), torch.rsqrt(1.0 + torch.exp(logsnr))
+
+
+def pred_x_from_eps(z, eps, logsnr):
+    """x0-hat = (z - sigma eps) / alpha."""
+    inv_alpha, sigma = _x_from_eps_scalars(logsnr)
     return (inv_alpha * (z - eps * sigma)).to(z.dtype)
 
 
@@ -109,6 +113,26 @@ def diffusion_reverse(x, z_t, logsnr_s, logsnr_t, var_type: str = "small") -> Ga
     return Gaussian(mean=mean, std=torch.sqrt(var), var=var, logvar=logvar)
 
 
+def denoise_true(
+    z: torch.Tensor,
+    x0: torch.Tensor,
+    logsnr_t: torch.Tensor,
+    logsnr_s: torch.Tensor,
+    noise: Optional[torch.Tensor] = None,
+    generator: Optional[torch.Generator] = None,
+) -> torch.Tensor:
+    """One ground-truth ancestral step z_t -> z_s of q(z_s | z_t, x0) with
+    the beta-tilde ('small') std, per row logsnr_t and logsnr_s (B,)
+    (`damc_tpu/ops/diffusion.py:151-171`; the reference's
+    `diffusion_helper_func.py:80-87`, which no entry point calls). The
+    normals are `noise` (B, nz), else drawn from `generator`."""
+    b = z.shape[0]
+    dist = diffusion_reverse(x0, z, logsnr_s.reshape(b, 1), logsnr_t.reshape(b, 1), var_type="small")
+    if noise is None:
+        noise = torch.randn(z.shape, generator=generator, device=z.device, dtype=z.dtype)
+    return dist.mean + dist.std.to(z.dtype) * noise
+
+
 def sweep_logsnr_grid(n_interval: int, logsnr_min: float, logsnr_max: float):
     """(logsnr_t, logsnr_s) of the n-step reverse sweep in sweep order
     i = n-1 .. 0. The denoiser's step tables and `step_coefficients` index
@@ -119,6 +143,34 @@ def sweep_logsnr_grid(n_interval: int, logsnr_min: float, logsnr_max: float):
         torch.clamp(i_arr - 1.0, min=0.0) / (n_interval - 1.0), logsnr_min, logsnr_max
     )
     return logsnr_t, logsnr_s
+
+
+@functools.lru_cache(maxsize=64)
+def sweep_schedule(
+    n_interval: int, logsnr_min: float, logsnr_max: float, var_type: str
+) -> Tuple[Tuple[float, float, float, float, float], ...]:
+    """Per step of the n-step reverse sweep, in sweep order, the scalars
+    (1/alpha, sigma, mean_z, mean_x, std) with which x_hat = (1/alpha)
+    (z_t - sigma eps) (`pred_x_from_eps`) and z_s = mean_z z_t + mean_x
+    x_hat + std noise (`diffusion_reverse`): float32 values, as Python
+    floats. Each step's are computed on its own scalar logSNR pair, as
+    those functions compute them there (a vectorized op may round another
+    way in the last bit); mean_z and mean_x are read off
+    `diffusion_reverse` by probing it with ones and zeros, as
+    `step_coefficients` does.
+
+    Cached, so that a traced sweep (`make_fx`, a serving artifact) finds
+    them as constants: a call made while tracing cannot read tensors back,
+    and the caller computes the schedule before it traces (`serve.py`)."""
+    logsnr_t, logsnr_s = sweep_logsnr_grid(n_interval, logsnr_min, logsnr_max)
+    one, zero = torch.ones(()), torch.zeros(())
+    steps = []
+    for lt, ls in zip(logsnr_t, logsnr_s):
+        dist_z = diffusion_reverse(zero, one, ls, lt, var_type)
+        dist_x = diffusion_reverse(one, zero, ls, lt, var_type)
+        scalars = (*_x_from_eps_scalars(lt), dist_z.mean, dist_x.mean, dist_z.std)
+        steps.append(tuple(float(t) for t in scalars))
+    return tuple(steps)
 
 
 def step_coefficients(

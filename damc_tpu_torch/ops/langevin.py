@@ -4,11 +4,12 @@
 autograd: the posterior refinement of the `recon` serving path and of the
 training step goes through it (through G and E, on cuDNN), as the JAX
 package runs it through XLA. `prior_langevin_auto` sends the EBM prior chain
-to the fused kernel K1 (`ops/cuda/fused_langevin.py`) when the EBM is the
-standard 2-hidden MLP and `use_pallas` is on (JAX's switch name), else to
-`langevin_sample`; with a `parallel.Mesh` the kernel is K4a, the chains
-split over the ranks (`fused_prior_langevin_sharded`). `adam_latent_descent`
-is the StyleGAN inversion's Adam refinement of latents.
+to the fused kernel K1 (`ops/cuda/fused_langevin.py`) when `use_pallas` is
+on (JAX's switch name) and K1's rule `fits_ebm` takes the EBM (the 2-hidden
+MLP at widths that fit a block), else to `langevin_sample`; with a
+`parallel.Mesh` the kernel is K4a, the chains split over the ranks
+(`fused_prior_langevin_sharded`). `adam_latent_descent` is the StyleGAN
+inversion's Adam refinement of latents.
 """
 
 from __future__ import annotations
@@ -20,8 +21,9 @@ import numpy as np
 import torch
 
 from .cuda.fused_langevin import (
-    ebm_params_to_dense_weights, fused_prior_langevin, fused_prior_langevin_sharded,
+    ebm_params_to_dense_weights, fits_ebm, fused_prior_langevin, fused_prior_langevin_sharded,
 )
+from .noise import counter_normals
 
 # An energy maps a batch of latents (B, nz) to per-chain energies (B,).
 EnergyFn = Callable[[torch.Tensor], torch.Tensor]
@@ -145,21 +147,24 @@ def prior_langevin_auto(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Prior-Langevin chain; returns (z_final, final energy per chain).
 
-    With `use_pallas` the standard 2-hidden `LatentEBM` runs in the fused
+    With `use_pallas`, an EBM that K1 takes (`fits_ebm`) runs in the fused
     chain kernel: with per-row counter noise when `row_seeds` is given
     (serving), else with stream noise from the int32 `seed` (training),
     its products in the precision `dots_dtype` ("float32" or "bfloat16").
-    Without it, or for another EBM (the 3-hidden StyleGAN head), the chain
-    runs `langevin_sample` by autograd with the EBM frozen, its per-step
-    normals `noise` (steps, B, nz) or drawn from `generator`, in float32
-    whatever `dots_dtype` says, and honours neither seed
-    (`damc_tpu/ops/langevin.py:166-253`).
+    Without it, or for an EBM K1 does not take (the 3-hidden StyleGAN head,
+    an ndf too wide for a block), the chain runs `langevin_sample` by
+    autograd with the EBM frozen, in float32 whatever `dots_dtype` says
+    (`damc_tpu/ops/langevin.py:166-253`). Its per-step normals are then
+    those K1 would draw for `row_seeds` (`noise.counter_normals`), so a
+    chain stays a function of its own row; else `noise` (steps, B, nz) or
+    draws from `generator`. A stream `seed` there raises: no autograd
+    chain draws K1's stream.
 
     With a `mesh` (JAX's `mesh=`, :237-238), z_init is the global batch,
     which every rank holds: the kernel's chains split over the ranks (K4a)
     and every rank gets the whole result, equal to the unsharded chain bit
     for bit; the autograd chain runs the whole batch on every rank."""
-    if use_pallas and ebm.n_hidden == 2 and ebm.nez == 1:
+    if use_pallas and fits_ebm(ebm):
         kw = dict(seed=seed, row_seeds=row_seeds, steps=steps, step_size=float(step_size),
                   with_noise=with_noise, dots_dtype=dots_dtype)
         with torch.no_grad():
@@ -168,10 +173,13 @@ def prior_langevin_auto(
             else:
                 z = fused_prior_langevin_sharded(mesh, z_init, *ebm_params_to_dense_weights(ebm), **kw)
     else:
-        if row_seeds is not None or seed is not None:
+        if seed is not None:
             raise ValueError(
-                "row_seeds and seed (kernel noise) need the fused 2-hidden EBM chain (use_pallas)"
+                "seed (K1's stream noise) needs the fused chain: use_pallas and an EBM that K1 takes "
+                "(fits_ebm: 2 hidden layers, 1 output, fits_smem(nz, ndf))"
             )
+        if row_seeds is not None and with_noise:
+            noise = counter_normals(row_seeds, steps, z_init.shape[1]).to(z_init.device)
         with frozen(ebm):
             z, _ = langevin_sample(
                 z_init, prior_energy(ebm), steps, step_size, with_noise, generator, noise

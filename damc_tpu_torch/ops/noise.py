@@ -104,9 +104,25 @@ def uniform_from_bits(bits: torch.Tensor) -> torch.Tensor:
     return top24 * (1.0 / (1 << 24)) + (0.5 / (1 << 24))
 
 
+def _box_muller(bits1: torch.Tensor, bits2: torch.Tensor) -> torch.Tensor:
+    u1, u2 = uniform_from_bits(bits1), uniform_from_bits(bits2)
+    return torch.sqrt(-2.0 * torch.log(u1)) * torch.cos(_TWO_PI * u2)
+
+
 def counter_normal(seeds: torch.Tensor, step: int, cols: int) -> torch.Tensor:
     """(rows, cols) float32 standard normals of chain step `step`."""
-    u1 = uniform_from_bits(counter_bits(seeds, 2 * step, cols))
-    u2 = uniform_from_bits(counter_bits(seeds, 2 * step + 1, cols))
-    r = torch.sqrt(-2.0 * torch.log(u1))
-    return r * torch.cos(_TWO_PI * u2)
+    return _box_muller(counter_bits(seeds, 2 * step, cols), counter_bits(seeds, 2 * step + 1, cols))
+
+
+def counter_normals(seeds: torch.Tensor, steps: int, cols: int) -> torch.Tensor:
+    """(steps, rows, cols) float32 normals of a whole chain or sweep in
+    counter mode: slice s is `counter_normal(seeds, s, cols)`, the step-s
+    noise that K1 and K2 (and their plain versions) draw for the per-row
+    seeds. The bits are those of the per-step calls; all steps are hashed
+    in one batch of element-wise ops."""
+    seeds = as_u32(seeds)
+    rows = seeds.shape[0]
+    step = torch.arange(steps, dtype=torch.int64, device=seeds.device).repeat_interleave(rows)
+    flat = seeds.repeat(steps)
+    out = _box_muller(counter_bits(flat, 2 * step, cols), counter_bits(flat, 2 * step + 1, cols))
+    return out.reshape(steps, rows, cols)

@@ -2,8 +2,9 @@
 
 Counterpart of `damc_tpu/ops/reverse_diffusion.py:29-108` (JAX's
 `lax.scan`). Q samples take this path where the fused sweep kernel K2 does
-not: under classifier-free guidance, and for a denoiser too wide for K2
-(the StyleGAN inversion Q, `models/amortizer.py::sweep_route`). Each step
+not: under classifier-free guidance, for a denoiser too wide for K2
+(the StyleGAN inversion Q, `models/amortizer.py::sweep_route`), and on the
+unfused serving route (`sample_q_per_item(fused=False)`). Each step
 is one denoiser forward and the moment update of `ops/diffusion.py`; the
 step's logSNR pair comes from `sweep_logsnr_grid`, computed on the host.
 
@@ -19,7 +20,7 @@ from typing import Callable, List, Optional
 
 import torch
 
-from .diffusion import diffusion_reverse, pred_x_from_eps, sweep_logsnr_grid
+from .diffusion import sweep_logsnr_grid, sweep_schedule
 
 # denoise_fn(z_t (B, nz), logsnr (B,)[, step tables]) -> eps_pred (B, nz)
 DenoiseFn = Callable[..., torch.Tensor]
@@ -48,15 +49,17 @@ def reverse_diffusion_sample(
     Steps i = n-1 .. 0: eps = denoise_fn(z_t, logsnr_t) (with guidance
     (1 + w) eps - w eps_unc), x_hat = pred_x_from_eps(z_t, eps), and
     z_s = mean + std * noise (the mean alone without noise) of
-    q(z_s | z_t, x_hat); the last step returns x_hat itself.
+    q(z_s | z_t, x_hat); the last step returns x_hat itself. The steps'
+    scalars are the host numbers of `sweep_schedule`, so a traced program
+    holds them as constants.
 
     `step_xs`, when given, is a list of per-layer tables (n, d) indexed
     the way the sweep runs (row 0 = step n-1); denoise_fn then takes the
     step's rows as a third argument."""
     b, n = z_init.shape[0], n_interval
     dev, dtype = z_init.device, z_init.dtype
-    logsnr_t, logsnr_s = sweep_logsnr_grid(n, logsnr_min, logsnr_max)
-    grid = logsnr_t.to(dev)
+    grid = sweep_logsnr_grid(n, logsnr_min, logsnr_max)[0].to(dev)
+    schedule = sweep_schedule(n, logsnr_min, logsnr_max, var_type)
     use_guidance = guided_denoise_fn is not None and cond_w > 0
 
     def normals(given, k):
@@ -67,7 +70,7 @@ def reverse_diffusion_sample(
         return torch.randn(z_init.shape, generator=generator, device=dev, dtype=dtype)
 
     zt = z_init
-    for k in range(n):
+    for k, (inv_alpha, sigma, mean_z, mean_x, std) in enumerate(schedule):
         lt_vec = grid[k].expand(b)
         if step_xs is None:
             eps = denoise_fn(zt, lt_vec)
@@ -76,9 +79,9 @@ def reverse_diffusion_sample(
         if use_guidance:
             eps_unc = guided_denoise_fn(normals(guide_noise, k), zt, lt_vec)
             eps = (1.0 + cond_w) * eps - cond_w * eps_unc
-        pred_z = pred_x_from_eps(zt, eps, logsnr_t[k])
+        pred_z = inv_alpha * (zt - eps * sigma)
         if k == n - 1:
             return pred_z.detach()
-        dist = diffusion_reverse(pred_z, zt, logsnr_s[k], logsnr_t[k], var_type)
-        zt = dist.mean + dist.std.to(dtype) * normals(noise, k) if with_noise else dist.mean
+        mean = mean_z * zt + mean_x * pred_z
+        zt = mean + std * normals(noise, k) if with_noise else mean
     raise ValueError("reverse_diffusion_sample needs n_interval >= 1")

@@ -11,7 +11,20 @@ Counterpart of `damc_tpu/serve.py` for one GPU. Three paths:
               G decode;
 
 plus a stdlib HTTP front (`make_http_server`) and a CLI
-(`damc_tpu_torch.cli.serve`). With `compute_dtype` "bfloat16" G and the
+(`damc_tpu_torch.cli.serve`).
+
+Two routes serve each path, as in the JAX package (`fused`,
+`damc_tpu/serve.py:250-412`): the fused route above, and the unfused route,
+which runs the sweep as the torch loop over the denoiser's step tables
+(`ops/reverse_diffusion.py`) and the EBM chain by autograd, launching
+neither kernel. Both take the same `RowDraws`, and the unfused route draws
+each step's noise from the same per-row counter seeds as the kernels
+(`ops/noise.py::counter_normals`), so an item gets the same normals on
+either route. `serving_fused_auto` picks the fused route when the kernels'
+fit rules take the models, from static facts only; a model they refuse
+(an EBM with ndf = 512, a denoiser wider than K2 takes) is served on the
+unfused route. (JAX's unfused route draws threefry keys instead: the
+same contract from another stream.) With `compute_dtype` "bfloat16" G and the
 encoder compute in bfloat16 (the images are answered in float32), while K1
 keeps float32 products, as the JAX package's serving does.
 
@@ -74,7 +87,9 @@ import torch
 
 from .config import Config
 from .device import resolve_device
+from .ops.cuda.fused_langevin import fits_ebm
 from .ops.cuda.fused_qsweep import denoiser_layer_params
+from .ops.diffusion import sweep_schedule
 from .ops.langevin import langevin_sample, posterior_energy, prior_langevin_auto
 from .ops.noise import counter_bits, counter_normal
 from .parallel.distributed import world_size
@@ -116,7 +131,19 @@ def stack_draws(rows: Sequence[RowDraws], device) -> RowDraws:
     return RowDraws(*(torch.cat(col).to(device) for col in zip(*rows)))
 
 
-def build_serving_fns(models, cfg: Config, recon_langevin_steps: int = 10) -> Dict[str, Callable]:
+def serving_fused_auto(models) -> bool:
+    """Whether every path of `models` can take the fused route: K2's fit
+    rule takes Q's denoiser and, when there is an EBM, K1's takes it
+    (`fits_ebm`: the 2-hidden, 1-output layout, `fits_smem(nz, ndf)`).
+    JAX's rule (`damc_tpu/serve.py:250-274`) read as the Hopper kernels'
+    rules; static facts only, whatever the device (on the CPU the fused
+    route runs the kernels' plain versions)."""
+    from .models.amortizer import sweep_route
+
+    return sweep_route(models.amortizer) == "k2" and (models.ebm is None or fits_ebm(models.ebm))
+
+
+def build_serving_fns(models, cfg: Config, recon_langevin_steps: int = 10, fused: bool = True) -> Dict[str, Callable]:
     """The serving core, keyed by path: batched functions of per-row draws
     (and images for `recon`), row i a pure function of row i's inputs.
 
@@ -124,14 +151,25 @@ def build_serving_fns(models, cfg: Config, recon_langevin_steps: int = 10) -> Di
       'ebm'   (draws)    -> images            (absent without an EBM)
       'recon' (draws, x) -> (x_hat, z)
 
-    The weights' kernel layouts and Q's step tables are computed once,
-    here, on the models' device."""
+    `fused` selects the route (module docstring): the kernels K1 and K2,
+    which raises for models `serving_fused_auto` refuses, or the unfused
+    torch loops. The weights' kernel layouts and Q's step tables are
+    computed once, here, on the models' device."""
     from .models.amortizer import sample_q_per_item  # not at import: an artifact service needs no model code
 
+    if fused and not serving_fused_auto(models):
+        raise ValueError(
+            "fused serving needs models both kernels take: K2's fits_smem for Q's denoiser (at most "
+            "256 columns a layer, 227 KB of shared memory a block) and K1's fits_ebm for the EBM "
+            "(2 hidden layers, 1 output, fits_smem(nz, ndf)); serve with fused=False"
+        )
     mc = cfg.mcmc
     amort, gen, ebm = models.amortizer, models.generator, models.ebm
-    q_layers = denoiser_layer_params(amort.p)
-    q_tables = amort.step_tables(amort.xemb.device)
+    q_kw = dict(fused=fused, step_tables=amort.step_tables(amort.xemb.device))
+    if fused:
+        q_kw["layers"] = denoiser_layer_params(amort.p)
+    else:  # the loop's step scalars, cached before any trace of these functions reads them
+        sweep_schedule(amort.n_interval, amort.logsnr_min, amort.logsnr_max, amort.var_type)
 
     def decode(z):
         # A bfloat16 G (compute_dtype) answers float32 images, the values of
@@ -140,17 +178,11 @@ def build_serving_fns(models, cfg: Config, recon_langevin_steps: int = 10) -> Di
 
     @torch.no_grad()
     def damc(d: RowDraws) -> torch.Tensor:
-        z = sample_q_per_item(
-            amort, d.z_init, d.sweep_seed, emb_noise=d.emb_noise, layers=q_layers,
-            step_tables=q_tables,
-        )
-        return decode(z)
+        return decode(sample_q_per_item(amort, d.z_init, d.sweep_seed, emb_noise=d.emb_noise, **q_kw))
 
     @torch.no_grad()
     def recon(d: RowDraws, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-        z0 = sample_q_per_item(
-            amort, d.z_init, d.sweep_seed, x=x, layers=q_layers, step_tables=q_tables
-        )
+        z0 = sample_q_per_item(amort, d.z_init, d.sweep_seed, x=x, **q_kw)
         energy = posterior_energy(gen, ebm, x, mc.g_llhd_sigma)
         z, _ = langevin_sample(z0, energy, recon_langevin_steps, mc.g_l_step_size, with_noise=False)
         return decode(z), z
@@ -164,7 +196,7 @@ def build_serving_fns(models, cfg: Config, recon_langevin_steps: int = 10) -> Di
             # serving passes no dots_dtype (`damc_tpu/serve.py:360-364`).
             z, _ = prior_langevin_auto(
                 d.z_init, ebm, mc.e_l_steps, mc.e_l_step_size, mc.e_l_with_noise,
-                row_seeds=d.chain_seed,
+                row_seeds=d.chain_seed, use_pallas=fused,
             )
             return decode(z)
 
@@ -368,7 +400,12 @@ class SamplerService:
     `device` defaults to CUDA and raises when it is missing; pass
     device='cpu' to serve through the kernels' plain versions. `mesh`, a
     `parallel.LocalMesh`, serves over its devices instead of `device`
-    (module docstring); max_batch must divide over them.
+    (module docstring); max_batch must divide over them. `fused` picks the
+    route (JAX's `fused`, `damc_tpu/serve.py:438-454`): None takes the
+    fused route when `serving_fused_auto` holds and the unfused route
+    otherwise, True the fused route (a ValueError naming the fit rules
+    for models the kernels refuse), False the unfused route; `self.fused`
+    says which serves.
     `SamplerService.from_artifact(dir)` builds the same facade over the
     programs of a serving artifact instead of live models."""
 
@@ -383,12 +420,14 @@ class SamplerService:
         deterministic: bool = True,
         device=None,
         mesh: Optional[LocalMesh] = None,
+        fused: Optional[bool] = None,
     ):
+        fused = serving_fused_auto(models) if fused is None else bool(fused)
         if mesh is None:
             device = resolve_device(device)
             for m in models.modules():
                 m.to(device)
-            fns = build_serving_fns(models, cfg, recon_langevin_steps)
+            fns = build_serving_fns(models, cfg, recon_langevin_steps, fused)
         else:
             if world_size() > 1:
                 raise ValueError("SamplerService is single-process: one controller serves over the devices "
@@ -403,11 +442,11 @@ class SamplerService:
                 for m in replica.modules():
                     m.to(dev)
                 with _on(dev):
-                    replica_fns.append(build_serving_fns(replica, cfg, recon_langevin_steps))
+                    replica_fns.append(build_serving_fns(replica, cfg, recon_langevin_steps, fused))
             fns, device = split_serving_fns(replica_fns, mesh), mesh.devices[0]
         self._setup(
             fns, (cfg.model.image_size, cfg.model.image_size, cfg.model.nc),
-            cfg.model.nz, max_batch, window_ms, request_timeout_s, deterministic, device, mesh,
+            cfg.model.nz, max_batch, window_ms, request_timeout_s, deterministic, device, fused, mesh,
         )
         self.cfg = cfg
 
@@ -426,7 +465,7 @@ class SamplerService:
         svc = cls.__new__(cls)
         svc._setup(
             fns, tuple(meta["image_shape"]), int(meta["nz"]), int(meta["batch_size"]),
-            window_ms, request_timeout_s, True, device,
+            window_ms, request_timeout_s, True, device, meta["fused"],
         )
         svc.artifact_meta = meta
         return svc
@@ -441,9 +480,11 @@ class SamplerService:
         request_timeout_s: float,
         deterministic: bool,
         device: torch.device,
+        fused: bool,
         mesh: Optional[LocalMesh] = None,
     ) -> None:
         self.device = device
+        self.fused = fused
         self.mesh = mesh
         self.cfg: Optional[Config] = None
         self.artifact_meta: Optional[Dict[str, Any]] = None
@@ -577,8 +618,8 @@ def make_http_server(
     """A threading HTTP server over `service` (port 0 = ephemeral).
 
     Endpoints:
-      GET  /healthz      {"status": "ok", "device", "source", "paths", "image_shape",
-                          "max_batch"}
+      GET  /healthz      {"status": "ok", "device", "source", "fused", "paths",
+                          "image_shape", "max_batch"}
       GET  /stats        per-path coalescing counters and latency percentiles
       POST /sample       {"n": 4, "prior": "damc"|"ebm", "seed": 0,
                           "encoding": "list"|"b64"}
@@ -608,6 +649,7 @@ def make_http_server(
                         "status": "ok",
                         "device": str(service.device),
                         "source": "artifact" if service.artifact_meta else "live",
+                        "fused": service.fused,
                         "paths": list(service.paths),
                         "image_shape": list(service.image_shape),
                         "max_batch": service.max_batch,

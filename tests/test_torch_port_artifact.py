@@ -383,10 +383,12 @@ def test_bf16_artifact_matches_live(tmp_path):
 
 
 def test_meta_keys_match_jax(setup, tmp_path, monkeypatch):
-    """The port's meta.json has JAX's keys but three: `torch_version` for
+    """The port's meta.json has JAX's keys but four: `torch_version` for
     `jax_version`, `draws` for the PRNG key layout (`prng_impl`,
-    `key_shape`, `key_dtype`), and `compute_dtype` added. JAX's own meta
-    writer runs, with its lowering stubbed (the keys need no program)."""
+    `key_shape`, `key_dtype`), and `compute_dtype` and `fused` (the serving
+    route the programs hold; JAX's artifacts always hold its unfused route)
+    added. JAX's own meta writer runs, with its lowering stubbed (the keys
+    need no program)."""
     cfg_j, state, models_j, *_, meta = setup
     stub = lambda fn, platforms: lambda *specs: types.SimpleNamespace(serialize=lambda: b"")
     monkeypatch.setattr(jax_artifact.jax.export, "export", stub)
@@ -394,6 +396,6 @@ def test_meta_keys_match_jax(setup, tmp_path, monkeypatch):
         state, models_j, cfg_j, tmp_path, batch_size=B, recon_langevin_steps=RECON_STEPS, platforms=("cpu",)
     )
     swapped = {"jax_version", "prng_impl", "key_shape", "key_dtype"}
-    assert set(meta) == set(jax_meta) - swapped | {"torch_version", "draws", "compute_dtype"}
+    assert set(meta) == set(jax_meta) - swapped | {"torch_version", "draws", "compute_dtype", "fused"}
     for key in set(meta) & set(jax_meta) - {"files", "platforms", "trained_step"}:
         assert meta[key] == jax_meta[key], key

@@ -78,3 +78,22 @@ def test_step_coefficients_n100(var_type):
     assert got.shape == (100, 6) and got.dtype == np.float32
     np.testing.assert_allclose(got, want, atol=1e-6, rtol=1e-6)
     assert got[-1, 5] == 1.0 and got[:-1, 5].sum() == 0.0
+
+
+def test_denoise_true():
+    """`denoise_true` against JAX's with the same normals (JAX's own draw
+    from its key), per-row logSNR pairs of the 8-step grid, 'small' std;
+    with a generator instead of normals the step is the same function of
+    the generator's normals."""
+    rng = np.random.default_rng(2)
+    b, nz = 8, 5
+    z, x0 = rng.normal(size=(2, b, nz)).astype(np.float32)
+    lt, ls = (np.asarray(a) for a in jd.sweep_logsnr_grid(b, LMIN, LMAX))
+    key = jax.random.PRNGKey(3)
+    want = np.asarray(jd.denoise_true(key, jnp.asarray(z), jnp.asarray(x0), jnp.asarray(lt), jnp.asarray(ls)))
+    noise = np.asarray(jax.random.normal(key, z.shape, jnp.float32))
+    got = td.denoise_true(_t(z), _t(x0), _t(lt), _t(ls), noise=_t(noise)).numpy()
+    np.testing.assert_allclose(got, want, rtol=2e-5, atol=1e-5)
+    drawn = td.denoise_true(_t(z), _t(x0), _t(lt), _t(ls), generator=torch.Generator().manual_seed(4))
+    normals = torch.randn(z.shape, generator=torch.Generator().manual_seed(4))
+    assert torch.equal(drawn, td.denoise_true(_t(z), _t(x0), _t(lt), _t(ls), noise=normals))

@@ -17,7 +17,7 @@ from damc_tpu.ops.pallas.fused_langevin import fused_prior_langevin as jax_chain
 from damc_tpu_torch.models import LatentEBM
 from damc_tpu_torch.ops import langevin as tl
 from damc_tpu_torch.ops.cuda import fused_langevin as k1
-from damc_tpu_torch.ops.noise import stream_row_seeds
+from damc_tpu_torch.ops.noise import counter_normals, stream_row_seeds
 from torch_port_helpers import jax_and_port
 
 NZ, NDF = 128, 200
@@ -102,11 +102,19 @@ def test_posterior_langevin_matches_jax():
 
 
 def test_three_hidden_ebm_takes_autograd_and_refuses_row_seeds():
+    """An EBM K1 does not take runs by autograd: with `row_seeds` its step
+    noise is the counter normals K1 would draw for them (the unfused serving
+    route), while K1's stream `seed` is refused, as it is for any autograd
+    chain."""
     torch.manual_seed(0)
     ebm = LatentEBM(8, ndf=16, n_hidden=3)
     z = torch.randn(4, 8)
-    with pytest.raises(ValueError, match="row_seeds"):
-        tl.prior_langevin_auto(z, ebm, 3, 0.1, row_seeds=torch.zeros(4, dtype=torch.int32))
+    seeds = torch.tensor([3, -7, 11, 2**31 - 1], dtype=torch.int32)
+    with pytest.raises(ValueError, match="fits_ebm"):
+        tl.prior_langevin_auto(z, ebm, 3, 0.1, seed=5)
+    zc, _ = tl.prior_langevin_auto(z, ebm, 3, 0.1, row_seeds=seeds)
+    ref, _ = tl.langevin_sample(z, tl.prior_energy(ebm), 3, 0.1, noise=counter_normals(seeds, 3, 8))
+    assert torch.equal(zc, ref)
     zn, _ = tl.prior_langevin_auto(z, ebm, 3, 0.1, with_noise=False)
     ref, _ = tl.langevin_sample(z, tl.prior_energy(ebm), 3, 0.1, with_noise=False)
     assert torch.equal(zn, ref)

@@ -38,6 +38,7 @@ from damc_tpu_torch.convert import amortizer_state, train_state_from_jax
 from damc_tpu_torch.models import DAMCAmortizer, sample_q, sample_q_per_item, sweep_route
 from damc_tpu_torch.ops.diffusion import sweep_logsnr_grid
 from damc_tpu_torch.ops.langevin import prior_langevin_auto
+from damc_tpu_torch.ops.noise import counter_normals
 from damc_tpu_torch.ops.reverse_diffusion import reverse_diffusion_sample
 from damc_tpu_torch.train.state import create_state
 from damc_tpu_torch.train.step import draw_step, make_train_step
@@ -159,7 +160,10 @@ def test_sweep_route_is_static():
     """The rule at the cifar10, toy and StyleGAN widths, from shapes alone
     (the modules live on the meta device): K2 for the first two, the
     tables loop for the StyleGAN Q (nz 7168, widths 1024), guidance only on
-    a conditional draw; per-item serving refuses a denoiser K2 cannot take."""
+    a conditional draw. Per-item serving runs the tables loop for a
+    denoiser K2 cannot take, with K2's counter normals for its row seeds
+    (the same loop as `sample_q` fed those normals), and refuses K2 for it
+    when asked."""
     with torch.device("meta"):
         cifar = DAMCAmortizer(nz=128, nxemb=1024, ntemb=128, dataset="cifar10")
         toy = DAMCAmortizer(nz=2, nxemb=128, ntemb=128, dataset="toy", nc=2)
@@ -171,8 +175,15 @@ def test_sweep_route_is_static():
     widths = {(l.dim_in, l.dim_out) for l in sg.p.all_layers}
     assert widths == {(2 * 7168, 1024), (1024, 1024), (2048, 1024), (2048, 7168)}
     small = _stylegan_family(seed=0)[2]
-    with pytest.raises(ValueError, match="counter noise needs the fused sweep"):
-        sample_q_per_item(small, torch.zeros(1, 8), torch.zeros(1, dtype=torch.int32), emb_noise=torch.zeros(1, 8))
+    r = np.random.default_rng(2)
+    z, emb = t(r.normal(size=(3, 8))), t(r.normal(size=(3, 8)))
+    seeds = torch.tensor([5, -9, 2**31 - 1], dtype=torch.int32)
+    got = sample_q_per_item(small, z, seeds, emb_noise=emb)
+    want = sample_q(small, None, z, 0, emb_noise=emb, noise=counter_normals(seeds, N - 1, 8))
+    assert torch.equal(got, want)
+    assert torch.equal(sample_q_per_item(small, z, seeds, emb_noise=emb, fused=False), got)
+    with pytest.raises(ValueError, match="fits_smem"):
+        sample_q_per_item(small, z, seeds, emb_noise=emb, fused=True)
 
 
 @pytest.mark.parametrize("with_noise", [False, True], ids=["noiseless", "noise"])
