@@ -56,8 +56,9 @@ Phases, each of which raises on failure (the script then exits non-zero):
      one dispatch of both routes on the same draws, the EBM chain's z and
      images against K1's, the damc and recon sweeps over 6 steps held to
      the fp64 unfused route as K2 is, and the 100-step damc sweep at B=128
-     in its moments against K2's; cifar10 with ndf=512, which K1 refuses,
-     served under auto on the unfused route, with its p50/p99; and
+     in its moments against K2's; cifar10 with ndf=512 served under auto
+     on the kernels (K1 with its weights in L2, held against its float64
+     plain version at B=16), with its p50/p99; and
      `cli.serve --fused off --export_artifact` (4 sweep and 4 EBM steps),
      loaded on the card, bit for bit equal to the live unfused service;
   6. trains the full-width `cifar10` preset at B=128 for 10 iterations
@@ -77,6 +78,17 @@ Phases, each of which raises on failure (the script then exits non-zero):
      once for the EBM prior); the analytic FLOPs of one cifar10 iteration
      at B=128 (`utils/flops.py::train_step_flops`) over the float32 and
      bf16 medians, as shares of the card's fp32 and bf16 peaks;
+  7b. the widths K1 pads (`k1_widths_phase`): cifar10 at full width with
+     nz=10 (padded to 12, weights in shared memory) for 3 iterations and
+     with ndf=512 (nz=128, weights read from L2: the K1_l2 variant) for 1,
+     at B=128 with use_pallas on, through `train_gen_recon`; before each,
+     K1 over that model's 2B=256 chains and K2 over its B=128 rows in
+     stream mode against their plain versions; each iteration launches K1
+     once in the variant the widths take and K2 once; finite metrics, G, E
+     and Q changed, each iteration's ms beside the card's name and power
+     limit; then K1 on the nz=10 EBM-prior FID batch's draws (B=500)
+     against its plain version, and the batch twice: finite,
+     bit-identical, one K1 launch a batch;
   8. holds each kernel against its plain version at the eval shapes in
      stream mode: K1 at B=500 with the eval CLI's 100 steps at 1.6 and the
      loop's 60 at 0.4; K2 at B=500 under the prior embedding (the FID
@@ -93,8 +105,9 @@ Phases, each of which raises on failure (the script then exits non-zero):
      launched exactly as the protocol implies; resumes to 5 iterations with
      --resume_path auto in the same run directory; restores ckpt/3 into a
      fresh state, equal to the state in memory, and steps both, bit for
-     bit; scores ckpt/best twice through the eval CLI (K1 100 steps at 1.6,
-     K2 at B=500) and checks that both print the same numbers;
+     bit; scores ckpt/best once through the eval CLI (K1 100 steps at 1.6,
+     K2 at B=500; its rerun cut for time: phase 7b reruns an EBM-prior FID
+     batch and phase 12 the anomaly eval CLI);
  10. runs pool3 InceptionV3 (random weights) on the card against the CPU on
      2 images, then times it at B=500 with its peak memory;
  11. times the eval's parts (a FID batch of each prior: sampling, features,
@@ -216,7 +229,9 @@ Phases, each of which raises on failure (the script then exits non-zero):
      sharing one H100 beside phase 6's;
  20. prints one JSON line {"kernels": [...]} with launches, errors and times
      of each kernel on each path (serve, serve_artifact: the card-exported
-     artifact's requests in its serving process, train, eval, anomaly, anomaly_eval:
+     artifact's requests in its serving process, serve_ndf512: phase 5c's
+     ndf=512 service, train, train_nz10, train_ndf512 and eval_nz10: phase
+     7b's runs, eval, anomaly, anomaly_eval:
      the train CLI's AUPRC evals, anomaly_eval_cli: the eval CLI's two
      runs, toy, svhn: the train CLI run, svhn_eval: the eval CLI run,
      svhn_serve: the served checkpoint, celeba64: both train CLI runs,
@@ -345,11 +360,19 @@ def report(name, r):
           f"bound {b_ms:.5g} ms ({by}), {r['flops']:.4g} FLOP, {r['bytes']:.4g} B")
 
 
-def chain_check(ebm_w, z, noise, steps, step_size, label):
+def chain_check(ebm_w, z, noise, steps, step_size, label, against_fp64=False):
     """K1 against its plain version on z (B, nz) under `noise` (row_seeds
     or seed), then both timed. The counter bits are exact; logf/cosf may
     differ from torch by an ulp, so atol 1e-4. In stream mode the kernel
-    must also equal counter mode on stream_row_seeds, bit for bit."""
+    must also equal counter mode on stream_row_seeds, bit for bit.
+
+    With `against_fp64` the kernel is held to the plain version in float64
+    instead, as sweep_check holds K2: at most twice as far from it as the
+    float32 plain version is, plus 1e-4. The energy is piecewise linear, so
+    a chain that crosses a kink on one side of a rounding and not on the
+    other takes a gradient step that differs by O(step^2): over 60 steps a
+    float32 pair can then part by more than 1e-4 (1.06e-4 at nz=10, B=256,
+    on an H100) with neither at fault."""
     import torch
 
     from damc_tpu_torch.ops.cuda.fused_langevin import fused_prior_langevin, prior_langevin_plain
@@ -361,7 +384,18 @@ def chain_check(ebm_w, z, noise, steps, step_size, label):
     if counter is not None and not torch.equal(got, fused_prior_langevin(z, *ebm_w, **counter, **kw)):
         raise AssertionError(f"{label}: stream mode differs from counter mode on stream_row_seeds")
     want = prior_langevin_plain(z, *ebm_w, **noise, **kw)
-    err = check_close(f"{label} B={b}, {steps} steps at {step_size}", got, want, atol=1e-4)
+    name = f"{label} B={b}, {steps} steps at {step_size}"
+    if against_fp64:
+        ref = prior_langevin_plain(z.double(), *[t.double() for t in ebm_w], **noise, **kw)
+        err = float((got - want).abs().max())
+        err_k, err_p = float((got.double() - ref).abs().max()), float((want.double() - ref).abs().max())
+        ok = err_k <= 2 * err_p + 1e-4
+        print(f"  {name}: kernel-plain {err:.3e}; against fp64: kernel {err_k:.3e}, plain fp32 {err_p:.3e} "
+              f"(limit 2 x plain + 1e-4) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"{name}: kernel further from fp64 than fp32 allows")
+    else:
+        err = check_close(name, got, want, atol=1e-4)
     flops, nbytes = langevin_cost(b, nz, ebm_w[0].shape[1], steps)
     r = dict(b=b, max_abs_err=err, flops=flops, bytes=nbytes,
              ms=time_ms(lambda: fused_prior_langevin(z, *ebm_w, **noise, **kw), 20),
@@ -619,17 +653,19 @@ def stream_kernel_phase(models, cfg):
 K1_BF16_ATOL = 2e-5
 K1_BF16_APART = 20
 K1_BF16_MOMENTS = 0.1  # share of the plain version's mean per-dimension std
-K1_BF16_SHAPES = (  # (label, preset, B, steps, step size)
-    ("train", "cifar10", 256, 60, 0.4),  # the 2B prior chains of cifar10 training
-    ("eval", "cifar10", 500, 60, 0.4),  # the training loop's EBM-prior FID batch
-    ("anomaly", "mnist_anomaly", 128, 60, 0.4),  # the single chains at nz=8
-    ("svhn", "svhn", 256, 60, 0.4),  # nz=100
+K1_BF16_SHAPES = (  # (label, preset, its widths changed, B, steps, step size)
+    ("train", "cifar10", {}, 256, 60, 0.4),  # the 2B prior chains of cifar10 training
+    ("eval", "cifar10", {}, 500, 60, 0.4),  # the training loop's EBM-prior FID batch
+    ("anomaly", "mnist_anomaly", {}, 128, 60, 0.4),  # the single chains at nz=8
+    ("svhn", "svhn", {}, 256, 60, 0.4),  # nz=100
+    ("train_ndf512", "cifar10", {"ndf": 512}, 256, 60, 0.4),  # the variant that reads the weights from L2
 )
 
 
 def k1_bf16_phase():
     """K1's bf16-dot variant against its plain bf16 version on the card at
-    the shapes of K1_BF16_SHAPES, on each preset's random EBM from the seed:
+    the shapes of K1_BF16_SHAPES, on each preset's random EBM from the seed
+    (at ndf=512 the variant that reads the weights from L2):
     6 noiseless steps pointwise (K1_BF16_ATOL), the full stream-noise chain
     in per-dimension mean and std over the batch (K1_BF16_MOMENTS) and
     equal, bit for bit, to counter mode on stream_row_seeds; the float32
@@ -649,11 +685,12 @@ def k1_bf16_phase():
     seed = 987654321
     res = {}
     weights = {}
-    for label, name, b, steps, step_size in K1_BF16_SHAPES:
-        if name not in weights:
+    for label, name, widths, b, steps, step_size in K1_BF16_SHAPES:
+        if (name, str(widths)) not in weights:
             cfg = preset(name)
-            weights[name] = ebm_params_to_dense_weights(build_models(cfg, seed=SEED, device="cuda").ebm)
-        w = weights[name]
+            cfg = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, **widths))
+            weights[name, str(widths)] = ebm_params_to_dense_weights(build_models(cfg, seed=SEED, device="cuda").ebm)
+        w = weights[name, str(widths)]
         nz, ndf = w[0].shape
         z = torch.randn(b, nz, generator=gen).cuda()
         bf = dict(dots_dtype="bfloat16")
@@ -1200,8 +1237,10 @@ def serve_unfused_phase(models, cfg, counters, fused_latency):
     recon sweeps over 6 steps against the fp64 unfused route
     (`_unfused_sweep_hold`), and the 100-step damc sweep at B=128 in its
     moments against K2's (within 0.1 x the mean std, as `sweep_check`).
-    Then cifar10 with ndf=512, which K1 refuses, under `auto`: it must
-    take the unfused route and serve finite images, with its p50/p99. Then
+    Then cifar10 with ndf=512 under `auto`: it must take the kernels (K1
+    reading its weights from L2, once an ebm dispatch) and serve finite
+    images, with its p50/p99, and K1 is held against its float64 plain
+    version on the 16 rows' draws in counter mode. Then
     `cli.serve --fused off --export_artifact` on the card, loaded, must
     answer bit for bit as the live unfused service; this check runs at
     UNFUSED_ARTIFACT_DEPTH (the trace and export take time in proportion
@@ -1270,22 +1309,31 @@ def serve_unfused_phase(models, cfg, counters, fused_latency):
         raise AssertionError("the unfused sweep's moments disagree with K2's")
     out["damc_moments"] = {"d_mean": d_mean, "d_std": d_std, "mean_std": scale}
 
-    # A model K1 refuses, under auto.
+    # ndf=512 under auto: K1 takes it, reading its weights from L2 (K1_l2).
+    from damc_tpu_torch.ops.cuda.fused_langevin import ebm_params_to_dense_weights, fused_prior_langevin
+
     cfg512 = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, ndf=512))
-    wide_svc = SamplerService(build_models(cfg512, seed=SEED, device="cuda"), cfg512, **kw)
+    models512 = build_models(cfg512, seed=SEED, device="cuda")
+    counters512 = {**counters, "K1_l2": fused_prior_langevin.l2}
+    wide_svc = SamplerService(models512, cfg512, **kw)
     try:
-        if wide_svc.fused:
-            raise AssertionError("cifar10 with ndf=512 must take the unfused route under auto")
+        if not wide_svc.fused:
+            raise AssertionError("cifar10 with ndf=512 must take the kernels under auto")
         wide_svc.warmup()
-        ans512, launches, _, lat512 = _serve_all(wide_svc, counters)
+        ans512, launches, batches, lat512 = _serve_all(wide_svc, counters512)
     finally:
         wide_svc.close()
     finite = all(np.isfinite(v).all() for v in ans512.values())
-    print(f"[serve_unfused] cifar10 ndf=512 under auto: unfused, launches {launches}, finite {finite}; "
-          f"{card_line()}: HTTP round trip ms " + json.dumps(lat512))
-    if not finite or not no_kernel(launches):
-        raise AssertionError("the ndf=512 model did not serve finite images on the unfused route")
-    out["ndf512_latency"] = lat512
+    print(f"[serve_unfused] cifar10 ndf=512 under auto: the kernels, dispatches {batches}, launches {launches}, "
+          f"finite {finite}; {card_line()}: HTTP round trip ms " + json.dumps(lat512))
+    want = {p: {"K1": 0, "K2": 0 if p == "ebm" else batches[p], "K1_l2": batches[p] if p == "ebm" else 0}
+            for p in batches}
+    if not finite or launches != want:
+        raise AssertionError(f"the ndf=512 model must serve finite images with launches {want}")
+    r = chain_check(ebm_params_to_dense_weights(models512.ebm), draws.z_init, dict(row_seeds=draws.chain_seed),
+                    mc.e_l_steps, mc.e_l_step_size, "K1_l2 counter ndf512 serve", against_fp64=True)
+    del models512
+    out["ndf512"] = {"latency": lat512, "K1_l2": (r, launches["ebm"]["K1_l2"])}
 
     # --fused off --export_artifact, loaded on the card, against the live
     # unfused service of the same command line.
@@ -1532,9 +1580,13 @@ def training_phase(cfg, counters, iterations: int = 10, expect=None, tag="train"
     records a CUDA event, the launch counts (host integers) and device
     copies of the metrics and of Q_ema's parameters, and the checks read
     them after the run. An iteration's time is the device time between the
-    events of two iterations, so it counts any wait on the host."""
+    events of two iterations, so it counts any wait on the host; `step_ms`
+    is each step's own, from an event recorded as it starts. Q_ema must
+    change only at iteration `ema_every`; G, E and Q every run. Returns
+    the median of iterations 3 on, or of `step_ms` in a shorter run."""
     import torch
 
+    from damc_tpu_torch.train import gen_recon
     from damc_tpu_torch.train.gen_recon import train_gen_recon
     from damc_tpu_torch.train.state import create_state
 
@@ -1551,10 +1603,15 @@ def training_phase(cfg, counters, iterations: int = 10, expect=None, tag="train"
         log["metrics"].append({k: v.detach().clone() for k, v in metrics.items()})
         log["ema"].append(_snapshot(state.amortizer_ema))
 
+    starts = []
+    undo = _timed_steps(gen_recon, starts, before=True)
     for k in counters.values():
         k.launches = 0
     t0 = time.perf_counter()
-    state = train_gen_recon(cfg, images, iterations=iterations, seed=SEED, on_step=on_step)
+    try:
+        state = train_gen_recon(cfg, images, iterations=iterations, seed=SEED, on_step=on_step)
+    finally:
+        undo()
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
     total = {name: k.launches for name, k in counters.items()}
@@ -1571,7 +1628,7 @@ def training_phase(cfg, counters, iterations: int = 10, expect=None, tag="train"
     if any(l != expect for l in per_iter):
         raise AssertionError(f"each iteration must launch {expect}")
     for name, module in _state_modules(state).items():
-        if not _changed(module, start[name]):
+        if name != "Q_ema" and not _changed(module, start[name]):
             raise AssertionError(f"{name} did not change in {iterations} iterations")
     ema = [start["Q_ema"]] + log["ema"]
     changed = [any(not bool((p == q).all()) for p, q in zip(a, b_)) for a, b_ in zip(ema, ema[1:])]
@@ -1580,13 +1637,15 @@ def training_phase(cfg, counters, iterations: int = 10, expect=None, tag="train"
         raise AssertionError(f"Q_ema must change only at iteration {cfg.train.ema_every}")
     ev = log["events"]
     ms = [a.elapsed_time(b_) for a, b_ in zip(ev, ev[1:])]  # iterations 2 .. iterations
-    print(f"[{tag}] " + json.dumps({
-        "print_every": cfg.train.print_every, "ms_per_iteration_2_to_10": ms,
-        "median_ms_iterations_3_to_10": statistics.median(ms[1:]),
-        "mean_ms_iterations_3_to_10": ev[1].elapsed_time(ev[-1]) / (iterations - 2),
-        "wall_s_with_set_up": wall_s, "peak_memory_gb": torch.cuda.max_memory_allocated() / 2**30,
-    }))
-    return state, total, statistics.median(ms[1:])
+    step_ms = [a.elapsed_time(b_) for a, b_ in zip(starts, ev)]
+    out = {"print_every": cfg.train.print_every, "step_ms": step_ms, "wall_s_with_set_up": wall_s,
+           "peak_memory_gb": torch.cuda.max_memory_allocated() / 2**30}
+    if iterations >= 3:
+        out.update({f"ms_per_iteration_2_to_{iterations}": ms,
+                    f"median_ms_iterations_3_to_{iterations}": statistics.median(ms[1:]),
+                    f"mean_ms_iterations_3_to_{iterations}": ev[1].elapsed_time(ev[-1]) / (iterations - 2)})
+    print(f"[{tag}] " + json.dumps(out))
+    return state, total, statistics.median(ms[1:] if iterations >= 3 else step_ms)
 
 
 def flops_line(cfg, train_ms, train16_ms):
@@ -1628,6 +1687,88 @@ def rerun_phase(cfg, tag="train"):
     print(f"[{tag}] two fresh 2-iteration runs bit-identical: {same}")
     if not same:
         raise AssertionError("two runs from one seed differ")
+
+
+K1_WIDTH_RUNS = (("nz10", {"nz": 10}, 3), ("ndf512", {"ndf": 512}, 1))  # (label, widths, iterations)
+K1_WIDTH_FID_B = 500  # the EBM-prior FID batch
+
+
+def k1_widths_phase(cfg, counters):
+    """Training and the EBM-prior eval at widths K1 pads: cifar10 at full
+    width with nz=10 (padded to 12, the weights in shared memory) for 3
+    iterations and with ndf=512 (nz=128: a block's slices would take
+    386 KB, so the weights are read from L2) for 1, at B=128 with
+    use_pallas on, through `training_phase`. Before each run, on that
+    model's random weights from the seed, K1 over the 2B=256 prior chains
+    and K2 over B=128 rows of Q, in stream mode, against their plain
+    versions (K1 against the float64 one, `chain_check`'s `against_fp64`);
+    each iteration must launch K1 once in the variant
+    `launch_widths` names (the other 0) and K2 once; finite metrics, G, E
+    and Q changed, each iteration's ms beside the card's name and power
+    limit. Then, on the nz=10 run's trained weights, K1 against its
+    float64 plain version on an EBM-prior FID batch's draws (B=500), and
+    that batch twice
+    through `gen_samples_ebm_prior`: finite, equal bit for bit, K1 launched
+    once a batch. Returns {path: {kernel: (check, launches)}}."""
+    import torch
+
+    from damc_tpu_torch.models import build_models, sweep_route
+    from damc_tpu_torch.ops.cuda.fused_langevin import (
+        ebm_params_to_dense_weights, fits_ebm, fused_prior_langevin, launch_widths,
+    )
+    from damc_tpu_torch.train.sampling import eval_draws, gen_samples_ebm_prior
+
+    counters = {**counters, "K1_l2": fused_prior_langevin.l2}
+    out, trained = {}, None
+    for i, (label, widths, iterations) in enumerate(K1_WIDTH_RUNS):
+        c = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, **widths))
+        m, mc, b = c.model, c.mcmc, c.train.batch_size
+        models = build_models(c, seed=SEED, device="cuda")
+        smem = launch_widths(m.nz, m.ndf)[2]
+        key = "K1" if smem else "K1_l2"
+        if not c.train.use_pallas or not fits_ebm(models.ebm) or sweep_route(models.amortizer) != "k2":
+            raise AssertionError(f"{label}: the phase needs use_pallas on and both kernels taking the models")
+        print(f"[k1_widths] {label} ({json.dumps(widths)}): K1 launches at {launch_widths(m.nz, m.ndf)} "
+              f"(nz, ndf, weights in shared memory)")
+        gen = torch.Generator(device="cpu").manual_seed(SEED + 90 + i)
+        chains = 2 * b if c.train.prior_chains == "double" else b
+        z1 = torch.randn(chains, m.nz, generator=gen).cuda()
+        r1 = chain_check(ebm_params_to_dense_weights(models.ebm), z1, dict(seed=135792468 + i), mc.e_l_steps,
+                         mc.e_l_step_size, f"{key} stream {label}", against_fp64=True)
+        x = torch.rand(b, m.image_size, m.image_size, m.nc, generator=gen).cuda() * 2 - 1
+        z2 = torch.randn(b, m.nz, generator=gen).cuda()
+        with torch.no_grad():
+            post = models.amortizer.encode(x)
+        r2 = sweep_check(models, c, z2, post, dict(seed=246813579 + i), f"K2 stream {label}")[b]
+        del models
+        expect = {"K1": int(smem), "K2": 1, "K1_l2": int(not smem)}
+        state, total, median_ms = training_phase(c, counters, iterations, expect=expect, tag=f"k1_widths {label}")
+        print(f"[k1_widths] {label} ({json.dumps(widths)}, B={b}, {iterations} iterations): median ms an "
+              f"iteration {median_ms} on {card_line()}; launches {total}")
+        out[f"train_{label}"] = {key: (r1, total[key]), "K2": (r2, total["K2"])}
+        if label == "nz10":
+            trained = (c, state)
+        del state
+    c, state = trained
+    mc = c.mcmc
+    d = eval_draws(SEED, "fid_ebm", 0, 0, K1_WIDTH_FID_B, c.model.nz, "cuda")
+    r = chain_check(ebm_params_to_dense_weights(state.models.ebm), d.z0, dict(seed=d.chain_seed), mc.e_l_steps,
+                    mc.e_l_step_size, "K1 stream nz10 FID batch", against_fp64=True)
+    for k in counters.values():
+        k.launches = 0
+    t0 = time.perf_counter()
+    runs = [gen_samples_ebm_prior(state.models, c, d) for _ in range(2)]
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) / 2
+    launches = {name: k.launches for name, k in counters.items()}
+    finite, same = bool(torch.isfinite(runs[0]).all()), torch.equal(runs[0], runs[1])
+    print(f"[k1_widths] EBM-prior FID batch of {K1_WIDTH_FID_B} at nz=10 (trained weights): shape "
+          f"{tuple(runs[0].shape)}, finite {finite}, two runs bit-identical {same}, launches {launches}, "
+          f"wall s a batch {wall}")
+    if not finite or not same or launches != {"K1": 2, "K2": 0, "K1_l2": 0}:
+        raise AssertionError("the nz=10 EBM-prior batch is not finite, not reproducible, or not two K1 launches")
+    out["eval_nz10"] = {"K1": (r, launches["K1"])}
+    return out
 
 
 # Card against CPU after one iteration from one z0, held to one set of
@@ -2136,8 +2277,8 @@ def eval_phase(cfg, counters):
     """The gen_recon workload through its CLIs at full cifar10 width, in a
     temporary directory: train 4 iterations with evals, grids and
     checkpoints every 2; resume to 5 with --resume_path auto; restore
-    ckpt/3 and step it against the state in memory; score ckpt/best twice
-    through the eval CLI. Returns what the timing and JSON lines need."""
+    ckpt/3 and step it against the state in memory; score ckpt/best
+    once through the eval CLI. Returns what the timing and JSON lines need."""
     import os
     import shutil
     import tempfile
@@ -2202,9 +2343,9 @@ def eval_phase(cfg, counters):
             raise AssertionError("the step after a restore differs from the step before the save")
         del state, restored, s_a, s_b
 
-        # 4. The eval CLI on ckpt/best, twice.
+        # 4. The eval CLI on ckpt/best, once (its rerun cut for time).
         eval_args = common + ["--ckpt_dir", os.path.join(run, "ckpt"), "--n_fid_samples", "2000"]
-        _, walls, cli_launches = eval_cli_runs(cfg, counters, eval_args, 2, 2000, EVAL_TEST_IMAGES)
+        _, walls, cli_launches = eval_cli_runs(cfg, counters, eval_args, 1, 2000, EVAL_TEST_IMAGES)
         return {"calls": calls, "eval_walls": eval_walls, "cli_launches": cli_launches, "cli_walls": walls,
                 "n_mse_b": n_mse_b}
     finally:
@@ -2386,9 +2527,10 @@ def anomaly_kernel_phase(cfg):
     return res
 
 
-def _timed_steps(module, events):
+def _timed_steps(module, events, before=False):
     """Wrap `module.make_train_step` so that every step it builds records a
-    CUDA event after it (no sync); returns the undo."""
+    CUDA event after it (no sync), or before it with `before`; returns the
+    undo."""
     import torch
 
     original = module.make_train_step
@@ -2396,11 +2538,17 @@ def _timed_steps(module, events):
     def make(*args, **kwargs):
         step = original(*args, **kwargs)
 
-        def timed(*a, **k):
-            out = step(*a, **k)
+        def record():
             event = torch.cuda.Event(enable_timing=True)
             event.record()
             events.append(event)
+
+        def timed(*a, **k):
+            if before:
+                record()
+            out = step(*a, **k)
+            if not before:
+                record()
             return out
 
         return timed
@@ -4690,7 +4838,7 @@ def main() -> int:
     total_artifact, live_latency = artifact_phase(models, cfg, counters)
     checkpoint_cli_phase(models, cfg, counters)
     lap("serve_artifact")
-    serve_unfused_phase(models, cfg, counters, live_latency)
+    unfused = serve_unfused_phase(models, cfg, counters, live_latency)
     del models
     lap("serve_unfused")
     state, total_train, train_ms = training_phase(cfg, counters)
@@ -4701,6 +4849,8 @@ def main() -> int:
     train_profile_phase(cfg, state)
     del state
     lap("train_profile")
+    k1_widths = k1_widths_phase(cfg, counters)
+    lap("k1_widths")
     # The bfloat16 mode: G and the encoder in bf16, K1's bf16-dot variant.
     cfg_bf16 = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, compute_dtype="bfloat16"),
                                    train=dataclasses.replace(cfg.train, pallas_dots_dtype="bfloat16"))
@@ -4781,6 +4931,12 @@ def main() -> int:
         # The card-exported serving artifact, served by its own process: B=16, counter mode.
         ("serve_artifact", "counter", key, res[key][16], total_artifact[key]) for key in meta
     ] + [("train", "stream", key, res_stream[key], total_train[key]) for key in meta] + [
+        # The widths K1 pads: nz=10 (K1 over 2B=256 chains, K2 B=128), ndf=512
+        # (K1 with the weights in L2), and the nz=10 EBM-prior FID batch (B=500).
+        (path, "stream", key, r, launches) for path, ks in k1_widths.items() for key, (r, launches) in ks.items()
+    ] + [
+        ("serve_ndf512", "counter", "K1_l2", *unfused["ndf512"]["K1_l2"]),  # B=16 under auto
+    ] + [
         ("eval", "stream", key, res_eval[key], eval_info["cli_launches"][key])  # B=500: K1 100 steps, K2 prior
         for key in meta
     ] + [
@@ -4816,6 +4972,8 @@ def main() -> int:
     ]
     if total_train16["K1"]:
         raise AssertionError("the bf16 training run launched K1's float32 variant")
+    meta["K1_l2"] = ("fused_prior_langevin_l2", "damc_tpu_torch/csrc/fused_langevin.cu",
+                     "damc_tpu/ops/pallas/fused_langevin.py:311")
     meta["K1_bf16"] = ("fused_prior_langevin_bf16", "damc_tpu_torch/csrc/fused_langevin.cu",
                        "damc_tpu/ops/pallas/fused_langevin.py:311")
     # The data-parallel run: each rank's own launches (K1 on its 128 of the
@@ -4861,6 +5019,7 @@ def main() -> int:
         shapes = [("serving counter", res[key][16]), ("training stream", res_stream[key]),
                   ("counter", res[key][500])]
         shapes += [(f"eval stream {k}", r) for k, r in res_eval.items() if k.startswith(key)]
+        shapes += [(f"{path} stream", ks[k][0]) for path, ks in k1_widths.items() for k in ks if k.startswith(key)]
         shapes += [(f"anomaly stream {k}", r) for k, r in res_anomaly.items() if k.startswith(key)]
         shapes += [(f"toy {k}", r) for k, r in res_toy.items() if k.startswith(key)]
         for tag, res_p in (("svhn", res_svhn), ("celeba64", res_c64), ("celebaHQ", res_hq)):

@@ -33,7 +33,8 @@ serve any model; `auto`, the default, the kernels when
 `serve.serving_fused_auto` says both take the models. Both routes draw an
 item's noise from the same per-row counter seeds. With
 `--export_artifact` it picks the route the artifact holds; with
-`--artifact` it is refused (the route is the artifact's).
+`--artifact` it is ignored with a warning, as JAX's CLI ignores it (the
+route is the artifact's).
 
 `--use_mesh` serves over every card this process sees when there is more
 than one (`parallel.LocalMesh`: a replica a card, each dispatch's rows
@@ -83,7 +84,7 @@ def parse_args(argv=None) -> argparse.Namespace:
         "--artifact", default=None,
         help="serve from a serving-artifact directory instead of building models: traced "
         "programs with the weights baked in; the model, checkpoint and batching flags are "
-        "ignored, --recon_langevin_steps and --bucketed too (baked into the programs)",
+        "ignored, --recon_langevin_steps, --bucketed and --fused too (baked into the programs)",
     )
     p.add_argument(
         "--export_artifact", default=None,
@@ -99,8 +100,6 @@ def parse_args(argv=None) -> argparse.Namespace:
         raise SystemExit("serving is single-process; --multihost is invalid")
     if args.artifact and args.export_artifact:
         raise SystemExit("--artifact and --export_artifact are exclusive")
-    if args.artifact and args.fused != "auto":
-        raise SystemExit("--fused with --artifact: the artifact's route was fixed when it was exported")
     if args.ckpt and args.ckpt_dir:
         raise ValueError("--ckpt (a reference .pth.tar) and --ckpt_dir (a training checkpoint) are exclusive")
     return args
@@ -168,6 +167,7 @@ def service_from_args(args):
         for flag, is_set in (
             ("--recon_langevin_steps", args.recon_langevin_steps is not None),
             ("--bucketed", args.bucketed),
+            ("--fused", args.fused != "auto"),
         ):
             if is_set:
                 print(f"[damc] WARNING: {flag} is ignored with --artifact (baked into the exported program)")

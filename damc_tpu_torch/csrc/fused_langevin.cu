@@ -71,6 +71,18 @@
 // TFLOP/s): 0.0041 ms at B=256, nz=128, 60 steps. This first version runs
 // them on the CUDA cores as the fp32 variant does, so it takes about that
 // variant's time; tensor-core products (mma.sync) are later work.
+//
+// Every width of the 2-hidden EBM, as the TPU kernel takes (it pads only
+// the batch). The wrapper (ops/cuda/fused_langevin.py::launch_widths) pads
+// nz to a multiple of 4 and ndf to one of kCluster with zero weights and
+// zero z columns, and slices the padding off the result: a zero weight
+// adds an exact zero to every sum, at its end, so the real columns are
+// what the unpadded widths would give, and a column's noise depends on its
+// index alone. Where a block's slices do not fit its shared memory (ndf =
+// 512 at nz = 128: 386 KB), the kSmemWeights = false variant reads them
+// from global memory, where L2 keeps them (1.3 MB at that width), ndf
+// padded to a multiple of 4 kCluster; its summation order is the same
+// walk, fixed by the padded widths.
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -111,14 +123,14 @@ __host__ __device__ inline int slice_ld(int J) {
 
 // acc[r] = sum_k x[r][k] w[k * ld], k < n (n % 4 == 0), in order of k: a
 // walk down a weight column, kRt chains at x (row stride x_ld); with
-// kRoundX each x is rounded to bf16 as it is read.
-template <bool kRoundX>
+// kRoundX each x, with kRoundW each w, is rounded to bf16 as it is read.
+template <bool kRoundX, bool kRoundW>
 __device__ __forceinline__ void dot_col(const float* w, int ld, const float* x, int x_ld, int n,
                                         float* acc) {
 #pragma unroll 4
   for (int k = 0; k < n; k += 4) {
-    const float w0 = w[(k + 0) * ld], w1 = w[(k + 1) * ld], w2 = w[(k + 2) * ld];
-    const float w3 = w[(k + 3) * ld];
+    const float w0 = operand<kRoundW>(w[(k + 0) * ld]), w1 = operand<kRoundW>(w[(k + 1) * ld]);
+    const float w2 = operand<kRoundW>(w[(k + 2) * ld]), w3 = operand<kRoundW>(w[(k + 3) * ld]);
 #pragma unroll
     for (int r = 0; r < kRt; ++r) {
       const float4 v = *reinterpret_cast<const float4*>(x + r * x_ld + k);
@@ -131,12 +143,15 @@ __device__ __forceinline__ void dot_col(const float* w, int ld, const float* x, 
 }
 
 // acc[r] = sum_k x[r][k] w[k], k < n (n % 4 == 0), in order of k: a walk
-// along a weight row.
+// along a weight row; with kRoundW each w is rounded to bf16 as it is read.
+template <bool kRoundW>
 __device__ __forceinline__ void dot_row(const float* w, const float* x, int x_ld, int n,
                                         float* acc) {
 #pragma unroll 4
   for (int k = 0; k < n; k += 4) {
-    const float4 wk = *reinterpret_cast<const float4*>(w + k);
+    float4 wk = *reinterpret_cast<const float4*>(w + k);
+    wk = make_float4(operand<kRoundW>(wk.x), operand<kRoundW>(wk.y), operand<kRoundW>(wk.z),
+                     operand<kRoundW>(wk.w));
 #pragma unroll
     for (int r = 0; r < kRt; ++r) {
       const float4 v = *reinterpret_cast<const float4*>(x + r * x_ld + k);
@@ -148,20 +163,31 @@ __device__ __forceinline__ void dot_row(const float* w, const float* x, int x_ld
   }
 }
 
-template <bool kBf16Dots>
+// kSmemWeights: the block holds its slices of K1 and K2 in shared memory
+// (as set out above); else it reads them where they lie in global memory
+// (through L1 and L2), its J columns at row stride ndf, and shared memory
+// holds the activations alone. That variant serves the widths whose slices
+// do not fit (ndf = 512 at nz = 128 needs 386 KB a block); it needs J % 4
+// == 0, so that the slices need no zero padding and their rows stay
+// 16-byte aligned, and the bf16-dot variant rounds each weight as it is read.
+template <bool kBf16Dots, bool kSmemWeights>
 __global__ void __launch_bounds__(kThreads, 2) prior_langevin_kernel(
     const float* __restrict__ z_in, const float* __restrict__ k1, const float* __restrict__ b1,
     const float* __restrict__ k2, const float* __restrict__ b2, const float* __restrict__ k3,
     const int* __restrict__ seeds, int seed, int stream_noise, int row_base,
     float* __restrict__ z_out, int B, int nz, int ndf, int steps, float step_size, float coeff) {
+  constexpr bool kRoundW = kBf16Dots && !kSmemWeights;  // shared-memory slices are rounded as loaded
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = (int)cluster.block_rank();
-  const int J = ndf / kCluster, j4 = pad4(J), j0 = rank * J, ld = slice_ld(J);
+  const int J = ndf / kCluster, j4 = pad4(J), j0 = rank * J;
+  const int ld = kSmemWeights ? slice_ld(J) : ndf;
   extern __shared__ float4 smem4[];
   __shared__ uint32_t row_seed[kRows];
   float* k1s = reinterpret_cast<float*>(smem4);  // nz x ld: K1[:, j0:j0+J], zero past J
   float* k2s = k1s + nz * ld;                    // ndf x ld: K2[:, j0:j0+J], zero past J
-  float* zs = k2s + ndf * ld;     // kRows x nz: the whole z, in every block
+  const float* k1w = kSmemWeights ? k1s : k1 + j0;  // the block's slices, where it reads them
+  const float* k2w = kSmemWeights ? k2s : k2 + j0;
+  float* zs = kSmemWeights ? k2s + ndf * ld : k1s;  // kRows x nz: the whole z, in every block
   float* h1 = zs + kRows * nz;    // kRows x ndf: lrelu(h1p), gathered from the cluster
   float* xd1 = h1 + kRows * ndf;  // kRows x ndf: d2 K2^T summed over own columns
   float* xg = xd1 + kRows * ndf;  // kRows x nz: d1 K1^T summed over own columns
@@ -179,13 +205,15 @@ __global__ void __launch_bounds__(kThreads, 2) prior_langevin_kernel(
     row_seed[tid] = seeds != nullptr
                         ? (uint32_t)seeds[row0 + tid]
                         : damc::stream_row_seed((uint32_t)seed, (uint32_t)(row_base + row0 + tid));
-  for (int e = tid; e < nz * ld; e += kThreads) {
-    const int k = e / ld, j = e - k * ld;
-    k1s[e] = j < J ? operand<kBf16Dots>(k1[(size_t)k * ndf + j0 + j]) : 0.f;
-  }
-  for (int e = tid; e < ndf * ld; e += kThreads) {
-    const int i = e / ld, j = e - i * ld;
-    k2s[e] = j < J ? operand<kBf16Dots>(k2[(size_t)i * ndf + j0 + j]) : 0.f;
+  if (kSmemWeights) {
+    for (int e = tid; e < nz * ld; e += kThreads) {
+      const int k = e / ld, j = e - k * ld;
+      k1s[e] = j < J ? operand<kBf16Dots>(k1[(size_t)k * ndf + j0 + j]) : 0.f;
+    }
+    for (int e = tid; e < ndf * ld; e += kThreads) {
+      const int i = e / ld, j = e - i * ld;
+      k2s[e] = j < J ? operand<kBf16Dots>(k2[(size_t)i * ndf + j0 + j]) : 0.f;
+    }
   }
   for (int e = tid; e < 2 * kRows * j4; e += kThreads) d2[e] = 0.f;  // d2 and d1
   for (int e = tid; e < kRows * nz; e += kThreads) {
@@ -199,7 +227,7 @@ __global__ void __launch_bounds__(kThreads, 2) prior_langevin_kernel(
     for (int t = tid; t < J * kGroups; t += kThreads) {
       const int j = t % J, r0 = (t / J) * kRt;
       float acc[kRt] = {};
-      dot_col<kBf16Dots>(k1s + j, ld, zs + r0 * nz, nz, nz, acc);
+      dot_col<kBf16Dots, kRoundW>(k1w + j, ld, zs + r0 * nz, nz, nz, acc);
       const float b = __ldg(b1 + j0 + j);
 #pragma unroll
       for (int r = 0; r < kRt; ++r) {
@@ -220,7 +248,7 @@ __global__ void __launch_bounds__(kThreads, 2) prior_langevin_kernel(
     for (int t = tid; t < J * kGroups; t += kThreads) {
       const int j = t % J, r0 = (t / J) * kRt;
       float acc[kRt] = {};
-      dot_col<false>(k2s + j, ld, h1 + r0 * ndf, ndf, ndf, acc);  // h1 was rounded where stored
+      dot_col<false, kRoundW>(k2w + j, ld, h1 + r0 * ndf, ndf, ndf, acc);  // h1 was rounded where stored
       const float b = __ldg(b2 + j0 + j), head = __ldg(k3 + j0 + j);
 #pragma unroll
       for (int r = 0; r < kRt; ++r)
@@ -231,7 +259,7 @@ __global__ void __launch_bounds__(kThreads, 2) prior_langevin_kernel(
     for (int t = tid; t < ndf * kGroups; t += kThreads) {
       const int i = t % ndf, r0 = (t / ndf) * kRt;
       float acc[kRt] = {};
-      dot_row(k2s + i * ld, d2 + r0 * j4, j4, j4, acc);
+      dot_row<kRoundW>(k2w + (size_t)i * ld, d2 + r0 * j4, j4, j4, acc);
 #pragma unroll
       for (int r = 0; r < kRt; ++r) xd1[(r0 + r) * ndf + i] = acc[r];
     }
@@ -249,7 +277,7 @@ __global__ void __launch_bounds__(kThreads, 2) prior_langevin_kernel(
     for (int t = tid; t < nz * kGroups; t += kThreads) {
       const int m = t % nz, r0 = (t / nz) * kRt;
       float acc[kRt] = {};
-      dot_row(k1s + m * ld, d1 + r0 * j4, j4, j4, acc);
+      dot_row<kRoundW>(k1w + (size_t)m * ld, d1 + r0 * j4, j4, j4, acc);
 #pragma unroll
       for (int r = 0; r < kRt; ++r) xg[(r0 + r) * nz + m] = acc[r];
     }
@@ -270,10 +298,10 @@ __global__ void __launch_bounds__(kThreads, 2) prior_langevin_kernel(
     for (int e = tid; e < nrows * nz; e += kThreads) z_out[(size_t)row0 * nz + e] = zs[e];
 }
 
-int smem_bytes(int nz, int ndf) {
+int smem_bytes(int nz, int ndf, bool smem_weights) {
   const int J = ndf / kCluster;
-  return (int)sizeof(float) *
-         ((nz + ndf) * slice_ld(J) + kRows * (2 * nz + 2 * ndf + 2 * pad4(J) + 2 * J));
+  return (int)sizeof(float) * ((smem_weights ? (nz + ndf) * slice_ld(J) : 0) +
+                               kRows * (2 * nz + 2 * ndf + 2 * pad4(J) + 2 * J));
 }
 
 cudaLaunchConfig_t launch_config(int clusters, int smem, cudaStream_t stream,
@@ -292,18 +320,18 @@ cudaLaunchConfig_t launch_config(int clusters, int smem, cudaStream_t stream,
   return cfg;
 }
 
-template <bool kBf16Dots>
+template <bool kBf16Dots, bool kSmemWeights>
 int launch(const float* z, const float* k1, const float* b1, const float* k2, const float* b2,
            const float* k3, const int* seeds, int seed, int stream_noise, int row_base, float* out,
            int B, int nz, int ndf, int steps, float step_size, float coeff, cudaStream_t stream) {
-  const int smem = smem_bytes(nz, ndf);
-  cudaError_t err = cudaFuncSetAttribute(prior_langevin_kernel<kBf16Dots>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  const auto kernel = prior_langevin_kernel<kBf16Dots, kSmemWeights>;
+  const int smem = smem_bytes(nz, ndf, kSmemWeights);
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   cudaLaunchAttribute attr;
   const cudaLaunchConfig_t cfg = launch_config((B + kRows - 1) / kRows, smem, stream, &attr);
-  err = cudaLaunchKernelEx(&cfg, prior_langevin_kernel<kBf16Dots>, z, k1, b1, k2, b2, k3, seeds,
-                           seed, stream_noise, row_base, out, B, nz, ndf, steps, step_size, coeff);
+  err = cudaLaunchKernelEx(&cfg, kernel, z, k1, b1, k2, b2, k3, seeds, seed, stream_noise, row_base,
+                           out, B, nz, ndf, steps, step_size, coeff);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
@@ -320,22 +348,30 @@ extern "C" void damc_fused_langevin_geometry(int* out) {
   out[2] = kThreads;
 }
 
-extern "C" int damc_fused_langevin_smem_bytes(int nz, int ndf) { return smem_bytes(nz, ndf); }
+extern "C" int damc_fused_langevin_smem_bytes(int nz, int ndf, int smem_weights) {
+  return smem_bytes(nz, ndf, smem_weights != 0);
+}
 
 // Noise: seeds = per-chain int32 counter seeds (counter mode); else
 // stream_noise != 0 draws stream mode from the scalar `seed`, chain r of
 // the launch with the seed of global row row_base + r (a rank's rows of a
 // sharded batch start at row_base, so they draw what an unsharded launch
 // draws for them); else the chain is noiseless. bf16_dots != 0 selects the
-// bf16-dot variant. ndf must be a multiple of kCluster.
+// bf16-dot variant, smem_weights != 0 the variant that holds the weight
+// slices in shared memory. nz must be a multiple of 4 and ndf of kCluster;
+// without smem_weights ndf must be a multiple of 4 kCluster and k1 and k2
+// 16-byte aligned.
 extern "C" int damc_fused_langevin(const float* z, const float* k1, const float* b1, const float* k2,
                                    const float* b2, const float* k3, const int* seeds, int seed,
-                                   int stream_noise, int row_base, int bf16_dots, float* out, int B,
-                                   int nz, int ndf, int steps, float step_size, float coeff,
-                                   void* stream) {
+                                   int stream_noise, int row_base, int bf16_dots, int smem_weights,
+                                   float* out, int B, int nz, int ndf, int steps, float step_size,
+                                   float coeff, void* stream) {
+  const bool aligned = reinterpret_cast<uintptr_t>(k1) % 16 == 0 && reinterpret_cast<uintptr_t>(k2) % 16 == 0;
+  if (nz % 4 || ndf % kCluster || (!smem_weights && (ndf % (4 * kCluster) || !aligned)))
+    return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return bf16_dots ? launch<true>(z, k1, b1, k2, b2, k3, seeds, seed, stream_noise, row_base, out, B,
-                                  nz, ndf, steps, step_size, coeff, s)
-                   : launch<false>(z, k1, b1, k2, b2, k3, seeds, seed, stream_noise, row_base, out,
-                                   B, nz, ndf, steps, step_size, coeff, s);
+  const auto run = smem_weights ? (bf16_dots ? launch<true, true> : launch<false, true>)
+                                : (bf16_dots ? launch<true, false> : launch<false, false>);
+  return run(z, k1, b1, k2, b2, k3, seeds, seed, stream_noise, row_base, out, B, nz, ndf, steps,
+             step_size, coeff, s);
 }

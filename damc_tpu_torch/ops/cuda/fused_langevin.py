@@ -10,7 +10,15 @@ the kernel for tensors on a CUDA device; anything else, or a failed build
 or launch, raises. A fake implementation gives the output's shape, so
 `make_fx` and `torch.export` record the whole chain as one node. `fused_prior_langevin.launches` counts the
 launches of the fp32-dot variant; the bf16-dot variant has a count object
-of its own, `fused_prior_langevin.bf16`, whose `launches` counts its.
+of its own, `fused_prior_langevin.bf16`, whose `launches` counts its. The
+variants that read the weights from global memory count in
+`fused_prior_langevin.l2` (fp32 dots) and `fused_prior_langevin.l2.bf16`.
+
+Widths, as the TPU kernel's: every 2-hidden, 1-output EBM (`fits_ebm`).
+The launch pads nz and ndf with zeros (`launch_widths`, `pad_widths`) and
+holds the weights in shared memory where a block's share fits
+(`fits_smem`), else reads them from global memory; it raises only for
+widths whose activations alone overflow a block.
 
 Noise modes, as the TPU kernel's: counter (`row_seeds`, per-chain int32
 seeds; serving), stream (`seed`, one int32 for the launch; training) and
@@ -84,30 +92,70 @@ def slice_ld(j: int) -> int:
     return j4 if (j4 // 4) % 2 else j4 + 4
 
 
-def smem_bytes(nz: int, ndf: int) -> int:
-    """Shared memory of one block (the kernel's layout): its column slices
-    of K1 and K2; per chain the whole z, the gathered h1, its partial sums
-    of d2 K2^T (ndf) and d1 K1^T (nz), its own columns of d2 and d1 (padded
-    to a multiple of 4) and of h1p and lrelu(h1p)."""
+def smem_bytes(nz: int, ndf: int, smem_weights: bool = True) -> int:
+    """Shared memory of one block (the kernel's layout): with `smem_weights`
+    its column slices of K1 and K2; per chain the whole z, the gathered h1,
+    its partial sums of d2 K2^T (ndf) and d1 K1^T (nz), its own columns of
+    d2 and d1 (padded to a multiple of 4) and of h1p and lrelu(h1p)."""
     j = ndf // CLUSTER
     j4 = -(-j // 4) * 4
-    return 4 * ((nz + ndf) * slice_ld(j) + ROWS * (2 * nz + 2 * ndf + 2 * j4 + 2 * j))
+    weights = (nz + ndf) * slice_ld(j) if smem_weights else 0
+    return 4 * (weights + ROWS * (2 * nz + 2 * ndf + 2 * j4 + 2 * j))
 
 
 def fits_smem(nz: int, ndf: int) -> bool:
-    """The Hopper fit rule: nz a multiple of 4 (float4 reads), ndf a
+    """Whether the variant that holds the weights in shared memory takes
+    the widths as they are: nz a multiple of 4 (float4 reads), ndf a
     multiple of CLUSTER (each block holds ndf / CLUSTER hidden columns,
     zero-padded to a multiple of 4), and a block's share of the weights and
-    activations within 227 KB of shared memory. ndf=200 fits (94 KB a
-    block); ndf=512 does not."""
+    activations within 227 KB. ndf=200 fits (94 KB a block); ndf=512 does
+    not (386 KB)."""
     return nz % 4 == 0 and ndf % CLUSTER == 0 and smem_bytes(nz, ndf) <= SMEM_LIMIT
+
+
+def _round_up(n: int, m: int) -> int:
+    return -(-n // m) * m
+
+
+def launch_widths(nz: int, ndf: int) -> Optional[Tuple[int, int, bool]]:
+    """(nz, ndf, smem_weights) of the launch for an EBM of widths (nz,
+    ndf): nz padded to a multiple of 4 and ndf to one of CLUSTER, the
+    weights in shared memory where `fits_smem` takes those widths; else
+    ndf padded to a multiple of 4 CLUSTER and the weights read from global
+    memory (L2), shared memory holding the activations alone. None where
+    even those overflow a block (ndf past about 2,300 at nz=128). Widths
+    that fit as they are launch as they are."""
+    nz_p = _round_up(nz, 4)
+    ndf_p = _round_up(ndf, CLUSTER)
+    if fits_smem(nz_p, ndf_p):
+        return nz_p, ndf_p, True
+    ndf_p = _round_up(ndf, 4 * CLUSTER)
+    if smem_bytes(nz_p, ndf_p, smem_weights=False) <= SMEM_LIMIT:
+        return nz_p, ndf_p, False
+    return None
+
+
+def pad_widths(z, k1, b1, k2, b2, k3, nz_p: int, ndf_p: int) -> Tuple[torch.Tensor, ...]:
+    """z and the EBM's weights zero-padded to widths (nz_p, ndf_p): extra z
+    columns and K1 rows, extra hidden units with zero weights, bias and
+    head. A padded unit's pre-activation is 0 and feeds nothing, and a
+    padded z column enters no product, so the chain's first nz columns are
+    the unpadded chain's; each column's noise depends on its index alone."""
+    pad = torch.nn.functional.pad
+    dz, dh = nz_p - z.shape[1], ndf_p - k1.shape[1]
+    if dz == 0 and dh == 0:
+        return z, k1, b1, k2, b2, k3
+    return (pad(z, (0, dz)), pad(k1, (0, dh, 0, dz)), pad(b1, (0, dh)), pad(k2, (0, dh, 0, dh)),
+            pad(b2, (0, dh)), pad(k3, (0, dh)))
 
 
 def fits_ebm(ebm) -> bool:
     """Whether K1 takes a `LatentEBM`, from static facts alone: the 2-hidden,
-    1-output layout the kernel hand-codes, at widths `fits_smem` takes."""
+    1-output layout the kernel hand-codes (JAX's `is_standard_mlp`), at any
+    width: the launch pads it (`launch_widths`) and raises only for widths
+    whose activations overflow a block."""
     lin = [m for m in ebm.ebm if isinstance(m, torch.nn.Linear)]
-    return len(lin) == 3 and lin[2].out_features == 1 and fits_smem(lin[0].in_features, lin[0].out_features)
+    return len(lin) == 3 and lin[2].out_features == 1
 
 
 def _lrelu(x):
@@ -138,13 +186,15 @@ def prior_langevin_plain(
     `row_seeds` wins over `seed`. With dots_dtype "bfloat16" the operands
     of the four products are rounded where the kernel rounds them; the
     product of two bfloat16 values is exact in float32, so the products
-    then differ from the kernel's in summation order alone."""
+    then differ from the kernel's in summation order alone. A float64 z
+    (with float64 weights) runs in float64, a reference for the float32
+    runs."""
     _check_args(with_noise, seed, row_seeds, dots_dtype)
     op = _bf16_operand if dots_dtype == "bfloat16" else (lambda t: t)
     coeff = 0.5 * step_size * step_size
     k3 = k3.reshape(1, -1)
     k1, k2 = op(k1), op(k2)
-    z = z.float()
+    z = z if z.dtype == torch.float64 else z.float()
     if with_noise and row_seeds is None:
         row_seeds = stream_row_seeds(seed, z.shape[0], z.device, row_base)
     for step in range(steps):
@@ -190,6 +240,7 @@ def fused_prior_langevin(
 
 fused_prior_langevin.launches = 0
 fused_prior_langevin.bf16 = types.SimpleNamespace(launches=0)
+fused_prior_langevin.l2 = types.SimpleNamespace(launches=0, bf16=types.SimpleNamespace(launches=0))
 
 
 @torch.library.custom_op("damc::fused_prior_langevin", mutates_args=(), device_types="cpu")
@@ -218,14 +269,19 @@ def _chain_launch(z, k1, b1, k2, b2, k3, row_seeds, seed, steps, step_size, with
     ndf = k1.shape[1]
     if k1.shape != (nz, ndf) or k2.shape != (ndf, ndf) or b1.numel() != ndf or b2.numel() != ndf or k3.numel() != ndf:
         raise ValueError("EBM weights do not match z's width")
-    if not fits_smem(nz, ndf):
+    widths = launch_widths(nz, ndf)
+    if widths is None:
         raise ValueError(
-            f"EBM width ndf={ndf} does not fit the chain kernel: ndf must be a multiple of "
-            f"{CLUSTER} and {smem_bytes(nz, ndf)} B of shared memory a block within {SMEM_LIMIT}"
+            f"EBM widths nz={nz}, ndf={ndf} overflow the chain kernel: a block's activations take "
+            f"{smem_bytes(_round_up(nz, 4), _round_up(ndf, 4 * CLUSTER), smem_weights=False)} B of "
+            f"shared memory, past {SMEM_LIMIT}"
         )
+    nz_p, ndf_p, smem_weights = widths
     dev = z.device
     f32 = lambda t: t.to(device=dev, dtype=torch.float32).contiguous()
-    z32, w = f32(z), [f32(t) for t in (k1, b1, k2, b2, k3)]
+    z32, *w = pad_widths(f32(z), *[f32(t) for t in (k1, b1, k2, b2, k3)], nz_p, ndf_p)
+    if not smem_weights:  # the kernel reads rows of K1 and K2 as float4
+        w = [t.clone() if t.data_ptr() % 16 else t for t in w]
     seeds = None
     if with_noise and row_seeds is not None:
         seeds = row_seeds.to(device=dev, dtype=torch.int32).contiguous()
@@ -238,17 +294,18 @@ def _chain_launch(z, k1, b1, k2, b2, k3, row_seeds, seed, steps, step_size, with
     rc = lib.damc_fused_langevin(
         z32.data_ptr(), *[t.data_ptr() for t in w],
         None if seeds is None else seeds.data_ptr(), int32_seed(seed) if stream else 0,
-        int(stream), int(row_base), int(bf16), out.data_ptr(),
-        b, nz, ndf, steps, float(step_size), 0.5 * step_size * step_size,
+        int(stream), int(row_base), int(bf16), int(smem_weights), out.data_ptr(),
+        b, nz_p, ndf_p, steps, float(step_size), 0.5 * step_size * step_size,
         torch.cuda.current_stream(dev).cuda_stream,
     )
     build.check(lib, rc, "fused_prior_langevin")
+    count = fused_prior_langevin if smem_weights else fused_prior_langevin.l2
     with _lock:
         if bf16:
-            fused_prior_langevin.bf16.launches += 1
+            count.bf16.launches += 1
         else:
-            fused_prior_langevin.launches += 1
-    return out
+            count.launches += 1
+    return out if nz_p == nz else out[:, :nz].contiguous()
 
 
 def _library() -> ctypes.CDLL:
@@ -257,14 +314,15 @@ def _library() -> ctypes.CDLL:
     if fn.argtypes is None:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         # z, k1, b1, k2, b2, k3, seeds, seed, stream_noise, row_base, bf16_dots,
-        # out, B, nz, ndf, steps, step_size, coeff, stream
-        fn.argtypes = [p, p, p, p, p, p, p, i, i, i, i, p, i, i, i, i, f, f, p]
+        # smem_weights, out, B, nz, ndf, steps, step_size, coeff, stream
+        fn.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, p, i, i, i, i, f, f, p]
         fn.restype = ctypes.c_int
         geometry = (ctypes.c_int * 3)()
         lib.damc_fused_langevin_geometry(geometry)
         if tuple(geometry) != (ROWS, CLUSTER, THREADS):
             raise RuntimeError("fused_langevin.cu and fused_langevin.py disagree on the geometry")
-        if any(lib.damc_fused_langevin_smem_bytes(nz, 200) != smem_bytes(nz, 200) for nz in (128, 100, 8)):
+        if any(lib.damc_fused_langevin_smem_bytes(nz, ndf, int(w)) != smem_bytes(nz, ndf, w)
+               for nz, ndf in ((128, 200), (100, 200), (8, 200), (128, 512)) for w in (True, False)):
             raise RuntimeError("fused_langevin.cu and fused_langevin.py disagree on shared memory")
     return lib
 

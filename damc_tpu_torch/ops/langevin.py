@@ -6,7 +6,7 @@ training step goes through it (through G and E, on cuDNN), as the JAX
 package runs it through XLA. `prior_langevin_auto` sends the EBM prior chain
 to the fused kernel K1 (`ops/cuda/fused_langevin.py`) when `use_pallas` is
 on (JAX's switch name) and K1's rule `fits_ebm` takes the EBM (the 2-hidden
-MLP at widths that fit a block), else to `langevin_sample`; with a
+MLP, at any width), else to `langevin_sample`; with a
 `parallel.Mesh` the kernel is K4a, the chains split over the ranks
 (`fused_prior_langevin_sharded`). `adam_latent_descent` is the StyleGAN
 inversion's Adam refinement of latents.
@@ -151,9 +151,9 @@ def prior_langevin_auto(
     chain kernel: with per-row counter noise when `row_seeds` is given
     (serving), else with stream noise from the int32 `seed` (training),
     its products in the precision `dots_dtype` ("float32" or "bfloat16").
-    Without it, or for an EBM K1 does not take (the 3-hidden StyleGAN head,
-    an ndf too wide for a block), the chain runs `langevin_sample` by
-    autograd with the EBM frozen, in float32 whatever `dots_dtype` says
+    Without it, or for an EBM K1 does not take (the 3-hidden StyleGAN
+    head), the chain runs `langevin_sample` by autograd with the EBM
+    frozen, in float32 whatever `dots_dtype` says
     (`damc_tpu/ops/langevin.py:166-253`). Its per-step normals are then
     those K1 would draw for `row_seeds` (`noise.counter_normals`), so a
     chain stays a function of its own row; else `noise` (steps, B, nz) or
@@ -176,7 +176,7 @@ def prior_langevin_auto(
         if seed is not None:
             raise ValueError(
                 "seed (K1's stream noise) needs the fused chain: use_pallas and an EBM that K1 takes "
-                "(fits_ebm: 2 hidden layers, 1 output, fits_smem(nz, ndf))"
+                "(fits_ebm: 2 hidden layers, 1 output)"
             )
         if row_seeds is not None and with_noise:
             noise = counter_normals(row_seeds, steps, z_init.shape[1]).to(z_init.device)

@@ -22,9 +22,9 @@ each step's noise from the same per-row counter seeds as the kernels
 (`ops/noise.py::counter_normals`), so an item gets the same normals on
 either route. `serving_fused_auto` picks the fused route when the kernels'
 fit rules take the models, from static facts only; a model they refuse
-(an EBM with ndf = 512, a denoiser wider than K2 takes) is served on the
-unfused route. (JAX's unfused route draws threefry keys instead: the
-same contract from another stream.) With `compute_dtype` "bfloat16" G and the
+(an EBM of another layout than 2 hidden layers, a denoiser wider than K2
+takes) is served on the unfused route. (JAX's unfused route draws
+threefry keys instead: the same contract from another stream.) With `compute_dtype` "bfloat16" G and the
 encoder compute in bfloat16 (the images are answered in float32), while K1
 keeps float32 products, as the JAX package's serving does.
 
@@ -134,7 +134,7 @@ def stack_draws(rows: Sequence[RowDraws], device) -> RowDraws:
 def serving_fused_auto(models) -> bool:
     """Whether every path of `models` can take the fused route: K2's fit
     rule takes Q's denoiser and, when there is an EBM, K1's takes it
-    (`fits_ebm`: the 2-hidden, 1-output layout, `fits_smem(nz, ndf)`).
+    (`fits_ebm`: the 2-hidden, 1-output layout, at any width).
     JAX's rule (`damc_tpu/serve.py:250-274`) read as the Hopper kernels'
     rules; static facts only, whatever the device (on the CPU the fused
     route runs the kernels' plain versions)."""
@@ -161,7 +161,7 @@ def build_serving_fns(models, cfg: Config, recon_langevin_steps: int = 10, fused
         raise ValueError(
             "fused serving needs models both kernels take: K2's fits_smem for Q's denoiser (at most "
             "256 columns a layer, 227 KB of shared memory a block) and K1's fits_ebm for the EBM "
-            "(2 hidden layers, 1 output, fits_smem(nz, ndf)); serve with fused=False"
+            "(2 hidden layers, 1 output); serve with fused=False"
         )
     mc = cfg.mcmc
     amort, gen, ebm = models.amortizer, models.generator, models.ebm

@@ -149,15 +149,15 @@ def test_serving_fused_auto_takes_every_preset(name):
 
 
 @pytest.mark.parametrize("case,fits", [
-    ("ndf_12", True), ("ndf_10", False), ("ndf_512", False), ("nz_10", False), ("ebm_3_hidden", False),
+    ("ndf_12", True), ("ndf_10", True), ("ndf_512", True), ("nz_10", True), ("ebm_3_hidden", False),
     ("denoiser_nf_5", False),
 ])
 def test_serving_fused_auto_refuses_what_a_kernel_refuses(case, fits):
-    """cifar10 at full width with one change: ndf 12 fits K1 (a multiple of
-    its cluster of 4, 6.6 KB a block); ndf 10 does not split over the
-    cluster, ndf 512 overflows a block's shared memory, nz 10 breaks K1's
-    float4 reads, a 3-hidden EBM is not the layout K1 hand-codes, and nf 5
-    makes the denoiser's wide layers 320 columns, more than K2's 256."""
+    """cifar10 at full width with one change: K1 takes every 2-hidden EBM,
+    as the TPU kernel does (ndf 12 as it is; ndf 10 and nz 10 zero-padded,
+    ndf 512 with its weights read from L2), while a 3-hidden EBM is not the
+    layout K1 hand-codes, and nf 5 makes the denoiser's wide layers 320
+    columns, more than K2's 256."""
     cfg = preset("cifar10")
     edit = {"ndf_12": dict(ndf=12), "ndf_10": dict(ndf=10), "ndf_512": dict(ndf=512), "nz_10": dict(nz=10),
             "ebm_3_hidden": {}, "denoiser_nf_5": dict(nf=5)}[case]
@@ -169,9 +169,14 @@ def test_serving_fused_auto_refuses_what_a_kernel_refuses(case, fits):
 
 
 def _refused(kind):
-    """A tiny svhn model one kernel refuses: K1 (ndf 10) or K2 (nf 5)."""
+    """A tiny svhn model one kernel refuses: K1 (a 3-hidden EBM) or K2 (nf 5)."""
     cfg = tiny(preset("svhn"))
-    cfg = _widths(cfg, **({"ndf": 10} if kind == "K1" else {"nf": 5}))
+    if kind == "K1":
+        models = build_models(cfg, seed=2, device="cpu")
+        torch.manual_seed(2)
+        models.ebm = LatentEBM(cfg.model.nz, ndf=cfg.model.ndf, n_hidden=3)
+        return models, cfg
+    cfg = _widths(cfg, nf=5)
     return build_models(cfg, seed=2, device="cpu"), cfg
 
 
@@ -229,19 +234,32 @@ def test_item_alone_equals_coalesced(route):
         svc.close()
 
 
-def test_cli_fused_flag(capsys):
-    """`--fused` parses and reaches the service; `auto` serves a model K1
-    refuses (nz 10: no float4 reads) on the unfused route, `on` refuses it
-    naming the fit rule; `--fused` with `--artifact` is refused."""
+def test_cli_fused_flag(capsys, tmp_path):
+    """`--fused` parses and reaches the service; `auto` serves nz 10 on the
+    kernels (K1 pads it) and a model K2 refuses (nz 300: the denoiser's
+    layers past its 256 columns) on the unfused route, `on` refuses that
+    one naming the fit rule; `--fused` with `--artifact` is ignored with a
+    warning and the artifact served on its own route, as JAX's CLI does
+    (`damc_tpu/cli/serve.py:93-101`)."""
     from damc_tpu_torch.cli import serve as serve_cli
 
     assert serve_cli.parse_args(["--fused", "off"]).fused == "off"
     assert serve_cli.parse_args([]).fused == "auto"
     with pytest.raises(SystemExit):
         serve_cli.parse_args(["--fused", "maybe"])
-    with pytest.raises(SystemExit, match="--fused with --artifact"):
-        serve_cli.parse_args(["--artifact", "x", "--fused", "off"])
-    for flags, fused in ((["--nz", "8", "--fused", "off"], False), (["--nz", "8"], True), (["--nz", "10"], False)):
+    art = str(tmp_path / "art")
+    serve_cli.export_artifact(serve_cli.parse_args(TINY_FLAGS + ["--nz", "8", "--max_batch", "2",
+                                                                 "--export_artifact", art]))
+    svc, _ = serve_cli.build_service(["--artifact", art, "--fused", "off", "--device", "cpu"])
+    try:
+        assert svc.fused is True  # the artifact's route, not the flag's
+        assert svc.sample(n=1, prior="ebm", seed=3).shape == (1, 32, 32, 3)
+    finally:
+        svc.close()
+    assert "[damc] WARNING: --fused is ignored with --artifact (baked into the exported program)" in (
+        capsys.readouterr().out)
+    for flags, fused in ((["--nz", "8", "--fused", "off"], False), (["--nz", "8"], True), (["--nz", "10"], True),
+                         (["--nz", "300"], False)):
         svc, _ = serve_cli.build_service(TINY_FLAGS + flags)
         try:
             assert svc.fused is fused
@@ -252,8 +270,8 @@ def test_cli_fused_flag(capsys):
     assert "route: unfused torch loops, no kernel (--fused off)" in out
     assert "route: fused kernels K1 and K2 (--fused auto)" in out
     assert "route: unfused torch loops, no kernel (--fused auto)" in out
-    with pytest.raises(ValueError, match="fits_ebm"):
-        serve_cli.build_service(TINY_FLAGS + ["--nz", "10", "--fused", "on"])
+    with pytest.raises(ValueError, match="fits_smem"):
+        serve_cli.build_service(TINY_FLAGS + ["--nz", "300", "--fused", "on"])
 
 
 def test_unfused_artifact_matches_live_bitwise(setup, tmp_path):

@@ -535,3 +535,33 @@ def tp_synthesis(res: int, seed: int, wp, min_channels: int):
         assert parametrize.is_parametrized(owner, leaf) == (dim is not None)
     held = sum(p.numel() for p in gen.parameters())
     return tree, img.detach().numpy(), x.grad.numpy(), grads, held
+
+
+def drawn_train_steps(cfg, ckpt_dir: str, xs):
+    """The port's data-parallel train step from the checkpoint
+    `ckpt_dir`/0 over the global batches `xs` (numpy), each step's draws
+    made as a run makes them: `draw_step` for the global batch from this
+    rank's own generator. Returns (metrics of each step as floats, the
+    state's tensors, each step's chain_noise as numpy or None, the
+    (kernel, rows, row_base) of every K1 and K2 call)."""
+    import torch
+
+    from damc_tpu_torch.parallel import shard_batch
+    from damc_tpu_torch.train.state import create_state
+    from damc_tpu_torch.train.step import draw_step, make_train_step
+    from damc_tpu_torch.utils.checkpoint import restore_checkpoint
+
+    mesh = _mesh()
+    state = restore_checkpoint(ckpt_dir, "0", create_state(cfg, 0, "cpu"))
+    step = make_train_step(state.models, state.opts, cfg, mesh=mesh)
+    metrics, noises, calls = [], [], []
+    undo = _counting_plain(calls)
+    try:
+        for x in xs:
+            d = draw_step(cfg, len(x), state)
+            noises.append(None if d.chain_noise is None else d.chain_noise.numpy().copy())
+            state, m = step(state, shard_batch(mesh, torch.from_numpy(x)), d)
+            metrics.append({k: float(v) for k, v in m.items()})
+    finally:
+        undo()
+    return metrics, state_arrays(state), noises, calls
