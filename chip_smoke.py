@@ -17,9 +17,10 @@ Phases, each of which raises on failure (the script then exits non-zero):
      launch of each kernel must equal, bit for bit, the same rows launched
      alone and inside batches of 16, 64, 80 and 128 (every K2 row tile the
      main path runs); K1's bf16-dot variant against its plain bf16 version
-     at B=256 and B=500 (nz=128), B=128 (nz=8) and B=256 (nz=100): 6
-     noiseless steps pointwise, the 60-step stream chain in moments, apart
-     from the float32 variant, and timed beside it;
+     at B=256 and B=500 (nz=128), B=128 (nz=8), B=256 (nz=100) and B=256
+     at ndf=512 (K1_c8) and ndf=1024 (K1_l2): 6 noiseless steps
+     pointwise, the 60-step stream chain in moments, apart from the
+     float32 variant, and timed beside it;
   4. serves the full-width `cifar10` preset (random weights from a seed) over
      HTTP: /sample damc and ebm and /reconstruct, some requests concurrent;
      checks shapes, range, that an item served alone equals the same item
@@ -57,8 +58,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
      images against K1's, the damc and recon sweeps over 6 steps held to
      the fp64 unfused route as K2 is, and the 100-step damc sweep at B=128
      in its moments against K2's; cifar10 with ndf=512 served under auto
-     on the kernels (K1 with its weights in L2, held against its float64
-     plain version at B=16), with its p50/p99; and
+     on the kernels (K1 over a cluster of 8, K1_c8, held against its
+     float64 plain version at B=16; K1_l2 never), with its p50/p99; and
      `cli.serve --fused off --export_artifact` (4 sweep and 4 EBM steps),
      loaded on the card, bit for bit equal to the live unfused service;
   6. trains the full-width `cifar10` preset at B=128 for 10 iterations
@@ -78,17 +79,25 @@ Phases, each of which raises on failure (the script then exits non-zero):
      once for the EBM prior); the analytic FLOPs of one cifar10 iteration
      at B=128 (`utils/flops.py::train_step_flops`) over the float32 and
      bf16 medians, as shares of the card's fp32 and bf16 peaks;
-  7b. the widths K1 pads (`k1_widths_phase`): cifar10 at full width with
-     nz=10 (padded to 12, weights in shared memory) for 3 iterations and
-     with ndf=512 (nz=128, weights read from L2: the K1_l2 variant) for 1,
-     at B=128 with use_pallas on, through `train_gen_recon`; before each,
-     K1 over that model's 2B=256 chains and K2 over its B=128 rows in
-     stream mode against their plain versions; each iteration launches K1
+  7b. the widths K1 pads or spreads (`k1_widths_phase`): cifar10 at full
+     width with nz=10 (padded to 12, weights in shared memory over 4
+     blocks) for 3 iterations, with ndf=512 (nz=128, weights in shared
+     memory over a cluster of 8: the K1_c8 variant) for 1, at B=128
+     with use_pallas on, through `train_gen_recon`; before each, K1 over
+     that model's 2B=256 chains and K2 over its B=128 rows in stream mode
+     against their plain versions (K1 against float64); with ndf=1024
+     (weights read from L2: the K1_l2 variant) no training, K1 alone over
+     2B=256 chains against float64; at ndf=512 also
+     K1_c8 with bf16 dots against float64 in stream (B=256) and counter
+     (B=16) mode, and its rows of a B=500 launch bit for bit those of the
+     row alone and in batches of 16 and 128; each iteration launches K1
      once in the variant the widths take and K2 once; finite metrics, G, E
      and Q changed, each iteration's ms beside the card's name and power
-     limit; then K1 on the nz=10 EBM-prior FID batch's draws (B=500)
-     against its plain version, and the batch twice: finite,
-     bit-identical, one K1 launch a batch;
+     limit; then, at each of the three widths, K1 on the EBM-prior FID
+     batch's draws (B=500) against its float64 plain version, and the
+     batch twice (on the trained weights; at ndf=1024 on the seed's):
+     finite, bit-identical, one launch a batch of the variant the widths
+     take; one ndf=512 iteration profiled (K1's share);
   8. holds each kernel against its plain version at the eval shapes in
      stream mode: K1 at B=500 with the eval CLI's 100 steps at 1.6 and the
      loop's 60 at 0.4; K2 at B=500 under the prior embedding (the FID
@@ -230,8 +239,9 @@ Phases, each of which raises on failure (the script then exits non-zero):
  20. prints one JSON line {"kernels": [...]} with launches, errors and times
      of each kernel on each path (serve, serve_artifact: the card-exported
      artifact's requests in its serving process, serve_ndf512: phase 5c's
-     ndf=512 service, train, train_nz10, train_ndf512 and eval_nz10: phase
-     7b's runs, eval, anomaly, anomaly_eval:
+     ndf=512 service (K1_c8), train, train_nz10, train_ndf512 (K1_c8),
+     eval_nz10, eval_ndf512 (K1_c8) and eval_ndf1024 (K1_l2): phase 7b's
+     runs, eval, anomaly, anomaly_eval:
      the train CLI's AUPRC evals, anomaly_eval_cli: the eval CLI's two
      runs, toy, svhn: the train CLI run, svhn_eval: the eval CLI run,
      svhn_serve: the served checkpoint, celeba64: both train CLI runs,
@@ -360,11 +370,14 @@ def report(name, r):
           f"bound {b_ms:.5g} ms ({by}), {r['flops']:.4g} FLOP, {r['bytes']:.4g} B")
 
 
-def chain_check(ebm_w, z, noise, steps, step_size, label, against_fp64=False):
+def chain_check(ebm_w, z, noise, steps, step_size, label, against_fp64=False, dots_dtype="float32"):
     """K1 against its plain version on z (B, nz) under `noise` (row_seeds
     or seed), then both timed. The counter bits are exact; logf/cosf may
     differ from torch by an ulp, so atol 1e-4. In stream mode the kernel
     must also equal counter mode on stream_row_seeds, bit for bit.
+    `dots_dtype` "bfloat16" runs the bf16-dot variant, and the plain
+    versions (float32 and float64) round the products' operands to bf16 as
+    the kernel does; its bound is at the bf16 rate.
 
     With `against_fp64` the kernel is held to the plain version in float64
     instead, as sweep_check holds K2: at most twice as far from it as the
@@ -378,7 +391,7 @@ def chain_check(ebm_w, z, noise, steps, step_size, label, against_fp64=False):
     from damc_tpu_torch.ops.cuda.fused_langevin import fused_prior_langevin, prior_langevin_plain
 
     b, nz = z.shape
-    kw = dict(steps=steps, step_size=step_size)
+    kw = dict(steps=steps, step_size=step_size, dots_dtype=dots_dtype)
     got = fused_prior_langevin(z, *ebm_w, **noise, **kw)
     counter = _stream_as_counter(noise, b, z.device)
     if counter is not None and not torch.equal(got, fused_prior_langevin(z, *ebm_w, **counter, **kw)):
@@ -396,8 +409,9 @@ def chain_check(ebm_w, z, noise, steps, step_size, label, against_fp64=False):
             raise AssertionError(f"{name}: kernel further from fp64 than fp32 allows")
     else:
         err = check_close(name, got, want, atol=1e-4)
-    flops, nbytes = langevin_cost(b, nz, ebm_w[0].shape[1], steps)
-    r = dict(b=b, max_abs_err=err, flops=flops, bytes=nbytes,
+    bf16 = dots_dtype == "bfloat16"
+    flops, nbytes = langevin_cost(b, nz, ebm_w[0].shape[1], steps, weight_bytes=2 if bf16 else 4)
+    r = dict(b=b, max_abs_err=err, flops=flops, bytes=nbytes, peak=peak_rate(dots_dtype),
              ms=time_ms(lambda: fused_prior_langevin(z, *ebm_w, **noise, **kw), 20),
              plain_ms=time_ms(lambda: prior_langevin_plain(z, *ebm_w, **noise, **kw), 3, warmup=1))
     report(label, r)
@@ -580,16 +594,26 @@ def row_independence_phase(models, cfg):
             row_seeds=seeds[idx], steps=d.n_interval, residual=d.residual),
     }
     for name, run in runs.items():
-        full = run(torch.arange(b, device=dev))
-        for i in ROW_PICKS:
-            same = {"alone": torch.equal(full[i], run(torch.tensor([i], device=dev))[0])}
-            for n in ROW_BATCHES:
-                idx = [(i + 1 + k) % b for k in range(n)]
-                idx[i % n] = i
-                same[f"slot {i % n} of B={n}"] = torch.equal(full[i], run(torch.tensor(idx, device=dev))[i % n])
-            print(f"[rows] {name} row {i} of B={b} equals itself " + ", ".join(f"{k}: {v}" for k, v in same.items()))
-            if not all(same.values()):
-                raise AssertionError(f"{name}: row {i} depends on the batch it is launched in")
+        rows_check(name, run, b, ROW_BATCHES)
+
+
+def rows_check(name, run, b, batches):
+    """Rows ROW_PICKS of run(all b rows) must equal, bit for bit, the same
+    rows of run(idx) for idx the row alone and for batches of each size of
+    `batches`, row i at slot i % n among other rows."""
+    import torch
+
+    dev = torch.device("cuda")
+    full = run(torch.arange(b, device=dev))
+    for i in ROW_PICKS:
+        same = {"alone": torch.equal(full[i], run(torch.tensor([i], device=dev))[0])}
+        for n in batches:
+            idx = [(i + 1 + k) % b for k in range(n)]
+            idx[i % n] = i
+            same[f"slot {i % n} of B={n}"] = torch.equal(full[i], run(torch.tensor(idx, device=dev))[i % n])
+        print(f"[rows] {name} row {i} of B={b} equals itself " + ", ".join(f"{k}: {v}" for k, v in same.items()))
+        if not all(same.values()):
+            raise AssertionError(f"{name}: row {i} depends on the batch it is launched in")
 
 
 def stream_kernel_phase(models, cfg):
@@ -658,14 +682,16 @@ K1_BF16_SHAPES = (  # (label, preset, its widths changed, B, steps, step size)
     ("eval", "cifar10", {}, 500, 60, 0.4),  # the training loop's EBM-prior FID batch
     ("anomaly", "mnist_anomaly", {}, 128, 60, 0.4),  # the single chains at nz=8
     ("svhn", "svhn", {}, 256, 60, 0.4),  # nz=100
-    ("train_ndf512", "cifar10", {"ndf": 512}, 256, 60, 0.4),  # the variant that reads the weights from L2
+    ("train_ndf512", "cifar10", {"ndf": 512}, 256, 60, 0.4),  # the variant over a cluster of 8
+    ("train_ndf1024", "cifar10", {"ndf": 1024}, 256, 60, 0.4),  # the variant that reads L2
 )
 
 
 def k1_bf16_phase():
     """K1's bf16-dot variant against its plain bf16 version on the card at
     the shapes of K1_BF16_SHAPES, on each preset's random EBM from the seed
-    (at ndf=512 the variant that reads the weights from L2):
+    (at ndf=512 the variant over a cluster of 8, at ndf=1024 the one that
+    reads the weights from L2):
     6 noiseless steps pointwise (K1_BF16_ATOL), the full stream-noise chain
     in per-dimension mean and std over the batch (K1_BF16_MOMENTS) and
     equal, bit for bit, to counter mode on stream_row_seeds; the float32
@@ -1238,9 +1264,10 @@ def serve_unfused_phase(models, cfg, counters, fused_latency):
     (`_unfused_sweep_hold`), and the 100-step damc sweep at B=128 in its
     moments against K2's (within 0.1 x the mean std, as `sweep_check`).
     Then cifar10 with ndf=512 under `auto`: it must take the kernels (K1
-    reading its weights from L2, once an ebm dispatch) and serve finite
-    images, with its p50/p99, and K1 is held against its float64 plain
-    version on the 16 rows' draws in counter mode. Then
+    over a cluster of 8, K1_c8, once an ebm dispatch; K1_l2, which reads
+    the weights from L2, never) and serve finite images, with its p50/p99,
+    and K1_c8 is held against its float64 plain version on the 16 rows'
+    draws in counter mode. Then
     `cli.serve --fused off --export_artifact` on the card, loaded, must
     answer bit for bit as the live unfused service; this check runs at
     UNFUSED_ARTIFACT_DEPTH (the trace and export take time in proportion
@@ -1309,12 +1336,12 @@ def serve_unfused_phase(models, cfg, counters, fused_latency):
         raise AssertionError("the unfused sweep's moments disagree with K2's")
     out["damc_moments"] = {"d_mean": d_mean, "d_std": d_std, "mean_std": scale}
 
-    # ndf=512 under auto: K1 takes it, reading its weights from L2 (K1_l2).
-    from damc_tpu_torch.ops.cuda.fused_langevin import ebm_params_to_dense_weights, fused_prior_langevin
+    # ndf=512 under auto: K1 takes it over a cluster of 8 (K1_c8).
+    from damc_tpu_torch.ops.cuda.fused_langevin import ebm_params_to_dense_weights
 
     cfg512 = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, ndf=512))
     models512 = build_models(cfg512, seed=SEED, device="cuda")
-    counters512 = {**counters, "K1_l2": fused_prior_langevin.l2}
+    counters512 = {**counters, **k1_variant_counters()}
     wide_svc = SamplerService(models512, cfg512, **kw)
     try:
         if not wide_svc.fused:
@@ -1326,14 +1353,14 @@ def serve_unfused_phase(models, cfg, counters, fused_latency):
     finite = all(np.isfinite(v).all() for v in ans512.values())
     print(f"[serve_unfused] cifar10 ndf=512 under auto: the kernels, dispatches {batches}, launches {launches}, "
           f"finite {finite}; {card_line()}: HTTP round trip ms " + json.dumps(lat512))
-    want = {p: {"K1": 0, "K2": 0 if p == "ebm" else batches[p], "K1_l2": batches[p] if p == "ebm" else 0}
-            for p in batches}
+    want = {p: {"K1": 0, "K2": 0 if p == "ebm" else batches[p], "K1_c8": batches[p] if p == "ebm" else 0,
+                "K1_l2": 0} for p in batches}
     if not finite or launches != want:
         raise AssertionError(f"the ndf=512 model must serve finite images with launches {want}")
     r = chain_check(ebm_params_to_dense_weights(models512.ebm), draws.z_init, dict(row_seeds=draws.chain_seed),
-                    mc.e_l_steps, mc.e_l_step_size, "K1_l2 counter ndf512 serve", against_fp64=True)
+                    mc.e_l_steps, mc.e_l_step_size, "K1_c8 counter ndf512 serve", against_fp64=True)
     del models512
-    out["ndf512"] = {"latency": lat512, "K1_l2": (r, launches["ebm"]["K1_l2"])}
+    out["ndf512"] = {"latency": lat512, "K1_c8": (r, launches["ebm"]["K1_c8"])}
 
     # --fused off --export_artifact, loaded on the card, against the live
     # unfused service of the same command line.
@@ -1689,86 +1716,142 @@ def rerun_phase(cfg, tag="train"):
         raise AssertionError("two runs from one seed differ")
 
 
-K1_WIDTH_RUNS = (("nz10", {"nz": 10}, 3), ("ndf512", {"ndf": 512}, 1))  # (label, widths, iterations)
+# (label, widths, training iterations: 0 for none, K2's check and the
+# training run left out)
+K1_WIDTH_RUNS = (("nz10", {"nz": 10}, 3), ("ndf512", {"ndf": 512}, 1), ("ndf1024", {"ndf": 1024}, 0))
 K1_WIDTH_FID_B = 500  # the EBM-prior FID batch
+K1_C8_ROW_BATCHES = (16, 128)  # the serving and training shapes
+
+
+def k1_variant_counters():
+    """The count objects of K1's variants beside the presets' (`K1`): over
+    a cluster of 8, and reading the weights from L2."""
+    from damc_tpu_torch.ops.cuda.fused_langevin import fused_prior_langevin
+
+    return {"K1_c8": fused_prior_langevin.c8, "K1_l2": fused_prior_langevin.l2}
+
+
+def k1_key(nz, ndf):
+    """The counter key of the K1 variant `launch_widths` takes for (nz, ndf),
+    by the wrapper's own count object for it (`launch_count`)."""
+    from damc_tpu_torch.ops.cuda.fused_langevin import fused_prior_langevin, launch_count, launch_widths
+
+    count = launch_count(launch_widths(nz, ndf))
+    return next(k for k, c in {"K1": fused_prior_langevin, **k1_variant_counters()}.items() if c is count)
+
+
+def k1_c8_holds(ebm_w, mc, gen):
+    """K1_c8 (ndf=512) with bf16 dots, which no path runs, beside the fp32
+    checks of the training run (stream) and the service (counter): against
+    its float64 plain version in stream mode at B=256 and in counter mode
+    at B=16; then, in counter mode with fp32 dots,
+    rows of a B=500 launch equal, bit for bit, the same rows launched alone
+    and in batches of 16 and 128. Returns {label: check}."""
+    import torch
+
+    from damc_tpu_torch.ops.cuda.fused_langevin import fused_prior_langevin
+
+    nz = ebm_w[0].shape[0]
+    out = {}
+    for label, b, dots in (("stream bf16", 256, "bfloat16"), ("counter bf16", 16, "bfloat16")):
+        z = torch.randn(b, nz, generator=gen).cuda()
+        noise = (dict(seed=-97531) if label.startswith("stream") else
+                 dict(row_seeds=torch.randint(0, 2**31 - 1, (b,), generator=gen, dtype=torch.int32).cuda()))
+        out[label] = chain_check(ebm_w, z, noise, mc.e_l_steps, mc.e_l_step_size, f"K1_c8 {label} ndf512",
+                                 against_fp64=True, dots_dtype=dots)
+    b = 500
+    z = torch.randn(b, nz, generator=gen).cuda()
+    seeds = torch.randint(0, 2**31 - 1, (b,), generator=gen, dtype=torch.int32).cuda()
+    rows_check("K1_c8 ndf512", lambda idx: fused_prior_langevin(
+        z[idx], *ebm_w, row_seeds=seeds[idx], steps=mc.e_l_steps, step_size=mc.e_l_step_size), b, K1_C8_ROW_BATCHES)
+    return out
 
 
 def k1_widths_phase(cfg, counters):
-    """Training and the EBM-prior eval at widths K1 pads: cifar10 at full
-    width with nz=10 (padded to 12, the weights in shared memory) for 3
-    iterations and with ndf=512 (nz=128: a block's slices would take
-    386 KB, so the weights are read from L2) for 1, at B=128 with
-    use_pallas on, through `training_phase`. Before each run, on that
-    model's random weights from the seed, K1 over the 2B=256 prior chains
-    and K2 over B=128 rows of Q, in stream mode, against their plain
-    versions (K1 against the float64 one, `chain_check`'s `against_fp64`);
-    each iteration must launch K1 once in the variant
-    `launch_widths` names (the other 0) and K2 once; finite metrics, G, E
-    and Q changed, each iteration's ms beside the card's name and power
-    limit. Then, on the nz=10 run's trained weights, K1 against its
-    float64 plain version on an EBM-prior FID batch's draws (B=500), and
-    that batch twice
-    through `gen_samples_ebm_prior`: finite, equal bit for bit, K1 launched
-    once a batch. Returns {path: {kernel: (check, launches)}}."""
+    """Training and the EBM-prior eval at widths K1 pads or spreads over a
+    larger cluster: cifar10 at full width with nz=10 (padded to 12, the
+    weights in shared memory over 4 blocks) for 3 iterations and with
+    ndf=512 (nz=128: a block's slices take 223 KB over a cluster of 8,
+    K1_c8) for 1, at B=128 with use_pallas on, through `training_phase`;
+    with ndf=1024 (past every cluster's shared memory, so the weights are
+    read from L2, K1_l2), which no configuration trains, the eval alone.
+    On each model's random weights from the seed, K1 over the 2B=256 prior
+    chains in stream mode against its float64 plain version (`chain_check`'s
+    `against_fp64`) and, where it trains, K2 over B=128 rows of Q against
+    its plain version; at ndf=512 also `k1_c8_holds`. Each iteration must
+    launch K1 once in the variant `launch_widths` names (the others 0) and
+    K2 once; finite metrics, G, E and Q changed, each iteration's ms beside
+    the card's name and power limit. Then, on the trained weights (at
+    ndf=1024 the seed's), K1 against its float64 plain version on an
+    EBM-prior FID batch's draws (B=500), and that batch twice through
+    `gen_samples_ebm_prior`: finite, equal bit for bit, that K1 variant
+    launched once a batch and no other. One ndf=512 iteration
+    under the profiler (`train_profile_phase`) gives K1_c8's share of it.
+    Returns ({path: {kernel:
+    (check, launches)}}, {K1_c8 hold: check})."""
     import torch
 
     from damc_tpu_torch.models import build_models, sweep_route
-    from damc_tpu_torch.ops.cuda.fused_langevin import (
-        ebm_params_to_dense_weights, fits_ebm, fused_prior_langevin, launch_widths,
-    )
+    from damc_tpu_torch.ops.cuda.fused_langevin import ebm_params_to_dense_weights, fits_ebm, launch_widths
     from damc_tpu_torch.train.sampling import eval_draws, gen_samples_ebm_prior
 
-    counters = {**counters, "K1_l2": fused_prior_langevin.l2}
-    out, trained = {}, None
+    counters = {**counters, **k1_variant_counters()}
+    out, holds = {}, {}
     for i, (label, widths, iterations) in enumerate(K1_WIDTH_RUNS):
         c = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, **widths))
         m, mc, b = c.model, c.mcmc, c.train.batch_size
         models = build_models(c, seed=SEED, device="cuda")
-        smem = launch_widths(m.nz, m.ndf)[2]
-        key = "K1" if smem else "K1_l2"
+        key = k1_key(m.nz, m.ndf)
         if not c.train.use_pallas or not fits_ebm(models.ebm) or sweep_route(models.amortizer) != "k2":
             raise AssertionError(f"{label}: the phase needs use_pallas on and both kernels taking the models")
-        print(f"[k1_widths] {label} ({json.dumps(widths)}): K1 launches at {launch_widths(m.nz, m.ndf)} "
-              f"(nz, ndf, weights in shared memory)")
+        print(f"[k1_widths] {label} ({json.dumps(widths)}): K1 launches as {key} at {launch_widths(m.nz, m.ndf)}")
         gen = torch.Generator(device="cpu").manual_seed(SEED + 90 + i)
         chains = 2 * b if c.train.prior_chains == "double" else b
         z1 = torch.randn(chains, m.nz, generator=gen).cuda()
-        r1 = chain_check(ebm_params_to_dense_weights(models.ebm), z1, dict(seed=135792468 + i), mc.e_l_steps,
-                         mc.e_l_step_size, f"{key} stream {label}", against_fp64=True)
-        x = torch.rand(b, m.image_size, m.image_size, m.nc, generator=gen).cuda() * 2 - 1
-        z2 = torch.randn(b, m.nz, generator=gen).cuda()
-        with torch.no_grad():
-            post = models.amortizer.encode(x)
-        r2 = sweep_check(models, c, z2, post, dict(seed=246813579 + i), f"K2 stream {label}")[b]
-        del models
-        expect = {"K1": int(smem), "K2": 1, "K1_l2": int(not smem)}
-        state, total, median_ms = training_phase(c, counters, iterations, expect=expect, tag=f"k1_widths {label}")
-        print(f"[k1_widths] {label} ({json.dumps(widths)}, B={b}, {iterations} iterations): median ms an "
-              f"iteration {median_ms} on {card_line()}; launches {total}")
-        out[f"train_{label}"] = {key: (r1, total[key]), "K2": (r2, total["K2"])}
-        if label == "nz10":
-            trained = (c, state)
-        del state
-    c, state = trained
-    mc = c.mcmc
-    d = eval_draws(SEED, "fid_ebm", 0, 0, K1_WIDTH_FID_B, c.model.nz, "cuda")
-    r = chain_check(ebm_params_to_dense_weights(state.models.ebm), d.z0, dict(seed=d.chain_seed), mc.e_l_steps,
-                    mc.e_l_step_size, "K1 stream nz10 FID batch", against_fp64=True)
-    for k in counters.values():
-        k.launches = 0
-    t0 = time.perf_counter()
-    runs = [gen_samples_ebm_prior(state.models, c, d) for _ in range(2)]
-    torch.cuda.synchronize()
-    wall = (time.perf_counter() - t0) / 2
-    launches = {name: k.launches for name, k in counters.items()}
-    finite, same = bool(torch.isfinite(runs[0]).all()), torch.equal(runs[0], runs[1])
-    print(f"[k1_widths] EBM-prior FID batch of {K1_WIDTH_FID_B} at nz=10 (trained weights): shape "
-          f"{tuple(runs[0].shape)}, finite {finite}, two runs bit-identical {same}, launches {launches}, "
-          f"wall s a batch {wall}")
-    if not finite or not same or launches != {"K1": 2, "K2": 0, "K1_l2": 0}:
-        raise AssertionError("the nz=10 EBM-prior batch is not finite, not reproducible, or not two K1 launches")
-    out["eval_nz10"] = {"K1": (r, launches["K1"])}
-    return out
+        ebm_w = ebm_params_to_dense_weights(models.ebm)
+        r1 = chain_check(ebm_w, z1, dict(seed=135792468 + i), mc.e_l_steps, mc.e_l_step_size,
+                         f"{key} stream {label}", against_fp64=True)
+        if key == "K1_c8":
+            holds = k1_c8_holds(ebm_w, mc, gen)
+        del ebm_w
+        state = None
+        if iterations:
+            x = torch.rand(b, m.image_size, m.image_size, m.nc, generator=gen).cuda() * 2 - 1
+            z2 = torch.randn(b, m.nz, generator=gen).cuda()
+            with torch.no_grad():
+                post = models.amortizer.encode(x)
+            r2 = sweep_check(models, c, z2, post, dict(seed=246813579 + i), f"K2 stream {label}")[b]
+            del models
+            expect = {"K1": 0, "K2": 1, "K1_c8": 0, "K1_l2": 0, key: 1}
+            state, total, median_ms = training_phase(c, counters, iterations, expect=expect,
+                                                     tag=f"k1_widths {label}")
+            print(f"[k1_widths] {label} ({json.dumps(widths)}, B={b}, {iterations} iterations): median ms an "
+                  f"iteration {median_ms} on {card_line()}; launches {total}")
+            out[f"train_{label}"] = {key: (r1, total[key]), "K2": (r2, total["K2"])}
+            models = state.models
+        d = eval_draws(SEED, "fid_ebm", 0, 0, K1_WIDTH_FID_B, m.nz, "cuda")
+        r = chain_check(ebm_params_to_dense_weights(models.ebm), d.z0, dict(seed=d.chain_seed),
+                        mc.e_l_steps, mc.e_l_step_size, f"{key} stream {label} FID batch", against_fp64=True)
+        for k in counters.values():
+            k.launches = 0
+        t0 = time.perf_counter()
+        runs = [gen_samples_ebm_prior(models, c, d) for _ in range(2)]
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) / 2
+        launches = {name: k.launches for name, k in counters.items()}
+        finite, same = bool(torch.isfinite(runs[0]).all()), torch.equal(runs[0], runs[1])
+        print(f"[k1_widths] EBM-prior FID batch of {K1_WIDTH_FID_B} at {label} "
+              f"({'trained' if iterations else 'seed'} weights): shape {tuple(runs[0].shape)}, finite {finite}, "
+              f"two runs bit-identical {same}, launches {launches}, wall s a batch {wall}")
+        want = {name: 2 if name == key else 0 for name in counters}
+        if not finite or not same or launches != want:
+            raise AssertionError(f"the {label} EBM-prior batch is not finite, not reproducible, or not "
+                                 f"launches {want}")
+        out[f"eval_{label}"] = {key: (r, launches[key])}
+        if key == "K1_c8":  # K1's share of the iteration: the prior_langevin phase
+            train_profile_phase(c, state, path=f"train_{label}")
+        del models, state
+    return out, holds
 
 
 # Card against CPU after one iteration from one z0, held to one set of
@@ -4849,7 +4932,7 @@ def main() -> int:
     train_profile_phase(cfg, state)
     del state
     lap("train_profile")
-    k1_widths = k1_widths_phase(cfg, counters)
+    k1_widths, k1_c8_holds_res = k1_widths_phase(cfg, counters)
     lap("k1_widths")
     # The bfloat16 mode: G and the encoder in bf16, K1's bf16-dot variant.
     cfg_bf16 = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, compute_dtype="bfloat16"),
@@ -4931,11 +5014,12 @@ def main() -> int:
         # The card-exported serving artifact, served by its own process: B=16, counter mode.
         ("serve_artifact", "counter", key, res[key][16], total_artifact[key]) for key in meta
     ] + [("train", "stream", key, res_stream[key], total_train[key]) for key in meta] + [
-        # The widths K1 pads: nz=10 (K1 over 2B=256 chains, K2 B=128), ndf=512
-        # (K1 with the weights in L2), and the nz=10 EBM-prior FID batch (B=500).
+        # The widths K1 pads or spreads: nz=10 (K1 over 2B=256 chains, K2 B=128)
+        # and ndf=512 (K1 over a cluster of 8) in training, and the EBM-prior
+        # FID batches (B=500) of these and of ndf=1024 (K1 with the weights in L2).
         (path, "stream", key, r, launches) for path, ks in k1_widths.items() for key, (r, launches) in ks.items()
     ] + [
-        ("serve_ndf512", "counter", "K1_l2", *unfused["ndf512"]["K1_l2"]),  # B=16 under auto
+        ("serve_ndf512", "counter", "K1_c8", *unfused["ndf512"]["K1_c8"]),  # B=16 under auto
     ] + [
         ("eval", "stream", key, res_eval[key], eval_info["cli_launches"][key])  # B=500: K1 100 steps, K2 prior
         for key in meta
@@ -4972,6 +5056,8 @@ def main() -> int:
     ]
     if total_train16["K1"]:
         raise AssertionError("the bf16 training run launched K1's float32 variant")
+    meta["K1_c8"] = ("fused_prior_langevin_c8", "damc_tpu_torch/csrc/fused_langevin.cu",
+                     "damc_tpu/ops/pallas/fused_langevin.py:311")
     meta["K1_l2"] = ("fused_prior_langevin_l2", "damc_tpu_torch/csrc/fused_langevin.cu",
                      "damc_tpu/ops/pallas/fused_langevin.py:311")
     meta["K1_bf16"] = ("fused_prior_langevin_bf16", "damc_tpu_torch/csrc/fused_langevin.cu",
@@ -5014,12 +5100,17 @@ def main() -> int:
               f"plain_ms={r['plain_ms']} fp32_kernel_ms={r['fp32_kernel_ms']} bound_ms={b_ms} ({by}) "
               f"flops={r['flops']} bytes={r['bytes']} max_abs_err={r['max_abs_err']} "
               f"max_abs_err_6_noiseless={r['max_abs_err_6_noiseless']}")
+    for label, r in k1_c8_holds_res.items():
+        b_ms, by = bound(r["flops"], r["bytes"], r["peak"])
+        print(f"[kernels] fused_prior_langevin_c8 ndf512 {label} B={r['b']} (held, on no path): ms={r['ms']} "
+              f"plain_ms={r['plain_ms']} bound_ms={b_ms} ({by}) flops={r['flops']} bytes={r['bytes']} "
+              f"max_abs_err={r['max_abs_err']}")
     for key in ("K1", "K2"):
         name = meta[key][0]
         shapes = [("serving counter", res[key][16]), ("training stream", res_stream[key]),
                   ("counter", res[key][500])]
         shapes += [(f"eval stream {k}", r) for k, r in res_eval.items() if k.startswith(key)]
-        shapes += [(f"{path} stream", ks[k][0]) for path, ks in k1_widths.items() for k in ks if k.startswith(key)]
+        shapes += [(f"{path} stream", ks[k][0]) for path, ks in k1_widths.items() for k in ks if k == key]
         shapes += [(f"anomaly stream {k}", r) for k, r in res_anomaly.items() if k.startswith(key)]
         shapes += [(f"toy {k}", r) for k, r in res_toy.items() if k.startswith(key)]
         for tag, res_p in (("svhn", res_svhn), ("celeba64", res_c64), ("celebaHQ", res_hq)):

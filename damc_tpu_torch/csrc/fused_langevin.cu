@@ -27,16 +27,16 @@
 // at a time and reduced it through shuffle trees; and at 4 chains a block
 // only ceil(B / 4) SMs worked.
 //
-// Design: a thread-block cluster of kCluster = 4 blocks owns kRows = 8
-// chains for all steps and holds both weight matrices in shared memory,
-// split by the hidden column: block `rank` keeps K1[:, J] and K2[:, J] for
-// its J = ndf / 4 columns (67 KB at the CIFAR-10 widths, zero-padded to a
-// multiple of 4, at a row stride of 4 x odd floats so that both a walk down
+// Design: a thread-block cluster of kCluster = 4 blocks (8 for wide EBMs,
+// below) owns kRows = 8 chains for all steps and holds both weight matrices
+// in shared memory, split by the hidden column: block `rank` keeps K1[:, J]
+// and K2[:, J] for its J = ndf / kCluster columns (67 KB at the CIFAR-10
+// widths, zero-padded to a multiple of 4, at a row stride of 4 x odd floats so that both a walk down
 // a column and 128-bit reads along the rows of a warp's lanes hit distinct
 // banks). The forward products give its own columns of h1p and h2p, each a
 // sum over the input in order. The transposed products use the same column
 // slices: the block sums d2 K2^T and d1 K1^T over its own J only, for every
-// output, and the cluster adds the 4 partial sums in rank order. Three
+// output, and the cluster adds the kCluster partial sums in rank order. Three
 // cluster barriers a step: after lrelu(h1p) (every block then gathers all
 // of h1 through distributed shared memory), after the d1 partials, and
 // after the gradient partials; the z update and its noise run in every
@@ -74,15 +74,32 @@
 //
 // Every width of the 2-hidden EBM, as the TPU kernel takes (it pads only
 // the batch). The wrapper (ops/cuda/fused_langevin.py::launch_widths) pads
-// nz to a multiple of 4 and ndf to one of kCluster with zero weights and
+// nz to a multiple of 4 and ndf to one of the cluster with zero weights and
 // zero z columns, and slices the padding off the result: a zero weight
 // adds an exact zero to every sum, at its end, so the real columns are
 // what the unpadded widths would give, and a column's noise depends on its
-// index alone. Where a block's slices do not fit its shared memory (ndf =
-// 512 at nz = 128: 386 KB), the kSmemWeights = false variant reads them
-// from global memory, where L2 keeps them (1.3 MB at that width), ndf
-// padded to a multiple of 4 kCluster; its summation order is the same
-// walk, fixed by the padded widths.
+// index alone.
+//
+// The cluster size kCluster is a template parameter, 4 or 8 (kClusters;
+// 8 is the portable maximum). A block holds ndf / kCluster hidden columns,
+// so a larger cluster holds a wider EBM on chip: a block's share of the
+// weights is (nz + ndf) x slice_ld(ndf / kCluster) floats, beside 8 chains'
+// activations. At nz = 128 that is 395,264 B a block at ndf = 512 over 4
+// blocks, past the 232,448 B a Hopper block may use, and 223,232 B over 8
+// (ndf = 200 over 4: 95,744 B). The wrapper takes the smallest cluster
+// whose share fits, with ndf padded to a multiple of it, so 4 serves ndf
+// up to 368 and 8 up to 536 at nz = 128; the cluster is a function of the
+// widths alone, so a chain's sums stay fixed by (nz, ndf) in any batch and
+// at any slot. The kCluster = 4 instantiation is the kernel as it was
+// before the parameter existed. At kCluster = 8 and 223 KB one block fits
+// an SM, and a cluster takes 8 SMs of one GPC: at B = 256 the 32 clusters
+// run in waves of the clusters the card holds at once.
+//
+// Past the largest cluster's share (ndf above 536 at nz = 128), the
+// kSmemWeights = false variant, at kCluster = 4, reads the slices from
+// global memory, where L2 keeps them (4.7 MB at ndf = 1,024), ndf padded
+// to a multiple of 16; its summation order is the same walk, fixed by the
+// padded widths. Every product then waits on L2 (PERF.md, section 6).
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -94,9 +111,14 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kRows = 8;     // chains per cluster
-constexpr int kCluster = 4;  // blocks per cluster, each holding ndf / kCluster hidden columns
+constexpr int kRows = 8;  // chains per cluster
 constexpr int kThreads = 256;
+// Blocks per cluster of the variants that hold the weight slices in shared
+// memory, smallest first (each block holds ndf / kCluster hidden columns),
+// and of the variant that reads them from global memory.
+constexpr int kClusters[] = {4, 8};
+constexpr int kNumClusters = sizeof(kClusters) / sizeof(kClusters[0]);
+constexpr int kL2Cluster = 4;
 constexpr int kRt = 2;  // chains per thread in the products
 constexpr int kGroups = kRows / kRt;
 constexpr float kSlope = 0.2f;
@@ -163,14 +185,15 @@ __device__ __forceinline__ void dot_row(const float* w, const float* x, int x_ld
   }
 }
 
-// kSmemWeights: the block holds its slices of K1 and K2 in shared memory
-// (as set out above); else it reads them where they lie in global memory
-// (through L1 and L2), its J columns at row stride ndf, and shared memory
-// holds the activations alone. That variant serves the widths whose slices
-// do not fit (ndf = 512 at nz = 128 needs 386 KB a block); it needs J % 4
-// == 0, so that the slices need no zero padding and their rows stay
+// kCluster: blocks per cluster, one of kClusters (or kL2Cluster without
+// kSmemWeights). kSmemWeights: the block holds its slices of K1 and K2 in
+// shared memory (as set out above); else it reads them where they lie in
+// global memory (through L1 and L2), its J columns at row stride ndf, and
+// shared memory holds the activations alone. That variant serves the widths
+// whose slices fit no cluster (ndf = 1,024 at nz = 128 needs 698,368 B a
+// block over 8); it needs J % 4 == 0, so that the slices need no zero padding and their rows stay
 // 16-byte aligned, and the bf16-dot variant rounds each weight as it is read.
-template <bool kBf16Dots, bool kSmemWeights>
+template <int kCluster, bool kBf16Dots, bool kSmemWeights>
 __global__ void __launch_bounds__(kThreads, 2) prior_langevin_kernel(
     const float* __restrict__ z_in, const float* __restrict__ k1, const float* __restrict__ b1,
     const float* __restrict__ k2, const float* __restrict__ b2, const float* __restrict__ k3,
@@ -298,21 +321,21 @@ __global__ void __launch_bounds__(kThreads, 2) prior_langevin_kernel(
     for (int e = tid; e < nrows * nz; e += kThreads) z_out[(size_t)row0 * nz + e] = zs[e];
 }
 
-int smem_bytes(int nz, int ndf, bool smem_weights) {
-  const int J = ndf / kCluster;
+int smem_bytes(int nz, int ndf, bool smem_weights, int cluster) {
+  const int J = ndf / cluster;
   return (int)sizeof(float) * ((smem_weights ? (nz + ndf) * slice_ld(J) : 0) +
                                kRows * (2 * nz + 2 * ndf + 2 * pad4(J) + 2 * J));
 }
 
-cudaLaunchConfig_t launch_config(int clusters, int smem, cudaStream_t stream,
+cudaLaunchConfig_t launch_config(int clusters, int cluster, int smem, cudaStream_t stream,
                                  cudaLaunchAttribute* attr) {
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(clusters * kCluster);
+  cfg.gridDim = dim3(clusters * cluster);
   cfg.blockDim = dim3(kThreads);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
   attr->id = cudaLaunchAttributeClusterDimension;
-  attr->val.clusterDim.x = kCluster;
+  attr->val.clusterDim.x = cluster;
   attr->val.clusterDim.y = 1;
   attr->val.clusterDim.z = 1;
   cfg.attrs = attr;
@@ -320,16 +343,16 @@ cudaLaunchConfig_t launch_config(int clusters, int smem, cudaStream_t stream,
   return cfg;
 }
 
-template <bool kBf16Dots, bool kSmemWeights>
+template <int kCluster, bool kBf16Dots, bool kSmemWeights>
 int launch(const float* z, const float* k1, const float* b1, const float* k2, const float* b2,
            const float* k3, const int* seeds, int seed, int stream_noise, int row_base, float* out,
            int B, int nz, int ndf, int steps, float step_size, float coeff, cudaStream_t stream) {
-  const auto kernel = prior_langevin_kernel<kBf16Dots, kSmemWeights>;
-  const int smem = smem_bytes(nz, ndf, kSmemWeights);
+  const auto kernel = prior_langevin_kernel<kCluster, kBf16Dots, kSmemWeights>;
+  const int smem = smem_bytes(nz, ndf, kSmemWeights, kCluster);
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   cudaLaunchAttribute attr;
-  const cudaLaunchConfig_t cfg = launch_config((B + kRows - 1) / kRows, smem, stream, &attr);
+  const cudaLaunchConfig_t cfg = launch_config((B + kRows - 1) / kRows, kCluster, smem, stream, &attr);
   err = cudaLaunchKernelEx(&cfg, kernel, z, k1, b1, k2, b2, k3, seeds, seed, stream_noise, row_base,
                            out, B, nz, ndf, steps, step_size, coeff);
   if (err != cudaSuccess) return (int)err;
@@ -340,16 +363,20 @@ int launch(const float* z, const float* k1, const float* b1, const float* k2, co
 
 DAMC_ERROR_STRING_EXPORT
 
-// [chains per cluster, blocks per cluster, threads per block]: the
-// wrapper's planner checks its constants against these.
+// [chains per cluster, threads per block, blocks per cluster of the
+// variant that reads the weights from global memory, the number of on-chip
+// cluster sizes, then those sizes, smallest first] (out holds at least
+// 4 + kNumClusters ints): the wrapper checks its constants against these.
 extern "C" void damc_fused_langevin_geometry(int* out) {
   out[0] = kRows;
-  out[1] = kCluster;
-  out[2] = kThreads;
+  out[1] = kThreads;
+  out[2] = kL2Cluster;
+  out[3] = kNumClusters;
+  for (int i = 0; i < kNumClusters; ++i) out[4 + i] = kClusters[i];
 }
 
-extern "C" int damc_fused_langevin_smem_bytes(int nz, int ndf, int smem_weights) {
-  return smem_bytes(nz, ndf, smem_weights != 0);
+extern "C" int damc_fused_langevin_smem_bytes(int nz, int ndf, int smem_weights, int cluster) {
+  return smem_bytes(nz, ndf, smem_weights != 0, cluster);
 }
 
 // Noise: seeds = per-chain int32 counter seeds (counter mode); else
@@ -358,20 +385,30 @@ extern "C" int damc_fused_langevin_smem_bytes(int nz, int ndf, int smem_weights)
 // sharded batch start at row_base, so they draw what an unsharded launch
 // draws for them); else the chain is noiseless. bf16_dots != 0 selects the
 // bf16-dot variant, smem_weights != 0 the variant that holds the weight
-// slices in shared memory. nz must be a multiple of 4 and ndf of kCluster;
-// without smem_weights ndf must be a multiple of 4 kCluster and k1 and k2
-// 16-byte aligned.
+// slices in shared memory, over `cluster` blocks a cluster: one of
+// kClusters, or kL2Cluster without smem_weights. nz must be a multiple of 4
+// and ndf of the cluster; without smem_weights ndf must be a multiple of 4
+// kL2Cluster and k1 and k2 16-byte aligned.
 extern "C" int damc_fused_langevin(const float* z, const float* k1, const float* b1, const float* k2,
                                    const float* b2, const float* k3, const int* seeds, int seed,
                                    int stream_noise, int row_base, int bf16_dots, int smem_weights,
-                                   float* out, int B, int nz, int ndf, int steps, float step_size,
-                                   float coeff, void* stream) {
+                                   int cluster, float* out, int B, int nz, int ndf, int steps,
+                                   float step_size, float coeff, void* stream) {
+  static_assert(kNumClusters == 2 && kClusters[0] == 4 && kClusters[1] == 8,
+                "the switch below launches each size of kClusters and no other");
   const bool aligned = reinterpret_cast<uintptr_t>(k1) % 16 == 0 && reinterpret_cast<uintptr_t>(k2) % 16 == 0;
-  if (nz % 4 || ndf % kCluster || (!smem_weights && (ndf % (4 * kCluster) || !aligned)))
+  decltype(&launch<4, false, true>) run = nullptr;
+  if (!smem_weights) {
+    if (cluster == kL2Cluster) run = bf16_dots ? launch<kL2Cluster, true, false> : launch<kL2Cluster, false, false>;
+  } else {
+    switch (cluster) {
+      case 4: run = bf16_dots ? launch<4, true, true> : launch<4, false, true>; break;
+      case 8: run = bf16_dots ? launch<8, true, true> : launch<8, false, true>; break;
+      default: break;
+    }
+  }
+  if (!run || nz % 4 || ndf % cluster || (!smem_weights && (ndf % (4 * cluster) || !aligned)))
     return (int)cudaErrorInvalidValue;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const auto run = smem_weights ? (bf16_dots ? launch<true, true> : launch<false, true>)
-                                : (bf16_dots ? launch<true, false> : launch<false, false>);
   return run(z, k1, b1, k2, b2, k3, seeds, seed, stream_noise, row_base, out, B, nz, ndf, steps,
-             step_size, coeff, s);
+             step_size, coeff, static_cast<cudaStream_t>(stream));
 }

@@ -78,7 +78,9 @@ def load_mnist_anomaly(root: str, heldout: int, split: str, cache: bool = True) 
     normal images for train, the other 20% and every held-out image, again
     permuted, for test. The split is cached in
     <root>/heldout_<digit>_<split>.npy (a pickled dict, read back only from
-    this directory)."""
+    this directory), written beside it and renamed into place, so another
+    process (a rank of a run on the same host) finds it whole or not at
+    all."""
     if split not in ("train", "test"):
         raise ValueError(f"split must be train or test, got {split!r}")
     cache_path = osp.join(root, f"heldout_{heldout}_{split}.npy")
@@ -107,7 +109,10 @@ def load_mnist_anomaly(root: str, heldout: int, split: str, cache: bool = True) 
             inds = rng.permutation(test_x.shape[0])
             imgs, lbls = test_x[inds], adapt_labels(test_y[inds], heldout)
         if cache:
-            np.save(cache_path, {"img": imgs, "lbl": lbls})
+            tmp = f"{cache_path}.{os.getpid()}.tmp"
+            with open(tmp, "wb") as f:
+                np.save(f, {"img": imgs, "lbl": lbls})
+            os.replace(tmp, cache_path)
 
     imgs = np.asarray(imgs)
     if imgs.dtype == np.uint8:

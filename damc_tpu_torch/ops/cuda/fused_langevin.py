@@ -9,16 +9,22 @@ which runs the plain PyTorch version for tensors on the CPU and launches
 the kernel for tensors on a CUDA device; anything else, or a failed build
 or launch, raises. A fake implementation gives the output's shape, so
 `make_fx` and `torch.export` record the whole chain as one node. `fused_prior_langevin.launches` counts the
-launches of the fp32-dot variant; the bf16-dot variant has a count object
-of its own, `fused_prior_langevin.bf16`, whose `launches` counts its. The
-variants that read the weights from global memory count in
-`fused_prior_langevin.l2` (fp32 dots) and `fused_prior_langevin.l2.bf16`.
+launches of the fp32-dot variant over a cluster of 4; the bf16-dot variant
+has a count object of its own, `fused_prior_langevin.bf16`, whose
+`launches` counts its. The variants over a cluster of 8 count in
+`fused_prior_langevin.c8` (fp32 dots) and `fused_prior_langevin.c8.bf16`,
+those that read the weights from global memory in
+`fused_prior_langevin.l2` and `fused_prior_langevin.l2.bf16`.
 
 Widths, as the TPU kernel's: every 2-hidden, 1-output EBM (`fits_ebm`).
 The launch pads nz and ndf with zeros (`launch_widths`, `pad_widths`) and
-holds the weights in shared memory where a block's share fits
-(`fits_smem`), else reads them from global memory; it raises only for
-widths whose activations alone overflow a block.
+holds the weights in shared memory, split over the smallest cluster
+(`CLUSTERS`: 4 or 8 blocks) whose blocks' shares fit (`fits_smem`): at
+nz=128 a cluster of 4 up to ndf=368 (the presets' 200), of 8 up to 536
+(ndf=512). Past that it reads them from global memory (L2), and it raises
+only for widths whose activations alone overflow a block (ndf past about
+2,300). The cluster is a function of the widths alone, so a chain's result
+does not depend on its batch.
 
 Noise modes, as the TPU kernel's: counter (`row_seeds`, per-chain int32
 seeds; serving), stream (`seed`, one int32 for the launch; training) and
@@ -47,7 +53,7 @@ from __future__ import annotations
 import ctypes
 import threading
 import types
-from typing import List, Optional, Tuple
+from typing import List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -57,8 +63,12 @@ from . import build
 
 # The kernel's geometry (csrc/fused_langevin.cu; `_library` checks it):
 ROWS = 8  # chains per cluster
-CLUSTER = 4  # blocks per cluster; each holds ndf / CLUSTER hidden columns of K1 and K2
 THREADS = 256
+# Blocks per cluster of the variants that hold the weights in shared
+# memory, smallest first; each block holds ndf / cluster hidden columns of
+# K1 and K2.
+CLUSTERS = (4, 8)
+L2_CLUSTER = 4  # blocks per cluster of the variant that reads the weights from L2
 SMEM_LIMIT = 232_448  # bytes of shared memory one Hopper block may use
 _SLOPE = 0.2
 DOTS_DTYPES = ("float32", "bfloat16")
@@ -76,13 +86,14 @@ def ebm_params_to_dense_weights(ebm) -> Tuple[torch.Tensor, ...]:
     return k(lin[0]), b(lin[0]), k(lin[1]), b(lin[1]), lin[2].weight.detach()[0].contiguous().float()
 
 
-def column_ranges(ndf: int) -> List[Tuple[int, int]]:
+def column_ranges(ndf: int, cluster: int) -> List[Tuple[int, int]]:
     """[start, stop) of the hidden columns each block of a cluster holds
     (its slices of K1 and K2). The transposed products sum over these
     slices, and the cluster adds the partial sums in this order: the
-    summation order of every element, fixed by ndf alone."""
-    j = ndf // CLUSTER
-    return [(r * j, (r + 1) * j) for r in range(CLUSTER)]
+    summation order of every element, fixed by ndf and the cluster, which
+    `launch_widths` takes from the widths."""
+    j = ndf // cluster
+    return [(r * j, (r + 1) * j) for r in range(cluster)]
 
 
 def slice_ld(j: int) -> int:
@@ -92,46 +103,60 @@ def slice_ld(j: int) -> int:
     return j4 if (j4 // 4) % 2 else j4 + 4
 
 
-def smem_bytes(nz: int, ndf: int, smem_weights: bool = True) -> int:
-    """Shared memory of one block (the kernel's layout): with `smem_weights`
-    its column slices of K1 and K2; per chain the whole z, the gathered h1,
-    its partial sums of d2 K2^T (ndf) and d1 K1^T (nz), its own columns of
-    d2 and d1 (padded to a multiple of 4) and of h1p and lrelu(h1p)."""
-    j = ndf // CLUSTER
+def smem_bytes(nz: int, ndf: int, smem_weights: bool, cluster: int) -> int:
+    """Shared memory of one block of a cluster of `cluster` (the kernel's
+    layout): with `smem_weights` its column slices of K1 and K2; per chain
+    the whole z, the gathered h1, its partial sums of d2 K2^T (ndf) and
+    d1 K1^T (nz), its own columns of d2 and d1 (padded to a multiple of 4)
+    and of h1p and lrelu(h1p). At nz=128: 95,744 B at ndf=200 over 4;
+    395,264 B at ndf=512 over 4 and 223,232 B over 8."""
+    j = ndf // cluster
     j4 = -(-j // 4) * 4
     weights = (nz + ndf) * slice_ld(j) if smem_weights else 0
     return 4 * (weights + ROWS * (2 * nz + 2 * ndf + 2 * j4 + 2 * j))
 
 
-def fits_smem(nz: int, ndf: int) -> bool:
-    """Whether the variant that holds the weights in shared memory takes
-    the widths as they are: nz a multiple of 4 (float4 reads), ndf a
-    multiple of CLUSTER (each block holds ndf / CLUSTER hidden columns,
-    zero-padded to a multiple of 4), and a block's share of the weights and
-    activations within 227 KB. ndf=200 fits (94 KB a block); ndf=512 does
-    not (386 KB)."""
-    return nz % 4 == 0 and ndf % CLUSTER == 0 and smem_bytes(nz, ndf) <= SMEM_LIMIT
+def fits_smem(nz: int, ndf: int, cluster: int) -> bool:
+    """Whether the variant over `cluster` blocks that holds the weights in
+    shared memory takes the widths as they are: nz a multiple of 4 (float4
+    reads), ndf a multiple of the cluster (each block holds ndf / cluster
+    hidden columns, zero-padded to a multiple of 4), and a block's share of
+    the weights and activations within 227 KB. At nz=128 ndf=200 fits over
+    4 (94 KB a block); ndf=512 does not (386 KB), but fits over 8 (218 KB)."""
+    return nz % 4 == 0 and ndf % cluster == 0 and smem_bytes(nz, ndf, True, cluster) <= SMEM_LIMIT
 
 
 def _round_up(n: int, m: int) -> int:
     return -(-n // m) * m
 
 
-def launch_widths(nz: int, ndf: int) -> Optional[Tuple[int, int, bool]]:
-    """(nz, ndf, smem_weights) of the launch for an EBM of widths (nz,
-    ndf): nz padded to a multiple of 4 and ndf to one of CLUSTER, the
-    weights in shared memory where `fits_smem` takes those widths; else
-    ndf padded to a multiple of 4 CLUSTER and the weights read from global
-    memory (L2), shared memory holding the activations alone. None where
-    even those overflow a block (ndf past about 2,300 at nz=128). Widths
-    that fit as they are launch as they are."""
+class Launch(NamedTuple):
+    """The widths and the variant of a K1 launch."""
+
+    nz: int
+    ndf: int
+    smem_weights: bool  # the weight slices in shared memory, else read from global memory
+    cluster: int  # blocks per cluster
+
+
+def launch_widths(nz: int, ndf: int) -> Optional[Launch]:
+    """The launch for an EBM of widths (nz, ndf), from the widths alone: nz
+    padded to a multiple of 4, and the smallest cluster of CLUSTERS whose
+    blocks' shares fit (`fits_smem`) with ndf padded to a multiple of it,
+    the weights in shared memory; else, over L2_CLUSTER, ndf padded to a
+    multiple of 4 L2_CLUSTER and the weights read from global memory (L2),
+    shared memory holding the activations alone. None where even those
+    overflow a block (ndf past about 2,300 at nz=128). At nz=128: ndf=200
+    over 4, ndf=512 over 8, ndf=1024 from L2. Widths that fit as they are
+    launch as they are."""
     nz_p = _round_up(nz, 4)
-    ndf_p = _round_up(ndf, CLUSTER)
-    if fits_smem(nz_p, ndf_p):
-        return nz_p, ndf_p, True
-    ndf_p = _round_up(ndf, 4 * CLUSTER)
-    if smem_bytes(nz_p, ndf_p, smem_weights=False) <= SMEM_LIMIT:
-        return nz_p, ndf_p, False
+    for cluster in CLUSTERS:
+        ndf_p = _round_up(ndf, cluster)
+        if fits_smem(nz_p, ndf_p, cluster):
+            return Launch(nz_p, ndf_p, True, cluster)
+    ndf_p = _round_up(ndf, 4 * L2_CLUSTER)
+    if smem_bytes(nz_p, ndf_p, False, L2_CLUSTER) <= SMEM_LIMIT:
+        return Launch(nz_p, ndf_p, False, L2_CLUSTER)
     return None
 
 
@@ -174,8 +199,9 @@ def _check_args(with_noise, seed, row_seeds, dots_dtype) -> None:
 
 
 def _bf16_operand(t: torch.Tensor) -> torch.Tensor:
-    """t rounded to the nearest bfloat16 (ties to even), held in float32."""
-    return t.to(torch.bfloat16).float()
+    """t rounded to the nearest bfloat16 (ties to even), held in t's float
+    type (float32, or float64 for a float64 reference chain)."""
+    return t.to(torch.bfloat16).to(t.dtype)
 
 
 def prior_langevin_plain(
@@ -240,7 +266,16 @@ def fused_prior_langevin(
 
 fused_prior_langevin.launches = 0
 fused_prior_langevin.bf16 = types.SimpleNamespace(launches=0)
+fused_prior_langevin.c8 = types.SimpleNamespace(launches=0, bf16=types.SimpleNamespace(launches=0))
 fused_prior_langevin.l2 = types.SimpleNamespace(launches=0, bf16=types.SimpleNamespace(launches=0))
+
+
+def launch_count(launch: Launch):
+    """The count object of the variant `launch` names (its `launches`, and
+    its bf16-dot variant's in `.bf16.launches`)."""
+    if not launch.smem_weights:
+        return fused_prior_langevin.l2
+    return {4: fused_prior_langevin, 8: fused_prior_langevin.c8}[launch.cluster]
 
 
 @torch.library.custom_op("damc::fused_prior_langevin", mutates_args=(), device_types="cpu")
@@ -273,10 +308,10 @@ def _chain_launch(z, k1, b1, k2, b2, k3, row_seeds, seed, steps, step_size, with
     if widths is None:
         raise ValueError(
             f"EBM widths nz={nz}, ndf={ndf} overflow the chain kernel: a block's activations take "
-            f"{smem_bytes(_round_up(nz, 4), _round_up(ndf, 4 * CLUSTER), smem_weights=False)} B of "
+            f"{smem_bytes(_round_up(nz, 4), _round_up(ndf, 4 * L2_CLUSTER), False, L2_CLUSTER)} B of "
             f"shared memory, past {SMEM_LIMIT}"
         )
-    nz_p, ndf_p, smem_weights = widths
+    nz_p, ndf_p, smem_weights, cluster = widths
     dev = z.device
     f32 = lambda t: t.to(device=dev, dtype=torch.float32).contiguous()
     z32, *w = pad_widths(f32(z), *[f32(t) for t in (k1, b1, k2, b2, k3)], nz_p, ndf_p)
@@ -294,12 +329,12 @@ def _chain_launch(z, k1, b1, k2, b2, k3, row_seeds, seed, steps, step_size, with
     rc = lib.damc_fused_langevin(
         z32.data_ptr(), *[t.data_ptr() for t in w],
         None if seeds is None else seeds.data_ptr(), int32_seed(seed) if stream else 0,
-        int(stream), int(row_base), int(bf16), int(smem_weights), out.data_ptr(),
+        int(stream), int(row_base), int(bf16), int(smem_weights), cluster, out.data_ptr(),
         b, nz_p, ndf_p, steps, float(step_size), 0.5 * step_size * step_size,
         torch.cuda.current_stream(dev).cuda_stream,
     )
     build.check(lib, rc, "fused_prior_langevin")
-    count = fused_prior_langevin if smem_weights else fused_prior_langevin.l2
+    count = launch_count(widths)
     with _lock:
         if bf16:
             count.bf16.launches += 1
@@ -314,15 +349,16 @@ def _library() -> ctypes.CDLL:
     if fn.argtypes is None:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         # z, k1, b1, k2, b2, k3, seeds, seed, stream_noise, row_base, bf16_dots,
-        # smem_weights, out, B, nz, ndf, steps, step_size, coeff, stream
-        fn.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, p, i, i, i, i, f, f, p]
+        # smem_weights, cluster, out, B, nz, ndf, steps, step_size, coeff, stream
+        fn.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, p, i, i, i, i, f, f, p]
         fn.restype = ctypes.c_int
-        geometry = (ctypes.c_int * 3)()
+        geometry = (ctypes.c_int * 16)()
         lib.damc_fused_langevin_geometry(geometry)
-        if tuple(geometry) != (ROWS, CLUSTER, THREADS):
+        if tuple(geometry[:4 + geometry[3]]) != (ROWS, THREADS, L2_CLUSTER, len(CLUSTERS), *CLUSTERS):
             raise RuntimeError("fused_langevin.cu and fused_langevin.py disagree on the geometry")
-        if any(lib.damc_fused_langevin_smem_bytes(nz, ndf, int(w)) != smem_bytes(nz, ndf, w)
-               for nz, ndf in ((128, 200), (100, 200), (8, 200), (128, 512)) for w in (True, False)):
+        variants = [(True, c) for c in CLUSTERS] + [(False, L2_CLUSTER)]
+        if any(lib.damc_fused_langevin_smem_bytes(nz, ndf, int(w), c) != smem_bytes(nz, ndf, w, c)
+               for nz, ndf in ((128, 200), (100, 200), (8, 200), (128, 512), (128, 1024)) for w, c in variants):
             raise RuntimeError("fused_langevin.cu and fused_langevin.py disagree on shared memory")
     return lib
 

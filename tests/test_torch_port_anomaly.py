@@ -90,6 +90,23 @@ def test_mnist_split_equals_jax_with_its_cache(mnist_dir, tmp_path, heldout, spl
         datasets.load_mnist_anomaly(str(pdir), heldout, "valid")
 
 
+def test_mnist_cache_is_renamed_into_place(mnist_dir, tmp_path, monkeypatch):
+    """The split cache is written to a file of its own and renamed onto its
+    name, so a second process that finds the name (the other rank of a
+    two-rank run on one host, loading the same directory) never reads a
+    file still being written: no write goes to the cache's name, and the
+    cached split reads back equal."""
+    shutil.copy(os.path.join(mnist_dir, "mnist.npz"), tmp_path / "mnist.npz")
+    cache = str(tmp_path / "heldout_9_train.npy")
+    targets, save = [], np.save
+    monkeypatch.setattr(np, "save", lambda f, *a, **kw: (targets.append(getattr(f, "name", f)), save(f, *a, **kw)))
+    fresh = datasets.load_mnist_anomaly(str(tmp_path), 9, "train")
+    assert targets and cache not in map(str, targets)
+    assert sorted(os.listdir(tmp_path)) == ["heldout_9_train.npy", "mnist.npz"]  # no file left behind
+    for g, w in zip(datasets.load_mnist_anomaly(str(tmp_path), 9, "train"), fresh):
+        np.testing.assert_array_equal(g, w)
+
+
 CASES = {
     "ties": (np.array([0.5, 0.5, 0.2, 0.9, 0.9, 0.9, 0.1]), np.array([1, 0, 1, 0, 1, 1, 0])),
     "all_negative": (np.array([0.3, 0.1, 0.7]), np.array([0, 0, 0])),

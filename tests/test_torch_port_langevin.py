@@ -127,11 +127,12 @@ def test_wrapper_dispatch_rules():
         k1.fused_prior_langevin(z, *w, steps=1)  # noise needs seed or row_seeds
     with pytest.raises(ValueError, match="device"):
         k1.fused_prior_langevin(z.to("meta"), *w, steps=1, with_noise=False)
-    # The fit rule: cifar10 fits; ndf=512 exceeds a block's shared memory;
-    # widths that do not split over the cluster, or break float4 reads, do not.
-    assert k1.fits_smem(NZ, NDF) and k1.smem_bytes(NZ, NDF) <= k1.SMEM_LIMIT
-    assert not k1.fits_smem(NZ, 512)
-    assert not k1.fits_smem(NZ, NDF + 2) and not k1.fits_smem(NZ + 2, NDF)
+    # The fit rule over a cluster of 4: cifar10 fits; ndf=512 exceeds a
+    # block's shared memory; widths that do not split over the cluster, or
+    # break float4 reads, do not.
+    assert k1.fits_smem(NZ, NDF, 4) and k1.smem_bytes(NZ, NDF, True, 4) <= k1.SMEM_LIMIT
+    assert not k1.fits_smem(NZ, 512, 4)
+    assert not k1.fits_smem(NZ, NDF + 2, 4) and not k1.fits_smem(NZ + 2, NDF, 4)
 
 
 
@@ -139,20 +140,20 @@ def test_fit_rule_at_nz100():
     """K1 at nz = 100 (svhn, celeba64): a multiple of 4, as the float4 reads
     of z need; 88,128 bytes of shared memory a block; each block 50 of the
     200 hidden columns, its slices at a row stride of 52 floats."""
-    assert k1.fits_smem(100, 200) and k1.smem_bytes(100, 200) == 88128
-    assert k1.slice_ld(50) == 52 and k1.column_ranges(200) == [(0, 50), (50, 100), (100, 150), (150, 200)]
+    assert k1.fits_smem(100, 200, 4) and k1.smem_bytes(100, 200, True, 4) == 88128
+    assert k1.slice_ld(50) == 52 and k1.column_ranges(200, 4) == [(0, 50), (50, 100), (100, 150), (150, 200)]
 
 @pytest.mark.parametrize("ndf", [8, 16, 200, 512])
 def test_blocks_hold_every_hidden_column_once(ndf):
-    """The cluster's blocks hold every hidden column exactly once, a split
+    """The blocks of a cluster of 4 hold every hidden column exactly once, a split
     that depends on ndf alone, so a chain's partial sums, added in rank
     order, do not depend on B or on the chain's slot; the weight slices'
     row stride is a multiple of 4 with an odd quarter and holds the
     slice."""
-    ranges = k1.column_ranges(ndf)
-    assert len(ranges) == k1.CLUSTER
+    ranges = k1.column_ranges(ndf, 4)
+    assert len(ranges) == 4
     assert [j for a, e in ranges for j in range(a, e)] == list(range(ndf))
-    j = ndf // k1.CLUSTER
+    j = ndf // 4
     ld = k1.slice_ld(j)
     assert ld >= j and ld % 4 == 0 and (ld // 4) % 2 == 1
 

@@ -7,8 +7,9 @@ The JAX package sends every 2-hidden EBM to its TPU kernel, at any width
 port: `fits_ebm` takes the layout alone, and the launch pads nz to a
 multiple of 4 and ndf to one of the cluster with zero weights
 (`ops/cuda/fused_langevin.py::launch_widths`, `pad_widths`), holding the
-weights in shared memory where a block's share fits and reading them from
-L2 where it does not (ndf=512 at nz=128). On the CPU the op runs the plain
+weights in shared memory over the smallest cluster whose blocks' shares
+fit (4 blocks at ndf=200, 8 at ndf=512, nz=128) and reading them from L2
+where none does (ndf=1024). On the CPU the op runs the plain
 version at the widths as given; the padding tests below show that the
 padded chain's first nz columns are the unpadded chain's.
 
@@ -48,8 +49,9 @@ from test_torch_port_train import _assert_metrics, _assert_state, _noiseless, _x
 from torch_port_helpers import jax_and_port, jax_step_draws, one_torch_thread, to_numpy, train_cfgs
 
 PRESETS = ("cifar10", "cifar10-stable", "svhn", "celeba64", "celebaHQ", "mnist_anomaly")
-# Widths the kernel pads: nz not a multiple of 4 (float4 reads), and
-# ndf=512 at nz=128 (a block's slices would take 386 KB of shared memory).
+# Widths the kernel pads or spreads: nz not a multiple of 4 (float4 reads),
+# and ndf=512 at nz=128 (a block's slices take 386 KB of shared memory over
+# a cluster of 4, 218 KB over 8).
 PADDED = {"nz10": dict(nz=10), "ndf512": dict(nz=128, ndf=512)}
 
 
@@ -85,8 +87,8 @@ def _k1_calls(monkeypatch):
 def test_k1_takes_every_two_hidden_ebm(name, widths):
     """`fits_ebm` takes the EBM `build_models` makes at every image preset's
     widths and at nz=10 and ndf=512; each preset launches at its own widths
-    with the weights in shared memory, nz=10 padded to 12, ndf=512 with the
-    weights read from L2."""
+    with the weights in shared memory over a cluster of 4, nz=10 padded to
+    12, ndf=512 with the weights in shared memory over a cluster of 8."""
     cfg = preset(name)
     if widths is not None:
         cfg = _widths(cfg, **PADDED[widths])
@@ -94,23 +96,78 @@ def test_k1_takes_every_two_hidden_ebm(name, widths):
     with torch.device("meta"):
         ebm = LatentEBM(m.nz, ndf=m.ndf)
     assert k1.fits_ebm(ebm)
-    want = {None: (m.nz, m.ndf, True), "nz10": (12, m.ndf, True), "ndf512": (128, 512, False)}[widths]
+    want = {None: (m.nz, m.ndf, True, 4), "nz10": (12, m.ndf, True, 4), "ndf512": (128, 512, True, 8)}[widths]
     assert k1.launch_widths(m.nz, m.ndf) == want
 
 
-def test_launch_widths_rule():
+@pytest.mark.parametrize("nz, ndf, want", [
+    (128, 200, (128, 200, True, 4)),
+    (128, 368, (128, 368, True, 4)),  # the widest ndf a cluster of 4 holds at nz=128
+    (128, 372, (128, 376, True, 8)),
+    (128, 500, (128, 504, True, 8)),
+    (128, 512, (128, 512, True, 8)),
+    (128, 536, (128, 536, True, 8)),  # the widest ndf a cluster of 8 holds at nz=128
+    (128, 540, (128, 544, False, 4)),
+    (128, 1024, (128, 1024, False, 4)),
+    (128, 2336, (128, 2336, False, 4)),
+    (128, 2400, None),
+    (7, 10, (8, 12, True, 4)),
+    (100, 510, (100, 512, True, 8)),
+    (10, 512, (12, 512, True, 8)),
+])
+def test_launch_widths_rule(nz, ndf, want):
     """Widths that fit launch as they are; others are padded, nz to a
-    multiple of 4 and ndf to one of the cluster (4), then, where a block's
-    share of the weights overflows 227 KB, ndf to one of 16 with the
-    weights in L2 (57,344 B of activations a block at nz=128, ndf=512);
-    past that (ndf=2400) the kernel takes no width and the launch raises.
-    A 3-hidden EBM is not the layout K1 hand-codes."""
-    assert k1.launch_widths(7, 10) == (8, 12, True)
-    assert k1.launch_widths(100, 510) == (100, 512, False)
-    assert k1.launch_widths(128, 500) == (128, 512, False)
-    assert k1.smem_bytes(128, 512, smem_weights=False) == 57344 and k1.smem_bytes(128, 512) > k1.SMEM_LIMIT
-    assert k1.launch_widths(128, 2336) is not None and k1.launch_widths(128, 2400) is None
+    multiple of 4 and ndf to one of the smallest cluster (4, then 8) whose
+    blocks' shares of the weights and activations fit 227 KB, the weights
+    in shared memory; past a cluster of 8 (ndf above 536 at nz=128) ndf is
+    padded to one of 16 with the weights in L2; past that (ndf=2400) the
+    kernel takes no width and the launch raises. The route is a function
+    of the widths alone. A 3-hidden EBM is not the layout K1 hand-codes."""
+    assert k1.launch_widths(nz, ndf) == want
     assert not k1.fits_ebm(LatentEBM(8, ndf=16, n_hidden=3))
+
+
+@pytest.mark.parametrize("nz, ndf, smem_weights, cluster, want", [
+    (128, 200, True, 4, 95_744),
+    (100, 200, True, 4, 88_128),
+    (128, 512, True, 4, 395_264),  # past the 232,448 B a block may use
+    (128, 512, True, 8, 223_232),
+    (128, 1024, True, 8, 698_368),  # past it again: read from L2
+    (128, 512, False, 4, 57_344),
+    (128, 1024, False, 4, 106_496),
+    (128, 2400, False, 4, 238_592),  # the activations alone overflow a block
+])
+def test_smem_bytes_of_each_variant(nz, ndf, smem_weights, cluster, want):
+    """A block's shared memory, reckoned by hand from the kernel's layout:
+    4 x ((nz + ndf) slice_ld(ndf / cluster) with the weights on chip, plus
+    8 chains x (2 nz + 2 ndf + 2 pad4(J) + 2 J)); the on-chip variants fit
+    where it is within SMEM_LIMIT."""
+    assert k1.smem_bytes(nz, ndf, smem_weights, cluster) == want
+    if smem_weights:
+        assert k1.fits_smem(nz, ndf, cluster) == (want <= k1.SMEM_LIMIT)
+
+
+@pytest.mark.parametrize("ndf", [376, 504, 512, 536])
+def test_cluster_of_8_holds_every_hidden_column_once(ndf):
+    """Over a cluster of 8 the blocks hold every hidden column exactly
+    once, ndf / 8 each, a split fixed by ndf and the cluster, which the
+    widths fix; the slices' row stride is a multiple of 4 with an odd
+    quarter and holds the slice."""
+    ranges = k1.column_ranges(ndf, 8)
+    assert len(ranges) == 8 and [j for a, e in ranges for j in range(a, e)] == list(range(ndf))
+    ld = k1.slice_ld(ndf // 8)
+    assert ld >= ndf // 8 and ld % 4 == 0 and (ld // 4) % 2 == 1
+
+
+@pytest.mark.parametrize("nz, ndf, count", [(128, 200, ""), (128, 512, "c8"), (128, 1024, "l2")])
+def test_each_variant_counts_its_launches(nz, ndf, count):
+    """Each variant the route takes has its own count object (`launches`,
+    and `bf16.launches` for its bf16-dot variant): the presets' cluster of
+    4 counts in `fused_prior_langevin`, a cluster of 8 in `.c8`, the L2
+    variant in `.l2`."""
+    want = getattr(k1.fused_prior_langevin, count) if count else k1.fused_prior_langevin
+    got = k1.launch_count(k1.launch_widths(nz, ndf))
+    assert got is want and hasattr(got, "launches") and hasattr(got.bf16, "launches")
 
 
 def _weights(nz, ndf, seed):
@@ -126,11 +183,13 @@ NOISE = {"stream": dict(seed=-987), "counter": dict(row_seeds=torch.tensor([3, -
 
 @pytest.mark.parametrize("dots", ["float32", "bfloat16"])
 @pytest.mark.parametrize("mode", list(NOISE))
-@pytest.mark.parametrize("nz, ndf", [(10, 200), (7, 10), (128, 510), (10, 512)])
+@pytest.mark.parametrize("nz, ndf", [(10, 200), (7, 10), (128, 510), (10, 512), (128, 500), (128, 1020)])
 def test_padded_chain_is_the_unpadded_chain(nz, ndf, mode, dots):
     """The chain on `pad_widths`' inputs, at the widths `launch_widths`
-    gives, is the unpadded chain in its first nz columns, in every noise
-    mode and dot precision: a zero weight adds exact zeros, a padded
+    gives (ndf to a multiple of 4 or, over a cluster of 8, of 8: (128, 500)
+    to 504; of 16 for the L2 variant: (128, 1020) to 1024), is the
+    unpadded chain in its first nz columns, in every noise mode and dot
+    precision: a zero weight adds exact zeros, a padded
     hidden unit's pre-activation is 0 and feeds nothing, and a column's
     noise depends on its index alone. Where only nz is padded the products
     are the same sums, so the two agree bit for bit; where ndf is padded
@@ -138,7 +197,7 @@ def test_padded_chain_is_the_unpadded_chain(nz, ndf, mode, dots):
     float32 rounding over 6 steps (1e-6; bf16 operands 1e-5, where a
     one-ulp sum can flip an operand's rounding)."""
     w, z = _weights(nz, ndf, nz + ndf)
-    nz_p, ndf_p, _ = k1.launch_widths(nz, ndf)
+    nz_p, ndf_p = k1.launch_widths(nz, ndf)[:2]
     kw = dict(steps=6, step_size=0.4, dots_dtype=dots, **NOISE[mode])
     want = k1.prior_langevin_plain(z, *w, **kw)
     padded = k1.pad_widths(z, *w, nz_p, ndf_p)
@@ -148,6 +207,22 @@ def test_padded_chain_is_the_unpadded_chain(nz, ndf, mode, dots):
         assert torch.equal(got, want)
     else:
         torch.testing.assert_close(got, want, rtol=0, atol=1e-5 if dots == "bfloat16" else 1e-6)
+
+
+@pytest.mark.parametrize("mode", list(NOISE))
+def test_plain_bf16_chain_runs_in_float64(mode):
+    """With bf16 dots a float64 z and float64 weights run the plain chain in
+    float64, operands rounded to bf16 where the kernel rounds them (the
+    reference chip_smoke holds K1's bf16-dot variants to); a float32 chain
+    is what it was, operands rounded and held in float32."""
+    w, z = _weights(12, 64, 7)
+    kw = dict(steps=6, step_size=0.4, dots_dtype="bfloat16", **NOISE[mode])
+    ref = k1.prior_langevin_plain(z.double(), *[t.double() for t in w], **kw)
+    got = k1.prior_langevin_plain(z, *w, **kw)
+    assert ref.dtype == torch.float64 and got.dtype == torch.float32
+    assert k1._bf16_operand(z).dtype == torch.float32
+    assert torch.equal(k1._bf16_operand(z), z.to(torch.bfloat16).float())
+    torch.testing.assert_close(got.double(), ref, rtol=0, atol=1e-5)
 
 
 @pytest.mark.parametrize("name, widths", [("cifar10", "nz10"), ("cifar10", "ndf512"), ("mnist_anomaly", "nz10")],
