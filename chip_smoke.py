@@ -16,11 +16,14 @@ Phases, each of which raises on failure (the script then exits non-zero):
      their bounds; then, in counter mode, rows 0, 7, 250 and 499 of a B=500
      launch of each kernel must equal, bit for bit, the same rows launched
      alone and inside batches of 16, 64, 80 and 128 (every K2 row tile the
-     main path runs); K1's bf16-dot variant against its plain bf16 version
-     at B=256 and B=500 (nz=128), B=128 (nz=8), B=256 (nz=100) and B=256
-     at ndf=512 (K1_c8) and ndf=1024 (K1_l2): 6 noiseless steps
-     pointwise, the 60-step stream chain in moments, apart from the
-     float32 variant, and timed beside it;
+     main path runs); K1's bf16-dot variants against their plain bf16
+     version at B=256 and B=500 (nz=128), B=128 (nz=8), B=256 (nz=100) on
+     the tensor cores in one block (K1_tc), and at B=256 at ndf=512 and
+     ndf=640 (K1_tc over clusters of 4 and 8) and ndf=1024 (K1_l2): 6
+     noiseless steps pointwise, the 60-step stream chain in moments, apart
+     from the float32 variant, and timed beside it; K1_tc's rows of a B=500
+     counter launch bit for bit as alone and in batches of 16 and 128, and
+     each of two ranks' stream rows at their row_base (K4a) as that launch's;
   4. serves the full-width `cifar10` preset (random weights from a seed) over
      HTTP: /sample damc and ebm and /reconstruct, some requests concurrent;
      checks shapes, range, that an item served alone equals the same item
@@ -72,10 +75,10 @@ Phases, each of which raises on failure (the script then exits non-zero):
      gradients and parameters;
   7. profiles one training iteration (device busy and idle time, the seven
      phases, top kernels); then phases 6 and 7 again with compute_dtype and
-     pallas_dots_dtype "bfloat16" (K1's bf16 variant once an iteration, its
-     float32 variant never; the card-vs-CPU iteration at bf16 limits), and
-     the serving of phase 4 with a bf16 G and encoder (K1 in float32),
-     and one bf16 FID batch of each prior at B=500 (K1's bf16 variant
+     pallas_dots_dtype "bfloat16" (K1's tensor-core variant, K1_tc, once an
+     iteration, every other K1 variant never; the card-vs-CPU iteration at
+     bf16 limits), and the serving of phase 4 with a bf16 G and encoder (K1
+     in float32), and one bf16 FID batch of each prior at B=500 (K1_tc
      once for the EBM prior); the analytic FLOPs of one cifar10 iteration
      at B=128 (`utils/flops.py::train_step_flops`) over the float32 and
      bf16 medians, as shares of the card's fp32 and bf16 peaks;
@@ -88,9 +91,10 @@ Phases, each of which raises on failure (the script then exits non-zero):
      against their plain versions (K1 against float64); with ndf=1024
      (weights read from L2: the K1_l2 variant) no training, K1 alone over
      2B=256 chains against float64; at ndf=512 also
-     K1_c8 with bf16 dots against float64 in stream (B=256) and counter
-     (B=16) mode, and its rows of a B=500 launch bit for bit those of the
-     row alone and in batches of 16 and 128; each iteration launches K1
+     K1 with bf16 dots (K1_tc over a cluster of 4) against float64 in
+     stream (B=256) and counter (B=16) mode, and K1_c8's rows of a B=500
+     launch bit for bit those of the row alone and in batches of 16 and
+     128; each iteration launches K1
      once in the variant the widths take and K2 once; finite metrics, G, E
      and Q changed, each iteration's ms beside the card's name and power
      limit; then, at each of the three widths, K1 on the EBM-prior FID
@@ -116,7 +120,7 @@ Phases, each of which raises on failure (the script then exits non-zero):
      fresh state, equal to the state in memory, and steps both, bit for
      bit; scores ckpt/best once through the eval CLI (K1 100 steps at 1.6,
      K2 at B=500; its rerun cut for time: phase 7b reruns an EBM-prior FID
-     batch and phase 12 the anomaly eval CLI);
+     batch);
  10. runs pool3 InceptionV3 (random weights) on the card against the CPU on
      2 images, then times it at B=500 with its peak memory;
  11. times the eval's parts (a FID batch of each prior: sampling, features,
@@ -130,7 +134,7 @@ Phases, each of which raises on failure (the script then exits non-zero):
      test split cut to 4,000 images through its cache file), trains 6
      iterations through `cli.train_anomaly_det` with an AUPRC eval and
      checkpoints every 3, resumes to 7 in the same directory, and scores
-     ckpt/best twice through `cli.eval_anomaly_det` (identical AUPRCs);
+     ckpt/best once through `cli.eval_anomaly_det` (its rerun cut for time);
      checks rows, checkpoints, K1 and K2 once an iteration and K2 once an
      eval batch; profiles one iteration as phase 7 does;
  13. toy workload (`toy`, nz=2, B=500): K2 at the toy's widths in stream,
@@ -203,8 +207,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
      (items 4b, 4c): an LMDB of 64 seeded JPEGs up to 256x340, and one of
      64 lossy and lossless WebPs, each read through `LSUNImages` bit-equal
      to PIL's decode, crop and LANCZOS, with the read rate, and the eval
-     CLI with --dataset lsun_tower over one batch of 8 of each (the WebPs'
-     with the bf16 refine);
+     CLI with --dataset lsun_tower over one batch of 8 of each at 10
+     refine steps (the WebPs' with the bf16 refine);
   19b. data parallelism (`dp_phase`, after the stylegan phase, whose
      files it reuses): two ranks of a torch.distributed group share the
      card over gloo, each a process started with torchrun's environment,
@@ -242,8 +246,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
      ndf=512 service (K1_c8), train, train_nz10, train_ndf512 (K1_c8),
      eval_nz10, eval_ndf512 (K1_c8) and eval_ndf1024 (K1_l2): phase 7b's
      runs, eval, anomaly, anomaly_eval:
-     the train CLI's AUPRC evals, anomaly_eval_cli: the eval CLI's two
-     runs, toy, svhn: the train CLI run, svhn_eval: the eval CLI run,
+     the train CLI's AUPRC evals, anomaly_eval_cli: the eval CLI's run,
+     toy, svhn: the train CLI run, svhn_eval: the eval CLI run,
      svhn_serve: the served checkpoint, celeba64: both train CLI runs,
      celeba64_4c: the train CLI run over the mixed tree of item 4c,
      train_dp rank 0 and rank 1: each rank's launches of K4a and K4b in
@@ -253,7 +257,7 @@ Phases, each of which raises on failure (the script then exits non-zero):
      0's K4b launches in the two-rank eval CLI, serve_mesh: the
      two-replica service's K1 and K2 launches over its HTTP requests,
      celebaHQ: the train CLI run, train_bf16: the bf16 training run,
-     eval_bf16: the bf16 EBM-prior FID batch);
+     eval_bf16: the bf16 EBM-prior FID batch, both K1_tc);
  21. prints {"ok": true, "device": {...}} as the last line.
 """
 
@@ -273,6 +277,10 @@ import numpy as np
 
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3 bandwidth
 SEED = 0
+# Timed calls of a kernel's plain version (its `plain_ms`), after the run of
+# its check: the plain versions repeat the kernels' arithmetic in 80 to 500
+# ms a call, 84 of them, so more calls would cost minutes of the time limit.
+PLAIN_REPS = 1
 
 
 def card_line() -> str:
@@ -413,7 +421,7 @@ def chain_check(ebm_w, z, noise, steps, step_size, label, against_fp64=False, do
     flops, nbytes = langevin_cost(b, nz, ebm_w[0].shape[1], steps, weight_bytes=2 if bf16 else 4)
     r = dict(b=b, max_abs_err=err, flops=flops, bytes=nbytes, peak=peak_rate(dots_dtype),
              ms=time_ms(lambda: fused_prior_langevin(z, *ebm_w, **noise, **kw), 20),
-             plain_ms=time_ms(lambda: prior_langevin_plain(z, *ebm_w, **noise, **kw), 3, warmup=1))
+             plain_ms=time_ms(lambda: prior_langevin_plain(z, *ebm_w, **noise, **kw), PLAIN_REPS, warmup=0))
     report(label, r)
     return r
 
@@ -506,8 +514,8 @@ def sweep_check(models, cfg, z, xemb, noise, label, subs=(), full=True):
         flops, nbytes = sweep_cost(b, fourier, layers, n)
         r.update(flops=flops, bytes=nbytes,
                  ms=time_ms(lambda: fused_reverse_sweep(*a, steps=n, residual=d.residual, **kw), 10),
-                 plain_ms=time_ms(lambda: reverse_sweep_plain(*a, steps=n, residual=d.residual, **kw), 2,
-                                  warmup=1))
+                 plain_ms=time_ms(lambda: reverse_sweep_plain(*a, steps=n, residual=d.residual, **kw), PLAIN_REPS,
+                                  warmup=0))
         report(label, r)
     return res
 
@@ -678,33 +686,45 @@ K1_BF16_ATOL = 2e-5
 K1_BF16_APART = 20
 K1_BF16_MOMENTS = 0.1  # share of the plain version's mean per-dimension std
 K1_BF16_SHAPES = (  # (label, preset, its widths changed, B, steps, step size)
-    ("train", "cifar10", {}, 256, 60, 0.4),  # the 2B prior chains of cifar10 training
+    ("train", "cifar10", {}, 256, 60, 0.4),  # the 2B prior chains of cifar10 training (tensor cores, 1 block)
     ("eval", "cifar10", {}, 500, 60, 0.4),  # the training loop's EBM-prior FID batch
-    ("anomaly", "mnist_anomaly", {}, 128, 60, 0.4),  # the single chains at nz=8
-    ("svhn", "svhn", {}, 256, 60, 0.4),  # nz=100
-    ("train_ndf512", "cifar10", {"ndf": 512}, 256, 60, 0.4),  # the variant over a cluster of 8
+    ("anomaly", "mnist_anomaly", {}, 128, 60, 0.4),  # the single chains at nz=8 (padded to 16)
+    ("svhn", "svhn", {}, 256, 60, 0.4),  # nz=100 (padded to 112)
+    ("train_ndf512", "cifar10", {"ndf": 512}, 256, 60, 0.4),  # tensor cores over a cluster of 4
     ("train_ndf1024", "cifar10", {"ndf": 1024}, 256, 60, 0.4),  # the variant that reads L2
 )
+# The tensor-core variant over a cluster of 8 (ndf 513 to 640 at nz=128),
+# held against its float64 plain version as the other width checks are
+# (`chain_check`'s `against_fp64`): at ndf=640 the float32 plain version's
+# own rounding flips an operand where the kernel's does not.
+K1_TC_C8_NDF = 640
+K1_ROW_BATCHES = (16, 128)  # the serving and training shapes
+K1_TC_RANKS = 2  # K4a's split of the B=500 stream launch in the rows check
 
 
 def k1_bf16_phase():
-    """K1's bf16-dot variant against its plain bf16 version on the card at
-    the shapes of K1_BF16_SHAPES, on each preset's random EBM from the seed
-    (at ndf=512 the variant over a cluster of 8, at ndf=1024 the one that
-    reads the weights from L2):
+    """K1's bf16-dot variants against their plain bf16 version on the card
+    at the shapes of K1_BF16_SHAPES, on each preset's random EBM from the
+    seed (the tensor-core variant, K1_tc, in one block at the presets'
+    widths and over a cluster of 4 at ndf=512; at ndf=1024 the variant
+    that reads the weights from L2), each shape launching the variant
+    `launch_widths` names:
     6 noiseless steps pointwise (K1_BF16_ATOL), the full stream-noise chain
     in per-dimension mean and std over the batch (K1_BF16_MOMENTS) and
     equal, bit for bit, to counter mode on stream_row_seeds; the float32
     variant's output on the same 6 steps must lie at least K1_BF16_APART
     times the kernel's error from it (the variant rounds as its plain
     version does). Then the bf16 kernel, its plain
-    version and the float32 kernel are timed on the full chain."""
+    version and the float32 kernel are timed on the full chain. Then
+    K1_tc over a cluster of 8 (ndf=K1_TC_C8_NDF) against float64 in stream
+    mode at B=256 and counter mode at B=16, and `k1_tc_rows_check` on the
+    cifar10 EBM. Returns ({label: check}, {hold label: check})."""
     import torch
 
     from damc_tpu_torch.config import preset
     from damc_tpu_torch.models import build_models
     from damc_tpu_torch.ops.cuda.fused_langevin import (
-        ebm_params_to_dense_weights, fused_prior_langevin, prior_langevin_plain,
+        ebm_params_to_dense_weights, fused_prior_langevin, launch_count, launch_widths, prior_langevin_plain,
     )
 
     gen = torch.Generator(device="cpu").manual_seed(SEED + 5)
@@ -721,7 +741,12 @@ def k1_bf16_phase():
         z = torch.randn(b, nz, generator=gen).cuda()
         bf = dict(dots_dtype="bfloat16")
         short = dict(steps=6, step_size=step_size, with_noise=False)
+        variant, count = k1_key(nz, ndf, "bfloat16"), launch_count(launch_widths(nz, ndf, "bfloat16"))
+        before = count.launches
         got6 = fused_prior_langevin(z, *w, **short, **bf)
+        print(f"  K1 bf16 {label}: nz={nz}, ndf={ndf} launch as {variant} at {launch_widths(nz, ndf, 'bfloat16')}")
+        if count.launches != before + 1:
+            raise AssertionError(f"K1 bf16 {label}: the launch did not count in {variant}")
         fp32_6 = fused_prior_langevin(z, *w, **short)
         err6 = check_close(f"K1 bf16 {label} B={b} nz={nz}, 6 noiseless steps", got6,
                            prior_langevin_plain(z, *w, **short, **bf), atol=K1_BF16_ATOL)
@@ -749,15 +774,64 @@ def k1_bf16_phase():
             raise AssertionError(f"K1 bf16 {label}: moments of the chain differ from the plain version's")
         flops, nbytes = langevin_cost(b, nz, ndf, steps, weight_bytes=2)
         fp32_kw = dict(steps=steps, step_size=step_size, seed=seed)
-        r = dict(b=b, nz=nz, steps=steps, max_abs_err=err, max_abs_err_6_noiseless=err6, apart_from_fp32=apart,
-                 moment_err=mom, flops=flops, bytes=nbytes, peak=peak_rate("bfloat16"),
+        r = dict(b=b, nz=nz, ndf=ndf, variant=variant, steps=steps, max_abs_err=err, max_abs_err_6_noiseless=err6,
+                 apart_from_fp32=apart, moment_err=mom, flops=flops, bytes=nbytes, peak=peak_rate("bfloat16"),
                  ms=time_ms(lambda: fused_prior_langevin(z, *w, **kw), 20),
-                 plain_ms=time_ms(lambda: prior_langevin_plain(z, *w, **kw), 3, warmup=1),
+                 plain_ms=time_ms(lambda: prior_langevin_plain(z, *w, **kw), PLAIN_REPS, warmup=0),
                  fp32_kernel_ms=time_ms(lambda: fused_prior_langevin(z, *w, **fp32_kw), 20))
-        report(f"K1 bf16 {label}", r)
+        report(f"K1 bf16 {label} ({variant})", r)
         print(f"  K1 float32 variant, same shape: {r['fp32_kernel_ms']:.4f} ms")
         res[label] = r
-    return res
+    cfg = preset("cifar10")
+    cfg = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, ndf=K1_TC_C8_NDF))
+    w = ebm_params_to_dense_weights(build_models(cfg, seed=SEED, device="cuda").ebm)
+    if k1_key(cfg.model.nz, K1_TC_C8_NDF, "bfloat16") != "K1_tc" or launch_widths(
+            cfg.model.nz, K1_TC_C8_NDF, "bfloat16").cluster != 8:
+        raise AssertionError(f"ndf={K1_TC_C8_NDF} does not take the tensor-core variant over a cluster of 8")
+    holds = {}
+    for label, b in (("stream", 256), ("counter", 16)):
+        z = torch.randn(b, cfg.model.nz, generator=gen).cuda()
+        noise = (dict(seed=-86420) if label == "stream" else
+                 dict(row_seeds=torch.randint(0, 2**31 - 1, (b,), generator=gen, dtype=torch.int32).cuda()))
+        holds[f"{label} ndf{K1_TC_C8_NDF}"] = chain_check(
+            w, z, noise, 60, 0.4, f"K1_tc (cluster of 8) {label} bf16 ndf{K1_TC_C8_NDF}", against_fp64=True,
+            dots_dtype="bfloat16")
+    k1_tc_rows_check(weights["cifar10", "{}"], gen)
+    return res, holds
+
+
+def k1_tc_rows_check(w, gen):
+    """The tensor-core variant's rows are functions of their own inputs: in
+    counter mode (60 steps at 0.4), rows ROW_PICKS of a B=500 launch equal,
+    bit for bit, the same rows launched alone and in batches of
+    K1_ROW_BATCHES; in stream mode, each of K1_TC_RANKS ranks' rows of
+    the B=500 launch launched on their own with `row_base` (what K4a
+    launches) equal that launch's rows, and so does
+    `fused_prior_langevin_sharded` on a mesh of one."""
+    import torch
+
+    from damc_tpu_torch.ops.cuda.fused_langevin import (
+        fused_prior_langevin, fused_prior_langevin_sharded, launch_widths,
+    )
+
+    nz, ndf = w[0].shape
+    if not launch_widths(nz, ndf, "bfloat16").mma:
+        raise AssertionError("the rows check is for the tensor-core variant")
+    b = 500
+    z = torch.randn(b, nz, generator=gen).cuda()
+    seeds = torch.randint(0, 2**31 - 1, (b,), generator=gen, dtype=torch.int32).cuda()
+    kw = dict(steps=60, step_size=0.4, dots_dtype="bfloat16")
+    rows_check("K1_tc", lambda idx: fused_prior_langevin(z[idx], *w, row_seeds=seeds[idx], **kw), b,
+               K1_ROW_BATCHES)
+    full = fused_prior_langevin(z, *w, seed=-24680, **kw)
+    local = -(-b // K1_TC_RANKS)
+    same = [torch.equal(full[r * local:(r + 1) * local], fused_prior_langevin(
+        z[r * local:(r + 1) * local], *w, seed=-24680, row_base=r * local, **kw)) for r in range(K1_TC_RANKS)]
+    same.append(torch.equal(full, fused_prior_langevin_sharded(None, z, *w, seed=-24680, **kw)))
+    print(f"[rows] K1_tc stream B={b}: each of {K1_TC_RANKS} ranks' rows at their row_base equal the launch's: "
+          f"{same[:-1]}; sharded on no mesh: {same[-1]}")
+    if not all(same):
+        raise AssertionError("K1_tc: a rank's stream rows differ from the one launch's")
 
 
 def _post(url, payload):
@@ -869,7 +943,8 @@ def serving_phase(models, cfg, counters, cpu_atol=1e-3, tag="serve"):
     total = {name: k.launches for name, k in counters.items()}
     if launches["damc"]["K2"] < 1 or launches["recon"]["K2"] < 1 or launches["ebm"]["K1"] < 1:
         raise AssertionError(f"a path did not launch its kernel: {launches}")
-    if launches["damc"]["K1"] or launches["ebm"]["K2"] or any(l.get("K1_bf16") for l in launches.values()):
+    if launches["damc"]["K1"] or launches["ebm"]["K2"] or any(
+            l.get("K1_tc") or l.get("K1_l2_bf16") for l in launches.values()):
         raise AssertionError(f"a path launched a kernel it should not: {launches}")
     for path, s in stats.items():
         print(f"[{tag}] {path}: p50 {s['latency_p50_ms']:.3f} ms, p99 {s['latency_p99_ms']:.3f} ms, "
@@ -892,16 +967,18 @@ def bf16_fid_batch_phase(models, cfg, counters):
     """One EBM-prior FID batch (B=500, the loop eval's 60-step chain) and one
     DAMC-prior batch with compute_dtype and pallas_dots_dtype bf16, through
     `train.gen_recon.make_fid_batch_fn`, counts at 0 before each: the EBM
-    batch launches K1's bf16 variant once and nothing else, the DAMC batch
-    K2 once; the images are bf16 in [0, 1]. Returns the EBM batch's
-    launches and both batches' ms (CUDA events, after one warm-up each)."""
+    batch launches K1's tensor-core variant (K1_tc) once and nothing else,
+    the DAMC batch K2 once and nothing else; the images are bf16 in [0, 1].
+    Returns the EBM batch's launches and both batches' ms (CUDA events,
+    after one warm-up each)."""
     import torch
 
     from damc_tpu_torch.train.gen_recon import make_draws_fn, make_fid_batch_fn
 
     draws = make_draws_fn(SEED, "fid_ebm", 0, cfg.model.nz, "cuda")(0, 500)
     out = {}
-    for prior, want in (("ebm", {"K1": 0, "K2": 0, "K1_bf16": 1}), ("damc", {"K1": 0, "K2": 1, "K1_bf16": 0})):
+    for prior, launched in (("ebm", "K1_tc"), ("damc", "K2")):
+        want = {**{name: 0 for name in counters}, launched: 1}
         fn = make_fid_batch_fn(models, cfg, prior)
         for k in counters.values():
             k.launches = 0
@@ -1353,8 +1430,8 @@ def serve_unfused_phase(models, cfg, counters, fused_latency):
     finite = all(np.isfinite(v).all() for v in ans512.values())
     print(f"[serve_unfused] cifar10 ndf=512 under auto: the kernels, dispatches {batches}, launches {launches}, "
           f"finite {finite}; {card_line()}: HTTP round trip ms " + json.dumps(lat512))
-    want = {p: {"K1": 0, "K2": 0 if p == "ebm" else batches[p], "K1_c8": batches[p] if p == "ebm" else 0,
-                "K1_l2": 0} for p in batches}
+    want = {p: {**{name: 0 for name in counters512}, "K2": 0 if p == "ebm" else batches[p],
+                "K1_c8": batches[p] if p == "ebm" else 0} for p in batches}
     if not finite or launches != want:
         raise AssertionError(f"the ndf=512 model must serve finite images with launches {want}")
     r = chain_check(ebm_params_to_dense_weights(models512.ebm), draws.z_init, dict(row_seeds=draws.chain_seed),
@@ -1720,31 +1797,34 @@ def rerun_phase(cfg, tag="train"):
 # training run left out)
 K1_WIDTH_RUNS = (("nz10", {"nz": 10}, 3), ("ndf512", {"ndf": 512}, 1), ("ndf1024", {"ndf": 1024}, 0))
 K1_WIDTH_FID_B = 500  # the EBM-prior FID batch
-K1_C8_ROW_BATCHES = (16, 128)  # the serving and training shapes
 
 
 def k1_variant_counters():
-    """The count objects of K1's variants beside the presets' (`K1`): over
-    a cluster of 8, and reading the weights from L2."""
+    """The count objects of K1's variants beside the presets' fp32 one
+    (`K1`): fp32 over a cluster of 8, bf16 dots on the tensor cores, and
+    reading the weights from L2 with fp32 and with bf16 dots."""
     from damc_tpu_torch.ops.cuda.fused_langevin import fused_prior_langevin
 
-    return {"K1_c8": fused_prior_langevin.c8, "K1_l2": fused_prior_langevin.l2}
+    return {"K1_c8": fused_prior_langevin.c8, "K1_tc": fused_prior_langevin.tc, "K1_l2": fused_prior_langevin.l2,
+            "K1_l2_bf16": fused_prior_langevin.l2.bf16}
 
 
-def k1_key(nz, ndf):
-    """The counter key of the K1 variant `launch_widths` takes for (nz, ndf),
-    by the wrapper's own count object for it (`launch_count`)."""
+def k1_key(nz, ndf, dots_dtype="float32"):
+    """The counter key of the K1 variant `launch_widths` takes for (nz, ndf)
+    and `dots_dtype`, by the wrapper's own count object for it
+    (`launch_count`)."""
     from damc_tpu_torch.ops.cuda.fused_langevin import fused_prior_langevin, launch_count, launch_widths
 
-    count = launch_count(launch_widths(nz, ndf))
+    count = launch_count(launch_widths(nz, ndf, dots_dtype))
     return next(k for k, c in {"K1": fused_prior_langevin, **k1_variant_counters()}.items() if c is count)
 
 
 def k1_c8_holds(ebm_w, mc, gen):
-    """K1_c8 (ndf=512) with bf16 dots, which no path runs, beside the fp32
-    checks of the training run (stream) and the service (counter): against
-    its float64 plain version in stream mode at B=256 and in counter mode
-    at B=16; then, in counter mode with fp32 dots,
+    """K1 at ndf=512 with bf16 dots (the tensor-core variant over a cluster
+    of 4, K1_tc), which no path runs, beside the fp32 checks of K1_c8 in
+    the training run (stream) and the service (counter): against its
+    float64 plain version in stream mode at B=256 and in counter mode at
+    B=16; then, in counter mode with fp32 dots (K1_c8),
     rows of a B=500 launch equal, bit for bit, the same rows launched alone
     and in batches of 16 and 128. Returns {label: check}."""
     import torch
@@ -1757,13 +1837,14 @@ def k1_c8_holds(ebm_w, mc, gen):
         z = torch.randn(b, nz, generator=gen).cuda()
         noise = (dict(seed=-97531) if label.startswith("stream") else
                  dict(row_seeds=torch.randint(0, 2**31 - 1, (b,), generator=gen, dtype=torch.int32).cuda()))
-        out[label] = chain_check(ebm_w, z, noise, mc.e_l_steps, mc.e_l_step_size, f"K1_c8 {label} ndf512",
-                                 against_fp64=True, dots_dtype=dots)
+        out[label] = chain_check(ebm_w, z, noise, mc.e_l_steps, mc.e_l_step_size,
+                                 f"{k1_key(nz, ebm_w[0].shape[1], dots)} {label} ndf512", against_fp64=True,
+                                 dots_dtype=dots)
     b = 500
     z = torch.randn(b, nz, generator=gen).cuda()
     seeds = torch.randint(0, 2**31 - 1, (b,), generator=gen, dtype=torch.int32).cuda()
     rows_check("K1_c8 ndf512", lambda idx: fused_prior_langevin(
-        z[idx], *ebm_w, row_seeds=seeds[idx], steps=mc.e_l_steps, step_size=mc.e_l_step_size), b, K1_C8_ROW_BATCHES)
+        z[idx], *ebm_w, row_seeds=seeds[idx], steps=mc.e_l_steps, step_size=mc.e_l_step_size), b, K1_ROW_BATCHES)
     return out
 
 
@@ -1822,7 +1903,7 @@ def k1_widths_phase(cfg, counters):
                 post = models.amortizer.encode(x)
             r2 = sweep_check(models, c, z2, post, dict(seed=246813579 + i), f"K2 stream {label}")[b]
             del models
-            expect = {"K1": 0, "K2": 1, "K1_c8": 0, "K1_l2": 0, key: 1}
+            expect = {**{name: 0 for name in counters}, "K2": 1, key: 1}
             state, total, median_ms = training_phase(c, counters, iterations, expect=expect,
                                                      tag=f"k1_widths {label}")
             print(f"[k1_widths] {label} ({json.dumps(widths)}, B={b}, {iterations} iterations): median ms an "
@@ -2764,22 +2845,20 @@ def anomaly_phase(cfg, counters):
                                  "directory")
         del resumed
 
-        # 3. The eval CLI on ckpt/best, twice.
+        # 3. The eval CLI on ckpt/best, once (its rerun cut for time: the
+        # data-parallel phase scores ckpt/best in one process and over two ranks).
         for k in counters.values():
             k.launches = 0
-        scores, walls = [], []
-        for _ in range(2):
-            t0 = time.perf_counter()
-            scores.append(eval_anomaly_det.main(common + ["--ckpt_dir", os.path.join(run, "ckpt")]))
-            torch.cuda.synchronize()
-            walls.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        score = eval_anomaly_det.main(common + ["--ckpt_dir", os.path.join(run, "ckpt")])
+        torch.cuda.synchronize()
+        walls = [time.perf_counter() - t0]
         cli_launches = {k: c.launches for k, c in counters.items()}
-        print(f"[anomaly] eval CLI AUPRC {scores}; identical: {scores[0] == scores[1]}; launches over both "
-              f"{cli_launches}; wall s {walls}")
-        if scores[0] != scores[1] or not 0.0 < scores[0] <= 1.0:
-            raise AssertionError("two eval CLI runs on one checkpoint printed different AUPRCs")
-        if cli_launches != {"K1": 0, "K2": 2 * n_batches}:
-            raise AssertionError(f"eval CLI launches {cli_launches}, expected K2 {2 * n_batches}")
+        print(f"[anomaly] eval CLI AUPRC {score}; launches {cli_launches}; wall s {walls}")
+        if not 0.0 < score <= 1.0:
+            raise AssertionError(f"the eval CLI printed AUPRC {score}")
+        if cli_launches != {"K1": 0, "K2": n_batches}:
+            raise AssertionError(f"eval CLI launches {cli_launches}, expected K2 {n_batches}")
         out = {
             "median_ms_per_iteration": statistics.median(ms), "ms_per_iteration": ms,
             "auprc_eval_wall_s": [e["s"] for e in evals], "eval_cli_wall_s": walls,
@@ -3898,6 +3977,10 @@ STYLEGAN_TRAIN_ITERATIONS, STYLEGAN_TIMED_BATCHES = 1, 1
 LSUN_IMAGES = 64  # the LMDB's JPEGs; the CLI scores the first batch of STYLEGAN_B
 LSUN_WEBP_IMAGES = 64  # a second LMDB of WebPs (item 4c), lossy and lossless by turns
 LSUN_SIZES = ((256, 340), (340, 256), (256, 256), (200, 300), (300, 200), (180, 240), (128, 170), (96, 96))
+# The LSUN eval CLI batches hold the reader, the CLI's dataset path and
+# finite numbers, not the refine's outcome (the FFHQ runs hold that at the
+# preset's 100 steps): their Adam refine takes 10 steps, cut for time.
+LSUN_REFINE_STEPS = 10
 
 
 def _lsun_db(root: str, n: int, seed: int, fmt: str) -> dict:
@@ -3965,7 +4048,8 @@ def _lsun_check(root: str, items: dict, argv, counters, sweeps, tag: str) -> dic
     n_sweeps = len(sweeps)
     t0 = time.perf_counter()
     out = eval_stylegan_inv.main(argv + ["--dataset", "lsun_tower", "--data_path", root, "--lsun_classes",
-                                         "tower_val", "--limit", str(STYLEGAN_B), "--n_fid_samples", str(STYLEGAN_B)])
+                                         "tower_val", "--limit", str(STYLEGAN_B), "--n_fid_samples", str(STYLEGAN_B),
+                                         "--g_l_steps", str(LSUN_REFINE_STEPS)])
     cli_s = time.perf_counter() - t0
     launches = {k: c.launches for k, c in counters.items()}
     res = {"images": n, "sizes": LSUN_SIZES, "lmdb_bytes": os.path.getsize(
@@ -3988,8 +4072,9 @@ def lsun_phase(tmp, argv, counters, sweeps):
     JPEGs of sizes up to 256x340, and one of LSUN_WEBP_IMAGES WebPs (lossy
     and lossless), each written by PIL and checked by `_lsun_check` (the
     read against PIL's transform, then one eval CLI batch of STYLEGAN_B
-    from the StyleGAN phase's weights and checkpoint: in float32 for the
-    JPEGs, with the bf16 refine for the WebPs)."""
+    from the StyleGAN phase's weights and checkpoint, LSUN_REFINE_STEPS
+    refine steps: in float32 for the JPEGs, with the bf16 refine for the
+    WebPs)."""
     import os
 
     out = {}
@@ -4909,7 +4994,7 @@ def main() -> int:
     res = kernel_phase(models, cfg)
     res_stream = stream_kernel_phase(models, cfg)
     lap("kernels")
-    res_bf16 = k1_bf16_phase()
+    res_bf16, k1_tc_holds = k1_bf16_phase()
     lap("k1_bf16")
     row_independence_phase(models, cfg)
     counters = {"K1": fused_prior_langevin, "K2": fused_reverse_sweep}
@@ -4934,12 +5019,13 @@ def main() -> int:
     lap("train_profile")
     k1_widths, k1_c8_holds_res = k1_widths_phase(cfg, counters)
     lap("k1_widths")
-    # The bfloat16 mode: G and the encoder in bf16, K1's bf16-dot variant.
+    # The bfloat16 mode: G and the encoder in bf16, K1's bf16-dot variant on
+    # the tensor cores (K1_tc) and no other K1 variant.
     cfg_bf16 = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, compute_dtype="bfloat16"),
                                    train=dataclasses.replace(cfg.train, pallas_dots_dtype="bfloat16"))
-    counters16 = {**counters, "K1_bf16": fused_prior_langevin.bf16}
+    counters16 = {**counters, **k1_variant_counters()}
     state, total_train16, train16_ms = training_phase(
-        cfg_bf16, counters16, expect={"K1": 0, "K2": 1, "K1_bf16": 1}, tag="train_bf16")
+        cfg_bf16, counters16, expect={**{name: 0 for name in counters16}, "K2": 1, "K1_tc": 1}, tag="train_bf16")
     rerun_phase(cfg_bf16, tag="train_bf16")
     lap("train_bf16")
     gpu_cpu_phase(cfg_bf16, BF16_LIMITS, tag="train_bf16", control=BF16_CONTROL)
@@ -5048,10 +5134,11 @@ def main() -> int:
         ("celebaHQ", "stream", "K1", res_hq["K1"], hq_info["launches"]["K1"]),
         ("celebaHQ", "stream", "K2", res_hq["K2"], hq_info["launches"]["K2"]),
         # cifar10 with compute_dtype and pallas_dots_dtype bfloat16: K1's bf16-dot
-        # variant over 2B=256 chains (K1's float32 variant launched 0 times), K2 B=128.
-        ("train_bf16", "stream", "K1_bf16", res_bf16["train"], total_train16["K1_bf16"]),
+        # variant on the tensor cores over 2B=256 chains (every other K1 variant
+        # launched 0 times), K2 B=128.
+        ("train_bf16", "stream", "K1_tc", res_bf16["train"], total_train16["K1_tc"]),
         # The EBM-prior FID batch in bf16 (B=500, 60 steps at 0.4).
-        ("eval_bf16", "stream", "K1_bf16", res_bf16["eval"], fid16["ebm"]["launches"]["K1_bf16"]),
+        ("eval_bf16", "stream", "K1_tc", res_bf16["eval"], fid16["ebm"]["launches"]["K1_tc"]),
         ("train_bf16", "stream", "K2", res_stream["K2"], total_train16["K2"]),
     ]
     if total_train16["K1"]:
@@ -5060,8 +5147,8 @@ def main() -> int:
                      "damc_tpu/ops/pallas/fused_langevin.py:311")
     meta["K1_l2"] = ("fused_prior_langevin_l2", "damc_tpu_torch/csrc/fused_langevin.cu",
                      "damc_tpu/ops/pallas/fused_langevin.py:311")
-    meta["K1_bf16"] = ("fused_prior_langevin_bf16", "damc_tpu_torch/csrc/fused_langevin.cu",
-                       "damc_tpu/ops/pallas/fused_langevin.py:311")
+    meta["K1_tc"] = ("fused_prior_langevin_tc", "damc_tpu_torch/csrc/fused_langevin.cu",
+                     "damc_tpu/ops/pallas/fused_langevin.py:311")
     # The data-parallel run: each rank's own launches (K1 on its 128 of the
     # 2B=256 chains, K2 on its 64 of B=128 rows) and its whole run's count.
     meta["K4a"] = ("fused_prior_langevin_sharded", "damc_tpu_torch/csrc/fused_langevin.cu",
@@ -5096,13 +5183,17 @@ def main() -> int:
         })
     for label, r in res_bf16.items():
         b_ms, by = bound(r["flops"], r["bytes"], peak_rate("bfloat16"))
-        print(f"[kernels] fused_prior_langevin_bf16 {label} stream B={r['b']} nz={r['nz']}: ms={r['ms']} "
+        print(f"[kernels] {r['variant']} bf16 {label} stream B={r['b']} nz={r['nz']} ndf={r['ndf']}: ms={r['ms']} "
               f"plain_ms={r['plain_ms']} fp32_kernel_ms={r['fp32_kernel_ms']} bound_ms={b_ms} ({by}) "
               f"flops={r['flops']} bytes={r['bytes']} max_abs_err={r['max_abs_err']} "
               f"max_abs_err_6_noiseless={r['max_abs_err_6_noiseless']}")
+    for label, r in k1_tc_holds.items():
+        b_ms, by = bound(r["flops"], r["bytes"], r["peak"])
+        print(f"[kernels] K1_tc {label} B={r['b']} (held, on no path): ms={r['ms']} plain_ms={r['plain_ms']} "
+              f"bound_ms={b_ms} ({by}) flops={r['flops']} bytes={r['bytes']} max_abs_err={r['max_abs_err']}")
     for label, r in k1_c8_holds_res.items():
         b_ms, by = bound(r["flops"], r["bytes"], r["peak"])
-        print(f"[kernels] fused_prior_langevin_c8 ndf512 {label} B={r['b']} (held, on no path): ms={r['ms']} "
+        print(f"[kernels] K1_tc ndf512 {label} B={r['b']} (held, on no path): ms={r['ms']} "
               f"plain_ms={r['plain_ms']} bound_ms={b_ms} ({by}) flops={r['flops']} bytes={r['bytes']} "
               f"max_abs_err={r['max_abs_err']}")
     for key in ("K1", "K2"):

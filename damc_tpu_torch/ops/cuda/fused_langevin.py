@@ -1,30 +1,40 @@
 """K1: the K-step prior-Langevin chain — wrapper, plain version, fit rule.
 
 Counterpart of `damc_tpu/ops/pallas/fused_langevin.py`
-(`fused_prior_langevin`, `ebm_params_to_dense_weights`). The kernel is
-`damc_tpu_torch/csrc/fused_langevin.cu`; its source note gives the design.
+(`fused_prior_langevin`, `ebm_params_to_dense_weights`). The kernels are
+in `damc_tpu_torch/csrc/fused_langevin.cu`; its source notes give the
+designs.
 
 `fused_prior_langevin` calls the custom op `torch.ops.damc.fused_prior_langevin`,
 which runs the plain PyTorch version for tensors on the CPU and launches
 the kernel for tensors on a CUDA device; anything else, or a failed build
 or launch, raises. A fake implementation gives the output's shape, so
-`make_fx` and `torch.export` record the whole chain as one node. `fused_prior_langevin.launches` counts the
-launches of the fp32-dot variant over a cluster of 4; the bf16-dot variant
-has a count object of its own, `fused_prior_langevin.bf16`, whose
-`launches` counts its. The variants over a cluster of 8 count in
-`fused_prior_langevin.c8` (fp32 dots) and `fused_prior_langevin.c8.bf16`,
-those that read the weights from global memory in
-`fused_prior_langevin.l2` and `fused_prior_langevin.l2.bf16`.
+`make_fx` and `torch.export` record the whole chain as one node. Each
+variant counts its launches in a count object of its own (`launch_count`):
+`fused_prior_langevin.launches` the fp32-dot variant over a cluster of 4,
+`fused_prior_langevin.c8.launches` over a cluster of 8,
+`fused_prior_langevin.tc.launches` the bf16-dot tensor-core variant,
+`fused_prior_langevin.l2.launches` and `fused_prior_langevin.l2.bf16.launches`
+those that read the weights from global memory.
 
 Widths, as the TPU kernel's: every 2-hidden, 1-output EBM (`fits_ebm`).
-The launch pads nz and ndf with zeros (`launch_widths`, `pad_widths`) and
-holds the weights in shared memory, split over the smallest cluster
-(`CLUSTERS`: 4 or 8 blocks) whose blocks' shares fit (`fits_smem`): at
-nz=128 a cluster of 4 up to ndf=368 (the presets' 200), of 8 up to 536
-(ndf=512). Past that it reads them from global memory (L2), and it raises
-only for widths whose activations alone overflow a block (ndf past about
-2,300). The cluster is a function of the widths alone, so a chain's result
-does not depend on its batch.
+The variant is a function of (nz, ndf, dots dtype) alone (`launch_widths`),
+so a chain's result does not depend on its batch. fp32 dots: nz and ndf
+zero-padded by the wrapper (`pad_widths`), the weights held in shared
+memory split over the smallest cluster (`CLUSTERS`: 4 or 8 blocks) whose
+blocks' shares fit (`fits_smem`): at nz=128 a cluster of 4 up to ndf=368
+(the presets' 200), of 8 up to 536 (ndf=512). bf16 dots: the tensor-core
+variant (`mma.sync`, the 8 chains of a block as the N dimension), its
+bf16 weights over the smallest of `MMA_CLUSTERS` (1, 4 or 8 blocks) whose
+blocks fit (`mma_smem_bytes`), nz padded to a multiple of 16 and ndf to
+one of 16 x the cluster by the kernel itself in shared memory (six pads on
+the host would cost more card time than a third of the chain: PERF.md,
+PR 18): at nz=128 one block up to ndf=256 (the presets' 200, padded to
+208), 4 up to 512, 8 up to 640. Each output tile belongs to one warp, which sums over k in
+order; a cluster adds its blocks' partials in rank order. Past those
+widths, in either precision, the weights are read from global memory (L2),
+and the launch raises only for widths whose activations alone overflow a
+block (ndf past about 2,300).
 
 Noise modes, as the TPU kernel's: counter (`row_seeds`, per-chain int32
 seeds; serving), stream (`seed`, one int32 for the launch; training) and
@@ -51,6 +61,7 @@ the + z term, the chain state and the noise stay float32.
 from __future__ import annotations
 
 import ctypes
+import functools
 import threading
 import types
 from typing import List, NamedTuple, Optional, Tuple
@@ -69,6 +80,11 @@ THREADS = 256
 # K1 and K2.
 CLUSTERS = (4, 8)
 L2_CLUSTER = 4  # blocks per cluster of the variant that reads the weights from L2
+# Blocks per cluster of the bf16-dot tensor-core variant, smallest first.
+MMA_CLUSTERS = (1, 4, 8)
+MMA_TILE = 16  # rows of an mma tile and its k: the widths' multiple
+MMA_THREADS = 512  # threads per block of the tensor-core variant
+MMA_MAX_COLUMNS = MMA_THREADS // 32 * MMA_TILE  # own hidden columns a block holds: a tile a warp
 SMEM_LIMIT = 232_448  # bytes of shared memory one Hopper block may use
 _SLOPE = 0.2
 DOTS_DTYPES = ("float32", "bfloat16")
@@ -116,6 +132,37 @@ def smem_bytes(nz: int, ndf: int, smem_weights: bool, cluster: int) -> int:
     return 4 * (weights + ROWS * (2 * nz + 2 * ndf + 2 * j4 + 2 * j))
 
 
+def mma_widths(nz: int, ndf: int, cluster: int) -> Tuple[int, int]:
+    """The widths the tensor-core variant pads (nz, ndf) to in shared
+    memory over `cluster` blocks: nz to a multiple of MMA_TILE, ndf to one
+    of MMA_TILE x cluster (each block's own columns a multiple of the tile)."""
+    return _round_up(nz, MMA_TILE), _round_up(ndf, MMA_TILE * cluster)
+
+
+def mma_smem_bytes(nz: int, ndf: int, cluster: int) -> int:
+    """Shared memory of one block of the tensor-core variant over
+    `cluster` blocks (the kernel's layout, at `mma_widths`; J = ndf /
+    cluster own columns): 2 bytes x ((nz + ndf) (J + 8) bf16 weight slices,
+    plus per chain the bf16 operands z (nz + 8), h1 (ndf + 8), d2 and d1
+    (J + 8 each)), plus 4 bytes x 8 chains x (2 nz: the fp32 chain and the
+    step's normals; and over more than one block nz + ndf, the partial
+    sums of d1 K1^T and d2 K2^T). At nz=128, ndf=200 (208) in one block
+    165,888 B; ndf=512 over 4 217,600 B."""
+    nz_p, ndf_p = mma_widths(nz, ndf, cluster)
+    j = ndf_p // cluster
+    halves = (nz_p + ndf_p) * (j + 8) + ROWS * ((nz_p + 8) + (ndf_p + 8) + 2 * (j + 8))
+    floats = ROWS * (2 * nz_p + (nz_p + ndf_p if cluster > 1 else 0))
+    return 2 * halves + 4 * floats
+
+
+def fits_mma(nz: int, ndf: int, cluster: int) -> bool:
+    """Whether the tensor-core variant over `cluster` blocks holds an EBM
+    of widths (nz, ndf): a block's own columns at most MMA_MAX_COLUMNS and
+    its shared memory within SMEM_LIMIT."""
+    ndf_p = mma_widths(nz, ndf, cluster)[1]
+    return ndf_p // cluster <= MMA_MAX_COLUMNS and mma_smem_bytes(nz, ndf, cluster) <= SMEM_LIMIT
+
+
 def fits_smem(nz: int, ndf: int, cluster: int) -> bool:
     """Whether the variant over `cluster` blocks that holds the weights in
     shared memory takes the widths as they are: nz a multiple of 4 (float4
@@ -137,26 +184,45 @@ class Launch(NamedTuple):
     ndf: int
     smem_weights: bool  # the weight slices in shared memory, else read from global memory
     cluster: int  # blocks per cluster
+    bf16: bool = False  # bf16 dots: with smem_weights the tensor-core variant
+
+    @property
+    def mma(self) -> bool:
+        """The bf16-dot tensor-core variant, which pads the widths itself."""
+        return self.bf16 and self.smem_weights
 
 
-def launch_widths(nz: int, ndf: int) -> Optional[Launch]:
-    """The launch for an EBM of widths (nz, ndf), from the widths alone: nz
-    padded to a multiple of 4, and the smallest cluster of CLUSTERS whose
-    blocks' shares fit (`fits_smem`) with ndf padded to a multiple of it,
-    the weights in shared memory; else, over L2_CLUSTER, ndf padded to a
-    multiple of 4 L2_CLUSTER and the weights read from global memory (L2),
+@functools.lru_cache(maxsize=None)  # read on every launch
+def launch_widths(nz: int, ndf: int, dots_dtype: str = "float32") -> Optional[Launch]:
+    """The launch for an EBM of widths (nz, ndf) with `dots_dtype` dots,
+    from these alone. float32: nz padded to a multiple of 4, and the
+    smallest cluster of CLUSTERS whose blocks' shares fit (`fits_smem`)
+    with ndf padded to a multiple of it, the weights in shared memory.
+    bfloat16: the tensor-core variant over the smallest cluster of
+    MMA_CLUSTERS that holds the widths (`fits_mma`), at `mma_widths`. Else,
+    in either precision, over L2_CLUSTER, nz padded to a multiple of 4, ndf
+    to one of 4 L2_CLUSTER and the weights read from global memory (L2),
     shared memory holding the activations alone. None where even those
-    overflow a block (ndf past about 2,300 at nz=128). At nz=128: ndf=200
-    over 4, ndf=512 over 8, ndf=1024 from L2. Widths that fit as they are
-    launch as they are."""
-    nz_p = _round_up(nz, 4)
-    for cluster in CLUSTERS:
-        ndf_p = _round_up(ndf, cluster)
-        if fits_smem(nz_p, ndf_p, cluster):
-            return Launch(nz_p, ndf_p, True, cluster)
-    ndf_p = _round_up(ndf, 4 * L2_CLUSTER)
+    overflow a block (ndf past about 2,300 at nz=128). At nz=128, fp32:
+    ndf=200 over 4, 512 over 8, 1024 from L2; bf16: ndf=200 (208) in one
+    block, 512 over 4, 1024 from L2. Widths that fit as they are launch as
+    they are."""
+    if dots_dtype not in DOTS_DTYPES:
+        raise ValueError(f"dots_dtype must be one of {DOTS_DTYPES}, got {dots_dtype!r}")
+    bf16 = dots_dtype == "bfloat16"
+    if bf16:
+        for cluster in MMA_CLUSTERS:
+            if fits_mma(nz, ndf, cluster):
+                return Launch(*mma_widths(nz, ndf, cluster), True, cluster, True)
+    else:
+        nz_p = _round_up(nz, 4)
+        for cluster in CLUSTERS:
+            ndf_p = _round_up(ndf, cluster)
+            if fits_smem(nz_p, ndf_p, cluster):
+                return Launch(nz_p, ndf_p, True, cluster)
+    nz_p, ndf_p = _round_up(nz, 4), _round_up(ndf, 4 * L2_CLUSTER)
     if smem_bytes(nz_p, ndf_p, False, L2_CLUSTER) <= SMEM_LIMIT:
-        return Launch(nz_p, ndf_p, False, L2_CLUSTER)
+        return Launch(nz_p, ndf_p, False, L2_CLUSTER, bf16)
     return None
 
 
@@ -265,16 +331,17 @@ def fused_prior_langevin(
 
 
 fused_prior_langevin.launches = 0
-fused_prior_langevin.bf16 = types.SimpleNamespace(launches=0)
-fused_prior_langevin.c8 = types.SimpleNamespace(launches=0, bf16=types.SimpleNamespace(launches=0))
+fused_prior_langevin.c8 = types.SimpleNamespace(launches=0)
+fused_prior_langevin.tc = types.SimpleNamespace(launches=0)
 fused_prior_langevin.l2 = types.SimpleNamespace(launches=0, bf16=types.SimpleNamespace(launches=0))
 
 
 def launch_count(launch: Launch):
-    """The count object of the variant `launch` names (its `launches`, and
-    its bf16-dot variant's in `.bf16.launches`)."""
+    """The count object (its `launches`) of the variant `launch` names."""
+    if launch.mma:
+        return fused_prior_langevin.tc
     if not launch.smem_weights:
-        return fused_prior_langevin.l2
+        return fused_prior_langevin.l2.bf16 if launch.bf16 else fused_prior_langevin.l2
     return {4: fused_prior_langevin, 8: fused_prior_langevin.c8}[launch.cluster]
 
 
@@ -304,42 +371,42 @@ def _chain_launch(z, k1, b1, k2, b2, k3, row_seeds, seed, steps, step_size, with
     ndf = k1.shape[1]
     if k1.shape != (nz, ndf) or k2.shape != (ndf, ndf) or b1.numel() != ndf or b2.numel() != ndf or k3.numel() != ndf:
         raise ValueError("EBM weights do not match z's width")
-    widths = launch_widths(nz, ndf)
+    widths = launch_widths(nz, ndf, dots_dtype)
     if widths is None:
         raise ValueError(
             f"EBM widths nz={nz}, ndf={ndf} overflow the chain kernel: a block's activations take "
             f"{smem_bytes(_round_up(nz, 4), _round_up(ndf, 4 * L2_CLUSTER), False, L2_CLUSTER)} B of "
             f"shared memory, past {SMEM_LIMIT}"
         )
-    nz_p, ndf_p, smem_weights, cluster = widths
     dev = z.device
     f32 = lambda t: t.to(device=dev, dtype=torch.float32).contiguous()
-    z32, *w = pad_widths(f32(z), *[f32(t) for t in (k1, b1, k2, b2, k3)], nz_p, ndf_p)
-    if not smem_weights:  # the kernel reads rows of K1 and K2 as float4
-        w = [t.clone() if t.data_ptr() % 16 else t for t in w]
+    z32, *w = [f32(t) for t in (z, k1, b1, k2, b2, k3)]
+    if widths.mma:  # the kernel pads the widths in shared memory
+        nz_p, ndf_p = nz, ndf
+    else:
+        nz_p, ndf_p = widths.nz, widths.ndf
+        z32, *w = pad_widths(z32, *w, nz_p, ndf_p)
+        if not widths.smem_weights:  # the kernel reads rows of K1 and K2 as float4
+            w = [t.clone() if t.data_ptr() % 16 else t for t in w]
     seeds = None
     if with_noise and row_seeds is not None:
         seeds = row_seeds.to(device=dev, dtype=torch.int32).contiguous()
         if seeds.shape != (b,):
             raise ValueError(f"row_seeds must be ({b},), got {tuple(seeds.shape)}")
     stream = with_noise and seeds is None
-    bf16 = dots_dtype == "bfloat16"
     out = torch.empty_like(z32)
     lib = _library()
     rc = lib.damc_fused_langevin(
         z32.data_ptr(), *[t.data_ptr() for t in w],
         None if seeds is None else seeds.data_ptr(), int32_seed(seed) if stream else 0,
-        int(stream), int(row_base), int(bf16), int(smem_weights), cluster, out.data_ptr(),
+        int(stream), int(row_base), int(widths.bf16), int(widths.smem_weights), widths.cluster, out.data_ptr(),
         b, nz_p, ndf_p, steps, float(step_size), 0.5 * step_size * step_size,
         torch.cuda.current_stream(dev).cuda_stream,
     )
     build.check(lib, rc, "fused_prior_langevin")
     count = launch_count(widths)
     with _lock:
-        if bf16:
-            count.bf16.launches += 1
-        else:
-            count.launches += 1
+        count.launches += 1
     return out if nz_p == nz else out[:, :nz].contiguous()
 
 
@@ -352,13 +419,18 @@ def _library() -> ctypes.CDLL:
         # smem_weights, cluster, out, B, nz, ndf, steps, step_size, coeff, stream
         fn.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, p, i, i, i, i, f, f, p]
         fn.restype = ctypes.c_int
-        geometry = (ctypes.c_int * 16)()
+        geometry = (ctypes.c_int * 32)()
         lib.damc_fused_langevin_geometry(geometry)
-        if tuple(geometry[:4 + geometry[3]]) != (ROWS, THREADS, L2_CLUSTER, len(CLUSTERS), *CLUSTERS):
+        n = 4 + geometry[3]
+        want = (ROWS, THREADS, L2_CLUSTER, len(CLUSTERS), *CLUSTERS,
+                len(MMA_CLUSTERS), *MMA_CLUSTERS, MMA_TILE, MMA_THREADS)
+        if tuple(geometry[:n + 3 + geometry[n]]) != want:
             raise RuntimeError("fused_langevin.cu and fused_langevin.py disagree on the geometry")
-        variants = [(True, c) for c in CLUSTERS] + [(False, L2_CLUSTER)]
-        if any(lib.damc_fused_langevin_smem_bytes(nz, ndf, int(w), c) != smem_bytes(nz, ndf, w, c)
-               for nz, ndf in ((128, 200), (100, 200), (8, 200), (128, 512), (128, 1024)) for w, c in variants):
+        smem = lib.damc_fused_langevin_smem_bytes
+        widths = ((128, 200), (100, 200), (8, 200), (10, 200), (128, 512), (128, 640), (128, 1024))
+        if any(smem(nz, ndf, int(w), c, 0) != smem_bytes(nz, ndf, w, c)
+               for nz, ndf in widths for w, c in [(True, c) for c in CLUSTERS] + [(False, L2_CLUSTER)]) or any(
+               smem(nz, ndf, 1, c, 1) != mma_smem_bytes(nz, ndf, c) for nz, ndf in widths for c in MMA_CLUSTERS):
             raise RuntimeError("fused_langevin.cu and fused_langevin.py disagree on shared memory")
     return lib
 

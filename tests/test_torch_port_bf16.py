@@ -105,6 +105,39 @@ def test_k1_plain_bf16_matches_jax_bf16_kernel(nz, mode):
     assert far >= 20 * max(near, 1e-7), (near, far)
 
 
+@pytest.mark.parametrize("mode", ["noiseless", "counter"])
+@pytest.mark.parametrize("nz", [8, 100, 128])
+def test_k1_plain_bf16_at_the_tensor_core_widths_matches_jax_bf16_kernel(nz, mode):
+    """The plain bf16 chain at the widths the tensor-core variant pads to
+    in shared memory (nz 8 -> 16, 100 -> 112, ndf 200 -> 208:
+    `launch_widths(nz, 200, "bfloat16")`), zero-padded by `pad_widths` and
+    sliced back to nz columns, against JAX's bf16 kernel at the real widths
+    in the plain interpreter, as the test above holds the unpadded chain:
+    atol 1e-5, and at least 20 times nearer to JAX's bf16 output than to
+    its float32 one."""
+    w, r = _ebm_weights(nz, nz)
+    z = r.normal(size=(9, nz)).astype(np.float32)
+    kw, jkw, pkw = dict(steps=6, step_size=0.4), {}, {}
+    if mode == "noiseless":
+        kw["with_noise"] = False
+    else:
+        seeds = r.integers(0, 2**31 - 1, 9).astype(np.int32)
+        jkw, pkw = dict(row_seeds=jnp.asarray(seeds)), dict(row_seeds=torch.from_numpy(seeds))
+    jax_out = {
+        dt: np.asarray(jax_chain(jnp.asarray(z), *map(jnp.asarray, w), interpret="plain", dots_dtype=dt,
+                                 **kw, **jkw))
+        for dt in ("float32", "bfloat16")
+    }
+    launch = k1.launch_widths(nz, NDF, "bfloat16")
+    assert launch.mma and launch.cluster == 1 and launch.ndf == 208 and launch.nz == -(-nz // 16) * 16
+    padded = k1.pad_widths(torch.from_numpy(z), *map(torch.from_numpy, w), launch.nz, launch.ndf)
+    got = k1.prior_langevin_plain(*padded, dots_dtype="bfloat16", **kw, **pkw)[:, :nz].numpy()
+    near = float(np.abs(got - jax_out["bfloat16"]).max())
+    far = float(np.abs(got - jax_out["float32"]).max())
+    assert near <= 1e-5, near
+    assert far >= 20 * max(near, 1e-7), (near, far)
+
+
 def test_k1_dots_dtype_is_checked_and_the_float32_variant_unchanged():
     """An unknown dots_dtype raises on the CPU as on the card; "float32"
     is the variant that existed before the bf16 one, bit for bit."""

@@ -4,14 +4,17 @@ batch at widths K1 pads.
 
 The JAX package sends every 2-hidden EBM to its TPU kernel, at any width
 (`damc_tpu/ops/langevin.py:157-250`, padding only the batch). So does the
-port: `fits_ebm` takes the layout alone, and the launch pads nz to a
-multiple of 4 and ndf to one of the cluster with zero weights
-(`ops/cuda/fused_langevin.py::launch_widths`, `pad_widths`), holding the
-weights in shared memory over the smallest cluster whose blocks' shares
-fit (4 blocks at ndf=200, 8 at ndf=512, nz=128) and reading them from L2
-where none does (ndf=1024). On the CPU the op runs the plain
-version at the widths as given; the padding tests below show that the
-padded chain's first nz columns are the unpadded chain's.
+port: `fits_ebm` takes the layout alone, and the launch pads the widths
+with zero weights (`ops/cuda/fused_langevin.py::launch_widths`): with fp32
+dots nz to a multiple of 4 and ndf to one of the cluster (`pad_widths`),
+holding the weights in shared memory over the smallest cluster whose
+blocks' shares fit (4 blocks at ndf=200, 8 at ndf=512, nz=128); with bf16
+dots the tensor-core variant, nz to a multiple of 16 and ndf to one of 16
+x the cluster (1 block at ndf=200, 4 at ndf=512), padded by the kernel in
+shared memory; where none fits (ndf=1024) the weights are read from L2.
+On the CPU the op runs the plain version at the widths as given; the
+padding tests below show that the padded chain's first nz columns are the
+unpadded chain's.
 
 The step tests run JAX's step on its CPU paths (its scan chain), every draw
 from the JAX key tree (`torch_port_helpers.jax_step_draws`), the chains
@@ -97,7 +100,7 @@ def test_k1_takes_every_two_hidden_ebm(name, widths):
         ebm = LatentEBM(m.nz, ndf=m.ndf)
     assert k1.fits_ebm(ebm)
     want = {None: (m.nz, m.ndf, True, 4), "nz10": (12, m.ndf, True, 4), "ndf512": (128, 512, True, 8)}[widths]
-    assert k1.launch_widths(m.nz, m.ndf) == want
+    assert k1.launch_widths(m.nz, m.ndf) == k1.Launch(*want)
 
 
 @pytest.mark.parametrize("nz, ndf, want", [
@@ -123,8 +126,78 @@ def test_launch_widths_rule(nz, ndf, want):
     padded to one of 16 with the weights in L2; past that (ndf=2400) the
     kernel takes no width and the launch raises. The route is a function
     of the widths alone. A 3-hidden EBM is not the layout K1 hand-codes."""
-    assert k1.launch_widths(nz, ndf) == want
+    assert k1.launch_widths(nz, ndf) == (None if want is None else k1.Launch(*want))
+    assert k1.launch_widths(nz, ndf, "float32") == k1.launch_widths(nz, ndf)
     assert not k1.fits_ebm(LatentEBM(8, ndf=16, n_hidden=3))
+
+
+@pytest.mark.parametrize("nz, ndf, want", [
+    (128, 200, (128, 208, True, 1)),  # cifar10, celebaHQ: one block
+    (100, 200, (112, 208, True, 1)),  # svhn, celeba64
+    (8, 200, (16, 208, True, 1)),  # mnist_anomaly
+    (10, 200, (16, 208, True, 1)),
+    (128, 256, (128, 256, True, 1)),  # the widest ndf one block holds at nz=128
+    (128, 257, (128, 320, True, 4)),
+    (128, 512, (128, 512, True, 4)),  # ndf=512 on chip over a cluster of 4
+    (128, 513, (128, 640, True, 8)),
+    (128, 640, (128, 640, True, 8)),  # the widest ndf a cluster of 8 holds at nz=128
+    (128, 641, (128, 656, False, 4)),  # from L2, padded as the fp32 L2 variant
+    (128, 1024, (128, 1024, False, 4)),
+    (16, 256, (16, 256, True, 1)),  # the most own columns a block's 16 warps hold, a tile each
+    (16, 272, (16, 320, True, 4)),
+    (128, 2400, None),
+])
+def test_launch_widths_rule_bf16(nz, ndf, want):
+    """With bf16 dots the route takes the tensor-core variant over the
+    smallest cluster of MMA_CLUSTERS (1, 4, 8) whose block holds the bf16
+    weight slices and the activations in 227 KB (`fits_mma`), nz padded to
+    a multiple of 16 and ndf to one of 16 x the cluster; past a cluster of
+    8 the L2 variant with bf16 dots at the fp32 L2 widths. At nz=128 one
+    block holds ndf up to 256, so the presets run in one block, and ndf=512
+    runs on chip over 4. A function of (nz, ndf, dots dtype) alone."""
+    got = k1.launch_widths(nz, ndf, "bfloat16")
+    if want is None:
+        assert got is None
+        return
+    assert got == k1.Launch(*want, True)
+    assert got.mma == want[2] and got.bf16
+    if got.mma:
+        assert (got.nz, got.ndf) == k1.mma_widths(nz, ndf, got.cluster)
+        smaller = [c for c in k1.MMA_CLUSTERS if c < got.cluster]
+        assert k1.fits_mma(nz, ndf, got.cluster) and not any(k1.fits_mma(nz, ndf, c) for c in smaller)
+    else:
+        assert got[:4] == k1.launch_widths(nz, ndf)[:4]
+    with pytest.raises(ValueError, match="dots_dtype"):
+        k1.launch_widths(nz, ndf, "float16")
+
+
+@pytest.mark.parametrize("nz, ndf, cluster, want", [
+    (128, 200, 1, 165_888),  # cifar10: the weights 145,152 B, one block
+    (100, 200, 1, 157_696),
+    (8, 200, 1, 108_544),
+    (128, 256, 1, 225_792),
+    (128, 272, 1, 247_808),  # past the 232,448 B a block may use
+    (128, 512, 1, 700_928),  # past it
+    (128, 512, 4, 217_600),
+    (128, 640, 8, 183_296),
+    (128, 768, 8, 241_152),  # past it: from L2
+])
+def test_mma_smem_bytes(nz, ndf, cluster, want):
+    """The tensor-core variant's shared memory, reckoned by hand from its
+    layout at the padded widths (nz_p, ndf_p, J = ndf_p / cluster): bf16
+    weight slices (nz_p + ndf_p) x (J + 8), 8 chains' bf16 operands z
+    (nz_p + 8), h1 (ndf_p + 8), d2 and d1 (J + 8 each) at 2 bytes; 8
+    chains' fp32 z and step normals (nz_p each) and, over more than one
+    block, the partial sums of d1 K1^T and d2 K2^T (nz_p + ndf_p) at 4
+    bytes. cifar10 in one block: 2 x ((128 + 208) x 216 + 8 x (136 + 216 +
+    2 x 216)) + 4 x 8 x 2 x 128 = 165,888."""
+    nz_p, ndf_p = k1.mma_widths(nz, ndf, cluster)
+    j = ndf_p // cluster
+    halves = (nz_p + ndf_p) * (j + 8) + 8 * ((nz_p + 8) + (ndf_p + 8) + 2 * (j + 8))
+    floats = 8 * (2 * nz_p + (nz_p + ndf_p if cluster > 1 else 0))
+    assert 2 * halves + 4 * floats == want
+    assert k1.mma_smem_bytes(nz, ndf, cluster) == want
+    assert k1.fits_mma(nz, ndf, cluster) == (want <= k1.SMEM_LIMIT)
 
 
 @pytest.mark.parametrize("nz, ndf, smem_weights, cluster, want", [
@@ -159,15 +232,25 @@ def test_cluster_of_8_holds_every_hidden_column_once(ndf):
     assert ld >= ndf // 8 and ld % 4 == 0 and (ld // 4) % 2 == 1
 
 
-@pytest.mark.parametrize("nz, ndf, count", [(128, 200, ""), (128, 512, "c8"), (128, 1024, "l2")])
+@pytest.mark.parametrize("nz, ndf, count", [
+    (128, 200, ""), (128, 512, "c8"), (128, 1024, "l2"),
+    (128, 200, "tc"), (8, 200, "tc"), (128, 512, "tc"), (128, 640, "tc"), (128, 1024, "l2.bf16"),
+])
 def test_each_variant_counts_its_launches(nz, ndf, count):
-    """Each variant the route takes has its own count object (`launches`,
-    and `bf16.launches` for its bf16-dot variant): the presets' cluster of
-    4 counts in `fused_prior_langevin`, a cluster of 8 in `.c8`, the L2
-    variant in `.l2`."""
-    want = getattr(k1.fused_prior_langevin, count) if count else k1.fused_prior_langevin
-    got = k1.launch_count(k1.launch_widths(nz, ndf))
-    assert got is want and hasattr(got, "launches") and hasattr(got.bf16, "launches")
+    """Each variant the route takes has its own count object (its
+    `launches`): with fp32 dots the presets' cluster of 4 counts in
+    `fused_prior_langevin`, a cluster of 8 in `.c8`, the L2 variant in
+    `.l2`; with bf16 dots the tensor-core variant, over any cluster, in
+    `.tc` and the L2 variant in `.l2.bf16`. No two variants share one."""
+    dots = "bfloat16" if count in ("tc", "l2.bf16") else "float32"
+    want = k1.fused_prior_langevin
+    for part in filter(None, count.split(".")):
+        want = getattr(want, part)
+    got = k1.launch_count(k1.launch_widths(nz, ndf, dots))
+    assert got is want and isinstance(got.launches, int)
+    f = k1.fused_prior_langevin
+    counts = [f, f.c8, f.tc, f.l2, f.l2.bf16]
+    assert len({id(c) for c in counts}) == len(counts)
 
 
 def _weights(nz, ndf, seed):
@@ -207,6 +290,34 @@ def test_padded_chain_is_the_unpadded_chain(nz, ndf, mode, dots):
         assert torch.equal(got, want)
     else:
         torch.testing.assert_close(got, want, rtol=0, atol=1e-5 if dots == "bfloat16" else 1e-6)
+
+
+@pytest.mark.parametrize("mode", list(NOISE))
+@pytest.mark.parametrize("nz, ndf", [(8, 200), (100, 200), (128, 200), (10, 512), (128, 500), (128, 600)])
+def test_padded_chain_is_the_unpadded_chain_at_the_tensor_core_widths(nz, ndf, mode):
+    """With bf16 dots, the chain zero-padded to the tensor-core variant's
+    widths (`launch_widths(nz, ndf, "bfloat16")`, which the kernel pads in
+    shared memory: nz 8 -> 16 and 100 -> 112, ndf 200 -> 208 in one block,
+    500 -> 512 over 4, 600 -> 640 over 8) is the unpadded chain in its
+    first nz columns, in every noise mode: a zero weight adds exact zeros,
+    a padded hidden unit feeds nothing, and a column's noise depends on its
+    index alone. Where only nz is padded the sums are the same, bit for
+    bit; where ndf is, the plain version's matmuls block them otherwise, so
+    they agree to 1e-5 over 6 steps, as the fp32 widths' test holds bf16."""
+    w, z = _weights(nz, ndf, nz + ndf)
+    launch = k1.launch_widths(nz, ndf, "bfloat16")
+    assert launch.mma
+    kw = dict(steps=6, step_size=0.4, dots_dtype="bfloat16", **NOISE[mode])
+    want = k1.prior_langevin_plain(z, *w, **kw)
+    padded = k1.pad_widths(z, *w, launch.nz, launch.ndf)
+    assert padded[0].shape == (6, launch.nz) and padded[3].shape == (launch.ndf, launch.ndf)
+    got = k1.prior_langevin_plain(*padded, **kw)
+    if mode == "noiseless":  # a padded z column stays 0
+        assert torch.equal(got[:, nz:], torch.zeros_like(got[:, nz:]))
+    if launch.ndf == ndf:
+        assert torch.equal(got[:, :nz], want)
+    else:
+        torch.testing.assert_close(got[:, :nz], want, rtol=0, atol=1e-5)
 
 
 @pytest.mark.parametrize("mode", list(NOISE))
@@ -378,3 +489,16 @@ def test_two_rank_step_at_nz10_equals_world_one(group, tmp_path):
     for got, want in zip(m0, metrics_1):
         _assert_metrics(got, want)
     _assert_close_params(a0, gloo.state_arrays(one), cfg)
+
+
+def test_k1_phases_instruments_the_tensor_core_kernel():
+    """`tools/k1_phases.py` times the phases of the tensor-core kernel by
+    text replacement in `csrc/fused_langevin.cu`: every pattern it needs
+    is found once in the source as it stands, and each of its phase
+    timers is placed."""
+    from damc_tpu_torch.ops.cuda import build
+    from damc_tpu_torch.tools import k1_phases
+
+    src = k1_phases.instrument((build.SRC_DIR / "fused_langevin.cu").read_text())
+    assert all(f"PT({i});" in src for i in range(len(k1_phases.PHASES)))
+    assert "damc_phase_cycles" in src
