@@ -32,7 +32,7 @@ Phases, each of which raises on failure (the script then exits non-zero):
   5. profiles one B=16 dispatch of each serving path (device busy and idle
      time, top kernels); then serving artifacts (item 7) of phase 4's
      weights, exported on the card and, from the same seeded weights, on the
-     CPU (B=16, 10 recon steps), are served on the card over HTTP by a
+     CPU (B=16, 5 recon steps), are served on the card over HTTP by a
      separate process that imports no model or training module: the answers
      of both must equal the live service's bit for bit, K2 launch once per
      damc and recon dispatch and K1 once per ebm dispatch, and K2 pack its
@@ -89,8 +89,11 @@ Phases, each of which raises on failure (the script then exits non-zero):
      with use_pallas on, through `train_gen_recon`; before each, K1 over
      that model's 2B=256 chains and K2 over its B=128 rows in stream mode
      against their plain versions (K1 against float64); with ndf=1024
-     (weights read from L2: the K1_l2 variant) no training, K1 alone over
-     2B=256 chains against float64; at ndf=512 also
+     (weights streamed from L2: the K1_l2 variant) no training, K1 alone
+     against float64 over 2B=256 chains, in counter mode at B=16 and with
+     bf16 dots at B=256 (stream) and B=16 (counter), and its rows, fp32 and
+     bf16, bit for bit as alone, in batches of 16 and 128 and at a rank's
+     row_base; at ndf=512 also
      K1 with bf16 dots (K1_tc over a cluster of 4) against float64 in
      stream (B=256) and counter (B=16) mode, and K1_c8's rows of a B=500
      launch bit for bit those of the row alone and in batches of 16 and
@@ -110,7 +113,7 @@ Phases, each of which raises on failure (the script then exits non-zero):
      equal those of the B=500 launch bit for bit;
   9. drives the gen_recon workload through its CLIs at full cifar10 width
      in a temporary directory, on a CIFAR-10 pickle tree made from the seed
-     (10,000 train images, cut from 50,000; 2,000 test images, cut from
+     (10,000 train images, cut from 50,000; 1,000 test images, cut from
      10,000): trains 4
      iterations at B=128 with evals, grids and checkpoints every 2 and 1,000
      FID samples (`frechet_rand`: no Inception weights here) and checks the
@@ -155,8 +158,9 @@ Phases, each of which raises on failure (the script then exits non-zero):
      mode; K1 at cifar10's eval step size 1.6, which no svhn path runs,
      traced step by step against its plain version and printed, not held;
      then, on SVHN .mat files made from the seed (73,257 train images;
-     2,000 test images), 6 iterations through `cli.train_gen_recon` with
-     evals, grids and checkpoints every 3 and 1,000 FID samples, the eval
+     2,000 test images), 2 iterations through `cli.train_gen_recon` with
+     evals at both, a grid at the first, a checkpoint at the last and 1,000
+     FID samples, the eval
      CLI once on ckpt/best, and ckpt/best served through the serve CLI's
      loading path (--ckpt_dir): /sample damc and ebm and /reconstruct must
      equal the restored state's serving core run in process, bit for bit;
@@ -184,7 +188,7 @@ Phases, each of which raises on failure (the script then exits non-zero):
      equal to the JAX package's PIL pipeline, K1 and K2 once an iteration,
      finite metrics, the ms an iteration;
  17. celebaHQ (nz=128, ngf=128, 256x256): K1 and K2 at the training shapes;
-     a 512x512 PNG tree (128 train, 16 test images); 3 iterations at B=128
+     a 512x512 PNG tree (128 train, 16 test images); 2 iterations at B=128
      through the train CLI with evals at 0 and at the end (500 FID samples,
      the 16 test images); one iteration from the last checkpoint with
      remat_generator off and on, bit-identical in metrics and parameters,
@@ -699,7 +703,7 @@ K1_BF16_SHAPES = (  # (label, preset, its widths changed, B, steps, step size)
 # own rounding flips an operand where the kernel's does not.
 K1_TC_C8_NDF = 640
 K1_ROW_BATCHES = (16, 128)  # the serving and training shapes
-K1_TC_RANKS = 2  # K4a's split of the B=500 stream launch in the rows check
+K1_ROW_RANKS = 2  # K4a's split of the B=500 stream launch in the rows check
 
 
 def k1_bf16_phase():
@@ -717,7 +721,7 @@ def k1_bf16_phase():
     version does). Then the bf16 kernel, its plain
     version and the float32 kernel are timed on the full chain. Then
     K1_tc over a cluster of 8 (ndf=K1_TC_C8_NDF) against float64 in stream
-    mode at B=256 and counter mode at B=16, and `k1_tc_rows_check` on the
+    mode at B=256 and counter mode at B=16, and `k1_rows_check` on the
     cifar10 EBM. Returns ({label: check}, {hold label: check})."""
     import torch
 
@@ -796,42 +800,43 @@ def k1_bf16_phase():
         holds[f"{label} ndf{K1_TC_C8_NDF}"] = chain_check(
             w, z, noise, 60, 0.4, f"K1_tc (cluster of 8) {label} bf16 ndf{K1_TC_C8_NDF}", against_fp64=True,
             dots_dtype="bfloat16")
-    k1_tc_rows_check(weights["cifar10", "{}"], gen)
+    k1_rows_check(weights["cifar10", "{}"], gen, "bfloat16", "K1_tc")
     return res, holds
 
 
-def k1_tc_rows_check(w, gen):
-    """The tensor-core variant's rows are functions of their own inputs: in
+def k1_rows_check(w, gen, dots_dtype, variant):
+    """The rows of the K1 variant `variant` (the one `launch_widths` takes
+    for w's widths and `dots_dtype`) are functions of their own inputs: in
     counter mode (60 steps at 0.4), rows ROW_PICKS of a B=500 launch equal,
     bit for bit, the same rows launched alone and in batches of
-    K1_ROW_BATCHES; in stream mode, each of K1_TC_RANKS ranks' rows of
+    K1_ROW_BATCHES; in stream mode, each of K1_ROW_RANKS ranks' rows of
     the B=500 launch launched on their own with `row_base` (what K4a
     launches) equal that launch's rows, and so does
-    `fused_prior_langevin_sharded` on a mesh of one."""
+    `fused_prior_langevin_sharded` on a mesh of one. (The streamed variant
+    takes 48 chains a cluster at B=500 and 16 at the others: every chain
+    count it runs.)"""
     import torch
 
-    from damc_tpu_torch.ops.cuda.fused_langevin import (
-        fused_prior_langevin, fused_prior_langevin_sharded, launch_widths,
-    )
+    from damc_tpu_torch.ops.cuda.fused_langevin import fused_prior_langevin, fused_prior_langevin_sharded
 
     nz, ndf = w[0].shape
-    if not launch_widths(nz, ndf, "bfloat16").mma:
-        raise AssertionError("the rows check is for the tensor-core variant")
+    if k1_key(nz, ndf, dots_dtype) != variant:
+        raise AssertionError(f"the rows check at nz={nz}, ndf={ndf}, {dots_dtype} dots is not {variant}'s")
     b = 500
     z = torch.randn(b, nz, generator=gen).cuda()
     seeds = torch.randint(0, 2**31 - 1, (b,), generator=gen, dtype=torch.int32).cuda()
-    kw = dict(steps=60, step_size=0.4, dots_dtype="bfloat16")
-    rows_check("K1_tc", lambda idx: fused_prior_langevin(z[idx], *w, row_seeds=seeds[idx], **kw), b,
-               K1_ROW_BATCHES)
+    kw = dict(steps=60, step_size=0.4, dots_dtype=dots_dtype)
+    name = f"{variant} {dots_dtype} ndf{ndf}"
+    rows_check(name, lambda idx: fused_prior_langevin(z[idx], *w, row_seeds=seeds[idx], **kw), b, K1_ROW_BATCHES)
     full = fused_prior_langevin(z, *w, seed=-24680, **kw)
-    local = -(-b // K1_TC_RANKS)
+    local = -(-b // K1_ROW_RANKS)
     same = [torch.equal(full[r * local:(r + 1) * local], fused_prior_langevin(
-        z[r * local:(r + 1) * local], *w, seed=-24680, row_base=r * local, **kw)) for r in range(K1_TC_RANKS)]
+        z[r * local:(r + 1) * local], *w, seed=-24680, row_base=r * local, **kw)) for r in range(K1_ROW_RANKS)]
     same.append(torch.equal(full, fused_prior_langevin_sharded(None, z, *w, seed=-24680, **kw)))
-    print(f"[rows] K1_tc stream B={b}: each of {K1_TC_RANKS} ranks' rows at their row_base equal the launch's: "
+    print(f"[rows] {name} stream B={b}: each of {K1_ROW_RANKS} ranks' rows at their row_base equal the launch's: "
           f"{same[:-1]}; sharded on no mesh: {same[-1]}")
     if not all(same):
-        raise AssertionError("K1_tc: a rank's stream rows differ from the one launch's")
+        raise AssertionError(f"{name}: a rank's stream rows differ from the one launch's")
 
 
 def _post(url, payload):
@@ -1035,7 +1040,7 @@ def profile_phase(models, cfg, fused=True, tag="profile"):
 
 
 ARTIFACT_B = 16  # the serving bucket
-ARTIFACT_RECON_STEPS = 10
+ARTIFACT_RECON_STEPS = 5  # the exports' trace time goes with it: cut for time
 ARTIFACT_ATOL = 0.0  # the artifact's answers against the live service's: bit for bit
 LATENCY_REQUESTS = 20
 ARTIFACT_PATHS = ("damc", "ebm", "recon")
@@ -1173,8 +1178,8 @@ def artifact_server() -> int:
 
 def artifact_phase(models, cfg, counters):
     """Serving artifacts of phase 4's full-width cifar10 weights: exported on
-    the card and, from the same seeded weights, on the CPU, at B=16 with 10
-    recon steps; both served on the card by a separate process
+    the card and, from the same seeded weights, on the CPU, at B=16 with
+    ARTIFACT_RECON_STEPS recon steps; both served on the card by a separate process
     (`artifact_server`) that must import no model or training module, over
     HTTP, and answer exactly as the live service does in this process;
     K2 must launch once per damc and recon dispatch, K1 once per ebm
@@ -1275,7 +1280,7 @@ UNFUSED_MOMENT_B = 128
 # The unfused artifact's check runs 4 sweep steps and 4 EBM steps: its
 # trace and export take time in proportion to the loops' steps (43.7 s at
 # 10 and 10 on the H100's host).
-UNFUSED_ARTIFACT_DEPTH = ("--n_interval", "4", "--e_l_steps", "4")
+UNFUSED_ARTIFACT_DEPTH = ("--n_interval", "2", "--e_l_steps", "2")  # cut for time
 
 
 def _unfused_sweep_hold(models, cfg, draws, x, label):
@@ -1441,7 +1446,8 @@ def serve_unfused_phase(models, cfg, counters, fused_latency):
 
     # --fused off --export_artifact, loaded on the card, against the live
     # unfused service of the same command line.
-    argv = ["--dataset", "cifar10", "--max_batch", str(ARTIFACT_B), "--fused", "off", *UNFUSED_ARTIFACT_DEPTH]
+    argv = ["--dataset", "cifar10", "--max_batch", str(ARTIFACT_B), "--fused", "off", *UNFUSED_ARTIFACT_DEPTH,
+            "--recon_langevin_steps", str(ARTIFACT_RECON_STEPS)]
     cfg_art = config_from_args(serve_cli.parse_args(argv))
     with tempfile.TemporaryDirectory(prefix="damc_unfused_artifact_") as tmp:
         art = os.path.join(tmp, "art")
@@ -1837,14 +1843,40 @@ def k1_c8_holds(ebm_w, mc, gen):
         z = torch.randn(b, nz, generator=gen).cuda()
         noise = (dict(seed=-97531) if label.startswith("stream") else
                  dict(row_seeds=torch.randint(0, 2**31 - 1, (b,), generator=gen, dtype=torch.int32).cuda()))
-        out[label] = chain_check(ebm_w, z, noise, mc.e_l_steps, mc.e_l_step_size,
-                                 f"{k1_key(nz, ebm_w[0].shape[1], dots)} {label} ndf512", against_fp64=True,
-                                 dots_dtype=dots)
+        key = k1_key(nz, ebm_w[0].shape[1], dots)
+        out[label] = chain_check(ebm_w, z, noise, mc.e_l_steps, mc.e_l_step_size, f"{key} {label} ndf512",
+                                 against_fp64=True, dots_dtype=dots)
+        out[label]["variant"] = key
     b = 500
     z = torch.randn(b, nz, generator=gen).cuda()
     seeds = torch.randint(0, 2**31 - 1, (b,), generator=gen, dtype=torch.int32).cuda()
     rows_check("K1_c8 ndf512", lambda idx: fused_prior_langevin(
         z[idx], *ebm_w, row_seeds=seeds[idx], steps=mc.e_l_steps, step_size=mc.e_l_step_size), b, K1_ROW_BATCHES)
+    return out
+
+
+def k1_l2_holds(ebm_w, mc, gen):
+    """The streamed variant (K1_l2) at ndf=1024, beside its fp32 checks in
+    the phase (B=256 stream and the FID batch, B=500): against its float64
+    plain version with fp32 dots in counter mode at B=16 (serving's bucket)
+    and with bf16 dots in stream mode at B=256 and counter mode at B=16
+    (`chain_check`'s `against_fp64`, its limits as they stand); then
+    `k1_rows_check` with fp32 and with bf16 dots. Returns {label: check}."""
+    import torch
+
+    nz, ndf = ebm_w[0].shape
+    out = {}
+    for label, b, dots in (("counter", 16, "float32"), ("stream bf16", 256, "bfloat16"),
+                           ("counter bf16", 16, "bfloat16")):
+        z = torch.randn(b, nz, generator=gen).cuda()
+        noise = (dict(seed=-75319) if label.startswith("stream") else
+                 dict(row_seeds=torch.randint(0, 2**31 - 1, (b,), generator=gen, dtype=torch.int32).cuda()))
+        key = k1_key(nz, ndf, dots)
+        out[label] = chain_check(ebm_w, z, noise, mc.e_l_steps, mc.e_l_step_size, f"{key} {label} ndf{ndf}",
+                                 against_fp64=True, dots_dtype=dots)
+        out[label]["variant"] = key
+    for dots in ("float32", "bfloat16"):
+        k1_rows_check(ebm_w, gen, dots, k1_key(nz, ndf, dots))
     return out
 
 
@@ -1855,11 +1887,12 @@ def k1_widths_phase(cfg, counters):
     ndf=512 (nz=128: a block's slices take 223 KB over a cluster of 8,
     K1_c8) for 1, at B=128 with use_pallas on, through `training_phase`;
     with ndf=1024 (past every cluster's shared memory, so the weights are
-    read from L2, K1_l2), which no configuration trains, the eval alone.
+    streamed from L2, K1_l2), which no configuration trains, the eval alone.
     On each model's random weights from the seed, K1 over the 2B=256 prior
     chains in stream mode against its float64 plain version (`chain_check`'s
     `against_fp64`) and, where it trains, K2 over B=128 rows of Q against
-    its plain version; at ndf=512 also `k1_c8_holds`. Each iteration must
+    its plain version; at ndf=512 also `k1_c8_holds`, at ndf=1024
+    `k1_l2_holds`. Each iteration must
     launch K1 once in the variant `launch_widths` names (the others 0) and
     K2 once; finite metrics, G, E and Q changed, each iteration's ms beside
     the card's name and power limit. Then, on the trained weights (at
@@ -1869,7 +1902,7 @@ def k1_widths_phase(cfg, counters):
     launched once a batch and no other. One ndf=512 iteration
     under the profiler (`train_profile_phase`) gives K1_c8's share of it.
     Returns ({path: {kernel:
-    (check, launches)}}, {K1_c8 hold: check})."""
+    (check, launches)}}, {hold label: check})."""
     import torch
 
     from damc_tpu_torch.models import build_models, sweep_route
@@ -1893,7 +1926,9 @@ def k1_widths_phase(cfg, counters):
         r1 = chain_check(ebm_w, z1, dict(seed=135792468 + i), mc.e_l_steps, mc.e_l_step_size,
                          f"{key} stream {label}", against_fp64=True)
         if key == "K1_c8":
-            holds = k1_c8_holds(ebm_w, mc, gen)
+            holds.update({f"{k} ndf512": r for k, r in k1_c8_holds(ebm_w, mc, gen).items()})
+        elif key == "K1_l2":
+            holds.update({f"{k} ndf1024": r for k, r in k1_l2_holds(ebm_w, mc, gen).items()})
         del ebm_w
         state = None
         if iterations:
@@ -2244,7 +2279,7 @@ def train_profile_phase(cfg, state, x=None, path="train"):
 
 
 EVAL_TRAIN_IMAGES = 10_000  # CIFAR-10's train split holds 50,000: cut to make room for the mesh phases
-EVAL_TEST_IMAGES = 2_000  # the test split holds 10,000: cut so that the MSE eval stays short
+EVAL_TEST_IMAGES = 1_000  # the test split holds 10,000: cut so that the MSE eval stays short
 EVAL_K1_STEPS, EVAL_K1_STEP_SIZE = 100, 1.6  # the eval CLI's prior chain on cifar10
 
 
@@ -2508,8 +2543,8 @@ def eval_phase(cfg, counters):
         del state, restored, s_a, s_b
 
         # 4. The eval CLI on ckpt/best, once (its rerun cut for time).
-        eval_args = common + ["--ckpt_dir", os.path.join(run, "ckpt"), "--n_fid_samples", "2000"]
-        _, walls, cli_launches = eval_cli_runs(cfg, counters, eval_args, 1, 2000, EVAL_TEST_IMAGES)
+        eval_args = common + ["--ckpt_dir", os.path.join(run, "ckpt"), "--n_fid_samples", "1000"]
+        _, walls, cli_launches = eval_cli_runs(cfg, counters, eval_args, 1, 1000, EVAL_TEST_IMAGES)
         return {"calls": calls, "eval_walls": eval_walls, "cli_launches": cli_launches, "cli_walls": walls,
                 "n_mse_b": n_mse_b}
     finally:
@@ -3166,8 +3201,9 @@ def serve_checkpoint_phase(cfg, counters, ckpt_dir, tag):
 def svhn_phase(cfg, counters):
     """svhn (nz=100, ngf=64) through its CLIs at full width in a temporary
     directory, on SVHN .mat files made from the seed (73,257 train images,
-    the real split; 2,000 test images): train 6 iterations at B=128 with
-    evals, grids and checkpoints every 3 and 1,000 FID samples; score
+    the real split; 2,000 test images): train 2 iterations at B=128 (cut
+    for time) with evals at both, a grid at the first, a checkpoint at the
+    last and 1,000 FID samples; score
     ckpt/best once through the eval CLI (K1 100 steps at the CLI's 0.4);
     then serve ckpt/best through the serve CLI's loading path."""
     import os
@@ -3185,14 +3221,14 @@ def svhn_phase(cfg, counters):
         common = ["--dataset", "svhn", "--data_path", data, "--log_path", logs, "--seed", str(SEED)]
         t0 = time.perf_counter()
         info = train_cli_run(cfg, counters, common + [
-            "--iterations", "6", "--eval_every", "3", "--ckpt_every", "3", "--plot_every", "3", "--print_every", "1",
-            "--n_fid_samples", str(n_fid)], logs, evals=[0, 3, 5], plots=[0, 3], n_fid=n_fid,
+            "--iterations", "2", "--eval_every", "2", "--ckpt_every", "2", "--plot_every", "2", "--print_every", "1",
+            "--n_fid_samples", str(n_fid)], logs, evals=[0, 1], plots=[0], n_fid=n_fid,
             n_test=SVHN_TEST_IMAGES, tag="svhn")
         ckpt = os.path.join(info["run"], "ckpt")
         ckpts = sorted(os.listdir(ckpt))
         print(f"[svhn] checkpoints {ckpts}")
-        if not {"3", "5", "best"} <= set(ckpts):
-            raise AssertionError("ckpt/3, ckpt/5 or ckpt/best is missing")
+        if not {"1", "best"} <= set(ckpts):
+            raise AssertionError("ckpt/1 or ckpt/best is missing")
         del info["state"]
         _, cli_walls, cli_launches = eval_cli_runs(
             cfg, counters, common + ["--ckpt_dir", ckpt, "--n_fid_samples", str(n_fid)], 1, n_fid,
@@ -3744,7 +3780,8 @@ def celebahq_phase(cfg, counters):
     """celebaHQ (nz=128, ngf=128, 256x256, G up to 2048 channels) through the
     train CLI at full width in a temporary directory, on a PNG tree made
     from the seed at 512x512 (128 train and 16 test images; CELEBAHQ_SIZE
-    says why not CelebA-HQ's 1024x1024): 3 iterations at B=128 with evals at 0 and at the end (500 FID
+    says why not CelebA-HQ's 1024x1024): 2 iterations at B=128 (cut for time) with evals at 0 and at
+    the end (500 FID
     samples, the 16-image recon-MSE set) and a checkpoint at the end; then
     one iteration from that checkpoint with remat_generator off and on,
     from the same state and draws, which must agree bit for bit, with the
@@ -3784,10 +3821,10 @@ def celebahq_phase(cfg, counters):
               f"{decode_ms:.1f} ms, resize to 256x256 {resize_ms:.1f} ms")
         n_fid = 500
         argv = ["--dataset", "celebaHQ", "--data_path", data, "--log_path", logs, "--seed", str(SEED),
-                "--iterations", "3", "--eval_every", "2", "--ckpt_every", "2", "--plot_every", "0",
+                "--iterations", "2", "--eval_every", "2", "--ckpt_every", "2", "--plot_every", "0",
                 "--print_every", "1", "--n_fid_samples", str(n_fid)]
         t0 = time.perf_counter()
-        info = train_cli_run(cfg, counters, argv, logs, evals=[0, 2], plots=[], n_fid=n_fid, n_test=CELEBAHQ_TEST,
+        info = train_cli_run(cfg, counters, argv, logs, evals=[0, 1], plots=[], n_fid=n_fid, n_test=CELEBAHQ_TEST,
                              tag="celebaHQ")
         decodes = {os.path.basename(r["root"]): r["s"] for r in reads if r["what"] == "load_image_folder"}
         cached = next(r for r in reads if r["what"] == "load_image_folder_cached")
@@ -3795,17 +3832,17 @@ def celebahq_phase(cfg, counters):
               f"of the test split ({CELEBAHQ_TEST}) {decodes['test']:.2f} s; the cache written and mapped "
               f"{cached['s'] - decodes['train']:.2f} s")
         ckpt = os.path.join(info["run"], "ckpt")
-        if not {"2", "best"} <= set(os.listdir(ckpt)):
-            raise AssertionError("ckpt/2 or ckpt/best is missing")
+        if not {"1", "best"} <= set(os.listdir(ckpt)):
+            raise AssertionError("ckpt/1 or ckpt/best is missing")
         del info["state"]
         store = cached["value"]
         x = torch.from_numpy(np.asarray(store[:cfg.train.batch_size])).cuda().float() / 255.0 * 2.0 - 1.0
 
-        # One iteration from ckpt/2 with remat_generator off, then on.
+        # One iteration from ckpt/1 with remat_generator off, then on.
         out = {}
         for remat in (False, True):
             c = dc.replace(cfg, train=dc.replace(cfg.train, remat_generator=remat))
-            state = restore_checkpoint(ckpt, "2", create_state(c, SEED, "cuda"))
+            state = restore_checkpoint(ckpt, "1", create_state(c, SEED, "cuda"))
             draws = draw_step(c, len(x), state)
             step = make_train_step(state.models, state.opts, c)
             torch.cuda.synchronize()
@@ -3830,7 +3867,7 @@ def celebahq_phase(cfg, counters):
             "bit_identical_metrics_and_parameters": same}))
         if not same:
             raise AssertionError("remat_generator changed the iteration's metrics or parameters")
-        state = restore_checkpoint(ckpt, "2", create_state(cfg, SEED, "cuda"))
+        state = restore_checkpoint(ckpt, "1", create_state(cfg, SEED, "cuda"))
         train_profile_phase(cfg, state, x=x, path="celebaHQ")
         del state
         wall = time.perf_counter() - t0
@@ -4352,7 +4389,7 @@ DP_K2_SHAPES = ((128, "encoder"), (500, "prior"))  # Q_ema's training rows; the 
 # The anomaly workload's (nz=8): its B single chains, Q_ema's rows, the AUPRC batch.
 DP_ANOMALY_K1_SHAPES = ((128, 60, 0.4),)
 DP_ANOMALY_K2_SHAPES = ((128, "encoder"), (500, "encoder"))
-DP_ANOMALY_ITERATIONS, DP_ANOMALY_EVAL_EVERY = 4, 3
+DP_ANOMALY_ITERATIONS, DP_ANOMALY_EVAL_EVERY = 3, 3  # the fewest that leave a timed step
 
 
 def _dp_noises(b, gen, dev):
@@ -5017,7 +5054,7 @@ def main() -> int:
     train_profile_phase(cfg, state)
     del state
     lap("train_profile")
-    k1_widths, k1_c8_holds_res = k1_widths_phase(cfg, counters)
+    k1_widths, k1_widths_holds = k1_widths_phase(cfg, counters)
     lap("k1_widths")
     # The bfloat16 mode: G and the encoder in bf16, K1's bf16-dot variant on
     # the tensor cores (K1_tc) and no other K1 variant.
@@ -5116,7 +5153,7 @@ def main() -> int:
         ("anomaly_eval", "stream", "K2", res_anomaly["K2_auprc"], anomaly_info["eval"]["K2"]),
         ("anomaly_eval_cli", "stream", "K2", res_anomaly["K2_auprc"], anomaly_info["cli"]["K2"]),
         ("toy", "stream", "K2", res_toy["K2"], toy_info["train"]["K2"] + toy_info["eval"]["K2"]),  # B=500, nz=2
-        # nz=100: the svhn train CLI run (6 iterations and their 3 evals), K1 over 2B=256, K2 B=128 posterior.
+        # nz=100: the svhn train CLI run (2 iterations and their 2 evals), K1 over 2B=256, K2 B=128 posterior.
         ("svhn", "stream", "K1", res_svhn["K1"], svhn_info["total"]["K1"]),
         ("svhn", "stream", "K2", res_svhn["K2"], svhn_info["total"]["K2"]),
         # The svhn eval CLI: K1 B=500, 100 steps at 0.4; K2 B=500 (the FID batch's prior tables).
@@ -5191,9 +5228,9 @@ def main() -> int:
         b_ms, by = bound(r["flops"], r["bytes"], r["peak"])
         print(f"[kernels] K1_tc {label} B={r['b']} (held, on no path): ms={r['ms']} plain_ms={r['plain_ms']} "
               f"bound_ms={b_ms} ({by}) flops={r['flops']} bytes={r['bytes']} max_abs_err={r['max_abs_err']}")
-    for label, r in k1_c8_holds_res.items():
+    for label, r in k1_widths_holds.items():
         b_ms, by = bound(r["flops"], r["bytes"], r["peak"])
-        print(f"[kernels] K1_tc ndf512 {label} B={r['b']} (held, on no path): ms={r['ms']} "
+        print(f"[kernels] {r['variant']} {label} B={r['b']} (held, on no path): ms={r['ms']} "
               f"plain_ms={r['plain_ms']} bound_ms={b_ms} ({by}) flops={r['flops']} bytes={r['bytes']} "
               f"max_abs_err={r['max_abs_err']}")
     for key in ("K1", "K2"):

@@ -15,7 +15,7 @@ variant counts its launches in a count object of its own (`launch_count`):
 `fused_prior_langevin.c8.launches` over a cluster of 8,
 `fused_prior_langevin.tc.launches` the bf16-dot tensor-core variant,
 `fused_prior_langevin.l2.launches` and `fused_prior_langevin.l2.bf16.launches`
-those that read the weights from global memory.
+the streamed variant, which reads the weights from global memory (L2).
 
 Widths, as the TPU kernel's: every 2-hidden, 1-output EBM (`fits_ebm`).
 The variant is a function of (nz, ndf, dots dtype) alone (`launch_widths`),
@@ -32,9 +32,14 @@ the host would cost more card time than a third of the chain: PERF.md,
 PR 18): at nz=128 one block up to ndf=256 (the presets' 200, padded to
 208), 4 up to 512, 8 up to 640. Each output tile belongs to one warp, which sums over k in
 order; a cluster adds its blocks' partials in rank order. Past those
-widths, in either precision, the weights are read from global memory (L2),
-and the launch raises only for widths whose activations alone overflow a
-block (ndf past about 2,300).
+widths, in either precision, the streamed variant: a cluster of 8 blocks
+(`L2_CLUSTER`) owns 16, 32 or 48 chains (`L2_CHAINS`, taken from the batch
+by `l2_chains`; 8 where 32 fit no block) and streams tiles of the weights
+from global memory (L2) through a ring in shared memory (`l2_tiling`,
+`l2_smem_bytes`), nz padded to a multiple of the tile's depth and ndf to
+one of 8 x it; each output element is one thread's sum over k in order,
+whatever the chains. The launch raises only for widths whose block
+overflows even then (ndf past 24,064 at nz=128).
 
 Noise modes, as the TPU kernel's: counter (`row_seeds`, per-chain int32
 seeds; serving), stream (`seed`, one int32 for the launch; training) and
@@ -73,13 +78,23 @@ from ..noise import counter_normal, int32_seed, stream_row_seeds
 from . import build
 
 # The kernel's geometry (csrc/fused_langevin.cu; `_library` checks it):
-ROWS = 8  # chains per cluster
+ROWS = 8  # chains per cluster of the variants that hold the weights in shared memory
 THREADS = 256
-# Blocks per cluster of the variants that hold the weights in shared
+# Blocks per cluster of the fp32 variant that holds the weights in shared
 # memory, smallest first; each block holds ndf / cluster hidden columns of
 # K1 and K2.
 CLUSTERS = (4, 8)
-L2_CLUSTER = 4  # blocks per cluster of the variant that reads the weights from L2
+# The streamed variant: blocks per cluster (each owns ndf / 8 hidden
+# columns), slots of its weight ring, the chains a cluster it takes from
+# the batch, the chains a tiling must fit (32) and those where 32 fit no
+# block (8), the output columns and the k depth of a weight tile.
+L2_CLUSTER = 8
+L2_STAGES = 4
+L2_CHAINS = (16, 32, 48)
+L2_BASE = 32
+L2_NARROW = 8
+L2_COLS = (128, 32)
+L2_KTILES = (32, 16, 8)
 # Blocks per cluster of the bf16-dot tensor-core variant, smallest first.
 MMA_CLUSTERS = (1, 4, 8)
 MMA_TILE = 16  # rows of an mma tile and its k: the widths' multiple
@@ -120,16 +135,93 @@ def slice_ld(j: int) -> int:
 
 
 def smem_bytes(nz: int, ndf: int, smem_weights: bool, cluster: int) -> int:
-    """Shared memory of one block of a cluster of `cluster` (the kernel's
-    layout): with `smem_weights` its column slices of K1 and K2; per chain
-    the whole z, the gathered h1, its partial sums of d2 K2^T (ndf) and
-    d1 K1^T (nz), its own columns of d2 and d1 (padded to a multiple of 4)
-    and of h1p and lrelu(h1p). At nz=128: 95,744 B at ndf=200 over 4;
-    395,264 B at ndf=512 over 4 and 223,232 B over 8."""
-    j = ndf // cluster
-    j4 = -(-j // 4) * 4
-    weights = (nz + ndf) * slice_ld(j) if smem_weights else 0
-    return 4 * (weights + ROWS * (2 * nz + 2 * ndf + 2 * j4 + 2 * j))
+    """Shared memory of one block. With `smem_weights`, of the fp32 variant
+    over a cluster of `cluster` (the kernel's layout): its column slices of
+    K1 and K2; per chain the whole z, the gathered h1, its partial sums of
+    d2 K2^T (ndf) and d1 K1^T (nz), its own columns of d2 and d1 (padded to
+    a multiple of 4) and of h1p and lrelu(h1p). At nz=128: 95,744 B at
+    ndf=200 over 4; 395,264 B at ndf=512 over 4 and 223,232 B over 8.
+    Without, of the streamed variant (`cluster` L2_CLUSTER) at the tiling
+    of (nz, ndf) with the chains it was fitted to (`l2_tiling`); where none
+    fits, at the last one tried (8 chains, 32 columns, k-tiles of 8)."""
+    if smem_weights:
+        j = ndf // cluster
+        j4 = -(-j // 4) * 4
+        return 4 * ((nz + ndf) * slice_ld(j) + ROWS * (2 * nz + 2 * ndf + 2 * j4 + 2 * j))
+    if cluster != L2_CLUSTER:
+        raise ValueError(f"the streamed variant runs over clusters of {L2_CLUSTER}, not {cluster}")
+    t = l2_tiling(nz, ndf)
+    if t is None:
+        kt = L2_KTILES[-1]
+        return l2_smem_bytes(_round_up(nz, kt), _round_up(ndf, L2_CLUSTER * kt), L2_NARROW, L2_COLS[-1], kt)
+    return l2_smem_bytes(t.nz, t.ndf, L2_NARROW if t.chains == (L2_NARROW,) else L2_BASE, t.cols, t.ktile)
+
+
+def l2_smem_bytes(nz: int, ndf: int, chains: int, cols: int, ktile: int) -> int:
+    """Shared memory of one block of the streamed variant (the kernel's
+    layout) with `chains` chains a cluster and weight tiles of `cols`
+    output columns x `ktile` k, at padded widths (nz a multiple of ktile,
+    ndf of 8 ktile; J = ndf / 8 own columns): 4 bytes x (z and the partial
+    sums of d1 K1^T, nz x chains each; the own columns of lrelu(h1p), later
+    d1, and of d2, chains x (J + 4) each; L2_STAGES ring slots of cols x
+    (ktile + 4); two activation tiles of chains x (ktile + 4)), plus the
+    signs of h1p, chains x J bytes. At nz=128, ndf=1024 with 32 chains and
+    tiles of 128 x 32: 153,600 B."""
+    j = ndf // L2_CLUSTER
+    floats = 2 * nz * chains + 2 * chains * (j + 4) + L2_STAGES * cols * (ktile + 4) + 2 * chains * (ktile + 4)
+    return 4 * floats + chains * j
+
+
+class L2Tiling(NamedTuple):
+    """The streamed variant's tiling of an EBM's widths."""
+
+    nz: int  # padded to a multiple of ktile
+    ndf: int  # padded to a multiple of L2_CLUSTER x ktile
+    cols: int  # output columns of a weight tile
+    ktile: int  # k depth of a weight tile
+    chains: Tuple[int, ...]  # the chains a cluster it takes
+
+
+@functools.lru_cache(maxsize=None)
+def l2_tiling(nz: int, ndf: int) -> Optional[L2Tiling]:
+    """The streamed variant's tiling of widths (nz, ndf), from these alone
+    (the kernel's `l2_tiling`): the first of (32 chains, 128 columns), (8,
+    128), (8, 32), each at the deepest k-tile of L2_KTILES, whose block fits
+    SMEM_LIMIT at widths padded to it (nz to a multiple of the k-tile, ndf
+    to one of 8 x it). Fitted to 32 chains it takes every one of L2_CHAINS
+    whose block fits (16 always), else 8 alone. Padded widths give
+    themselves back. None where nothing fits. At nz=128: ndf=1024 as it is
+    with tiles of 128 x 32 and 16, 32 or 48 chains; ndf=540 to 768."""
+    for base, cols in ((L2_BASE, L2_COLS[0]), (L2_NARROW, L2_COLS[0]), (L2_NARROW, L2_COLS[1])):
+        for kt in L2_KTILES:
+            nz_p, ndf_p = _round_up(nz, kt), _round_up(ndf, L2_CLUSTER * kt)
+            if l2_smem_bytes(nz_p, ndf_p, base, cols, kt) <= SMEM_LIMIT:
+                chains = (tuple(c for c in L2_CHAINS if l2_smem_bytes(nz_p, ndf_p, c, cols, kt) <= SMEM_LIMIT)
+                          if base == L2_BASE else (base,))
+                return L2Tiling(nz_p, ndf_p, cols, kt, chains)
+    return None
+
+
+def l2_packed_floats(nz: int, ndf: int) -> int:
+    """Floats of the streamed variant's scratch at the tiling of (nz, ndf):
+    the weights packed, once a launch, in the order its 8 blocks stream
+    them, each tile as it lies in a ring slot. Per block (J = ndf / 8 own
+    columns at the padded widths, tiles of cols x kt): the two forward
+    products' tiles, kt rows at stride cols over ceil(J / cols) column
+    chunks, chunks x cols x (nz + ndf) floats; the two transposed ones',
+    rows at stride kt + 4, (J ndf + nz J) (kt + 4) / kt."""
+    t = l2_tiling(nz, ndf)
+    j = t.ndf // L2_CLUSTER
+    chunks = -(-j // t.cols)
+    return L2_CLUSTER * (chunks * t.cols * (t.nz + t.ndf) + (j * t.ndf + t.nz * j) * (t.ktile + 4) // t.ktile)
+
+
+def l2_chains(chains: Tuple[int, ...], b: int, max_clusters) -> int:
+    """The chains a cluster of a streamed launch of b chains: of `chains`,
+    the one whose ceil(b / c) clusters take the fewest waves of the
+    `max_clusters(c)` the card runs at once, then the fewest chains. Each
+    output element's sum does not depend on it."""
+    return min(chains, key=lambda c: (-(-(-(-b // c)) // max(1, max_clusters(c))), c))
 
 
 def mma_widths(nz: int, ndf: int, cluster: int) -> Tuple[int, int]:
@@ -182,9 +274,10 @@ class Launch(NamedTuple):
 
     nz: int
     ndf: int
-    smem_weights: bool  # the weight slices in shared memory, else read from global memory
+    smem_weights: bool  # the weight slices in shared memory, else streamed from global memory
     cluster: int  # blocks per cluster
     bf16: bool = False  # bf16 dots: with smem_weights the tensor-core variant
+    chains: Tuple[int, ...] = (ROWS,)  # chains a cluster it may take (the streamed variant: by the batch)
 
     @property
     def mma(self) -> bool:
@@ -200,13 +293,11 @@ def launch_widths(nz: int, ndf: int, dots_dtype: str = "float32") -> Optional[La
     with ndf padded to a multiple of it, the weights in shared memory.
     bfloat16: the tensor-core variant over the smallest cluster of
     MMA_CLUSTERS that holds the widths (`fits_mma`), at `mma_widths`. Else,
-    in either precision, over L2_CLUSTER, nz padded to a multiple of 4, ndf
-    to one of 4 L2_CLUSTER and the weights read from global memory (L2),
-    shared memory holding the activations alone. None where even those
-    overflow a block (ndf past about 2,300 at nz=128). At nz=128, fp32:
-    ndf=200 over 4, 512 over 8, 1024 from L2; bf16: ndf=200 (208) in one
-    block, 512 over 4, 1024 from L2. Widths that fit as they are launch as
-    they are."""
+    in either precision, the streamed variant over L2_CLUSTER at its tiling
+    (`l2_tiling`). None where that fits no block either (ndf past 24,064 at
+    nz=128). At nz=128, fp32: ndf=200 over 4, 512 over 8, 1024 streamed;
+    bf16: ndf=200 (208) in one block, 512 over 4, 1024 streamed. Widths
+    that fit as they are launch as they are."""
     if dots_dtype not in DOTS_DTYPES:
         raise ValueError(f"dots_dtype must be one of {DOTS_DTYPES}, got {dots_dtype!r}")
     bf16 = dots_dtype == "bfloat16"
@@ -220,10 +311,10 @@ def launch_widths(nz: int, ndf: int, dots_dtype: str = "float32") -> Optional[La
             ndf_p = _round_up(ndf, cluster)
             if fits_smem(nz_p, ndf_p, cluster):
                 return Launch(nz_p, ndf_p, True, cluster)
-    nz_p, ndf_p = _round_up(nz, 4), _round_up(ndf, 4 * L2_CLUSTER)
-    if smem_bytes(nz_p, ndf_p, False, L2_CLUSTER) <= SMEM_LIMIT:
-        return Launch(nz_p, ndf_p, False, L2_CLUSTER, bf16)
-    return None
+    t = l2_tiling(nz, ndf)
+    if t is None:
+        return None
+    return Launch(t.nz, t.ndf, False, L2_CLUSTER, bf16, t.chains)
 
 
 def pad_widths(z, k1, b1, k2, b2, k3, nz_p: int, ndf_p: int) -> Tuple[torch.Tensor, ...]:
@@ -244,7 +335,7 @@ def fits_ebm(ebm) -> bool:
     """Whether K1 takes a `LatentEBM`, from static facts alone: the 2-hidden,
     1-output layout the kernel hand-codes (JAX's `is_standard_mlp`), at any
     width: the launch pads it (`launch_widths`) and raises only for widths
-    whose activations overflow a block."""
+    whose streamed block overflows."""
     lin = [m for m in ebm.ebm if isinstance(m, torch.nn.Linear)]
     return len(lin) == 3 and lin[2].out_features == 1
 
@@ -374,9 +465,8 @@ def _chain_launch(z, k1, b1, k2, b2, k3, row_seeds, seed, steps, step_size, with
     widths = launch_widths(nz, ndf, dots_dtype)
     if widths is None:
         raise ValueError(
-            f"EBM widths nz={nz}, ndf={ndf} overflow the chain kernel: a block's activations take "
-            f"{smem_bytes(_round_up(nz, 4), _round_up(ndf, 4 * L2_CLUSTER), False, L2_CLUSTER)} B of "
-            f"shared memory, past {SMEM_LIMIT}"
+            f"EBM widths nz={nz}, ndf={ndf} overflow the chain kernel: the streamed variant's block takes "
+            f"{smem_bytes(nz, ndf, False, L2_CLUSTER)} B of shared memory, past {SMEM_LIMIT}"
         )
     dev = z.device
     f32 = lambda t: t.to(device=dev, dtype=torch.float32).contiguous()
@@ -386,8 +476,6 @@ def _chain_launch(z, k1, b1, k2, b2, k3, row_seeds, seed, steps, step_size, with
     else:
         nz_p, ndf_p = widths.nz, widths.ndf
         z32, *w = pad_widths(z32, *w, nz_p, ndf_p)
-        if not widths.smem_weights:  # the kernel reads rows of K1 and K2 as float4
-            w = [t.clone() if t.data_ptr() % 16 else t for t in w]
     seeds = None
     if with_noise and row_seeds is not None:
         seeds = row_seeds.to(device=dev, dtype=torch.int32).contiguous()
@@ -396,11 +484,16 @@ def _chain_launch(z, k1, b1, k2, b2, k3, row_seeds, seed, steps, step_size, with
     stream = with_noise and seeds is None
     out = torch.empty_like(z32)
     lib = _library()
+    chains, packed = ROWS, None
+    if not widths.smem_weights:
+        chains = l2_chains(widths.chains, b, lambda c: max_active_clusters(nz_p, ndf_p, c, widths.bf16))
+        packed = torch.empty(l2_packed_floats(nz_p, ndf_p), dtype=torch.float32, device=dev)
     rc = lib.damc_fused_langevin(
         z32.data_ptr(), *[t.data_ptr() for t in w],
         None if seeds is None else seeds.data_ptr(), int32_seed(seed) if stream else 0,
-        int(stream), int(row_base), int(widths.bf16), int(widths.smem_weights), widths.cluster, out.data_ptr(),
-        b, nz_p, ndf_p, steps, float(step_size), 0.5 * step_size * step_size,
+        int(stream), int(row_base), int(widths.bf16), int(widths.smem_weights), widths.cluster, chains,
+        None if packed is None else packed.data_ptr(), out.data_ptr(), b, nz_p, ndf_p, steps, float(step_size),
+        0.5 * step_size * step_size,
         torch.cuda.current_stream(dev).cuda_stream,
     )
     build.check(lib, rc, "fused_prior_langevin")
@@ -415,24 +508,50 @@ def _library() -> ctypes.CDLL:
     fn = lib.damc_fused_langevin
     if fn.argtypes is None:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        # z, k1, b1, k2, b2, k3, seeds, seed, stream_noise, row_base, bf16_dots,
-        # smem_weights, cluster, out, B, nz, ndf, steps, step_size, coeff, stream
-        fn.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, p, i, i, i, i, f, f, p]
+        # z, k1, b1, k2, b2, k3, seeds, seed, stream_noise, row_base, bf16_dots, smem_weights,
+        # cluster, chains, packed, out, B, nz, ndf, steps, step_size, coeff, stream
+        fn.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, i, p, p, i, i, i, i, f, f, p]
         fn.restype = ctypes.c_int
         geometry = (ctypes.c_int * 32)()
         lib.damc_fused_langevin_geometry(geometry)
-        n = 4 + geometry[3]
-        want = (ROWS, THREADS, L2_CLUSTER, len(CLUSTERS), *CLUSTERS,
-                len(MMA_CLUSTERS), *MMA_CLUSTERS, MMA_TILE, MMA_THREADS)
-        if tuple(geometry[:n + 3 + geometry[n]]) != want:
+        want = (ROWS, THREADS, len(CLUSTERS), *CLUSTERS, len(MMA_CLUSTERS), *MMA_CLUSTERS, MMA_TILE, MMA_THREADS,
+                L2_CLUSTER, L2_STAGES, len(L2_CHAINS), *L2_CHAINS, L2_NARROW, *L2_COLS, *L2_KTILES)
+        if tuple(geometry[:len(want)]) != want:
             raise RuntimeError("fused_langevin.cu and fused_langevin.py disagree on the geometry")
-        smem = lib.damc_fused_langevin_smem_bytes
+        smem, l2_smem = lib.damc_fused_langevin_smem_bytes, lib.damc_fused_langevin_l2_smem_bytes
         widths = ((128, 200), (100, 200), (8, 200), (10, 200), (128, 512), (128, 640), (128, 1024))
-        if any(smem(nz, ndf, int(w), c, 0) != smem_bytes(nz, ndf, w, c)
-               for nz, ndf in widths for w, c in [(True, c) for c in CLUSTERS] + [(False, L2_CLUSTER)]) or any(
-               smem(nz, ndf, 1, c, 1) != mma_smem_bytes(nz, ndf, c) for nz, ndf in widths for c in MMA_CLUSTERS):
+        if any(smem(nz, ndf, c, 0) != smem_bytes(nz, ndf, True, c) for nz, ndf in widths for c in CLUSTERS) or any(
+               smem(nz, ndf, c, 1) != mma_smem_bytes(nz, ndf, c) for nz, ndf in widths for c in MMA_CLUSTERS) or any(
+               l2_smem(nz, ndf, m, c, k) != l2_smem_bytes(nz, ndf, m, c, k) for nz, ndf in ((128, 1024), (96, 3072))
+               for m in (*L2_CHAINS, L2_NARROW) for c in L2_COLS for k in L2_KTILES):
             raise RuntimeError("fused_langevin.cu and fused_langevin.py disagree on shared memory")
+        tiling = (ctypes.c_int * 5)()
+        lib.damc_fused_langevin_l2_packed_floats.restype = ctypes.c_longlong
+        for nz, ndf in ((128, 540), (128, 1024), (100, 1020), (128, 2336), (128, 3072), (700, 600), (3000, 200),
+                        (128, 3100), (3400, 100), (128, 24065)):
+            t = l2_tiling(nz, ndf)
+            got = tuple(tiling) if lib.damc_fused_langevin_l2_tiling(nz, ndf, tiling) else None
+            base = None if t is None else L2_NARROW if t.chains == (L2_NARROW,) else L2_BASE
+            packed = lib.damc_fused_langevin_l2_packed_floats(nz, ndf)
+            if got != (None if t is None else (t.nz, t.ndf, t.cols, t.ktile, base)) or packed != (
+                    -1 if t is None else l2_packed_floats(nz, ndf)):
+                raise RuntimeError("fused_langevin.cu and fused_langevin.py disagree on the streamed tiling")
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _max_active_clusters(device: int, nz: int, ndf: int, chains: int, bf16: bool) -> int:
+    lib = _library()
+    out = ctypes.c_int(0)
+    build.check(lib, lib.damc_fused_langevin_l2_max_clusters(nz, ndf, chains, int(bf16), ctypes.byref(out)),
+                "max_active_clusters")
+    return out.value
+
+
+def max_active_clusters(nz: int, ndf: int, chains: int, bf16: bool = False) -> int:
+    """How many clusters of the streamed variant with `chains` chains the
+    current card runs at once, at the tiling of widths (nz, ndf)."""
+    return _max_active_clusters(torch.cuda.current_device(), nz, ndf, chains, bool(bf16))
 
 
 def fused_prior_langevin_sharded(

@@ -108,8 +108,9 @@ def main() -> int:
         raise RuntimeError(f"cifar10's EBM does not take the tensor-core kernel in one block: {launch}")
     z = torch.randn(B, nz, generator=torch.Generator().manual_seed(0)).cuda()
     out = torch.empty_like(z)
-    rc = lib.damc_fused_langevin(z.data_ptr(), *[t.data_ptr() for t in w], None, -1357911, 1, 0, 1, 1, 1,
-                                 out.data_ptr(), B, nz, ndf, STEPS, 0.4, 0.08, torch.cuda.current_stream().cuda_stream)
+    rc = lib.damc_fused_langevin(z.data_ptr(), *[t.data_ptr() for t in w], None, -1357911, 1, 0, 1, 1, 1, k1.ROWS,
+                                 None, out.data_ptr(), B, nz, ndf, STEPS, 0.4, 0.08,
+                                 torch.cuda.current_stream().cuda_stream)
     build.check(lib, rc, "instrumented K1_tc")
     torch.cuda.synchronize()
     cycles = (ctypes.c_longlong * 32)()

@@ -11,7 +11,9 @@ holding the weights in shared memory over the smallest cluster whose
 blocks' shares fit (4 blocks at ndf=200, 8 at ndf=512, nz=128); with bf16
 dots the tensor-core variant, nz to a multiple of 16 and ndf to one of 16
 x the cluster (1 block at ndf=200, 4 at ndf=512), padded by the kernel in
-shared memory; where none fits (ndf=1024) the weights are read from L2.
+shared memory; where none fits (ndf=1024) the streamed variant, over a
+cluster of 8 with 16, 32 or 48 chains, streams tiles of the weights from L2
+(nz to a multiple of its k-tile, ndf to one of 8 x it).
 On the CPU the op runs the plain version at the widths as given; the
 padding tests below show that the padded chain's first nz columns are the
 unpadded chain's.
@@ -110,10 +112,15 @@ def test_k1_takes_every_two_hidden_ebm(name, widths):
     (128, 500, (128, 504, True, 8)),
     (128, 512, (128, 512, True, 8)),
     (128, 536, (128, 536, True, 8)),  # the widest ndf a cluster of 8 holds at nz=128
-    (128, 540, (128, 544, False, 4)),
-    (128, 1024, (128, 1024, False, 4)),
-    (128, 2336, (128, 2336, False, 4)),
-    (128, 2400, None),
+    (128, 540, (128, 768, False, 8, False, (16, 32, 48))),  # streamed: ndf to a multiple of 8 x 32
+    (128, 1024, (128, 1024, False, 8, False, (16, 32, 48))),
+    (128, 2336, (128, 2560, False, 8, False, (16, 32))),  # 48 chains no longer fit a block
+    (128, 2400, (128, 2560, False, 8, False, (16, 32))),
+    (128, 3073, (128, 3200, False, 8, False, (16, 32))),  # past 32-deep tiles: 16 deep
+    (100, 1020, (128, 1024, False, 8, False, (16, 32, 48))),
+    (3000, 200, (3000, 256, False, 8, False, (8,))),  # 32 chains fit no block: 8
+    (128, 24064, (128, 24064, False, 8, False, (8,))),  # the widest ndf the streamed variant takes
+    (128, 24065, None),  # the first that raises
     (7, 10, (8, 12, True, 4)),
     (100, 510, (100, 512, True, 8)),
     (10, 512, (12, 512, True, 8)),
@@ -122,10 +129,13 @@ def test_launch_widths_rule(nz, ndf, want):
     """Widths that fit launch as they are; others are padded, nz to a
     multiple of 4 and ndf to one of the smallest cluster (4, then 8) whose
     blocks' shares of the weights and activations fit 227 KB, the weights
-    in shared memory; past a cluster of 8 (ndf above 536 at nz=128) ndf is
-    padded to one of 16 with the weights in L2; past that (ndf=2400) the
-    kernel takes no width and the launch raises. The route is a function
-    of the widths alone. A 3-hidden EBM is not the layout K1 hand-codes."""
+    in shared memory; past a cluster of 8 (ndf above 536 at nz=128) the
+    streamed variant at its tiling (`l2_tiling`): over a cluster of 8, nz
+    padded to a multiple of the k-tile and ndf to one of 8 x it, with the
+    chains a cluster it may take; past its widest block (ndf=24,065 at
+    nz=128, 8 chains and 32 x 8 tiles) the kernel takes no width and the
+    launch raises. The route is a function of the widths alone. A 3-hidden
+    EBM is not the layout K1 hand-codes."""
     assert k1.launch_widths(nz, ndf) == (None if want is None else k1.Launch(*want))
     assert k1.launch_widths(nz, ndf, "float32") == k1.launch_widths(nz, ndf)
     assert not k1.fits_ebm(LatentEBM(8, ndf=16, n_hidden=3))
@@ -141,32 +151,34 @@ def test_launch_widths_rule(nz, ndf, want):
     (128, 512, (128, 512, True, 4)),  # ndf=512 on chip over a cluster of 4
     (128, 513, (128, 640, True, 8)),
     (128, 640, (128, 640, True, 8)),  # the widest ndf a cluster of 8 holds at nz=128
-    (128, 641, (128, 656, False, 4)),  # from L2, padded as the fp32 L2 variant
-    (128, 1024, (128, 1024, False, 4)),
+    (128, 641, (128, 768, False, 8)),  # streamed, padded as the fp32 streamed variant
+    (128, 1024, (128, 1024, False, 8)),
     (16, 256, (16, 256, True, 1)),  # the most own columns a block's 16 warps hold, a tile each
     (16, 272, (16, 320, True, 4)),
-    (128, 2400, None),
+    (128, 2400, (128, 2560, False, 8)),
+    (128, 24065, None),
 ])
 def test_launch_widths_rule_bf16(nz, ndf, want):
     """With bf16 dots the route takes the tensor-core variant over the
     smallest cluster of MMA_CLUSTERS (1, 4, 8) whose block holds the bf16
     weight slices and the activations in 227 KB (`fits_mma`), nz padded to
     a multiple of 16 and ndf to one of 16 x the cluster; past a cluster of
-    8 the L2 variant with bf16 dots at the fp32 L2 widths. At nz=128 one
+    8 the streamed variant with bf16 dots at the fp32 one's tiling. At nz=128 one
     block holds ndf up to 256, so the presets run in one block, and ndf=512
     runs on chip over 4. A function of (nz, ndf, dots dtype) alone."""
     got = k1.launch_widths(nz, ndf, "bfloat16")
     if want is None:
         assert got is None
         return
-    assert got == k1.Launch(*want, True)
+    assert got[:5] == (*want, True)
     assert got.mma == want[2] and got.bf16
     if got.mma:
+        assert got == k1.Launch(*want, True)
         assert (got.nz, got.ndf) == k1.mma_widths(nz, ndf, got.cluster)
         smaller = [c for c in k1.MMA_CLUSTERS if c < got.cluster]
         assert k1.fits_mma(nz, ndf, got.cluster) and not any(k1.fits_mma(nz, ndf, c) for c in smaller)
     else:
-        assert got[:4] == k1.launch_widths(nz, ndf)[:4]
+        assert got._replace(bf16=False) == k1.launch_widths(nz, ndf)
     with pytest.raises(ValueError, match="dots_dtype"):
         k1.launch_widths(nz, ndf, "float16")
 
@@ -205,19 +217,149 @@ def test_mma_smem_bytes(nz, ndf, cluster, want):
     (100, 200, True, 4, 88_128),
     (128, 512, True, 4, 395_264),  # past the 232,448 B a block may use
     (128, 512, True, 8, 223_232),
-    (128, 1024, True, 8, 698_368),  # past it again: read from L2
-    (128, 512, False, 4, 57_344),
-    (128, 1024, False, 4, 106_496),
-    (128, 2400, False, 4, 238_592),  # the activations alone overflow a block
+    (128, 1024, True, 8, 698_368),  # past it again: streamed
+    (128, 512, False, 8, 135_168),
+    (128, 1024, False, 8, 153_600),
+    (128, 2400, False, 8, 208_896),  # padded to 2560, fitted to 32 chains
+    (128, 24065, False, 8, 232_512),  # 8 chains, 32 x 8 tiles: past a block
 ])
 def test_smem_bytes_of_each_variant(nz, ndf, smem_weights, cluster, want):
-    """A block's shared memory, reckoned by hand from the kernel's layout:
-    4 x ((nz + ndf) slice_ld(ndf / cluster) with the weights on chip, plus
-    8 chains x (2 nz + 2 ndf + 2 pad4(J) + 2 J)); the on-chip variants fit
-    where it is within SMEM_LIMIT."""
+    """A block's shared memory, reckoned by hand from the kernel's layout.
+    On chip: 4 x ((nz + ndf) slice_ld(ndf / cluster) + 8 chains x (2 nz +
+    2 ndf + 2 pad4(J) + 2 J)); the on-chip variants fit where it is within
+    SMEM_LIMIT. Streamed (over a cluster of 8, at the widths its tiling pads
+    to, J = ndf_p / 8, with the M chains it was fitted to and tiles of
+    cols x kt): 4 x (2 nz_p M + 2 M (J + 4) + 4 cols (kt + 4) + 2 M (kt +
+    4)) + M J. ndf=1024: M=32, 128 x 32 tiles, J=128: 4 x (8,192 + 8,448 +
+    18,432 + 2,304) + 4,096 = 153,600. ndf=512: J=64: 4 x (8,192 + 4,352 +
+    18,432 + 2,304) + 2,048 = 135,168. ndf=2400 padded to 2560, J=320: 4 x
+    (8,192 + 20,736 + 18,432 + 2,304) + 10,240 = 208,896. ndf=24,065, where
+    no tiling fits, at the last one tried: padded to 24,128 (8 x 8), J=3,016,
+    M=8 and 32 x 8 tiles: 4 x (2,048 + 48,320 + 1,536 + 192) + 24,128 =
+    232,512, past the limit."""
     assert k1.smem_bytes(nz, ndf, smem_weights, cluster) == want
     if smem_weights:
         assert k1.fits_smem(nz, ndf, cluster) == (want <= k1.SMEM_LIMIT)
+    else:
+        assert (k1.launch_widths(nz, ndf) is not None) == (want <= k1.SMEM_LIMIT)
+        with pytest.raises(ValueError, match="clusters of 8"):
+            k1.smem_bytes(nz, ndf, smem_weights, 4)
+
+
+@pytest.mark.parametrize("nz, ndf, chains, cols, kt, want", [
+    (128, 1024, 32, 128, 32, 153_600),  # the ndf=1024 FID batch's tiling at 32 chains
+    (128, 1024, 16, 128, 32, 113_664),
+    (128, 1024, 48, 128, 32, 193_536),
+    (128, 3072, 32, 128, 32, 227_328),  # the widest ndf at 32 x 32 tiles that fits
+    (128, 3072, 48, 128, 32, 304_128),  # past the 232,448 B a block may use
+    (3000, 256, 8, 128, 8, 219_904),
+    (3408, 128, 8, 32, 16, 231_040),
+])
+def test_l2_smem_bytes(nz, ndf, chains, cols, kt, want):
+    """The streamed variant's shared memory, reckoned by hand from its
+    layout at padded widths (J = ndf / 8 own columns, M chains, tiles of
+    cols x kt): in floats z and the partial sums of d1 K1^T (nz x M each),
+    the own columns of lrelu(h1p) (later d1) and of d2 (M x (J + 4) each),
+    4 ring slots of cols x (kt + 4) and 2 activation tiles of M x (kt + 4);
+    then the signs of h1p, M x J bytes. ndf=1024, M=32: 4 x (2 x 4,096 + 2
+    x 4,224 + 4 x 4,608 + 2 x 1,152) + 4,096 = 153,600."""
+    j = ndf // 8
+    floats = 2 * nz * chains + 2 * chains * (j + 4) + 4 * cols * (kt + 4) + 2 * chains * (kt + 4)
+    assert 4 * floats + chains * j == want
+    assert k1.l2_smem_bytes(nz, ndf, chains, cols, kt) == want
+
+
+@pytest.mark.parametrize("nz, ndf, want", [
+    (128, 1024, (128, 1024, 128, 32, (16, 32, 48))),
+    (128, 540, (128, 768, 128, 32, (16, 32, 48))),  # ndf to a multiple of 8 x 32
+    (100, 1020, (128, 1024, 128, 32, (16, 32, 48))),  # nz to a multiple of 32
+    (8, 1024, (32, 1024, 128, 32, (16, 32, 48))),
+    (128, 2336, (128, 2560, 128, 32, (16, 32))),  # 48 chains past a block
+    (128, 3073, (128, 3200, 128, 16, (16, 32))),  # 32-deep tiles past a block: 16 deep, ndf to 8 x 16
+    (700, 600, (704, 640, 128, 8, (16, 32))),
+    (3000, 200, (3000, 256, 128, 8, (8,))),  # 32 chains fit no block: 8 chains
+    (3400, 100, (3408, 128, 32, 16, (8,))),  # nor tiles of 128 columns: 32
+    (128, 24065, None),
+])
+def test_l2_tiling(nz, ndf, want):
+    """The streamed variant's tiling, from the widths alone: the first of
+    (32 chains, 128-column tiles), (8, 128), (8, 32), each at the deepest
+    k-tile (32, 16, 8) whose block fits, nz padded to a multiple of the
+    k-tile and ndf to one of 8 x it; fitted to 32 chains it takes 16 and,
+    where they fit, 48. Padded widths give the same tiling back (the C
+    entry checks the widths it is given so), and its chains all fit."""
+    t = k1.l2_tiling(nz, ndf)
+    assert (None if t is None else tuple(t)) == want
+    if t is not None:
+        assert k1.l2_tiling(t.nz, t.ndf) == t
+        assert t.nz % t.ktile == 0 and t.ndf % (8 * t.ktile) == 0
+        assert all(k1.l2_smem_bytes(t.nz, t.ndf, c, t.cols, t.ktile) <= k1.SMEM_LIMIT for c in t.chains)
+
+
+@pytest.mark.parametrize("nz, ndf, want", [
+    (128, 1024, 2_506_752),  # 10.0 MB: the ndf=1024 FID batch's scratch
+    (128, 540, 1_691_648),
+    (3000, 200, 4_584_448),  # J=32 < 128 columns: the forward tiles keep their stride
+])
+def test_l2_packed_floats(nz, ndf, want):
+    """The streamed variant's scratch, reckoned by hand: per block of the 8
+    (J = ndf_p / 8 own columns, tiles of cols x kt at the tiling's padded
+    widths) the forward products' tiles, kt rows at stride cols over
+    ceil(J / cols) chunks, chunks x cols x (nz_p + ndf_p) floats, and the
+    transposed ones', rows at stride kt + 4, (J ndf_p + nz_p J) (kt + 4) /
+    kt. ndf=1024: 8 x (128 x 1,152 + (131,072 + 16,384) x 36 / 32) =
+    2,506,752; ndf=540 (768, J=96): 8 x (128 x 896 + (73,728 + 12,288) x
+    36 / 32) = 1,691,648; (3000, 200) at (3000, 256), 8 chains, tiles of
+    128 x 8, J=32: 8 x (128 x 3,256 + (8,192 + 96,000) x 12 / 8) =
+    4,584,448."""
+    t = k1.l2_tiling(nz, ndf)
+    j = t.ndf // 8
+    per_block = -(-j // t.cols) * t.cols * (t.nz + t.ndf) + (j * t.ndf + t.nz * j) * (t.ktile + 4) // t.ktile
+    assert 8 * per_block == want
+    assert k1.l2_packed_floats(nz, ndf) == want
+
+
+@pytest.mark.parametrize("b, clusters, want", [
+    (500, {16: 14, 32: 14, 48: 14}, 48),  # 11 clusters of 48 in one wave; 16 of 32 would take two
+    (500, {16: 16, 32: 16, 48: 16}, 32),  # 16 clusters of 32 in one wave: fewer chains a cluster
+    (256, {16: 16, 32: 16, 48: 16}, 16),
+    (256, {16: 14, 32: 14, 48: 14}, 32),
+    (16, {16: 14, 32: 14, 48: 14}, 16),
+    (1, {16: 0, 32: 0, 48: 0}, 16),  # a card that reports none: the fewest chains
+])
+def test_l2_chains(b, clusters, want):
+    """A streamed launch takes, of the chains its tiling allows, the one
+    whose clusters take the fewest waves of those the card holds at once,
+    then the fewest chains; every chain's sums are the same whichever."""
+    assert k1.l2_chains((16, 32, 48), b, clusters.__getitem__) == want
+    assert k1.l2_chains((8,), b, lambda c: 1) == 8
+
+
+def _old_l2_takes(nz, ndf):
+    """Whether the variant this one replaced took the widths: a cluster of 4
+    blocks of 8 chains, nz padded to a multiple of 4 and ndf to one of 16,
+    a block's activations 4 x 8 x (2 nz + 2 ndf + 2 pad4(J) + 2 J) bytes
+    within the limit, J = ndf / 4."""
+    nz4, ndf16 = -(-nz // 4) * 4, -(-ndf // 16) * 16
+    j = ndf16 // 4
+    return 4 * 8 * (2 * nz4 + 2 * ndf16 + 2 * j + 2 * j) <= k1.SMEM_LIMIT
+
+
+@pytest.mark.parametrize("nz", [8, 10, 100, 128, 256, 1000, 2000])
+def test_streamed_variant_takes_every_width_the_old_one_took(nz):
+    """Every width the route sent to the variant this one replaced (where
+    no on-chip variant holds the weights, in either dot precision) the
+    streamed variant takes, at nz=128 ndf 537 to 2,336 and beyond (to
+    24,064), at any ndf up to 3,000 at the other latent widths. (From nz=3,497
+    with ndf of 80 or less, latents no EBM here has, it takes fewer: its
+    ring and padding overflow a block where the old variant's did not.)"""
+    for ndf in range(1, 3001):
+        for dots in k1.DOTS_DTYPES:
+            launch = k1.launch_widths(nz, ndf, dots)
+            if launch is not None and launch.smem_weights:
+                continue
+            if _old_l2_takes(nz, ndf):
+                assert launch is not None and launch.cluster == 8, (nz, ndf, dots)
 
 
 @pytest.mark.parametrize("ndf", [376, 504, 512, 536])
@@ -266,11 +408,14 @@ NOISE = {"stream": dict(seed=-987), "counter": dict(row_seeds=torch.tensor([3, -
 
 @pytest.mark.parametrize("dots", ["float32", "bfloat16"])
 @pytest.mark.parametrize("mode", list(NOISE))
-@pytest.mark.parametrize("nz, ndf", [(10, 200), (7, 10), (128, 510), (10, 512), (128, 500), (128, 1020)])
+@pytest.mark.parametrize("nz, ndf", [(10, 200), (7, 10), (128, 510), (10, 512), (128, 500), (128, 1020),
+                                     (100, 1020), (128, 540)])
 def test_padded_chain_is_the_unpadded_chain(nz, ndf, mode, dots):
     """The chain on `pad_widths`' inputs, at the widths `launch_widths`
     gives (ndf to a multiple of 4 or, over a cluster of 8, of 8: (128, 500)
-    to 504; of 16 for the L2 variant: (128, 1020) to 1024), is the
+    to 504; the streamed variant's nz to a multiple of its k-tile and ndf
+    to one of 8 x it: (128, 1020) to 1024, (100, 1020) to (128, 1024),
+    (128, 540) to 768), is the
     unpadded chain in its first nz columns, in every noise mode and dot
     precision: a zero weight adds exact zeros, a padded
     hidden unit's pre-activation is 0 and feeds nothing, and a column's
@@ -502,3 +647,16 @@ def test_k1_phases_instruments_the_tensor_core_kernel():
     src = k1_phases.instrument((build.SRC_DIR / "fused_langevin.cu").read_text())
     assert all(f"PT({i});" in src for i in range(len(k1_phases.PHASES)))
     assert "damc_phase_cycles" in src
+
+
+def test_k1_l2_phases_instruments_the_streamed_kernel():
+    """`tools/k1_l2_phases.py` times the phases of the streamed kernel by
+    text replacement in `csrc/fused_langevin.cu`: every pattern it needs is
+    found in the streamed kernel as often as it expects, and each of its
+    phase timers is placed."""
+    from damc_tpu_torch.ops.cuda import build
+    from damc_tpu_torch.tools import k1_l2_phases
+
+    src = k1_l2_phases.instrument((build.SRC_DIR / "fused_langevin.cu").read_text())
+    assert all(f"PH({i});" in src for i in range(len(k1_l2_phases.PHASES)))
+    assert "g_l2_cycles" in src and "damc_l2_cycles" in src
