@@ -178,9 +178,11 @@ Phases, each of which raises on failure (the script then exits non-zero):
      must raise; host batches queued to the card must equal the CPU's; the
      host feed's ms an iteration and idle share beside the device-resident
      store's; profiles one iteration;
- 16b. item 4c's decoders (`decoders_4c_phase`): 2,656 files at 178x218
-     written by PIL on worker processes (1,024 lossy, 256 lossless, 128
-     alpha and 32 animated WebPs; 1,024 progressive, 128 CMYK and 64 YCCK
+ 16b. item 4c's decoders (`decoders_4c_phase`): 2,912 files at 178x218
+     written on worker processes (by PIL: 1,024 lossy, 256 lossless, 128
+     alpha and 32 animated WebPs; 1,024 progressive, 128 CMYK, 64 YCCK and
+     64 smoothed, cut progressive JPEGs; by the port's writer: 64 each of
+     arithmetic-coded sequential, arithmetic-coded progressive and lossless
      JPEGs), each decoded by the port equal to PIL's decode byte for byte,
      with the decode rates of each kind (8 threads, 1 thread, PIL on 1);
      then a mixed celeba64 tree drawn from them (1,024 train, 256 test)
@@ -3598,28 +3600,38 @@ def celeba64_phase(cfg, counters):
             u()
         shutil.rmtree(tmp, ignore_errors=True)
 
-# Item 4c's trees at CelebA's 178x218, written by PIL: (kind, files).
+# Item 4c's trees at CelebA's 178x218, written by PIL, and the arithmetic
+# and lossless JPEGs by the port's writer (tools/jpeg_writer.py), which PIL
+# cannot write: (kind, files).
 TREE_4C = (("webp_lossy", 1024), ("webp_lossless", 256), ("webp_alpha", 128), ("webp_anim", 32),
-           ("jpeg_progressive", 1024), ("jpeg_cmyk", 128), ("jpeg_ycck", 64))
+           ("jpeg_progressive", 1024), ("jpeg_cmyk", 128), ("jpeg_ycck", 64), ("jpeg_arith", 64),
+           ("jpeg_arith_progressive", 64), ("jpeg_lossless", 64), ("jpeg_smoothed", 64))
 MIXED_TRAIN, MIXED_TEST = 1024, 256  # the mixed celeba64 tree drawn from them
 ONE_THREAD_FILES = 256  # the port's one-thread rate is timed on the first of each kind
 
 
 def synthetic_4c_tree(root: str, kind: str, n: int, size, seed: int, start: int = 0) -> None:
     """n files of one kind of TREE_4C, (width, height) `size`, made from
-    `seed` and written by PIL to root/{start + i:06d}_{kind}.webp or .jpg:
-    smooth images with a little pixel noise. Lossy WebP cycles quality 0 to
-    100 and method 0 to 6; lossless WebP quality and method 0 to 4, every
-    fourth a palette of 16 or 200 colours; alpha WebP a quarter fully
+    `seed` and written to root/{start + i:06d}_{kind}.webp or .jpg: smooth
+    images with a little pixel noise. By PIL: lossy WebP cycles quality 0
+    to 100 and method 0 to 6; lossless WebP quality and method 0 to 4,
+    every fourth a palette of 16 or 200 colours; alpha WebP a quarter fully
     transparent, lossy and lossless by turns; animations three frames;
     progressive JPEG 4:2:0 at quality 75 and 4:4:4 at 90 by turns, every
     fourth with a restart marker every MCU row; CMYK JPEG baseline and
     progressive by turns, and YCCK the same files with the Adobe transform
-    byte set to 2."""
+    byte set to 2; smoothed JPEG, a progressive file cut after 1 to 6 of
+    its scans, plus an EOI (libjpeg smooths its blocks). By the port's
+    writer: arithmetic-coded JPEG sequential, 4:2:0 at quality 75 and
+    4:4:4 at 90 by turns, every fourth with a restart marker every 11
+    MCUs; the same progressive (libjpeg's simple progression); lossless
+    JPEG, predictors 1 to 7 in turn, point transform 0 and 1 by turns."""
     import io
     import os
 
     from PIL import Image
+
+    from damc_tpu_torch.tools.jpeg_writer import write_jpeg, write_lossless_jpeg
 
     w, h = int(size[0]), int(size[1])
     os.makedirs(root, exist_ok=True)
@@ -3649,6 +3661,22 @@ def synthetic_4c_tree(root: str, kind: str, n: int, size, seed: int, start: int 
             if k % 4 == 1:
                 kw["restart_marker_rows"] = 1
             img.save(path, "JPEG", progressive=True, **kw)
+        elif kind in ("jpeg_arith", "jpeg_arith_progressive", "jpeg_lossless", "jpeg_smoothed"):
+            pix = np.asarray(img)
+            if kind == "jpeg_lossless":
+                data = write_lossless_jpeg(pix, predictor=1 + k % 7, pt=k % 2)
+            elif kind == "jpeg_smoothed":
+                buf = io.BytesIO()
+                img.save(buf, "JPEG", progressive=True, quality=75 + 15 * (k % 2), subsampling=2 * (1 - k % 2))
+                data = buf.getvalue()
+                scans = [i for i in range(len(data) - 1) if data[i:i + 2] == b"\xff\xda"]
+                data = data[:scans[1 + k % 6]] + b"\xff\xd9"
+            else:
+                sampling = [(1, 1)] * 3 if k % 2 else [(2, 2), (1, 1), (1, 1)]
+                data = write_jpeg(pix, sampling, 90 if k % 2 else 75, arithmetic=True,
+                                  progressive=kind == "jpeg_arith_progressive", restart=11 if k % 4 == 1 else 0)
+            with open(path, "wb") as f:
+                f.write(data)
         else:
             buf = io.BytesIO()
             img.convert("CMYK").save(buf, "JPEG", quality=85, progressive=k % 2 == 1)
@@ -3682,8 +3710,9 @@ def write_4c_tree(root: str, size, seed: int) -> float:
 
 def decoders_4c_phase(cfg, counters):
     """Item 4c on the card's machine: the TREE_4C files (lossy, lossless,
-    alpha and animated WebP; progressive, CMYK and YCCK JPEG at CelebA's
-    178x218) written by PIL; every file decoded by the port must equal
+    alpha and animated WebP; progressive, CMYK, YCCK, arithmetic-coded
+    sequential and progressive, lossless and smoothed progressive JPEG at
+    CelebA's 178x218); every file decoded by the port must equal
     PIL's `convert("RGB")` byte for byte, with the decode rates of each
     kind (host side: the port on 8 threads, and on 1 over its first
     ONE_THREAD_FILES, PIL on 1). Then a
@@ -3735,7 +3764,7 @@ def decoders_4c_phase(cfg, counters):
             rates[kind] = {"files": len(group), "bytes": sum(map(len, data)),
                            "port_8_threads_images_per_s": len(group) / port8_s,
                            "port_1_thread_images_per_s": len(one) / port1_s, "pil_images_per_s": len(group) / pil_s}
-        print(f"[decoders_4c] {len(names)} files at {CELEBA64_SIZE[0]}x{CELEBA64_SIZE[1]} written by PIL in "
+        print(f"[decoders_4c] {len(names)} files at {CELEBA64_SIZE[0]}x{CELEBA64_SIZE[1]} written in "
               f"{tree_s:.2f} s; differing from PIL's decode: {len(bad)}; host-side decode rates "
               + json.dumps(rates) + " " + card_line())
         if len(names) != sum(n for _, n in TREE_4C) or bad:

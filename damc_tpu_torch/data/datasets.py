@@ -10,12 +10,13 @@ the NumPy batch `Loader`; and seeded writers of an MNIST-shaped
 `mnist.npz` and of PNG trees for runs without the real files.
 
 Every decoder equals PIL's `Image.open(...).convert("RGB")` byte for byte
-(`data/images.py`; `data/jpeg.py`: baseline and progressive JPEG, grey,
-YCbCr, RGB, CMYK and YCCK; `data/webp.py`: lossy, lossless and animated
-WebP, the LSUN tools' export format); the port itself never imports PIL. A
-file is decoded by what its first bytes say it is, as PIL opens it. The rare
-JPEG codings (arithmetic, lossless, hierarchical, 12-bit) are not decoded
-(ROADMAP.md, queue 1, item 4c): they raise NotImplementedError.
+(`data/images.py`; `data/jpeg.py`: sequential and progressive JPEG,
+Huffman- or arithmetic-coded, and lossless JPEG, grey, YCbCr, RGB, CMYK and
+YCCK; `data/webp.py`: lossy, lossless and animated WebP, the LSUN tools'
+export format); the port itself never imports PIL. A file is decoded by
+what its first bytes say it is, as PIL opens it. A JPEG coding PIL does not
+decode either (hierarchical, lossless arithmetic, 12-bit) raises
+NotImplementedError.
 """
 
 from __future__ import annotations
@@ -205,7 +206,7 @@ def load_image_folder(root: str, size: int, limit: Optional[int] = None) -> np.n
     def flush():
         for (i, _), img in zip(pngs, decode_parsed([png for _, png in pngs])):
             out[i] = _resize_crop(img, size)
-        imgs = decode_jpegs([b for _, b, _ in jpegs], [p for _, _, p in jpegs], cache=cache)
+        imgs = decode_jpegs([b for _, b, _ in jpegs], [p for _, _, p in jpegs])
         for (i, _, _), img in zip(jpegs, imgs):
             out[i] = _resize_crop(img, size)
         for (i, _, _), img in zip(webps, decode_webps([b for _, b, _ in webps], [p for _, _, p in webps])):
@@ -221,7 +222,7 @@ def load_image_folder(root: str, size: int, limit: Optional[int] = None) -> np.n
             pngs.append((i, parse_png(data, p)))
             nbytes += pngs[-1][1].filtered.size
         elif kind == "jpeg":
-            w, h = jpeg_size(data, p, cache)
+            w, h = jpeg_size(data, p)
             jpegs.append((i, data, p))
             nbytes += w * h * 3
         elif kind == "webp":

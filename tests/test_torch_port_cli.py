@@ -91,9 +91,8 @@ def test_unported_options_raise(tmp_path):
         common.init_distributed(bad, torch.device("cpu"))
     assert not torch.distributed.is_initialized()
     # celeba64 reads its folders of PNG, JPEG, BMP and WebP files (items 4b
-    # and 4c), progressive JPEGs among them; an arithmetic-coded JPEG there
-    # raises, naming the decoder item 4c still owes and the JAX-made cache
-    # that serves in its place.
+    # and 4c), progressive JPEGs among them; a 12-bit JPEG there, which PIL
+    # does not decode either, raises naming the file and the feature.
     for split in ("celeba64_train", "celeba64_test"):
         (tmp_path / split).mkdir()
         Image.new("RGB", (8, 8), (20, 140, 200)).save(tmp_path / split / "000001.jpg", progressive=True)
@@ -106,12 +105,45 @@ def test_unported_options_raise(tmp_path):
     (rare / "celeba64_train").mkdir(parents=True)
     buf = io.BytesIO()
     Image.new("RGB", (8, 8)).save(buf, "JPEG")
-    (rare / "celeba64_train" / "000001.jpg").write_bytes(buf.getvalue().replace(b"\xff\xc0", b"\xff\xc9", 1))
+    (rare / "celeba64_train" / "000001.jpg").write_bytes(
+        buf.getvalue().replace(b"\xff\xc0\x00\x11\x08", b"\xff\xc0\x00\x11\x0c", 1))
     cfg = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, data_path=str(rare)))
-    with pytest.raises(NotImplementedError, match=r"000001\.jpg: .*arithmetic.*queue 1, item 4c.*celeba64_train_64\.npy"):
+    with pytest.raises(NotImplementedError, match=r"000001\.jpg: .*12-bit samples.*neither by the port nor by PIL"):
         common.load_dataset(cfg)
     with pytest.raises(ValueError, match="unknown gen_recon dataset 'mnist'"):
         common.load_dataset(preset("mnist_anomaly"))
+
+
+def test_celeba64_arithmetic_and_lossless_folders_equal_jax(tmp_path):
+    """celeba64's folders of arithmetic-coded (sequential, progressive) and
+    lossless JPEGs at CelebA's 178x218: the port's `load_dataset` (train
+    split cached as `celeba64_train_64.npy`, the test split decoded) equals
+    the JAX package's PIL pipeline on a copy of the same files."""
+    from damc_tpu.utils.config import preset as jax_preset
+    from damc_tpu_torch.tools.jpeg_writer import write_jpeg, write_lossless_jpeg
+
+    rng = np.random.default_rng(9)
+    files = {}
+    for split in ("celeba64_train", "celeba64_test"):
+        for i in range(3):
+            low = rng.integers(0, 256, (14, 12, 3), dtype=np.uint8)
+            pix = np.asarray(Image.fromarray(low).resize((178, 218), Image.BILINEAR))
+            files[f"{split}/{i:06d}.jpg"] = [
+                write_jpeg(pix, [(2, 2), (1, 1), (1, 1)], 75, arithmetic=True, restart=i * 6),
+                write_jpeg(pix, [(1, 1)] * 3, 90, arithmetic=True, progressive=True),
+                write_lossless_jpeg(pix, predictor=1 + 3 * i, pt=i % 2)][i]
+    for side in ("port", "jax"):
+        for rel, data in files.items():
+            (tmp_path / side / rel).parent.mkdir(parents=True, exist_ok=True)
+            (tmp_path / side / rel).write_bytes(data)
+    cfg = preset("celeba64")
+    cfg = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, data_path=str(tmp_path / "port")))
+    jcfg = jax_preset("celeba64")
+    jcfg = dataclasses.replace(jcfg, train=dataclasses.replace(jcfg.train, data_path=str(tmp_path / "jax")))
+    got, want = common.load_dataset(cfg), jax_common.load_dataset(jcfg)
+    assert got[0].shape == (3, 64, 64, 3) and (tmp_path / "port" / "celeba64_train_64.npy").exists()
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a, b)
 
 
 def test_make_log_dir_adopts_the_newest_run_with_auto(tmp_path):

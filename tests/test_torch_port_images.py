@@ -203,11 +203,10 @@ def test_load_image_folder_empty_raises(tmp_path):
 def test_load_image_folder_jpeg_raises_before_decoding(tmp_path, monkeypatch):
     """JPEGs decode (item 4b), and so do WebP and progressive JPEG files
     (item 4c; the name predates both): here they decode equal to the JAX
-    package's reader. A JPEG coding the port does not decode (arithmetic)
-    still raises NotImplementedError naming the file, the feature, item 4c
-    and the cache that takes its place, from its header, before any image
-    of the folder is decoded. A file that `limit` leaves out does not
-    raise."""
+    package's reader. A JPEG coding that neither the port nor PIL decodes
+    (12-bit samples) raises NotImplementedError naming the file and the
+    feature, from its header, before any image of the folder is decoded.
+    A file that `limit` leaves out does not raise."""
     _mixed_tree(str(tmp_path), np.random.default_rng(7))
     decoded = []
     for name in ("decode_parsed", "decode_jpegs", "decode_webps", "decode_bmp"):
@@ -218,13 +217,44 @@ def test_load_image_folder_jpeg_raises_before_decoding(tmp_path, monkeypatch):
     Image.fromarray(pix).save(tmp_path / "d" / "zy.jpg", "JPEG", progressive=True)
     buf = io.BytesIO()
     Image.fromarray(pix).save(buf, "JPEG")
-    (tmp_path / "d" / "zz.jpg").write_bytes(buf.getvalue().replace(b"\xff\xc0", b"\xff\xc9", 1))
-    with pytest.raises(NotImplementedError, match=r"zz\.jpg: a JPEG with arithmetic coding.*item 4c.*_16\.npy"):
+    (tmp_path / "d" / "zz.jpg").write_bytes(buf.getvalue().replace(b"\xff\xc0\x00\x11\x08", b"\xff\xc0\x00\x11\x0c", 1))
+    with pytest.raises(NotImplementedError, match=r"zz\.jpg: a JPEG with 12-bit samples.*neither by the port nor by PIL"):
         datasets.load_image_folder(str(tmp_path), 16)
     assert decoded == []
     got = datasets.load_image_folder(str(tmp_path), 16, limit=8)
     assert got.shape == (8, 16, 16, 3) and set(decoded) == {"decode_parsed", "decode_jpegs", "decode_webps"}
     np.testing.assert_array_equal(got, jax_datasets.load_image_folder(str(tmp_path), 16, limit=8))
+
+
+@pytest.mark.parametrize("size", [16, 64])
+def test_load_image_folder_arithmetic_and_lossless_match_jax(tmp_path, size):
+    """Arithmetic-coded JPEGs (sequential and progressive, one cut after
+    its third scan, which libjpeg smooths) and lossless JPEGs (subsampled,
+    with restarts) in a folder: `load_image_folder_cached` equals the JAX
+    package's PIL reader, and the JAX package's cache is read as it is."""
+    from damc_tpu_torch.tools.jpeg_writer import write_jpeg, write_lossless_jpeg
+
+    rng = np.random.default_rng(22)
+    root = tmp_path / "tree"
+    root.mkdir()
+    pics = [_smooth(rng, h, w, 3) for w, h in [(178, 218), (40, 52), (33, 21), (64, 64), (50, 70)]]
+    progressive = write_jpeg(pics[2], [(2, 2), (1, 1), (1, 1)], 85, arithmetic=True, progressive=True)
+    starts = [i for i in range(len(progressive) - 1) if progressive[i:i + 2] == b"\xff\xda"]
+    files = {"a_arith.jpg": write_jpeg(pics[0], [(2, 2), (1, 1), (1, 1)], 80, arithmetic=True, restart=4),
+             "b_arith_progressive.jpg": write_jpeg(pics[1], [(1, 1)] * 3, 90, arithmetic=True, progressive=True),
+             "c_arith_cut.jpg": progressive[:starts[3]] + b"\xff\xd9",
+             "d_lossless.jpg": write_lossless_jpeg(pics[3], predictor=4, restart_rows=8),
+             "e_lossless_h2v2.jpg": write_lossless_jpeg(pics[4], [(2, 2), (1, 1), (1, 1)], predictor=7, pt=1)}
+    for name, data in files.items():
+        (root / name).write_bytes(data)
+    want = jax_datasets.load_image_folder(str(root), size)
+    assert want.shape == (5, size, size, 3)
+    np.testing.assert_array_equal(datasets.load_image_folder_cached(str(root), size), want)
+    (tmp_path / "again").mkdir()
+    for name, data in files.items():
+        (tmp_path / "again" / name).write_bytes(data)
+    np.testing.assert_array_equal(datasets.load_image_folder_cached(str(tmp_path / "again"), size),
+                                  jax_datasets.load_image_folder_cached(str(tmp_path / "again"), size))
 
 
 def _adobe_ycck(data: bytes) -> bytes:

@@ -4,10 +4,14 @@
 on seeded images. PIL writes the 4:4:4, 4:2:2, 4:2:0 and greyscale files,
 baseline and progressive, and the CMYK ones (with its Adobe marker's
 transform byte set to 2 the same file is YCCK, and PIL decodes it so); the
-4:4:0 files and the other layouts PIL's encoder does not make (RGB or
-Adobe colour spaces without JFIF, single-component scans, unusual sampling
-factors) come from the small baseline writer below, and PIL decodes them
-as the reference."""
+4:4:0 files, the other layouts PIL's encoder does not make (RGB or Adobe
+colour spaces without JFIF, single-component scans, unusual sampling
+factors), the arithmetic-coded and the lossless files come from the
+port's numpy writer (`damc_tpu_torch/tools/jpeg_writer.py`, itself held to
+PIL below), and PIL decodes them as the reference.
+
+    python -m pytest tests/test_torch_port_jpeg.py -q
+"""
 
 from __future__ import annotations
 
@@ -21,170 +25,8 @@ import pytest
 from PIL import Image
 
 from damc_tpu_torch.data.jpeg import decode_jpeg, decode_jpegs, jpeg_size
-
-# ---------------------------------------------------------------------------
-# A baseline JPEG writer: forward DCT, one quantisation table, the standard
-# Huffman tables of Annex K, any sampling factors, optional restart
-# intervals and single-component scans.
-# ---------------------------------------------------------------------------
-
-NATURAL = np.array([
-    0, 1, 8, 16, 9, 2, 3, 10, 17, 24, 32, 25, 18, 11, 4, 5, 12, 19, 26, 33, 40, 48, 41, 34, 27, 20, 13, 6, 7, 14,
-    21, 28, 35, 42, 49, 56, 57, 50, 43, 36, 29, 22, 15, 23, 30, 37, 44, 51, 58, 59, 52, 45, 38, 31, 39, 46, 53,
-    60, 61, 54, 47, 55, 62, 63])
-DC_BITS = [0, 1, 5, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0, 0, 0]
-DC_VALS = list(range(12))
-AC_BITS = [0, 2, 1, 3, 3, 2, 4, 3, 5, 5, 4, 4, 0, 0, 1, 0x7D]
-AC_VALS = bytes.fromhex(
-    "01020300041105122131410613516107227114328191a1082342b1c11552d1f02433627282090a161718191a25262728292a3435"
-    "363738393a434445464748494a535455565758595a636465666768696a737475767778797a838485868788898a92939495969798"
-    "999aa2a3a4a5a6a7a8a9aab2b3b4b5b6b7b8b9bac2c3c4c5c6c7c8c9cad2d3d4d5d6d7d8d9dae1e2e3e4e5e6e7e8e9eaf1f2f3f4"
-    "f5f6f7f8f9fa")
-LUMA_Q = np.array([16, 11, 10, 16, 24, 40, 51, 61, 12, 12, 14, 19, 26, 58, 60, 55, 14, 13, 16, 24, 40, 57, 69, 56,
-                   14, 17, 22, 29, 51, 87, 80, 62, 18, 22, 37, 56, 68, 109, 103, 77, 24, 35, 55, 64, 81, 104, 113, 92,
-                   49, 64, 78, 87, 103, 121, 120, 101, 72, 92, 95, 98, 112, 100, 103, 99])
-
-
-def _codes(bits, vals):
-    code, k, table = 0, 0, {}
-    for length in range(1, 17):
-        for _ in range(bits[length - 1]):
-            table[vals[k]] = (code, length)
-            code += 1
-            k += 1
-        code <<= 1
-    return table
-
-
-DC_CODES, AC_CODES = _codes(DC_BITS, DC_VALS), _codes(AC_BITS, list(AC_VALS))
-_n = np.arange(8)
-DCT = np.sqrt(2 / 8) * np.cos((2 * _n[None, :] + 1) * _n[:, None] * np.pi / 16)
-DCT[0] /= np.sqrt(2)
-
-
-class _BitWriter:
-    def __init__(self):
-        self.out, self.acc, self.n = bytearray(), 0, 0
-
-    def put(self, value, length):
-        for i in range(length - 1, -1, -1):
-            self.acc = (self.acc << 1) | ((value >> i) & 1)
-            self.n += 1
-            if self.n == 8:
-                self.out += b"\xff\x00" if self.acc == 0xFF else bytes([self.acc])
-                self.acc, self.n = 0, 0
-
-    def flush(self):  # pad with one bits
-        if self.n:
-            self.put((1 << (8 - self.n)) - 1, 8 - self.n)
-
-
-def _magnitude(v):
-    s = int(abs(v)).bit_length()
-    return s, (v if v >= 0 else v + (1 << s) - 1)
-
-
-def _put_block(bits, blk, pred):
-    s, val = _magnitude(blk[0] - pred)
-    bits.put(*DC_CODES[s])
-    if s:
-        bits.put(val, s)
-    last = max([k for k in range(1, 64) if blk[k]], default=0)
-    run = 0
-    for k in range(1, last + 1):
-        if blk[k] == 0:
-            run += 1
-            continue
-        while run > 15:
-            bits.put(*AC_CODES[0xF0])
-            run -= 16
-        s, val = _magnitude(blk[k])
-        bits.put(*AC_CODES[(run << 4) | s])
-        bits.put(val, s)
-        run = 0
-    if last < 63:
-        bits.put(*AC_CODES[0x00])
-
-
-def write_jpeg(img, sampling, quality=75, restart=0, interleaved=True, marker="jfif", ids=None):
-    """Baseline JPEG bytes of `img`, (H, W) grey, (H, W, 3) RGB or
-    (H, W, 4) samples written as they are (CMYK, or YCCK's Y, Cb, Cr, K),
-    with `sampling` = [(h, v)] per component. `marker` is "jfif",
-    "adobe-rgb" (Adobe APP14, transform 0: the samples are RGB),
-    "adobe-ycc" (transform 1), "adobe-cmyk" (transform 0), "adobe-ycck"
-    (transform 2) or "none"; `ids` the component IDs ((82, 71, 66) is 'R',
-    'G', 'B': RGB samples)."""
-    img = np.asarray(img, np.float64)
-    rgb_samples = marker == "adobe-rgb" or ids == (82, 71, 66)
-    if img.ndim == 2:
-        planes = [img]
-    elif img.shape[2] == 4:
-        planes = [img[..., c] for c in range(4)]
-    elif rgb_samples:
-        planes = [img[..., 0], img[..., 1], img[..., 2]]
-    else:
-        r, g, b = img[..., 0], img[..., 1], img[..., 2]
-        planes = [0.299 * r + 0.587 * g + 0.114 * b, 128 - 0.168736 * r - 0.331264 * g + 0.5 * b,
-                  128 + 0.5 * r - 0.418688 * g - 0.081312 * b]
-    height, width = img.shape[:2]
-    hmax, vmax = max(s[0] for s in sampling), max(s[1] for s in sampling)
-    mcux, mcuy = -(-width // (8 * hmax)), -(-height // (8 * vmax))
-    scale = (5000 / quality if quality < 50 else 200 - 2 * quality) / 100  # libjpeg's quality scaling
-    q = np.clip(np.floor(LUMA_Q * scale + 0.5), 1, 255).astype(np.int64)
-    ids = ids or tuple(range(1, len(planes) + 1))
-    blocks = []
-    for p, (h, v) in zip(planes, sampling):
-        fy, fx = vmax // v, hmax // h
-        ph, pw = -(-height // fy) * fy, -(-width // fx) * fx
-        p = np.pad(p, ((0, ph - height), (0, pw - width)), mode="edge")
-        p = p.reshape(ph // fy, fy, pw // fx, fx).mean(axis=(1, 3))
-        bh, bw = mcuy * v * 8, mcux * h * 8
-        p = np.pad(p, ((0, bh - p.shape[0]), (0, bw - p.shape[1])), mode="edge") - 128
-        tiles = p.reshape(bh // 8, 8, bw // 8, 8).transpose(0, 2, 1, 3)
-        coef = np.einsum("ij,abjk,lk->abil", DCT, tiles, DCT).reshape(bh // 8, bw // 8, 64)
-        blocks.append(np.round(coef / q).astype(np.int64)[..., NATURAL])
-    seg = lambda m, body: struct.pack(">BBH", 0xFF, m, len(body) + 2) + body
-    out = bytearray(b"\xff\xd8")
-    if marker == "jfif":
-        out += seg(0xE0, b"JFIF\0\x01\x01\0\0\x01\0\x01\0\0")
-    elif marker.startswith("adobe"):
-        transform = {"adobe-rgb": 0, "adobe-ycc": 1, "adobe-cmyk": 0, "adobe-ycck": 2}[marker]
-        out += seg(0xEE, b"Adobe\0\x64\0\0\0\0" + bytes([transform]))
-    out += seg(0xDB, b"\0" + bytes(q[NATURAL].tolist()))
-    sof = struct.pack(">BHHB", 8, height, width, len(planes))
-    for cid, (h, v) in zip(ids, sampling):
-        sof += bytes([cid, (h << 4) | v, 0])
-    out += seg(0xC0, sof)
-    out += seg(0xC4, b"\x00" + bytes(DC_BITS) + bytes(DC_VALS) + b"\x10" + bytes(AC_BITS) + AC_VALS)
-    if restart:
-        out += seg(0xDD, struct.pack(">H", restart))
-    scans = [list(range(len(planes)))] if interleaved or len(planes) == 1 else [[c] for c in range(len(planes))]
-    for comps in scans:
-        out += seg(0xDA, bytes([len(comps)]) + b"".join(bytes([ids[c], 0]) for c in comps) + b"\0\x3f\0")
-        if len(comps) == 1:  # one block an MCU, over the component's own size
-            c = comps[0]
-            h, v = sampling[c]
-            rows, cols = -(-(-(-height * v // vmax)) // 8), -(-(-(-width * h // hmax)) // 8)
-            units = [[(c, by, bx)] for by in range(rows) for bx in range(cols)]
-        else:
-            units = [[(c, my * sampling[c][1] + y, mx * sampling[c][0] + x) for c in comps
-                      for y in range(sampling[c][1]) for x in range(sampling[c][0])]
-                     for my in range(mcuy) for mx in range(mcux)]
-        bits, pred, rst = _BitWriter(), [0] * len(planes), 0
-        for m, unit in enumerate(units):
-            if restart and m and m % restart == 0:
-                bits.flush()
-                bits.out += bytes([0xFF, 0xD0 + rst])
-                rst, pred = (rst + 1) % 8, [0] * len(planes)
-            for c, by, bx in unit:
-                _put_block(bits, blocks[c][by, bx], pred[c])
-                pred[c] = blocks[c][by, bx][0]
-        bits.flush()
-        out += bits.out
-    return bytes(out + b"\xff\xd9")
-
-
-# ---------------------------------------------------------------------------
+from damc_tpu_torch.tools.jpeg_writer import (DC_BITS, DC_VALS, lossless_expected, write_jpeg,
+                                              write_lossless_jpeg)
 
 
 def _photo(rng, h, w):
@@ -348,6 +190,236 @@ def test_four_component_layouts_pil_does_not_write(layout, size):
     np.testing.assert_array_equal(decode_jpeg(data), _pil_rgb(data))
 
 
+ARITH_OPTIONS = {
+    "plain": {}, "restart": dict(restart=2), "restart_every_mcu": dict(restart=1),
+    "dac": dict(dac={(0, 0): 0x21, (1, 0): 2, (0, 1): 0x50, (1, 1): 30}),
+}
+SAMPLINGS = {"4:2:0": [(2, 2), (1, 1), (1, 1)], "4:2:2": [(2, 1), (1, 1), (1, 1)], "4:4:0": [(1, 2), (1, 1), (1, 1)],
+             "4:4:4": [(1, 1)] * 3, "grey": [(1, 1)]}
+
+
+@pytest.mark.parametrize("options", sorted(ARITH_OPTIONS))
+@pytest.mark.parametrize("size", [(1, 1), (7, 13), (37, 21), (64, 48)], ids=lambda s: f"{s[0]}x{s[1]}")
+@pytest.mark.parametrize("mode", sorted(SAMPLINGS))
+@pytest.mark.parametrize("coding", ["sequential", "progressive"])
+def test_arithmetic_decode_matches_pil(coding, mode, size, options):
+    """Arithmetic-coded files (SOF9 sequential, SOF10 progressive in
+    libjpeg's simple progression), at each sampling mode, with restart
+    markers every MCU or every second (the statistics, predictions and
+    decoder registers start anew) and with DAC conditioning other than the
+    defaults: the port's pixels equal PIL's, byte for byte."""
+    rng = np.random.default_rng([len(coding), len(mode), *size, len(options)])
+    pix = _photo(rng, size[1], size[0])
+    data = write_jpeg(pix[..., 0] if mode == "grey" else pix, SAMPLINGS[mode], 70 + 5 * len(options),
+                      arithmetic=True, progressive=coding == "progressive", **ARITH_OPTIONS[options])
+    assert data[data.index(b"\xff\xdb") + 69:][:2] == (b"\xff\xca" if coding == "progressive" else b"\xff\xc9")
+    got = decode_jpeg(data, "case.jpg")
+    assert got.shape == (size[1], size[0], 3)
+    np.testing.assert_array_equal(got, _pil_rgb(data))
+
+
+@pytest.mark.parametrize("coding", ["sequential", "progressive"])
+@pytest.mark.parametrize("variant", sorted(VARIANTS))
+def test_arithmetic_layouts_pil_does_not_write(variant, coding):
+    """The layouts of `test_decode_layouts_pil_does_not_write` (colour
+    spaces from Adobe APP14 and component IDs, single-component scans,
+    sampling factors other than 2), arithmetic-coded: equal to PIL."""
+    rng = np.random.default_rng([len(variant), len(coding)])
+    kw = dict(VARIANTS[variant])
+    if coding == "progressive":
+        kw.pop("interleaved", None)
+    pix = _photo(rng, 21, 37)
+    data = write_jpeg(pix[..., 0] if len(kw["sampling"]) == 1 else pix, quality=80, arithmetic=True,
+                      progressive=coding == "progressive", **kw)
+    np.testing.assert_array_equal(decode_jpeg(data), _pil_rgb(data))
+
+
+@pytest.mark.parametrize("coding", ["sequential", "progressive"])
+@pytest.mark.parametrize("space", ["cmyk", "ycck", "cmyk_no_marker"])
+def test_arithmetic_four_components_match_pil(space, coding):
+    """CMYK and YCCK, arithmetic-coded, read by PIL as inverted CMYK: equal
+    to PIL."""
+    rng = np.random.default_rng([len(space), len(coding)])
+    pix = np.concatenate([_photo(rng, 19, 29), _photo(rng, 19, 29)[..., :1]], axis=2)
+    sampling = [(2, 2), (1, 1), (1, 1), (2, 2)] if space == "ycck" else [(1, 1)] * 4
+    data = write_jpeg(pix, sampling, 85, marker={"cmyk": "adobe-cmyk", "ycck": "adobe-ycck", "cmyk_no_marker": "none"}[space],
+                      arithmetic=True, progressive=coding == "progressive", restart=3)
+    np.testing.assert_array_equal(decode_jpeg(data), _pil_rgb(data))
+
+
+def test_sof9_rewritten_baseline_matches_pil():
+    """A baseline file with SOF0 rewritten to SOF9: libjpeg's arithmetic
+    decoder reads the Huffman bytes as arithmetic data (a bad code stops
+    the decoding, the rest decodes as zeros) and PIL returns the pixels;
+    the port returns the same pixels."""
+    data = _baseline(np.random.default_rng(1)).replace(b"\xff\xc0", b"\xff\xc9", 1)
+    np.testing.assert_array_equal(decode_jpeg(data, "arith.jpg"), _pil_rgb(data))
+
+
+def _comment(n: int) -> bytes:
+    """A COM segment n bytes long in all."""
+    return _segment(0xFE, b"\0" * (n - 4))
+
+
+@pytest.mark.parametrize("shift", [-200, -2, -1, 0, 1, 30], ids=lambda s: f"header_end_at_64KiB{s:+d}")
+def test_arithmetic_scan_past_pils_read_refused_as_pil_refuses(shift):
+    """PIL gives libjpeg a file in reads of 64 KiB, more only where libjpeg
+    suspends for them, and jdarith.c cannot suspend inside a scan: a scan
+    whose data runs past the bytes read by the end of its header fails.
+    A 28 KB arithmetic scan placed, by a comment before it, so that its
+    header ends near a 64 KiB boundary: where the data crosses one, both
+    PIL and the port refuse the file (ValueError), else both decode it
+    to the same pixels."""
+    data = write_jpeg(np.random.default_rng(0).integers(0, 256, (110, 110, 3), dtype=np.uint8), [(1, 1)] * 3, 95,
+                      arithmetic=True)
+    sos = data.index(b"\xff\xda")
+    header_end = sos + 2 + struct.unpack(">H", data[sos + 2:sos + 4])[0]
+    data = data[:sos] + _comment(65536 + shift - header_end) + data[sos:]
+    want = _pil_rgb_or_none(data)
+    assert (want is None) == (shift <= 0)
+    if want is None:
+        with pytest.raises(ValueError, match="big.jpg: .*64 KiB"):
+            decode_jpeg(data, "big.jpg")
+    else:
+        np.testing.assert_array_equal(decode_jpeg(data, "big.jpg"), want)
+
+
+@pytest.mark.parametrize("aligned", [True, False], ids=["each_scan_after_a_read", "scans_cross_reads"])
+def test_arithmetic_progressive_file_over_64kib_as_pil(aligned):
+    """An 89 KB arithmetic progressive file: as written, a scan crosses a
+    64 KiB read and PIL refuses it; with a comment before every scan that
+    ends its header just past a 64 KiB boundary (marker reading suspends,
+    so PIL reads up to there), no scan crosses a read and PIL decodes it.
+    The port agrees either way."""
+    rng = np.random.default_rng(0)
+    data = write_jpeg(rng.integers(0, 256, (200, 200, 3), dtype=np.uint8), [(1, 1)] * 3, 95, arithmetic=True,
+                      progressive=True)
+    if aligned:
+        starts = [i for i in range(len(data) - 1) if data[i:i + 2] == b"\xff\xda"] + [len(data)]
+        out = bytearray(data[:starts[0]])
+        for a, b in zip(starts, starts[1:]):
+            header = 2 + struct.unpack(">H", data[a + 2:a + 4])[0]
+            need = (len(out) // 65536 + 1) * 65536 + 1 - header - len(out)
+            out += _comment(need if need >= 4 else need + 65536) + data[a:b]
+        data = bytes(out)
+    want = _pil_rgb_or_none(data)
+    assert (want is not None) == aligned
+    if aligned:
+        np.testing.assert_array_equal(decode_jpeg(data), want)
+    else:
+        with pytest.raises(ValueError, match="64 KiB"):
+            decode_jpeg(data)
+
+
+@pytest.mark.parametrize("restart", [0, 1, 3], ids=lambda r: f"restart_rows_{r}")
+@pytest.mark.parametrize("pt", [0, 1, 2])
+@pytest.mark.parametrize("predictor", range(1, 8))
+def test_lossless_decode_matches_pil(predictor, pt, restart):
+    """Lossless files (SOF3) at each predictor and point transform, with a
+    restart interval of 1 or 3 MCU rows (the first-row predictor after
+    each): equal to PIL's decode, which is each sample shifted right and
+    back by the point transform."""
+    rng = np.random.default_rng([predictor, pt, restart])
+    pix = _photo(rng, 23, 37)
+    data = write_lossless_jpeg(pix, predictor=predictor, pt=pt, restart_rows=restart)
+    got = decode_jpeg(data, "lossless.jpg")
+    np.testing.assert_array_equal(got, _pil_rgb(data))
+    np.testing.assert_array_equal(got, pix >> pt << pt)
+
+
+LOSSLESS_LAYOUTS = {
+    "h2v2": dict(sampling=[(2, 2), (1, 1), (1, 1)]),
+    "h2v2_restart": dict(sampling=[(2, 2), (1, 1), (1, 1)], restart_rows=2),
+    "h1v2_scans": dict(sampling=[(1, 2), (1, 1), (1, 1)], interleaved=False),
+    "h1v2_scans_restart": dict(sampling=[(1, 2), (1, 1), (1, 1)], interleaved=False, restart_rows=2),
+    "mixed_h2v1_h2v2": dict(sampling=[(2, 1), (1, 1), (2, 2)], restart_rows=1),
+    "scans": dict(interleaved=False, restart_rows=3),
+    "adobe_rgb": dict(marker="adobe-rgb"),
+    "rgb_ids": dict(ids=(82, 71, 66)),
+    "other_ids": dict(ids=(5, 6, 7)),
+}
+
+
+@pytest.mark.parametrize("size", [(1, 1), (7, 5), (37, 23)], ids=lambda s: f"{s[0]}x{s[1]}")
+@pytest.mark.parametrize("layout", sorted(LOSSLESS_LAYOUTS))
+def test_lossless_layouts_match_pil(layout, size):
+    """Lossless files with sampling factors (libjpeg replicates the samples
+    of a file of DCT size 1, no triangle filter), one scan a component,
+    restarts, and the markers and IDs libjpeg-turbo takes for RGB: equal
+    to PIL, and to the samples the writer stored."""
+    rng = np.random.default_rng([len(layout), *size])
+    kw = dict(LOSSLESS_LAYOUTS[layout])
+    pix = _photo(rng, size[1], size[0])
+    data = write_lossless_jpeg(pix, predictor=1 + len(layout) % 7, **kw)
+    got = decode_jpeg(data)
+    np.testing.assert_array_equal(got, _pil_rgb(data))
+    np.testing.assert_array_equal(got, lossless_expected(pix, kw.get("sampling", [(1, 1)] * 3)))
+
+
+@pytest.mark.parametrize("kind", ["grey", "grey_jfif", "cmyk", "cmyk_adobe"])
+def test_lossless_grey_and_cmyk_match_pil(kind):
+    """Grey (with or without JFIF) and CMYK lossless files (no Adobe
+    marker or transform 0; PIL reads the samples as inverted CMYK):
+    equal to PIL."""
+    rng = np.random.default_rng(len(kind))
+    pix = _photo(rng, 19, 33)
+    if kind.startswith("grey"):
+        data = write_lossless_jpeg(pix[..., 0], predictor=6, restart_rows=2, marker="jfif" if kind == "grey_jfif" else "none")
+    else:
+        data = write_lossless_jpeg(np.dstack([pix, pix[..., :1]]), predictor=3,
+                                   marker="adobe-cmyk" if kind == "cmyk_adobe" else "none")
+    np.testing.assert_array_equal(decode_jpeg(data), _pil_rgb(data))
+
+
+@pytest.mark.parametrize("mode", ["4:2:0", "4:4:4", "grey"])
+@pytest.mark.parametrize("coding", ["sequential", "progressive"])
+def test_writer_arithmetic_equals_huffman_in_pil(coding, mode):
+    """The writer, held to PIL on its own: an arithmetic-coded file and the
+    baseline Huffman file of the same coefficients decode in PIL to the
+    same pixels, close to the image written."""
+    rng = np.random.default_rng([len(coding), len(mode)])
+    pix = _photo(rng, 40, 56)
+    img = pix[..., 0] if mode == "grey" else pix
+    sampling = SAMPLINGS[mode]
+    want = _pil_rgb(write_jpeg(img, sampling, 90))
+    np.testing.assert_array_equal(_pil_rgb(write_jpeg(img, sampling, 90, arithmetic=True, restart=5,
+                                                      progressive=coding == "progressive")), want)
+    assert np.abs(want.astype(int) - (pix if mode != "grey" else pix[..., :1])).mean() < 12
+
+
+@pytest.mark.parametrize("restart", [0, 2])
+@pytest.mark.parametrize("pt", [0, 3])
+def test_writer_lossless_decodes_to_its_samples_in_pil(pt, restart):
+    """The writer's lossless files, held to PIL on their own: PIL decodes
+    each to the samples written, shifted by the point transform, with
+    every predictor."""
+    pix = _photo(np.random.default_rng([pt, restart]), 17, 29)
+    for predictor in range(1, 8):
+        data = write_lossless_jpeg(pix, predictor=predictor, pt=pt, restart_rows=restart)
+        np.testing.assert_array_equal(_pil_rgb(data), pix >> pt << pt)
+
+
+def test_thread_pool_new_codings_give_the_same_output():
+    """A batch of arithmetic-coded, lossless and smoothed progressive files
+    decoded on 1 thread and on 8 threads: identical, and each equal to
+    PIL's."""
+    rng = np.random.default_rng(14)
+    blobs = []
+    for i in range(18):
+        pix = _photo(rng, int(rng.integers(1, 60)), int(rng.integers(1, 60)))
+        sampling = [[(2, 2), (1, 1), (1, 1)], [(1, 1)] * 3][i % 2]
+        if i % 3 == 0:
+            blobs.append(write_jpeg(pix, sampling, 80, arithmetic=True, progressive=i % 2 == 0, restart=i % 4))
+        elif i % 3 == 1:
+            blobs.append(write_lossless_jpeg(pix, sampling, predictor=1 + i % 7, pt=i % 2))
+        else:
+            blobs.append(_scans_dropped(_pil_jpeg(Image.fromarray(pix), progressive=True), 1 + i % 8))
+    one, eight = decode_jpegs(blobs, threads=1), decode_jpegs(blobs, threads=8)
+    for a, b, data in zip(one, eight, blobs):
+        np.testing.assert_array_equal(a, b)
+        np.testing.assert_array_equal(a, _pil_rgb(data))
+
+
 def _scans_dropped(data: bytes, keep: int) -> bytes:
     """A progressive file cut after its first `keep` scans, with an EOI."""
     starts = [i for i in range(len(data) - 1) if data[i:i + 2] == b"\xff\xda"]
@@ -355,43 +427,93 @@ def _scans_dropped(data: bytes, keep: int) -> bytes:
 
 
 def test_incomplete_progressive_file_refused_where_libjpeg_smooths():
-    """A progressive file whose last scans are missing: libjpeg smooths its
-    blocks (jdcoefct.c), which the port does not reproduce, so the port
-    refuses it with ValueError while PIL decodes it; with every scan
-    present the same file decodes equal to PIL."""
+    """A progressive file whose last scans are missing, Huffman-coded (by
+    PIL) and arithmetic-coded: libjpeg smooths its blocks (jdcoefct.c,
+    the 5x5 neighbourhood; after the DC scans alone the DC values too),
+    and the port now smooths them as it does (the name is from when the
+    port refused such files): cut after 1, 3 and 6 scans each decodes
+    equal to PIL, and differs from the file's unsmoothed decode; with
+    every scan present it decodes equal to PIL too."""
     rng = np.random.default_rng(11)
-    data = _pil_jpeg(Image.fromarray(_photo(rng, 40, 56)), progressive=True, quality=80)
-    np.testing.assert_array_equal(decode_jpeg(data), _pil_rgb(data))
-    for keep in (1, 3, 6):
-        cut = _scans_dropped(data, keep)
-        assert _pil_rgb(cut).shape == (40, 56, 3)
-        with pytest.raises(ValueError, match=r"cut\.jpg: .*block smoothing"):
-            decode_jpeg(cut, "cut.jpg")
+    pix = _photo(rng, 40, 56)
+    for data in (_pil_jpeg(Image.fromarray(pix), progressive=True, quality=80),
+                 write_jpeg(pix, [(2, 2), (1, 1), (1, 1)], 80, arithmetic=True, progressive=True)):
+        np.testing.assert_array_equal(decode_jpeg(data), _pil_rgb(data))
+        for keep in (1, 3, 6):
+            cut = _scans_dropped(data, keep)
+            want = _pil_rgb(cut)
+            assert want.shape == (40, 56, 3)
+            np.testing.assert_array_equal(decode_jpeg(cut, "cut.jpg"), want)
+
+
+@pytest.mark.parametrize("size", [(9, 17), (16, 24), (37, 91), (178, 218)], ids=lambda s: f"{s[0]}x{s[1]}")
+@pytest.mark.parametrize("mode", ["4:2:0", "4:2:2", "4:4:4", "grey"])
+@pytest.mark.parametrize("coding", ["huffman", "arithmetic"])
+def test_smoothed_progressive_files_match_pil(coding, mode, size):
+    """Every cut of a progressive file (after each of its scans but the
+    last, plus an EOI), at sizes whose last iMCU row holds fewer block rows
+    than the others (libjpeg's edge tests there count rows in units of that
+    row): each decodes equal to PIL's smoothed decode."""
+    rng = np.random.default_rng([len(coding), len(mode), *size])
+    pix = _photo(rng, size[1], size[0])
+    if coding == "huffman":
+        img = Image.fromarray(pix).convert("L") if mode == "grey" else Image.fromarray(pix)
+        kw = {} if mode == "grey" else dict(subsampling=PIL_SUBSAMPLING[mode])
+        data = _pil_jpeg(img, quality=85, progressive=True, **kw)
+    else:
+        sampling = {"4:2:0": [(2, 2), (1, 1), (1, 1)], "4:2:2": [(2, 1), (1, 1), (1, 1)],
+                    "4:4:4": [(1, 1)] * 3, "grey": [(1, 1)]}[mode]
+        data = write_jpeg(pix[..., 0] if mode == "grey" else pix, sampling, 85, arithmetic=True, progressive=True)
+    scans = data.count(b"\xff\xda")
+    assert scans >= 6
+    cuts = [_scans_dropped(data, keep) for keep in range(1, scans)]
+    for cut, got in zip(cuts, decode_jpegs(cuts, threads=2)):
+        np.testing.assert_array_equal(got, _pil_rgb(cut))
 
 
 def _baseline(rng):
     return _pil_jpeg(Image.fromarray(_photo(rng, 24, 40)), quality=75)
 
 
+def _sof(marker: int, precision: int = 8):
+    """The baseline file with its SOF0 turned into SOFn at `precision`."""
+    return lambda rng: _baseline(rng).replace(b"\xff\xc0\x00\x11\x08", bytes([0xFF, marker, 0, 0x11, precision]), 1)
+
+
+def _lossless_at(precision: int):
+    return lambda rng: write_lossless_jpeg(_photo(rng, 12, 20)).replace(
+        b"\xff\xc3\x00\x11\x08", bytes([0xFF, 0xC3, 0, 0x11, precision]), 1)
+
+
 UNSUPPORTED = {
-    "12-bit": (lambda rng: _baseline(rng).replace(b"\xff\xc0\x00\x11\x08", b"\xff\xc0\x00\x11\x0c", 1),
-               "12-bit samples"),
-    "arithmetic": (lambda rng: _baseline(rng).replace(b"\xff\xc0", b"\xff\xc9", 1), "arithmetic coding"),
-    "lossless": (lambda rng: _baseline(rng).replace(b"\xff\xc0", b"\xff\xc3", 1), "lossless coding"),
-    "hierarchical": (lambda rng: _baseline(rng).replace(b"\xff\xc0", b"\xff\xc5", 1), "hierarchical"),
+    "12-bit": (_sof(0xC0, 12), "12-bit samples"),
+    "12-bit_progressive": (_sof(0xC2, 12), "12-bit samples"),
+    "lossless_12-bit": (_lossless_at(12), "12-bit samples"),
+    "lossless_16-bit": (_lossless_at(16), "16-bit samples"),
+    "hierarchical": (_sof(0xC5), "hierarchical"),
+    **{f"sof{m - 0xC0}": (_sof(m), "hierarchical") for m in (0xC6, 0xC7, 0xCD, 0xCE, 0xCF)},
+    "sof11": (_sof(0xCB), "lossless arithmetic coding"),
+    "sof11_lossless_scan": (lambda rng: write_lossless_jpeg(_photo(rng, 12, 20)).replace(b"\xff\xc3", b"\xff\xcb", 1),
+                            "lossless arithmetic coding"),
 }
 
 
 @pytest.mark.parametrize("case", sorted(UNSUPPORTED))
 def test_unsupported_kinds_raise_naming_item_4c(case):
-    """A JPEG kind the port does not decode raises NotImplementedError
-    naming the file, the feature, ROADMAP item 4c and the .npy way round,
-    from the header alone (`jpeg_size`) as from the decode."""
+    """A JPEG kind that PIL does not decode either (samples other than
+    8-bit, refused by PIL's own header parser; hierarchical SOF5-7 and
+    SOF13-15 and lossless arithmetic SOF11, refused by libjpeg-turbo)
+    raises NotImplementedError naming the file and the feature, from the
+    header alone (`jpeg_size`) as from the decode; PIL raises on the same
+    bytes. (The name is from when the error named ROADMAP item 4c; with
+    the port decoding all that PIL decodes it names no way round.)"""
     make, feature = UNSUPPORTED[case]
     data = make(np.random.default_rng(1))
+    assert _pil_rgb_or_none(data) is None
     for call in (lambda: jpeg_size(data, "the_file.jpg"), lambda: decode_jpeg(data, "the_file.jpg")):
-        with pytest.raises(NotImplementedError, match=f"the_file.jpg: .*{feature}.*item 4c.*npy"):
+        with pytest.raises(NotImplementedError, match=f"the_file.jpg: .*{feature}.*neither by the port nor by PIL") as e:
             call()
+        assert "item 4c" not in str(e.value) and ".npy" not in str(e.value)
 
 
 CORRUPT = {
@@ -444,17 +566,56 @@ PIL_REFUSES = {
     "longer_sof": lambda rng: _longer_sof(_baseline(rng)),
     "dc_symbol_16": _dc_symbol_16,
     "second_scan_in_single_scan_file": lambda rng: (lambda d: d[:-2] + d[d.index(b"\xff\xda"):])(_baseline(rng)),
+    # A baseline scan under an arithmetic progressive or a lossless frame header.
+    "sof10_rewritten_baseline": lambda rng: _baseline(rng).replace(b"\xff\xc0", b"\xff\xca", 1),
+    "sof3_rewritten_baseline": lambda rng: _baseline(rng).replace(b"\xff\xc0", b"\xff\xc3", 1),
+    # Lossless files libjpeg-turbo would have to convert lossily (JFIF or an
+    # Adobe transform other than 0 mean YCbCr, transform 2 YCCK).
+    "lossless_jfif": lambda rng: write_lossless_jpeg(_photo(rng, 12, 20), marker="jfif"),
+    "lossless_adobe_ycc": lambda rng: write_lossless_jpeg(_photo(rng, 12, 20), marker="adobe-ycc"),
+    "lossless_ycck": lambda rng: write_lossless_jpeg(np.dstack([_photo(rng, 12, 20)] * 2)[..., :4], marker="adobe-ycck"),
+    "lossless_restart_not_whole_rows": lambda rng: _with_dri(write_lossless_jpeg(_photo(rng, 12, 20)), 7),
+    "lossless_predictor_0": lambda rng: _scan_byte(write_lossless_jpeg(_photo(rng, 12, 20)), -3, 0),
+    "lossless_predictor_8": lambda rng: _scan_byte(write_lossless_jpeg(_photo(rng, 12, 20)), -3, 8),
+    "lossless_pt_8": lambda rng: _scan_byte(write_lossless_jpeg(_photo(rng, 12, 20)), -1, 8),
+    "lossless_component_without_scan": lambda rng: _first_scan_dropped(
+        write_lossless_jpeg(_photo(rng, 12, 20), interleaved=False)),
+    "arithmetic_truncated": lambda rng: write_jpeg(_photo(rng, 24, 40), [(2, 2), (1, 1), (1, 1)], arithmetic=True)[:300],
+    "arithmetic_dac_l_above_u": lambda rng: write_jpeg(_photo(rng, 24, 40), [(1, 1)] * 3, arithmetic=True,
+                                                       dac={(0, 0): 0x12}),
 }
+
+
+def _with_dri(data: bytes, interval: int) -> bytes:
+    i = data.index(b"\xff\xda")
+    return data[:i] + _segment(0xDD, struct.pack(">H", interval)) + data[i:]
+
+
+def _scan_byte(data: bytes, at: int, value: int) -> bytes:
+    """`data` with byte `at` of its first scan header's body (from its end) set."""
+    i = data.index(b"\xff\xda")
+    end = i + 2 + struct.unpack(">H", data[i + 2:i + 4])[0]
+    return data[:end + at] + bytes([value]) + data[end + at + 1:]
+
+
+def _first_scan_dropped(data: bytes) -> bytes:
+    starts = [i for i in range(len(data) - 1) if data[i:i + 2] == b"\xff\xda"]
+    return data[:starts[0]] + data[starts[1]:]
 
 
 @pytest.mark.parametrize("case", sorted(PIL_REFUSES))
 def test_files_pil_refuses_raise_value_error(case):
     """Files that libjpeg refuses (an unknown marker, a frame header longer
     than its components, a DC table with a symbol above 15, a second scan
-    after one that held every component) or that PIL's own
-    header parser refuses (no EOI, no marker right after SOI, TEM before
-    the first scan, segments too short for the fields it reads) raise
-    ValueError in the port, and PIL refuses each of them too."""
+    after one that held every component, a sequential scan under a
+    progressive or lossless frame header, lossless files it would have to
+    convert to RGB or CMYK lossily, a lossless restart interval that is not
+    whole MCU rows, a lossless predictor or point transform out of range, a
+    lossless component no scan holds, arithmetic-coded data cut short, a
+    DAC lower bound above its upper) or that PIL's own header parser
+    refuses (no EOI, no marker right after SOI, TEM before the first scan,
+    segments too short for the fields it reads) raise ValueError in the
+    port, and PIL refuses each of them too."""
     data = PIL_REFUSES[case](np.random.default_rng(12))
     assert _pil_rgb_or_none(data) is None
     with pytest.raises(ValueError, match="bad.jpg: "):
@@ -511,7 +672,10 @@ def mutation_bases(rng):
     """Seeded JPEG files for the mutation fuzz: baseline 4:2:0, 4:4:4 with
     restart markers, single-component scans, and progressive files with
     restart markers every block and every row (so EOB runs meet restart
-    intervals), grey and CMYK among them."""
+    intervals), grey and CMYK among them; arithmetic-coded files,
+    sequential (with DAC conditioning and restart markers) and progressive;
+    lossless files, interleaved with restarts, subsampled, and one scan a
+    component; progressive files cut short, which libjpeg smooths."""
     pix = _photo(rng, 21, 37)
     return [_pil_jpeg(Image.fromarray(pix), quality=75),
             _pil_jpeg(Image.fromarray(pix), subsampling=0, restart_marker_blocks=2),
@@ -519,7 +683,15 @@ def mutation_bases(rng):
             _pil_jpeg(Image.fromarray(pix), progressive=True),
             _pil_jpeg(Image.fromarray(pix), progressive=True, subsampling=0, restart_marker_blocks=1),
             _pil_jpeg(Image.fromarray(pix).convert("L"), progressive=True, restart_marker_rows=1),
-            _pil_jpeg(Image.fromarray(pix).convert("CMYK"), progressive=True)]
+            _pil_jpeg(Image.fromarray(pix).convert("CMYK"), progressive=True),
+            write_jpeg(pix, [(2, 2), (1, 1), (1, 1)], arithmetic=True),
+            write_jpeg(pix, [(1, 1)] * 3, arithmetic=True, restart=2, dac={(0, 0): 0x21, (1, 0): 3, (1, 1): 9}),
+            write_jpeg(pix, [(2, 1), (1, 1), (1, 1)], arithmetic=True, progressive=True, restart=1),
+            write_lossless_jpeg(pix, predictor=4, restart_rows=2),
+            write_lossless_jpeg(pix, [(2, 2), (1, 1), (1, 1)], predictor=7, pt=1),
+            write_lossless_jpeg(pix, predictor=5, interleaved=False, restart_rows=1),
+            _scans_dropped(_pil_jpeg(Image.fromarray(pix), progressive=True), 3),
+            _scans_dropped(write_jpeg(pix, [(2, 2), (1, 1), (1, 1)], arithmetic=True, progressive=True), 5)]
 
 
 def _pil_rgb_or_none(data: bytes):
@@ -569,5 +741,5 @@ def test_mutated_files_decode_or_raise():
     test_mutated_files_under_sanitizers` runs this loop on a build with
     AddressSanitizer and UBSan)."""
     rng = np.random.default_rng(5)
-    outcomes = mutate_and_decode(decode_jpegs, mutation_bases(rng), rng, 600, (ValueError, NotImplementedError))
+    outcomes = mutate_and_decode(decode_jpegs, mutation_bases(rng), rng, 1200, (ValueError, NotImplementedError))
     assert outcomes["ok"] > 0 and outcomes["raised"] > 0

@@ -241,8 +241,10 @@ def test_webp_payload_raises_naming_item_4c(tmp_path, jax_pil_path):
     database of lossy, lossless and alpha WebP, progressive and CMYK JPEG
     payloads gives `load_lsun` and batch indexing equal to the JAX
     package's PIL path, the WebPs and JPEGs of a batch each on their
-    decoder's pool. A payload of a coding the port still does not decode
-    (an arithmetic-coded JPEG) raises naming item 4c."""
+    decoder's pool. A payload of a coding that neither the port nor PIL
+    decodes (a hierarchical JPEG) raises NotImplementedError naming the
+    item and the feature (the test's name is from when such errors named
+    item 4c)."""
     items = {}
     for i in range(10):
         h, w = 30 + 7 * i, 64 - 3 * i
@@ -259,12 +261,45 @@ def test_webp_payload_raises_naming_item_4c(tmp_path, jax_pil_path):
     np.testing.assert_array_equal(got, want)
     idx = np.array([10, 3, 0, 7])
     np.testing.assert_array_equal(datasets.LSUNImages(root, ["tower_val"], 32)[idx], want[idx])
-    arithmetic = _encode(_smooth(20, 20, 0), "JPEG").replace(b"\xff\xc0", b"\xff\xc9", 1)
-    with pytest.raises(NotImplementedError, match=r"item.jpg.*arithmetic coding.*item 4c"):
-        datasets._decode_crop_resize(arithmetic, 16, "item.jpg")
-    build_lmdb(str(tmp_path / "bridge_val_lmdb"), {b"a": arithmetic})
-    with pytest.raises(NotImplementedError, match="arithmetic coding.*item 4c"):
+    hierarchical = _encode(_smooth(20, 20, 0), "JPEG").replace(b"\xff\xc0", b"\xff\xc5", 1)
+    with pytest.raises(NotImplementedError, match=r"item.jpg.*hierarchical.*neither by the port nor by PIL"):
+        datasets._decode_crop_resize(hierarchical, 16, "item.jpg")
+    build_lmdb(str(tmp_path / "bridge_val_lmdb"), {b"a": hierarchical})
+    with pytest.raises(NotImplementedError, match="hierarchical.*neither by the port nor by PIL"):
         datasets.load_lsun(str(tmp_path), ["bridge_val"], 16)
+
+
+def test_arithmetic_and_lossless_payloads_equal_jax(tmp_path, jax_pil_path):
+    """An LSUN database of arithmetic-coded JPEGs (sequential, progressive,
+    and progressive cut short, which libjpeg smooths) and lossless JPEGs
+    beside baseline ones: `load_lsun`, batch indexing and one item equal
+    the JAX package's PIL path."""
+    from damc_tpu_torch.tools.jpeg_writer import write_jpeg, write_lossless_jpeg
+
+    items = {}
+    for i in range(8):
+        pix = _smooth(30 + 9 * i, 70 - 4 * i, 50 + i)
+        if i % 4 == 0:
+            items[f"{i:03d}".encode()] = write_jpeg(pix, [(2, 2), (1, 1), (1, 1)], 80, arithmetic=True, restart=i)
+        elif i % 4 == 1:
+            data = write_jpeg(pix, [(2, 1), (1, 1), (1, 1)], 85, arithmetic=True, progressive=True)
+            items[f"{i:03d}".encode()] = data if i < 4 else data[:data.rindex(b"\xff\xda")] + b"\xff\xd9"
+        elif i % 4 == 2:
+            items[f"{i:03d}".encode()] = write_lossless_jpeg(pix, predictor=i % 7 + 1, pt=i // 4)
+        else:
+            items[f"{i:03d}".encode()] = _payload(pix, "JPEG")
+    root = str(tmp_path)
+    build_lmdb(os.path.join(root, "church_outdoor_val_lmdb"), items)
+    want = jax_datasets.load_lsun(root, ["church_outdoor_val"], 48)
+    os.remove(os.path.join(root, "church_outdoor_val_lmdb", "_keys_cache.pkl"))
+    got = datasets.load_lsun(root, ["church_outdoor_val"], 48)
+    assert got.shape == (8, 48, 48, 3)
+    np.testing.assert_array_equal(got, want)
+    idx = np.array([6, 1, 2, 5])
+    np.testing.assert_array_equal(datasets.LSUNImages(root, ["church_outdoor_val"], 48)[idx], want[idx])
+    data = items[b"002"]
+    np.testing.assert_array_equal(datasets._decode_crop_resize(data, 20, "item.jpg"),
+                                  jax_datasets._decode_crop_resize(data, 20))
 
 
 @pytest.mark.parametrize("hw", [(64, 64), (80, 48), (37, 91), (32, 40)])
