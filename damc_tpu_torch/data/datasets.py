@@ -10,13 +10,17 @@ the NumPy batch `Loader`; and seeded writers of an MNIST-shaped
 `mnist.npz` and of PNG trees for runs without the real files.
 
 Every decoder equals PIL's `Image.open(...).convert("RGB")` byte for byte
-(`data/images.py`; `data/jpeg.py`: sequential and progressive JPEG,
+(`data/images.py`: PNG of every colour type and bit depth, Adam7 or not,
+and BMP at 1, 4, 8, 16, 24 and 32 bits, BI_RGB, RLE8, RLE4 and
+BI_BITFIELDS in PIL's layouts; `data/jpeg.py`: sequential and progressive JPEG,
 Huffman- or arithmetic-coded, and lossless JPEG, grey, YCbCr, RGB, CMYK and
 YCCK; `data/webp.py`: lossy, lossless and animated WebP, the LSUN tools'
 export format); the port itself never imports PIL. A file is decoded by
 what its first bytes say it is, as PIL opens it. A JPEG coding PIL does not
 decode either (hierarchical, lossless arithmetic, 12-bit) raises
-NotImplementedError.
+NotImplementedError; a PNG or BMP that PIL refuses (a BMP of 2 bits a
+pixel, BI_JPEG or BI_PNG, a bit-field layout outside PIL's) or that is
+corrupt raises ValueError naming the file.
 """
 
 from __future__ import annotations
@@ -184,8 +188,9 @@ def load_image_folder(root: str, size: int, limit: Optional[int] = None) -> np.n
     file are read before anything is decoded, so a file that is no image
     raises first, and a JPEG of a kind the port does not decode raises from
     its header, before its batch is decoded. Files are decoded in batches
-    of about `BATCH_BYTES`: PNGs of one size together, JPEGs and WebPs on
-    their decoders' thread pools."""
+    of about `BATCH_BYTES`: PNGs together (each pass shape of a batch
+    unfiltered once, over files and over Adam7's passes), JPEGs and WebPs
+    on their decoders' thread pools, BMPs one by one."""
     paths = []
     for dirpath, _, filenames in sorted(os.walk(root)):
         for fn in sorted(filenames):
@@ -220,7 +225,7 @@ def load_image_folder(root: str, size: int, limit: Optional[int] = None) -> np.n
             data = f.read()
         if kind == "png":
             pngs.append((i, parse_png(data, p)))
-            nbytes += pngs[-1][1].filtered.size
+            nbytes += pngs[-1][1].nbytes
         elif kind == "jpeg":
             w, h = jpeg_size(data, p)
             jpegs.append((i, data, p))

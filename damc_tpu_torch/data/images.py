@@ -7,16 +7,23 @@ Image.BILINEAR)`). The port's reader must give the same bytes without PIL,
 so that its training data equals the JAX package's:
 
   * `decode_png` (one file; `parse_png` then `decode_parsed` for many)
-    reads 8-bit PNGs of colour types 0 (grey), 2 (RGB), 3 (palette), 4
-    (grey + alpha) and 6 (RGBA), without interlacing, and converts them to
-    RGB as PIL's `convert("RGB")` does: grey replicated, alpha dropped,
-    palette looked up. Any other PNG raises `ValueError` naming the file
-    and the feature.
-  * `decode_bmp` reads uncompressed (BI_RGB) BMPs of 24 and 32 bits a
-    pixel and with an 8-bit palette, bottom-up or top-down, as PIL's
-    `convert("RGB")` gives them (the fourth byte of a 32-bit pixel is
-    dropped, as PIL's BGRX raw mode drops it). Any other BMP raises
-    `ValueError` naming the file and the feature.
+    reads PNGs of every colour type at every bit depth PNG allows (grey at
+    1, 2, 4, 8 and 16 bits; palette at 1, 2, 4 and 8; RGB, grey + alpha
+    and RGBA at 8 and 16), plain or Adam7-interlaced, and converts them to
+    RGB as PIL's `convert("RGB")` of the mode PIL opens them in does: grey
+    below 8 bits scaled to 8 (x255, x85, x17), 16-bit grey clamped to 255
+    (PIL's I;16), every other 16-bit sample cut to its high byte, alpha
+    and tRNS dropped, palette indices looked up and one past the PLTE's
+    entries black. A PNG that PIL refuses too, or a corrupt one, raises
+    `ValueError` naming the file and the fault.
+  * `decode_bmp` reads every BMP coding PIL's `BmpImagePlugin.py` reads:
+    BI_RGB at 1, 4 and 8 bits (palette indices), 16 (5-5-5), 24 and 32
+    bits; BI_BITFIELDS at 16, 24 and 32 bits in PIL's layouts; RLE8 and
+    RLE4 as Pillow 12.2.0's decoder reads them; bottom-up or top-down; as
+    PIL's `convert("RGB")` gives them, quirks included (a grey-ramp
+    palette read as grey levels, an index past the palette black). What
+    PIL refuses (2 bits a pixel, BI_JPEG, BI_PNG, another bit-field
+    layout) and a truncated file raise `ValueError` naming the file.
   * `resize` is PIL's `Image.resize(size, Image.BILINEAR)` or
     `Image.LANCZOS` on 8-bit images, bit for bit (Pillow's
     `libImaging/Resample.c`): a triangle or Lanczos-3 filter whose support
@@ -34,7 +41,9 @@ own, so each diagonal is decoded in one vector step, every row under its
 own filter type: H + W - 1 steps for an H x W image. The image is kept
 sheared (diagonal t is row t of the work array) so that a step reads and
 writes contiguous memory, and images of one size are decoded together,
-which spreads each step's fixed cost over the batch.
+which spreads each step's fixed cost over the batch. Below 8 bits a pixel
+the filter's unit is a byte; an Adam7 pass is unfiltered as an image of
+its own, batched with every pass of the same shape.
 """
 
 from __future__ import annotations
@@ -50,6 +59,12 @@ import numpy as np
 
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}  # colour type -> samples a pixel
+DEPTHS = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8), 4: (8, 16), 6: (8, 16)}  # colour type -> its bit depths
+# Adam7's seven passes: (first column, first row, column step, row step)
+ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))
+GREY_SCALE = {1: 255, 2: 85, 4: 17, 8: 1}  # grey below 8 bits to 8, as PIL's unpackers 1, L;2 and L;4
+PIL_READ = 65536  # PIL's decodermaxblock: the most of an IDAT chunk PIL hands its decoder at once
+PIL_MAX_PIXELS = 2 * 89478485  # PIL refuses larger images (DecompressionBombError)
 PRECISION_BITS = 22  # fraction bits of the resize weights (Resample.c, 8 bits a sample)
 
 
@@ -111,19 +126,35 @@ def unfilter(filtered: np.ndarray, ftypes: np.ndarray, bpp: int) -> np.ndarray:
 
 @dataclass
 class ParsedPng:
-    """A PNG's header, palette and filtered scanlines, before unfiltering."""
+    """A PNG's header, palette and filtered scanlines, before unfiltering:
+    one pass over the whole image, or each of Adam7's passes that holds a
+    pixel, as ((first column, first row, column step, row step), filtered
+    rows (R, row bytes) uint8, the filter type of each row (R,))."""
 
     name: str
     width: int
     height: int
     color: int
+    depth: int
     palette: Optional[np.ndarray]  # (entries, 3) uint8 for colour type 3
-    filtered: np.ndarray  # (H, W * bpp) uint8
-    ftypes: np.ndarray  # (H,) the filter type of each row
+    passes: List[Tuple[Tuple[int, int, int, int], np.ndarray, np.ndarray]]
+
+    @property
+    def channels(self) -> int:
+        return CHANNELS[self.color]
 
     @property
     def bpp(self) -> int:
-        return CHANNELS[self.color]
+        """The filter's unit: the bytes of a pixel, 1 below 8 bits a pixel."""
+        return max(1, self.channels * self.depth // 8)
+
+    @property
+    def ftypes(self) -> np.ndarray:
+        return np.concatenate([ftypes for _, _, ftypes in self.passes])
+
+    @property
+    def nbytes(self) -> int:
+        return sum(rows.size for _, rows, _ in self.passes)
 
 
 def _chunks(data: bytes, name: str):
@@ -149,16 +180,59 @@ def _chunks(data: bytes, name: str):
         pos = end + 4
 
 
+def _inflate(idat: Sequence[bytes], shapes: Sequence[Tuple[int, int]], name: str) -> bytes:
+    """The inflated image data as far as PIL's decoder takes it: zlib is fed
+    PIL's reads (up to PIL_READ bytes of one IDAT chunk at a time) and asked
+    for no byte past the last row, so a checksum or a corruption after the
+    rows is met only where PIL meets it, in the read that ends the rows. A
+    stream that ends (zlib's end of stream) in the read that completes a
+    row ends the image there, PIL's early end: the rows not reached stay
+    zero. `shapes` holds each pass's (rows, bytes a row). Raises ValueError
+    for a corrupt stream and for one that stops before its rows do."""
+    need, out = sum(rows * row for rows, row in shapes), bytearray()
+
+    def row_end(n):
+        for rows, row in shapes:
+            if n <= rows * row:
+                return n % row == 0
+            n -= rows * row
+        return False
+
+    inflater = zlib.decompressobj()
+    for chunk in idat:
+        for at in range(0, len(chunk), PIL_READ):
+            before = len(out)
+            try:
+                out += inflater.decompress(chunk[at:at + PIL_READ], need - len(out))
+            except zlib.error as e:
+                raise ValueError(f"{name}: corrupt image data ({e})") from None
+            if len(out) == need:
+                return bytes(out)
+            if inflater.eof:
+                if len(out) > before and row_end(len(out)):
+                    return bytes(out)
+                raise ValueError(f"{name}: the image data ends after {len(out)} of its {need} bytes")
+    raise ValueError(f"{name}: the image data holds {len(out)} bytes, {need} expected")
+
+
 def parse_png(data: bytes, name: str = "<bytes>") -> ParsedPng:
-    """Check the chunks of a PNG file and inflate its image data. Raises
-    ValueError for a PNG this reader does not take (bit depth other than
-    8, Adam7 interlacing, an unknown critical chunk) or a corrupt one."""
+    """Check the chunks of a PNG file, inflate its image data and cut it
+    into the filtered rows of each pass. The image data is inflated only as
+    far as the rows need, as PIL's decoder stops there. Raises ValueError
+    naming the file for a PNG that is corrupt (a CRC, a truncated chunk or
+    image data, a filter type past 4, a header of the wrong size), that
+    breaks the format (a colour type, or a bit depth for the colour type,
+    that PNG does not have; an unknown compression or filter method; a
+    PLTE of more than 256 entries) or that holds an unknown critical
+    chunk. A palette image without PLTE reads as black, as in PIL."""
     header, palette, idat = None, None, []
     for ctype, body in _chunks(data, name):
         if ctype == b"IHDR":
-            header = struct.unpack(">IIBBBBB", body)
-        elif ctype == b"PLTE":
-            palette = np.frombuffer(body, np.uint8).reshape(-1, 3)
+            if len(body) < 13:
+                raise ValueError(f"{name}: an IHDR chunk of {len(body)} bytes")
+            header = struct.unpack(">IIBBBBB", body[:13])
+        elif ctype == b"PLTE":  # PIL takes len // 3 entries
+            palette = np.frombuffer(body, np.uint8, len(body) // 3 * 3).reshape(-1, 3)
         elif ctype == b"IDAT":
             idat.append(body)
         elif not ctype[0] & 0x20 and ctype != b"IEND":  # upper-case first letter: critical
@@ -168,50 +242,95 @@ def parse_png(data: bytes, name: str = "<bytes>") -> ParsedPng:
     w, h, depth, color, compression, filter_method, interlace = header
     if color not in CHANNELS:
         raise ValueError(f"{name}: colour type {color} is not a PNG colour type")
-    if depth != 8:
-        raise ValueError(f"{name}: bit depth {depth} is not supported (8 bits a sample only)")
-    if interlace:
-        raise ValueError(f"{name}: Adam7 interlacing is not supported")
+    if depth not in DEPTHS[color]:
+        raise ValueError(f"{name}: bit depth {depth} is not one of colour type {color}'s {DEPTHS[color]}")
     if compression or filter_method:
         raise ValueError(f"{name}: unknown compression or filter method ({compression}, {filter_method})")
-    if color == 3 and palette is None:
-        raise ValueError(f"{name}: a palette image without a PLTE chunk")
-    row = 1 + w * CHANNELS[color]
-    raw = zlib.decompress(b"".join(idat))
-    if len(raw) < h * row:
-        raise ValueError(f"{name}: the image data holds {len(raw)} bytes, {h * row} expected")
-    rows = np.frombuffer(raw, np.uint8, count=h * row).reshape(h, row)
-    if int(rows[:, 0].max(initial=0)) > 4:
-        raise ValueError(f"{name}: filter type {int(rows[:, 0].max())} is not a PNG filter type")
-    return ParsedPng(name, w, h, color, palette, rows[:, 1:], rows[:, 0])
+    if color == 3 and palette is None:  # PIL reads every index as black
+        palette = np.zeros((0, 3), np.uint8)
+    if color == 3 and len(palette) > 256:
+        raise ValueError(f"{name}: a PLTE chunk of {len(palette)} entries (PIL takes 256 at most)")
+    if not 0 < w * h <= PIL_MAX_PIXELS:
+        raise ValueError(f"{name}: a PNG of size {w}x{h} (PIL reads 1 to {PIL_MAX_PIXELS} pixels)")
+    bits = CHANNELS[color] * depth
+    windows = [(x0, y0, dx, dy) for x0, y0, dx, dy in (ADAM7 if interlace else ((0, 0, 1, 1),)) if x0 < w and y0 < h]
+    shapes = [(-(-(h - y0) // dy), 1 + (-(-(w - x0) // dx) * bits + 7) // 8) for x0, y0, dx, dy in windows]
+    raw = _inflate(idat, shapes, name)
+    flat = np.frombuffer(raw, np.uint8)
+    passes, pos = [], 0
+    for window, (rows, row) in zip(windows, shapes):
+        rows = min(rows, (len(raw) - pos) // row)  # a stream that ended early leaves rows out
+        if rows == 0:
+            break
+        block = flat[pos:pos + rows * row].reshape(rows, row)
+        pos += rows * row
+        if int(block[:, 0].max()) > 4:
+            raise ValueError(f"{name}: filter type {int(block[:, 0].max())} is not a PNG filter type")
+        passes.append((window, block[:, 1:], block[:, 0]))
+    return ParsedPng(name, w, h, color, depth, palette, passes)
 
 
-def _to_rgb(png: ParsedPng, pix: np.ndarray) -> np.ndarray:
-    """(H, W, 3) uint8 from the unfiltered samples (H, W, bpp), as PIL's
-    convert("RGB")."""
-    if png.color == 2:
-        return pix
-    if png.color == 6:
-        return pix[..., :3].copy()
+def _unpack(rows: np.ndarray, depth: int, count: int) -> np.ndarray:
+    """The first `count` samples of each row of bytes (R, N): below 8 bits
+    MSB first (the padding bits dropped), 16 bits big-endian as uint16."""
+    if depth == 16:
+        return (rows[:, 0::2].astype(np.uint16) << 8 | rows[:, 1::2])[:, :count]
+    if depth == 8:
+        return rows[:, :count]
+    shifts = (8 - depth - depth * np.arange(8 // depth)).astype(np.uint8)
+    return ((rows[:, :, None] >> shifts) & ((1 << depth) - 1)).reshape(len(rows), -1)[:, :count]
+
+
+def _samples(png: ParsedPng, rows: Sequence[np.ndarray]) -> np.ndarray:
+    """(H, W, channels) samples from each pass's unfiltered rows, each pass
+    scattered to its place (uint16 at 16 bits, else uint8); rows that the
+    image data did not reach are zero, as PIL leaves them."""
+    h, w, c = png.height, png.width, png.channels
+    out = np.zeros((h, w, c), np.uint16 if png.depth == 16 else np.uint8)
+    for ((x0, y0, dx, dy), _, _), r in zip(png.passes, rows):
+        pw = -(-(w - x0) // dx)
+        out[y0:y0 + dy * len(r):dy, x0::dx] = _unpack(r, png.depth, pw * c).reshape(len(r), pw, c)
+    return out
+
+
+def _to_rgb(png: ParsedPng, s: np.ndarray) -> np.ndarray:
+    """(H, W, 3) uint8 from the samples (H, W, channels), as PIL's
+    convert("RGB") of the mode PIL opens the file in: grey below 8 bits
+    scaled to 8 (modes 1, L;2, L;4), 16-bit grey clamped to 255 (mode
+    I;16), the other 16-bit samples cut to their high byte (RGB;16B,
+    LA;16B, RGBA;16B), alpha dropped, palette indices looked up unscaled
+    and one past the PLTE entries black."""
     if png.color == 3:
-        if int(pix.max(initial=0)) >= len(png.palette):
-            raise ValueError(f"{png.name}: a palette index beyond the {len(png.palette)} PLTE entries")
-        return png.palette[pix[..., 0]]
-    return np.repeat(pix[..., :1], 3, axis=2)  # grey, grey + alpha
+        palette = np.zeros((256, 3), np.uint8)
+        n = min(len(png.palette), 256)
+        palette[:n] = png.palette[:n]
+        return np.take(palette, s[..., 0], axis=0)
+    if png.color in (0, 4):
+        v = s[..., 0]
+        if png.depth == 16:
+            v = np.minimum(v, 255) if png.color == 0 else v >> 8
+        else:
+            v = v * np.uint8(GREY_SCALE[png.depth])
+        return np.repeat(v.astype(np.uint8)[..., None], 3, axis=2)
+    rgb = s[..., :3]
+    return (rgb >> 8).astype(np.uint8) if png.depth == 16 else np.ascontiguousarray(rgb)
 
 
 def decode_parsed(pngs: Sequence[ParsedPng]) -> List[np.ndarray]:
-    """The RGB pixels (H, W, 3) uint8 of each parsed PNG; images of one size
-    and colour type are unfiltered together."""
+    """The RGB pixels (H, W, 3) uint8 of each parsed PNG. Passes of one
+    shape and filter unit are unfiltered together, over images and over
+    Adam7's passes alike, so a tree of same-size files takes one wavefront
+    a pass shape, not one a file."""
     groups = {}
     for i, p in enumerate(pngs):
-        groups.setdefault((p.height, p.width, p.bpp), []).append(i)
-    out: List[Optional[np.ndarray]] = [None] * len(pngs)
-    for (h, w, bpp), idx in groups.items():
-        rows = unfilter(np.stack([pngs[i].filtered for i in idx]), np.stack([pngs[i].ftypes for i in idx]), bpp)
-        for i, r in zip(idx, rows):
-            out[i] = _to_rgb(pngs[i], r.reshape(h, w, bpp))
-    return out
+        for k, (_, rows, _) in enumerate(p.passes):
+            groups.setdefault((rows.shape, p.bpp), []).append((i, k))
+    done = {}
+    for (_, bpp), members in groups.items():
+        rows = unfilter(np.stack([pngs[i].passes[k][1] for i, k in members]),
+                        np.stack([pngs[i].passes[k][2] for i, k in members]), bpp)
+        done.update(zip(members, rows))
+    return [_to_rgb(p, _samples(p, [done[i, k] for k in range(len(p.passes))])) for i, p in enumerate(pngs)]
 
 
 def decode_png(data: bytes, name: str = "<bytes>") -> np.ndarray:
@@ -221,16 +340,96 @@ def decode_png(data: bytes, name: str = "<bytes>") -> np.ndarray:
 
 
 BMP_HEADERS = (12, 40, 52, 56, 64, 108, 124)  # the info-header sizes PIL reads
+BMP_COMPRESSIONS = {0: "BI_RGB", 1: "RLE8", 2: "RLE4", 3: "BI_BITFIELDS", 4: "BI_JPEG", 5: "BI_PNG"}
+# BmpImagePlugin.py's bit-field layouts, (bits, (r, g, b[, a]) masks) -> the
+# byte that holds each of R, G and B in a little-endian pixel (PIL's raw
+# modes BGRX, XBGR, BGXR, ABGR, RGBA, BGRA, BGAR; all-zero masks read as
+# BGRA), or the 16-bit pixel's red, green and blue bit widths (BGR;16,
+# BGR;15). PIL refuses every other layout.
+BMP_BITFIELDS = {
+    (32, (0xFF0000, 0xFF00, 0xFF, 0)): (2, 1, 0),
+    (32, (0xFF000000, 0xFF0000, 0xFF00, 0)): (3, 2, 1),
+    (32, (0xFF000000, 0xFF00, 0xFF, 0)): (3, 1, 0),
+    (32, (0xFF000000, 0xFF0000, 0xFF00, 0xFF)): (3, 2, 1),
+    (32, (0xFF, 0xFF00, 0xFF0000, 0xFF000000)): (0, 1, 2),
+    (32, (0xFF0000, 0xFF00, 0xFF, 0xFF000000)): (2, 1, 0),
+    (32, (0xFF000000, 0xFF00, 0xFF, 0xFF0000)): (3, 1, 0),
+    (32, (0, 0, 0, 0)): (2, 1, 0),
+    (24, (0xFF0000, 0xFF00, 0xFF)): (2, 1, 0),
+    (16, (0xF800, 0x7E0, 0x1F)): (5, 6, 5),
+    (16, (0x7C00, 0x3E0, 0x1F)): (5, 5, 5),
+}
+
+
+def _bmp_rle(data: bytes, pos: int, width: int, height: int, rle4: bool, name: str) -> np.ndarray:
+    """The (height * width,) pixel bytes of an RLE8 or RLE4 stream starting
+    at `pos`, as Pillow's BmpRleDecoder makes them (`BmpImagePlugin.py`),
+    run by run: an encoded run clipped at the row's end (RLE4: the two
+    nibbles by turns); end of line padding the row with zeros; end of
+    bitmap stopping; a delta moving right and up by its two bytes (as
+    Pillow 12.2.0 reads it: 12.1.0 skipped those two bytes and moved by the
+    next two); an absolute run (RLE4: count // 2 bytes, two
+    pixels each) advancing the column by its count, then the file position
+    aligned to an even offset of the file. A stream that stops before the
+    last pixel raises, as PIL's "not enough image data"."""
+    out = bytearray()
+    x, end, n = 0, len(data), width * height
+    while len(out) < n and pos + 2 <= end:
+        count, value = data[pos], data[pos + 1]
+        pos += 2
+        if count:
+            count = min(count, max(0, width - x))
+            if rle4:
+                out += bytes((value >> 4, value & 15)) * (count // 2) + bytes((value >> 4,)) * (count % 2)
+            else:
+                out += bytes((value,)) * count
+            x += count
+        elif value == 0:  # end of line
+            out += bytes(-len(out) % width)
+            x = 0
+        elif value == 1:  # end of bitmap
+            break
+        elif value == 2:  # delta
+            if pos + 2 > end:
+                break
+            right, up = data[pos], data[pos + 1]
+            pos += 2
+            out += bytes(min(right + up * width, n - len(out)))  # bytes past the last pixel are never read
+            x = len(out) % width
+        else:  # absolute run
+            k = value // 2 if rle4 else value
+            run = data[pos:pos + k]
+            pos += len(run)
+            if rle4:
+                out += np.stack([np.frombuffer(run, np.uint8) >> 4, np.frombuffer(run, np.uint8) & 15], 1).tobytes()
+            else:
+                out += run
+            if len(run) < k:
+                break
+            x += value
+            pos += pos % 2
+    if len(out) < n:
+        raise ValueError(f"{name}: the RLE stream holds {len(out)} of {n} pixels")
+    return np.frombuffer(bytes(out[:n]), np.uint8)
 
 
 def decode_bmp(data: bytes, name: str = "<bytes>") -> np.ndarray:
     """The RGB pixels (H, W, 3) uint8 of the BMP file `data`, as PIL's
-    `Image.open(...).convert("RGB")` gives them (`BmpImagePlugin.py`):
-    uncompressed 24- and 32-bit pixels (BGR, BGRX) and 8-bit palette
-    indices, rows padded to 4 bytes, bottom-up unless the height is
-    negative. Raises ValueError naming the file and the feature for any
-    other BMP (RLE or bit-field compression, 1, 4 or 16 bits a pixel) and
-    for a truncated one."""
+    `Image.open(...).convert("RGB")` gives them (`BmpImagePlugin.py`),
+    bottom-up unless the height is negative:
+      * BI_RGB at 1, 4 and 8 bits (palette indices, MSB first), 16 bits
+        (5-5-5), 24 (BGR) and 32 (BGRX), rows padded to 4 bytes;
+      * BI_BITFIELDS at 16, 24 and 32 bits in PIL's layouts
+        (`BMP_BITFIELDS`), the masks after a 40-byte header or inside a
+        larger one;
+      * RLE8 and RLE4 as Pillow's BmpRleDecoder reads them (`_bmp_rle`).
+    A palette whose entries are the grey levels 0, 1, 2, ... (or black and
+    white, of two entries) makes PIL read the pixel bytes as grey levels
+    (mode L) or as bits (mode 1), whatever the bit depth; other palettes
+    are looked up, and an index past the palette's entries is black.
+    Raises ValueError naming the file for what PIL refuses (2 bits a
+    pixel or another depth, BI_JPEG, BI_PNG, a bit-field layout outside
+    PIL's, a palette of more than 256 colours) and for a truncated file."""
     u16 = lambda o: struct.unpack_from("<H", data, o)[0]
     u32 = lambda o: struct.unpack_from("<I", data, o)[0]
     if data[:2] != b"BM" or len(data) < 18:
@@ -240,6 +439,8 @@ def decode_bmp(data: bytes, name: str = "<bytes>") -> np.ndarray:
         raise ValueError(f"{name}: BMP info header of {header} bytes is not supported")
     if len(data) < 14 + header:
         raise ValueError(f"{name}: truncated BMP header")
+    pos = 14 + header  # PIL's file position as it reads on
+    masks = None
     if header == 12:  # OS/2 1.x core header: 16-bit sizes, 3-byte palette entries
         width, height, bits, compression, colors, entry = u16(18), u16(20), u16(24), 0, 0, 3
         top_down = False
@@ -248,37 +449,85 @@ def decode_bmp(data: bytes, name: str = "<bytes>") -> np.ndarray:
         width, height = u32(18), u32(22)
         height = 2**32 - height if top_down else height
         bits, compression, colors, entry = u16(28), u32(30), u32(46), 4
-    if compression != 0:
-        kind = {1: "RLE8", 2: "RLE4", 3: "BI_BITFIELDS", 4: "JPEG", 5: "PNG"}.get(compression, str(compression))
-        raise ValueError(f"{name}: BMP compression {kind} is not supported (uncompressed BI_RGB only)")
-    if bits not in (8, 24, 32):
-        raise ValueError(f"{name}: BMP of {bits} bits a pixel is not supported (8, 24 and 32 only)")
-    if width < 1 or height < 1:
-        raise ValueError(f"{name}: BMP of size {width}x{height}")
-    palette = None
-    if bits == 8:
-        colors = colors or 256
+        if compression == 3:
+            if header == 40:
+                if len(data) < pos + 12:
+                    raise ValueError(f"{name}: truncated BMP bit-field masks")
+                masks = struct.unpack_from("<3I", data, pos) + (0,)
+                pos += 12
+            else:
+                masks = struct.unpack_from("<3I" if header == 52 else "<4I", data, 54) + ((0,) if header == 52 else ())
+    colors = colors or 1 << bits
+    if offset == 14 + header and bits <= 8:  # PIL's quirk: the pixels start after the palette
+        offset += entry * colors
+    if bits not in (1, 4, 8, 16, 24, 32):
+        raise ValueError(f"{name}: BMP of {bits} bits a pixel is not supported (PIL reads 1, 4, 8, 16, 24 and 32)")
+    kind = BMP_COMPRESSIONS.get(compression, str(compression))
+    layout = None
+    if compression == 3:
+        layout = BMP_BITFIELDS.get((bits, masks if bits == 32 else masks[:3]))
+        if layout is None:
+            shown = ", ".join(f"{m:#x}" for m in masks)
+            raise ValueError(f"{name}: BMP bit-field layout ({shown}) at {bits} bits is not one PIL reads")
+    elif compression not in (0, 1, 2):
+        raise ValueError(f"{name}: BMP compression {kind} is not supported (PIL reads BI_RGB, RLE8, RLE4, BI_BITFIELDS)")
+    mode, palette = "RGB", None
+    if bits <= 8:
         if not 0 < colors <= 65536:
             raise ValueError(f"{name}: BMP palette of {colors} colours")
-        start = 14 + header
-        if len(data) < start + entry * colors:
-            raise ValueError(f"{name}: truncated BMP palette")
-        palette = np.frombuffer(data, np.uint8, entry * colors, start).reshape(colors, entry)[:, 2::-1]
-        if offset == 14 + header:  # PIL's quirk: the pixels start after the palette
-            offset += 4 * colors
-    stride = ((width * bits + 31) >> 3) & ~3
-    if len(data) < offset + stride * height:
-        raise ValueError(f"{name}: truncated BMP pixel data")
-    rows = np.frombuffer(data, np.uint8, stride * height, offset).reshape(height, stride)
+        table = data[pos:pos + entry * colors]
+        pos += len(table)
+        levels = (0, 255) if colors == 2 else range(colors)
+        if all(table[i * entry:i * entry + 3] == bytes((v & 255,)) * 3 for i, v in enumerate(levels)):
+            mode = "1" if colors == 2 else "L"
+        else:
+            mode, n = "P", len(table) // entry
+            if n > 256:
+                raise ValueError(f"{name}: BMP palette of {n} colours (PIL takes 256 at most)")
+            palette = np.zeros((256, 3), np.uint8)
+            palette[:n] = np.frombuffer(table, np.uint8, n * entry).reshape(n, entry)[:, 2::-1]
+    if not 0 < width * height <= PIL_MAX_PIXELS:
+        raise ValueError(f"{name}: BMP of size {width}x{height} (PIL reads 1 to {PIL_MAX_PIXELS} pixels)")
+    start = offset or pos
+    if compression in (1, 2):
+        if mode not in ("P", "L"):
+            raise ValueError(f"{name}: BMP {kind} at {bits} bits a pixel is not supported")
+        idx = _bmp_rle(data, start, width, height, compression == 2, name).reshape(height, width)
+    else:
+        unit = {"1": 1, "L": 8}.get(mode, bits)  # the bits a pixel PIL's raw mode unpacks
+        stride = ((width * bits + 31) >> 3) & ~3
+        row = (width * unit + 7) // 8
+        if row > stride:
+            raise ValueError(f"{name}: BMP rows of {stride} bytes hold no {width} pixels of {unit} bits")
+        need = stride * (height - 1) + row  # PIL does not read the last row's padding
+        if len(data) < start + need:
+            raise ValueError(f"{name}: truncated BMP pixel data")
+        body = np.zeros(stride * height, np.uint8)
+        body[:need] = np.frombuffer(data, np.uint8, need, start)
+        rows = body.reshape(height, stride)[:, :row]
+        if unit < 8:
+            idx = _unpack(rows, unit, width)
+        elif unit == 8:
+            idx = rows
+        elif unit == 16:
+            p = rows.reshape(height, width, 2).astype(np.uint16)
+            p = p[..., 0] | p[..., 1] << 8
+            rbits, gbits, bbits = layout or (5, 5, 5)
+            fields = (p >> (gbits + bbits), p >> bbits, p)
+            rgb = np.stack([(f & ((1 << k) - 1)) * 255 // ((1 << k) - 1)
+                            for f, k in zip(fields, (rbits, gbits, bbits))], axis=-1)
+            idx = rgb.astype(np.uint8)
+        else:
+            order = layout or (2, 1, 0)
+            idx = rows.reshape(height, width, unit // 8)[..., list(order)]
     if not top_down:
-        rows = rows[::-1]
-    if bits == 8:
-        idx = rows[:, :width]
-        if int(idx.max()) >= len(palette):
-            raise ValueError(f"{name}: a palette index beyond the {len(palette)} palette entries")
-        return palette[idx]
-    step = bits // 8
-    return np.ascontiguousarray(rows[:, :width * step].reshape(height, width, step)[..., 2::-1])
+        idx = idx[::-1]
+    if mode == "RGB":
+        return np.ascontiguousarray(idx)
+    if mode == "P":
+        return np.take(palette, idx, axis=0)
+    grey = idx * np.uint8(255) if mode == "1" else idx
+    return np.repeat(np.ascontiguousarray(grey)[..., None], 3, axis=2)
 
 
 def _triangle(x: np.ndarray) -> np.ndarray:

@@ -102,17 +102,6 @@ def test_encode_png_filters_read_back_by_pil():
             np.testing.assert_array_equal(decode_png(data), pix if pix.ndim == 3 else np.repeat(pix[..., None], 3, 2))
 
 
-def _with_ihdr(data: bytes, **fields) -> bytes:
-    """`data` with IHDR fields replaced (bit depth at offset 8, interlace
-    at 12 of the chunk body) and the chunk's CRC redone."""
-    body = bytearray(data[16:29])
-    for key, off in (("depth", 8), ("interlace", 12)):
-        if key in fields:
-            body[off] = fields[key]
-    crc = struct.pack(">I", zlib.crc32(b"IHDR" + bytes(body)) & 0xFFFFFFFF)
-    return data[:16] + bytes(body) + crc + data[33:]
-
-
 def _unsupported(case: str) -> bytes:
     rng = np.random.default_rng(5)
     rgb = _pil_png(Image.fromarray(_smooth(rng, 8, 8, 3)))
@@ -120,8 +109,10 @@ def _unsupported(case: str) -> bytes:
         return _pil_png(Image.fromarray(rng.integers(0, 65535, (8, 8), dtype=np.uint16)))  # mode I;16
     if case == "1-bit":
         return _pil_png(Image.fromarray(rng.integers(0, 2, (8, 8), dtype=np.uint8) * 255).convert("1"))
-    if case == "Adam7":
-        return _with_ihdr(rgb, interlace=1)
+    if case == "Adam7":  # PIL writes no Adam7 file
+        from damc_tpu_torch.tools.image_writer import write_png
+
+        return write_png(_smooth(rng, 8, 8, 3), 2, 8, interlace=True, filters=[0, 1, 2, 3, 4])
     if case == "CRC":
         return rgb[:40] + bytes([rgb[40] ^ 1]) + rgb[41:]
     if case == "critical":
@@ -131,15 +122,24 @@ def _unsupported(case: str) -> bytes:
     raise ValueError(case)
 
 
+DECODED_SINCE_SLICE_21 = {"16-bit", "1-bit", "Adam7"}  # refused until then; PIL decodes them
+
+
 @pytest.mark.parametrize("case, match", [
     ("16-bit", "bit depth 16"), ("1-bit", "bit depth 1"), ("Adam7", "Adam7"), ("CRC", "CRC mismatch"),
     ("critical", "unknown critical chunk"),
 ])
 def test_unsupported_or_corrupt_pngs_raise(case, match):
-    """A PNG the reader does not take raises ValueError naming the file and
-    the feature, before any pixel is produced."""
+    """A corrupt PNG raises ValueError naming the file and the fault, before
+    any pixel is produced. The 16-bit, 1-bit and Adam7 files, which the
+    reader once refused (`match` names their feature), decode as PIL's
+    `convert("RGB")` does."""
+    data = _unsupported(case)
+    if case in DECODED_SINCE_SLICE_21:
+        np.testing.assert_array_equal(decode_png(data, "the_file.png"), _pil_rgb(data))
+        return
     with pytest.raises(ValueError, match=f"the_file.png: .*{match}"):
-        decode_png(_unsupported(case), "the_file.png")
+        decode_png(data, "the_file.png")
 
 
 @pytest.mark.parametrize("src, dst", [
@@ -358,17 +358,41 @@ def test_decode_bmp_matches_pil(case):
     (lambda d: b"BX" + d[2:], "not a BMP file"),
 ], ids=["rle8", "16-bit", "header", "truncated", "signature"])
 def test_unsupported_or_corrupt_bmps_raise(edit, match):
-    data = _bmp(_smooth(np.random.default_rng(9), 6, 7, 3), 24, False)
+    """An edited 24-bit BMP: a bad header, signature or a file cut short
+    raises ValueError naming the file and the fault. Set to RLE8 or to 16
+    bits a pixel (which the reader once refused; `match` names the
+    feature), the file is read as PIL reads it: pixels equal to PIL's, or
+    a ValueError naming the file where PIL raises too."""
+    data = edit(_bmp(_smooth(np.random.default_rng(9), 6, 7, 3), 24, False))
+    if match in ("compression RLE8", "16 bits a pixel"):
+        try:
+            want = _pil_rgb(data)
+        except (OSError, ValueError):
+            with pytest.raises(ValueError, match="x.bmp: "):
+                images.decode_bmp(data, "x.bmp")
+            return
+        np.testing.assert_array_equal(images.decode_bmp(data, "x.bmp"), want)
+        return
     with pytest.raises(ValueError, match=f"x.bmp: .*{match}"):
-        images.decode_bmp(edit(data), "x.bmp")
+        images.decode_bmp(data, "x.bmp")
 
 
 def _mixed_format_tree(root, rng):
     """PNG, JPEG (4:2:0, 4:4:4 with restart markers, greyscale, an upper-
     case extension) and BMP (24-bit and palette) files in one tree, a
     .jpeg file that holds a PNG (decoded by its first bytes, as PIL opens
-    it) and a file that is not an image."""
+    it), a file that is not an image, and one file of each PNG and BMP kind
+    of `tools/image_writer.py::KINDS` (1-, 2-, 4- and 16-bit and Adam7 PNG;
+    1-, 4- and 16-bit, bit-field and RLE BMP), two of them of one size."""
+    from damc_tpu_torch.tools.image_writer import KINDS, write_kind
+
     _mixed_tree(root, rng)
+    for k, kind in enumerate(KINDS):
+        w, h = (40, 30) if kind.startswith("png_adam7") else (int(rng.integers(20, 120)), int(rng.integers(20, 120)))
+        rel = os.path.join("f" if k % 2 else os.path.join("b", "g"), f"{kind}.{kind[:3]}")
+        os.makedirs(os.path.join(root, os.path.dirname(rel)), exist_ok=True)
+        with open(os.path.join(root, rel), "wb") as f:
+            f.write(write_kind(kind, _smooth(rng, h, w, 3), k))
     specs = [("b/j1.jpg", dict(quality=75)), ("b/c/j2.JPEG", dict(quality=95, subsampling=0, restart_marker_blocks=2)),
              ("e/j3.jpg", dict(quality=50, mode="L")), ("e/b1.bmp", dict()), ("e/b2.bmp", dict(mode="P")),
              ("e/png_named.jpeg", dict(fmt="PNG"))]
@@ -385,14 +409,52 @@ def _mixed_format_tree(root, rng):
 
 @pytest.mark.parametrize("size, batch_bytes", [(64, datasets.BATCH_BYTES), (32, 20000)])
 def test_mixed_format_folder_matches_jax(tmp_path, monkeypatch, size, batch_bytes):
-    """A folder of PNG, JPEG and BMP files: the port's `load_image_folder`
-    equals the JAX package's PIL reader exactly, in one batch and in many."""
+    """A folder of PNG, JPEG and BMP files of every kind the port reads:
+    the port's `load_image_folder` equals the JAX package's PIL reader
+    exactly, in one batch and in many."""
     _mixed_format_tree(str(tmp_path), np.random.default_rng(12))
     monkeypatch.setattr(datasets, "BATCH_BYTES", batch_bytes)
     want = jax_datasets.load_image_folder(str(tmp_path), size)
     got = datasets.load_image_folder(str(tmp_path), size)
-    assert got.shape == want.shape == (12, size, size, 3)
+    assert got.shape == want.shape == (31, size, size, 3)
     np.testing.assert_array_equal(got, want)
+
+
+def _palette_png(indices: np.ndarray, palette: np.ndarray) -> bytes:
+    """An 8-bit palette PNG of `indices` with the PLTE `palette`, by hand."""
+    chunk = lambda t, b: struct.pack(">I", len(b)) + t + b + struct.pack(">I", zlib.crc32(t + b) & 0xFFFFFFFF)
+    h, w = indices.shape
+    raw = np.concatenate([np.zeros((h, 1), np.uint8), indices.astype(np.uint8)], axis=1).tobytes()
+    return (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 3, 0, 0, 0))
+            + chunk(b"PLTE", palette.tobytes()) + chunk(b"IDAT", zlib.compress(raw)) + chunk(b"IEND", b""))
+
+
+def _palette_bmp(indices: np.ndarray, palette: np.ndarray) -> bytes:
+    """An 8-bit BMP of `indices` whose header counts len(palette) colours."""
+    h, w = indices.shape
+    stride = (w + 3) & ~3
+    rows = np.zeros((h, stride), np.uint8)
+    rows[:, :w] = indices[::-1]
+    table = np.zeros((len(palette), 4), np.uint8)
+    table[:, :3] = palette[:, ::-1]
+    offset = 14 + 40 + table.size
+    info = struct.pack("<IiiHHIIiiII", 40, w, h, 1, 8, 0, rows.size, 2835, 2835, len(palette), 0)
+    return b"BM" + struct.pack("<IHHI", offset + rows.size, 0, 0, offset) + info + table.tobytes() + rows.tobytes()
+
+
+@pytest.mark.parametrize("fmt", ["png", "bmp"])
+def test_palette_index_past_the_palette_is_black(fmt):
+    """A palette of 2 colours and an index 5 (a PNG's PLTE; an 8-bit BMP
+    whose header counts 2 colours): PIL decodes the index as black, and so
+    does the port, where it used to raise."""
+    indices = np.array([[0, 1, 5], [5, 1, 0]])
+    palette = np.array([[10, 200, 30], [250, 40, 90]], np.uint8)
+    data = (_palette_png if fmt == "png" else _palette_bmp)(indices, palette)
+    want = _pil_rgb(data)
+    got = decode_png(data, "x.png") if fmt == "png" else images.decode_bmp(data, "x.bmp")
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got[indices == 5], np.zeros((2, 3), np.uint8))
+    np.testing.assert_array_equal(got[indices < 2], palette[indices[indices < 2]])
 
 
 @pytest.mark.parametrize("src, dst", [

@@ -3,7 +3,7 @@
 spec-conformant databases of tests/lmdb_fixture.py, after
 tests/test_native_lmdb.py; `LSUNClassImages`, `LSUNImages` and `load_lsun`
 against the JAX package's readers over fixture databases of JPEGs
-(exactly: JAX's PIL path), JPEG and WebP payloads of every kind;
+(exactly: JAX's PIL path), JPEG, WebP, PNG and BMP payloads of every kind;
 `_decode_crop_resize` (decode, centre crop, PIL's LANCZOS) against JAX's; and the port against JAX's libjpeg batch path
 within that path's own bound."""
 
@@ -299,6 +299,31 @@ def test_arithmetic_and_lossless_payloads_equal_jax(tmp_path, jax_pil_path):
     np.testing.assert_array_equal(datasets.LSUNImages(root, ["church_outdoor_val"], 48)[idx], want[idx])
     data = items[b"002"]
     np.testing.assert_array_equal(datasets._decode_crop_resize(data, 20, "item.jpg"),
+                                  jax_datasets._decode_crop_resize(data, 20))
+
+
+def test_png_and_bmp_payloads_equal_jax(tmp_path, jax_pil_path):
+    """An LSUN database with a payload of every PNG and BMP kind of
+    `tools/image_writer.py::KINDS` (1-, 2-, 4- and 16-bit and Adam7 PNG;
+    1-, 4- and 16-bit, bit-field and RLE BMP) beside JPEGs: `load_lsun`,
+    a batch of `LSUNClassImages` and one item equal the JAX package's PIL
+    path."""
+    from damc_tpu_torch.tools.image_writer import KINDS, write_kind
+
+    items = {f"{k:03d}".encode(): write_kind(kind, _smooth(30 + 5 * k, 70 - 2 * k, 70 + k), k)
+             for k, kind in enumerate(KINDS)}
+    items[b"jpeg"] = _payload(_smooth(40, 52, 99), "JPEG")
+    root = str(tmp_path)
+    build_lmdb(os.path.join(root, "kitchen_val_lmdb"), items)
+    want = jax_datasets.load_lsun(root, ["kitchen_val"], 40)
+    os.remove(os.path.join(root, "kitchen_val_lmdb", "_keys_cache.pkl"))
+    got = datasets.load_lsun(root, ["kitchen_val"], 40)
+    assert got.shape == (len(KINDS) + 1, 40, 40, 3)
+    np.testing.assert_array_equal(got, want)
+    idx = np.array([19, 3, 10, 12, 17, 18, 0])
+    np.testing.assert_array_equal(datasets.LSUNClassImages(os.path.join(root, "kitchen_val_lmdb"), 40)[idx], want[idx])
+    data = items[b"011"]
+    np.testing.assert_array_equal(datasets._decode_crop_resize(data, 20, "item.png"),
                                   jax_datasets._decode_crop_resize(data, 20))
 
 
