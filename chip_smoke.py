@@ -8,7 +8,7 @@ Phases, each of which raises on failure (the script then exits non-zero):
   2. builds every CUDA kernel from `damc_tpu_torch/csrc`, one nvcc each, all
      at once, and beside them the host C++ libraries of
      `damc_tpu_torch/csrc/host` (batch engine, JPEG and WebP decoders, LMDB
-     reader), one g++ each;
+     reader, GIF and TIFF LZW and PackBits), one g++ each;
   3. holds each kernel against its plain PyTorch version on the card, at the
      serving shape B=16 and the FID shape B=500 (ragged row tiles) in
      counter and noiseless mode, and in stream mode at the training shapes
@@ -178,18 +178,24 @@ Phases, each of which raises on failure (the script then exits non-zero):
      must raise; host batches queued to the card must equal the CPU's; the
      host feed's ms an iteration and idle share beside the device-resident
      store's; profiles one iteration;
- 16b. items 4c's and 4d's decoders (`decoders_4c_phase`): 3,520 files at
+ 16b. items 4c's and 4d's decoders (`decoders_4c_phase`): 4,128 files at
      178x218 written on worker processes (by PIL: 1,024 lossy, 256
      lossless, 128 alpha and 32 animated WebPs; 1,024 progressive, 128
      CMYK, 64 YCCK and 64 smoothed, cut progressive JPEGs; by the port's
      writers: 64 each of arithmetic-coded sequential, arithmetic-coded
-     progressive and lossless JPEGs, and 32 of each of item 4d's 19 PNG and
+     progressive and lossless JPEGs, 32 of each of item 4d's 19 PNG and
      BMP kinds: grey PNG at 1, 2, 4 and 16 bits, palette PNG at 1, 2 and 4,
      16-bit RGB, RGBA and grey + alpha PNG, Adam7 RGB and palette-4 PNG; 1-,
-     4- and 16-bit, 5-6-5 and 32-bit bit-field, RLE8 and RLE4 BMP), each
-     decoded by the port equal to PIL's decode byte for byte, with the
-     decode rates of each kind (JPEG and WebP: 8 threads, 1 thread, PIL on
-     1; PNG and BMP, whose readers have no thread pool: 1 thread, PIL on 1);
+     4- and 16-bit, 5-6-5 and 32-bit bit-field, RLE8 and RLE4 BMP; and 32 of
+     each of 19 GIF, TIFF and PNM kinds, named .png and .jpg: GIF with a
+     global table, interlaced, inset in its screen with a transparency
+     index, and with no table; TIFF raw, PackBits, LZW with predictor 2,
+     Deflate, tiled LZW, big-endian, 16-bit grey, MinIsWhite, palette,
+     CMYK, associated alpha and planar configuration 2; PNM P6, P5 at
+     maxval 65535 and P4), each decoded by the port equal to PIL's decode
+     byte for byte, with the decode rates of each kind (JPEG and WebP: 8
+     threads, 1 thread, PIL on 1; PNG, BMP, GIF, TIFF and PNM, whose
+     readers have no thread pool: 1 thread, PIL on 1);
      then a mixed celeba64 tree drawn from them (1,024 train, 256 test)
      through the train CLI for 3 iterations at B=128, host-fed: the cache
      equal to the JAX package's PIL pipeline, K1 and K2 once an iteration,
@@ -3607,15 +3613,20 @@ def celeba64_phase(cfg, counters):
 
 # Item 4c's trees at CelebA's 178x218, written by PIL, and the arithmetic
 # and lossless JPEGs by the port's writer (tools/jpeg_writer.py), which PIL
-# cannot write; item 4d's PNG and BMP kinds (tools/image_writer.py::KINDS),
-# by the port's writer, which writes what PIL does not: (kind, files).
+# cannot write; item 4d's PNG and BMP kinds (tools/image_writer.py::KINDS)
+# and the GIF, TIFF and PNM kinds (image_writer.GIF_TIFF_PNM_KINDS, each
+# file named .png or .jpg, as such files reach the JAX reader), by the
+# port's writer, which writes what PIL does not: (kind, files).
 TREE_4D = ("png_grey1", "png_grey2", "png_grey4", "png_grey16", "png_palette1", "png_palette2", "png_palette4",
            "png_rgb16", "png_rgba16", "png_grey_alpha16", "png_adam7_rgb8", "png_adam7_palette4",
            "bmp_1", "bmp_4", "bmp_16", "bmp_bf565", "bmp_bf32", "bmp_rle8", "bmp_rle4")
+TREE_4E = ("gif_global", "gif_interlaced", "gif_offset", "gif_grey", "tiff_raw", "tiff_packbits", "tiff_lzw_pred2",
+           "tiff_deflate", "tiff_tiled_lzw", "tiff_mm", "tiff_grey16", "tiff_miniswhite", "tiff_palette", "tiff_cmyk",
+           "tiff_rgba_assoc", "tiff_planar2", "pnm_p6", "pnm_p5_16", "pnm_p4")
 TREE_4C = (("webp_lossy", 1024), ("webp_lossless", 256), ("webp_alpha", 128), ("webp_anim", 32),
            ("jpeg_progressive", 1024), ("jpeg_cmyk", 128), ("jpeg_ycck", 64), ("jpeg_arith", 64),
            ("jpeg_arith_progressive", 64), ("jpeg_lossless", 64), ("jpeg_smoothed", 64)) + tuple(
-    (kind, 32) for kind in TREE_4D)
+    (kind, 32) for kind in TREE_4D + TREE_4E)
 MIXED_TRAIN, MIXED_TEST = 1024, 256  # the mixed celeba64 tree drawn from them
 ONE_THREAD_FILES = 256  # the port's one-thread rate is timed on the first of each kind
 
@@ -3638,7 +3649,9 @@ def synthetic_4c_tree(root: str, kind: str, n: int, size, seed: int, start: int 
     JPEG, predictors 1 to 7 in turn, point transform 0 and 1 by turns. The
     PNG and BMP kinds: `tools/image_writer.py::write_kind` with `k` (row
     filters, 16-bit grey at or past 255, short palettes, top-down, the
-    bit-field layout by turns), written to .png or .bmp."""
+    bit-field layout by turns), written to .png or .bmp; the GIF, TIFF and
+    PNM kinds the same way (tables, clear codes, strip heights, tiles and
+    codings by turns), written to .png and .jpg by turns."""
     import io
     import os
 
@@ -3655,8 +3668,9 @@ def synthetic_4c_tree(root: str, kind: str, n: int, size, seed: int, start: int 
         low = rng.integers(0, 256, (max(h // 16, 2), max(w // 16, 2), 3), dtype=np.uint8)
         pix = np.asarray(Image.fromarray(low).resize((w, h), Image.BILINEAR)).astype(np.int16)
         img = Image.fromarray(np.clip(pix + rng.integers(-6, 7, (h, w, 3)), 0, 255).astype(np.uint8))
-        path = os.path.join(root, f"{k:06d}_{kind}." + ("jpg" if kind.startswith("jpeg") else kind.split("_")[0]))
-        if kind in TREE_4D:
+        ext = "jpg" if kind.startswith("jpeg") else ("png", "jpg")[k % 2] if kind in TREE_4E else kind.split("_")[0]
+        path = os.path.join(root, f"{k:06d}_{kind}.{ext}")
+        if kind in TREE_4D + TREE_4E:
             with open(path, "wb") as f:
                 f.write(write_kind(kind, np.asarray(img), k))
         elif kind == "webp_lossy":
@@ -3729,11 +3743,13 @@ def decoders_4c_phase(cfg, counters):
     """Items 4c and 4d on the card's machine: the TREE_4C files (lossy,
     lossless, alpha and animated WebP; progressive, CMYK, YCCK,
     arithmetic-coded sequential and progressive, lossless and smoothed
-    progressive JPEG; the TREE_4D PNG and BMP kinds at CelebA's 178x218);
-    every file decoded by the port must equal PIL's `convert("RGB")` byte
-    for byte, with the decode rates of each kind (host side: JPEG and
-    WebP on 8 threads, and on 1 over their first ONE_THREAD_FILES; PNG and
-    BMP, which have no thread pool, on 1; PIL on 1). Then a
+    progressive JPEG; the TREE_4D PNG and BMP kinds and the TREE_4E GIF,
+    TIFF and PNM kinds, named .png and .jpg, at CelebA's 178x218); every
+    file decoded by the port must equal PIL's `convert("RGB")` byte for
+    byte, with the decode rates of each kind (host side: JPEG and WebP on
+    8 threads, and on 1 over their first ONE_THREAD_FILES; PNG, BMP, GIF,
+    TIFF and PNM, which have no thread pool, on 1; PIL on 1), and PIL's
+    version and libtiff. Then a
     mixed celeba64 tree drawn from them (MIXED_TRAIN train, MIXED_TEST test
     images, hard links) through the train CLI at full width, 3 iterations
     at B=128 with --data_placement host (the last one timed: the first
@@ -3747,18 +3763,23 @@ def decoders_4c_phase(cfg, counters):
 
     from PIL import Image
 
-    from damc_tpu_torch.data.images import decode_bmp, decode_parsed, parse_png
+    import PIL
+    from PIL import features
+    from damc_tpu_torch.data.datasets import SINGLE_DECODERS, image_kind
+    from damc_tpu_torch.data.images import decode_parsed, parse_png
     from damc_tpu_torch.data.jpeg import decode_jpegs
     from damc_tpu_torch.data.webp import decode_webps
-    from damc_tpu_torch.tools.image_writer import KINDS
+    from damc_tpu_torch.tools.image_writer import GIF_TIFF_PNM_KINDS, KINDS
 
-    def decode_png_bmp(blobs, paths):
-        """The port's PNG and BMP readers as the folder reader runs them: the
-        PNGs through one `decode_parsed` (each pass shape unfiltered once),
-        each BMP alone."""
-        if paths[0].endswith(".png"):
+    def decode_one_thread(blobs, paths):
+        """The port's PNG, BMP, GIF, TIFF and PNM readers as the folder
+        reader runs them: the PNGs through one `decode_parsed` (each pass
+        shape unfiltered once), the others one by one, each by its first
+        bytes (a GIF, TIFF or PNM file here is named .png or .jpg)."""
+        kind = image_kind(blobs[0][:12], paths[0])
+        if kind == "png":
             return decode_parsed([parse_png(b, p) for b, p in zip(blobs, paths)])
-        return [decode_bmp(b, p) for b, p in zip(blobs, paths)]
+        return [SINGLE_DECODERS[image_kind(b[:12], p)](b, p) for b, p in zip(blobs, paths)]
 
     tmp = tempfile.mkdtemp(prefix="damc_4c_smoke_")
     reads, placements = [], []
@@ -3775,8 +3796,8 @@ def decoders_4c_phase(cfg, counters):
         for kind, n in TREE_4C:
             group = [name for name in names if name.split("_", 1)[1].rsplit(".", 1)[0] == kind]
             data = [blobs[name] for name in group]
-            pooled = kind not in TREE_4D
-            decode = decode_webps if kind.startswith("webp") else decode_jpegs if pooled else decode_png_bmp
+            pooled = kind not in TREE_4D + TREE_4E
+            decode = decode_webps if kind.startswith("webp") else decode_jpegs if pooled else decode_one_thread
             decode(data[:1], group[:1])  # first use (the library's load), untimed, as PIL's below
             Image.open(io.BytesIO(data[0])).convert("RGB")
             rates[kind] = {"files": len(group), "bytes": sum(map(len, data))}
@@ -3787,7 +3808,7 @@ def decoders_4c_phase(cfg, counters):
                 t0 = time.perf_counter()
                 one = decode(data[:ONE_THREAD_FILES], group[:ONE_THREAD_FILES], threads=1)
                 rates[kind]["port_1_thread_images_per_s"] = len(one) / (time.perf_counter() - t0)
-            else:  # the PNG and BMP readers have no thread pool
+            else:  # the PNG, BMP, GIF, TIFF and PNM readers have no thread pool
                 t0 = time.perf_counter()
                 port = decode(data, group)
                 rates[kind]["port_1_thread_images_per_s"] = len(group) / (time.perf_counter() - t0)
@@ -3798,12 +3819,15 @@ def decoders_4c_phase(cfg, counters):
                 "pil_images_per_s"]
             bad += [name for name, a, b in zip(group, port, want) if not np.array_equal(a, b)]
             pil.update(zip(group, want))
+        new = [name for name in names if name.split("_", 1)[1].rsplit(".", 1)[0] in TREE_4E]
         print(f"[decoders_4c] {len(names)} files at {CELEBA64_SIZE[0]}x{CELEBA64_SIZE[1]} written in "
-              f"{tree_s:.2f} s; differing from PIL's decode: {len(bad)}; host-side decode rates "
+              f"{tree_s:.2f} s; differing from PIL's decode: {len(bad)} (of the {len(new)} GIF, TIFF and PNM "
+              f"files: {sum(name in new for name in bad)}); PIL {PIL.__version__}, libtiff "
+              f"{features.check('libtiff')} ({features.version('libtiff')}); host-side decode rates "
               + json.dumps(rates) + " " + card_line())
-        if len(names) != sum(n for _, n in TREE_4C) or bad or TREE_4D != KINDS:
+        if len(names) != sum(n for _, n in TREE_4C) or bad or TREE_4D != KINDS or TREE_4E != GIF_TIFF_PNM_KINDS:
             raise AssertionError(f"the port's decode differs from PIL's: {bad[:5]} ({len(bad)} files), or the "
-                                 "tree's PNG and BMP kinds are not image_writer.KINDS")
+                                 "tree's kinds are not image_writer.KINDS and GIF_TIFF_PNM_KINDS")
         data_dir, logs = os.path.join(tmp, "data"), os.path.join(tmp, "logs")
         order = np.random.default_rng(SEED + 131).permutation(len(names))
         splits = {"celeba64_train": order[:MIXED_TRAIN], "celeba64_test": order[MIXED_TRAIN:MIXED_TRAIN + MIXED_TEST]}

@@ -1,8 +1,9 @@
 """Dataset readers of the port (counterpart of
 `damc_tpu/data/datasets.py`): CIFAR-10 from the python pickle batches and
 SVHN from its .mat files, both as (N, 32, 32, 3) uint8; image folders
-(CelebA-64, CelebA-HQ, FFHQ) through the port's own PNG, JPEG and BMP
-decoders and PIL's bilinear resize, with the JAX package's `.npy` cache;
+(CelebA-64, CelebA-HQ, FFHQ) through the port's own PNG, JPEG, BMP, WebP,
+GIF, TIFF and PNM decoders and PIL's bilinear resize, with the JAX
+package's `.npy` cache;
 LSUN's lmdb databases (`LSUNClassImages`, `LSUNImages`, `load_lsun`)
 through the port's LMDB reader, decoded, centre-cropped and resized by
 PIL's Lanczos filter per item; the MNIST anomaly split from `mnist.npz`;
@@ -15,12 +16,16 @@ and BMP at 1, 4, 8, 16, 24 and 32 bits, BI_RGB, RLE8, RLE4 and
 BI_BITFIELDS in PIL's layouts; `data/jpeg.py`: sequential and progressive JPEG,
 Huffman- or arithmetic-coded, and lossless JPEG, grey, YCbCr, RGB, CMYK and
 YCCK; `data/webp.py`: lossy, lossless and animated WebP, the LSUN tools'
-export format); the port itself never imports PIL. A file is decoded by
-what its first bytes say it is, as PIL opens it. A JPEG coding PIL does not
-decode either (hierarchical, lossless arithmetic, 12-bit) raises
-NotImplementedError; a PNG or BMP that PIL refuses (a BMP of 2 bits a
-pixel, BI_JPEG or BI_PNG, a bit-field layout outside PIL's) or that is
-corrupt raises ValueError naming the file.
+export format; `data/gif.py`: a GIF's first frame; `data/tiff.py`: TIFF
+uncompressed, PackBits, LZW or Deflate, in strips or tiles; `data/pnm.py`:
+P1 to P6); the port itself never imports
+PIL. A file is decoded by what its first bytes say it is, as PIL opens it,
+whatever its name. A JPEG coding PIL does not decode either (hierarchical,
+lossless arithmetic, 12-bit) raises NotImplementedError, as do the formats
+and TIFF codings PIL reads that the port does not yet (`DEFERRED`, and
+`data/tiff.py`); a file that PIL refuses (a BMP of 2 bits a pixel, BI_JPEG
+or BI_PNG, a bit-field layout outside PIL's) or that is corrupt raises
+ValueError naming the file.
 """
 
 from __future__ import annotations
@@ -32,18 +37,43 @@ from typing import Iterator, Optional, Tuple
 
 import numpy as np
 
+from .gif import GIF_MAGIC, decode_gif
 from .images import PNG_SIGNATURE, decode_bmp, decode_parsed, decode_png, parse_png, resize_bilinear, resize_lanczos
 from .jpeg import JPEG_MAGIC, decode_jpeg, decode_jpegs, jpeg_size
+from .pnm import decode_pnm, is_pnm
+from .tiff import decode_tiff, is_tiff
 from .webp import decode_webp, decode_webps, is_webp, webp_size
 
 BATCH_BYTES = 64 << 20  # decoded bytes the folder reader decodes together (a PNG's work array is about 4x)
 IMAGE_EXTENSIONS = (".png", ".jpg", ".jpeg", ".webp", ".bmp")  # the JAX reader's list
-MAGIC_BYTES = 12  # enough to tell PNG, JPEG, BMP and WebP apart
+MAGIC_BYTES = 12  # enough to tell every kind below apart
+KINDS_READ = "PNG, JPEG, BMP, WebP, GIF, TIFF or PNM"
+# Formats PIL opens by their first bytes that the port does not read yet (ROADMAP queue 3): PIL's name of
+# each, and a test of the first MAGIC_BYTES bytes. TGA and SPIDER have no magic bytes to tell them by.
+DEFERRED = (
+    ("QOI", lambda h: h.startswith(b"qoif")),
+    ("ICO", lambda h: h.startswith(b"\x00\x00\x01\x00")),
+    ("CUR", lambda h: h.startswith(b"\x00\x00\x02\x00")),
+    ("ICNS", lambda h: h.startswith(b"icns")),
+    ("PCX", lambda h: len(h) >= 2 and h[0] == 10 and h[1] in (0, 2, 3, 5)),
+    ("SGI", lambda h: h.startswith(b"\x01\xda")),
+    ("DDS", lambda h: h.startswith(b"DDS ")),
+    ("IM", lambda h: h.startswith(b"Image type")),
+    ("XBM", lambda h: h.lstrip().startswith(b"#define")),
+    ("BLP", lambda h: h.startswith((b"BLP1", b"BLP2"))),
+    ("DIB", lambda h: len(h) >= 4 and int.from_bytes(h[:4], "little") in (12, 40, 52, 56, 64, 108, 124)),
+    ("PFM", lambda h: h.startswith(b"Pf")),
+    ("PPM extension", lambda h: h.startswith((b"P0CMYK", b"PyP", b"PyRGBA", b"PyCMYK"))),
+    ("JPEG 2000", lambda h: h.startswith((b"\xff\x4f\xff\x51", b"\x00\x00\x00\x0cjP  \r\n\x87\n"))),
+    ("AVIF", lambda h: h[4:8] == b"ftyp" and h[8:12] in (b"avif", b"avis")),
+)
 
 
 def image_kind(head: bytes, name: str) -> str:
-    """The kind of a file from its first bytes: "png", "jpeg", "bmp" or
-    "webp"; anything else raises ValueError."""
+    """The kind of a file from its first bytes, as PIL picks its reader by
+    content: "png", "jpeg", "bmp", "webp", "gif", "tiff" or "pnm". A
+    format PIL reads that the port does not yet raises NotImplementedError
+    naming it; anything else raises ValueError."""
     if head.startswith(PNG_SIGNATURE):
         return "png"
     if head.startswith(JPEG_MAGIC):
@@ -52,12 +82,25 @@ def image_kind(head: bytes, name: str) -> str:
         return "bmp"
     if is_webp(head):
         return "webp"
-    raise ValueError(f"{name}: not a PNG, JPEG, BMP or WebP file")
+    if head.startswith(GIF_MAGIC):
+        return "gif"
+    if is_tiff(head):
+        return "tiff"
+    if is_pnm(head):
+        return "pnm"
+    for fmt, test in DEFERRED:
+        if test(head):
+            raise NotImplementedError(f"{name}: PIL reads this {fmt} file; the port does not yet")
+    raise ValueError(f"{name}: not a {KINDS_READ} file")
+
+
+# kinds decoded one file at a time, in the order the folder reader meets them
+SINGLE_DECODERS = {"bmp": decode_bmp, "gif": decode_gif, "tiff": decode_tiff, "pnm": decode_pnm}
 
 
 def decode_image(data: bytes, name: str = "<bytes>") -> np.ndarray:
-    """One PNG, JPEG, BMP or WebP file's RGB pixels (H, W, 3) uint8, as
-    PIL's `Image.open(...).convert("RGB")` gives them."""
+    """One PNG, JPEG, BMP, WebP, GIF, TIFF or PNM file's RGB pixels (H, W,
+    3) uint8, as PIL's `Image.open(...).convert("RGB")` gives them."""
     kind = image_kind(data[:MAGIC_BYTES], name)
     if kind == "png":
         return decode_png(data, name)
@@ -65,7 +108,7 @@ def decode_image(data: bytes, name: str = "<bytes>") -> np.ndarray:
         return decode_jpeg(data, name)
     if kind == "webp":
         return decode_webp(data, name)
-    return decode_bmp(data, name)
+    return SINGLE_DECODERS[kind](data, name)
 
 
 def adapt_labels(true_labels: np.ndarray, label: int) -> np.ndarray:
@@ -183,14 +226,17 @@ def load_image_folder(root: str, size: int, limit: Optional[int] = None) -> np.n
     """(N, size, size, 3) uint8 of the images under `root`, equal to the JAX
     package's PIL reader (`damc_tpu/data/datasets.py:122-148`): its walk
     order, extension list and `limit`; each image decoded as its first
-    bytes say (PNG, JPEG, BMP, WebP), its shorter side resized to `size` by
-    PIL's bilinear filter, then centre-cropped. The first bytes of every
-    file are read before anything is decoded, so a file that is no image
-    raises first, and a JPEG of a kind the port does not decode raises from
-    its header, before its batch is decoded. Files are decoded in batches
-    of about `BATCH_BYTES`: PNGs together (each pass shape of a batch
-    unfiltered once, over files and over Adam7's passes), JPEGs and WebPs
-    on their decoders' thread pools, BMPs one by one."""
+    bytes say (PNG, JPEG, BMP, WebP, GIF, TIFF, PNM), whatever its name,
+    its shorter side resized to `size` by PIL's bilinear filter, then
+    centre-cropped. The first bytes of every file are read before anything
+    is decoded, so a file that is no image, or of a format the port does
+    not read yet, raises first, and a JPEG of a kind the port does not
+    decode raises from its header, before its batch is decoded. Files are
+    decoded in batches of about `BATCH_BYTES`: PNGs together (each pass
+    shape of a batch unfiltered once, over files and over Adam7's passes),
+    JPEGs and WebPs on their decoders' thread pools, BMPs, GIFs, TIFFs and
+    PNMs one by one (the last three counted into the batch by their
+    decoded size)."""
     paths = []
     for dirpath, _, filenames in sorted(os.walk(root)):
         for fn in sorted(filenames):
@@ -235,7 +281,9 @@ def load_image_folder(root: str, size: int, limit: Optional[int] = None) -> np.n
             webps.append((i, data, p))
             nbytes += w * h * 3
         else:
-            out[i] = _resize_crop(decode_bmp(data, p), size)
+            img = SINGLE_DECODERS[kind](data, p)
+            out[i] = _resize_crop(img, size)
+            nbytes += img.nbytes if kind != "bmp" else 0
         if nbytes >= BATCH_BYTES:
             flush()
             nbytes = 0

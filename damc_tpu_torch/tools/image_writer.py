@@ -1,8 +1,13 @@
-"""A PNG and BMP writer, numpy and zlib only, for the files the port's
-decoders (`data/images.py`) are held to PIL on and that PIL does not
-write: PIL writes 8-bit PNGs, palette PNGs at 1, 2 and 4 bits and 1-, 8-
-and 24-bit BMPs, but no Adam7 PNG (it ignores `interlace=1`), no 16-bit
-RGB, RGBA or grey + alpha PNG, and no 4-bit, 16-bit, RLE or bit-field BMP.
+"""PNG, BMP, GIF, TIFF and PNM writers, numpy and zlib only, for the files
+the port's decoders (`data/images.py`, `data/gif.py`, `data/tiff.py`,
+`data/pnm.py`) are held to PIL on and that PIL does not write: PIL writes
+8-bit PNGs, palette PNGs at 1, 2 and 4 bits and 1-, 8- and 24-bit BMPs,
+but no Adam7 PNG (it ignores `interlace=1`), no 16-bit RGB, RGBA or grey +
+alpha PNG, and no 4-bit, 16-bit, RLE or bit-field BMP; its GIF writer
+chooses the code size, the tables and the clear codes itself; its TIFF
+writer writes no tiles, no planar configuration 2, no MinIsWhite, no
+associated alpha, no 2-, 4- or 12-bit grey and no predictor at 16 bits;
+it writes no plain PNM and no maxval but 255 and 65535.
 
 * `write_png`: every colour type at every bit depth PNG allows, raw
   samples in, Adam7 or not, the row filters chosen, PLTE and tRNS, the
@@ -11,6 +16,15 @@ RGB, RGBA or grey + alpha PNG, and no 4-bit, 16-bit, RLE or bit-field BMP.
   BI_BITFIELDS, bottom-up or top-down, with the OS/2 (12-byte) and the
   Windows info headers of 40 to 124 bytes; an RLE stream made by
   `rle_encode` or given byte for byte.
+* `write_gif`: one frame at an offset in a logical screen that may be
+  larger, a global, local or no colour table, a transparency index,
+  interlace, any minimum code size from 0 to 12, clear codes every k codes
+  or a code table left full (`gif_lzw`), or the frame's data given.
+* `write_tiff`: strips or tiles, planar configuration 1 or 2, either byte
+  order, classic or BigTIFF, samples of 1 to 32 bits, no compression,
+  PackBits, LZW (`tiff_lzw`) or Deflate, predictor 2, fill order 2, any
+  photometric interpretation, colour map, extra samples and further tags.
+* `write_pnm`: P1 to P6 at any maxval, with comments in the header.
 
     from damc_tpu_torch.tools.image_writer import write_bmp, write_png
     data = write_png(samples, color=0, depth=4, interlace=True, filters=[0, 1, 2, 3, 4])
@@ -26,6 +40,7 @@ from typing import Optional, Sequence, Union
 import numpy as np
 
 from ..data.images import ADAM7, CHANNELS, DEPTHS, PNG_SIGNATURE, filter_rows
+from ..data.tiff import REVERSED
 
 BI_RGB, RLE8, RLE4, BI_BITFIELDS = 0, 1, 2, 3
 
@@ -202,11 +217,364 @@ def write_bmp(pixels: np.ndarray, bits: int, palette: Optional[np.ndarray] = Non
     return b"BM" + struct.pack("<IHHI", offset + len(body), 0, 0, offset) + info + fields + pal + body
 
 
+def gif_lzw(indices: np.ndarray, bits: int, clear_every: int = 0, full_table: bool = False,
+            end_code: bool = True) -> bytes:
+    """GIF's LZW code stream (LSB-first, before the sub-blocks) of the
+    palette indices, each below 2^bits, at minimum code size `bits` (0 to
+    12): a clear code first, the table's codes, the end code. The code
+    width follows the decoder's table (one entry behind the encoder's), as
+    GIF decoders grow it. `clear_every` > 0 puts a clear code after that
+    many codes; otherwise a clear code comes when the table reaches 4,096
+    entries, unless `full_table`, which goes on with the full table."""
+    clear, end = 1 << bits, (1 << bits) + 1
+    acc, nacc, out = 0, 0, bytearray()
+    state = {}
+
+    def put(code):
+        nonlocal acc, nacc
+        acc |= code << nacc
+        nacc += state["size"]
+        while nacc >= 8:
+            out.append(acc & 255)
+            acc >>= 8
+            nacc -= 8
+        if code == clear:  # the decoder's table, mirrored for the next code's width
+            state.update(size=bits + 1, dnext=clear + 2, first=True, count=0)
+        elif state["first"]:
+            state["first"] = False
+        elif state["dnext"] < 4096:
+            if state["dnext"] == (1 << state["size"]) - 1 and state["size"] < 12:
+                state["size"] += 1
+            state["dnext"] += 1
+        state["count"] += 1
+
+    def reset():
+        state["table"], state["next"] = {}, clear + 2
+
+    state.update(size=bits + 1)
+    put(clear)
+    reset()
+    w = None  # the code of the string matched so far; a string's key is (its prefix's code << 12) | its last index
+    for v in np.asarray(indices).ravel().tolist():
+        if w is None:
+            w = v
+            continue
+        key = w << 12 | v
+        if key in state["table"]:
+            w = state["table"][key]
+            continue
+        put(w)
+        if state["next"] < 4096:
+            state["table"][key] = state["next"]
+            state["next"] += 1
+        w = v
+        full = state["next"] >= 4096 and clear + 2 < 4096 and not full_table
+        if (clear_every and state["count"] >= clear_every) or full:
+            put(w)
+            put(clear)
+            reset()
+            w = None
+    if w is not None:
+        put(w)
+    if end_code:
+        put(end)
+    if nacc:
+        out.append(acc & 255)
+    return bytes(out)
+
+
+def gif_blocks(stream: bytes, size: int = 255) -> bytes:
+    """`stream` cut into sub-blocks of `size` bytes, and the terminator."""
+    return b"".join(bytes([len(stream[i:i + size])]) + stream[i:i + size]
+                    for i in range(0, len(stream), size)) + b"\x00"
+
+
+def _gif_table(palette: np.ndarray) -> tuple:
+    """(size field, bytes) of a colour table: the palette padded to a power
+    of two entries (2 to 256)."""
+    palette = np.asarray(palette, np.uint8).reshape(-1, 3)
+    k = max(1, (len(palette) - 1).bit_length())
+    table = np.zeros((1 << k, 3), np.uint8)
+    table[:len(palette)] = palette
+    return k - 1, table.tobytes()
+
+
+def write_gif(indices: np.ndarray, palette: Optional[np.ndarray] = None, local_palette: Optional[np.ndarray] = None,
+              screen: Optional[tuple] = None, offset: tuple = (0, 0), transparency: Optional[int] = None,
+              interlace: bool = False, bits: Optional[int] = None, clear_every: int = 0, full_table: bool = False,
+              background: int = 0, data: Optional[bytes] = None, block_size: int = 255,
+              extensions: bytes = b"", trailer: bytes = b";") -> bytes:
+    """The bytes of a GIF of one frame of palette indices (H, W) at `offset`
+    (x, y) in a logical screen `screen` (width, height; default the
+    frame's). `palette` is the global colour table, `local_palette` the
+    frame's own; with neither the file has no colour table. `transparency`
+    writes a Graphic Control Extension with that index. `interlace` stores
+    the rows in GIF's four passes. The frame's LZW stream is `gif_lzw` at
+    minimum code size `bits` (default the table's size, at least 2) cut
+    into sub-blocks of `block_size`, unless `data` gives the bytes after
+    the code size byte. `extensions` go before the frame."""
+    indices = np.asarray(indices)
+    h, w = indices.shape
+    sw, sh = screen or (w + offset[0], h + offset[1])
+    flags, table = 0, b""
+    if palette is not None:
+        k, table = _gif_table(palette)
+        flags = 0x80 | (k << 4) | k
+    out = b"GIF89a" + struct.pack("<HHBBB", sw, sh, flags, background, 0) + table + extensions
+    if transparency is not None:
+        out += b"\x21\xf9\x04" + struct.pack("<BHB", 1, 0, transparency) + b"\x00"
+    flags, table = 0, b""
+    if local_palette is not None:
+        k, table = _gif_table(local_palette)
+        flags = 0x80 | k
+    if interlace:
+        flags |= 0x40
+        rows = np.concatenate([np.arange(h)[0::8], np.arange(h)[4::8], np.arange(h)[2::4], np.arange(h)[1::2]])
+        indices = indices[rows]
+    if bits is None:
+        n = max(len(np.asarray(p).reshape(-1, 3)) for p in (palette, local_palette, np.zeros((256, 3)))
+                if p is not None) if palette is not None or local_palette is not None else 256
+        bits = max(2, (n - 1).bit_length())
+    if data is None:
+        data = gif_blocks(gif_lzw(indices, bits, clear_every, full_table), block_size)
+    out += b"\x2c" + struct.pack("<HHHHB", offset[0], offset[1], w, h, flags) + table + bytes([bits]) + data
+    return out + trailer
+
+
+def tiff_lzw(data: bytes) -> bytes:
+    """TIFF's LZW (MSB-first codes of 9 to 12 bits, widened one code early,
+    as libtiff writes them) of `data`: a clear code first, a clear code
+    when the table reaches 4,094 entries, the end code last."""
+    acc, nacc, out = 0, 0, bytearray()
+    size, table, nxt = 9, {}, 258
+
+    def put(code):
+        nonlocal acc, nacc
+        acc = (acc << size) | code
+        nacc += size
+        while nacc >= 8:
+            nacc -= 8
+            out.append((acc >> nacc) & 255)
+        acc &= (1 << nacc) - 1
+
+    def grow(free):  # libtiff's LZWEncode after a code: a clear code at 4,094 entries, else a wider code
+        nonlocal size
+        if free == 4094:
+            put(256)
+            size = 9
+            return 258
+        if free > (1 << size) - 1:
+            size += 1
+        return free
+
+    put(256)
+    w = None  # the code of the string matched so far; a string's key is (its prefix's code << 8) | its last byte
+    for v in data:
+        if w is None:
+            w = v
+            continue
+        key = w << 8 | v
+        if key in table:
+            w = table[key]
+            continue
+        put(w)
+        table[key] = nxt
+        w = v
+        nxt = grow(nxt + 1)
+        if nxt == 258:
+            table = {}
+    if w is not None:
+        put(w)
+        grow(nxt + 1)
+    put(257)
+    if nacc:
+        out.append((acc << (8 - nacc)) & 255)
+    return bytes(out)
+
+
+def packbits(data: bytes) -> bytes:
+    """PackBits runs of `data`: a repeat of 3 or more bytes as one run, the
+    rest as literal runs, each at most 128 bytes."""
+    out, i, n = bytearray(), 0, len(data)
+    while i < n:
+        j = i
+        while j < n and j - i < 128 and data[j] == data[i]:
+            j += 1
+        if j - i >= 3:
+            out += bytes((257 - (j - i), data[i]))
+            i = j
+            continue
+        j = i
+        while j < n and j - i < 128 and not (j + 2 < n and data[j] == data[j + 1] == data[j + 2]):
+            j += 1
+        out += bytes((j - i - 1,)) + data[i:j]
+        i = j
+    return bytes(out)
+
+
+def _tiff_pack(samples: np.ndarray, bits: int, endian: str, sample_format: int) -> bytes:
+    """(R, N) samples as the bytes of R rows of `bits` each, rows padded
+    to a byte: below 8 bits and at 12 MSB first, 16 and 32 bits in the
+    file's byte order (32-bit float where `sample_format` is 3)."""
+    if bits == 8:
+        return samples.astype(np.uint8).tobytes()
+    if bits in (16, 32):
+        kind = "f" if sample_format == 3 else "i" if sample_format == 2 else "u"
+        return samples.astype(f"{endian}{kind}{bits // 8}").tobytes()
+    if bits in (1, 2, 4):
+        return pack_samples(samples, bits).tobytes()
+    if bits == 12:
+        r, n = samples.shape
+        s = np.zeros((r, n + n % 2), np.int64)
+        s[:, :n] = samples
+        a, b = s[:, 0::2], s[:, 1::2]
+        packed = np.stack([a >> 4, (a & 15) << 4 | b >> 8, b & 255], axis=2).reshape(r, -1).astype(np.uint8)
+        return packed[:, :(n * 12 + 7) // 8].tobytes()
+    raise ValueError(f"no TIFF writer for {bits} bits a sample")
+
+
+def _predict(samples: np.ndarray, stride: int, bits: int) -> np.ndarray:
+    """Predictor 2: each sample less the one `stride` samples before it in
+    its row, modulo 2^bits."""
+    s = samples.astype(np.int64)
+    d = s.copy()
+    d[:, stride:] -= s[:, :-stride]
+    return d & ((1 << bits) - 1)
+
+
+TIFF_TYPES = {1: "B", 3: "H", 4: "L", 16: "Q", 11: "f", 12: "d", 2: "s", 7: "s"}
+
+
+def write_tiff(samples: np.ndarray, photometric: int, bits: int = 8, compression: int = 1, predictor: int = 1,
+               endian: str = "<", tile: Optional[tuple] = None, rows_per_strip: Optional[int] = None,
+               planar: int = 1, extra_samples: Sequence[int] = (), colormap: Optional[np.ndarray] = None,
+               fill_order: int = 1, sample_format: int = 1, bigtiff: bool = False, tags: Optional[dict] = None,
+               strips: Optional[Sequence[bytes]] = None) -> bytes:
+    """The bytes of a one-page TIFF of `samples` (H, W) or (H, W, C) at
+    `bits` a sample: strips of `rows_per_strip` rows (default: about 8 KiB
+    a strip) or tiles of `tile` = (width, height), whose edges overhang the
+    image; `planar` 2 stores each sample plane apart. `compression` 1
+    (none), 5 (LZW), 8 or 32946 (Deflate) or 32773 (PackBits); `predictor`
+    2 differences the samples of each row before compressing; `fill_order`
+    2 reverses the bits of every stored byte. `colormap` (3, 2^bits) is
+    written as ColorMap. `tags` {tag: (type, values)} adds or replaces
+    entries; `strips` gives the stored strips or tiles byte for byte."""
+    samples = np.asarray(samples)
+    if samples.ndim == 2:
+        samples = samples[..., None]
+    h, w, c = samples.shape
+    planes = [samples[..., k:k + 1] for k in range(c)] if planar == 2 else [samples]
+    if tile:
+        tw, th = tile
+        grid = [(x, y) for y in range(0, h, th) for x in range(0, w, tw)]
+    else:
+        row_bytes = (w * (c if planar == 1 else 1) * bits + 7) // 8
+        th, tw = rows_per_strip or max(1, 8192 // max(row_bytes, 1)), w
+        grid = [(0, y) for y in range(0, h, th)]
+    stored = []
+    for plane in planes:
+        pc = plane.shape[2]
+        for x, y in grid:
+            block = plane[y:y + th, x:x + tw]
+            if tile:  # a tile is whole: its overhang is zeros
+                full = np.zeros((th, tw, pc), samples.dtype)
+                full[:block.shape[0], :block.shape[1]] = block
+                block = full
+            rows = block.reshape(block.shape[0], -1)
+            if predictor == 2:
+                rows = _predict(rows, pc, bits)
+            raw = _tiff_pack(rows, bits, endian, sample_format)
+            if compression == 5:
+                raw = tiff_lzw(raw)
+            elif compression in (8, 32946):
+                raw = zlib.compress(raw)
+            elif compression == 32773:
+                raw = packbits(raw)
+            if fill_order == 2:
+                raw = REVERSED[np.frombuffer(raw, np.uint8)].tobytes()
+            stored.append(raw)
+    if strips is not None:
+        stored = list(strips)
+    long_type = 16 if bigtiff else 4
+    entries = {256: (4, [w]), 257: (4, [h]), 258: (3, [bits] * c), 259: (3, [compression]),
+               262: (3, [photometric]), 277: (3, [c]), 284: (3, [planar])}
+    if fill_order != 1:
+        entries[266] = (3, [fill_order])
+    if predictor != 1:
+        entries[317] = (3, [predictor])
+    if extra_samples:
+        entries[338] = (3, list(extra_samples))
+    if sample_format != 1:
+        entries[339] = (3, [sample_format] * c)
+    if colormap is not None:
+        entries[320] = (3, np.asarray(colormap, np.int64).ravel().tolist())
+    if tile:
+        entries.update({322: (4, [tw]), 323: (4, [th]), 324: (long_type, []),
+                        325: (long_type, [len(s) for s in stored])})
+    else:
+        entries.update({278: (4, [th]), 273: (long_type, []), 279: (long_type, [len(s) for s in stored])})
+    entries.update(tags or {})
+    head = 16 if bigtiff else 8
+    data_at, offsets = head, []
+    for s in stored:
+        offsets.append(data_at)
+        data_at += len(s) + len(s) % 2
+    offset_tag = 324 if tile else 273
+    if offset_tag in entries and entries[offset_tag][1] == []:
+        entries[offset_tag] = (entries[offset_tag][0], offsets)
+    ifd_at = data_at
+    n = len(entries)
+    entry_size, count_fmt, inline = (20, "Q", 8) if bigtiff else (12, "L", 4)
+    extra_at = ifd_at + (8 if bigtiff else 2) + n * entry_size + (8 if bigtiff else 4)
+    ifd, extra = bytearray(struct.pack(endian + ("Q" if bigtiff else "H"), n)), bytearray()
+    for tag in sorted(entries):
+        typ, values = entries[tag]
+        fmt = TIFF_TYPES[typ]
+        body = bytes(values) if fmt == "s" else struct.pack(f"{endian}{len(values)}{fmt}", *values)
+        count = len(body) if fmt == "s" else len(values)
+        if len(body) <= inline:
+            field = body + bytes(inline - len(body))
+        else:
+            field = struct.pack(endian + count_fmt, extra_at + len(extra))
+            extra += body + bytes(len(body) % 2)
+        ifd += struct.pack(f"{endian}HH{count_fmt}", tag, typ, count) + field
+    ifd += bytes(8 if bigtiff else 4)
+    magic = (b"II" if endian == "<" else b"MM") + struct.pack(endian + "H", 43 if bigtiff else 42)
+    header = magic + (struct.pack(endian + "HHQ", 8, 0, ifd_at) if bigtiff else struct.pack(endian + "L", ifd_at))
+    body = b"".join(s + bytes(len(s) % 2) for s in stored)
+    return header + body + bytes(ifd) + bytes(extra)
+
+
+def write_pnm(samples: np.ndarray, magic: str, maxval: int = 255, comment: bytes = b"",
+              separator: bytes = b"\n") -> bytes:
+    """The bytes of a PNM: P1 and P4 (bits, 1 black), P2 and P5 (grey), P3
+    and P6 (RGB) of the (H, W) or (H, W, 3) samples, each at most `maxval`
+    (two bytes big-endian past 255 in P5 and P6; P1 to P3 as decimal text,
+    rows on lines of their own). `comment` goes into the header, as a line
+    after the magic number and after the width."""
+    samples = np.asarray(samples)
+    h, w = samples.shape[:2]
+    note = b"#" + comment + b"\n" if comment else b""
+    head = magic.encode() + separator + note + b"%d " % w + note + b"%d" % h + separator
+    if magic not in ("P1", "P4"):
+        head += b"%d" % maxval + separator
+    rows = samples.reshape(h, -1)
+    if magic == "P4":
+        return head + pack_samples(rows, 1).tobytes()
+    if magic in ("P5", "P6"):
+        return head + rows.astype(">u2" if maxval > 255 else np.uint8).tobytes()
+    return head + b"\n".join(b" ".join(b"%d" % v for v in r) for r in rows.tolist()) + b"\n"
+
+
 # The PNG and BMP kinds that the port reads beside 8-bit PNG and 8-, 24- and
-# 32-bit BI_RGB BMP, as `write_kind` makes them from RGB pixels.
+# 32-bit BI_RGB BMP, and its GIF, TIFF and PNM kinds, as `write_kind` makes
+# them from RGB pixels.
 KINDS = ("png_grey1", "png_grey2", "png_grey4", "png_grey16", "png_palette1", "png_palette2", "png_palette4",
          "png_rgb16", "png_rgba16", "png_grey_alpha16", "png_adam7_rgb8", "png_adam7_palette4",
          "bmp_1", "bmp_4", "bmp_16", "bmp_bf565", "bmp_bf32", "bmp_rle8", "bmp_rle4")
+GIF_TIFF_PNM_KINDS = ("gif_global", "gif_interlaced", "gif_offset", "gif_grey", "tiff_raw", "tiff_packbits",
+                      "tiff_lzw_pred2", "tiff_deflate", "tiff_tiled_lzw", "tiff_mm", "tiff_grey16", "tiff_miniswhite",
+                      "tiff_palette", "tiff_cmyk", "tiff_rgba_assoc", "tiff_planar2", "pnm_p6", "pnm_p5_16", "pnm_p4")
 BF32_LAYOUTS = (((0xFF0000, 0xFF00, 0xFF), 40), ((0xFF000000, 0xFF0000, 0xFF00), 40),
                 ((0xFF0000, 0xFF00, 0xFF, 0xFF000000), 124), ((0xFF, 0xFF00, 0xFF0000, 0xFF000000), 108),
                 ((0xFF000000, 0xFF00, 0xFF, 0), 56))  # some of PIL's layouts, each with a header that holds it
@@ -231,10 +599,12 @@ def _spread16(v8: np.ndarray, rng: np.random.Generator) -> np.ndarray:
 
 
 def write_kind(kind: str, rgb: np.ndarray, k: int = 0) -> bytes:
-    """RGB pixels (H, W, 3) uint8 as a file of `kind` (one of KINDS). `k`
-    varies the options file by file: the row filters, grey 16-bit samples
-    at or past 255, a palette short of the indices (an index past it reads
-    as black), bottom-up or top-down, the BI_BITFIELDS layout and header."""
+    """RGB pixels (H, W, 3) uint8 as a file of `kind` (one of KINDS or
+    GIF_TIFF_PNM_KINDS). `k` varies the options file by file: the row
+    filters, grey 16-bit samples at or past 255, a palette short of the
+    indices (an index past it reads as black), bottom-up or top-down, the
+    BI_BITFIELDS layout and header; the GIF tables and clear codes, the
+    TIFF strip height, tile size, compression and predictor."""
     rgb = np.asarray(rgb, np.uint8)
     rng = np.random.default_rng(k)
     grey = (rgb.astype(np.int64).sum(axis=2) // 3)
@@ -280,4 +650,73 @@ def write_kind(kind: str, rgb: np.ndarray, k: int = 0) -> bytes:
             shift = (m & -m).bit_length() - 1
             words = (words & ~np.uint64(m)) | (v.astype(np.uint64) << np.uint64(shift))
         return write_bmp(words, 32, compression=BI_BITFIELDS, masks=masks, top_down=top_down, header=header)
+    if kind.startswith("gif"):
+        return _gif_kind(kind, rgb, grey, k)
+    if kind.startswith("tiff"):
+        return _tiff_kind(kind, rgb, grey, k, rng)
+    if kind == "pnm_p6":
+        return write_pnm(rgb, "P6", comment=b"k=%d" % k if k % 2 else b"")
+    if kind == "pnm_p5_16":
+        return write_pnm(_spread16(grey, rng), "P5", 65535)
+    if kind == "pnm_p4":
+        return write_pnm((grey < 128 + (k % 5 - 2) * 20).astype(np.int64), "P4")
+    raise ValueError(f"unknown kind {kind!r}")
+
+
+def _gif_kind(kind: str, rgb: np.ndarray, grey: np.ndarray, k: int) -> bytes:
+    """GIF kinds: a global table (a clear code every 200 + k codes, or
+    only when the table is full), interlaced (a local table every other
+    file), a frame inset in the screen with a transparency index that
+    fills the border, and grey levels with no colour table."""
+    h, w = grey.shape
+    if kind == "gif_grey":
+        return write_gif(grey, bits=8, clear_every=0 if k % 2 else 300 + k)
+    idx, palette = _palette_of(rgb, 8, 256 - (k % 3 == 0))
+    if kind == "gif_global":
+        return write_gif(idx, palette, clear_every=200 + k if k % 2 else 0)
+    if kind == "gif_interlaced":
+        return write_gif(idx, None if k % 2 else palette, local_palette=palette if k % 2 else None, interlace=True)
+    x0, y0 = min(1 + k % 7, (w - 1) // 2), min(1 + k % 5, (h - 1) // 2)
+    frame = idx[y0:max(y0 + 1, h - 1 - k % 3), x0:max(x0 + 1, w - 1 - k % 4)]
+    return write_gif(frame, palette, screen=(w, h), offset=(x0, y0), transparency=int(idx[0, 0]), background=1)
+
+
+def _tiff_kind(kind: str, rgb: np.ndarray, grey: np.ndarray, k: int, rng: np.random.Generator) -> bytes:
+    """TIFF kinds, strips of 1 to 32 rows by turns unless tiled."""
+    rows = (1, 8, 13, 32)[k % 4]
+    if kind == "tiff_raw":
+        return write_tiff(rgb, 2, rows_per_strip=rows)
+    if kind == "tiff_packbits":
+        return write_tiff(rgb, 2, compression=32773, rows_per_strip=rows)
+    if kind == "tiff_lzw_pred2":
+        return write_tiff(rgb, 2, compression=5, predictor=2, rows_per_strip=rows)
+    if kind == "tiff_deflate":
+        return write_tiff(rgb, 2, compression=(8, 32946)[k % 2], predictor=1 + k % 2, rows_per_strip=rows)
+    if kind == "tiff_tiled_lzw":
+        return write_tiff(rgb, 2, compression=5, tile=((16, 32, 64)[k % 3], (16, 48)[k % 2]))
+    if kind == "tiff_mm":
+        return write_tiff(rgb, 2, compression=(1, 5)[k % 2], endian=">", rows_per_strip=rows)
+    if kind == "tiff_grey16":
+        samples = _spread16(grey, rng) if k % 2 else grey
+        return write_tiff(samples, 1, bits=16, compression=(5, 8)[k % 2], predictor=1 + k % 2, rows_per_strip=rows)
+    if kind == "tiff_miniswhite":
+        bits = (8, 4)[k % 2]
+        return write_tiff((255 - grey) >> (8 - bits), 0, bits=bits, compression=(1, 5)[k % 2], rows_per_strip=rows)
+    if kind == "tiff_palette":
+        bits = (8, 4)[k % 2]
+        idx, palette = _palette_of(rgb, bits, 1 << bits)
+        cmap = palette.T.astype(np.int64) * 257 ^ rng.integers(0, 256, palette.T.shape)
+        return write_tiff(idx, 3, bits=bits, compression=(5, 1)[k % 2], colormap=cmap, rows_per_strip=rows)
+    if kind == "tiff_cmyk":
+        key = 255 - rgb.max(axis=2, keepdims=True).astype(np.int64)
+        cmyk = np.concatenate([255 - rgb.astype(np.int64) - key, key], axis=2)
+        return write_tiff(cmyk, 5, compression=(5, 32773)[k % 2], rows_per_strip=rows)
+    if kind == "tiff_rgba_assoc":
+        alpha = rng.integers(0, 256, grey.shape)
+        alpha[: grey.shape[0] // 8] = (0, 255)[k % 2]
+        premultiplied = rgb.astype(np.int64) * alpha[..., None] // 255
+        return write_tiff(np.dstack([premultiplied, alpha]), 2, compression=(5, 8)[k % 2], extra_samples=[1],
+                          rows_per_strip=rows)
+    if kind == "tiff_planar2":
+        return write_tiff(rgb, 2, compression=(5, 1)[k % 2], planar=2, rows_per_strip=rows)
     raise ValueError(f"unknown kind {kind!r}")

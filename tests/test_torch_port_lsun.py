@@ -327,6 +327,33 @@ def test_png_and_bmp_payloads_equal_jax(tmp_path, jax_pil_path):
                                   jax_datasets._decode_crop_resize(data, 20))
 
 
+def test_gif_tiff_and_pnm_payloads_equal_jax(tmp_path, jax_pil_path):
+    """An LSUN database with a payload of every GIF, TIFF and PNM kind of
+    `tools/image_writer.py::GIF_TIFF_PNM_KINDS` (global, interlaced, inset and grey GIF;
+    raw, PackBits, LZW, Deflate, tiled, big-endian, 16-bit grey,
+    MinIsWhite, palette, CMYK, associated-alpha and planar TIFF; P6, 16-bit
+    P5 and P4) beside a JPEG: `load_lsun`, a batch of `LSUNClassImages` and
+    one item equal the JAX package's PIL path."""
+    from damc_tpu_torch.tools.image_writer import GIF_TIFF_PNM_KINDS as kinds, write_kind
+
+    items = {f"{k:03d}".encode(): write_kind(kind, _smooth(30 + 3 * k, 75 - 2 * k, 50 + k), k)
+             for k, kind in enumerate(kinds)}
+    items[b"jpeg"] = _payload(_smooth(40, 52, 98), "JPEG")
+    root = str(tmp_path)
+    build_lmdb(os.path.join(root, "bedroom_val_lmdb"), items)
+    want = jax_datasets.load_lsun(root, ["bedroom_val"], 36)
+    os.remove(os.path.join(root, "bedroom_val_lmdb", "_keys_cache.pkl"))
+    got = datasets.load_lsun(root, ["bedroom_val"], 36)
+    assert got.shape == (len(kinds) + 1, 36, 36, 3)
+    np.testing.assert_array_equal(got, want)
+    idx = np.array([len(kinds), 2, 9, 4, 17, 0])
+    np.testing.assert_array_equal(datasets.LSUNClassImages(os.path.join(root, "bedroom_val_lmdb"), 36)[idx],
+                                  want[idx])
+    for key in (b"001", b"006", b"017"):
+        np.testing.assert_array_equal(datasets._decode_crop_resize(items[key], 20, "item.png"),
+                                      jax_datasets._decode_crop_resize(items[key], 20))
+
+
 @pytest.mark.parametrize("hw", [(64, 64), (80, 48), (37, 91), (32, 40)])
 def test_port_within_the_libjpeg_batch_paths_bound(tmp_path, hw):
     """JAX's libjpeg batch path (its own Lanczos-3 in float) stands within
