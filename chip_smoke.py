@@ -36,7 +36,7 @@ Phases, each of which raises on failure (the script then exits non-zero):
      separate process that imports no model or training module: the answers
      of both must equal the live service's bit for bit, K2 launch once per
      damc and recon dispatch and K1 once per ebm dispatch, and K2 pack its
-     weights once per program; p50/p99 of 20 sequential single-item
+     weights once per program; p50/p99 of 10 sequential single-item
      requests a path, artifact beside live; and the two checkpoint CLIs: a
      `.pth.tar` of the seeded weights converted, one training iteration
      resumed from it, exported back and loaded strictly, equal tensor for
@@ -113,9 +113,9 @@ Phases, each of which raises on failure (the script then exits non-zero):
      equal those of the B=500 launch bit for bit;
   9. drives the gen_recon workload through its CLIs at full cifar10 width
      in a temporary directory, on a CIFAR-10 pickle tree made from the seed
-     (10,000 train images, cut from 50,000; 1,000 test images, cut from
+     (10,000 train images, cut from 50,000; 500 test images, cut from
      10,000): trains 4
-     iterations at B=128 with evals, grids and checkpoints every 2 and 1,000
+     iterations at B=128 with evals, grids and checkpoints every 2 and 500
      FID samples (`frechet_rand`: no Inception weights here) and checks the
      metrics rows, the checkpoints, the PNG grids and that K1 and K2
      launched exactly as the protocol implies; resumes to 5 iterations with
@@ -134,16 +134,16 @@ Phases, each of which raises on failure (the script then exits non-zero):
      B=128 single prior chains and K2 at B=128 and at the AUPRC batch B=500,
      stream mode, against their plain versions; then, on an MNIST-shaped
      mnist.npz made from the seed (70,000 images; held-out digit 9; the
-     test split cut to 4,000 images through its cache file), trains 6
+     test split cut to 1,000 images through its cache file), trains 4
      iterations through `cli.train_anomaly_det` with an AUPRC eval and
-     checkpoints every 3, resumes to 7 in the same directory, and scores
+     checkpoints every 2, resumes to 5 in the same directory, and scores
      ckpt/best once through `cli.eval_anomaly_det` (its rerun cut for time);
      checks rows, checkpoints, K1 and K2 once an iteration and K2 once an
      eval batch; profiles one iteration as phase 7 does;
  13. toy workload (`toy`, nz=2, B=500): K2 at the toy's widths in stream,
      counter and noiseless mode against the plain version (6 steps held to
      fp64; stream rows of B=500 equal to the same rows at B=16, bit for
-     bit); then 20 iterations through `cli.toy` with a parity eval (1,000
+     bit); then 10 iterations through `cli.toy` with a parity eval (1,000
      ground-truth steps, 2 batches of 500) every 10 and at the end; checks
      finite g_loss_q, g_loss_l and mmd2, a 600x600 KDE PNG per cloud and
      eval, K2 once an iteration and once an eval batch, K1 never; profiles
@@ -166,8 +166,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
      equal the restored state's serving core run in process, bit for bit;
      profiles one iteration as phase 7 does;
  16. celeba64 (nz=100, ngf=128, 64x64): K1 and K2 at the training shapes;
-     a JPEG tree made from the seed by PIL at CelebA's 178x218 (2,048
-     train, 512 test images; 4:2:0 at quality 75, some 4:4:4, some with
+     a JPEG tree made from the seed by PIL at CelebA's 178x218 (1,024
+     train, 256 test images; 4:2:0 at quality 75, some 4:4:4, some with
      restart markers), written by worker processes; 4 iterations through
      the train CLI with --data_placement host, which decodes the tree and
      writes the train split's .npy cache; every train file decoded by the
@@ -178,24 +178,28 @@ Phases, each of which raises on failure (the script then exits non-zero):
      must raise; host batches queued to the card must equal the CPU's; the
      host feed's ms an iteration and idle share beside the device-resident
      store's; profiles one iteration;
- 16b. items 4c's and 4d's decoders (`decoders_4c_phase`): 4,128 files at
-     178x218 written on worker processes (by PIL: 1,024 lossy, 256
-     lossless, 128 alpha and 32 animated WebPs; 1,024 progressive, 128
+ 16b. items 4c's and 4d's decoders (`decoders_4c_phase`): 2,336 files at
+     178x218 written on worker processes (by PIL: 256 lossy, 256
+     lossless, 128 alpha and 32 animated WebPs; 256 progressive, 128
      CMYK, 64 YCCK and 64 smoothed, cut progressive JPEGs; by the port's
      writers: 64 each of arithmetic-coded sequential, arithmetic-coded
-     progressive and lossless JPEGs, 32 of each of item 4d's 19 PNG and
+     progressive and lossless JPEGs, 16 of each of item 4d's 19 PNG and
      BMP kinds: grey PNG at 1, 2, 4 and 16 bits, palette PNG at 1, 2 and 4,
      16-bit RGB, RGBA and grey + alpha PNG, Adam7 RGB and palette-4 PNG; 1-,
-     4- and 16-bit, 5-6-5 and 32-bit bit-field, RLE8 and RLE4 BMP; and 32 of
+     4- and 16-bit, 5-6-5 and 32-bit bit-field, RLE8 and RLE4 BMP; and 16 of
      each of 19 GIF, TIFF and PNM kinds, named .png and .jpg: GIF with a
      global table, interlaced, inset in its screen with a transparency
      index, and with no table; TIFF raw, PackBits, LZW with predictor 2,
      Deflate, tiled LZW, big-endian, 16-bit grey, MinIsWhite, palette,
      CMYK, associated alpha and planar configuration 2; PNM P6, P5 at
-     maxval 65535 and P4), each decoded by the port equal to PIL's decode
-     byte for byte, with the decode rates of each kind (JPEG and WebP: 8
-     threads, 1 thread, PIL on 1; PNG, BMP, GIF, TIFF and PNM, whose
-     readers have no thread pool: 1 thread, PIL on 1);
+     maxval 65535 and P4), and 32 of each of 11 TIFF coding kinds, named
+     .png and .jpg (by PIL: Group 4, LZMA, CIELab and Zstandard; by the
+     port's writer: JPEG strips and tiles, subsampled YCbCr, CCITT modified
+     Huffman and T.4, ThunderScan, pre-5.0 LZW, old-style JPEG), each
+     decoded by the port equal to PIL's decode byte for byte, with the
+     decode rates of each kind (JPEG and WebP: 8 threads, 1 thread, PIL on
+     1; PNG, BMP, GIF, TIFF and PNM, whose readers have no thread pool: 1
+     thread, PIL on 1) and PIL's libtiff's configured codecs;
      then a mixed celeba64 tree drawn from them (1,024 train, 256 test)
      through the train CLI for 3 iterations at B=128, host-fed: the cache
      equal to the JAX package's PIL pipeline, K1 and K2 once an iteration,
@@ -323,6 +327,47 @@ def time_ms(fn, reps: int, warmup: int = 2) -> float:
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def profiled_events(prof) -> list:
+    """The profiler's records as (name, on the device, start us, end us,
+    a `record_function` label) tuples, read from its raw kineto results:
+    `events()` and `key_averages()` first build an event tree over every
+    host op, which took 71.5 s of the inversion's profiled batch on an
+    H100 host (PERF.md); the raw records carry the same names and time stamps, and mark
+    the labels themselves (a kernel's name may hold "#" or "/")."""
+    import torch
+
+    cuda = torch.autograd.DeviceType.CUDA
+    out = []
+    for e in prof.profiler.kineto_results.events():
+        start = e.start_ns() / 1e3
+        out.append((e.name(), e.device_type() == cuda, start, start + e.duration_ns() / 1e3, e.is_user_annotation()))
+    return out
+
+
+def union_ms(spans) -> float:
+    """The ms in which at least one of the (start us, end us) spans ran:
+    kernels of more than one stream overlap, and their sum can pass the
+    wall (the inversion's did)."""
+    total, reach = 0.0, float("-inf")
+    for start, end in sorted(spans):
+        total += max(0.0, end - max(start, reach))
+        reach = max(reach, end)
+    return total / 1e3
+
+
+def kernel_times(prof) -> tuple:
+    """(device busy ms, [(kernel name, ms, calls)] by ms, largest first):
+    the device records of a profile that are not labels."""
+    by_name, spans = {}, []
+    for name, device, start, end, label in profiled_events(prof):
+        if device and not label:
+            ms, calls = by_name.get(name, (0.0, 0))
+            by_name[name] = (ms + (end - start) / 1e3, calls + 1)
+            spans.append((start, end))
+    top = sorted(((n, ms, c) for n, (ms, c) in by_name.items()), key=lambda t: t[1], reverse=True)
+    return union_ms(spans), top
 
 
 def peak_rate(dtype: str = "float32") -> float:
@@ -1015,9 +1060,9 @@ def bf16_fid_batch_phase(models, cfg, counters):
 
 def profile_phase(models, cfg, fused=True, tag="profile"):
     """One B=16 dispatch of each path's serving core (the `fused` route's)
-    under torch.profiler: host wall time, device busy time (sum of kernel
-    self times), the device's idle share and the kernels that take the most
-    device time."""
+    under torch.profiler: host wall time, device busy time (the time some
+    kernel ran, `kernel_times`), the device's idle share and the kernels
+    that take the most device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1041,11 +1086,8 @@ def profile_phase(models, cfg, fused=True, tag="profile"):
             wall_ms = (time.perf_counter() - t0) * 1e3
         # Device-side kernel records only: an operator's row repeats the
         # time of the kernels it launched.
-        kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
-        dev = lambda e: e.self_device_time_total / 1e3
-        kernels.sort(key=dev, reverse=True)
-        busy_ms = sum(dev(e) for e in kernels)
-        top = [{"name": e.key[:60], "ms": dev(e), "calls": e.count} for e in kernels[:6]]
+        busy_ms, kernels = kernel_times(prof)
+        top = [{"name": n[:60], "ms": ms, "calls": c} for n, ms, c in kernels[:6]]
         print(f"[{tag}] " + json.dumps({
             "path": path, "wall_ms": wall_ms, "device_busy_ms": busy_ms,
             "device_idle_share": 1.0 - busy_ms / wall_ms if wall_ms else None, "top": top,
@@ -1055,7 +1097,7 @@ def profile_phase(models, cfg, fused=True, tag="profile"):
 ARTIFACT_B = 16  # the serving bucket
 ARTIFACT_RECON_STEPS = 5  # the exports' trace time goes with it: cut for time
 ARTIFACT_ATOL = 0.0  # the artifact's answers against the live service's: bit for bit
-LATENCY_REQUESTS = 20
+LATENCY_REQUESTS = 10  # cut from 20 for time: the p50 and p99 of each path and service, not a benchmark
 ARTIFACT_PATHS = ("damc", "ebm", "recon")
 
 
@@ -1197,7 +1239,7 @@ def artifact_phase(models, cfg, counters):
     HTTP, and answer exactly as the live service does in this process;
     K2 must launch once per damc and recon dispatch, K1 once per ebm
     dispatch, and K2 pack its weights once per program. Prints each path's
-    p50/p99 over 20 sequential single-item requests, artifact beside live.
+    p50/p99 over 10 sequential single-item requests, artifact beside live.
     Returns the card artifact's launches over its requests and the live
     service's latency."""
     import tempfile
@@ -1293,7 +1335,7 @@ UNFUSED_MOMENT_B = 128
 # The unfused artifact's check runs 4 sweep steps and 4 EBM steps: its
 # trace and export take time in proportion to the loops' steps (43.7 s at
 # 10 and 10 on the H100's host).
-UNFUSED_ARTIFACT_DEPTH = ("--n_interval", "2", "--e_l_steps", "2")  # cut for time
+UNFUSED_ARTIFACT_DEPTH = ("--n_interval", "2", "--e_l_steps", "1")  # cut for time
 
 
 def _unfused_sweep_hold(models, cfg, draws, x, label):
@@ -1349,7 +1391,7 @@ def serve_unfused_phase(models, cfg, counters, fused_latency):
     """The unfused serving route on the card, at full cifar10 width and
     max_batch 16 (`SamplerService(fused=False)`): over HTTP every path's
     requests (`_serve_all`: an item alone == coalesced) with K1 and K2
-    launched 0 times, and p50/p99 of 20 sequential single-item requests a
+    launched 0 times, and p50/p99 of 10 sequential single-item requests a
     path, printed beside `fused_latency`, the kernel route's on the same
     weights (the artifact phase's live service); one unfused B=16 dispatch
     of each path profiled (`profile_phase`). One 16-row dispatch of each
@@ -1513,7 +1555,7 @@ def serve_mesh_phase(models, cfg, counters):
     SERVE_MESH_IMAGE_ATOL and SERVE_MESH_Z_ATOL (their text says why).
     Then both over HTTP (`_serve_all`: an item alone == coalesced), where
     the two-replica service must launch K1 or K2 once per replica per
-    dispatch, on 8 rows, and p50/p99 of 20 sequential single-item requests
+    dispatch, on 8 rows, and p50/p99 of 10 sequential single-item requests
     a path, two replicas beside one device. Then K1 and K2 at B=8 in
     counter mode against their plain versions, timed. Returns the launches
     and those results."""
@@ -2239,9 +2281,9 @@ def gpu_cpu_phase(cfg, limits=FP32_LIMITS, tag="train", control=None):
 def train_profile_phase(cfg, state, x=None, path="train"):
     """One training iteration on the batch x (default: CIFAR-shaped images
     made from the seed) under torch.profiler: host wall time, device
-    busy time (sum of kernel times), idle share, and for each of the seven
-    labelled phases its host time, its span on the device (first to last
-    kernel, from the profiler's GPU-side annotation) and the kernel time
+    busy time (the time some kernel ran), idle share, and for each of the
+    seven labelled phases its host time, its span on the device (first to
+    last kernel, from the profiler's GPU-side annotation) and the busy time
     inside that span; then the top kernels. Kernels are attributed by time
     stamp, since autograd launches the backward from another thread than
     the phase's host range."""
@@ -2260,39 +2302,31 @@ def train_profile_phase(cfg, state, x=None, path="train"):
         step(state, x)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    cuda = torch.autograd.DeviceType.CUDA
-    events = prof.events()
-    annotation = lambda e: getattr(e, "is_user_annotation", False) or "/" in e.name or "#" in e.name
-    kernels = [e for e in events if e.device_type == cuda and not annotation(e)]
-    dur = lambda e: (e.time_range.end - e.time_range.start) / 1e3
-    busy_ms = sum(dur(k) for k in kernels)
+    events = profiled_events(prof)  # (name, on the device, start us, end us, a label)
+    kernels = [e for e in events if e[1] and not e[4]]
+    dur = lambda e: (e[3] - e[2]) / 1e3
+    busy_ms, top = kernel_times(prof)
     phases = {}
     for name in PHASES:
         label = f"train/{name}"
-        host = [e for e in events if e.name == label and e.device_type != cuda]
-        spans = [e for e in events if e.name == label and e.device_type == cuda]
-        inside = [k for k in kernels for sp in spans
-                  if sp.time_range.start <= k.time_range.start < sp.time_range.end]
+        host = [e for e in events if e[0] == label and not e[1]]
+        spans = [e for e in events if e[0] == label and e[1]]
+        inside = [k for k in kernels for sp in spans if sp[2] <= k[2] < sp[3]]
         phases[name] = {
             "host_ms": sum(dur(e) for e in host),
             "device_span_ms": sum(dur(e) for e in spans),
-            "device_busy_ms": sum(dur(k) for k in inside),
+            "device_busy_ms": union_ms([k[2:4] for k in inside]),
             "kernels": len(inside),
         }
-    by_name = {}
-    for k in kernels:
-        ms, calls = by_name.get(k.name, (0.0, 0))
-        by_name[k.name] = (ms + dur(k), calls + 1)
-    top = sorted(by_name.items(), key=lambda kv: kv[1][0], reverse=True)[:10]
     print("[profile] " + json.dumps({
         "path": path, "wall_ms": wall_ms, "device_busy_ms": busy_ms,
         "device_idle_share": 1.0 - busy_ms / wall_ms, "phases": phases,
-        "top": [{"name": n[:60], "ms": ms, "calls": c} for n, (ms, c) in top],
+        "top": [{"name": n[:60], "ms": ms, "calls": c} for n, ms, c in top[:10]],
     }))
 
 
 EVAL_TRAIN_IMAGES = 10_000  # CIFAR-10's train split holds 50,000: cut to make room for the mesh phases
-EVAL_TEST_IMAGES = 1_000  # the test split holds 10,000: cut so that the MSE eval stays short
+EVAL_TEST_IMAGES = 500  # the test split holds 10,000: cut so that the MSE eval stays short
 EVAL_K1_STEPS, EVAL_K1_STEP_SIZE = 100, 1.6  # the eval CLI's prior chain on cifar10
 
 
@@ -2511,7 +2545,7 @@ def eval_phase(cfg, counters):
               f"split holds 50,000; cut to keep the script within its time), {EVAL_TEST_IMAGES} test images "
               f"(the real split holds 10,000; cut so the MSE eval stays short), written in "
               f"{time.perf_counter() - t0:.2f} s")
-        b, n_fid = cfg.train.batch_size, 1000
+        b, n_fid = cfg.train.batch_size, 500  # one FID batch a prior: cut from 1,000 for time
         common = ["--dataset", "cifar10", "--data_path", data, "--log_path", logs, "--seed", str(SEED)]
         train_args = common + ["--batch_size", str(b), "--eval_every", "2", "--ckpt_every", "2",
                                "--plot_every", "2", "--print_every", "1", "--n_fid_samples", str(n_fid)]
@@ -2556,8 +2590,8 @@ def eval_phase(cfg, counters):
         del state, restored, s_a, s_b
 
         # 4. The eval CLI on ckpt/best, once (its rerun cut for time).
-        eval_args = common + ["--ckpt_dir", os.path.join(run, "ckpt"), "--n_fid_samples", "1000"]
-        _, walls, cli_launches = eval_cli_runs(cfg, counters, eval_args, 1, 1000, EVAL_TEST_IMAGES)
+        eval_args = common + ["--ckpt_dir", os.path.join(run, "ckpt"), "--n_fid_samples", str(n_fid)]
+        _, walls, cli_launches = eval_cli_runs(cfg, counters, eval_args, 1, n_fid, EVAL_TEST_IMAGES)
         return {"calls": calls, "eval_walls": eval_walls, "cli_launches": cli_launches, "cli_walls": walls,
                 "n_mse_b": n_mse_b}
     finally:
@@ -2685,8 +2719,8 @@ def eval_timing_phase(cfg, inception_ms, eval_info, train_ms_per_iteration):
         frechet_distance(np.zeros(dim), s1, np.zeros(dim), s2)
         sq[dim] = (time.perf_counter() - t0) * 1e3
     out["sqrtm_host_ms"] = {"frechet_rand_192": sq[192], "inception_2048": sq[2048]}
-    # The loop's eval at iteration 5 of the 6-iteration run (1,000 samples,
-    # 2,000 test images at B=128), next to 100 iterations.
+    # The loop's last eval of the eval phase's run (EVAL_TEST_IMAGES test
+    # images at B=128), next to 100 iterations.
     window_ms = 100 * train_ms_per_iteration
     last = eval_info["eval_walls"][-1] * 1e3
     out["loop_eval_ms"] = last
@@ -2704,9 +2738,9 @@ def eval_timing_phase(cfg, inception_ms, eval_info, train_ms_per_iteration):
     return out
 
 
-ANOMALY_TEST_IMAGES = 4_000  # the digit-9 test split holds 19,567: cut so that each AUPRC eval stays short
-ANOMALY_ITERATIONS, ANOMALY_EVAL_EVERY, ANOMALY_RESUME_TO = 6, 3, 7
-TOY_ITERATIONS, TOY_VIZ_EVERY, TOY_VIZ_BATCHES, TOY_GT_STEPS = 20, 10, 2, 1000
+ANOMALY_TEST_IMAGES = 1_000  # the digit-9 test split holds 19,567: cut so that each AUPRC eval stays short
+ANOMALY_ITERATIONS, ANOMALY_EVAL_EVERY, ANOMALY_RESUME_TO = 4, 2, 5  # from 6, 3, 7: cut for time
+TOY_ITERATIONS, TOY_VIZ_EVERY, TOY_VIZ_BATCHES, TOY_GT_STEPS = 10, 10, 2, 1000  # 10 iterations: cut for time
 
 
 def anomaly_kernel_phase(cfg):
@@ -2810,8 +2844,8 @@ def anomaly_phase(cfg, counters):
     """The anomaly workload through its CLIs at full mnist_anomaly width, in
     a temporary directory, on an MNIST-shaped mnist.npz made from the seed
     (70,000 images: 50,000/10,000/10,000 in x_train/x_test/x_valid): train
-    6 iterations at B=128 with an AUPRC eval and checkpoints every 3 (the
-    test split cut to 4,000 images through its cache file), resume to 7
+    4 iterations at B=128 with an AUPRC eval and checkpoints every 2 (the
+    test split cut to 1,000 images through its cache file), resume to 5
     with --resume_path auto in the same directory, then score ckpt/best
     twice through the eval CLI. Returns the times and launches."""
     import os
@@ -2978,7 +3012,7 @@ def toy_kernel_phase(cfg):
 
 def toy_phase(cfg, counters):
     """The toy workload through its CLI at the preset's width (nz=2, B=500)
-    in a temporary directory: 20 iterations with a parity eval (1,000
+    in a temporary directory: 10 iterations with a parity eval (1,000
     ground-truth Langevin steps, 2 batches of 500) every 10 and at the end;
     checks the eval rows, the KDE plots and the launches."""
     import os
@@ -3051,7 +3085,8 @@ def toy_phase(cfg, counters):
 
 SVHN_TRAIN_IMAGES = 73_257  # SVHN's train split
 SVHN_TEST_IMAGES = 2_000  # the test split holds 26,032: cut so that the MSE eval stays short
-CELEBA64_TRAIN, CELEBA64_TEST, CELEBA64_SIZE = 2_048, 512, (178, 218)  # CelebA's aligned images
+# CelebA's aligned images; the tree cut for time (decoders_4c reads 1,520 more JPEGs and the CPU tests hold the decoder)
+CELEBA64_TRAIN, CELEBA64_TEST, CELEBA64_SIZE = 1_024, 256, (178, 218)
 # CelebA-HQ's images: one batch of 128 an epoch and a small test split. The
 # files are 512x512, not CelebA-HQ's 1024x1024, to keep the script within its
 # limit: the CLI's first cache decoded the 1024x1024 PNGs in 31 s (0.2 s a
@@ -3298,8 +3333,8 @@ def decoders_line() -> str:
 
 def chain_trace(cfg, steps, step_size, seed_offset):
     """K1 at B=500 with `steps` at `step_size` on the preset's random EBM,
-    against its plain version after every step count k (kernel and plain
-    each run k steps from the same z and noise). Where the gap first jumps
+    against its plain version after step counts k (kernel and plain each
+    run k steps from the same z and noise). Where the gap first jumps
     past 1e-4, the two states one step before are compared through the
     EBM: a pre-activation (z K1 + b1, or the next layer's) that the two
     sides put on opposite sides of 0 sends the gradient through lrelu's
@@ -3316,14 +3351,26 @@ def chain_trace(cfg, steps, step_size, seed_offset):
     k1, b1, k2, b2, _ = ebm_w = ebm_params_to_dense_weights(models.ebm)
     z = torch.randn(500, cfg.model.nz, generator=torch.Generator().manual_seed(SEED + seed_offset)).cuda()
     kw = dict(seed=135792468 + seed_offset, step_size=step_size)
-    runs = [(fused_prior_langevin(z, *ebm_w, steps=k, **kw), prior_langevin_plain(z, *ebm_w, steps=k, **kw))
-            for k in range(steps + 1)]
-    errs = [float((a - b).abs().max()) for a, b in runs]
+    runs, errs = {}, {}
+
+    def run(k):
+        if k not in runs:
+            runs[k] = (fused_prior_langevin(z, *ebm_w, steps=k, **kw), prior_langevin_plain(z, *ebm_w, steps=k, **kw))
+            errs[k] = float((runs[k][0] - runs[k][1]).abs().max())
+        return errs[k]
+
+    # Every fourth step count, then every count of the stretch where the gap
+    # first passes 1e-4 (each count runs the plain chain from the start:
+    # stepping one count at a time was cut for time).
+    coarse = sorted(set(range(0, steps + 1, 4)) | {steps})
     label = f"[{cfg.model.dataset}-kernels] K1 B=500, {steps} steps at {step_size} (no path of this preset)"
-    jump = next((k for k, e in enumerate(errs) if e > 1e-4), None)
-    if jump is None:
-        print(f"{label}: kernel-plain at most {max(errs):.3e} over every step count")
+    late = next((k for k in coarse if run(k) > 1e-4), None)
+    if late is None:
+        print(f"{label}: kernel-plain at most {max(errs.values()):.3e} over every fourth step count")
         return
+    jump = next(k for k in range(max(0, late - 3), late + 1) if run(k) > 1e-4)
+    run(jump - 1)
+    run(steps)
     row = int((runs[jump][0] - runs[jump][1]).abs().max(1).values.argmax())
     pre = []
     for zs in runs[jump - 1]:
@@ -3332,7 +3379,7 @@ def chain_trace(cfg, steps, step_size, seed_offset):
     flips = [int(((a >= 0) != (b >= 0)).sum()) for a, b in zip(*pre)]
     nearest = [float(h.abs().min()) for h in pre[1]]  # the plain state's
     print(f"{label}: kernel-plain {errs[jump - 1]:.3e} after {jump - 1} steps, {errs[jump]:.3e} after {jump}, "
-          f"{errs[-1]:.3e} after {steps}; row {row} before step {jump}: the smallest |pre-activation| "
+          f"{errs[steps]:.3e} after {steps}; row {row} before step {jump}: the smallest |pre-activation| "
           f"{nearest[0]:.3e} (first layer), {nearest[1]:.3e} (second); the two states put {flips[0]} and "
           f"{flips[1]} of them on opposite sides of 0")
 
@@ -3508,10 +3555,7 @@ def feed_phase(cfg, store, iterations: int = 3):
                 wall_ms = (time.perf_counter() - t0) * 1e3
         finally:
             close()
-        cuda = torch.autograd.DeviceType.CUDA
-        annotation = lambda e: getattr(e, "is_user_annotation", False) or "/" in e.name or "#" in e.name
-        busy_ms = sum((e.time_range.end - e.time_range.start) / 1e3 for e in prof.events()
-                      if e.device_type == cuda and not annotation(e))
+        busy_ms, _ = kernel_times(prof)
         out[placement] = {"ms_per_iteration": ms, "median_ms": statistics.median(ms), "profiled_wall_ms": wall_ms,
                           "device_busy_ms": busy_ms, "device_idle_share": 1.0 - busy_ms / wall_ms}
     print("[celeba64-feed] " + json.dumps(out) + " " + card_line())
@@ -3521,12 +3565,12 @@ def feed_phase(cfg, store, iterations: int = 3):
 def celeba64_phase(cfg, counters):
     """celeba64 (nz=100, ngf=128, 64x64) through the train CLI at full width
     in a temporary directory, on a JPEG tree made from the seed at CelebA's
-    aligned size, 178x218 (2,048 train and 512 test images; CelebA's
+    aligned size, 178x218 (1,024 train and 256 test images; CelebA's
     published format): every train file decoded by the port must equal
     PIL's decode; train 4 iterations at B=128 with --data_placement host
     (grids at 0, a checkpoint at the end), which writes the train split's
     cache celeba64_train_64.npy, equal to the JAX package's PIL pipeline;
-    then resume to 5 with an eval (500 FID samples, the 512 test images)
+    then resume to 5 with an eval (500 FID samples, the 256 test images)
     under 'auto' with --data_device_budget_gb below the store, which must
     read the cache memory-mapped and fall back to the host feed;
     'device' over that budget must raise; then the host feed beside the
@@ -3623,10 +3667,16 @@ TREE_4D = ("png_grey1", "png_grey2", "png_grey4", "png_grey16", "png_palette1", 
 TREE_4E = ("gif_global", "gif_interlaced", "gif_offset", "gif_grey", "tiff_raw", "tiff_packbits", "tiff_lzw_pred2",
            "tiff_deflate", "tiff_tiled_lzw", "tiff_mm", "tiff_grey16", "tiff_miniswhite", "tiff_palette", "tiff_cmyk",
            "tiff_rgba_assoc", "tiff_planar2", "pnm_p6", "pnm_p5_16", "pnm_p4")
-TREE_4C = (("webp_lossy", 1024), ("webp_lossless", 256), ("webp_alpha", 128), ("webp_anim", 32),
-           ("jpeg_progressive", 1024), ("jpeg_cmyk", 128), ("jpeg_ycck", 64), ("jpeg_arith", 64),
+# The TIFF codings PIL reads through libtiff beyond those (image_writer.TIFF_CODING_KINDS, and Zstandard):
+# written by the card's PIL where it writes them (PIL_TIFF_KINDS), else by the port's writer.
+TREE_4F = ("tiff_jpeg", "tiff_ycbcr", "tiff_ccitt_mh", "tiff_ccitt_t4", "tiff_ccitt_t6", "tiff_lzma", "tiff_lab",
+           "tiff_thunderscan", "tiff_lzw_old", "tiff_ojpeg", "tiff_zstd")
+PIL_TIFF_KINDS = {"tiff_ccitt_t6": ("1", "group4"), "tiff_lzma": ("RGB", "lzma"), "tiff_lab": ("LAB", "tiff_lzw"),
+                  "tiff_zstd": ("RGB", "zstd")}
+TREE_4C = (("webp_lossy", 256), ("webp_lossless", 256), ("webp_alpha", 128), ("webp_anim", 32),
+           ("jpeg_progressive", 256), ("jpeg_cmyk", 128), ("jpeg_ycck", 64), ("jpeg_arith", 64),
            ("jpeg_arith_progressive", 64), ("jpeg_lossless", 64), ("jpeg_smoothed", 64)) + tuple(
-    (kind, 32) for kind in TREE_4D + TREE_4E)
+    (kind, 16) for kind in TREE_4D + TREE_4E) + tuple((kind, 32) for kind in TREE_4F)  # the older kinds cut for time
 MIXED_TRAIN, MIXED_TEST = 1024, 256  # the mixed celeba64 tree drawn from them
 ONE_THREAD_FILES = 256  # the port's one-thread rate is timed on the first of each kind
 
@@ -3651,7 +3701,10 @@ def synthetic_4c_tree(root: str, kind: str, n: int, size, seed: int, start: int 
     filters, 16-bit grey at or past 255, short palettes, top-down, the
     bit-field layout by turns), written to .png or .bmp; the GIF, TIFF and
     PNM kinds the same way (tables, clear codes, strip heights, tiles and
-    codings by turns), written to .png and .jpg by turns."""
+    codings by turns), written to .png and .jpg by turns; the TIFF coding
+    kinds (TREE_4F) the same way, by PIL where it writes them (Group 4
+    bilevel, LZMA and Zstandard RGB with predictor 2 every other file,
+    CIELab under LZW), else by `write_kind`."""
     import io
     import os
 
@@ -3668,9 +3721,14 @@ def synthetic_4c_tree(root: str, kind: str, n: int, size, seed: int, start: int 
         low = rng.integers(0, 256, (max(h // 16, 2), max(w // 16, 2), 3), dtype=np.uint8)
         pix = np.asarray(Image.fromarray(low).resize((w, h), Image.BILINEAR)).astype(np.int16)
         img = Image.fromarray(np.clip(pix + rng.integers(-6, 7, (h, w, 3)), 0, 255).astype(np.uint8))
-        ext = "jpg" if kind.startswith("jpeg") else ("png", "jpg")[k % 2] if kind in TREE_4E else kind.split("_")[0]
+        named = TREE_4E + TREE_4F  # GIF, TIFF and PNM files under a photo's name
+        ext = "jpg" if kind.startswith("jpeg") else ("png", "jpg")[k % 2] if kind in named else kind.split("_")[0]
         path = os.path.join(root, f"{k:06d}_{kind}.{ext}")
-        if kind in TREE_4D + TREE_4E:
+        if kind in PIL_TIFF_KINDS:
+            mode, compression = PIL_TIFF_KINDS[kind]
+            info = {317: 2} if kind in ("tiff_lzma", "tiff_zstd") and k % 2 else {}
+            img.convert(mode).save(path, "TIFF", compression=compression, tiffinfo=info)
+        elif kind in TREE_4D + named:
             with open(path, "wb") as f:
                 f.write(write_kind(kind, np.asarray(img), k))
         elif kind == "webp_lossy":
@@ -3739,17 +3797,41 @@ def write_4c_tree(root: str, size, seed: int) -> float:
     return time.perf_counter() - t0
 
 
+def libtiff_codecs() -> dict:
+    """TIFFIsCODECConfigured of PIL's libtiff for each compression PIL
+    names: {code: configured}, or {"error": why} where the library cannot
+    be called."""
+    import ctypes
+    import glob
+    import os
+
+    import PIL
+    from PIL import Image  # loads the libraries PIL bundles, libtiff's own among them
+
+    del Image
+    found = glob.glob(os.path.join(os.path.dirname(PIL.__file__), os.pardir, "pillow.libs", "libtiff*"))
+    try:
+        lib = ctypes.CDLL(found[0] if found else "libtiff.so.6")
+        lib.TIFFIsCODECConfigured.restype = ctypes.c_int
+        lib.TIFFIsCODECConfigured.argtypes = [ctypes.c_uint16]
+    except (OSError, AttributeError) as e:
+        return {"error": str(e)}
+    codes = (1, 2, 3, 4, 5, 6, 7, 8, 32771, 32773, 32809, 32946, 34676, 34677, 34925, 50000, 50001)
+    return {code: bool(lib.TIFFIsCODECConfigured(code)) for code in codes}
+
+
 def decoders_4c_phase(cfg, counters):
     """Items 4c and 4d on the card's machine: the TREE_4C files (lossy,
     lossless, alpha and animated WebP; progressive, CMYK, YCCK,
     arithmetic-coded sequential and progressive, lossless and smoothed
     progressive JPEG; the TREE_4D PNG and BMP kinds and the TREE_4E GIF,
-    TIFF and PNM kinds, named .png and .jpg, at CelebA's 178x218); every
-    file decoded by the port must equal PIL's `convert("RGB")` byte for
-    byte, with the decode rates of each kind (host side: JPEG and WebP on
-    8 threads, and on 1 over their first ONE_THREAD_FILES; PNG, BMP, GIF,
-    TIFF and PNM, which have no thread pool, on 1; PIL on 1), and PIL's
-    version and libtiff. Then a
+    TIFF and PNM kinds and TREE_4F TIFF coding kinds, named .png and .jpg,
+    at CelebA's 178x218); every file decoded by the port must equal PIL's
+    `convert("RGB")` byte for byte, with the decode rates of each kind
+    (host side: JPEG and WebP on 8 threads, and on 1 over their first
+    ONE_THREAD_FILES; PNG, BMP, GIF, TIFF and PNM, which have no thread
+    pool, on 1; PIL on 1), and PIL's version, libtiff and its configured
+    codecs. Then a
     mixed celeba64 tree drawn from them (MIXED_TRAIN train, MIXED_TEST test
     images, hard links) through the train CLI at full width, 3 iterations
     at B=128 with --data_placement host (the last one timed: the first
@@ -3769,7 +3851,7 @@ def decoders_4c_phase(cfg, counters):
     from damc_tpu_torch.data.images import decode_parsed, parse_png
     from damc_tpu_torch.data.jpeg import decode_jpegs
     from damc_tpu_torch.data.webp import decode_webps
-    from damc_tpu_torch.tools.image_writer import GIF_TIFF_PNM_KINDS, KINDS
+    from damc_tpu_torch.tools.image_writer import GIF_TIFF_PNM_KINDS, KINDS, TIFF_CODING_KINDS
 
     def decode_one_thread(blobs, paths):
         """The port's PNG, BMP, GIF, TIFF and PNM readers as the folder
@@ -3796,7 +3878,7 @@ def decoders_4c_phase(cfg, counters):
         for kind, n in TREE_4C:
             group = [name for name in names if name.split("_", 1)[1].rsplit(".", 1)[0] == kind]
             data = [blobs[name] for name in group]
-            pooled = kind not in TREE_4D + TREE_4E
+            pooled = kind not in TREE_4D + TREE_4E + TREE_4F
             decode = decode_webps if kind.startswith("webp") else decode_jpegs if pooled else decode_one_thread
             decode(data[:1], group[:1])  # first use (the library's load), untimed, as PIL's below
             Image.open(io.BytesIO(data[0])).convert("RGB")
@@ -3819,15 +3901,18 @@ def decoders_4c_phase(cfg, counters):
                 "pil_images_per_s"]
             bad += [name for name, a, b in zip(group, port, want) if not np.array_equal(a, b)]
             pil.update(zip(group, want))
-        new = [name for name in names if name.split("_", 1)[1].rsplit(".", 1)[0] in TREE_4E]
+        new = [name for name in names if name.split("_", 1)[1].rsplit(".", 1)[0] in TREE_4F]
         print(f"[decoders_4c] {len(names)} files at {CELEBA64_SIZE[0]}x{CELEBA64_SIZE[1]} written in "
-              f"{tree_s:.2f} s; differing from PIL's decode: {len(bad)} (of the {len(new)} GIF, TIFF and PNM "
-              f"files: {sum(name in new for name in bad)}); PIL {PIL.__version__}, libtiff "
-              f"{features.check('libtiff')} ({features.version('libtiff')}); host-side decode rates "
-              + json.dumps(rates) + " " + card_line())
-        if len(names) != sum(n for _, n in TREE_4C) or bad or TREE_4D != KINDS or TREE_4E != GIF_TIFF_PNM_KINDS:
+              f"{tree_s:.2f} s; differing from PIL's decode: {len(bad)} (of the {len(new)} files of the TIFF "
+              f"coding kinds: {sum(name in new for name in bad)}); PIL {PIL.__version__}, libtiff "
+              f"{features.check('libtiff')} ({features.version('libtiff')}), its codecs "
+              f"{json.dumps(libtiff_codecs())}; host-side decode rates " + json.dumps(rates) + " " + card_line())
+        print("[decoders_4c] TIFF coding kinds, one thread over PIL's rate: " + json.dumps(
+            {kind: round(rates[kind]["port_1_thread_over_pil"], 3) for kind in TREE_4F}))
+        if (len(names) != sum(n for _, n in TREE_4C) or bad or TREE_4D != KINDS or TREE_4E != GIF_TIFF_PNM_KINDS
+                or TREE_4F[:-1] != TIFF_CODING_KINDS):
             raise AssertionError(f"the port's decode differs from PIL's: {bad[:5]} ({len(bad)} files), or the "
-                                 "tree's kinds are not image_writer.KINDS and GIF_TIFF_PNM_KINDS")
+                                 "tree's kinds are not image_writer.KINDS, GIF_TIFF_PNM_KINDS and TIFF_CODING_KINDS")
         data_dir, logs = os.path.join(tmp, "data"), os.path.join(tmp, "logs")
         order = np.random.default_rng(SEED + 131).permutation(len(names))
         splits = {"celeba64_train": order[:MIXED_TRAIN], "celeba64_test": order[MIXED_TRAIN:MIXED_TRAIN + MIXED_TEST]}
@@ -4418,18 +4503,14 @@ def stylegan_phase(counters, tmp):
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t1) * 1e3
         # Device rows of kernels only: the `inversion/*` labels have device rows too.
-        kernels = [e for e in prof.key_averages()
-                   if e.device_type == torch.autograd.DeviceType.CUDA and "/" not in e.key]
-        dev_ms = lambda e: e.self_device_time_total / 1e3
-        kernels.sort(key=dev_ms, reverse=True)
-        busy_ms = sum(dev_ms(e) for e in kernels)
+        busy_ms, kernels = kernel_times(prof)
         flops = inversion_phase_flops(STYLEGAN_B, STYLEGAN_RES, q.n_interval, STYLEGAN_REFINE, cfg.model.ntemb)
         bound_ms, _ = bound(flops["total"], 0.0)
         res = {
             "b": STYLEGAN_B, "ms_per_invert_batch": total, "split_ms": split,
             "images_per_s": STYLEGAN_B / total * 1e3, "peak_gib_invert_batch": peak,
             "profile": {"wall_ms": wall_ms, "device_busy_ms": busy_ms, "device_idle_share": 1.0 - busy_ms / wall_ms,
-                        "top": [{"name": e.key[:60], "ms": dev_ms(e), "calls": e.count} for e in kernels[:8]]},
+                        "top": [{"name": n[:60], "ms": ms, "calls": c} for n, ms, c in kernels[:8]]},
             "flops": flops, "fp32_bound_ms": bound_ms, "bound_share": bound_ms / total,
             "train": train, "eval_cli": cli, "tree_s": tree_s, "decode_s": decode_s, "lsun": lsun,
         }

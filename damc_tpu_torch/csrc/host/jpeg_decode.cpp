@@ -27,9 +27,22 @@
 // data whose decode this decoder does not follow to the bit. Every read is
 // bounds-checked against the buffer.
 //
+// JPEG in TIFF (damc_jpeg_tiff_decode, for damc_tpu_torch/data/tiff.py):
+// the strips or tiles of a TIFF as libtiff's tif_jpeg.c hands them to
+// libjpeg for PIL: the JPEGTables stream read once, its quantization and
+// Huffman tables kept from stream to stream; libtiff's checks of each
+// frame's size, component count and sampling; YCbCr converted to RGB as
+// libjpeg converts it, other colour spaces as their samples stand (no
+// inversion of CMYK); libjpeg's warnings no faults (a bad Huffman code is
+// a zero symbol, entropy data that runs out ends its scan with zeros, the
+// end of the data reads as EOI, what follows a single scan is not read);
+// and old-style JPEG's packed YCbCr blocks (tif_ojpeg.c).
+//
 // C interface (ctypes, damc_tpu_torch/data/jpeg.py):
 //   damc_jpeg_header(data, len, &width, &height, &components, msg, msglen)
 //   damc_jpeg_decode_batch(datas, lens, outs, n, threads, status, msgs, msglen)
+//   damc_jpeg_tiff_decode(tables, tables_len, n, datas, lens, seg, outs, stride, ncomp, ycc, h0, v0, fill,
+//                         msg, msglen)
 // `outs[i]` is a caller-owned (height, width, 3) uint8 buffer sized from the
 // header; each image of the batch is decoded by one thread of a pool.
 //
@@ -308,6 +321,7 @@ struct BitReader {
   int fake = 0;  // zero bits at the tail of acc that stand past a marker or the end
   bool at_marker = false;
   bool overrun = false;
+  bool tolerant = false;  // libjpeg's reading of a TIFF strip: a bad code is a zero symbol
 
   BitReader(const uint8_t* data, size_t len, size_t pos) : d(data), n(len), p(pos) {}
 
@@ -364,6 +378,11 @@ struct BitReader {
         if (idx < 0 || idx > 255) corrupt("bad Huffman code");
         return h.vals[idx];
       }
+    }
+    if (tolerant) {  // jdhuff.c jpeg_huff_decode: 17 bits read, then "a zero as the safest result"
+      skip(16);
+      get(1);
+      return 0;
     }
     corrupt("bad Huffman code");
   }
@@ -541,6 +560,13 @@ struct Jpeg {
   int width = 0, height = 0, ncomp = 0, hmax = 1, vmax = 1, mcux = 0, mcuy = 0;
   bool have_frame = false, have_scan = false, jfif = false, adobe = false, progressive = false;
   bool arithmetic = false, lossless = false;
+  // A strip or tile of a JPEG-in-TIFF file as libtiff hands it to libjpeg:
+  // the end of the data reads as EOI, libjpeg's warnings are not faults (a
+  // bad Huffman code is a zero symbol; entropy data that runs out, or into
+  // a marker, ends the scan with the rest of its blocks zero), and PIL's
+  // own checks of a JPEG file's segments do not apply.
+  bool tiff = false;
+  bool raw_blocks = false;  // decode_tiff's output: old-style JPEG's packed YCbCr blocks
   bool multi_scan = false;  // jdinput.c initial_setup: progressive, or a first scan without every component
   int adobe_transform = -1;
   int restart_interval = 0;
@@ -566,6 +592,98 @@ struct Jpeg {
     int hi = u8();
     return (hi << 8) | u8();
   }
+  // marker() where the data may end first: -1 at the end (pos then at n).
+  int marker_or_end() {
+    for (;;) {
+      while (pos < n && d[pos] != 0xFF) ++pos;
+      if (pos >= n) return -1;
+      ++pos;
+      while (pos < n && d[pos] == 0xFF) ++pos;
+      if (pos >= n) return -1;
+      int m = d[pos++];
+      if (m != 0) return m;
+    }
+  }
+
+  // A JPEGTables stream (SOI, tables, EOI), read as libjpeg's
+  // jpeg_read_header(FALSE) reads it: its tables stay for the strips.
+  void parse_tables() {
+    if (n < 2 || d[0] != 0xFF || d[1] != 0xD8) corrupt("JPEGTables that do not start with SOI");
+    pos = 2;
+    for (;;) {
+      int m = marker_or_end();
+      if (m < 0 || m == 0xD9) return;
+      if ((m >= 0xD0 && m <= 0xD7) || m == 0x01) continue;
+      if (m < 0xC0 || m == 0xD8 || m == 0xDA || (m >= 0xC0 && m <= 0xCF && m != 0xC4 && m != 0xCC))
+        corrupt("a JPEGTables stream that is not tables only");
+      int len = u16();
+      if (len < 2 || pos + len - 2 > n) corrupt("truncated marker segment in JPEGTables");
+      size_t end = pos + len - 2;
+      if (m == 0xC4) read_dht(end);
+      else if (m == 0xDB) read_dqt(end);
+      else if (m == 0xCC) read_dac(end);
+      else if (m == 0xDD) {
+        if (len != 4) corrupt("bad DRI length");
+        restart_interval = u16();
+      }
+      pos = end;
+    }
+  }
+
+  // The frame of a TIFF strip as libjpeg decodes it for libtiff: RGB
+  // through libjpeg's YCbCr conversion (`ycc`), else each component's
+  // samples as they stand, which libtiff asks for only when no component is
+  // subsampled. Rows of width * components bytes, `stride` apart, at most
+  // `max_rows` of them.
+  void decode_tiff(uint8_t* out, size_t stride, int max_rows, bool ycc) {
+    parse(false);
+    const int rows = std::min(height, max_rows);
+    const bool smooth = progressive && would_smooth();
+    if (raw_blocks) {  // tif_ojpeg.c OJPEGDecodeRaw: libjpeg's raw data, packed as TIFF's YCbCr blocks
+      if (ncomp != 3 || comp[1].h != 1 || comp[1].v != 1 || comp[2].h != 1 || comp[2].v != 1)
+        corrupt("old-style JPEG that is not YCbCr with 1x1 chroma");
+      const int hs = comp[0].h, vs = comp[0].v;
+      const Plane py = component_plane(comp[0], smooth), pb = component_plane(comp[1], smooth),
+                  pr = component_plane(comp[2], smooth);
+      const int across = (width + hs - 1) / hs, down = std::min((height + vs - 1) / vs, max_rows);
+      for (int by = 0; by < down; ++by) {
+        uint8_t* o = out + (size_t)by * stride;
+        for (int bx = 0; bx < across; ++bx) {
+          for (int i = 0; i < vs; ++i)
+            for (int j = 0; j < hs; ++j) *o++ = py.px[(size_t)(by * vs + i) * py.stride + bx * hs + j];
+          *o++ = pb.px[(size_t)by * pb.stride + bx];
+          *o++ = pr.px[(size_t)by * pr.stride + bx];
+        }
+      }
+      return;
+    }
+    if (ycc) {
+      if (ncomp != 3) corrupt("YCbCr conversion of a strip without 3 components");
+      std::vector<uint8_t> full[3];
+      for (int i = 0; i < 3; ++i) full[i] = upsample(comp[i], component_plane(comp[i], smooth));
+      for (int y = 0; y < rows; ++y) {
+        uint8_t* o = out + (size_t)y * stride;
+        const size_t at = (size_t)y * width;
+        for (int x = 0; x < width; ++x) {
+          const int yy = full[0][at + x], cb = full[1][at + x], cr = full[2][at + x];
+          o[3 * x] = clamp8(yy + kColor.cr_r[cr]);
+          o[3 * x + 1] = clamp8(yy + (int)((kColor.cb_g[cb] + kColor.cr_g[cr]) >> 16));
+          o[3 * x + 2] = clamp8(yy + kColor.cb_b[cb]);
+        }
+      }
+      return;
+    }
+    for (int i = 0; i < ncomp; ++i)
+      if (comp[i].h != hmax || comp[i].v != vmax) corrupt("a subsampled component without YCbCr conversion");
+    for (int i = 0; i < ncomp; ++i) {
+      const Plane plane = component_plane(comp[i], smooth);
+      for (int y = 0; y < rows; ++y) {
+        const uint8_t* src = &plane.px[(size_t)y * plane.stride];
+        uint8_t* o = out + (size_t)y * stride + i;
+        for (int x = 0; x < width; ++x) o[(size_t)x * ncomp] = src[x];
+      }
+    }
+  }
   // The next marker code. Bytes before its 0xFF are skipped, as libjpeg's
   // next_marker discards them (with a warning), and so are fill bytes 0xFF.
   // A stuffed FF 00 outside a scan is skipped too, as both skip it.
@@ -582,7 +700,7 @@ struct Jpeg {
 
   void read_sof(int m, size_t end) {
     if (have_frame) corrupt("two frame headers");
-    if (!icc.empty()) {  // PIL's SOF handler reads byte 13 of the first ICC_PROFILE segment, sorted
+    if (!icc.empty() && !tiff) {  // PIL's SOF handler reads byte 13 of the first ICC_PROFILE segment, sorted
       std::sort(icc.begin(), icc.end());
       if (icc[0].size() < 14) corrupt("an ICC_PROFILE segment too short for PIL");
       icc.clear();
@@ -678,7 +796,7 @@ struct Jpeg {
       adobe = true;
       adobe_transform = p[11];
     }
-    if (!have_scan) pil_app(m, p, len);
+    if (!have_scan && !tiff) pil_app(m, p, len);
     pos = end;
   }
 
@@ -733,8 +851,8 @@ struct Jpeg {
       int r = rs >> 4, sz = rs & 15;
       if (sz) {
         k += r;
-        if (k > 63) corrupt("AC coefficient index past 63");
-        blk[kZigzag[k]] = (int16_t)extend(br.get(sz), sz);
+        if (k > 63 && !tiff) corrupt("AC coefficient index past 63");
+        blk[natural(k)] = (int16_t)extend(br.get(sz), sz);
         ++k;
       } else {
         if (r != 15) break;
@@ -1046,15 +1164,19 @@ struct Jpeg {
 
   void huffman_scan(int ns, const int* idx, const int* td, const int* ta, int ss, int se, int ah, int al) {
     BitReader br(d, n, pos);
+    br.tolerant = tiff;
+    bool insufficient = false;
     int pred[4] = {0, 0, 0, 0};
     int eobrun = 0;
     int next_rst = 0;
     for_each_mcu(ns, idx, [&](int64_t m, int mcol, int mrow) {
+      if (insufficient) return;
       if (restart_interval && m > 0 && m % restart_interval == 0) {
         size_t q = br.next_marker();
         if (q + 1 >= n || d[q + 1] != 0xD0 + next_rst) corrupt("missing or wrong restart marker");
         next_rst = (next_rst + 1) & 7;
         br = BitReader(d, n, q + 2);
+        br.tolerant = tiff;
         pred[0] = pred[1] = pred[2] = pred[3] = 0;
         eobrun = 0;
       }
@@ -1070,7 +1192,8 @@ struct Jpeg {
           ac_refine(br, blk, ac[ta[i]], ss, se, al, eobrun);
         }
       });
-      if (br.overrun) corrupt("truncated or corrupt entropy-coded data");
+      if (br.overrun && tiff) insufficient = true;  // jdhuff.c: the MCU done with zero bits, the rest left zero
+      else if (br.overrun) corrupt("truncated or corrupt entropy-coded data");
     });
     pos = br.next_marker();
   }
@@ -1228,15 +1351,24 @@ struct Jpeg {
   void parse(bool header_only) {
     // PIL opens a file only when a marker follows SOI at once (its _accept),
     // and decodes it only to its EOI marker.
-    if (n < 4 || d[0] != 0xFF || d[1] != 0xD8 || d[2] != 0xFF) corrupt("not a JPEG file (no SOI marker)");
+    if (tiff) {
+      if (n < 2 || d[0] != 0xFF || d[1] != 0xD8) corrupt("a strip that is not a JPEG stream (no SOI marker)");
+    } else if (n < 4 || d[0] != 0xFF || d[1] != 0xD8 || d[2] != 0xFF) {
+      corrupt("not a JPEG file (no SOI marker)");
+    }
     pos = 2;
     for (;;) {
+      if (pos >= n && tiff) {  // libtiff's source inserts an EOI at the end of the data
+        if (!have_scan) corrupt("a strip with no image data");
+        return;
+      }
       if (pos >= n) corrupt(have_scan ? "truncated file (no EOI marker)" : "truncated file (no image data)");
-      int m = marker();
+      int m = tiff ? marker_or_end() : marker();
+      if (m < 0) continue;
       // jdmarker.c refuses markers it does not know (JERR_UNKNOWN_MARKER);
       // PIL's own header parser also refuses TEM before the first scan.
       if (m < 0xC0 || m == 0xC8 || m == 0xDE || m == 0xDF || (m >= 0xF0 && m <= 0xFD)) {
-        if (m != 0x01 || !have_scan) corrupt("an unknown marker");
+        if (m != 0x01 || (!have_scan && !tiff)) corrupt("an unknown marker");
       }
       if (m == 0xD9) {  // EOI
         if (!have_scan) corrupt("no scan before the end of the image");
@@ -1265,6 +1397,12 @@ struct Jpeg {
           break;
         case 0xDA:
           read_scan(end);
+          // libtiff reads a single-scan strip's rows and ignores what
+          // jpeg_finish_decompress, reading on to EOI, meets (its
+          // TIFFjpeg_finish_decompress gives -1 for a fault, which
+          // JPEGDecode takes for success); a multi-scan frame is read to
+          // EOI by jpeg_start_decompress, where a fault is a fault.
+          if (tiff && !multi_scan) return;
           continue;  // pos is at the next marker
         case 0xDC: break;  // DNL: libjpeg skips it (the frame header's height stands)
         default:
@@ -1622,6 +1760,95 @@ void damc_jpeg_decode_batch(const uint8_t* const* datas, const size_t* lens, uin
   std::vector<std::thread> pool;
   for (int t = 0; t < threads; ++t) pool.emplace_back(work);
   for (auto& t : pool) t.join();
+}
+
+// The strips or tiles of a JPEG-in-TIFF image as libtiff's tif_jpeg.c reads
+// them for PIL: `tables` (the JPEGTables tag, or len 0) read once, then each
+// stream in turn with the tables it and the ones before it left. Stream i
+// must fill a segment of seg[3 i] x seg[3 i + 1] pixels; a frame smaller than
+// that is decoded into the rows and columns it has and the rest of the
+// segment keeps what the last stream left in libtiff's buffer, a frame
+// taller than the segment is cut to it where seg[3 i + 2] allows (the last
+// strip), and anything else is refused, as are a frame of another
+// component count than `ncomp`, another precision than 8, or component 0
+// sampled other than (h0, v0) and the rest other than 1x1. Each segment is
+// copied to outs[i] (seg_h rows of `stride` bytes); the buffer starts as
+// bytes `fill` (PIL's is uninitialized). Returns OK, or the first failure
+// with its message.
+//
+// ycc 2 reads an old-style JPEG (TIFF compression 6) as tif_ojpeg.c does for
+// TIFFRGBAImage: one stream, its YCbCr samples unconverted and not
+// upsampled, packed as blocks of h0 x v0 Y samples and one Cb and Cr (seg
+// gives the image's width, the rows of blocks and the image's height, the
+// stride the bytes of a row of blocks).
+int damc_jpeg_tiff_decode(const uint8_t* tables, size_t tables_len, int n, const uint8_t* const* datas,
+                          const size_t* lens, const int* seg, uint8_t* const* outs, size_t stride, int ncomp, int ycc,
+                          int h0, int v0, int fill, char* msg, size_t msglen) {
+  try {
+    if (ycc == 2) {  // seg: the image's width, the rows of blocks, the image's height
+      if (n != 1) corrupt("old-style JPEG in more than one stream");
+      Jpeg j(datas[0], lens[0]);
+      j.tiff = true;
+      j.parse(true);
+      if (!j.have_frame) corrupt("old-style JPEG with no frame header");
+      // tif_ojpeg.c OJPEGReadHeaderInfoSecStreamSof: the frame as wide as the image, at least as tall
+      if (j.width != seg[0] || j.height < seg[2]) corrupt("old-style JPEG frame of another size than the image");
+      if (j.ncomp != 3 || j.comp[0].h != h0 || j.comp[0].v != v0) corrupt("old-style JPEG of other sampling");
+      if ((size_t)((j.width + h0 - 1) / h0) * (h0 * v0 + 2) > stride) corrupt("old-style JPEG blocks past the row");
+      j = Jpeg(datas[0], lens[0]);
+      j.tiff = true;
+      j.raw_blocks = true;
+      j.decode_tiff(outs[0], stride, seg[1], false);
+      return OK;
+    }
+    // The quantization and Huffman tables pass from stream to stream; SOI
+    // resets the rest (jdmarker.c get_soi).
+    Jpeg state(tables, tables_len);
+    state.tiff = true;
+    if (tables_len) state.parse_tables();
+    auto stream = [&](int i) {
+      Jpeg j(datas[i], lens[i]);
+      j.tiff = true;
+      memcpy(j.qt, state.qt, sizeof(j.qt));
+      memcpy(j.qt_defined, state.qt_defined, sizeof(j.qt_defined));
+      for (int t = 0; t < 4; ++t) {
+        j.dc[t] = state.dc[t];
+        j.ac[t] = state.ac[t];
+      }
+      return j;
+    };
+    size_t cap = 0;
+    for (int i = 0; i < n; ++i) cap = std::max(cap, (size_t)seg[3 * i + 1] * stride);
+    std::vector<uint8_t> buf(cap, (uint8_t)fill);  // PIL's strip buffer: what a short frame leaves, malloc's
+    for (int i = 0; i < n; ++i) {
+      Jpeg j = stream(i);
+      j.parse(true);  // tif_jpeg.c JPEGPreDecode's checks come before any decoding
+      if (!j.have_frame) corrupt("a strip with no frame header");
+      const int sw = seg[3 * i], sh = seg[3 * i + 1];
+      if (j.width > sw || (j.height > sh && !(j.width == sw && seg[3 * i + 2])))
+        corrupt("JPEG strip/tile size exceeds expected dimensions");
+      if (j.ncomp != ncomp) corrupt("Improper JPEG component count");
+      if (j.comp[0].h != h0 || j.comp[0].v != v0) corrupt("Improper JPEG sampling factors");
+      for (int c = 1; c < j.ncomp; ++c)
+        if (j.comp[c].h != 1 || j.comp[c].v != 1) corrupt("Improper JPEG sampling factors");
+      j = stream(i);
+      j.decode_tiff(buf.data(), stride, sh, ycc != 0);
+      memcpy(state.qt, j.qt, sizeof(j.qt));
+      memcpy(state.qt_defined, j.qt_defined, sizeof(j.qt_defined));
+      for (int t = 0; t < 4; ++t) {
+        state.dc[t] = j.dc[t];
+        state.ac[t] = j.ac[t];
+      }
+      memcpy(outs[i], buf.data(), (size_t)sh * stride);
+    }
+    return OK;
+  } catch (const Failure& f) {
+    put_message(msg, msglen, f.msg);
+    return f.status;
+  } catch (const std::bad_alloc&) {
+    put_message(msg, msglen, "out of memory");
+    return CORRUPT;
+  }
 }
 
 }  // extern "C"

@@ -15,12 +15,17 @@
 //     table growing to libtiff's 5,119 entries) as libtiff 4.7's
 //     tif_lzw.c LZWDecode decodes a strip or tile: PIL's reader hands every
 //     compressed TIFF to libtiff.
+//   * TIFF's pre-5.0 LZW (LSB-first codes whose width changes one code
+//     later) as libtiff's LZWDecodeCompat.
 //   * TIFF's PackBits as libtiff's tif_packbits.c PackBitsDecode.
+//   * TIFF's ThunderScan 4-bit coding as libtiff's tif_thunder.c
+//     ThunderDecodeRow.
 //
 // C interface (ctypes, damc_tpu_torch/data/lzw.py):
 //   damc_gif_decode(data, len, bits, interlace, image, stride, xoff, yoff, xsize, ysize)
 //   damc_tiff_lzw(in, in_len, out, out_len)
 //   damc_packbits(in, in_len, out, out_len)
+//   damc_thunderscan(in, in_len, out, out_len, width)
 // Each returns 0, or one of the failure codes below; the output is written
 // as far as the decode got. ctypes releases the interpreter lock around each
 // call.
@@ -185,8 +190,10 @@ struct Code {
   uint8_t value, firstchar;
 };
 
+int tiff_lzw_compat(const uint8_t* in, int64_t in_len, uint8_t* out, int64_t occ);
+
 int tiff_lzw(const uint8_t* in, int64_t in_len, uint8_t* out, int64_t occ) {
-  if (in_len >= 2 && in[0] == 0 && (in[1] & 1)) return OLD_STYLE;  // LZWDecodeCompat's files
+  if (in_len >= 2 && in[0] == 0 && (in[1] & 1)) return tiff_lzw_compat(in, in_len, out, occ);
   std::vector<Code> tab(kCsize);
   for (int c = 0; c < 256; ++c) tab[c] = Code{-1, 1, (uint8_t)c, (uint8_t)c};
   // LZWPreDecode: no entry may be used before a clear code sets the table up.
@@ -255,6 +262,153 @@ int tiff_lzw(const uint8_t* in, int64_t in_len, uint8_t* out, int64_t occ) {
   if (occ > 0) {
     memset(op, 0, (size_t)occ);
     return SHORT;
+  }
+  return OK;
+}
+
+// The pre-5.0 codes (libtiff 4.7 LZWDecodeCompat): LSB first, the width
+// growing once the next entry passes 2^width - 1. Every entry past the
+// first 258 is cleared at a clear code; a code naming an empty one is
+// refused, as is a first code that is not a clear code.
+int tiff_lzw_compat(const uint8_t* in, int64_t in_len, uint8_t* out, int64_t occ) {
+  std::vector<Code> tab(kCsize);
+  for (int c = 0; c < 256; ++c) tab[c] = Code{-1, 1, (uint8_t)c, (uint8_t)c};
+  for (int c = 256; c < kCsize; ++c) tab[c] = Code{-1, 0, 0, 0};
+  int free_ent = -1, maxcode = (1 << kBitsMin) - 2, nbits = kBitsMin, oldcode = -1;
+  uint64_t nextdata = 0, bitsleft = (uint64_t)in_len * 8;
+  int nextbits = 0;
+  int64_t bp = 0;
+  uint8_t* op = out;
+  auto byte = [&]() -> uint64_t { return bp < in_len ? in[bp++] : (bp++, 0); };
+  auto next_code = [&]() -> int {
+    if (bitsleft < (uint64_t)nbits) return kEoi;
+    nextdata |= byte() << nextbits;
+    nextbits += 8;
+    if (nextbits < nbits) {
+      nextdata |= byte() << nextbits;
+      nextbits += 8;
+    }
+    int code = (int)(nextdata & ((1u << nbits) - 1));
+    nextdata >>= nbits;
+    nextbits -= nbits;
+    bitsleft -= nbits;
+    return code;
+  };
+  while (occ > 0) {
+    int code = next_code();
+    if (code == kEoi) break;
+    if (code == kClear) {
+      do {
+        free_ent = kFirst;
+        for (int c = kFirst; c < kCsize; ++c) tab[c] = Code{-1, 0, 0, 0};
+        nbits = kBitsMin;
+        maxcode = (1 << kBitsMin) - 1;
+        code = next_code();
+      } while (code == kClear);
+      if (code == kEoi) break;
+      if (code > kClear) return BROKEN;
+      *op++ = (uint8_t)code;
+      occ--;
+      oldcode = code;
+      continue;
+    }
+    if (free_ent < 0 || free_ent >= kCsize || oldcode < 0) return BROKEN;
+    Code& e = tab[free_ent];
+    e.next = oldcode;
+    e.firstchar = tab[oldcode].firstchar;
+    e.length = (uint16_t)(tab[oldcode].length + 1);
+    e.value = code < free_ent ? tab[code].firstchar : e.firstchar;
+    if (++free_ent > maxcode) {
+      if (++nbits > kBitsMax) nbits = kBitsMax;
+      maxcode = (1 << nbits) - 1;
+    }
+    oldcode = code;
+    if (code >= 256) {
+      const Code& c = tab[code];
+      if (c.length == 0) return BROKEN;
+      int start = code;
+      if (c.length > occ) {  // the part that fits: the string's first occ values
+        while (tab[start].length > occ) start = tab[start].next;
+        for (int64_t k = occ - 1, x = start; k >= 0; --k, x = tab[x].next) op[k] = tab[x].value;
+        op += occ;
+        occ = 0;
+        break;
+      }
+      int len = c.length;
+      int64_t k = len;
+      for (int x = code; x >= 0 && k > 0; x = tab[x].next) op[--k] = tab[x].value;
+      op += len;
+      occ -= len;
+    } else {
+      *op++ = (uint8_t)code;
+      occ--;
+    }
+  }
+  if (occ > 0) {
+    memset(op, 0, (size_t)occ);
+    return SHORT;
+  }
+  return OK;
+}
+
+// ---------------------------------------------------------------------------
+// TIFF ThunderScan (libtiff tif_thunder.c ThunderDecodeRow)
+// ---------------------------------------------------------------------------
+
+// Rows of `width` 4-bit pixels, two a byte, each row decoded from where the
+// last one stopped: runs of the last pixel, 2- and 3-bit deltas from it,
+// and raw values. A row that ends short or runs past its width is refused.
+int thunderscan(const uint8_t* in, int64_t cc, uint8_t* out, int64_t occ, int64_t width) {
+  static const int kTwo[4] = {0, 1, 0, -1};
+  static const int kThree[8] = {0, 1, 2, 3, 0, -3, -2, -1};
+  const int64_t row_bytes = (width * 4 + 7) / 8;
+  if (row_bytes <= 0 || occ % row_bytes) return BROKEN;
+  const uint8_t* bp = in;
+  for (uint8_t* row = out; occ > 0; row += row_bytes, occ -= row_bytes) {
+    uint8_t* op = row;
+    unsigned lastpixel = 0;
+    int64_t npixels = 0;
+    auto set = [&](unsigned v) {
+      lastpixel = v & 0xf;
+      if (npixels < width) {
+        if (npixels++ & 1) *op++ |= (uint8_t)lastpixel;
+        else op[0] = (uint8_t)(lastpixel << 4);
+      }
+    };
+    while (cc > 0 && npixels < width) {
+      int n = *bp++, delta;
+      cc--;
+      switch (n & 0xc0) {
+        case 0x00:
+          if (npixels & 1) {
+            op[0] |= (uint8_t)lastpixel;
+            lastpixel = *op++;
+            npixels++;
+            n--;
+          } else {
+            lastpixel |= lastpixel << 4;
+          }
+          npixels += n;
+          if (npixels <= width)
+            for (; n > 0; n -= 2) *op++ = (uint8_t)lastpixel;
+          if (n == -1) *--op &= 0xf0;
+          lastpixel &= 0xf;
+          break;
+        case 0x40:
+          if ((delta = (n >> 4) & 3) != 2) set((unsigned)((int)lastpixel + kTwo[delta]));
+          if ((delta = (n >> 2) & 3) != 2) set((unsigned)((int)lastpixel + kTwo[delta]));
+          if ((delta = n & 3) != 2) set((unsigned)((int)lastpixel + kTwo[delta]));
+          break;
+        case 0x80:
+          if ((delta = (n >> 3) & 7) != 4) set((unsigned)((int)lastpixel + kThree[delta]));
+          if ((delta = n & 7) != 4) set((unsigned)((int)lastpixel + kThree[delta]));
+          break;
+        default:
+          set((unsigned)n);
+          break;
+      }
+    }
+    if (npixels != width) return npixels < width ? SHORT : OVERRUN;
   }
   return OK;
 }
@@ -337,10 +491,18 @@ int damc_gif_decode(const uint8_t* data, int64_t len, int bits, int interlace, u
 }
 
 // One TIFF LZW strip or tile into out[0, out_len): OK, BROKEN (a code not
-// yet in the table), SHORT (the data ends first) or OLD_STYLE (the
-// pre-TIFF 5.0 bit-reversed codes, which libtiff reads by another decoder).
+// yet in the table) or SHORT (the data ends first). Data that begins as the
+// pre-TIFF 5.0 codes do (0x00, then an odd byte) is read by their decoder,
+// as libtiff reads it.
 int damc_tiff_lzw(const uint8_t* in, int64_t in_len, uint8_t* out, int64_t out_len) {
   return tiff_lzw(in, in_len, out, out_len);
+}
+
+// One ThunderScan strip or tile of rows `width` pixels wide into
+// out[0, out_len): OK, SHORT or OVERRUN (a row ends short or runs past its
+// width) or BROKEN (out_len not whole rows).
+int damc_thunderscan(const uint8_t* in, int64_t in_len, uint8_t* out, int64_t out_len, int64_t width) {
+  return thunderscan(in, in_len, out, out_len, width);
 }
 
 // One TIFF PackBits strip or tile into out[0, out_len): OK or SHORT.

@@ -17,14 +17,16 @@ BI_BITFIELDS in PIL's layouts; `data/jpeg.py`: sequential and progressive JPEG,
 Huffman- or arithmetic-coded, and lossless JPEG, grey, YCbCr, RGB, CMYK and
 YCCK; `data/webp.py`: lossy, lossless and animated WebP, the LSUN tools'
 export format; `data/gif.py`: a GIF's first frame; `data/tiff.py`: TIFF
-uncompressed, PackBits, LZW or Deflate, in strips or tiles; `data/pnm.py`:
-P1 to P6); the port itself never imports
+under every coding PIL's libtiff decodes (uncompressed, PackBits, LZW and
+its pre-5.0 codes, Deflate, LZMA, Zstandard, JPEG old and new, CCITT fax,
+ThunderScan; YCbCr and CIELab), in strips or tiles; `data/pnm.py`: P1 to
+P6); the port itself never imports
 PIL. A file is decoded by what its first bytes say it is, as PIL opens it,
 whatever its name. A JPEG coding PIL does not decode either (hierarchical,
 lossless arithmetic, 12-bit) raises NotImplementedError, as do the formats
-and TIFF codings PIL reads that the port does not yet (`DEFERRED`, and
-`data/tiff.py`); a file that PIL refuses (a BMP of 2 bits a pixel, BI_JPEG
-or BI_PNG, a bit-field layout outside PIL's) or that is corrupt raises
+PIL reads that the port does not yet (`DEFERRED`); a file that PIL refuses
+(a BMP of 2 bits a pixel, BI_JPEG or BI_PNG, a bit-field layout outside
+PIL's, a TIFF coding PIL's libtiff lacks) or that is corrupt raises
 ValueError naming the file.
 """
 

@@ -44,6 +44,12 @@ def _configure(lib: ctypes.CDLL) -> None:
         ctypes.c_char_p, ctypes.c_size_t, ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int),
         ctypes.POINTER(ctypes.c_int), ctypes.c_char_p, ctypes.c_size_t,
     ]
+    lib.damc_jpeg_tiff_decode.restype = ctypes.c_int
+    lib.damc_jpeg_tiff_decode.argtypes = [
+        ctypes.c_char_p, ctypes.c_size_t, ctypes.c_int, ctypes.POINTER(ctypes.c_char_p), ctypes.POINTER(ctypes.c_size_t),
+        ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_void_p), ctypes.c_size_t, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_char_p, ctypes.c_size_t,
+    ]
     lib.damc_jpeg_decode_batch.restype = None
     lib.damc_jpeg_decode_batch.argtypes = [
         ctypes.POINTER(ctypes.c_char_p), ctypes.POINTER(ctypes.c_size_t), ctypes.POINTER(ctypes.c_void_p),
@@ -103,3 +109,30 @@ def decode_jpegs(blobs: Sequence[bytes], names: Optional[Sequence[str]] = None, 
 def decode_jpeg(data: bytes, name: str = "<bytes>") -> np.ndarray:
     """One JPEG file's RGB pixels (H, W, 3) uint8."""
     return decode_jpegs([data], [name], threads=1)[0]
+
+
+def decode_tiff_jpeg(tables: bytes, streams: Sequence[bytes], segments: Sequence[tuple], stride: int, ncomp: int,
+                     ycc: int, sampling: tuple, fill: int = 0) -> tuple:
+    """The strips or tiles of a JPEG-in-TIFF image as libtiff's tif_jpeg.c
+    reads them: `tables` (the JPEGTables tag, or b"") then each stream in
+    turn. `segments` gives each stream's (width, height, last strip) and
+    `stride` the bytes of a segment's row; `ycc` asks for libjpeg's YCbCr
+    to RGB conversion, else the components come as they stand; component 0
+    must be sampled as `sampling` (h, v) and the others 1x1 (ycc 2: an
+    old-style JPEG's packed YCbCr blocks, segments[0] its width, rows of
+    blocks and height). What a frame smaller than its segment leaves of the
+    strip buffer is `fill`. Returns (status, message, [segment rows
+    (height, stride) uint8 each])."""
+    n = len(streams)
+    outs = [np.zeros((seg[1], stride), np.uint8) for seg in segments]
+    if n == 0:
+        return OK, "", outs
+    lib = _native_build.load("jpeg_decode", _configure)
+    datas = (ctypes.c_char_p * n)(*[bytes(b) for b in streams])
+    lens = (ctypes.c_size_t * n)(*[len(b) for b in streams])
+    seg = (ctypes.c_int * (3 * n))(*[int(v) for s in segments for v in s])
+    ptrs = (ctypes.c_void_p * n)(*[o.ctypes.data for o in outs])
+    msg = ctypes.create_string_buffer(MSG_BYTES)
+    status = lib.damc_jpeg_tiff_decode(tables, len(tables), n, datas, lens, seg, ptrs, stride, ncomp, int(ycc),
+                                       sampling[0], sampling[1], fill, msg, MSG_BYTES)
+    return status, msg.value.decode(errors="replace"), outs

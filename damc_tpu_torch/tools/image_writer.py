@@ -22,8 +22,12 @@ it writes no plain PNM and no maxval but 255 and 65535.
   or a code table left full (`gif_lzw`), or the frame's data given.
 * `write_tiff`: strips or tiles, planar configuration 1 or 2, either byte
   order, classic or BigTIFF, samples of 1 to 32 bits, no compression,
-  PackBits, LZW (`tiff_lzw`) or Deflate, predictor 2, fill order 2, any
-  photometric interpretation, colour map, extra samples and further tags.
+  PackBits, LZW (`tiff_lzw`, or the pre-5.0 codes: `tiff_lzw_old`),
+  Deflate, LZMA, CCITT modified Huffman, T.4 1-D and 2-D and T.6
+  (`fax_encode`), ThunderScan (`thunderscan_encode`), JPEG strips and
+  tiles with their tables apart (`jpeg_tables_split`), subsampled YCbCr
+  (`ycbcr_blocks`), predictor 2, fill order 2, any photometric
+  interpretation, colour map, extra samples and further tags.
 * `write_pnm`: P1 to P6 at any maxval, with comments in the header.
 
     from damc_tpu_torch.tools.image_writer import write_bmp, write_png
@@ -33,6 +37,7 @@ it writes no plain PNM and no maxval but 255 and 65535.
 
 from __future__ import annotations
 
+import lzma
 import struct
 import zlib
 from typing import Optional, Sequence, Union
@@ -41,6 +46,7 @@ import numpy as np
 
 from ..data.images import ADAM7, CHANNELS, DEPTHS, PNG_SIGNATURE, filter_rows
 from ..data.tiff import REVERSED
+from . import jpeg_writer
 
 BI_RGB, RLE8, RLE4, BI_BITFIELDS = 0, 1, 2, 3
 
@@ -442,23 +448,30 @@ def _predict(samples: np.ndarray, stride: int, bits: int) -> np.ndarray:
     return d & ((1 << bits) - 1)
 
 
-TIFF_TYPES = {1: "B", 3: "H", 4: "L", 16: "Q", 11: "f", 12: "d", 2: "s", 7: "s"}
+TIFF_TYPES = {1: "B", 3: "H", 4: "L", 5: "L", 16: "Q", 11: "f", 12: "d", 2: "s", 7: "s"}  # 5: numerator, denominator
 
 
 def write_tiff(samples: np.ndarray, photometric: int, bits: int = 8, compression: int = 1, predictor: int = 1,
                endian: str = "<", tile: Optional[tuple] = None, rows_per_strip: Optional[int] = None,
                planar: int = 1, extra_samples: Sequence[int] = (), colormap: Optional[np.ndarray] = None,
                fill_order: int = 1, sample_format: int = 1, bigtiff: bool = False, tags: Optional[dict] = None,
-               strips: Optional[Sequence[bytes]] = None) -> bytes:
+               strips: Optional[Sequence[bytes]] = None, t4_options: int = 0, fax_k: int = 2,
+               old_lzw: bool = False, ycbcr: Optional[tuple] = None, jpeg: Optional[dict] = None) -> bytes:
     """The bytes of a one-page TIFF of `samples` (H, W) or (H, W, C) at
     `bits` a sample: strips of `rows_per_strip` rows (default: about 8 KiB
     a strip) or tiles of `tile` = (width, height), whose edges overhang the
     image; `planar` 2 stores each sample plane apart. `compression` 1
-    (none), 5 (LZW), 8 or 32946 (Deflate) or 32773 (PackBits); `predictor`
-    2 differences the samples of each row before compressing; `fill_order`
-    2 reverses the bits of every stored byte. `colormap` (3, 2^bits) is
-    written as ColorMap. `tags` {tag: (type, values)} adds or replaces
-    entries; `strips` gives the stored strips or tiles byte for byte."""
+    (none), 2, 3, 4 or 32771 (CCITT by `fax_encode`, bits 1 black; 3 as
+    `t4_options` says, a 1-D row every `fax_k` rows), 5 (LZW; `old_lzw`
+    the pre-5.0 codes), 7 (JPEG by `jpeg_writer.write_jpeg` with `jpeg`'s
+    "sampling", "quality" and "marker", the tables in JPEGTables unless
+    "tables" is False), 8 or 32946 (Deflate), 32773 (PackBits), 32809
+    (ThunderScan, 4 bits) or 34925 (LZMA). `ycbcr` (h, v) stores the
+    samples (YCbCr) as subsampled blocks; `predictor` 2 differences the
+    samples of each row before compressing; `fill_order` 2 reverses the
+    bits of every stored byte. `colormap` (3, 2^bits) is written as
+    ColorMap. `tags` {tag: (type, values)} adds or replaces entries;
+    `strips` gives the stored strips or tiles byte for byte."""
     samples = np.asarray(samples)
     if samples.ndim == 2:
         samples = samples[..., None]
@@ -484,17 +497,41 @@ def write_tiff(samples: np.ndarray, photometric: int, bits: int = 8, compression
             if predictor == 2:
                 rows = _predict(rows, pc, bits)
             raw = _tiff_pack(rows, bits, endian, sample_format)
+            if ycbcr:
+                raw = ycbcr_blocks(block, *ycbcr)
             if compression == 5:
-                raw = tiff_lzw(raw)
+                raw = tiff_lzw_old(raw) if old_lzw else tiff_lzw(raw)
             elif compression in (8, 32946):
                 raw = zlib.compress(raw)
             elif compression == 32773:
                 raw = packbits(raw)
+            elif compression == 34925:
+                raw = lzma.compress(raw, lzma.FORMAT_XZ)
+            elif compression in FAX_CODINGS:
+                coding = FAX_CODINGS[compression] if compression != 3 or not t4_options & 1 else "t4_2d"
+                raw = fax_encode(block[..., 0], coding, fax_k, fill_bits=bool(t4_options & 4))
+            elif compression == 32809:
+                raw = thunderscan_encode(block[..., 0], len(stored))
+            elif compression == 7:
+                opts = dict(jpeg or {})
+                sampling = opts.pop("sampling", [(1, 1)] * pc)
+                whole = jpeg_writer.write_jpeg(block[..., 0] if pc == 1 else block, sampling, **{
+                    k: v for k, v in opts.items() if k != "tables"})
+                if opts.get("tables", True):
+                    jpeg_tables, raw = jpeg_tables_split(whole)
+                else:
+                    raw = whole
             if fill_order == 2:
                 raw = REVERSED[np.frombuffer(raw, np.uint8)].tobytes()
             stored.append(raw)
     if strips is not None:
         stored = list(strips)
+    if compression == 7 and (jpeg or {}).get("tables", True) and strips is None:
+        tags = {347: (7, list(jpeg_tables)), **(tags or {})}
+    if ycbcr:
+        tags = {530: (3, list(ycbcr)), **(tags or {})}
+    if t4_options:
+        tags = {292 if compression == 3 else 293: (4, [t4_options]), **(tags or {})}
     long_type = 16 if bigtiff else 4
     entries = {256: (4, [w]), 257: (4, [h]), 258: (3, [bits] * c), 259: (3, [compression]),
                262: (3, [photometric]), 277: (3, [c]), 284: (3, [planar])}
@@ -531,7 +568,7 @@ def write_tiff(samples: np.ndarray, photometric: int, bits: int = 8, compression
         typ, values = entries[tag]
         fmt = TIFF_TYPES[typ]
         body = bytes(values) if fmt == "s" else struct.pack(f"{endian}{len(values)}{fmt}", *values)
-        count = len(body) if fmt == "s" else len(values)
+        count = len(body) if fmt == "s" else len(values) // 2 if typ == 5 else len(values)
         if len(body) <= inline:
             field = body + bytes(inline - len(body))
         else:
@@ -543,6 +580,282 @@ def write_tiff(samples: np.ndarray, photometric: int, bits: int = 8, compression
     header = magic + (struct.pack(endian + "HHQ", 8, 0, ifd_at) if bigtiff else struct.pack(endian + "L", ifd_at))
     body = b"".join(s + bytes(len(s) % 2) for s in stored)
     return header + body + bytes(ifd) + bytes(extra)
+
+
+# ---------------------------------------------------------------------------
+# TIFF codings PIL does not write: CCITT 2-D, fill order 2 and word-aligned
+# variants, ThunderScan, the pre-5.0 LZW codes, subsampled YCbCr, JPEG
+# strips with subsampling, old-style JPEG
+# ---------------------------------------------------------------------------
+
+# T.4's run codes as they stand in the stream: terminating codes 0-63, then the
+# make-up codes of 64, 128, ... 1728 of each colour and the shared 1792-2560.
+FAX_WHITE = ("00110101 000111 0111 1000 1011 1100 1110 1111 10011 10100 00111 01000 001000 000011 110100 "
+             "110101 101010 101011 0100111 0001100 0001000 0010111 0000011 0000100 0101000 0101011 0010011 "
+             "0100100 0011000 00000010 00000011 00011010 00011011 00010010 00010011 00010100 00010101 "
+             "00010110 00010111 00101000 00101001 00101010 00101011 00101100 00101101 00000100 00000101 "
+             "00001010 00001011 01010010 01010011 01010100 01010101 00100100 00100101 01011000 01011001 "
+             "01011010 01011011 01001010 01001011 00110010 00110011 00110100 11011 10010 010111 0110111 "
+             "00110110 00110111 01100100 01100101 01101000 01100111 011001100 011001101 011010010 011010011 "
+             "011010100 011010101 011010110 011010111 011011000 011011001 011011010 011011011 010011000 "
+             "010011001 010011010 011000 010011011").split()
+FAX_BLACK = ("0000110111 010 11 10 011 0011 0010 00011 000101 000100 0000100 0000101 0000111 00000100 "
+             "00000111 000011000 0000010111 0000011000 0000001000 00001100111 00001101000 00001101100 "
+             "00000110111 00000101000 00000010111 00000011000 000011001010 000011001011 000011001100 "
+             "000011001101 000001101000 000001101001 000001101010 000001101011 000011010010 000011010011 "
+             "000011010100 000011010101 000011010110 000011010111 000001101100 000001101101 000011011010 "
+             "000011011011 000001010100 000001010101 000001010110 000001010111 000001100100 000001100101 "
+             "000001010010 000001010011 000000100100 000000110111 000000111000 000000100111 000000101000 "
+             "000001011000 000001011001 000000101011 000000101100 000001011010 000001100110 000001100111 "
+             "0000001111 000011001000 000011001001 000001011011 000000110011 000000110100 000000110101 "
+             "0000001101100 0000001101101 0000001001010 0000001001011 0000001001100 0000001001101 "
+             "0000001110010 0000001110011 0000001110100 0000001110101 0000001110110 0000001110111 "
+             "0000001010010 0000001010011 0000001010100 0000001010101 0000001011010 0000001011011 "
+             "0000001100100 0000001100101").split()
+FAX_MAKEUP = ("00000001000 00000001100 00000001101 000000010010 000000010011 000000010100 000000010101 "
+              "000000010110 000000010111 000000011100 000000011101 000000011110 000000011111").split()
+FAX_MODES = {"pass": "0001", "horiz": "001", -3: "0000010", -2: "000010", -1: "010", 0: "1", 1: "011", 2: "000011",
+             3: "0000011"}
+FAX_EOL = "000000000001"
+FAX_CODINGS = {2: "mh", 32771: "mh16", 3: "t4", 4: "t6"}
+
+
+def _fax_span(bits: list, run: int, black: bool) -> None:
+    """The codes of one run, each as (bits, 13 if black else 12: the bits
+    libtiff's decoder looks up it with)."""
+    table, need = (FAX_BLACK, 13) if black else (FAX_WHITE, 12)
+    while run >= 2624:
+        bits.append((FAX_MAKEUP[-1], need))
+        run -= 2560
+    if run >= 64:
+        k = run >> 6
+        bits.append((table[63 + k] if k <= 27 else FAX_MAKEUP[k - 28], need))
+        run -= k << 6
+    bits.append((table[run], need))
+
+
+def _fax_1d(bits: list, row: list) -> None:
+    """One row in modified Huffman: white and black spans by turns, white
+    first (of length 0 where the row starts black)."""
+    x, black, w = 0, False, len(row)
+    while x < w:
+        y = x
+        while y < w and row[y] == black:
+            y += 1
+        _fax_span(bits, y - x, black)
+        x, black = y, not black
+    if w == 0:
+        _fax_span(bits, 0, False)
+
+
+def _finddiff(row: list, bs: int, color: int) -> int:
+    w = len(row)
+    while bs < w and row[bs] == color:
+        bs += 1
+    return bs
+
+
+def _fax_2d(bits: list, row: list, ref: list) -> None:
+    """One row in T.4 2-D / T.6 modes against the reference row, as
+    libtiff's Fax3Encode2DRow codes it."""
+    w = len(row)
+    a0 = 0
+    a1 = 0 if row[0] else _finddiff(row, 0, 0)
+    b1 = 0 if ref[0] else _finddiff(ref, 0, 0)
+    while True:
+        b2 = _finddiff(ref, b1, ref[b1]) if b1 < w else w
+        if b2 >= a1:
+            if abs(a1 - b1) <= 3:
+                bits.append((FAX_MODES[a1 - b1], 7))
+                a0 = a1
+            else:
+                a2 = _finddiff(row, a1, row[a1]) if a1 < w else w
+                bits.append((FAX_MODES["horiz"], 7))
+                black = not (a0 + a1 == 0 or row[a0] == 0)
+                _fax_span(bits, a1 - a0, black)
+                _fax_span(bits, a2 - a1, not black)
+                a0 = a2
+        else:
+            bits.append((FAX_MODES["pass"], 7))
+            a0 = b2
+        if a0 >= w:
+            break
+        c = row[a0]
+        a1 = _finddiff(row, a0, c)
+        b1 = _finddiff(ref, _finddiff(ref, a0, 1 - c), c)
+
+
+def fax_encode(rows: np.ndarray, coding: str, k: int = 2, fill_bits: bool = False, eofb: bool = True) -> bytes:
+    """CCITT bytes (fill order 1) of `rows` (H, W) of bits, 1 black: coding
+    "mh" (compression 2: each row modified Huffman, byte-aligned), "mh16"
+    (32771: word-aligned), "t4" (3, 1-D: an EOL before each row), "t4_2d"
+    (3 with T4Options bit 0: an EOL and a tag bit before each row, every
+    k-th row 1-D, the rest 2-D against the row above), or "t6" (4: every row
+    2-D, the EOFB at the end where `eofb`). `fill_bits` pads before each EOL
+    so that it ends on a byte (T4Options bit 2)."""
+    rows = (np.asarray(rows, np.int64) & 1).tolist()
+    parts: list = []
+    count = 0
+
+    def put(items):
+        nonlocal count
+        for b in items:
+            parts.append(b)
+            count += len(b)
+
+    def align(n):
+        put(["0" * ((-count) % n)])
+
+    ref = [0] * (len(rows[0]) if rows else 0)
+    avail, loaded = 0, 0  # libtiff's BitsAvail and bytes read, for the word alignment of "mh16"
+    for i, row in enumerate(rows):
+        if coding in ("t4", "t4_2d"):
+            if fill_bits:
+                put(["0" * ((4 - count) % 8)])
+            put([FAX_EOL + ("" if coding == "t4" else "1" if i % k == 0 else "0")])
+        codes: list = []
+        if coding == "t6" or (coding == "t4_2d" and i % k):
+            _fax_2d(codes, row, ref)
+        else:
+            _fax_1d(codes, row)
+        put([c for c, _ in codes])
+        if coding == "mh":
+            align(8)
+        elif coding == "mh16":  # pad to where libtiff's Fax3DecodeRLE will look for the next row
+            for code, need in codes:
+                if avail < need:
+                    avail, loaded = avail + 8, loaded + 1
+                    if avail < need:
+                        avail, loaded = avail + 8, loaded + 1
+                avail -= len(code)
+            avail -= avail % 16
+            if avail == 0 and loaded % 2:
+                loaded += 1
+            put(["0" * (8 * loaded - avail - count)])
+        ref = row
+    if coding == "t6" and eofb:
+        put([FAX_EOL * 2])
+    align(8)
+    s = "".join(parts)
+    return bytes(int(s[i:i + 8], 2) for i in range(0, len(s), 8))
+
+
+def thunderscan_encode(samples: np.ndarray, k: int = 0) -> bytes:
+    """ThunderScan codes of 4-bit samples (H, W): runs of the last pixel
+    (up to 63), 2-bit deltas for three pixels, 3-bit deltas for two, raw
+    values, chosen in turn by position and `k` (each row starts from pixel
+    value 0, as libtiff's decoder does)."""
+    out = bytearray()
+    two = {0: 0, 1: 1, -1: 3}
+    three = {0: 0, 1: 1, 2: 2, 3: 3, -3: 5, -2: 6, -1: 7}
+    for row in np.asarray(samples, np.int64):
+        last, i, w = 0, 0, len(row)
+        while i < w:
+            run = 0
+            while i + run < w and row[i + run] == last and run < 63:
+                run += 1
+            if run >= 2 and (i + k) % 3:
+                out.append(run)
+                i += run
+                continue
+            if i + 3 <= w and (i + k) % 2 == 0:
+                d = [int(row[i]) - last, int(row[i + 1]) - int(row[i]), int(row[i + 2]) - int(row[i + 1])]
+                if all(v in two for v in d):
+                    out.append(0x40 | two[d[0]] << 4 | two[d[1]] << 2 | two[d[2]])
+                    last, i = int(row[i + 2]), i + 3
+                    continue
+            if i + 2 <= w:
+                d = [int(row[i]) - last, int(row[i + 1]) - int(row[i])]
+                if all(v in three for v in d):
+                    out.append(0x80 | three[d[0]] << 3 | three[d[1]])
+                    last, i = int(row[i + 1]), i + 2
+                    continue
+            out.append(0xC0 | int(row[i]))
+            last, i = int(row[i]), i + 1
+    return bytes(out)
+
+
+def tiff_lzw_old(data: bytes) -> bytes:
+    """The pre-5.0 LZW codes of `data` (LSB first, the width growing once
+    the decoder's table passes 2^width - 1 entries, as libtiff's
+    LZWDecodeCompat reads them): a clear code first, another at 4,093
+    entries, the end code last."""
+    acc, nacc, out = 0, 0, bytearray()
+    size, table, nxt = 9, {}, 258
+
+    def put(code):
+        nonlocal acc, nacc
+        acc |= code << nacc
+        nacc += size
+        while nacc >= 8:
+            out.append(acc & 255)
+            acc >>= 8
+            nacc -= 8
+
+    put(256)
+    w = None
+    for v in data:
+        if w is None:
+            w = v
+            continue
+        key = w << 8 | v
+        if key in table:
+            w = table[key]
+            continue
+        put(w)
+        table[key] = nxt
+        nxt += 1
+        w = v
+        if nxt > 1 << size and size < 12:  # the decoder, an entry behind, widens past 2^size - 1
+            size += 1
+        if nxt >= 4093:
+            put(256)
+            size, table, nxt = 9, {}, 258
+    if w is not None:
+        put(w)
+        nxt += 1
+        if nxt > 1 << size and size < 12:  # the decoder, an entry behind, widens past 2^size - 1
+            size += 1
+    put(257)
+    if nacc:
+        out.append(acc & 255)
+    return bytes(out)
+
+
+def rgb_to_ycbcr(rgb: np.ndarray) -> np.ndarray:
+    """JFIF's YCbCr of RGB pixels, rounded, (H, W, 3) int64."""
+    r, g, b = (np.asarray(rgb, np.float64)[..., c] for c in range(3))
+    y = 0.299 * r + 0.587 * g + 0.114 * b
+    return np.clip(np.round(np.stack([y, 128 + (b - y) / 1.772, 128 + (r - y) / 1.402], -1)), 0, 255).astype(np.int64)
+
+
+def ycbcr_blocks(ycc: np.ndarray, hs: int, vs: int) -> bytes:
+    """Samples (H, W, 3) as TIFF's subsampled YCbCr data: blocks of hs x vs
+    Y samples, then one Cb and one Cr (their block's mean), the image's
+    edge replicated into partial blocks."""
+    ycc = np.asarray(ycc, np.int64)
+    h, w = ycc.shape[:2]
+    ph, pw = -(-h // vs) * vs, -(-w // hs) * hs
+    p = np.pad(ycc, ((0, ph - h), (0, pw - w), (0, 0)), mode="edge")
+    blocks = p.reshape(ph // vs, vs, pw // hs, hs, 3).transpose(0, 2, 1, 3, 4)
+    y = blocks[..., 0].reshape(ph // vs, pw // hs, hs * vs)
+    chroma = np.round(blocks[..., 1:].mean(axis=(2, 3))).astype(np.int64)
+    return np.concatenate([y, chroma], axis=2).astype(np.uint8).tobytes()
+
+
+def jpeg_tables_split(stream: bytes) -> tuple:
+    """A JPEG file as JPEG-in-TIFF stores it: (the tables stream: SOI, every
+    DQT and DHT, EOI; the abbreviated stream: the file without them)."""
+    tables, rest, k = bytearray(b"\xff\xd8"), bytearray(b"\xff\xd8"), 2
+    while k < len(stream):
+        m = stream[k + 1]
+        if m == 0xDA:
+            rest += stream[k:]
+            break
+        length = struct.unpack(">H", stream[k + 2:k + 4])[0]
+        (tables if m in (0xDB, 0xC4) else rest).extend(stream[k:k + 2 + length])
+        k += 2 + length
+    return bytes(tables + b"\xff\xd9"), bytes(rest)
 
 
 def write_pnm(samples: np.ndarray, magic: str, maxval: int = 255, comment: bytes = b"",
@@ -575,6 +888,9 @@ KINDS = ("png_grey1", "png_grey2", "png_grey4", "png_grey16", "png_palette1", "p
 GIF_TIFF_PNM_KINDS = ("gif_global", "gif_interlaced", "gif_offset", "gif_grey", "tiff_raw", "tiff_packbits",
                       "tiff_lzw_pred2", "tiff_deflate", "tiff_tiled_lzw", "tiff_mm", "tiff_grey16", "tiff_miniswhite",
                       "tiff_palette", "tiff_cmyk", "tiff_rgba_assoc", "tiff_planar2", "pnm_p6", "pnm_p5_16", "pnm_p4")
+# The TIFF codings PIL reads through libtiff beyond those (write_kind writes each but Zstandard, which PIL writes)
+TIFF_CODING_KINDS = ("tiff_jpeg", "tiff_ycbcr", "tiff_ccitt_mh", "tiff_ccitt_t4", "tiff_ccitt_t6", "tiff_lzma",
+                     "tiff_lab", "tiff_thunderscan", "tiff_lzw_old", "tiff_ojpeg")
 BF32_LAYOUTS = (((0xFF0000, 0xFF00, 0xFF), 40), ((0xFF000000, 0xFF0000, 0xFF00), 40),
                 ((0xFF0000, 0xFF00, 0xFF, 0xFF000000), 124), ((0xFF, 0xFF00, 0xFF0000, 0xFF000000), 108),
                 ((0xFF000000, 0xFF00, 0xFF, 0), 56))  # some of PIL's layouts, each with a header that holds it
@@ -719,4 +1035,92 @@ def _tiff_kind(kind: str, rgb: np.ndarray, grey: np.ndarray, k: int, rng: np.ran
                           rows_per_strip=rows)
     if kind == "tiff_planar2":
         return write_tiff(rgb, 2, compression=(5, 1)[k % 2], planar=2, rows_per_strip=rows)
+    if kind in TIFF_CODING_KINDS:
+        return _tiff_coding_kind(kind, rgb, grey, k, rng)
     raise ValueError(f"unknown kind {kind!r}")
+
+
+def _tiff_coding_kind(kind: str, rgb: np.ndarray, grey: np.ndarray, k: int, rng: np.random.Generator) -> bytes:
+    """The TIFF_CODING_KINDS: JPEG strips or tiles (YCbCr 4:2:0, 4:2:2 or
+    4:4:4 by turns, every fifth RGB; the tables in JPEGTables or in each
+    stream), subsampled YCbCr under LZW, Deflate or PackBits, bilevel CCITT
+    (modified Huffman byte- or word-aligned, T.4 1-D or 2-D with fill bits,
+    T.6; MinIsWhite or MinIsBlack, fill order 1 or 2), LZMA (predictor 2 by
+    turns), CIELab, ThunderScan 4-bit grey, the pre-5.0 LZW codes and
+    old-style JPEG (JPEGInterchangeFormat, or the tables in tags)."""
+    h, w = grey.shape
+    bilevel = (grey + rng.integers(-20, 21, grey.shape) < 128).astype(np.int64)
+    photometric, fill = k % 2, 1 + (k // 2) % 2
+    if kind == "tiff_jpeg":
+        if k % 5 == 4:
+            return write_tiff(rgb, 2, compression=7, rows_per_strip=16, jpeg=dict(marker="adobe-rgb",
+                                                                                  sampling=[(1, 1)] * 3))
+        samp = ((2, 2), (2, 1), (1, 1))[k % 3]
+        tile = (64, 32) if k % 4 == 1 else None
+        return write_tiff(rgb, 6, compression=7, tile=tile, rows_per_strip=16 * samp[1],
+                          jpeg=dict(sampling=[samp, (1, 1), (1, 1)], quality=(75, 90)[k % 2], marker="none",
+                                    tables=k % 3 != 2), tags={530: (3, list(samp))})
+    if kind == "tiff_ycbcr":
+        samp = ((2, 2), (2, 1), (1, 1), (4, 2), (4, 4))[k % 5]
+        tags = {530: (3, list(samp))}
+        if k % 3 == 1:
+            tags[532] = (5, [0, 1, 255, 1, 128, 1, 255, 1, 128, 1, 255, 1])
+        return write_tiff(rgb_to_ycbcr(rgb), 6, compression=(5, 8, 32773)[k % 3], ycbcr=samp,
+                          rows_per_strip=8 * samp[1], tags=tags)
+    if kind == "tiff_ccitt_mh":
+        return write_tiff(bilevel ^ photometric, photometric, bits=1, compression=(2, 32771)[k % 2 if k % 4 else 0],
+                          rows_per_strip=(16, h)[k % 2], fill_order=fill)
+    if kind == "tiff_ccitt_t4":
+        return write_tiff(bilevel ^ photometric, photometric, bits=1, compression=3, t4_options=(0, 1, 4, 5)[k % 4],
+                          fax_k=(2, 4)[k % 2], rows_per_strip=(16, h)[k % 2], fill_order=fill)
+    if kind == "tiff_ccitt_t6":
+        return write_tiff(bilevel ^ photometric, photometric, bits=1, compression=4, rows_per_strip=(32, h)[k % 2],
+                          fill_order=fill)
+    if kind == "tiff_lzma":
+        return write_tiff(rgb, 2, compression=34925, predictor=1 + k % 2, rows_per_strip=(16, 64)[k % 2])
+    if kind == "tiff_lab":  # L from grey; a* and b* signed, from the red-green and yellow-blue differences
+        r, g, b = (rgb[..., c].astype(np.int64) for c in range(3))
+        lab = np.stack([grey, np.clip(r - g, -128, 127) & 255, np.clip((r + g) // 2 - b, -128, 127) & 255], -1)
+        return write_tiff(lab, 8, compression=(1, 5, 8)[k % 3], rows_per_strip=32, planar=1 + (k % 4 == 3))
+    if kind == "tiff_thunderscan":
+        return write_tiff(grey >> 4, photometric, bits=4, compression=32809, rows_per_strip=(16, h)[k % 2],
+                          fill_order=fill)
+    if kind == "tiff_lzw_old":
+        return write_tiff(rgb, 2, compression=5, old_lzw=True, predictor=1 + k % 2, rows_per_strip=(8, 32)[k % 2])
+    if kind == "tiff_ojpeg":
+        return write_ojpeg(rgb, ((2, 2), (2, 1), (1, 1))[k % 3], ("whole", "split", "tags")[k % 3 if k % 2 else 0])
+    raise ValueError(f"unknown kind {kind!r}")
+
+
+def write_ojpeg(rgb: np.ndarray, sampling: tuple, layout: str = "whole", quality: int = 75) -> bytes:
+    """An old-style JPEG TIFF (compression 6, YCbCr) of one strip: the JPEG
+    stream of `rgb` at `sampling` (h, v) found through
+    JPEGInterchangeFormat ("whole": the tag and the strip both at the
+    stream; "split": the strip at its scan data), or ("tags") the strip
+    holding the scan data alone and the tables in JPEGQTables,
+    JPEGDCTables and JPEGACTables."""
+    h, w = np.asarray(rgb).shape[:2]
+    stream = jpeg_writer.write_jpeg(rgb, [sampling, (1, 1), (1, 1)], quality, marker="none")
+    sos = stream.index(b"\xff\xda")
+    header = sos + 2 + struct.unpack(">H", stream[sos + 2:sos + 4])[0]
+    tags = {530: (3, list(sampling))}
+    if layout == "whole":
+        tags.update({513: (4, [8]), 514: (4, [len(stream)])})
+        return write_tiff(rgb, 6, compression=6, rows_per_strip=h, strips=[stream], tags=tags)
+    if layout == "split":
+        tags.update({513: (4, [8]), 514: (4, [len(stream)]), 273: (4, [8 + header]), 279: (4, [len(stream) - header])})
+        return write_tiff(rgb, 6, compression=6, rows_per_strip=h, strips=[stream], tags=tags)
+    segments, k = {}, 2
+    while k < sos:
+        length = struct.unpack(">H", stream[k + 2:k + 4])[0]
+        segments.setdefault(stream[k + 1], []).append(stream[k + 4:k + 2 + length])
+        k += 2 + length
+    q, dht = segments[0xDB][0][1:65], segments[0xC4][0]
+    dc_end = 1 + 16 + sum(dht[1:17])
+    dc, ac = dht[1:dc_end], dht[dc_end + 1:]
+    scan = stream[header:]
+    at = 8 + len(scan) + len(scan) % 2
+    tables = q + dc + ac
+    tags.update({512: (3, [1]), 519: (4, [at] * 3), 520: (4, [at + 64] * 3), 521: (4, [at + 64 + len(dc)] * 3)})
+    return write_tiff(rgb, 6, compression=6, rows_per_strip=h, strips=[scan + bytes(len(scan) % 2) + tables],
+                      tags=tags)

@@ -370,10 +370,12 @@ def test_tiff_strip_data_as_libtiff_reads_it():
 
 
 def test_tiff_deferred_codings_raise_not_implemented():
-    """TIFF codings PIL reads that the port does not yet raise
-    NotImplementedError naming the file and the coding: JPEG and CCITT
-    Group 4 (PIL's writer), YCbCr and CIELab, the pre-5.0 LZW codes, and
-    libtiff's other codecs."""
+    """The TIFF codings this module once found deferred (JPEG and CCITT
+    Group 4 from PIL's writer, YCbCr and CIELab, data opening as the
+    pre-5.0 LZW codes do, Zstandard) raise NotImplementedError no more:
+    each decodes as PIL does, or raises ValueError naming the file where
+    PIL refuses it (tests/test_torch_port_tiff_codings.py holds each
+    coding to PIL in full)."""
     rng = np.random.default_rng(6)
     img = Image.fromarray(rng.integers(0, 256, (16, 16, 3), dtype=np.uint8))
     files = {}
@@ -386,11 +388,9 @@ def test_tiff_deferred_codings_raise_not_implemented():
     rgb = np.asarray(img)
     files["old_lzw"] = write_tiff(rgb, 2, compression=5, rows_per_strip=16, strips=[b"\x00\x01" + bytes(40)])
     files["zstd"] = write_tiff(rgb, 2, compression=50000, rows_per_strip=16, strips=[bytes(40)])
-    patterns = {"jpeg": "compression 7", "group4": "compression 4", "ycbcr": "YCbCr", "lab": "CIELab",
-                "old_lzw": "pre-5.0", "zstd": "compression 50000"}
     for name, data in files.items():
-        with pytest.raises(NotImplementedError, match=rf"^{name}\.png: .*{patterns[name]}"):
-            decode_image(data, f"{name}.png")
+        _same_as_pil(data, name=f"{name}.png")
+    assert all(_pil(files[name]) is not None for name in ("jpeg", "group4", "lab"))
 
 
 def test_tiff_refusals_name_the_file():

@@ -354,6 +354,34 @@ def test_gif_tiff_and_pnm_payloads_equal_jax(tmp_path, jax_pil_path):
                                       jax_datasets._decode_crop_resize(items[key], 20))
 
 
+def test_tiff_coding_payloads_equal_jax(tmp_path, jax_pil_path):
+    """An LSUN database with a payload of every TIFF coding kind of
+    `tools/image_writer.py::TIFF_CODING_KINDS` (JPEG, subsampled YCbCr,
+    CCITT modified Huffman, T.4 and T.6, LZMA, CIELab, ThunderScan, the
+    pre-5.0 LZW codes, old-style JPEG) and a Zstandard TIFF from PIL
+    beside a JPEG: `load_lsun`, a batch of `LSUNClassImages` and one item
+    equal the JAX package's PIL path."""
+    from damc_tpu_torch.tools.image_writer import TIFF_CODING_KINDS as kinds, write_kind
+
+    items = {f"{k:03d}".encode(): write_kind(kind, _smooth(30 + 3 * k, 75 - 2 * k, 60 + k), k)
+             for k, kind in enumerate(kinds)}
+    items[b"zstd"] = _encode(_smooth(33, 41, 97), "TIFF", compression="zstd")
+    items[b"jpeg"] = _payload(_smooth(40, 52, 96), "JPEG")
+    root = str(tmp_path)
+    build_lmdb(os.path.join(root, "classroom_val_lmdb"), items)
+    want = jax_datasets.load_lsun(root, ["classroom_val"], 36)
+    os.remove(os.path.join(root, "classroom_val_lmdb", "_keys_cache.pkl"))
+    got = datasets.load_lsun(root, ["classroom_val"], 36)
+    assert got.shape == (len(kinds) + 2, 36, 36, 3)
+    np.testing.assert_array_equal(got, want)
+    idx = np.array([len(kinds) + 1, 2, 9, 4, 7, 0])
+    np.testing.assert_array_equal(datasets.LSUNClassImages(os.path.join(root, "classroom_val_lmdb"), 36)[idx],
+                                  want[idx])
+    for key in (b"000", b"006", b"009"):
+        np.testing.assert_array_equal(datasets._decode_crop_resize(items[key], 20, "item.jpg"),
+                                      jax_datasets._decode_crop_resize(items[key], 20))
+
+
 @pytest.mark.parametrize("hw", [(64, 64), (80, 48), (37, 91), (32, 40)])
 def test_port_within_the_libjpeg_batch_paths_bound(tmp_path, hw):
     """JAX's libjpeg batch path (its own Lanczos-3 in float) stands within
