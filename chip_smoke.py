@@ -178,7 +178,7 @@ Phases, each of which raises on failure (the script then exits non-zero):
      must raise; host batches queued to the card must equal the CPU's; the
      host feed's ms an iteration and idle share beside the device-resident
      store's; profiles one iteration;
- 16b. items 4c's and 4d's decoders (`decoders_4c_phase`): 2,336 files at
+ 16b. items 4c's and 4d's decoders (`decoders_4c_phase`): 2,656 files at
      178x218 written on worker processes (by PIL: 256 lossy, 256
      lossless, 128 alpha and 32 animated WebPs; 256 progressive, 128
      CMYK, 64 YCCK and 64 smoothed, cut progressive JPEGs; by the port's
@@ -195,7 +195,14 @@ Phases, each of which raises on failure (the script then exits non-zero):
      maxval 65535 and P4), and 32 of each of 11 TIFF coding kinds, named
      .png and .jpg (by PIL: Group 4, LZMA, CIELab and Zstandard; by the
      port's writer: JPEG strips and tiles, subsampled YCbCr, CCITT modified
-     Huffman and T.4, ThunderScan, pre-5.0 LZW, old-style JPEG), each
+     Huffman and T.4, ThunderScan, pre-5.0 LZW, old-style JPEG), and 16
+     of each of 20 kinds of the formats PIL takes by its open order, named
+     .png and .jpg (TGA raw 24-bit, run-length 16-bit, colour-mapped and
+     grey, 32-bit right to left; QOI RGB and RGBA; ICO of a PNG, an 8-bit
+     and a 32-bit bitmap; CUR 24-bit; ICNS packed with masks and PNG; PCX
+     RGB, 8-bit palette and 4 planes; DCX; SGI run-length RGB and 16-bit
+     RGBA, verbatim grey), with PIL's open order in a fresh interpreter
+     held to the port's table, each
      decoded by the port equal to PIL's decode byte for byte, with the
      decode rates of each kind (JPEG and WebP: 8 threads, 1 thread, PIL on
      1; PNG, BMP, GIF, TIFF and PNM, whose readers have no thread pool: 1
@@ -3673,10 +3680,16 @@ TREE_4F = ("tiff_jpeg", "tiff_ycbcr", "tiff_ccitt_mh", "tiff_ccitt_t4", "tiff_cc
            "tiff_thunderscan", "tiff_lzw_old", "tiff_ojpeg", "tiff_zstd")
 PIL_TIFF_KINDS = {"tiff_ccitt_t6": ("1", "group4"), "tiff_lzma": ("RGB", "lzma"), "tiff_lab": ("LAB", "tiff_lzw"),
                   "tiff_zstd": ("RGB", "zstd")}
+# The formats PIL takes by its open order that the port reads since its format table (TGA, QOI, ICO, CUR,
+# ICNS, PCX, DCX, SGI: image_writer.ORDER_KINDS), written by the port's writer and named .png and .jpg.
+TREE_4G = ("tga_rgb24", "tga_rle_rgb16", "tga_rle_cmap", "tga_rle_grey", "tga_rgba32_flip", "qoi_rgb", "qoi_rgba",
+           "ico_png", "ico_bmp8", "ico_bmp32", "cur_bmp24", "icns_rle", "icns_png", "pcx_rgb", "pcx_palette8",
+           "pcx_planes4", "dcx_rgb", "sgi_rle_rgb", "sgi_rle16_rgba", "sgi_grey")
 TREE_4C = (("webp_lossy", 256), ("webp_lossless", 256), ("webp_alpha", 128), ("webp_anim", 32),
            ("jpeg_progressive", 256), ("jpeg_cmyk", 128), ("jpeg_ycck", 64), ("jpeg_arith", 64),
            ("jpeg_arith_progressive", 64), ("jpeg_lossless", 64), ("jpeg_smoothed", 64)) + tuple(
-    (kind, 16) for kind in TREE_4D + TREE_4E) + tuple((kind, 32) for kind in TREE_4F)  # the older kinds cut for time
+    (kind, 16) for kind in TREE_4D + TREE_4E) + tuple((kind, 32) for kind in TREE_4F) + tuple(
+    (kind, 16) for kind in TREE_4G)  # the older kinds cut for time
 MIXED_TRAIN, MIXED_TEST = 1024, 256  # the mixed celeba64 tree drawn from them
 ONE_THREAD_FILES = 256  # the port's one-thread rate is timed on the first of each kind
 
@@ -3704,7 +3717,9 @@ def synthetic_4c_tree(root: str, kind: str, n: int, size, seed: int, start: int 
     codings by turns), written to .png and .jpg by turns; the TIFF coding
     kinds (TREE_4F) the same way, by PIL where it writes them (Group 4
     bilevel, LZMA and Zstandard RGB with predictor 2 every other file,
-    CIELab under LZW), else by `write_kind`."""
+    CIELab under LZW), else by `write_kind`; the TGA, QOI, ICO, CUR, ICNS,
+    PCX, DCX and SGI kinds (TREE_4G) by `write_kind`, named .png and .jpg
+    (an ICNS holds its 128x128 or 256x256 image, the sizes ICNS has)."""
     import io
     import os
 
@@ -3721,7 +3736,7 @@ def synthetic_4c_tree(root: str, kind: str, n: int, size, seed: int, start: int 
         low = rng.integers(0, 256, (max(h // 16, 2), max(w // 16, 2), 3), dtype=np.uint8)
         pix = np.asarray(Image.fromarray(low).resize((w, h), Image.BILINEAR)).astype(np.int16)
         img = Image.fromarray(np.clip(pix + rng.integers(-6, 7, (h, w, 3)), 0, 255).astype(np.uint8))
-        named = TREE_4E + TREE_4F  # GIF, TIFF and PNM files under a photo's name
+        named = TREE_4E + TREE_4F + TREE_4G  # files of other formats under a photo's name
         ext = "jpg" if kind.startswith("jpeg") else ("png", "jpg")[k % 2] if kind in named else kind.split("_")[0]
         path = os.path.join(root, f"{k:06d}_{kind}.{ext}")
         if kind in PIL_TIFF_KINDS:
@@ -3825,13 +3840,15 @@ def decoders_4c_phase(cfg, counters):
     lossless, alpha and animated WebP; progressive, CMYK, YCCK,
     arithmetic-coded sequential and progressive, lossless and smoothed
     progressive JPEG; the TREE_4D PNG and BMP kinds and the TREE_4E GIF,
-    TIFF and PNM kinds and TREE_4F TIFF coding kinds, named .png and .jpg,
-    at CelebA's 178x218); every file decoded by the port must equal PIL's
+    TIFF and PNM kinds, TREE_4F TIFF coding kinds and TREE_4G TGA, QOI,
+    ICO, CUR, ICNS, PCX, DCX and SGI kinds, named .png and .jpg, at
+    CelebA's 178x218); every file decoded by the port must equal PIL's
     `convert("RGB")` byte for byte, with the decode rates of each kind
     (host side: JPEG and WebP on 8 threads, and on 1 over their first
-    ONE_THREAD_FILES; PNG, BMP, GIF, TIFF and PNM, which have no thread
-    pool, on 1; PIL on 1), and PIL's version, libtiff and its configured
-    codecs. Then a
+    ONE_THREAD_FILES; the other readers, which have no thread pool, on 1;
+    PIL on 1), and PIL's version, libtiff and its configured codecs; PIL's
+    open order in a fresh interpreter must be the port's table
+    (`data/formats.py::ORDER`). Then a
     mixed celeba64 tree drawn from them (MIXED_TRAIN train, MIXED_TEST test
     images, hard links) through the train CLI at full width, 3 iterations
     at B=128 with --data_placement host (the last one timed: the first
@@ -3848,20 +3865,25 @@ def decoders_4c_phase(cfg, counters):
     import PIL
     from PIL import features
     from damc_tpu_torch.data.datasets import SINGLE_DECODERS, image_kind
+    from damc_tpu_torch.data.formats import ORDER
     from damc_tpu_torch.data.images import decode_parsed, parse_png
     from damc_tpu_torch.data.jpeg import decode_jpegs
     from damc_tpu_torch.data.webp import decode_webps
-    from damc_tpu_torch.tools.image_writer import GIF_TIFF_PNM_KINDS, KINDS, TIFF_CODING_KINDS
+    from damc_tpu_torch.tools.image_writer import GIF_TIFF_PNM_KINDS, KINDS, ORDER_KINDS, TIFF_CODING_KINDS
 
     def decode_one_thread(blobs, paths):
-        """The port's PNG, BMP, GIF, TIFF and PNM readers as the folder
-        reader runs them: the PNGs through one `decode_parsed` (each pass
-        shape unfiltered once), the others one by one, each by its first
-        bytes (a GIF, TIFF or PNM file here is named .png or .jpg)."""
-        kind = image_kind(blobs[0][:12], paths[0])
+        """The port's single-file readers as the folder reader runs them:
+        the PNGs through one `decode_parsed` (each pass shape unfiltered
+        once), the others one by one, each as PIL's open order takes it
+        (these files are named .png or .jpg)."""
+        kind = image_kind(blobs[0], paths[0])
         if kind == "png":
             return decode_parsed([parse_png(b, p) for b, p in zip(blobs, paths)])
-        return [SINGLE_DECODERS[image_kind(b[:12], p)](b, p) for b, p in zip(blobs, paths)]
+        return [SINGLE_DECODERS[image_kind(b, p)](b, p) for b, p in zip(blobs, paths)]
+
+    code = "from PIL import Image; Image.preinit(); Image.init(); print(' '.join(Image.ID))"
+    pil_order = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, timeout=120).stdout.split()
+    port_order = [f.name for f in ORDER]
 
     tmp = tempfile.mkdtemp(prefix="damc_4c_smoke_")
     reads, placements = [], []
@@ -3878,7 +3900,7 @@ def decoders_4c_phase(cfg, counters):
         for kind, n in TREE_4C:
             group = [name for name in names if name.split("_", 1)[1].rsplit(".", 1)[0] == kind]
             data = [blobs[name] for name in group]
-            pooled = kind not in TREE_4D + TREE_4E + TREE_4F
+            pooled = kind not in TREE_4D + TREE_4E + TREE_4F + TREE_4G
             decode = decode_webps if kind.startswith("webp") else decode_jpegs if pooled else decode_one_thread
             decode(data[:1], group[:1])  # first use (the library's load), untimed, as PIL's below
             Image.open(io.BytesIO(data[0])).convert("RGB")
@@ -3890,7 +3912,7 @@ def decoders_4c_phase(cfg, counters):
                 t0 = time.perf_counter()
                 one = decode(data[:ONE_THREAD_FILES], group[:ONE_THREAD_FILES], threads=1)
                 rates[kind]["port_1_thread_images_per_s"] = len(one) / (time.perf_counter() - t0)
-            else:  # the PNG, BMP, GIF, TIFF and PNM readers have no thread pool
+            else:  # the PNG, BMP, GIF, TIFF, PNM and TREE_4G readers have no thread pool
                 t0 = time.perf_counter()
                 port = decode(data, group)
                 rates[kind]["port_1_thread_images_per_s"] = len(group) / (time.perf_counter() - t0)
@@ -3909,10 +3931,18 @@ def decoders_4c_phase(cfg, counters):
               f"{json.dumps(libtiff_codecs())}; host-side decode rates " + json.dumps(rates) + " " + card_line())
         print("[decoders_4c] TIFF coding kinds, one thread over PIL's rate: " + json.dumps(
             {kind: round(rates[kind]["port_1_thread_over_pil"], 3) for kind in TREE_4F}))
+        order_kinds = [name for name in names if name.split("_", 1)[1].rsplit(".", 1)[0] in TREE_4G]
+        order_same = [i for i in pil_order if i not in ("FPX", "MIC")] == port_order
+        print(f"[decoders_4c] PIL's open order (a fresh interpreter's Image.ID) is the port's format table: "
+              f"{order_same} ({len(port_order)} formats); TGA, QOI, ICO, CUR, ICNS, PCX, DCX and SGI kinds: "
+              f"{len(order_kinds)} files, differing from PIL's decode: {sum(name in order_kinds for name in bad)}; "
+              "one thread over PIL's rate: " + json.dumps(
+                  {kind: round(rates[kind]["port_1_thread_over_pil"], 3) for kind in TREE_4G}) + " " + card_line())
         if (len(names) != sum(n for _, n in TREE_4C) or bad or TREE_4D != KINDS or TREE_4E != GIF_TIFF_PNM_KINDS
-                or TREE_4F[:-1] != TIFF_CODING_KINDS):
+                or TREE_4F[:-1] != TIFF_CODING_KINDS or TREE_4G != ORDER_KINDS or not order_same):
             raise AssertionError(f"the port's decode differs from PIL's: {bad[:5]} ({len(bad)} files), or the "
-                                 "tree's kinds are not image_writer.KINDS, GIF_TIFF_PNM_KINDS and TIFF_CODING_KINDS")
+                                 "tree's kinds are not image_writer.KINDS, GIF_TIFF_PNM_KINDS, TIFF_CODING_KINDS and "
+                                 f"ORDER_KINDS, or PIL's open order {pil_order} is not the port's {port_order}")
         data_dir, logs = os.path.join(tmp, "data"), os.path.join(tmp, "logs")
         order = np.random.default_rng(SEED + 131).permutation(len(names))
         splits = {"celeba64_train": order[:MIXED_TRAIN], "celeba64_test": order[MIXED_TRAIN:MIXED_TRAIN + MIXED_TEST]}

@@ -29,7 +29,8 @@ from typing import Callable, Dict, Optional, Sequence
 
 SRC_DIR = Path(__file__).resolve().parents[1] / "csrc" / "host"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "damc_tpu_torch"
-LIBRARIES = ("batch_loader", "fax_decode", "jpeg_decode", "lmdb_reader", "lzw_decode", "webp_decode", "zstd_decode")
+LIBRARIES = ("batch_loader", "fax_decode", "jpeg_decode", "lmdb_reader", "lzw_decode", "rle_decode", "webp_decode",
+             "zstd_decode")
 FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC", "-pthread")
 
 _loaded: Dict[str, ctypes.CDLL] = {}

@@ -1,33 +1,32 @@
 """Dataset readers of the port (counterpart of
 `damc_tpu/data/datasets.py`): CIFAR-10 from the python pickle batches and
 SVHN from its .mat files, both as (N, 32, 32, 3) uint8; image folders
-(CelebA-64, CelebA-HQ, FFHQ) through the port's own PNG, JPEG, BMP, WebP,
-GIF, TIFF and PNM decoders and PIL's bilinear resize, with the JAX
-package's `.npy` cache;
+(CelebA-64, CelebA-HQ, FFHQ) through the port's own decoders and PIL's
+bilinear resize, with the JAX package's `.npy` cache;
 LSUN's lmdb databases (`LSUNClassImages`, `LSUNImages`, `load_lsun`)
 through the port's LMDB reader, decoded, centre-cropped and resized by
 PIL's Lanczos filter per item; the MNIST anomaly split from `mnist.npz`;
 the NumPy batch `Loader`; and seeded writers of an MNIST-shaped
 `mnist.npz` and of PNG trees for runs without the real files.
 
-Every decoder equals PIL's `Image.open(...).convert("RGB")` byte for byte
+A file is decoded as PIL's `Image.open` picks its reader, whatever its
+name: by walking PIL's open order (`formats.ORDER`), each format's accept
+test and header probe, to the first format whose open succeeds. Every
+decoder equals PIL's `Image.open(...).convert("RGB")` byte for byte
 (`data/images.py`: PNG of every colour type and bit depth, Adam7 or not,
 and BMP at 1, 4, 8, 16, 24 and 32 bits, BI_RGB, RLE8, RLE4 and
 BI_BITFIELDS in PIL's layouts; `data/jpeg.py`: sequential and progressive JPEG,
 Huffman- or arithmetic-coded, and lossless JPEG, grey, YCbCr, RGB, CMYK and
 YCCK; `data/webp.py`: lossy, lossless and animated WebP, the LSUN tools'
 export format; `data/gif.py`: a GIF's first frame; `data/tiff.py`: TIFF
-under every coding PIL's libtiff decodes (uncompressed, PackBits, LZW and
-its pre-5.0 codes, Deflate, LZMA, Zstandard, JPEG old and new, CCITT fax,
-ThunderScan; YCbCr and CIELab), in strips or tiles; `data/pnm.py`: P1 to
-P6); the port itself never imports
-PIL. A file is decoded by what its first bytes say it is, as PIL opens it,
-whatever its name. A JPEG coding PIL does not decode either (hierarchical,
-lossless arithmetic, 12-bit) raises NotImplementedError, as do the formats
-PIL reads that the port does not yet (`DEFERRED`); a file that PIL refuses
-(a BMP of 2 bits a pixel, BI_JPEG or BI_PNG, a bit-field layout outside
-PIL's, a TIFF coding PIL's libtiff lacks) or that is corrupt raises
-ValueError naming the file.
+under every coding PIL's libtiff decodes, in strips or tiles;
+`data/pnm.py`: P1 to P6; `data/tga.py`, `data/qoi.py`, `data/ico.py` (ICO
+and CUR), `data/icns.py`, `data/pcx.py` (PCX and DCX) and `data/sgi.py`);
+the port itself never imports PIL. A JPEG coding PIL does not decode
+either (hierarchical, lossless arithmetic, 12-bit) raises
+NotImplementedError, as do the formats PIL reads that the port does not
+yet (ROADMAP queue 3); a file that PIL refuses, opens but cannot load, or
+cannot identify, or that is corrupt, raises ValueError naming the file.
 """
 
 from __future__ import annotations
@@ -35,75 +34,40 @@ from __future__ import annotations
 import os
 import os.path as osp
 import pickle
-from typing import Iterator, Optional, Tuple
+from typing import Iterator, Optional, Tuple, Union
 
 import numpy as np
 
-from .gif import GIF_MAGIC, decode_gif
-from .images import PNG_SIGNATURE, decode_bmp, decode_parsed, decode_png, parse_png, resize_bilinear, resize_lanczos
-from .jpeg import JPEG_MAGIC, decode_jpeg, decode_jpegs, jpeg_size
-from .pnm import decode_pnm, is_pnm
-from .tiff import decode_tiff, is_tiff
-from .webp import decode_webp, decode_webps, is_webp, webp_size
+from .formats import DECODE, ORDER, Source, identify
+from .images import decode_bmp  # noqa: F401 (the BMP reader, as this module has always offered it)
+from .images import decode_parsed, decode_png, parse_png, resize_bilinear, resize_lanczos
+from .jpeg import decode_jpeg, decode_jpegs, jpeg_size
+from .webp import decode_webp, decode_webps, webp_size
 
 BATCH_BYTES = 64 << 20  # decoded bytes the folder reader decodes together (a PNG's work array is about 4x)
 IMAGE_EXTENSIONS = (".png", ".jpg", ".jpeg", ".webp", ".bmp")  # the JAX reader's list
-MAGIC_BYTES = 12  # enough to tell every kind below apart
-KINDS_READ = "PNG, JPEG, BMP, WebP, GIF, TIFF or PNM"
-# Formats PIL opens by their first bytes that the port does not read yet (ROADMAP queue 3): PIL's name of
-# each, and a test of the first MAGIC_BYTES bytes. TGA and SPIDER have no magic bytes to tell them by.
-DEFERRED = (
-    ("QOI", lambda h: h.startswith(b"qoif")),
-    ("ICO", lambda h: h.startswith(b"\x00\x00\x01\x00")),
-    ("CUR", lambda h: h.startswith(b"\x00\x00\x02\x00")),
-    ("ICNS", lambda h: h.startswith(b"icns")),
-    ("PCX", lambda h: len(h) >= 2 and h[0] == 10 and h[1] in (0, 2, 3, 5)),
-    ("SGI", lambda h: h.startswith(b"\x01\xda")),
-    ("DDS", lambda h: h.startswith(b"DDS ")),
-    ("IM", lambda h: h.startswith(b"Image type")),
-    ("XBM", lambda h: h.lstrip().startswith(b"#define")),
-    ("BLP", lambda h: h.startswith((b"BLP1", b"BLP2"))),
-    ("DIB", lambda h: len(h) >= 4 and int.from_bytes(h[:4], "little") in (12, 40, 52, 56, 64, 108, 124)),
-    ("PFM", lambda h: h.startswith(b"Pf")),
-    ("PPM extension", lambda h: h.startswith((b"P0CMYK", b"PyP", b"PyRGBA", b"PyCMYK"))),
-    ("JPEG 2000", lambda h: h.startswith((b"\xff\x4f\xff\x51", b"\x00\x00\x00\x0cjP  \r\n\x87\n"))),
-    ("AVIF", lambda h: h[4:8] == b"ftyp" and h[8:12] in (b"avif", b"avis")),
-)
+BATCHED = ("png", "jpeg", "webp")  # kinds the folder reader decodes in batches
 
 
-def image_kind(head: bytes, name: str) -> str:
-    """The kind of a file from its first bytes, as PIL picks its reader by
-    content: "png", "jpeg", "bmp", "webp", "gif", "tiff" or "pnm". A
-    format PIL reads that the port does not yet raises NotImplementedError
-    naming it; anything else raises ValueError."""
-    if head.startswith(PNG_SIGNATURE):
-        return "png"
-    if head.startswith(JPEG_MAGIC):
-        return "jpeg"
-    if head.startswith(b"BM"):
-        return "bmp"
-    if is_webp(head):
-        return "webp"
-    if head.startswith(GIF_MAGIC):
-        return "gif"
-    if is_tiff(head):
-        return "tiff"
-    if is_pnm(head):
-        return "pnm"
-    for fmt, test in DEFERRED:
-        if test(head):
-            raise NotImplementedError(f"{name}: PIL reads this {fmt} file; the port does not yet")
-    raise ValueError(f"{name}: not a {KINDS_READ} file")
+def image_kind(data: Union[bytes, Source], name: str) -> str:
+    """The kind of a file ("png", "jpeg", "bmp", "webp", "gif", "tiff",
+    "pnm", "tga", "qoi", "ico", "cur", "icns", "pcx", "dcx", "sgi") as
+    PIL's `Image.open` picks its reader (`formats.identify`), from the
+    file's bytes or a `formats.Source` that reads only as far as PIL's
+    probes do. A format PIL reads that the port does not yet raises
+    NotImplementedError naming it; anything PIL cannot open and load
+    raises ValueError naming the file."""
+    return identify(data, name).kind
 
 
 # kinds decoded one file at a time, in the order the folder reader meets them
-SINGLE_DECODERS = {"bmp": decode_bmp, "gif": decode_gif, "tiff": decode_tiff, "pnm": decode_pnm}
+SINGLE_DECODERS = {f.kind: f.decoder for f in ORDER if f.outcome == DECODE and f.kind not in BATCHED}
 
 
 def decode_image(data: bytes, name: str = "<bytes>") -> np.ndarray:
-    """One PNG, JPEG, BMP, WebP, GIF, TIFF or PNM file's RGB pixels (H, W,
-    3) uint8, as PIL's `Image.open(...).convert("RGB")` gives them."""
-    kind = image_kind(data[:MAGIC_BYTES], name)
+    """One image file's RGB pixels (H, W, 3) uint8, as PIL's
+    `Image.open(...).convert("RGB")` gives them."""
+    kind = image_kind(data, name)
     if kind == "png":
         return decode_png(data, name)
     if kind == "jpeg":
@@ -227,18 +191,18 @@ def _resize_crop(img: np.ndarray, size: int) -> np.ndarray:
 def load_image_folder(root: str, size: int, limit: Optional[int] = None) -> np.ndarray:
     """(N, size, size, 3) uint8 of the images under `root`, equal to the JAX
     package's PIL reader (`damc_tpu/data/datasets.py:122-148`): its walk
-    order, extension list and `limit`; each image decoded as its first
-    bytes say (PNG, JPEG, BMP, WebP, GIF, TIFF, PNM), whatever its name,
-    its shorter side resized to `size` by PIL's bilinear filter, then
-    centre-cropped. The first bytes of every file are read before anything
-    is decoded, so a file that is no image, or of a format the port does
-    not read yet, raises first, and a JPEG of a kind the port does not
-    decode raises from its header, before its batch is decoded. Files are
-    decoded in batches of about `BATCH_BYTES`: PNGs together (each pass
-    shape of a batch unfiltered once, over files and over Adam7's passes),
-    JPEGs and WebPs on their decoders' thread pools, BMPs, GIFs, TIFFs and
-    PNMs one by one (the last three counted into the batch by their
-    decoded size)."""
+    order, extension list and `limit`; each image decoded as PIL opens it
+    (`image_kind`), whatever its name, its shorter side resized to `size`
+    by PIL's bilinear filter, then centre-cropped. Every file is probed
+    first, through a `formats.Source` that reads only the bytes PIL's
+    probes read, before anything is decoded: a file that is no image, or
+    of a format the port does not read yet, raises first, and a JPEG of a
+    kind the port does not decode raises from its header, before its batch
+    is decoded. Files are decoded in batches of about `BATCH_BYTES`: PNGs
+    together (each pass shape of a batch unfiltered once, over files and
+    over Adam7's passes), JPEGs and WebPs on their decoders' thread pools,
+    the other kinds one by one (all but BMP counted into the batch by
+    their decoded size)."""
     paths = []
     for dirpath, _, filenames in sorted(os.walk(root)):
         for fn in sorted(filenames):
@@ -251,8 +215,11 @@ def load_image_folder(root: str, size: int, limit: Optional[int] = None) -> np.n
     cache = root.rstrip("/") + f"_{size}.npy"
     kinds = []
     for p in paths:
-        with open(p, "rb") as f:
-            kinds.append(image_kind(f.read(MAGIC_BYTES), p))
+        src = Source(path=p)
+        try:
+            kinds.append(image_kind(src, p))
+        finally:
+            src.close()
     out = np.empty((len(paths), size, size, 3), np.uint8)
     pngs, jpegs, webps, nbytes = [], [], [], 0
 
@@ -400,10 +367,11 @@ class LSUNClassImages:
         bufs = [self._get_buf(int(j)) for j in index]
         names = [self._name(j) for j in index]
         out = np.empty((len(index), self.size, self.size, 3), np.uint8)
-        jpegs = [i for i, b in enumerate(bufs) if b[:2] == JPEG_MAGIC]
+        kinds = [image_kind(b, n) for b, n in zip(bufs, names)]
+        jpegs = [i for i, k in enumerate(kinds) if k == "jpeg"]
         for i, img in zip(jpegs, decode_jpegs([bufs[i] for i in jpegs], [names[i] for i in jpegs])):
             out[i] = _crop_resize(img, self.size)
-        webps = [i for i, b in enumerate(bufs) if is_webp(b[:MAGIC_BYTES])]
+        webps = [i for i, k in enumerate(kinds) if k == "webp"]
         for i, img in zip(webps, decode_webps([bufs[i] for i in webps], [names[i] for i in webps])):
             out[i] = _crop_resize(img, self.size)
         for i in sorted(set(range(len(bufs))) - set(jpegs) - set(webps)):

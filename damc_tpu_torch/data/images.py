@@ -413,6 +413,150 @@ def _bmp_rle(data: bytes, pos: int, width: int, height: int, rle4: bool, name: s
     return np.frombuffer(bytes(out[:n]), np.uint8)
 
 
+class NotThisFormat(Exception):
+    """PIL's `_open` of a format raised SyntaxError, IndexError, TypeError,
+    KeyError, EOFError or struct.error, or opened no mode or an empty
+    size: `Image.open` goes on to the next format of its order
+    (`formats.ORDER`)."""
+
+
+@dataclass
+class Dib:
+    """A bitmap info header as `BmpImagePlugin._bitmap` reads it: the
+    size, PIL's mode (RGB, P, L or 1), the bit-field layout, the palette
+    (mode P), the coding and where the pixels start."""
+
+    width: int
+    height: int
+    bits: int
+    compression: int
+    top_down: bool
+    mode: str
+    palette: Optional[np.ndarray]
+    layout: Optional[Tuple[int, ...]]
+    start: int
+
+
+def parse_dib(data: bytes, hpos: int, offset: int, name: str, what: str = "BMP") -> Dib:
+    """The info header at `hpos` read as `BmpImagePlugin._bitmap(header,
+    offset)` reads it; `offset` is the pixels' file offset, 0 for "right
+    after the palette" (a DIB, an icon's frame). Raises NotThisFormat where
+    PIL's open falls through (the header's size or a 40-byte header's masks
+    cut short, an empty size) and ValueError naming the file where PIL
+    refuses the file (an unknown header, depth, coding or bit-field layout,
+    a header cut short, a palette of no or too many colours)."""
+    size = data[hpos:hpos + 4]
+    if len(size) < 4:
+        raise NotThisFormat(f"{name}: {what} info header cut short")
+    header = struct.unpack("<I", size)[0]
+    hd = data[hpos:hpos + header] if header in BMP_HEADERS else b""
+    if header > 4 and len(data) < hpos + header:
+        raise ValueError(f"{name}: truncated {what} header")
+    if header not in BMP_HEADERS:
+        raise ValueError(f"{name}: {what} info header of {header} bytes is not supported")
+    u16 = lambda o: struct.unpack_from("<H", hd, o)[0]
+    u32 = lambda o: struct.unpack_from("<I", hd, o)[0]
+    pos = hpos + header  # PIL's file position as it reads on
+    masks = None
+    if header == 12:  # OS/2 1.x core header: 16-bit sizes, 3-byte palette entries
+        width, height, bits, compression, colors, entry = u16(4), u16(6), u16(10), 0, 0, 3
+        top_down = False
+    else:
+        top_down = hd[11] == 0xFF  # PIL reads the height's top byte
+        width, height = u32(4), u32(8)
+        height = 2**32 - height if top_down else height
+        bits, compression, colors, entry = u16(14), u32(16), u32(32), 4
+        if compression == 3:
+            if header == 40:
+                extra = data[pos:pos + 12]
+                if len(extra) < 12:
+                    raise NotThisFormat(f"{name}: {what} bit-field masks cut short")
+                masks = struct.unpack("<3I", extra) + (0,)
+                pos += 12
+            else:
+                masks = struct.unpack_from("<3I" if header == 52 else "<4I", hd, 40) + ((0,) if header == 52 else ())
+    colors = colors or 1 << bits
+    if offset == hpos + header and bits <= 8:  # PIL's quirk: the pixels start after the palette
+        offset += entry * colors
+    if bits not in (1, 4, 8, 16, 24, 32):
+        raise ValueError(f"{name}: {what} of {bits} bits a pixel is not supported (PIL reads 1, 4, 8, 16, 24 and 32)")
+    kind = BMP_COMPRESSIONS.get(compression, str(compression))
+    layout = None
+    if compression == 3:
+        layout = BMP_BITFIELDS.get((bits, masks if bits == 32 else masks[:3]))
+        if layout is None:
+            shown = ", ".join(f"{m:#x}" for m in masks)
+            raise ValueError(f"{name}: {what} bit-field layout ({shown}) at {bits} bits is not one PIL reads")
+    elif compression not in (0, 1, 2):
+        raise ValueError(f"{name}: {what} compression {kind} is not supported (PIL reads BI_RGB, RLE8, RLE4, "
+                         "BI_BITFIELDS)")
+    mode, palette = "RGB", None
+    if bits <= 8:
+        if not 0 < colors <= 65536:
+            raise ValueError(f"{name}: {what} palette of {colors} colours")
+        table = data[pos:pos + entry * colors]
+        pos += len(table)
+        levels = (0, 255) if colors == 2 else range(colors)
+        if all(table[i * entry:i * entry + 3] == bytes((v & 255,)) * 3 for i, v in enumerate(levels)):
+            mode = "1" if colors == 2 else "L"
+        else:
+            mode, n = "P", len(table) // entry  # PIL refuses more than 256 when it loads the pixels
+            palette = np.zeros((max(n, 256), 3), np.uint8)
+            palette[:n] = np.frombuffer(table, np.uint8, n * entry).reshape(n, entry)[:, 2::-1]
+    if width == 0 or height == 0:
+        raise NotThisFormat(f"{name}: {what} of size {width}x{height}")
+    return Dib(width, height, bits, compression, top_down, mode, palette, layout, offset or pos)
+
+
+def dib_pixels(data: bytes, dib: Dib, name: str, height: Optional[int] = None, what: str = "BMP") -> np.ndarray:
+    """The RGB pixels (H, W, 3) uint8 of a parsed bitmap, as PIL's
+    `convert("RGB")` gives them; `height` cuts the image to its first rows
+    in file order (an icon's colour bitmap, over its mask)."""
+    width, rows = dib.width, dib.height if height is None else height
+    mode, bits, kind = dib.mode, dib.bits, BMP_COMPRESSIONS.get(dib.compression)
+    if mode == "P" and len(dib.palette) > 256:
+        raise ValueError(f"{name}: {what} palette of {len(dib.palette)} colours (PIL takes 256 at most)")
+    if dib.compression in (1, 2):
+        if mode not in ("P", "L"):
+            raise ValueError(f"{name}: {what} {kind} at {bits} bits a pixel is not supported")
+        idx = _bmp_rle(data, dib.start, width, rows, dib.compression == 2, name).reshape(rows, width)
+    else:
+        unit = {"1": 1, "L": 8}.get(mode, bits)  # the bits a pixel PIL's raw mode unpacks
+        stride = ((width * bits + 31) >> 3) & ~3
+        row = (width * unit + 7) // 8
+        if row > stride:
+            raise ValueError(f"{name}: {what} rows of {stride} bytes hold no {width} pixels of {unit} bits")
+        need = stride * (rows - 1) + row  # PIL does not read the last row's padding
+        if len(data) < dib.start + need:
+            raise ValueError(f"{name}: truncated {what} pixel data")
+        body = np.zeros(stride * rows, np.uint8)
+        body[:need] = np.frombuffer(data, np.uint8, need, dib.start)
+        rows_ = body.reshape(rows, stride)[:, :row]
+        if unit < 8:
+            idx = _unpack(rows_, unit, width)
+        elif unit == 8:
+            idx = rows_
+        elif unit == 16:
+            p = rows_.reshape(rows, width, 2).astype(np.uint16)
+            p = p[..., 0] | p[..., 1] << 8
+            rbits, gbits, bbits = dib.layout or (5, 5, 5)
+            fields = (p >> (gbits + bbits), p >> bbits, p)
+            rgb = np.stack([(f & ((1 << k) - 1)) * 255 // ((1 << k) - 1)
+                            for f, k in zip(fields, (rbits, gbits, bbits))], axis=-1)
+            idx = rgb.astype(np.uint8)
+        else:
+            order = dib.layout or (2, 1, 0)
+            idx = rows_.reshape(rows, width, unit // 8)[..., list(order)]
+    if not dib.top_down:
+        idx = idx[::-1]
+    if mode == "RGB":
+        return np.ascontiguousarray(idx)
+    if mode == "P":
+        return np.take(dib.palette, idx, axis=0)
+    grey = idx * np.uint8(255) if mode == "1" else idx
+    return np.repeat(np.ascontiguousarray(grey)[..., None], 3, axis=2)
+
+
 def decode_bmp(data: bytes, name: str = "<bytes>") -> np.ndarray:
     """The RGB pixels (H, W, 3) uint8 of the BMP file `data`, as PIL's
     `Image.open(...).convert("RGB")` gives them (`BmpImagePlugin.py`),
@@ -429,105 +573,18 @@ def decode_bmp(data: bytes, name: str = "<bytes>") -> np.ndarray:
     are looked up, and an index past the palette's entries is black.
     Raises ValueError naming the file for what PIL refuses (2 bits a
     pixel or another depth, BI_JPEG, BI_PNG, a bit-field layout outside
-    PIL's, a palette of more than 256 colours) and for a truncated file."""
-    u16 = lambda o: struct.unpack_from("<H", data, o)[0]
-    u32 = lambda o: struct.unpack_from("<I", data, o)[0]
+    PIL's, a palette of more than 256 colours) and for a truncated file.
+    (Where PIL's BMP reader falls through, no later format of PIL's order
+    takes a file that starts "BM": PIL refuses it too.)"""
     if data[:2] != b"BM" or len(data) < 18:
         raise ValueError(f"{name}: not a BMP file (bad signature)")
-    offset, header = u32(10), u32(14)
-    if header not in BMP_HEADERS:
-        raise ValueError(f"{name}: BMP info header of {header} bytes is not supported")
-    if len(data) < 14 + header:
-        raise ValueError(f"{name}: truncated BMP header")
-    pos = 14 + header  # PIL's file position as it reads on
-    masks = None
-    if header == 12:  # OS/2 1.x core header: 16-bit sizes, 3-byte palette entries
-        width, height, bits, compression, colors, entry = u16(18), u16(20), u16(24), 0, 0, 3
-        top_down = False
-    else:
-        top_down = data[25] == 0xFF  # PIL reads the height's top byte
-        width, height = u32(18), u32(22)
-        height = 2**32 - height if top_down else height
-        bits, compression, colors, entry = u16(28), u32(30), u32(46), 4
-        if compression == 3:
-            if header == 40:
-                if len(data) < pos + 12:
-                    raise ValueError(f"{name}: truncated BMP bit-field masks")
-                masks = struct.unpack_from("<3I", data, pos) + (0,)
-                pos += 12
-            else:
-                masks = struct.unpack_from("<3I" if header == 52 else "<4I", data, 54) + ((0,) if header == 52 else ())
-    colors = colors or 1 << bits
-    if offset == 14 + header and bits <= 8:  # PIL's quirk: the pixels start after the palette
-        offset += entry * colors
-    if bits not in (1, 4, 8, 16, 24, 32):
-        raise ValueError(f"{name}: BMP of {bits} bits a pixel is not supported (PIL reads 1, 4, 8, 16, 24 and 32)")
-    kind = BMP_COMPRESSIONS.get(compression, str(compression))
-    layout = None
-    if compression == 3:
-        layout = BMP_BITFIELDS.get((bits, masks if bits == 32 else masks[:3]))
-        if layout is None:
-            shown = ", ".join(f"{m:#x}" for m in masks)
-            raise ValueError(f"{name}: BMP bit-field layout ({shown}) at {bits} bits is not one PIL reads")
-    elif compression not in (0, 1, 2):
-        raise ValueError(f"{name}: BMP compression {kind} is not supported (PIL reads BI_RGB, RLE8, RLE4, BI_BITFIELDS)")
-    mode, palette = "RGB", None
-    if bits <= 8:
-        if not 0 < colors <= 65536:
-            raise ValueError(f"{name}: BMP palette of {colors} colours")
-        table = data[pos:pos + entry * colors]
-        pos += len(table)
-        levels = (0, 255) if colors == 2 else range(colors)
-        if all(table[i * entry:i * entry + 3] == bytes((v & 255,)) * 3 for i, v in enumerate(levels)):
-            mode = "1" if colors == 2 else "L"
-        else:
-            mode, n = "P", len(table) // entry
-            if n > 256:
-                raise ValueError(f"{name}: BMP palette of {n} colours (PIL takes 256 at most)")
-            palette = np.zeros((256, 3), np.uint8)
-            palette[:n] = np.frombuffer(table, np.uint8, n * entry).reshape(n, entry)[:, 2::-1]
-    if not 0 < width * height <= PIL_MAX_PIXELS:
-        raise ValueError(f"{name}: BMP of size {width}x{height} (PIL reads 1 to {PIL_MAX_PIXELS} pixels)")
-    start = offset or pos
-    if compression in (1, 2):
-        if mode not in ("P", "L"):
-            raise ValueError(f"{name}: BMP {kind} at {bits} bits a pixel is not supported")
-        idx = _bmp_rle(data, start, width, height, compression == 2, name).reshape(height, width)
-    else:
-        unit = {"1": 1, "L": 8}.get(mode, bits)  # the bits a pixel PIL's raw mode unpacks
-        stride = ((width * bits + 31) >> 3) & ~3
-        row = (width * unit + 7) // 8
-        if row > stride:
-            raise ValueError(f"{name}: BMP rows of {stride} bytes hold no {width} pixels of {unit} bits")
-        need = stride * (height - 1) + row  # PIL does not read the last row's padding
-        if len(data) < start + need:
-            raise ValueError(f"{name}: truncated BMP pixel data")
-        body = np.zeros(stride * height, np.uint8)
-        body[:need] = np.frombuffer(data, np.uint8, need, start)
-        rows = body.reshape(height, stride)[:, :row]
-        if unit < 8:
-            idx = _unpack(rows, unit, width)
-        elif unit == 8:
-            idx = rows
-        elif unit == 16:
-            p = rows.reshape(height, width, 2).astype(np.uint16)
-            p = p[..., 0] | p[..., 1] << 8
-            rbits, gbits, bbits = layout or (5, 5, 5)
-            fields = (p >> (gbits + bbits), p >> bbits, p)
-            rgb = np.stack([(f & ((1 << k) - 1)) * 255 // ((1 << k) - 1)
-                            for f, k in zip(fields, (rbits, gbits, bbits))], axis=-1)
-            idx = rgb.astype(np.uint8)
-        else:
-            order = layout or (2, 1, 0)
-            idx = rows.reshape(height, width, unit // 8)[..., list(order)]
-    if not top_down:
-        idx = idx[::-1]
-    if mode == "RGB":
-        return np.ascontiguousarray(idx)
-    if mode == "P":
-        return np.take(palette, idx, axis=0)
-    grey = idx * np.uint8(255) if mode == "1" else idx
-    return np.repeat(np.ascontiguousarray(grey)[..., None], 3, axis=2)
+    try:
+        dib = parse_dib(data, 14, struct.unpack_from("<I", data, 10)[0], name)
+    except NotThisFormat as e:
+        raise ValueError(str(e)) from None
+    if dib.width * dib.height > PIL_MAX_PIXELS:
+        raise ValueError(f"{name}: BMP of size {dib.width}x{dib.height} (PIL reads 1 to {PIL_MAX_PIXELS} pixels)")
+    return dib_pixels(data, dib, name)
 
 
 def _triangle(x: np.ndarray) -> np.ndarray:

@@ -1,7 +1,7 @@
 """PNM decoding (P1 to P6) as PIL's `Image.open(...).convert("RGB")` gives
 it (`PpmImagePlugin.py`). PIL's other Pbmplus variants (PFM and its
 P0CMYK, PyP, PyRGBA and PyCMYK test formats) are not read yet
-(`datasets.DEFERRED`).
+(`formats.ORDER`).
 
 The header is read as PIL reads it: the magic number up to whitespace (at
 most 6 bytes), then tokens of at most 10 bytes between whitespace, a `#`

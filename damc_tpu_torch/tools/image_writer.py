@@ -1,6 +1,9 @@
-"""PNG, BMP, GIF, TIFF and PNM writers, numpy and zlib only, for the files
-the port's decoders (`data/images.py`, `data/gif.py`, `data/tiff.py`,
-`data/pnm.py`) are held to PIL on and that PIL does not write: PIL writes
+"""PNG, BMP, GIF, TIFF, PNM, TGA, QOI, ICO, CUR, ICNS, PCX, DCX and SGI
+writers, numpy and zlib only, for the files the port's decoders
+(`data/images.py`, `data/gif.py`, `data/tiff.py`, `data/pnm.py`,
+`data/tga.py`, `data/qoi.py`, `data/ico.py`, `data/icns.py`,
+`data/pcx.py`, `data/sgi.py`) are held to PIL on and that PIL does not
+write: PIL writes
 8-bit PNGs, palette PNGs at 1, 2 and 4 bits and 1-, 8- and 24-bit BMPs,
 but no Adam7 PNG (it ignores `interlace=1`), no 16-bit RGB, RGBA or grey +
 alpha PNG, and no 4-bit, 16-bit, RLE or bit-field BMP; its GIF writer
@@ -29,6 +32,22 @@ it writes no plain PNM and no maxval but 255 and 65535.
   (`ycbcr_blocks`), predictor 2, fill order 2, any photometric
   interpretation, colour map, extra samples and further tags.
 * `write_pnm`: P1 to P6 at any maxval, with comments in the header.
+* `write_tga`: image types 1, 2, 3, 9, 10 and 11 at depths 1 to 32, colour
+  maps of 16, 24 and 32 bits from a first index, every orientation, an id
+  section, run-length packets (`tga_rle`) whose literals run across rows
+  (PIL writes TGA at 1, 8, 16 and 24-32 bits in two orientations).
+* `write_qoi` (the reference encoder's ops) and `qoi_file` (any op
+  stream).
+* `icon_bitmap` and `write_icon`: ICO and CUR of PNG files and of 1- to
+  32-bit bitmaps with AND masks (PIL writes ICO of PNG and of 32-bit
+  bitmaps only, and no CUR).
+* `write_icns` with `icns_rgb` / `icns_pack`: packed and interleaved
+  24-bit entries, masks, PNG entries (PIL writes PNG entries only).
+* `write_pcx` and `write_dcx`: 1 bit at 1, 2 and 4 planes with the
+  header's palette, 8 bits with the 769-byte palette, 24 bits as 3 planes,
+  any stride the header gives and a box off the origin.
+* `write_sgi`: verbatim and run-length at 1 and 2 bytes a sample, 1, 3 and
+  4 channels (PIL writes verbatim only).
 
     from damc_tpu_torch.tools.image_writer import write_bmp, write_png
     data = write_png(samples, color=0, depth=4, interlace=True, filters=[0, 1, 2, 3, 4])
@@ -976,6 +995,8 @@ def write_kind(kind: str, rgb: np.ndarray, k: int = 0) -> bytes:
         return write_pnm(_spread16(grey, rng), "P5", 65535)
     if kind == "pnm_p4":
         return write_pnm((grey < 128 + (k % 5 - 2) * 20).astype(np.int64), "P4")
+    if kind in ORDER_KINDS:
+        return _order_kind(kind, rgb, grey, k, rng)
     raise ValueError(f"unknown kind {kind!r}")
 
 
@@ -1124,3 +1145,404 @@ def write_ojpeg(rgb: np.ndarray, sampling: tuple, layout: str = "whole", quality
     tags.update({512: (3, [1]), 519: (4, [at] * 3), 520: (4, [at + 64] * 3), 521: (4, [at + 64 + len(dc)] * 3)})
     return write_tiff(rgb, 6, compression=6, rows_per_strip=h, strips=[scan + bytes(len(scan) % 2) + tables],
                       tags=tags)
+
+
+# ---------------------------------------------------------------------------
+# TGA, QOI, ICO, CUR, ICNS, PCX, DCX and SGI (the formats PIL opens by its
+# order's probes: `data/formats.py`)
+# ---------------------------------------------------------------------------
+
+def tga_rle(rows: np.ndarray, depth: int, cross_rows: bool = True) -> bytes:
+    """TGA run-length packets of `rows` (H, W * depth bytes, in file
+    order): runs of 2 or more equal pixels (never past a row's end, which
+    PIL refuses), literals between them; with `cross_rows` a literal runs
+    on into the next row, as PIL reads it."""
+    px = np.ascontiguousarray(rows).reshape(rows.shape[0], -1, depth)
+    h, w = px.shape[:2]
+    out = bytearray()
+    lit = []
+
+    def flush():
+        while lit:
+            part = lit[:128]
+            del lit[:128]
+            out.append(len(part) - 1)
+            out.extend(b"".join(part))
+
+    for y in range(h):
+        row = [bytes(p) for p in px[y]]
+        x = 0
+        while x < w:
+            n = 1
+            while x + n < w and n < 128 and row[x + n] == row[x]:
+                n += 1
+            if n >= 2:
+                flush()
+                out.append(0x80 | (n - 1))
+                out.extend(row[x])
+            else:
+                lit.append(row[x])
+            x += n
+        if not cross_rows:
+            flush()
+    flush()
+    return bytes(out)
+
+
+def write_tga(pixels: np.ndarray, image_type: int, depth: int, colormap: Optional[np.ndarray] = None,
+              map_depth: int = 24, first: int = 0, orientation: int = 0, ident: bytes = b"",
+              cross_rows: bool = True) -> bytes:
+    """The bytes of a TGA of image type 1, 2, 3, 9, 10 or 11. `pixels` is
+    (H, W) indices or grey levels at depth 8, (H, W) bits at depth 1,
+    (H, W) raw 16-bit words (truecolour 5-5-5, grey + alpha as grey |
+    alpha << 8), or (H, W, 3) RGB / (H, W, 4) RGBA at 24 and 32 bits.
+    `colormap` (N, 3) RGB is written at `map_depth` (16: 5-5-5, 24: BGR,
+    32: BGRA with alpha 255) and indexed from `first`. `orientation` is the
+    descriptor's bits 0x10 (right to left) and 0x20 (top-down)."""
+    pixels = np.asarray(pixels)
+    h, w = pixels.shape[:2]
+    cmap = b""
+    if colormap is not None:
+        c = np.asarray(colormap, np.int64).reshape(-1, 3)
+        if map_depth == 16:
+            words = (c[:, 0] >> 3) << 10 | (c[:, 1] >> 3) << 5 | c[:, 2] >> 3
+            cmap = words.astype("<u2").tobytes()
+        else:
+            e = np.full((len(c), map_depth // 8), 255, np.uint8)
+            e[:, :3] = c[:, ::-1]
+            cmap = e.tobytes()
+    order = pixels if orientation & 0x20 else pixels[::-1]
+    if orientation & 0x10:
+        order = order[:, ::-1]
+    if depth == 1:
+        rows = np.packbits(order.astype(np.uint8) & 1, axis=1)
+    elif depth == 8:
+        rows = order.astype(np.uint8)
+    elif depth == 16:
+        rows = order.astype("<u2").view(np.uint8).reshape(h, 2 * w)
+    else:
+        px = np.zeros((h, w, depth // 8), np.uint8)
+        px[..., :3] = order[..., 2::-1]
+        if depth == 32:
+            px[..., 3] = order[..., 3] if order.shape[-1] == 4 else 255
+        rows = px.reshape(h, -1)
+    n = len(cmap) // max(1, map_depth // 8) if colormap is not None else 0
+    header = struct.pack("<BBBHHBHHHHBB", len(ident), int(colormap is not None), image_type,
+                         first if colormap is not None else 0, n,
+                         map_depth if colormap is not None else 0, 0, 0, w, h, depth, orientation)
+    body = tga_rle(rows, max(1, depth // 8), cross_rows) if image_type & 8 else rows.tobytes()
+    return header + ident + cmap + body
+
+
+def qoi_file(width: int, height: int, channels: int, ops: bytes) -> bytes:
+    """A QOI file of the given op stream (with QOI's end marker)."""
+    return b"qoif" + struct.pack(">IIBB", width, height, channels, 0) + ops + b"\x00" * 7 + b"\x01"
+
+
+def write_qoi(rgba: np.ndarray, channels: int = 4) -> bytes:
+    """The bytes of a QOI of (H, W, 3 or 4) pixels, encoded as the
+    reference encoder does: runs, then the index, then DIFF, LUMA, RGB or
+    RGBA."""
+    rgba = np.asarray(rgba, np.uint8)
+    h, w = rgba.shape[:2]
+    if rgba.shape[2] == 3:
+        rgba = np.dstack([rgba, np.full((h, w), 255, np.uint8)])
+    index = [(0, 0, 0, 0)] * 64
+    prev, run, out = (0, 0, 0, 255), 0, bytearray()
+    for p in map(tuple, rgba.reshape(-1, 4).tolist()):
+        if p == prev:
+            run += 1
+            if run == 62:
+                out.append(0xC0 | (run - 1))
+                run = 0
+            continue
+        if run:
+            out.append(0xC0 | (run - 1))
+            run = 0
+        hsh = (p[0] * 3 + p[1] * 5 + p[2] * 7 + p[3] * 11) % 64
+        if index[hsh] == p:
+            out.append(hsh)
+        else:
+            index[hsh] = p
+            if p[3] == prev[3]:
+                d = [((p[i] - prev[i] + 128) % 256) - 128 for i in range(3)]
+                dg, drg, dbg = d[1], d[0] - d[1], d[2] - d[1]
+                if all(-2 <= v <= 1 for v in d):
+                    out.append(0x40 | (d[0] + 2) << 4 | (d[1] + 2) << 2 | (d[2] + 2))
+                elif -32 <= dg <= 31 and -8 <= drg <= 7 and -8 <= dbg <= 7:
+                    out += bytes((0x80 | (dg + 32), (drg + 8) << 4 | (dbg + 8)))
+                else:
+                    out += bytes((0xFE,) + p[:3])
+            else:
+                out += bytes((0xFF,) + p)
+        prev = p
+    if run:
+        out.append(0xC0 | (run - 1))
+    return qoi_file(w, h, channels, bytes(out))
+
+
+def icon_bitmap(pixels: np.ndarray, bits: int, palette: Optional[np.ndarray] = None,
+                mask: Optional[np.ndarray] = None, header: int = 40) -> bytes:
+    """An icon's bitmap: `write_bmp`'s info header (its height doubled),
+    palette and pixels, then (unless `mask` is None) the AND mask (H, W) of
+    bits, 1 transparent, rows bottom-up padded to 32 bits."""
+    h, w = np.asarray(pixels).shape[:2]
+    dib = bytearray(write_bmp(pixels, bits, palette, header=header)[14:])
+    if header == 12:
+        struct.pack_into("<H", dib, 6, 2 * h)
+    else:
+        struct.pack_into("<i", dib, 8, 2 * h)
+    if mask is not None:
+        stride = (w + 31) // 32 * 4
+        rows = np.zeros((h, stride), np.uint8)
+        packed = np.packbits(np.asarray(mask, np.uint8)[::-1] & 1, axis=1)
+        rows[:, :packed.shape[1]] = packed
+        dib += rows.tobytes()
+    return bytes(dib)
+
+
+def write_icon(frames: Sequence[tuple], cursor: bool = False) -> bytes:
+    """The bytes of an ICO (or, with `cursor`, a CUR) of `frames`, each
+    (data, width, height, bits, colours): a PNG file or an `icon_bitmap`.
+    A CUR entry holds a hotspot where an ICO entry holds planes and bits."""
+    out = struct.pack("<HHH", 0, 2 if cursor else 1, len(frames))
+    offset = 6 + 16 * len(frames)
+    body = b""
+    for data, w, h, bits, colors in frames:
+        hot = (w // 2, h // 2) if cursor else (1, bits)
+        out += struct.pack("<BBBBHHII", w % 256, h % 256, colors % 256, 0, *hot, len(data), offset + len(body))
+        body += data
+    return out + body
+
+
+def icns_pack(channel: bytes) -> bytes:
+    """An ICNS channel in runs: 3 to 130 equal bytes as 125 + n and the
+    byte, other bytes in literals of up to 128 (n - 1, then the bytes)."""
+    out, lit, i, n = bytearray(), bytearray(), 0, len(channel)
+
+    def flush():
+        while lit:
+            part = lit[:128]
+            del lit[:128]
+            out.append(len(part) - 1)
+            out.extend(part)
+
+    while i < n:
+        j = i
+        while j < n and j - i < 130 and channel[j] == channel[i]:
+            j += 1
+        if j - i >= 3:
+            flush()
+            out += bytes((125 + j - i, channel[i]))
+            i = j
+        else:
+            lit.append(channel[i])
+            i += 1
+    flush()
+    return bytes(out)
+
+
+def write_icns(entries: Sequence[tuple]) -> bytes:
+    """The bytes of an ICNS of `entries` (type, data)."""
+    body = b"".join(t + struct.pack(">I", 8 + len(d)) + d for t, d in entries)
+    return b"icns" + struct.pack(">I", 8 + len(body)) + body
+
+
+def icns_rgb(rgb: np.ndarray, packed: bool = True, it32: bool = False) -> bytes:
+    """A 24-bit ICNS entry's data: the R, G and B channels packed (or
+    interleaved, unpacked), it32's 4 zero bytes first."""
+    rgb = np.asarray(rgb, np.uint8)
+    data = b"".join(icns_pack(rgb[..., c].tobytes()) for c in range(3)) if packed else rgb.tobytes()
+    return (b"\x00" * 4 if it32 else b"") + data
+
+
+def pcx_rle(rows: np.ndarray) -> bytes:
+    """PCX runs of each row (R, bytes): 2 to 63 equal bytes, or one byte of
+    0xC0 or more, as 0xC0 | n and the byte; other bytes as they are."""
+    out = bytearray()
+    for row in np.asarray(rows, np.uint8):
+        row = row.tobytes()
+        i = 0
+        while i < len(row):
+            j = i
+            while j < len(row) and j - i < 63 and row[j] == row[i]:
+                j += 1
+            if j - i >= 2 or row[i] >= 0xC0:
+                out += bytes((0xC0 | (j - i), row[i]))
+                i = j
+            else:
+                out.append(row[i])
+                i += 1
+    return bytes(out)
+
+
+def write_pcx(pixels: np.ndarray, bits: int, planes: int, palette: Optional[np.ndarray] = None,
+              vga_palette: Optional[np.ndarray] = None, stride: Optional[int] = None,
+              origin: tuple = (0, 0)) -> bytes:
+    """The bytes of a PCX. `pixels`: (H, W) bits (1 bit, 1 plane), (H, W)
+    palette indices (1 bit at 2 or 4 planes: plane k the index's bit k; 8
+    bits, 1 plane), or (H, W, 3) RGB (8 bits, 3 planes). `palette` (16, 3)
+    goes in the header, `vga_palette` (256, 3) after the image (a 12 byte
+    first). `stride` is the bytes a plane the header gives (default: the
+    plane's bytes rounded up to even, which the rows are padded to)."""
+    pixels = np.asarray(pixels)
+    h, w = pixels.shape[:2]
+    plane = (w * bits + 7) // 8
+    stride = plane + plane % 2 if stride is None else stride
+    row_bytes = max(stride, plane)
+    if bits == 8:
+        layers = [pixels.astype(np.uint8)] if planes == 1 else [pixels[..., c].astype(np.uint8) for c in range(3)]
+    else:
+        layers = [np.packbits(((pixels.astype(np.int64) >> k) & 1).astype(np.uint8), axis=1) for k in range(planes)]
+    rows = np.zeros((h, planes, row_bytes), np.uint8)
+    for k, layer in enumerate(layers):
+        rows[:, k, :layer.shape[1]] = layer
+    rows = rows[:, :, :stride] if stride < row_bytes else rows
+    x0, y0 = origin
+    header = bytearray(128)
+    header[:4] = bytes((10, 5, 1, bits))
+    struct.pack_into("<6H", header, 4, x0, y0, x0 + w - 1, y0 + h - 1, 72, 72)
+    if palette is not None:
+        header[16:16 + 3 * len(palette)] = np.asarray(palette, np.uint8).tobytes()
+    header[65] = planes
+    struct.pack_into("<HH", header, 66, stride, 1)
+    tail = b"" if vga_palette is None else b"\x0c" + np.asarray(vga_palette, np.uint8).reshape(256, 3).tobytes()
+    return bytes(header) + pcx_rle(rows.reshape(h, -1)) + tail
+
+
+def write_dcx(pages: Sequence[bytes]) -> bytes:
+    """The bytes of a DCX of PCX `pages`."""
+    offset = 4 + 4 * (len(pages) + 1)
+    table = b""
+    for p in pages:
+        table += struct.pack("<I", offset)
+        offset += len(p)
+    return struct.pack("<I", 0x3ADE68B1) + table + b"\x00" * 4 + b"".join(pages)
+
+
+def _sgi_row(values: np.ndarray, bpc: int) -> bytes:
+    """One SGI row in chunks (bpc-byte units, big-endian): runs of 3 or
+    more equal values (count, value), copies of the rest (0x80 | count, the
+    values), at most 127 a chunk, ended by a zero count."""
+    unit = lambda v: int(v).to_bytes(bpc, "big")
+    out, i, n = bytearray(), 0, len(values)
+    vals = [int(v) for v in values]
+    while i < n:
+        j = i
+        while j < n and j - i < 127 and vals[j] == vals[i]:
+            j += 1
+        if j - i >= 3:
+            out += unit(j - i) + unit(vals[i])
+            i = j
+            continue
+        j = i
+        while j < n and j - i < 127 and not (j + 2 < n and vals[j] == vals[j + 1] == vals[j + 2]):
+            j += 1
+        out += unit(0x80 | (j - i)) + b"".join(unit(v) for v in vals[i:j])
+        i = j
+    return bytes(out + unit(0))
+
+
+def write_sgi(samples: np.ndarray, bpc: int = 1, rle: bool = False, dimension: Optional[int] = None) -> bytes:
+    """The bytes of an SGI of (H, W) or (H, W, C) samples (C 1, 3 or 4) at
+    `bpc` bytes a sample, verbatim or run-length, rows bottom-up."""
+    s = np.asarray(samples, np.int64)
+    if s.ndim == 2:
+        s = s[..., None]
+    h, w, c = s.shape
+    dim = dimension or (2 if c == 1 else 3)
+    header = bytearray(512)
+    struct.pack_into(">HBBHHHH", header, 0, 474, int(rle), bpc, dim, w, h, c)
+    struct.pack_into(">ii", header, 12, 0, (1 << 8 * bpc) - 1)
+    planes = [s[::-1, :, k] for k in range(c)]
+    if not rle:
+        dtype = ">u2" if bpc == 2 else np.uint8
+        return bytes(header) + b"".join(p.astype(dtype).tobytes() for p in planes)
+    rows = [[_sgi_row(p[y], bpc) for y in range(h)] for p in planes]
+    at = 512 + 8 * h * c
+    starts, lengths, body = [], [], b""
+    for k in range(c):
+        for y in range(h):
+            starts.append(at + len(body))
+            lengths.append(len(rows[k][y]))
+            body += rows[k][y]
+    return bytes(header) + struct.pack(f">{h * c}I", *starts) + struct.pack(f">{h * c}I", *lengths) + body
+
+
+# The kinds of the formats PIL takes by its open order that the port reads
+# since its format table (write_kind writes each; QOI and PNG entries go
+# through this module's own encoders).
+ORDER_KINDS = ("tga_rgb24", "tga_rle_rgb16", "tga_rle_cmap", "tga_rle_grey", "tga_rgba32_flip", "qoi_rgb",
+               "qoi_rgba", "ico_png", "ico_bmp8", "ico_bmp32", "cur_bmp24", "icns_rle", "icns_png", "pcx_rgb",
+               "pcx_palette8", "pcx_planes4", "dcx_rgb", "sgi_rle_rgb", "sgi_rle16_rgba", "sgi_grey")
+
+
+def _order_kind(kind: str, rgb: np.ndarray, grey: np.ndarray, k: int, rng: np.random.Generator) -> bytes:
+    """ORDER_KINDS: `k` varies the orientation, the colour map's depth and
+    first index, the id section, the PCX stride and origin, the icon's
+    other entries."""
+    h, w = grey.shape
+    if kind == "tga_rgb24":
+        return write_tga(rgb, 2, 24, orientation=(0, 0x20)[k % 2], ident=b"id" * (k % 3))
+    if kind == "tga_rle_rgb16":
+        words = (rgb[..., 0].astype(np.int64) >> 3) << 10 | (rgb[..., 1] >> 3) << 5 | rgb[..., 2] >> 3
+        return write_tga(words | (k % 2) << 15, 10, 16, orientation=(0, 0x10, 0x20, 0x30)[k % 4])
+    if kind == "tga_rle_cmap":
+        idx, palette = _palette_of(rgb, 8, 256 - (k % 3 == 0))
+        first = k % 4
+        return write_tga(np.minimum(idx + first, 255), 9, 8, np.asarray(palette)[:256 - first], (16, 24)[k % 2],
+                         first, orientation=(0x20, 0)[k % 2])
+    if kind == "tga_rle_grey":
+        return write_tga(grey & ~np.int64(k % 4), 11, 8, orientation=(0, 0x30)[k % 2])
+    if kind == "tga_rgba32_flip":
+        return write_tga(np.dstack([rgb, rng.integers(0, 256, (h, w))]), 10 if k % 2 else 2, 32, orientation=0x10)
+    if kind in ("qoi_rgb", "qoi_rgba"):
+        q = rgb & np.uint8(0xFC if k % 2 else 0xFF)
+        if kind == "qoi_rgb":
+            return write_qoi(q, 3)
+        alpha = np.where(grey > 100, 255, grey).astype(np.uint8)
+        return write_qoi(np.dstack([q, alpha]), 4)
+    if kind.startswith(("ico", "cur")):
+        small = _palette_of(np.resize(rgb, (16, 16, 3)), 4, 16)
+        extra = (icon_bitmap(small[0], 4, small[1], np.zeros((16, 16))), 16, 16, 4, 16) if k % 2 else None
+        mask = rng.integers(0, 2, (h, w))
+        if kind == "ico_png":
+            frame = (write_png(rgb, 2, 8), w, h, 32, 0)
+        elif kind == "ico_bmp8":
+            idx, palette = _palette_of(rgb, 8, 256)
+            frame = (icon_bitmap(idx, 8, palette, mask), w, h, 8, 0)
+        elif kind == "ico_bmp32":
+            frame = (icon_bitmap(rgb, 32, mask=mask if k % 2 else None), w, h, 32, 0)
+        else:
+            frame = (icon_bitmap(rgb, 24, mask=mask), w, h, 24, 0)
+        frames = [frame] + ([extra] if extra else [])
+        return write_icon(frames[::-1] if k % 3 == 0 else frames, cursor=kind.startswith("cur"))
+    if kind == "icns_rle":
+        small = rgb[:128, :128] if h >= 128 and w >= 128 else np.resize(rgb, (128, 128, 3))
+        entries = [(b"it32", icns_rgb(small, it32=True)), (b"t8mk", bytes(128 * 128))]
+        if k % 2:
+            entries += [(b"is32", icns_rgb(small[:16, :16])), (b"s8mk", bytes(256))]
+        return write_icns(entries)
+    if kind == "icns_png":
+        side = 256 if k % 2 else 128
+        small = np.resize(rgb, (side, side, 3))
+        return write_icns([(b"ic08" if side == 256 else b"ic07", write_png(small, 2, 8)),
+                           (b"il32", icns_rgb(small[:32, :32])), (b"l8mk", bytes(1024))])
+    if kind == "pcx_rgb":
+        return write_pcx(rgb, 8, 3, stride=(w + w % 2, w)[k % 2], origin=(k % 3, k % 5))
+    if kind == "pcx_palette8":
+        idx, palette = _palette_of(rgb, 8, 256)
+        return write_pcx(idx, 8, 1, vga_palette=palette)
+    if kind == "pcx_planes4":
+        idx, palette = _palette_of(rgb, 4, 16)
+        return write_pcx(idx, 1, 4, palette=palette)
+    if kind == "dcx_rgb":
+        pages = [write_pcx(rgb, 8, 3), write_pcx(rgb[::-1], 8, 3)]
+        return write_dcx(pages[:1 + k % 2])
+    if kind == "sgi_rle_rgb":
+        return write_sgi(rgb, 1, rle=True)
+    if kind == "sgi_rle16_rgba":
+        return write_sgi(np.dstack([_spread16(rgb, rng), rng.integers(0, 1 << 16, (h, w))]), 2, rle=True)
+    if kind == "sgi_grey":
+        return write_sgi(grey, 1, rle=False, dimension=(1, 2)[k % 2])
+    raise ValueError(f"unknown kind {kind!r}")

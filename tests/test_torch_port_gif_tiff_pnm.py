@@ -555,27 +555,26 @@ def test_gif_tiff_pnm_kinds_match_pil(kind):
 
 
 def test_deferred_formats_raise_naming_the_format():
-    """Formats PIL opens by content that the port does not read yet raise
-    NotImplementedError from `image_kind`, naming the file and PIL's
-    format; what no reader takes raises ValueError naming the formats the
-    port reads."""
+    """Formats PIL opens by content: those the port now reads (QOI, ICO,
+    PCX, SGI, ICNS; `data/formats.py`) decode equal to PIL's, whatever the
+    file's name; those it does not read yet raise NotImplementedError from
+    `image_kind`, naming the file and PIL's format; what no format of PIL's
+    takes raises ValueError naming the file."""
     rng = np.random.default_rng(8)
     img = Image.fromarray(rng.integers(0, 256, (32, 32, 3), dtype=np.uint8))
-    for fmt, pil_format in (("QOI", "QOI"), ("ICO", "ICO"), ("PCX", "PCX"), ("SGI", "SGI"), ("DDS", "DDS"),
-                            ("IM", "IM"), ("ICNS", "ICNS"), ("DIB", "DIB"), ("BLP", "BLP")):
+    for fmt in ("QOI", "ICO", "PCX", "SGI", "ICNS"):
         buf = io.BytesIO()
-        try:
-            img.save(buf, pil_format)
-        except (OSError, KeyError, ValueError):
-            continue
+        img.save(buf, fmt)
+        want = _pil(buf.getvalue())
+        assert want is not None and image_kind(buf.getvalue(), "x.png") == fmt.lower()
+        np.testing.assert_array_equal(decode_image(buf.getvalue(), "x.png"), want)
+    for fmt, mode in (("DDS", "RGB"), ("IM", "RGB"), ("DIB", "RGB"), ("BLP", "P"), ("XBM", "1")):
+        buf = io.BytesIO()
+        img.convert(mode).save(buf, fmt)
         assert _pil(buf.getvalue()) is not None
         with pytest.raises(NotImplementedError, match=rf"^x\.png: PIL reads this {fmt} file"):
-            image_kind(buf.getvalue()[:datasets.MAGIC_BYTES], "x.png")
-    buf = io.BytesIO()
-    img.convert("1").save(buf, "XBM")
-    with pytest.raises(NotImplementedError, match=r"^x\.png: PIL reads this XBM file"):
-        image_kind(buf.getvalue()[:datasets.MAGIC_BYTES], "x.png")
-    with pytest.raises(ValueError, match=r"^x\.png: not a PNG, JPEG, BMP, WebP, GIF, TIFF or PNM file"):
+            image_kind(buf.getvalue(), "x.png")
+    with pytest.raises(ValueError, match=r"^x\.png: no format of PIL's takes this file"):
         image_kind(b"hello world!", "x.png")
 
 
@@ -616,15 +615,18 @@ def test_misnamed_folder_matches_jax(tmp_path, monkeypatch, size, batch_bytes):
 
 
 def test_folder_with_a_deferred_format_raises_before_decoding(tmp_path, monkeypatch):
-    """A QOI file named .png in a folder raises NotImplementedError naming
-    it from its first bytes, before any file is decoded."""
+    """A DDS file (a format the port does not read yet) named .png in a
+    folder raises NotImplementedError naming it from its probe, before any
+    file is decoded."""
     root = tmp_path / "tree"
     root.mkdir()
     for k, kind in enumerate(("gif_global", "tiff_lzw_pred2", "pnm_p6")):
         (root / f"{k}.png").write_bytes(write_kind(kind, np.zeros((9, 9, 3), np.uint8), k))
-    (root / "z.png").write_bytes(b"qoif" + bytes(30))
+    buf = io.BytesIO()
+    Image.fromarray(np.zeros((4, 4, 3), np.uint8)).save(buf, "DDS")
+    (root / "z.png").write_bytes(buf.getvalue())
     calls = []
     monkeypatch.setitem(datasets.SINGLE_DECODERS, "gif", lambda d, p: calls.append(p))
-    with pytest.raises(NotImplementedError, match=r"z\.png: PIL reads this QOI file"):
+    with pytest.raises(NotImplementedError, match=r"z\.png: PIL reads this DDS file"):
         datasets.load_image_folder(str(root), 8)
     assert calls == []

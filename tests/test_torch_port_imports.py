@@ -63,15 +63,17 @@ SLICE_12 = ("parallel/tp.py",)
 SLICE_13 = ("data/webp.py",)
 SLICE_22 = ("data/gif.py", "data/tiff.py", "data/pnm.py", "data/lzw.py")
 SLICE_23 = ("data/fax.py", "data/zstd.py", "data/xz.py", "data/cielab.py", "tools/cielab_clut.py")
+SLICE_24 = ("data/formats.py", "data/tga.py", "data/qoi.py", "data/ico.py", "data/icns.py", "data/pcx.py",
+            "data/sgi.py", "data/rle.py")
 
 
 def test_port_has_modules():
     assert len(FILES) >= 50
     assert set(SLICE_4 + SLICE_6 + SLICE_7 + SLICE_9 + SLICE_10 + SLICE_11 + SLICE_12 + SLICE_13 + SLICE_22
-               + SLICE_23) <= {str(p.relative_to(PORT)) for p in FILES}
+               + SLICE_23 + SLICE_24) <= {str(p.relative_to(PORT)) for p in FILES}
     assert {p.name for p in (PORT / "csrc" / "host").glob("*.cpp")} == {
         "batch_loader.cpp", "fax_decode.cpp", "jpeg_decode.cpp", "lmdb_reader.cpp", "lzw_decode.cpp",
-        "webp_decode.cpp", "zstd_decode.cpp"}
+        "rle_decode.cpp", "webp_decode.cpp", "zstd_decode.cpp"}
 
 
 def _code_strings(tree):
